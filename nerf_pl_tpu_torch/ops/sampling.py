@@ -1,0 +1,90 @@
+"""Depth sampling along rays (``nerf_pl_tpu/ops/sampling.py``).
+
+  * ``stratified_z_vals`` — linear in depth or disparity over [near, far].
+  * ``perturb_z_vals`` — jitter inside midpoint-bounded intervals.
+  * ``sample_pdf`` — the fork's inverse-CDF sampler: zero-padded CDF of
+    ``weights + eps``; random mode takes ``searchsorted(cdf, u) - 1``
+    clamped to ``[0, N-1]`` plus a uniform jitter; det mode takes a
+    linspace ``u`` and, in place of the jitter, the exact position of each
+    ``u`` within its CDF bin (``searchsorted_interp``, no gathers).
+
+Random draws come from a ``torch.Generator`` or are injected (``u``,
+``jitter``, ``rand``) so tests can feed both packages the same numbers.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .searchsorted import searchsorted, searchsorted_interp
+
+
+def stratified_z_vals(near: torch.Tensor, far: torch.Tensor, N_samples: int,
+                      use_disp: bool = False) -> torch.Tensor:
+    """(N_rays, N_samples) linearly spaced depths (or disparities)."""
+    z_steps = torch.linspace(0.0, 1.0, N_samples, dtype=near.dtype,
+                             device=near.device)
+    if not use_disp:
+        return near * (1.0 - z_steps) + far * z_steps
+    return 1.0 / (1.0 / near * (1.0 - z_steps) + 1.0 / far * z_steps)
+
+
+def perturb_z_vals(z_vals: torch.Tensor, perturb: float,
+                   generator: Optional[torch.Generator] = None,
+                   rand: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Jitter each sample uniformly within its midpoint-bounded interval."""
+    z_mid = 0.5 * (z_vals[:, :-1] + z_vals[:, 1:])
+    upper = torch.cat([z_mid, z_vals[:, -1:]], dim=-1)
+    lower = torch.cat([z_vals[:, :1], z_mid], dim=-1)
+    if rand is None:
+        rand = torch.rand(z_vals.shape, generator=generator,
+                          dtype=z_vals.dtype, device=z_vals.device)
+    return lower + (upper - lower) * perturb * rand
+
+
+def sample_pdf(
+    rays: torch.Tensor,  # (N_rays, 8): [..., -2:] = near, far
+    weights: torch.Tensor,  # (N_rays, N_samples_)
+    N_importance: int,
+    det: bool = False,
+    eps: float = 1e-5,
+    generator: Optional[torch.Generator] = None,
+    u: Optional[torch.Tensor] = None,
+    jitter: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Returns (N_rays, N_importance) depths."""
+    N_rays, N_samples_ = weights.shape
+    weights = weights + eps
+    pdf = weights / torch.sum(weights, dim=-1, keepdim=True)
+    cdf = torch.cumsum(pdf, dim=-1)
+    cdf = torch.cat([torch.zeros_like(cdf[:, :1]), cdf], dim=-1)
+
+    needs_rng = not det and (u is None or jitter is None)
+    if needs_rng and generator is None:
+        raise ValueError("sample_pdf needs a generator when u/jitter not given")
+    like = dict(dtype=weights.dtype, device=weights.device)
+    if u is None:
+        if det:
+            u = torch.linspace(0.0, 1.0, N_importance, **like)
+            u = u.expand(N_rays, N_importance)
+        else:
+            u = torch.rand((N_rays, N_importance), generator=generator, **like)
+    near, far = rays[:, -2:-1], rays[:, -1:]
+
+    if det and jitter is None:
+        ranks, lo, hi = searchsorted_interp(cdf, u)
+        inds = torch.clamp(ranks - 1, 0, N_samples_ - 1).to(weights.dtype)
+        offset = torch.clamp((u - lo) / torch.clamp(hi - lo, min=eps), 0.0, 1.0)
+        z_steps = (inds + offset) / N_samples_
+        return near * (1.0 - z_steps) + far * z_steps
+
+    # clamp both ends: u = 1.0 lands past the last CDF entry
+    inds = torch.clamp(searchsorted(cdf, u, side="right") - 1, 0,
+                       N_samples_ - 1).to(weights.dtype)
+    if jitter is not None:
+        offset = jitter
+    else:
+        offset = torch.rand((N_rays, N_importance), generator=generator, **like)
+    z_steps = (inds + offset) / N_samples_
+    return near * (1.0 - z_steps) + far * z_steps

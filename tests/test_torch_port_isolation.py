@@ -1,0 +1,44 @@
+"""The port stands alone: it imports torch, numpy and the standard library,
+never JAX, flax, msgpack, PIL or the JAX package."""
+import pathlib
+import re
+import subprocess
+import sys
+
+import nerf_pl_tpu_torch
+
+PKG = pathlib.Path(nerf_pl_tpu_torch.__file__).resolve().parent
+MODULES = sorted(
+    ".".join(("nerf_pl_tpu_torch",) + p.relative_to(PKG).with_suffix("").parts)
+    .removesuffix(".__init__")
+    for p in PKG.rglob("*.py"))
+FORBIDDEN = ("jax", "jaxlib", "flax", "msgpack", "PIL", "nerf_pl_tpu")
+
+
+def test_port_modules_import_without_jax_flax_msgpack_pil():
+    assert "nerf_pl_tpu_torch.tools.serve" in MODULES
+    assert "nerf_pl_tpu_torch.ops.native" in MODULES
+    # -I: no PYTHONPATH or user site, so nothing imported by a site hook
+    # is counted against the port
+    code = (
+        "import importlib, sys\n"
+        f"sys.path.insert(0, {str(PKG.parent)!r})\n"
+        f"for m in {MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    res = subprocess.run([sys.executable, "-I", "-c", code], capture_output=True, text=True,
+                         cwd=PKG.parent, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_port_sources_never_import_the_jax_package():
+    # import statements and module-name strings (importlib, __import__)
+    pattern = re.compile(
+        r"^\s*(from|import)\s+(nerf_pl_tpu(?!_torch)|jax|flax|msgpack|PIL)\b"
+        r"|[\"']nerf_pl_tpu(?!_torch)[\w.]*[\"']", re.M)
+    sources = list(PKG.rglob("*.py")) + [PKG.parent / "chip_smoke.py"]
+    hits = [f"{p}: {m.group(0).strip()}" for p in sources
+            for m in pattern.finditer(p.read_text())]
+    assert not hits, hits

@@ -1,0 +1,199 @@
+"""The slice as a whole against the JAX package on the CPU: ``render_rays``,
+``RenderService.render_batch`` on a checkpoint written by the JAX package,
+checkpoint files read in both directions, and ``load_models``.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from nerf_pl_tpu.ops.rendering import render_rays as jax_render_rays
+from nerf_pl_tpu.training import checkpoints as jckpt
+from nerf_pl_tpu_torch.models.nerf import nerf_from_numpy, nerf_to_numpy
+from nerf_pl_tpu_torch.ops.rendering import render_rays
+from nerf_pl_tpu_torch.tools.evaluate import load_models
+from nerf_pl_tpu_torch.training import checkpoints as ckpt
+
+from test_torch_port_models import np_nerf
+
+N_RAYS, N_S, N_I = 12, 8, 8
+
+
+def _rays(seed, n=N_RAYS):
+    rng = np.random.RandomState(seed)
+    o = rng.normal(0, 0.3, (n, 3)) + np.array([0.0, 0.0, 4.0])
+    d = rng.normal(0, 0.3, (n, 3)) + np.array([0.0, 0.0, -1.0])
+    nf = np.ones((n, 1))
+    return np.concatenate([o, d, 2.0 * nf, 6.0 * nf], 1).astype(np.float32)
+
+
+def _overrides(seed, n=N_RAYS):
+    rng = np.random.RandomState(seed)
+    f = lambda *s: rng.uniform(size=s).astype(np.float32)  # noqa: E731
+    return {"perturb_rand": f(n, N_S), "noise_coarse": rng.normal(size=(n, N_S)).astype(np.float32),
+            "u": f(n, N_I), "jitter": f(n, N_I),
+            "noise_fine": rng.normal(size=(n, N_S + N_I)).astype(np.float32)}
+
+
+CASES = {
+    "rgb": dict(mode="rgb", test_time=False, perturb=1.0, noise_std=1.0),
+    "rgb_test_time": dict(mode="rgb", test_time=True, perturb=0.0, noise_std=0.0),
+    "rgb_test_time_injected": dict(mode="rgb", test_time=True, perturb=1.0, noise_std=1.0),
+    "sigma": dict(mode="sigma", test_time=False, perturb=1.0, noise_std=1.0),
+    "rgb_disp_det": dict(mode="rgb_disp", test_time=False, perturb=0.0, noise_std=0.0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("use_fused", [False, True])
+def test_render_rays_matches_jax(case, use_fused):
+    kw = dict(CASES[case], N_samples=N_S, N_importance=N_I, white_back=True)
+    pc, pf = np_nerf(20), np_nerf(21)
+    for tree in (pc, pf):  # a partly opaque random scene
+        tree["sigma"]["w"] *= 40.0
+    rays = _rays(22)
+    ov = _overrides(23)
+    ref = jax_render_rays(pc, pf, jnp.asarray(rays), None,
+                          overrides={k: jnp.asarray(v) for k, v in ov.items()}, **kw)
+    mc, mf = nerf_from_numpy(pc, device="cpu"), nerf_from_numpy(pf, device="cpu")
+    with torch.no_grad():
+        # use_fused on a CPU tensor takes the fused branch's plain version
+        out = render_rays(mc, mf, torch.from_numpy(rays), None, use_fused=use_fused,
+                          fused_channel_io=True,
+                          overrides={k: torch.from_numpy(v) for k, v in ov.items()}, **kw)
+    assert set(out) == set(ref)
+    if case.startswith("rgb_test_time"):
+        assert "rgb_coarse" not in out and "opacity_coarse" in out
+    for k in ref:
+        # f32 at full width: only the order of f32 sums differs; the sampler
+        # is continuous in the CDF, so that stays at rounding level
+        np.testing.assert_allclose(out[k].numpy(), np.asarray(ref[k]), atol=1e-4,
+                                   rtol=1e-4, err_msg=k)
+
+
+def test_render_rays_guards():
+    m = nerf_from_numpy(np_nerf(24, D=2, W=16, skips=()), device="cpu")
+    rays = torch.from_numpy(_rays(25))
+    with pytest.raises(ValueError, match="requires either deterministic"):
+        render_rays(m, m, rays, None, perturb=1.0, N_importance=4)
+    with pytest.raises(ValueError, match="unknown mode"):
+        render_rays(m, m, rays, None, mode="depth", noise_std=0.0)
+    with pytest.raises(NotImplementedError, match="fused_channel_io"):
+        render_rays(m, m, rays, None, use_fused=True, noise_std=0.0)
+    with pytest.raises(NotImplementedError, match="fused_wide_infer"):
+        render_rays(m, m, rays, None, use_fused=True, fused_channel_io=True,
+                    fused_wide_infer=True, noise_std=0.0)
+    # a narrow model with use_fused renders through posenc + NeRF, as in JAX
+    with torch.no_grad():
+        out = render_rays(m, m, rays, torch.Generator().manual_seed(0), N_samples=4,
+                          N_importance=4, perturb=1.0, use_fused=True,
+                          fused_channel_io=True)
+    assert torch.isfinite(out["rgb_fine"]).all()
+
+
+# ------------------------------------------------------------ checkpoints
+def _jax_state():
+    return {
+        "params": {"coarse": np_nerf(30), "fine": np_nerf(31)},
+        "opt_state": [{"mu": np.arange(6, dtype=np.float32).reshape(2, 3),
+                       "count": np.int32(7)}, (np.float64(0.5), -3)],
+        "step": 123456, "epoch": 2, "lr": 5e-4, "flag": True, "none": None,
+        "name": "x" * 40, "big": -(1 << 40),
+        "bf16": jnp.arange(5, dtype=jnp.bfloat16) / 4,
+    }
+
+
+def test_port_reads_jax_checkpoint(tmp_path):
+    path = str(tmp_path / "jax.ckpt")
+    state = _jax_state()
+    jckpt.save_checkpoint(path, state)
+    mine = ckpt.load_checkpoint(path)
+    ref = jckpt.load_checkpoint(path)
+    assert sorted(mine) == sorted(ref)
+    flat_m = jax.tree_util.tree_leaves_with_path(mine)
+    flat_r = jax.tree_util.tree_leaves_with_path(
+        jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32)
+                               if getattr(a, "dtype", None) == jnp.bfloat16 else a, ref))
+    assert [p for p, _ in flat_m] == [p for p, _ in flat_r]
+    for (p, a), (_, b) in zip(flat_m, flat_r):
+        assert type(a) is type(b) or isinstance(a, np.ndarray), p
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b), err_msg=str(p))
+    assert mine["opt_state"]["0"]["count"].dtype == np.int32
+    sd = ckpt.extract_model_state_dict(path, "fine", prefixes_to_ignore=("rgb",))
+    assert sd.keys() == jckpt.extract_model_state_dict(path, "fine", ("rgb",)).keys()
+    model = nerf_from_numpy(np_nerf(0), device="cpu")
+    ckpt.load_ckpt_into(model, path, "coarse")
+    np.testing.assert_array_equal(nerf_to_numpy(model)["xyz_layers"][4]["w"],
+                                  state["params"]["coarse"]["xyz_layers"][4]["w"])
+
+
+def test_jax_reads_port_checkpoint(tmp_path):
+    path = str(tmp_path / "port.ckpt")
+    models = {"coarse": nerf_from_numpy(np_nerf(32), device="cpu"),
+              "fine": nerf_from_numpy(np_nerf(33), device="cpu")}
+    ckpt.save_checkpoint(path, {
+        "params": models, "step": 9, "epoch": 1, "lr": 1e-3,
+        "extra": [np.float32(2.5), torch.arange(4, dtype=torch.bfloat16), "s", None]})
+    ref = jckpt.load_checkpoint(path)
+    assert ref["step"] == 9 and ref["epoch"] == 1 and ref["lr"] == 1e-3
+    assert ref["extra"]["0"] == np.float32(2.5) and ref["extra"]["2"] == "s"
+    assert ref["extra"]["1"].dtype == jnp.bfloat16
+    np.testing.assert_array_equal(np.asarray(ref["extra"]["1"], np.float32), [0, 1, 2, 3])
+    for name in ("coarse", "fine"):
+        tree = jckpt.load_ckpt_into(
+            jax.tree_util.tree_map(jnp.zeros_like, np_nerf(0)), path, name)
+        want = nerf_to_numpy(models[name])
+        for a, b in zip(jax.tree_util.tree_leaves(tree), jax.tree_util.tree_leaves(want)):
+            np.testing.assert_array_equal(np.asarray(a), b)
+    # and the port reads its own file back
+    assert ckpt.load_checkpoint(path)["extra"]["3"] is None
+
+
+def test_codec_round_trip_and_errors():
+    obj = {"a": [1, -1, -33, 200, 70000, 1 << 33, -(1 << 20)], "b": b"\x00" * 300,
+           "c": "é" * 20, "d": {str(i): i for i in range(20)}, "e": 1.25,
+           "f": np.zeros((3, 70000), np.float16)}
+    back = ckpt.unpackb(ckpt.packb(obj))
+    assert back["a"] == obj["a"] and back["b"] == obj["b"] and back["c"] == obj["c"]
+    assert back["d"] == obj["d"] and back["e"] == 1.25
+    assert back["f"].dtype == np.float16 and back["f"].shape == (3, 70000)
+    with pytest.raises(ValueError, match="trailing"):
+        ckpt.unpackb(ckpt.packb(1) + b"\x00")
+    with pytest.raises(TypeError):
+        ckpt.packb({"x": object()})
+
+
+def test_load_models_width_and_missing_fine(tmp_path):
+    path = str(tmp_path / "coarse_only.ckpt")
+    jckpt.save_checkpoint(path, {"params": {"coarse": np_nerf(34, W=128)}})
+    models = load_models(path, device="cpu")
+    assert set(models) == {"coarse"}
+    assert models["coarse"].width == 128
+    assert not any(p.requires_grad for p in models["coarse"].parameters())
+
+
+# --------------------------------------------------------- render service
+def test_render_service_matches_jax(tmp_path):
+    from nerf_pl_tpu.tools.serve import RenderService as JaxRenderService
+    from nerf_pl_tpu_torch.tools.serve import RenderService
+
+    path = str(tmp_path / "m.ckpt")
+    params = {"coarse": np_nerf(40), "fine": np_nerf(41)}
+    for tree in params.values():  # a partly opaque random scene
+        tree["sigma"]["w"] *= 40.0
+    jckpt.save_checkpoint(path, {"params": params})
+    kw = dict(img_wh=8, n_samples=4, n_importance=4, max_batch=2,
+              compute_dtype="float32")
+    ref_svc = JaxRenderService(path, **kw)
+    svc = RenderService(path, device="cpu", **kw)
+    cams = [svc._c2w_for(eye, (0.0, 0.0, 0.0)) for eye in ([4, 1, 0], [0.5, 1, 3.5])]
+    ref = ref_svc.render_batch(cams, 8)
+    out = svc.render_batch(cams, 8)
+    assert svc.batch_tiers == {2: 1}
+    assert len(out) == 2 and out[0].shape == (8, 8, 3)
+    for a, b in zip(out, ref):
+        # f32, full width: rounding-level differences only
+        np.testing.assert_allclose(a, b, atol=1e-4, rtol=0)
+    assert np.abs(out[0] - out[1]).max() > 1e-2  # two different views
+    assert out[0].min() < 0.9  # not a blank white image
