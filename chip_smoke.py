@@ -21,7 +21,19 @@ Phases (any failed check raises, so the script exits non-zero):
    sampler path (``render_rays`` with ``perturb=1``), which runs kernel A.
    Last, 256 rays of one view rendered in float32 on the card and on the
    CPU, compared.
-4. One JSON line of kernel numbers, then the result line
+4. The training step: kernels D (stash forward), E (stash backward) and F
+   (remat backward) against their plain versions in bf16 and f32, rgb and
+   sigma-only, at a ragged P (F also over five point chunks), and E against
+   F; their times at the training shapes (4,096 rays x 192 and x 64 points,
+   bf16) beside the plain versions, the bounds and a chain of bf16
+   ``torch.matmul`` calls as a yardstick.  Then ``python -m
+   nerf_pl_tpu_torch.train`` at full width in bf16 for 2 epochs on a scene
+   this script writes (8 views of 100x100, batch 4,096, 64+128 samples):
+   losses finite and falling, launch counts of A, C, D and E in the fit
+   (zeroed just before it, read just after) and per step; one step under
+   the profiler; F through ``stash_blocks=None``; one float32 step's grads
+   on the card against the CPU; ``nerf_pl_tpu_torch.bench``'s number.
+5. One JSON line of kernel numbers, the card's line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Peak rates used for the bounds (NVIDIA H100 SXM data sheet, dense): 989
@@ -52,6 +64,8 @@ CHUNK_RAYS = 32_000
 N_SAMPLES, N_IMPORTANCE = 64, 128
 # multiply-adds per point of the reference NeRF (8x256, skip at 4, heads)
 MACS_RGB, MACS_SIGMA = 593_408, 491_264
+# the training step (bench.py): 4,096 rays, 64 coarse + 128 fine samples
+TRAIN_BATCH = 4096
 
 # Kernel C against its plain version, outputs of order 1.  f32: only the
 # order of the f32 sums differs.  bf16: a different sum order can round a
@@ -69,6 +83,21 @@ TOL_C_MEAN = 1e-3
 # sample.
 TOL_F32_RENDER = 1e-2
 TOL_F32_RENDER_MEAN = 1e-3
+# Kernels D, E and F against their plain versions, per tensor, relative to
+# the tensor's largest magnitude (max and mean of |kernel - plain|).  f32:
+# sums in another order only.  bf16: a different sum order can round one
+# value of the stash or of a layer's g_pre to the neighbouring bf16 (2^-8
+# relative), or flip a ReLU mask at a near-zero pre-activation, and the
+# backward carries that down the layers; the weight grads are themselves
+# rounded to bf16 (2^-8).  An H100 (80GB HBM3, 700 W) measured at most
+# 1.9e-3 (max) and 8e-8 (mean); the bounds leave room for a few flips and fail a wrong layer,
+# mask or operand, which moves whole tensors.
+TOL_TRAIN = {torch.bfloat16: (2e-2, 1e-3), torch.float32: (1e-4, 1e-5)}
+# E against F: the stash and F's recompute come from the same forward code,
+# so the two should agree to the last bit; JAX's own test of the stash
+# against the remat backward (tests/test_fused_mlp.py:209) allows rtol 1e-5
+# and atol 1e-6, which is kept here relative to each tensor.
+TOL_E_VS_F = 1e-5
 
 
 def log(msg: str) -> None:
@@ -120,10 +149,23 @@ def setup():
         f"(nvcc, one process per source)")
     for name in seconds:
         report = native.library_path(name).with_suffix(".so.log")
-        if report.exists():
-            for line in report.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    log(f"[ptxas {name}] {line.strip()}")
+        if not report.exists():
+            continue
+        entry, spill = "?", ""
+        for line in report.read_text().splitlines():
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else line
+                # drop the mangled namespace: the kernel's name and template
+                # arguments are what tell the entries apart
+                starts = [entry.find(k) for k in ("fused_nerf", "rank",
+                                                  "reduce") if k in entry]
+                entry = entry[min(starts):] if starts else entry
+            elif "spill" in line:
+                spill = line.strip()
+            elif "registers" in line:
+                regs = line.split(":", 1)[-1].strip()
+                log(f"[ptxas {name}] {entry[:70]}: {regs}; {spill}")
+                spill = ""
 
 
 # ---------------------------------------------------------------- phase 2
@@ -239,6 +281,193 @@ def check_searchsorted(gen, dev) -> dict:
     )
 
 
+def rel_errs(out, ref) -> tuple:
+    """(max, mean) of |out - ref| over max |ref|."""
+    d = (out.double() - ref.double()).abs()
+    scale = max(float(ref.double().abs().max()), 1e-30)
+    return float(d.max()) / scale, float(d.mean()) / scale
+
+
+def check_grads(label: str, mine: list, ref: list, names: list, tol) -> tuple:
+    """Every parameter grad within ``tol = (max, mean)`` of its reference;
+    returns the worst relative max error and the largest absolute one."""
+    worst, worst_name, worst_mean, worst_abs = 0.0, "", 0.0, 0.0
+    for a, b, name in zip(mine, ref, names):
+        worst_abs = max(worst_abs, max_abs(a, b))
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"{label}: {name} grad not finite")
+        mx, mean = rel_errs(a, b)
+        if not (mx <= tol[0] and mean <= tol[1]):
+            raise AssertionError(f"{label}: {name} grad off by {mx:.3e} "
+                                 f"(mean {mean:.3e}), tol {tol}")
+        if mx >= worst:
+            worst, worst_name, worst_mean = mx, name, mean
+    log(f"[{label}] {len(mine)} grads, worst rel max err {worst:.3e} "
+        f"({worst_name}, mean {worst_mean:.3e}); tol {tol[0]:.0e} max, "
+        f"{tol[1]:.0e} mean; largest abs err {worst_abs:.3e}")
+    return worst, worst_abs
+
+
+def check_train_kernels(model, gen, dev) -> dict:
+    """Kernels D, E and F against their plain versions on the same inputs,
+    in bf16 and f32, rgb and sigma-only, at a ragged P; F also over several
+    point chunks, and E against F."""
+    from nerf_pl_tpu_torch.ops import fused_mlp as fm
+
+    P = (1 << 16) + 77
+    x = random_raw_t(gen, P, dev)
+    g = torch.randn((8, P), generator=gen).to(dev)
+    names = [f"{n}.{leaf}" for n, m in zip(
+        [f"xyz_layers.{i}" for i in range(8)]
+        + ["sigma", "xyz_final", "dir_layer", "rgb"],
+        fm.dense_layers(model)) for leaf in ("w", "b")]
+    errs = {"D": 0.0, "E": 0.0, "F": 0.0, "E_vs_F": 0.0, "E_rel": 0.0,
+            "F_rel": 0.0}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).replace("torch.", "")
+        tol = TOL_TRAIN[dtype]
+        for sigma_only in (True, False):
+            mode = "sigma-only" if sigma_only else "rgb"
+            out, stash = fm.fused_nerf_stash_fwd_cuda(model, x, sigma_only,
+                                                      dtype)
+            out_p, stash_p = fm.fused_nerf_stash_fwd_plain(model, x,
+                                                           sigma_only, dtype)
+            torch.cuda.synchronize()
+            e_out = max_abs(out, out_p)
+            s_max, s_mean = rel_errs(stash.float(), stash_p.float())
+            log(f"[D {dname} {mode}] P={P} out max_abs_err={e_out:.3e} "
+                f"(tol {TOL_C[dtype]:.0e}); stash {tuple(stash.shape)} rel "
+                f"max {s_max:.3e} mean {s_mean:.3e} (tol {TOL_C[dtype]:.0e}, "
+                f"{TOL_C_MEAN:.0e})")
+            if not (torch.isfinite(out).all() and e_out <= TOL_C[dtype]
+                    and s_max <= TOL_C[dtype] and s_mean <= TOL_C_MEAN):
+                raise AssertionError(f"kernel D {dname} {mode} disagrees")
+            if dtype == torch.bfloat16:
+                errs["D"] = max(errs["D"], e_out)
+
+            def grads(dw_db):
+                return fm.unpack_grads(model, *dw_db, dtype)
+
+            e_k = grads(fm.fused_nerf_bwd_stash_cuda(model, x, g, stash,
+                                                     sigma_only, dtype))
+            e_p = grads(fm.fused_nerf_bwd_plain(model, x, g, sigma_only,
+                                                dtype, stash=stash))
+            torch.cuda.synchronize()
+            w, w_abs = check_grads(f"E {dname} {mode}", e_k, e_p, names, tol)
+            f_k = grads(fm.fused_nerf_bwd_remat_cuda(
+                model, x, g, sigma_only, dtype, chunk=1 << 14))
+            f_p = grads(fm.fused_nerf_bwd_plain(model, x, g, sigma_only,
+                                                dtype))
+            torch.cuda.synchronize()
+            wf, wf_abs = check_grads(f"F {dname} {mode} (5 chunks)", f_k,
+                                     f_p, names, tol)
+            # the same point chunks, so the same order of the f32 sums
+            e_c = grads(fm.fused_nerf_bwd_stash_cuda(
+                model, x, g, stash, sigma_only, dtype, chunk=1 << 14))
+            ef, _ = check_grads(f"E vs F {dname} {mode}", e_c, f_k, names,
+                                (TOL_E_VS_F, TOL_E_VS_F))
+            exact = all(torch.equal(a, b) for a, b in zip(e_c, f_k))
+            log(f"[E vs F {dname} {mode}] bitwise equal: {exact}")
+            if dtype == torch.bfloat16:
+                errs["E"], errs["F"] = max(errs["E"], w_abs), max(errs["F"], wf_abs)
+                errs["E_rel"], errs["F_rel"] = (max(errs["E_rel"], w),
+                                                max(errs["F_rel"], wf))
+            errs["E_vs_F"] = max(errs["E_vs_F"], ef)
+            del out, stash, out_p, stash_p
+    torch.cuda.empty_cache()
+    return errs
+
+
+def matmul_chain_ms(model, P: int, dev) -> tuple:
+    """A yardstick, not a port: the same MLP as a chain of bf16
+    ``torch.matmul`` calls (cuBLAS), forward, and the backward's dgrad and
+    wgrad products, at P points with random embedded inputs."""
+    bf = torch.bfloat16
+    ws = [m.w.detach().to(bf) for m in model.xyz_layers]
+    wsig, wfin, wdir, wrgb = (m.w.detach().to(bf) for m in (
+        model.sigma, model.xyz_final, model.dir_layer, model.rgb))
+    xe = torch.randn((P, 63), device=dev, dtype=bf)
+    de = torch.randn((P, 27), device=dev, dtype=bf)
+
+    def fwd():
+        h, acts = xe, []
+        for i, w in enumerate(ws):
+            a = torch.cat([xe, h], -1) if i == 4 else h
+            acts.append(a)
+            h = torch.relu(torch.matmul(a, w))
+        torch.matmul(h, wsig)
+        fin = torch.matmul(h, wfin)
+        din = torch.cat([fin, de], -1)
+        d = torch.relu(torch.matmul(din, wdir))
+        torch.sigmoid(torch.matmul(d, wrgb))
+        return acts + [h, h, din, d]
+
+    ins = fwd()
+    outs = [w for w in ws] + [wsig, wfin, wdir, wrgb]
+    gs = [torch.randn((P, w.shape[1]), device=dev, dtype=bf) for w in outs]
+
+    def bwd():
+        for a, w, g in zip(ins, outs, gs):
+            torch.matmul(a.T, g)  # wgrad
+            torch.matmul(g, w.T)  # dgrad
+    return cuda_ms(fwd, iters=3), cuda_ms(bwd, iters=3)
+
+
+def time_train_kernels(model, gen, dev) -> dict:
+    """D, E and F at the training step's shapes (bf16, rgb): kernel and
+    plain times by CUDA events, the bound, and the bf16 matmul chain."""
+    from nerf_pl_tpu_torch.ops import fused_mlp as fm
+
+    bf = torch.bfloat16
+    rows = {}
+    for name, S in (("fine", N_SAMPLES + N_IMPORTANCE), ("coarse", N_SAMPLES)):
+        P = TRAIN_BATCH * S
+        x = random_raw_t(gen, P, dev)
+        g = torch.randn((8, P), generator=gen).to(dev)
+        c_ms = cuda_ms(lambda: fm.fused_nerf_apply_raw_t_cuda(model, x, False,
+                                                              bf), iters=3)
+        d_ms = cuda_ms(lambda: fm.fused_nerf_stash_fwd_cuda(model, x, False, bf),
+                       iters=3)
+        _, stash = fm.fused_nerf_stash_fwd_cuda(model, x, False, bf)
+        e_ms = cuda_ms(lambda: fm.fused_nerf_bwd_stash_cuda(
+            model, x, g, stash, False, bf), iters=3)
+        f_ms = cuda_ms(lambda: fm.fused_nerf_bwd_remat_cuda(
+            model, x, g, False, bf), iters=2)
+        d_plain = cuda_ms(lambda: fm.fused_nerf_stash_fwd_plain(
+            model, x, False, bf), iters=1)
+        e_plain = cuda_ms(lambda: fm.fused_nerf_bwd_plain(
+            model, x, g, False, bf, stash=stash), iters=1)
+        f_plain = cuda_ms(lambda: fm.fused_nerf_bwd_plain(
+            model, x, g, False, bf), iters=1)
+        del stash
+        torch.cuda.empty_cache()
+        chain_fwd, chain_bwd = matmul_chain_ms(model, P, dev)
+        stash_b = P * 2 * 2432
+        io_b = P * 4 * 8
+        bd = bound_ms(stash_b + 2 * io_b, 2 * MACS_RGB * P, BF16_TENSOR_FLOPS)
+        be = bound_ms(stash_b + 2 * io_b + 4 * 593_408,
+                      4 * MACS_RGB * P, BF16_TENSOR_FLOPS)
+        bfb = bound_ms(2 * io_b + 4 * 593_408, 6 * MACS_RGB * P,
+                       BF16_TENSOR_FLOPS)
+        rows[name] = dict(P=P, D=dict(ms=d_ms, plain_ms=d_plain, bound=bd),
+                          E=dict(ms=e_ms, plain_ms=e_plain, bound=be),
+                          F=dict(ms=f_ms, plain_ms=f_plain, bound=bfb),
+                          C_ms=c_ms, chain_fwd_ms=chain_fwd,
+                          chain_bwd_ms=chain_bwd)
+        for k in "DEF":
+            r = rows[name][k]
+            log(f"[{k} time bf16 rgb {name}] P={P} kernel {r['ms']:.3f} ms, "
+                f"plain {r['plain_ms']:.3f} ms, bound {r['bound'][0]:.3f} ms "
+                f"({r['bound'][1]})")
+        log(f"[C time bf16 rgb {name}] P={P} kernel {c_ms:.3f} ms (no stash)")
+        log(f"[matmul chain bf16 {name}] P={P} forward {chain_fwd:.3f} ms, "
+            f"backward (dgrad + wgrad) {chain_bwd:.3f} ms (torch.matmul, "
+            f"a yardstick, not one call)")
+        del x, g
+        torch.cuda.empty_cache()
+    return rows
+
+
 # ---------------------------------------------------------------- phase 3
 def write_checkpoint(path: str) -> None:
     """Seeded full-width coarse and fine models.  The sigma head is scaled
@@ -261,7 +490,10 @@ def counters():
     from nerf_pl_tpu_torch.ops import searchsorted as ss
 
     return {"C": fm.fused_nerf_apply_raw_t_cuda,
-            "B": ss.searchsorted_interp_cuda, "A": ss.searchsorted_cuda}
+            "B": ss.searchsorted_interp_cuda, "A": ss.searchsorted_cuda,
+            "D": fm.fused_nerf_stash_fwd_cuda,
+            "E": fm.fused_nerf_bwd_stash_cuda,
+            "F": fm.fused_nerf_bwd_remat_cuda}
 
 
 def reset_counts() -> None:
@@ -369,17 +601,16 @@ def serve_end_to_end(ckpt: str) -> dict:
                 health=health)
 
 
-def profile_batch(service, wh: int) -> None:
-    """Device time by kernel and the device's busy share over one 4-view
-    batch render, from ``torch.profiler``."""
+def profile_device(label: str, fn, top: int = 8) -> dict:
+    """Device time by kernel and the device's busy share over one call of
+    ``fn``, from ``torch.profiler``."""
     from torch.profiler import ProfilerActivity, profile
 
-    c2w = service._c2w_for([4.0, 0.5, 0.0], (0.0, 0.0, 0.0))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        service.render_batch([c2w] * 4, wh)
+        fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     kernels = [e for e in prof.key_averages()
@@ -388,15 +619,23 @@ def profile_batch(service, wh: int) -> None:
               for e in kernels}
     busy_ms = sum(dev_us.values()) / 1e3
     if busy_ms <= 0:
-        log(f"[profile] 4-view batch {wall_ms:.1f} ms wall; device time "
-            "not measured (the profiler saw no device events)")
-        return
-    log(f"[profile] 4-view batch at {wh}x{wh}: {wall_ms:.1f} ms wall, "
-        f"{busy_ms:.1f} ms device busy ({100 * busy_ms / wall_ms:.1f}%), "
-        f"idle share {100 * (1 - busy_ms / wall_ms):.1f}%")
-    for name, us in sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"[profile] {label}: {wall_ms:.1f} ms wall; device time not "
+            "measured (the profiler saw no device events)")
+        return dict(wall_ms=wall_ms, busy_ms=None)
+    log(f"[profile] {label}: {wall_ms:.1f} ms wall, {busy_ms:.1f} ms device "
+        f"busy ({100 * busy_ms / wall_ms:.1f}%), idle share "
+        f"{100 * (1 - busy_ms / wall_ms):.1f}%")
+    for name, us in sorted(dev_us.items(), key=lambda kv: -kv[1])[:top]:
         log(f"[profile]   {us / 1e3:9.3f} ms {100 * us / 1e3 / busy_ms:5.1f}%"
             f"  {name[:90]}")
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms)
+
+
+def profile_batch(service, wh: int) -> None:
+    """One 4-view batch render under the profiler."""
+    c2w = service._c2w_for([4.0, 0.5, 0.0], (0.0, 0.0, 0.0))
+    profile_device(f"4-view batch at {wh}x{wh}",
+                   lambda: service.render_batch([c2w] * 4, wh))
 
 
 def random_sampler_path(ckpt: str) -> dict:
@@ -458,6 +697,176 @@ def f32_card_vs_cpu(ckpt: str) -> float:
     return err
 
 
+# ---------------------------------------------------------------- phase 4
+TRAIN_WH, TRAIN_VIEWS = 100, 8
+# One float32 training step's grads on the card against the CPU, per tensor
+# relative to its largest magnitude.  Same weights, rays and injected random
+# draws on both; the card runs kernels A, D and E, the CPU their plain
+# versions.  f32 sums in another order, and sinf/cosf that may differ by an
+# ulp at the encoding's 2^9-scaled arguments (which moves the float32 render
+# by up to 5e-4, PERF.md), so the grads agree to rounding, not to the bit.
+TOL_STEP_GRADS = (2e-2, 2e-3)
+
+
+def write_scene(root: str, n_train: int = TRAIN_VIEWS, n_val: int = 1,
+                wh: int = TRAIN_WH) -> None:
+    """A Blender-format scene written with the port's PNG writer: a shaded
+    disc on a transparent background, seen from a circle of cameras."""
+    from nerf_pl_tpu_torch.data.png import write_png
+
+    rng = np.random.RandomState(0)
+    for split, n in (("train", n_train), ("val", n_val)):
+        os.makedirs(os.path.join(root, split), exist_ok=True)
+        frames = []
+        for i in range(n):
+            theta = 2 * np.pi * (i + (0 if split == "train" else 0.5)) / n
+            c, sn = np.cos(theta), np.sin(theta)
+            eye = np.array([4 * sn, 0.5, 4 * c], np.float32)
+            fwd = eye / np.linalg.norm(eye)
+            right = np.cross([0, 1, 0], fwd)
+            right /= np.linalg.norm(right)
+            m = np.eye(4, dtype=np.float32)
+            m[:3, 0], m[:3, 1], m[:3, 2], m[:3, 3] = (
+                right, np.cross(fwd, right), fwd, eye)
+            yy, xx = np.mgrid[0:wh, 0:wh].astype(np.float32) / wh - 0.5
+            r = np.sqrt(xx ** 2 + yy ** 2)
+            img = np.zeros((wh, wh, 4), np.float32)
+            img[..., 0] = 0.5 + 0.5 * c
+            img[..., 1] = 0.3 + 0.5 * np.clip(0.35 - r, 0, 1)
+            img[..., 2] = 0.5 + 0.5 * sn
+            img[..., 3] = (r < 0.35).astype(np.float32)
+            img += rng.rand(wh, wh, 4) * 0.05
+            name = f"{split}/r_{i}"
+            write_png(os.path.join(root, f"{name}.png"),
+                      (np.clip(img, 0, 1) * 255).astype(np.uint8))
+            frames.append({"file_path": f"./{name}",
+                           "transform_matrix": m.tolist()})
+        with open(os.path.join(root, f"transforms_{split}.json"), "w") as f:
+            json.dump({"camera_angle_x": 0.6911, "frames": frames}, f)
+
+
+def train_end_to_end(tmp: str) -> dict:
+    """``python -m nerf_pl_tpu_torch.train`` at full width in bf16 for 2
+    epochs; then launches per step, one step under the profiler, and F
+    through ``stash_blocks=None``."""
+    from nerf_pl_tpu_torch import train as train_cli
+    from nerf_pl_tpu_torch.ops import fused_mlp as fm
+
+    root = os.path.join(tmp, "scene")
+    write_scene(root)
+    argv = ["--root_dir", root, "--dataset_name", "blender",
+            "--img_wh", str(TRAIN_WH), str(TRAIN_WH),
+            "--N_samples", str(N_SAMPLES), "--N_importance", str(N_IMPORTANCE),
+            "--batch_size", str(TRAIN_BATCH), "--num_epochs", "2",
+            "--lr", "5e-4", "--white_back", "true",
+            "--compute_dtype", "bfloat16", "--exp_name", "smoke",
+            "--log_dir", os.path.join(tmp, "logs"),
+            "--ckpt_dir", os.path.join(tmp, "ckpts"), "--device", "cuda"]
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    system = train_cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    with open(os.path.join(tmp, "logs", "smoke", "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    epochs = [r for r in recs if "train/loss" in r]
+    losses = [r["train/loss"] for r in epochs]
+    vals = [r["val/loss"] for r in recs if "val/loss" in r]
+    rate = epochs[-1]["train/rays_per_s"]
+    log(f"[train] {TRAIN_VIEWS} views at {TRAIN_WH}x{TRAIN_WH}, batch "
+        f"{TRAIN_BATCH}, {N_SAMPLES}+{N_IMPORTANCE} samples, bf16, "
+        f"{system.steps_per_epoch} steps/epoch: loss per epoch {losses}, "
+        f"val loss {vals}; epoch-1 {rate:.1f} train rays/s; fit "
+        f"{wall:.1f} s wall; launches in the fit {counts}")
+    if len(losses) != 2 or not all(np.isfinite(losses + vals)):
+        raise AssertionError(f"training losses not finite: {losses} {vals}")
+    if not losses[1] < losses[0]:
+        raise AssertionError(f"training loss did not fall: {losses}")
+    for k in ("A", "C", "D", "E"):
+        if counts[k] < 1:
+            raise AssertionError(f"kernel {k} was not launched by the fit")
+    ckpts = sorted(os.listdir(os.path.join(tmp, "ckpts", "smoke")))
+    if ckpts != ["epoch=0.ckpt", "epoch=1.ckpt"]:
+        raise AssertionError(f"checkpoints: {ckpts}")
+
+    rays, rgbs = system.rays[:TRAIN_BATCH], system.rgbs[:TRAIN_BATCH]
+    torch.cuda.synchronize()
+    reset_counts()
+    system.train_step(rays, rgbs)
+    torch.cuda.synchronize()
+    per_step = read_counts()
+    log(f"[train] launches in one training step: {per_step}")
+    prof = profile_device("one training step (bf16, 4096 rays)",
+                          lambda: system.train_step(rays, rgbs), top=12)
+
+    # kernel F: the remat route of the same fused MLP, forward and backward
+    model = system.models["fine"]
+    x = random_raw_t(torch.Generator().manual_seed(5),
+                     TRAIN_BATCH * (N_SAMPLES + N_IMPORTANCE), "cuda")
+    torch.cuda.synchronize()
+    reset_counts()
+    out = fm.fused_nerf_apply_raw_t(model, x, False, torch.bfloat16,
+                                    stash_blocks=None)
+    out[:4].square().mean().backward()
+    torch.cuda.synchronize()
+    remat = read_counts()
+    model.zero_grad(set_to_none=True)
+    log(f"[train] stash_blocks=None forward + backward: launches {remat}")
+    if remat["F"] != 1 or remat["C"] != 1 or remat["D"] or remat["E"]:
+        raise AssertionError(f"the remat route did not take C and F: {remat}")
+    return dict(counts=counts, per_step=per_step, remat=remat, losses=losses,
+                rays_per_s=rate, profile=prof)
+
+
+def step_grads_card_vs_cpu() -> float:
+    """One float32 training step's grads (render -> MSE -> backward through
+    the fused MLP) on the card and on the CPU, at 256 rays."""
+    from nerf_pl_tpu_torch.graft_entry import flagship_models, make_rays
+    from nerf_pl_tpu_torch.ops.rendering import render_rays
+    from nerf_pl_tpu_torch.training.losses import mse_loss
+
+    n = 256
+    gen = torch.Generator().manual_seed(3)
+    rays = make_rays(gen, n, device="cpu")
+    rgbs = torch.rand((n, 3), generator=gen)
+    ov = {"perturb_rand": torch.rand((n, N_SAMPLES), generator=gen),
+          "noise_coarse": torch.randn((n, N_SAMPLES), generator=gen),
+          "u": torch.rand((n, N_IMPORTANCE), generator=gen),
+          "jitter": torch.rand((n, N_IMPORTANCE), generator=gen),
+          "noise_fine": torch.randn((n, N_SAMPLES + N_IMPORTANCE),
+                                    generator=gen)}
+    grads = {}
+    for device in ("cuda", "cpu"):
+        models = flagship_models(0, device)
+        out = render_rays(models["coarse"], models["fine"], rays.to(device),
+                          None, N_samples=N_SAMPLES, N_importance=N_IMPORTANCE,
+                          perturb=1.0, noise_std=1.0, white_back=True,
+                          compute_dtype=torch.float32, use_fused=True,
+                          fused_channel_io=True,
+                          overrides={k: v.to(device) for k, v in ov.items()})
+        mse_loss(out, rgbs.to(device)).backward()
+        grads[device] = {f"{name}/{k}": p.grad.cpu()
+                         for name, m in models.items()
+                         for k, p in m.named_parameters()}
+    names = sorted(grads["cpu"])
+    worst, _ = check_grads("f32 step grads card vs cpu (256 rays)",
+                        [grads["cuda"][k] for k in names],
+                        [grads["cpu"][k] for k in names], names,
+                        TOL_STEP_GRADS)
+    return worst
+
+
+def bench_number() -> dict:
+    from nerf_pl_tpu_torch.bench import bench
+
+    rate = bench(iters=10, compute_dtype=torch.bfloat16)
+    log(f"[bench] python -m nerf_pl_tpu_torch.bench workload, 10 steps: "
+        f"{rate:.1f} train rays/s (bf16)")
+    return dict(rays_per_s=rate)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -485,6 +894,13 @@ def main() -> int:
         served = serve_end_to_end(ckpt)
         sampler_counts = random_sampler_path(ckpt)
         f32_err = f32_card_vs_cpu(ckpt)
+        with torch.no_grad():
+            tk = check_train_kernels(fine, gen, dev)
+            tt = time_train_kernels(fine, gen, dev)
+        del fine
+        trained = train_end_to_end(tmp)
+        step_err = step_grads_card_vs_cpu()
+        benched = bench_number()
 
     fine_row, coarse_row = c["rows"]["rgb"], c["rows"]["sigma-only"]
     kernels = [
@@ -495,7 +911,12 @@ def main() -> int:
              ms=fine_row["ms"], plain_ms=fine_row["plain_ms"],
              bound_ms=fine_row["bound_ms"], bound_by=fine_row["bound_by"],
              library_ms=None, shape=f"rgb bf16 P={fine_row['P']}",
-             sigma_only=coarse_row),
+             sigma_only=coarse_row,
+             launches_train=dict(fit=trained["counts"]["C"],
+                                 per_step=trained["per_step"]["C"]),
+             train_shapes={k: dict(P=tt[k]["P"], ms=tt[k]["C_ms"],
+                                   matmul_chain_fwd_ms=tt[k]["chain_fwd_ms"])
+                           for k in ("fine", "coarse")}),
         dict(name="searchsorted_rank_interp", route="cuda",
              source="nerf_pl_tpu_torch/csrc/searchsorted.cu",
              replaces="nerf_pl_tpu/ops/searchsorted.py:122",
@@ -507,16 +928,51 @@ def main() -> int:
         dict(name="searchsorted_rank", route="cuda",
              source="nerf_pl_tpu_torch/csrc/searchsorted.cu",
              replaces="nerf_pl_tpu/ops/searchsorted.py:45",
-             launches=sampler_counts["A"], max_abs_err=s["A"]["err"],
+             launches=trained["counts"]["A"], max_abs_err=s["A"]["err"],
              ms=s["A"]["ms"], plain_ms=s["A"]["plain_ms"],
              bound_ms=s["A"]["bound_ms"], bound_by=s["A"]["bound_by"],
              library_ms=s["A"]["library_ms"],
              shape=f"B={CHUNK_RAYS} M={N_SAMPLES - 1} K={N_IMPORTANCE}",
-             path="render_rays(perturb=1); not on the serve path"),
+             path="training (the fit); not on the serve path",
+             launches_by_path=dict(fit=trained["counts"]["A"],
+                                   per_step=trained["per_step"]["A"],
+                                   render_rays_perturb=sampler_counts["A"])),
     ]
+    fine_t, coarse_t = tt["fine"], tt["coarse"]
+    for key, name, src, line, err, launches in (
+            ("D", "fused_nerf_stash_fwd", "fused_mlp.cu", 1032, tk["D"],
+             trained["counts"]["D"]),
+            ("E", "fused_nerf_bwd_stash", "fused_mlp_bwd.cu", 1052, tk["E"],
+             trained["counts"]["E"]),
+            ("F", "fused_nerf_bwd_remat", "fused_mlp_bwd.cu", 1067, tk["F"],
+             trained["remat"]["F"])):
+        row = fine_t[key]
+        kernels.append(dict(
+            name=name, route="cuda", source=f"nerf_pl_tpu_torch/csrc/{src}",
+            replaces=f"nerf_pl_tpu/ops/fused_mlp.py:{line}",
+            launches=launches, max_abs_err=err, ms=row["ms"],
+            plain_ms=row["plain_ms"], bound_ms=row["bound"][0],
+            bound_by=row["bound"][1], library_ms=None,
+            shape=f"rgb bf16 P={fine_t['P']}",
+            coarse=dict(P=coarse_t["P"], ms=coarse_t[key]["ms"],
+                        plain_ms=coarse_t[key]["plain_ms"],
+                        bound_ms=coarse_t[key]["bound"][0]),
+            launches_per_step=trained["per_step"][key],
+            matmul_chain_ms=dict(fine=fine_t["chain_bwd_ms" if key != "D"
+                                             else "chain_fwd_ms"],
+                                 coarse=coarse_t["chain_bwd_ms" if key != "D"
+                                                 else "chain_fwd_ms"])))
+    kernels[-2]["max_rel_err"] = tk["E_rel"]
+    kernels[-1]["max_rel_err"] = tk["F_rel"]
+    kernels[-1]["e_vs_f_rel_err"] = tk["E_vs_F"]
     log(f"[serve] {served['rays_per_s']:.1f} rays/s, "
         f"{served['ms']:.1f} ms per request; f32 card-vs-cpu err "
-        f"{f32_err:.3e}; total {time.perf_counter() - t_start:.1f} s")
+        f"{f32_err:.3e}")
+    log(f"[train] {trained['rays_per_s']:.1f} train rays/s in the fit, "
+        f"{benched['rays_per_s']:.1f} in the bench workload; f32 step grads "
+        f"card vs cpu rel err {step_err:.3e}; total "
+        f"{time.perf_counter() - t_start:.1f} s")
+    log(f"[card] {card}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -4,12 +4,18 @@ Hopper (H100).
 Module names follow ``nerf_pl_tpu`` so each counterpart is easy to find.
 The package imports torch, numpy and the standard library only.
 
+- ``config``   : the ``Config`` dataclass and ``get_opts``, as the JAX package's
 - ``models``   : positional encoding, the NeRF ``nn.Module``, camera helpers
 - ``ops``      : rays, sampling, searchsorted (CUDA kernels A and B),
-                 compositing, the fused NeRF MLP forward (CUDA kernel C),
-                 the renderer, and the nvcc build of ``csrc/``
-- ``training`` : msgpack checkpoints readable and writable by both packages
-- ``tools``    : ``load_models`` and the batching HTTP render server
+                 compositing, the fused NeRF MLP forward (CUDA kernels C and
+                 D) and backward (E and F) behind ``torch.autograd``, the
+                 renderer, and the nvcc build of ``csrc/``
+- ``data``     : the Blender loader and a PNG reader on ``zlib``
+- ``training`` : the vanilla-NeRF trainer, losses, metrics, Adam, logging,
+                 msgpack checkpoints readable and writable by both packages
+- ``tools``    : ``load_models``, ``render_image`` and the HTTP render server
+- ``train``, ``bench``, ``graft_entry`` : the training CLI, the training-step
+                 benchmark and the entry point
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 nothing falls back to the CPU when CUDA is missing.

@@ -1,8 +1,11 @@
-// Kernel C: the fused NeRF MLP forward with in-kernel positional encoding,
-// on channel-major (8, P) input and output.
+// Kernels C and D: the fused NeRF MLP forward with in-kernel positional
+// encoding, on channel-major (8, P) input and output; D also writes the
+// activation stash that the backward kernel E reads.
 //
 // Replaces (TPU, Pallas): nerf_pl_tpu/ops/fused_mlp.py::fused_nerf_apply_raw_t
-// (:1215) -> _raw_t_fwd_call (:1083) -> _fwd_kernel_raw_t (:1015).
+// (:1215) -> C: _raw_t_fwd_call (:1083) -> _fwd_kernel_raw_t (:1015);
+//            D: _raw_t_stash_fwd_call (:1106) -> _fwd_kernel_raw_stash_t
+//               (:1032).
 //
 // Computes, for each point p (column of x):
 //   x rows [xyz(3) | dir(3) | 0 0]
@@ -12,6 +15,9 @@
 //   sigma = h @ Wsig + bsig
 //   rgb   = sigmoid(relu([h @ Wfin + bfin, dir_emb] @ Wdir + bdir) @ Wrgb + brgb)
 //   out rows [rgb(3) | sigma | 0 0 0 0]; sigma-only: [sigma | 0 x 7]
+// D also writes, for each point, the stash row (P, 2432) in the weight type:
+// h1..h8, then fin and d (sigma-only: (P, 2048), h1..h8), each value the
+// same rounded activation that the next layer reads (fused_mlp.py:688-700).
 // Numerics of _fwd_body (fused_mlp.py:155-181): each layer's input is rounded
 // to the weight type T (bf16 or f32) before its product; products and sums in
 // f32; bias, ReLU and sigmoid in f32.  Precise sinf/cosf (no fast math) and
@@ -19,11 +25,13 @@
 // channel permutation (_raw_perm) are not needed: weights are read in the
 // reference order, W_i as (fan_in, fan_out) row-major.
 //
-// Bound on the H100: operations.  593,408 multiply-adds per rgb point
+// Bound on the H100.  C: operations.  593,408 multiply-adds per rgb point
 // (491,264 sigma-only) against 32 bytes of input and output per point; the
 // ~1.2 MB bf16 weight set stays in the 50 MB L2.  At the bf16 tensor rate
 // (989 TFLOP/s) a 6.1M-point fine chunk needs 7.4 ms; the 84 sinf/cosf per
-// point are ~0.1% of the work.
+// point are ~0.1% of the work.  D: bytes, by its stash write (4,864 B per
+// rgb point in bf16 against 1.19 MFLOP: 1.46 us per 1,000 points at
+// 3.35 TB/s against 1.20 us at the tensor rate).
 // Design (simple first; wgmma/TMA come later): one CTA of 256 threads per
 // tile of 64 points.  The tile's embedded input and its current activation
 // live in shared memory, stored in T: rows [xyz_emb 63 | h 256 | dir_emb 27],
@@ -32,245 +40,35 @@
 // global memory (L2) through a shared staging buffer of KC rows.  Each warp
 // owns 8 points and each lane 8 (or 4) output features: scalar FMA with f32
 // accumulators in registers.  Each layer's outputs overwrite its inputs only
-// after a barrier.  The ragged tail of P is masked on load and store.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstdint>
+// after a barrier.  D is C with the STASH flag: after each layer's epilogue
+// every thread reads its own rounded outputs back from shared memory and
+// stores each point's 4 to the point's stash row, one 8-byte (bf16) store per
+// lane, a warp's 32 lanes writing 256 contiguous bytes; the stores drain
+// while the next layer computes.  The ragged tail of P is masked on load and
+// store.  Shared device code: fused_mlp_common.cuh.
+#include "fused_mlp_common.cuh"
 
 namespace {
 
-constexpr int CX = 63, CD = 27, W = 256, WH = 128, D = 8, SKIP = 4;
-constexpr int TP = 64;        // points per CTA
-constexpr int THREADS = 256;  // warp w owns points [8w, 8w + 8)
-constexpr int ROW_H = CX;            // first activation row of h
-constexpr int ROW_DIR = CX + W;      // first row of dir_emb
-constexpr int ROWS = CX + W + CD;    // 346 activation rows
+using namespace nerf;
 
-// Weight buffer: W_0..W_7, Wsig, Wfin, Wdir, Wrgb, each (fan_in, fan_out)
-// row-major, concatenated.  Bias buffer (f32): b_0..b_7, bsig, bfin, bdir,
-// brgb.  Every offset is a multiple of 8 elements (16-byte vector copies).
-__host__ __device__ constexpr long long layer_size(int i) {
-  return i == 0 ? 1LL * CX * W : (i == SKIP ? 1LL * (W + CX) * W : 1LL * W * W);
-}
-__host__ __device__ constexpr long long layer_off(int i) {
-  long long o = 0;
-  for (int j = 0; j < i; ++j) o += layer_size(j);
-  return o;
-}
-constexpr long long OFF_SIG = layer_off(D);
-constexpr long long OFF_FIN = OFF_SIG + W;
-constexpr long long OFF_DIR = OFF_FIN + 1LL * W * W;
-constexpr long long OFF_RGB = OFF_DIR + 1LL * (W + CD) * WH;
-constexpr long long N_WEIGHTS = OFF_RGB + 1LL * WH * 3;
-constexpr int BOFF_SIG = D * W, BOFF_FIN = BOFF_SIG + 1;
-constexpr int BOFF_DIR = BOFF_FIN + W, BOFF_RGB = BOFF_DIR + WH;
-constexpr int N_BIASES = BOFF_RGB + 3;
-static_assert(N_WEIGHTS == 593408, "one multiply-add per weight per point");
-static_assert(OFF_SIG % 8 == 0 && OFF_FIN % 8 == 0 && OFF_DIR % 8 == 0 &&
-                  OFF_RGB % 8 == 0 && layer_off(1) % 8 == 0 &&
-                  layer_off(SKIP + 1) % 8 == 0,
-              "16-byte aligned weight blocks");
-
-template <typename T> struct Cfg;
-template <> struct Cfg<float> { static constexpr int KC = 16; };
-template <> struct Cfg<__nv_bfloat16> { static constexpr int KC = 32; };
-
-template <typename T>
-constexpr size_t smem_bytes() {
-  return sizeof(T) * (ROWS * TP + Cfg<T>::KC * W) + sizeof(float) * 4 * TP;
-}
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) {
-  return v;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-__device__ __forceinline__ void unpack2(uint32_t u, float& lo, float& hi) {
-  lo = __uint_as_float(u << 16);
-  hi = __uint_as_float(u & 0xffff0000u);
-}
-
-// 8 consecutive activations (one warp's points) -> f32
-__device__ __forceinline__ void load8(const float* p, float (&a)[8]) {
-  const float4 u = *reinterpret_cast<const float4*>(p);
-  const float4 v = *reinterpret_cast<const float4*>(p + 4);
-  a[0] = u.x; a[1] = u.y; a[2] = u.z; a[3] = u.w;
-  a[4] = v.x; a[5] = v.y; a[6] = v.z; a[7] = v.w;
-}
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&a)[8]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  unpack2(u.x, a[0], a[1]); unpack2(u.y, a[2], a[3]);
-  unpack2(u.z, a[4], a[5]); unpack2(u.w, a[6], a[7]);
-}
-// 4 consecutive weights (one lane's features) -> f32
-__device__ __forceinline__ void load4(const float* p, float (&b)[4]) {
-  const float4 u = *reinterpret_cast<const float4*>(p);
-  b[0] = u.x; b[1] = u.y; b[2] = u.z; b[3] = u.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&b)[4]) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  unpack2(u.x, b[0], b[1]); unpack2(u.y, b[2], b[3]);
-}
-
-// act rows [out_row, out_row + N) = act(rows [in_row, in_row + K)) @ w + bias,
-// N = NG * 128, optional ReLU, rounded to T.  w is (K, N) row-major.
-template <typename T, int NG>
-__device__ __forceinline__ void dense(const T* __restrict__ w,
-                                      const float* __restrict__ bias, int K,
-                                      T* act, int in_row, int out_row, T* ws,
-                                      bool relu) {
-  constexpr int N = NG * 128;
-  constexpr int KC = Cfg<T>::KC;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float acc[8][NG * 4];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < NG * 4; ++j) acc[i][j] = 0.0f;
-
-  for (int k0 = 0; k0 < K; k0 += KC) {
-    const int kc = min(KC, K - k0);
-    __syncthreads();  // the previous stage has been consumed
-    const uint4* src = reinterpret_cast<const uint4*>(w + 1LL * k0 * N);
-    uint4* dst = reinterpret_cast<uint4*>(ws);
-    const int nvec = kc * N * static_cast<int>(sizeof(T)) / 16;
-    for (int i = threadIdx.x; i < nvec; i += THREADS) dst[i] = src[i];
-    __syncthreads();
-    const T* arow = act + (in_row + k0) * TP + warp * 8;
-    const T* wrow = ws + lane * 4;
-#pragma unroll 4
-    for (int kk = 0; kk < kc; ++kk) {
-      float a[8];
-      load8(arow + kk * TP, a);
-#pragma unroll
-      for (int g = 0; g < NG; ++g) {
-        float b[4];
-        load4(wrow + kk * N + g * 128, b);
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            acc[i][g * 4 + j] = fmaf(a[i], b[j], acc[i][g * 4 + j]);
-      }
-    }
-  }
-  __syncthreads();  // every read of the input rows is done
-#pragma unroll
-  for (int g = 0; g < NG; ++g)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = g * 128 + lane * 4 + j;
-      const float bn = bias[n];
-      T* orow = act + (out_row + n) * TP + warp * 8;
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        float v = acc[i][g * 4 + j] + bn;
-        if (relu) v = fmaxf(v, 0.0f);
-        orow[i] = from_f<T>(v);
-      }
-    }
-  __syncthreads();
-}
-
-// Embed the tile's points into act rows [0, CX) and, unless sigma-only,
-// [ROW_DIR, ROW_DIR + CD).  Points past P embed zeros and are never stored.
-template <typename T>
-__device__ __forceinline__ void embed(const float* __restrict__ x,
-                                      long long P, long long p0, T* act,
-                                      bool with_dir) {
-  const int n_rows = with_dir ? CX + CD : CX;
-  for (int i = threadIdx.x; i < n_rows * TP; i += THREADS) {
-    const int r = i / TP, p = i - r * TP;
-    const bool is_dir = r >= CX;
-    const int c = is_dir ? r - CX : r;  // channel within its embedding
-    const long long gp = p0 + p;
-    float v = 0.0f;
-    if (gp < P) {
-      const int base = is_dir ? 3 : 0;
-      if (c < 3) {
-        v = x[(base + c) * P + gp];
-      } else {
-        const int q = c - 3, k = q / 6, s = q - 6 * k;  // s: sin 0-2, cos 3-5
-        const float t = x[(base + s % 3) * P + gp] * static_cast<float>(1 << k);
-        v = s < 3 ? sinf(t) : cosf(t);
-      }
-    }
-    act[(is_dir ? ROW_DIR + c : c) * TP + p] = from_f<T>(v);
-  }
-}
-
-template <typename T, bool SIGMA_ONLY>
+template <typename T, bool SIGMA_ONLY, bool STASH>
 __global__ void __launch_bounds__(THREADS, 2)
 fused_nerf_fwd_kernel(const float* __restrict__ x, float* __restrict__ out,
                       const T* __restrict__ wts,
-                      const float* __restrict__ bias, long long P) {
+                      const float* __restrict__ bias, long long P,
+                      T* __restrict__ stash) {
   extern __shared__ __align__(16) unsigned char smem[];
-  T* act = reinterpret_cast<T*>(smem);
-  T* ws = act + ROWS * TP;
-  float* sig = reinterpret_cast<float*>(ws + Cfg<T>::KC * W);
-  float* rgb = sig + TP;  // 3 rows of TP
+  constexpr int SC = SIGMA_ONLY ? SC_SIGMA : SC_RGB;
   const long long p0 = 1LL * blockIdx.x * TP;
-  const int tid = threadIdx.x;
-
-  embed<T>(x, P, p0, act, !SIGMA_ONLY);
-  // layer 0 reads xyz_emb; the skip layer reads [xyz_emb | h] (rows 0..318)
-  dense<T, 2>(wts, bias, CX, act, 0, ROW_H, ws, true);
-  for (int i = 1; i < D; ++i)
-    dense<T, 2>(wts + layer_off(i), bias + i * W, i == SKIP ? W + CX : W,
-                act, i == SKIP ? 0 : ROW_H, ROW_H, ws, true);
-
-  if (tid < TP) {  // sigma head: one thread per point
-    float s = 0.0f;
-    for (int k = 0; k < W; ++k)
-      s = fmaf(to_f(act[(ROW_H + k) * TP + tid]), to_f(wts[OFF_SIG + k]), s);
-    sig[tid] = s + bias[BOFF_SIG];
-  }
-  if (!SIGMA_ONLY) {
-    // fin overwrites h (after dense's barrier: the sigma head has read it)
-    dense<T, 2>(wts + OFF_FIN, bias + BOFF_FIN, W, act, ROW_H, ROW_H, ws,
-                false);
-    // dir head reads [fin | dir_emb] = rows ROW_H .. ROW_H + W + CD
-    dense<T, 1>(wts + OFF_DIR, bias + BOFF_DIR, W + CD, act, ROW_H, ROW_H,
-                ws, true);
-    if (tid < 3 * TP) {  // rgb head: one thread per (channel, point)
-      const int c = tid / TP, p = tid - c * TP;
-      float v = 0.0f;
-      for (int k = 0; k < WH; ++k)
-        v = fmaf(to_f(act[(ROW_H + k) * TP + p]),
-                 to_f(wts[OFF_RGB + 3 * k + c]), v);
-      v += bias[BOFF_RGB + c];
-      rgb[c * TP + p] = 1.0f / (1.0f + expf(-v));
-    }
-  }
-  __syncthreads();
-  for (int i = tid; i < 8 * TP; i += THREADS) {
-    const int r = i / TP, p = i - r * TP;
-    const long long gp = p0 + p;
-    if (gp >= P) continue;
-    float v = 0.0f;
-    if (SIGMA_ONLY) {
-      if (r == 0) v = sig[p];
-    } else if (r < 3) {
-      v = rgb[r * TP + p];
-    } else if (r == 3) {
-      v = sig[p];
-    }
-    out[r * P + gp] = v;
-  }
+  forward_tile<T, SIGMA_ONLY, STASH>(x, out, wts, bias, P, p0, smem,
+                                     STASH ? stash + p0 * SC : nullptr);
 }
 
-template <typename T, bool SIGMA_ONLY>
+template <typename T, bool SIGMA_ONLY, bool STASH>
 int launch(const void* x, void* out, const void* w, const void* b,
-           long long P, cudaStream_t stream) {
-  auto kernel = fused_nerf_fwd_kernel<T, SIGMA_ONLY>;
+           long long P, void* stash, cudaStream_t stream) {
+  auto kernel = fused_nerf_fwd_kernel<T, SIGMA_ONLY, STASH>;
   constexpr size_t smem = smem_bytes<T>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -279,8 +77,21 @@ int launch(const void* x, void* out, const void* w, const void* b,
   const long long grid = (P + TP - 1) / TP;
   kernel<<<static_cast<unsigned>(grid), THREADS, smem, stream>>>(
       static_cast<const float*>(x), static_cast<float*>(out),
-      static_cast<const T*>(w), static_cast<const float*>(b), P);
+      static_cast<const T*>(w), static_cast<const float*>(b), P,
+      static_cast<T*>(stash));
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool STASH>
+int dispatch(const void* x, void* out, const void* w, const void* b,
+             long long P, int sigma_only, int bf16, void* stash,
+             cudaStream_t s) {
+  if (bf16)
+    return sigma_only
+               ? launch<__nv_bfloat16, true, STASH>(x, out, w, b, P, stash, s)
+               : launch<__nv_bfloat16, false, STASH>(x, out, w, b, P, stash, s);
+  return sigma_only ? launch<float, true, STASH>(x, out, w, b, P, stash, s)
+                    : launch<float, false, STASH>(x, out, w, b, P, stash, s);
 }
 
 }  // namespace
@@ -294,17 +105,25 @@ const char* cuda_error_string(int err) {
 long long nerf_fused_weight_count() { return N_WEIGHTS; }
 long long nerf_fused_bias_count() { return N_BIASES; }
 int nerf_fused_points_per_cta() { return TP; }
+int nerf_fused_stash_cols(int sigma_only) {
+  return sigma_only ? SC_SIGMA : SC_RGB;
+}
 
-// x (8, P) f32 -> out (8, P) f32; w: N_WEIGHTS elements of bf16 (bf16 = 1)
-// or f32, b: N_BIASES f32; all contiguous on the stream's device.
+// Kernel C.  x (8, P) f32 -> out (8, P) f32; w: N_WEIGHTS elements of bf16
+// (bf16 = 1) or f32, b: N_BIASES f32; all contiguous on the stream's device.
 int nerf_fused_fwd(const void* x, void* out, const void* w, const void* b,
                    long long P, int sigma_only, int bf16, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return sigma_only ? launch<__nv_bfloat16, true>(x, out, w, b, P, s)
-                      : launch<__nv_bfloat16, false>(x, out, w, b, P, s);
-  return sigma_only ? launch<float, true>(x, out, w, b, P, s)
-                    : launch<float, false>(x, out, w, b, P, s);
+  return dispatch<false>(x, out, w, b, P, sigma_only, bf16, nullptr,
+                         static_cast<cudaStream_t>(stream));
+}
+
+// Kernel D.  As C, and stash (P, nerf_fused_stash_cols(sigma_only)) in the
+// weight type.
+int nerf_fused_stash_fwd(const void* x, void* out, const void* w,
+                         const void* b, long long P, int sigma_only, int bf16,
+                         void* stash, void* stream) {
+  return dispatch<true>(x, out, w, b, P, sigma_only, bf16, stash,
+                        static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

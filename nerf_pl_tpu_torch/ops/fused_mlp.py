@@ -1,16 +1,29 @@
-"""The fused NeRF MLP forward on channel-major input
+"""The fused NeRF MLP on channel-major input, with its backward
 (``nerf_pl_tpu/ops/fused_mlp.py::fused_nerf_apply_raw_t``).
 
 ``fused_nerf_apply_raw_t(model, x_rawT)`` takes ``(8, P)`` float32 rows
 ``[xyz(3) | dir(3) | 0 0]`` and returns ``(8, P)`` float32: rows
 ``[rgb(3) | sigma | 0 x 4]``, or sigma in row 0 and zeros below when
 ``sigma_only``.  The positional encoding (10 xyz / 4 dir frequencies) runs
-inside the kernel.
+inside the kernels.
 
-Dispatch follows the input's device: a CUDA tensor launches kernel C
-(``csrc/fused_mlp.cu``), a CPU tensor runs ``fused_nerf_apply_raw_t_plain``
-(``posenc`` + ``NeRF.forward`` on the raw layout, same rounding).  Only the
-forward exists on the card: parameters that require grad raise there.
+Kernels (``csrc/fused_mlp.cu``, ``csrc/fused_mlp_bwd.cu``):
+  * C — the forward;
+  * D — the forward that also writes the activation stash ``(P, 2432)``
+    (sigma-only ``(P, 2048)``) in the compute dtype: h1..h8, fin, d;
+  * E — the backward that reads D's stash;
+  * F — the backward that recomputes the forward instead.
+With grad enabled and trainable parameters, the call is a
+``torch.autograd.Function`` whose forward is D and backward E, or C and F
+past ``STASH_MAX_POINTS`` points or with ``stash_blocks=None``
+(``_auto_stash_blocks``, fused_mlp.py:1267-1272).  Weight grads are rounded
+to the compute dtype and bias grads are not, as ``_fused_raw_t_bwd_rule``
+casts each packed grad to its packed dtype.  The input gets no gradient:
+rays are data.
+
+Dispatch follows the input's device: a CUDA tensor launches the kernels or
+raises, a CPU tensor runs their plain PyTorch versions, which repeat the
+kernels' rounding step by step (``_bwd_core``, fused_mlp.py:209-289).
 """
 from __future__ import annotations
 
@@ -22,14 +35,23 @@ from ..models.embedding import posenc
 from ..models.nerf import NeRF
 from . import native
 
-# the reference architecture the kernel is written for (models/nerf.py)
+# the reference architecture the kernels are written for (models/nerf.py)
 D, W, CX, CD, WH, SKIP = 8, 256, 63, 27, 128, 4
 XYZ_FREQS, DIR_FREQS = 10, 4
 RAW_COLS = OUT_COLS = 8
+# activation stash columns (fused_mlp.py:699-700): h1..h8, then fin and d
+STASH_FIN, STASH_D = D * W, D * W + W
+STASH_COLS_RGB, STASH_COLS_SIGMA = STASH_D + WH, D * W
+# past this point count "auto" takes the remat backward (fused_mlp.py:1264).
+# The number was chosen on the TPU for a 16 GB chip; the TPU's stash and
+# backward block sizes mean nothing to the CUDA kernels.
+STASH_MAX_POINTS = 2_000_000
+# the backward's point chunk and the split of its weight-grad sums
+BWD_CHUNK, BWD_SPLIT = 262_144, 32
 
 
 def supports_fused(model) -> bool:
-    """The kernel is specialised to the reference architecture."""
+    """The kernels are specialised to the reference architecture."""
     if not isinstance(model, NeRF):
         return False
     layers = model.xyz_layers
@@ -43,29 +65,154 @@ def supports_fused(model) -> bool:
     )
 
 
-def _embed_raw_t(x_rawT: torch.Tensor, sigma_only: bool) -> torch.Tensor:
-    xyz = x_rawT[0:3].T
-    x = posenc(xyz, XYZ_FREQS)
+def dense_layers(model: NeRF) -> list:
+    """The packing order: W_0..W_7, sigma, xyz_final, dir_layer, rgb."""
+    return list(model.xyz_layers) + [model.sigma, model.xyz_final,
+                                     model.dir_layer, model.rgb]
+
+
+def stash_cols(sigma_only: bool) -> int:
+    return STASH_COLS_SIGMA if sigma_only else STASH_COLS_RGB
+
+
+# ------------------------------------------------------------ plain versions
+def _forward_plain(model: NeRF, x_rawT: torch.Tensor, sigma_only: bool,
+                   compute_dtype, keep_acts: bool = True) -> dict:
+    """``_fwd_body`` (fused_mlp.py:155-181) on the raw layout: each layer's
+    input and weight rounded to ``compute_dtype``, f32 products and sums,
+    f32 bias, ReLU and sigmoid.  Activations are returned in f32 (the trunk's
+    only with ``keep_acts``)."""
+    xe = posenc(x_rawT[0:3].T.float(), XYZ_FREQS)
+    h, acts = xe, [xe]
+    for i, layer in enumerate(model.xyz_layers):
+        if i == SKIP:
+            h = torch.cat([xe, h], dim=-1)
+        h = torch.relu(layer(h, compute_dtype))
+        if keep_acts:
+            acts.append(h)
+    res = {"xe": xe, "acts": acts, "sigma": model.sigma(h, compute_dtype)[:, 0]}
     if not sigma_only:
-        x = torch.cat([x, posenc(x_rawT[3:6].T, DIR_FREQS)], dim=-1)
-    return x
+        de = posenc(x_rawT[3:6].T.float(), DIR_FREQS)
+        fin = model.xyz_final(h, compute_dtype)
+        d = torch.relu(model.dir_layer(torch.cat([fin, de], -1), compute_dtype))
+        res.update(de=de, fin=fin, d=d,
+                   rgb=torch.sigmoid(model.rgb(d, compute_dtype)))
+    return res
+
+
+def _out_rows(f: dict, sigma_only: bool) -> torch.Tensor:
+    sigma = f["sigma"]
+    res = torch.zeros((OUT_COLS, sigma.shape[0]), dtype=torch.float32,
+                      device=sigma.device)
+    if sigma_only:
+        res[0] = sigma
+    else:
+        res[:3] = f["rgb"].T
+        res[3] = sigma
+    return res
 
 
 def fused_nerf_apply_raw_t_plain(model: NeRF, x_rawT: torch.Tensor,
                                  sigma_only: bool = False,
                                  compute_dtype=torch.bfloat16) -> torch.Tensor:
-    """Plain PyTorch version of kernel C on any device: ``posenc`` plus
-    ``NeRF.forward`` with operands rounded to ``compute_dtype`` and f32
-    products and sums."""
-    out = model(_embed_raw_t(x_rawT.float(), sigma_only), sigma_only,
-                compute_dtype)
-    res = torch.zeros((OUT_COLS, x_rawT.shape[1]), dtype=torch.float32,
-                      device=x_rawT.device)
-    if sigma_only:
-        res[0] = out[:, 0]
+    """Plain PyTorch version of kernel C on any device."""
+    with torch.no_grad():
+        return _out_rows(_forward_plain(model, x_rawT, sigma_only,
+                                        compute_dtype, keep_acts=False),
+                         sigma_only)
+
+
+def fused_nerf_stash_fwd_plain(model: NeRF, x_rawT: torch.Tensor,
+                               sigma_only: bool = False,
+                               compute_dtype=torch.bfloat16):
+    """Plain PyTorch version of kernel D: ``(out (8, P), stash (P, SC))``,
+    the stash holding each activation rounded to ``compute_dtype``."""
+    with torch.no_grad():
+        f = _forward_plain(model, x_rawT, sigma_only, compute_dtype)
+        pieces = f["acts"][1:] + ([] if sigma_only else [f["fin"], f["d"]])
+        stash = torch.cat([a.to(compute_dtype) for a in pieces], dim=1)
+        return _out_rows(f, sigma_only), stash
+
+
+def fused_nerf_bwd_plain(model: NeRF, x_rawT: torch.Tensor, g: torch.Tensor,
+                         sigma_only: bool = False,
+                         compute_dtype=torch.bfloat16, stash=None):
+    """Plain PyTorch version of kernels E (with ``stash``) and F (without):
+    the packed f32 weight and bias grads ``(dw, db)`` for the cotangent
+    ``g (8, P)``, step for step as ``_bwd_core``.  E reads the activations,
+    fin and d from the stash and recomputes rgb from the stashed d; F
+    recomputes the forward in f32 (the wgrad operands round either way)."""
+    with torch.no_grad():
+        return _bwd_plain(model, x_rawT, g, sigma_only, compute_dtype, stash)
+
+
+def _bwd_plain(model, x_rawT, g, sigma_only, cdt, stash):
+    def r(t):  # an operand rounded to the compute dtype, held in f32
+        return t.to(cdt).float()
+
+    def wgrad(a, gp):
+        return r(a).T @ r(gp)
+
+    dense = dense_layers(model)
+    f = _forward_plain(model, x_rawT, sigma_only, cdt)
+    xe = f["xe"]
+    if stash is None:
+        act = f["acts"].__getitem__
+        fin, d, rgb = f.get("fin"), f.get("d"), f.get("rgb")
     else:
-        res[:4] = out.T
-    return res
+        s = stash.float()
+
+        def act(i):
+            return xe if i == 0 else s[:, (i - 1) * W:i * W]
+
+        if not sigma_only:
+            fin, d = s[:, STASH_FIN:STASH_D], s[:, STASH_D:STASH_COLS_RGB]
+            rgb = torch.sigmoid(model.rgb(d, cdt))
+    gw = [torch.zeros_like(m.w, dtype=torch.float32) for m in dense]
+    gb = [torch.zeros_like(m.b, dtype=torch.float32) for m in dense]
+    g = g.float()
+    h8 = act(D)
+    sig, fin_l, dir_l, rgb_l = dense[D:]
+    if sigma_only:
+        g_sigma = g[0][:, None]
+        g_h = r(g_sigma) @ r(sig.w).T
+    else:
+        g_sigma = g[3][:, None]
+        g_rgbpre = g[:3].T * rgb * (1.0 - rgb)
+        gw[D + 3], gb[D + 3] = wgrad(d, g_rgbpre), g_rgbpre.sum(0)
+        g_dpre = (r(g_rgbpre) @ r(rgb_l.w).T) * (d > 0)
+        din = torch.cat([fin, f["de"]], dim=1)
+        gw[D + 2], gb[D + 2] = wgrad(din, g_dpre), g_dpre.sum(0)
+        g_fin = (r(g_dpre) @ r(dir_l.w).T)[:, :W]
+        gw[D + 1], gb[D + 1] = wgrad(h8, g_fin), g_fin.sum(0)
+        g_h = r(g_fin) @ r(fin_l.w).T + r(g_sigma) @ r(sig.w).T
+    gw[D], gb[D] = wgrad(h8, g_sigma), g_sigma.sum(0)
+    for i in range(D - 1, -1, -1):
+        g_pre = g_h * (act(i + 1) > 0)
+        a_in = torch.cat([xe, act(i)], dim=1) if i == SKIP else act(i)
+        gw[i], gb[i] = wgrad(a_in, g_pre), g_pre.sum(0)
+        if i > 0:
+            g_in = r(g_pre) @ r(dense[i].w).T
+            g_h = g_in[:, CX:] if i == SKIP else g_in
+    return (torch.cat([t.reshape(-1) for t in gw]),
+            torch.cat([t.reshape(-1) for t in gb]))
+
+
+# ------------------------------------------------------------------ packing
+def _param_key(model, compute_dtype):
+    return (compute_dtype,
+            tuple((p.data_ptr(), p._version) for p in model.parameters()))
+
+
+def _cached(model, attr, compute_dtype, build):
+    key = _param_key(model, compute_dtype)
+    cached = getattr(model, attr, None)
+    if cached is not None and cached[0] == key:
+        return cached[1]
+    with torch.no_grad():
+        packed = build()
+    setattr(model, attr, (key, packed))
+    return packed
 
 
 def pack_weights(model: NeRF, compute_dtype):
@@ -73,64 +220,113 @@ def pack_weights(model: NeRF, compute_dtype):
     order W_0..W_7, Wsig, Wfin, Wdir, Wrgb (each ``(fan_in, fan_out)``
     row-major), all biases as one f32 buffer in the same order.  Cached on
     the module until a parameter is replaced or changed in place."""
-    params = list(model.parameters())
-    key = (compute_dtype, tuple((p.data_ptr(), p._version) for p in params))
-    cached = getattr(model, "_fused_pack", None)
-    if cached is not None and cached[0] == key:
-        return cached[1]
-    dense = list(model.xyz_layers) + [model.sigma, model.xyz_final,
-                                      model.dir_layer, model.rgb]
-    with torch.no_grad():
+    def build():
+        dense = dense_layers(model)
         wbuf = torch.cat([m.w.reshape(-1) for m in dense]).to(compute_dtype)
         bbuf = torch.cat([m.b.reshape(-1) for m in dense]).float()
-    packed = (wbuf.contiguous(), bbuf.contiguous())
-    model._fused_pack = (key, packed)
-    return packed
+        return wbuf.contiguous(), bbuf.contiguous()
+
+    return _cached(model, "_fused_pack", compute_dtype, build)
 
 
+def pack_weights_t(model: NeRF, compute_dtype) -> torch.Tensor:
+    """The backward's dgrad operands in ``compute_dtype``: the h rows of
+    W_1..W_7 transposed (256 x 256 each), Wfin transposed, and the fin rows
+    of Wdir transposed (128 x 256).  Cached like ``pack_weights``."""
+    def build():
+        blocks = [model.xyz_layers[i].w[-W:].T for i in range(1, D)]
+        blocks += [model.xyz_final.w.T, model.dir_layer.w[:W].T]
+        return torch.cat([b.reshape(-1) for b in blocks]).to(
+            compute_dtype).contiguous()
+
+    return _cached(model, "_fused_pack_t", compute_dtype, build)
+
+
+def unpack_grads(model: NeRF, dw: torch.Tensor, db: torch.Tensor,
+                 compute_dtype) -> list:
+    """Packed f32 grads -> ``[gW_0, gb_0, ..., gW_rgb, gb_rgb]`` in
+    ``dense_layers`` order; weight grads rounded to ``compute_dtype``."""
+    out, wo, bo = [], 0, 0
+    for m in dense_layers(model):
+        nw, nb = m.w.numel(), m.b.numel()
+        out.append(dw[wo:wo + nw].to(compute_dtype).float().view_as(m.w))
+        out.append(db[bo:bo + nb].view_as(m.b))
+        wo, bo = wo + nw, bo + nb
+    return out
+
+
+# ------------------------------------------------------------ CUDA kernels
 def _lib():
     lib = native.load("fused_mlp")
     if not getattr(lib, "_typed", False):
-        p = ctypes.c_void_p
-        lib.nerf_fused_fwd.argtypes = [p, p, p, p, ctypes.c_longlong,
-                                       ctypes.c_int, ctypes.c_int, p]
-        lib.nerf_fused_fwd.restype = ctypes.c_int
-        lib.nerf_fused_weight_count.restype = ctypes.c_longlong
-        lib.nerf_fused_bias_count.restype = ctypes.c_longlong
+        p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        lib.nerf_fused_fwd.argtypes = [p, p, p, p, ll, i, i, p]
+        lib.nerf_fused_fwd.restype = i
+        lib.nerf_fused_stash_fwd.argtypes = [p, p, p, p, ll, i, i, p, p]
+        lib.nerf_fused_stash_fwd.restype = i
+        lib.nerf_fused_stash_cols.argtypes = [i]
+        lib.nerf_fused_stash_cols.restype = i
+        lib.nerf_fused_weight_count.restype = ll
+        lib.nerf_fused_bias_count.restype = ll
         lib._typed = True
     return lib
+
+
+def _bwd_lib():
+    lib = native.load("fused_mlp_bwd")
+    if not getattr(lib, "_typed", False):
+        p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        lib.nerf_fused_bwd.argtypes = [p, p, p, p, p, ll, i, i, i, p, p, p,
+                                       p, p, p, p, ll, i, p]
+        lib.nerf_fused_bwd.restype = i
+        for name in ("nerf_bwd_weight_count", "nerf_bwd_bias_count",
+                     "nerf_bwd_transposed_count"):
+            getattr(lib, name).restype = ll
+        for name in ("nerf_bwd_g_cols", "nerf_bwd_points_per_cta",
+                     "nerf_bwd_bias_rows_per_group"):
+            getattr(lib, name).restype = i
+        lib._typed = True
+    return lib
+
+
+def _check_raw(t: torch.Tensor, name: str, rows: int = RAW_COLS) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if t.dim() != 2 or t.shape[0] != rows:
+        raise ValueError(f"{name} must be ({rows}, P), got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _operands(model: NeRF, x_rawT: torch.Tensor, compute_dtype):
+    """Checks shared by every kernel's wrapper; the packed weights."""
+    _check_raw(x_rawT, "x_rawT")
+    if compute_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"compute_dtype must be bfloat16 or float32, got "
+                        f"{compute_dtype}")
+    if not supports_fused(model):
+        raise ValueError("the fused kernels need the reference architecture")
+    wbuf, bbuf = pack_weights(model, compute_dtype)
+    if wbuf.device != x_rawT.device:
+        raise ValueError(f"weights on {wbuf.device}, input on {x_rawT.device}")
+    return wbuf, bbuf
+
+
+def _check_counts(lib, wbuf, bbuf, prefix):
+    if (wbuf.numel() != getattr(lib, f"{prefix}_weight_count")()
+            or bbuf.numel() != getattr(lib, f"{prefix}_bias_count")()):
+        raise ValueError("packed weights do not match the kernel's layout")
 
 
 def fused_nerf_apply_raw_t_cuda(model: NeRF, x_rawT: torch.Tensor,
                                 sigma_only: bool = False,
                                 compute_dtype=torch.bfloat16) -> torch.Tensor:
-    """Kernel C on the card (forward only)."""
-    if torch.is_grad_enabled() and any(p.requires_grad
-                                       for p in model.parameters()):
-        raise NotImplementedError(
-            "the fused MLP backward is not ported yet (port slice 2: the "
-            "training step); run under torch.no_grad()/inference_mode()")
-    if x_rawT.device.type != "cuda":
-        raise ValueError(f"x_rawT must be a CUDA tensor, got {x_rawT.device}")
-    if x_rawT.dtype != torch.float32:
-        raise TypeError(f"x_rawT must be float32, got {x_rawT.dtype}")
-    if x_rawT.dim() != 2 or x_rawT.shape[0] != RAW_COLS:
-        raise ValueError(f"x_rawT must be ({RAW_COLS}, P), got "
-                         f"{tuple(x_rawT.shape)}")
-    if not x_rawT.is_contiguous():
-        raise ValueError("x_rawT must be contiguous")
-    if compute_dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"compute_dtype must be bfloat16 or float32, got "
-                        f"{compute_dtype}")
-    if not supports_fused(model):
-        raise ValueError("the fused kernel needs the reference architecture")
-    wbuf, bbuf = pack_weights(model, compute_dtype)
-    if wbuf.device != x_rawT.device:
-        raise ValueError(f"weights on {wbuf.device}, input on {x_rawT.device}")
+    """Kernel C on the card: the forward, no stash."""
+    wbuf, bbuf = _operands(model, x_rawT, compute_dtype)
     lib = _lib()
-    if (wbuf.numel() != lib.nerf_fused_weight_count()
-            or bbuf.numel() != lib.nerf_fused_bias_count()):
-        raise ValueError("packed weights do not match the kernel's layout")
+    _check_counts(lib, wbuf, bbuf, "nerf_fused")
     P = x_rawT.shape[1]
     out = torch.empty((OUT_COLS, P), dtype=torch.float32, device=x_rawT.device)
     if P == 0:
@@ -148,15 +344,178 @@ def fused_nerf_apply_raw_t_cuda(model: NeRF, x_rawT: torch.Tensor,
 fused_nerf_apply_raw_t_cuda.launches = 0
 
 
+def fused_nerf_stash_fwd_cuda(model: NeRF, x_rawT: torch.Tensor,
+                              sigma_only: bool = False,
+                              compute_dtype=torch.bfloat16):
+    """Kernel D on the card: ``(out (8, P), stash (P, SC))``."""
+    wbuf, bbuf = _operands(model, x_rawT, compute_dtype)
+    lib = _lib()
+    _check_counts(lib, wbuf, bbuf, "nerf_fused")
+    P = x_rawT.shape[1]
+    sc = stash_cols(sigma_only)
+    if lib.nerf_fused_stash_cols(int(sigma_only)) != sc:
+        raise ValueError("the stash layout does not match the kernel's")
+    dev = x_rawT.device
+    out = torch.empty((OUT_COLS, P), dtype=torch.float32, device=dev)
+    stash = torch.empty((P, sc), dtype=compute_dtype, device=dev)
+    if P == 0:
+        return out, stash
+    with torch.cuda.device(dev):
+        err = lib.nerf_fused_stash_fwd(
+            x_rawT.data_ptr(), out.data_ptr(), wbuf.data_ptr(), bbuf.data_ptr(),
+            P, int(sigma_only), int(compute_dtype == torch.bfloat16),
+            stash.data_ptr(), native.stream_of(x_rawT))
+    native.check(lib, err, "nerf_fused_stash_fwd")
+    fused_nerf_stash_fwd_cuda.launches += 1
+    return out, stash
+
+
+fused_nerf_stash_fwd_cuda.launches = 0
+
+
+def _bwd_cuda(model, x_rawT, g, sigma_only, compute_dtype, stash, chunk):
+    wbuf, bbuf = _operands(model, x_rawT, compute_dtype)
+    _check_raw(g, "g")
+    P = x_rawT.shape[1]
+    if g.shape[1] != P:
+        raise ValueError(f"g has {g.shape[1]} points, x_rawT {P}")
+    sc = stash_cols(sigma_only)
+    if stash is not None and (stash.shape != (P, sc)
+                              or stash.dtype != compute_dtype
+                              or stash.device != x_rawT.device
+                              or not stash.is_contiguous()):
+        raise ValueError(f"stash must be a contiguous ({P}, {sc}) "
+                         f"{compute_dtype} tensor on {x_rawT.device}")
+    if chunk < 1:
+        raise ValueError(f"chunk must be positive, got {chunk}")
+    wt = pack_weights_t(model, compute_dtype)
+    lib = _bwd_lib()
+    _check_counts(lib, wbuf, bbuf, "nerf_bwd")
+    if wt.numel() != lib.nerf_bwd_transposed_count():
+        raise ValueError("transposed weights do not match the kernel's layout")
+    dev = x_rawT.device
+    dw = torch.zeros(wbuf.numel(), dtype=torch.float32, device=dev)
+    db = torch.zeros(bbuf.numel(), dtype=torch.float32, device=dev)
+    if P == 0:
+        return dw, db
+    chunk = min(chunk, P)
+    tp, rpg = lib.nerf_bwd_points_per_cta(), lib.nerf_bwd_bias_rows_per_group()
+    tiles = -(-chunk // tp)
+    gbuf = torch.empty((chunk, lib.nerf_bwd_g_cols()), dtype=compute_dtype,
+                       device=dev)
+    wpart = torch.zeros((BWD_SPLIT, wbuf.numel()), dtype=torch.float32,
+                        device=dev)
+    bpart = torch.empty((tiles, bbuf.numel()), dtype=torch.float32, device=dev)
+    btmp = torch.empty((-(-tiles // rpg), bbuf.numel()), dtype=torch.float32,
+                       device=dev)
+    if stash is None:  # F: the forward is recomputed into a chunk scratch
+        stash = torch.empty((chunk, sc), dtype=compute_dtype, device=dev)
+        remat = 1
+    else:
+        remat = 0
+    with torch.cuda.device(dev):
+        err = lib.nerf_fused_bwd(
+            x_rawT.data_ptr(), g.data_ptr(), wbuf.data_ptr(), bbuf.data_ptr(),
+            wt.data_ptr(), P, int(sigma_only),
+            int(compute_dtype == torch.bfloat16), remat, stash.data_ptr(),
+            gbuf.data_ptr(), wpart.data_ptr(), bpart.data_ptr(),
+            btmp.data_ptr(), dw.data_ptr(), db.data_ptr(), chunk, BWD_SPLIT,
+            native.stream_of(x_rawT))
+    native.check(lib, err, "nerf_fused_bwd")
+    return dw, db
+
+
+def fused_nerf_bwd_stash_cuda(model: NeRF, x_rawT: torch.Tensor,
+                              g: torch.Tensor, stash: torch.Tensor,
+                              sigma_only: bool = False,
+                              compute_dtype=torch.bfloat16,
+                              chunk: int = BWD_CHUNK):
+    """Kernel E on the card: packed f32 ``(dw, db)`` from D's stash."""
+    if stash is None:
+        raise ValueError("kernel E reads a stash; kernel F recomputes")
+    out = _bwd_cuda(model, x_rawT, g, sigma_only, compute_dtype, stash, chunk)
+    fused_nerf_bwd_stash_cuda.launches += 1
+    return out
+
+
+fused_nerf_bwd_stash_cuda.launches = 0
+
+
+def fused_nerf_bwd_remat_cuda(model: NeRF, x_rawT: torch.Tensor,
+                              g: torch.Tensor, sigma_only: bool = False,
+                              compute_dtype=torch.bfloat16,
+                              chunk: int = BWD_CHUNK):
+    """Kernel F on the card: packed f32 ``(dw, db)``, forward recomputed."""
+    out = _bwd_cuda(model, x_rawT, g, sigma_only, compute_dtype, None, chunk)
+    fused_nerf_bwd_remat_cuda.launches += 1
+    return out
+
+
+fused_nerf_bwd_remat_cuda.launches = 0
+
+
+# ------------------------------------------------------------------ autograd
+class _FusedRawT(torch.autograd.Function):
+    """Forward D (``use_stash``) or C; backward E or F.  Inputs: ``x_rawT``,
+    then the parameters in ``dense_layers`` order (w, b per layer)."""
+
+    @staticmethod
+    def forward(ctx, x_rawT, model, sigma_only, compute_dtype, use_stash,
+                *params):
+        cuda = x_rawT.device.type == "cuda"
+        if use_stash:
+            fwd = fused_nerf_stash_fwd_cuda if cuda else fused_nerf_stash_fwd_plain
+            out, stash = fwd(model, x_rawT, sigma_only, compute_dtype)
+            ctx.save_for_backward(x_rawT, stash)
+        else:
+            fwd = fused_nerf_apply_raw_t_cuda if cuda else fused_nerf_apply_raw_t_plain
+            out = fwd(model, x_rawT, sigma_only, compute_dtype)
+            ctx.save_for_backward(x_rawT)
+        ctx.model, ctx.sigma_only, ctx.compute_dtype = (model, sigma_only,
+                                                        compute_dtype)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x_rawT, *rest = ctx.saved_tensors
+        stash = rest[0] if rest else None
+        model, sigma_only, cdt = ctx.model, ctx.sigma_only, ctx.compute_dtype
+        g = g.float().contiguous()
+        if x_rawT.device.type == "cuda":
+            if stash is not None:
+                dw, db = fused_nerf_bwd_stash_cuda(model, x_rawT, g, stash,
+                                                   sigma_only, cdt)
+            else:
+                dw, db = fused_nerf_bwd_remat_cuda(model, x_rawT, g,
+                                                   sigma_only, cdt)
+        else:
+            dw, db = fused_nerf_bwd_plain(model, x_rawT, g, sigma_only, cdt,
+                                          stash)
+        return (None, None, None, None, None,
+                *unpack_grads(model, dw, db, cdt))
+
+
 def fused_nerf_apply_raw_t(model: NeRF, x_rawT: torch.Tensor,
                            sigma_only: bool = False,
-                           compute_dtype=torch.bfloat16) -> torch.Tensor:
-    """Channel-major fused MLP: (8, P) in -> (8, P) out.  Kernel C for a
-    CUDA tensor, the plain version for a CPU tensor."""
-    if x_rawT.device.type == "cuda":
+                           compute_dtype=torch.bfloat16,
+                           stash_blocks="auto") -> torch.Tensor:
+    """Channel-major fused MLP: (8, P) in -> (8, P) out.  Kernels on a CUDA
+    tensor, their plain versions on a CPU tensor.  ``stash_blocks`` picks
+    the backward as in JAX: ``"auto"`` the stash (D then E) up to
+    ``STASH_MAX_POINTS`` points, ``None`` the remat (C then F); any other
+    value (the TPU's block sizes) the stash."""
+    if x_rawT.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no fused MLP for device {x_rawT.device}")
+    cuda = x_rawT.device.type == "cuda"
+    params = [t for m in dense_layers(model) for t in (m.w, m.b)]
+    if torch.is_grad_enabled() and any(p.requires_grad for p in params):
+        P = x_rawT.shape[1]
+        use_stash = stash_blocks is not None and (
+            stash_blocks != "auto" or P <= STASH_MAX_POINTS)
+        return _FusedRawT.apply(x_rawT, model, sigma_only, compute_dtype,
+                                use_stash, *params)
+    if cuda:
         return fused_nerf_apply_raw_t_cuda(model, x_rawT, sigma_only,
                                            compute_dtype)
-    if x_rawT.device.type == "cpu":
-        return fused_nerf_apply_raw_t_plain(model, x_rawT, sigma_only,
-                                            compute_dtype)
-    raise ValueError(f"no fused MLP for device {x_rawT.device}")
+    return fused_nerf_apply_raw_t_plain(model, x_rawT, sigma_only,
+                                        compute_dtype)

@@ -13,12 +13,15 @@ JAX keys ``perturb_rand``, ``noise_coarse``, ``u``, ``jitter`` and
 ``noise_fine``, so tests can feed both packages the same numbers.
 ``generator=None`` is allowed only when every draw is deterministic or
 injected.  The fine z-samples are detached where the reference detaches.
+``remat_fine`` recomputes the fine pass in the backward
+(``torch.utils.checkpoint``).
 """
 from __future__ import annotations
 
 from typing import Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..models.embedding import posenc
 from .compositing import composite, compute_weights
@@ -90,6 +93,7 @@ def render_rays(
     use_fused: bool = False,
     fused_channel_io: bool = False,
     fused_wide_infer: bool = False,
+    remat_fine: bool = False,
     overrides: Optional[Dict[str, torch.Tensor]] = None,
 ) -> Results:
     """Render a batch of rays coarse(+fine).  See the module docstring."""
@@ -163,9 +167,17 @@ def render_rays(
         z_fine = z_fine.detach()
         z_all = torch.sort(torch.cat([z_vals, z_fine], dim=-1), dim=-1).values
         xyz_fine = rays_o[:, None, :] + rays_d[:, None, :] * z_all[..., None]
-        sigmas_f, rgbs_f = _query(model_fine, xyz_fine, dirs_for_query,
-                                  xyz_freqs, sigma_mode, compute_dtype,
-                                  use_fused, dir_freqs)
+        def fine_query(model, xyz, dirs):
+            return _query(model, xyz, dirs, xyz_freqs, sigma_mode,
+                          compute_dtype, use_fused, dir_freqs)
+
+        if remat_fine and torch.is_grad_enabled():
+            # recompute the fine MLP in the backward instead of keeping its
+            # activations (rendering.py:268-271 wraps it in jax.checkpoint)
+            sigmas_f, rgbs_f = checkpoint(fine_query, model_fine, xyz_fine,
+                                          dirs_for_query, use_reentrant=False)
+        else:
+            sigmas_f, rgbs_f = fine_query(model_fine, xyz_fine, dirs_for_query)
         weights_fine = compute_weights(sigmas_f, z_all, rays_d, noise_std,
                                        generator=generator,
                                        noise=ov.get("noise_fine"))

@@ -1,1 +1,2 @@
-"""Model loading and the HTTP render server."""
+"""Model loading, the chunked whole-image render and the HTTP render
+server."""

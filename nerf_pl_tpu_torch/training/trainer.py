@@ -1,0 +1,311 @@
+"""The vanilla-NeRF training system (``nerf_pl_tpu/training/trainer.py``;
+reference ``train.py`` NeRFSystem), on one device.
+
+  * The ray and colour buffers are moved to the device once; each epoch
+    draws a permutation from a ``torch.Generator`` seeded by ``cfg.seed``
+    and takes ``n // batch_size`` steps of render -> loss -> backward ->
+    Adam.  The renderer's random draws come from a second generator on the
+    device, seeded from ``cfg.seed`` too.
+  * ``validation`` renders every val image whole (``tools.render``) with the
+    train-time perturb and noise, as the reference's ``validation_step``.
+  * Checkpoints in the JAX package's file format: ``epoch=N.ckpt`` for the
+    top 5 by val loss, ``last.ckpt`` on epochs without validation, and
+    full-state resume (params, optimizer state, epoch) from either trainer's
+    files.  SIGTERM saves ``preempt.ckpt`` at the next step boundary, labelled
+    e-1 when epoch e is incomplete, then lets the signal take its course.
+  * The per-epoch print and the ``metrics.jsonl`` keys are the JAX trainer's.
+
+Checkpoints are written synchronously; the JAX trainer's asynchronous writer,
+one-dispatch val program and epoch pipeline hid a remote-TPU latency that a
+local card does not have.  Flags the port cannot honour yet raise
+``ValueError`` (ROADMAP.md, Queue 1).
+"""
+from __future__ import annotations
+
+import os
+import signal
+import time
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..config import Config
+from ..data import dataset_dict
+from ..models.nerf import init_nerf
+from ..ops.rendering import render_rays
+from ..tools.render import render_image
+from ..utils.visualization import visualize_depth
+from . import checkpoints
+from .logging import RunLogger
+from .losses import loss_dict
+from .metrics import psnr as psnr_metric
+from .optim import get_optimizer, make_lr_schedule, named_params
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def check_supported(cfg: Config) -> None:
+    """Raise on the flags this trainer cannot honour yet."""
+    unsupported = {
+        "--num_devices > 1": (cfg.num_devices or 1) > 1,
+        "--multihost": cfg.multihost,
+        "--per_host_data": cfg.per_host_data,
+        "--data_device_resident false": not cfg.data_device_resident,
+        "--global_reshuffle": cfg.global_reshuffle,
+        f"--dataset_name {cfg.dataset_name}": cfg.dataset_name not in dataset_dict,
+        f"--compute_dtype {cfg.compute_dtype}": cfg.compute_dtype not in _DTYPES,
+        f"--loss_type {cfg.loss_type}": cfg.loss_type != "mse",
+    }
+    bad = [k for k, v in unsupported.items() if v]
+    if bad:
+        raise ValueError(f"not ported yet: {', '.join(bad)} (see ROADMAP.md)")
+
+
+def init_models(cfg: Config, device) -> Dict[str, torch.nn.Module]:
+    """Seeded coarse (and fine) models; torch's generator, so the weights
+    differ from the JAX trainer's for the same seed."""
+    width = getattr(cfg, "arch_width", 256) or 256
+    gen = torch.Generator().manual_seed(cfg.seed)
+    models = {"coarse": init_nerf(gen, W=width, device="cpu")}
+    if cfg.N_importance > 0:
+        models["fine"] = init_nerf(gen, W=width, device="cpu")
+    return {k: m.to(device) for k, m in models.items()}
+
+
+def render_kwargs_from_cfg(cfg: Config, white_back: bool, train: bool) -> dict:
+    return dict(
+        N_samples=cfg.N_samples,
+        use_disp=cfg.use_disp,
+        perturb=cfg.perturb if train else 0.0,
+        noise_std=cfg.noise_std if train else 0.0,
+        N_importance=cfg.N_importance,
+        white_back=white_back,
+        compute_dtype=_DTYPES[cfg.compute_dtype],
+        use_fused=bool(cfg.use_fused_mlp),
+        fused_channel_io=cfg.fused_channel_io,
+        remat_fine=cfg.remat_fine if train else False,
+    )
+
+
+class NeRFSystem:
+    """Vanilla NeRF trainer (reference ``train.py:27-148``)."""
+
+    mode = "rgb"
+
+    def __init__(self, cfg: Config, device=None):
+        check_supported(cfg)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.loss_name = cfg.loss_type
+        self.logger = RunLogger(cfg.log_dir, cfg.exp_name)
+        self.shuffle_gen = torch.Generator().manual_seed(cfg.seed)
+        self.render_gen = torch.Generator(device=self.device).manual_seed(
+            cfg.seed + 1)
+        self._prepare_data()
+        self.rkw = render_kwargs_from_cfg(cfg, self.white_back, train=True)
+        self._build_state()
+        self.ckpt_root = os.path.join(cfg.ckpt_dir, cfg.exp_name)
+        self._topk: list = []  # (val_loss, path)
+        self._preempted = False
+
+    # -- data ---------------------------------------------------------------
+    def _prepare_data(self):
+        cfg = self.cfg
+        ds_cls = dataset_dict[cfg.dataset_name]
+        kwargs = dict(root_dir=cfg.root_dir, img_wh=tuple(cfg.img_wh),
+                      near=cfg.blender_near, far=cfg.blender_far,
+                      white_back=cfg.white_back,
+                      black_and_white=cfg.black_and_white_test)
+        self.train_dataset = ds_cls(split="train", **kwargs)
+        self.val_dataset = ds_cls(split="val", **kwargs)
+        self.white_back = self.train_dataset.white_back
+        self.rays = torch.from_numpy(self.train_dataset.all_rays).to(self.device)
+        self.rgbs = torch.from_numpy(self.train_dataset.all_rgbs).to(self.device)
+
+    # -- state --------------------------------------------------------------
+    def _build_state(self):
+        cfg = self.cfg
+        n = self.rays.shape[0]
+        self.steps_per_epoch = n // cfg.batch_size
+        if self.steps_per_epoch < 1:
+            raise ValueError(
+                f"batch_size {cfg.batch_size} exceeds the {n} training rays; "
+                "the epoch would run zero steps")
+        self.schedule = make_lr_schedule(
+            cfg.lr, cfg.lr_scheduler, self.steps_per_epoch, cfg.num_epochs,
+            cfg.decay_step, cfg.decay_gamma, cfg.poly_exp,
+            cfg.warmup_multiplier, cfg.warmup_epochs, cfg.optimizer)
+        self.models = init_models(cfg, self.device)
+        if cfg.ckpt_path:
+            for name, model in self.models.items():
+                checkpoints.load_ckpt_into(
+                    model, cfg.ckpt_path, model_name=name,
+                    prefixes_to_ignore=cfg.prefixes_to_ignore)
+        self.optimizer = get_optimizer(
+            cfg.optimizer, self.schedule, named_params(self.models),
+            cfg.momentum, cfg.weight_decay, grad_clip=cfg.grad_clip)
+        self.epoch0 = 0
+        if cfg.ckpt_path and cfg.ckpt_path.endswith(".ckpt"):
+            # full-state resume when given a trainer checkpoint; weights-only
+            # exports lack opt_state/epoch and keep the partial restore above
+            raw = checkpoints.load_checkpoint(cfg.ckpt_path)
+            if "opt_state" in raw and "epoch" in raw:
+                for name, model in self.models.items():  # every leaf
+                    checkpoints.load_ckpt_into(model, cfg.ckpt_path, name)
+                self.optimizer.load_state_tree(raw["opt_state"])
+                self.epoch0 = int(raw["epoch"]) + 1
+            else:
+                print(f"[resume] {cfg.ckpt_path} has no trainer state "
+                      "(weights-only artifact): params restored, optimizer "
+                      "fresh, starting at epoch 0", flush=True)
+
+    # -- one step -----------------------------------------------------------
+    def train_step(self, rays: torch.Tensor, rgbs: torch.Tensor):
+        """render -> loss -> backward -> Adam; returns (loss, psnr) tensors."""
+        results = render_rays(self.models["coarse"], self.models.get("fine"),
+                              rays, self.render_gen, mode=self.mode, **self.rkw)
+        loss = loss_dict[self.loss_name](results, rgbs)
+        typ = "fine" if "rgb_fine" in results else "coarse"
+        psnr = psnr_metric(results[f"rgb_{typ}"].detach(), rgbs)
+        self.optimizer.zero_grad()
+        loss.backward()
+        self.optimizer.step()
+        return loss.detach(), psnr
+
+    # -- validation ---------------------------------------------------------
+    def validation(self, epoch: int,
+                   max_images: Optional[int] = None) -> Dict[str, float]:
+        cfg = self.cfg
+        n_img = len(self.val_dataset)
+        if max_images is not None:
+            n_img = min(n_img, max_images)
+        losses, psnrs = [], []
+        for i in range(n_img):
+            sample = self.val_dataset[i]
+            rays = torch.from_numpy(sample["rays"]).to(self.device)
+            rgbs = torch.from_numpy(sample["rgbs"]).to(self.device)
+            results = render_image(self.models, rays, self.render_gen,
+                                   chunk=cfg.chunk, mode=self.mode, **self.rkw)
+            typ = "fine" if "rgb_fine" in results else "coarse"
+            losses.append(float(loss_dict[self.loss_name](results, rgbs)))
+            psnrs.append(float(psnr_metric(results[f"rgb_{typ}"], rgbs)))
+            if i == 0:
+                W, H = cfg.img_wh
+                img = results[f"rgb_{typ}"].float().cpu().numpy()
+                depth = results[f"depth_{typ}"].float().cpu().numpy()
+                stack = np.stack([
+                    sample["rgbs"].reshape(H, W, 3).transpose(2, 0, 1),
+                    img.reshape(H, W, 3).transpose(2, 0, 1),
+                    visualize_depth(depth.reshape(H, W))])
+                self.logger.images(epoch * self.steps_per_epoch,
+                                   "val/GT_pred_depth", stack)
+        return {"val/loss": float(np.mean(losses)),
+                "val/psnr": float(np.mean(psnrs))}
+
+    # -- checkpointing ------------------------------------------------------
+    def save_ckpt(self, epoch: int, val_loss: Optional[float],
+                  filename: Optional[str] = None) -> str:
+        """Write a resumable checkpoint.  ``val_loss=None`` (last.ckpt, the
+        preemption save) is exempt from top-5 pruning."""
+        os.makedirs(self.ckpt_root, exist_ok=True)
+        path = os.path.join(self.ckpt_root, filename or f"epoch={epoch}.ckpt")
+        checkpoints.save_checkpoint(path, {
+            "params": self.models,
+            "opt_state": self.optimizer.state_tree(),
+            "epoch": epoch,
+        })
+        if val_loss is not None:
+            self._topk.append((val_loss, path))
+            self._topk.sort(key=lambda t: t[0])
+            while len(self._topk) > 5:
+                _, worst = self._topk.pop()
+                if os.path.exists(worst):
+                    os.remove(worst)
+        return path
+
+    # -- preemption ---------------------------------------------------------
+    def _install_preemption_handler(self):
+        """SIGTERM sets a flag; the loop saves at the next step boundary, so
+        the saved state is never half an optimizer step."""
+        self._prev_handler = signal.getsignal(signal.SIGTERM)
+
+        def handler(signum, frame):
+            self._preempted = True
+
+        signal.signal(signal.SIGTERM, handler)
+
+    def _preempt_if_asked(self, epoch: int, complete: bool) -> None:
+        if not self._preempted:
+            return
+        self._preempted = False
+        self.save_ckpt(epoch - (0 if complete else 1), None,
+                       filename="preempt.ckpt")
+        self.logger.close()
+        prev = self._prev_handler
+        signal.signal(signal.SIGTERM, prev if prev is not None
+                      else signal.SIG_DFL)
+        if callable(prev):
+            prev(signal.SIGTERM, None)
+        elif prev is not signal.SIG_IGN:
+            signal.raise_signal(signal.SIGTERM)
+
+    # -- main loop ----------------------------------------------------------
+    def fit(self):
+        cfg = self.cfg
+        self._install_preemption_handler()
+        try:
+            if cfg.num_sanity_val_steps > 0:
+                metrics = self.validation(self.epoch0,
+                                          max_images=cfg.num_sanity_val_steps)
+                print(f"[sanity] {metrics}", flush=True)
+            global_step = self.epoch0 * self.steps_per_epoch
+            B = cfg.batch_size
+            for epoch in range(self.epoch0, cfg.num_epochs):
+                t0 = time.time()
+                perm = torch.randperm(self.rays.shape[0],
+                                      generator=self.shuffle_gen)
+                losses, psnrs = [], []
+                for i in range(self.steps_per_epoch):
+                    self._preempt_if_asked(epoch, complete=False)
+                    idx = perm[i * B:(i + 1) * B].to(self.device)
+                    loss, psnr = self.train_step(self.rays[idx], self.rgbs[idx])
+                    losses.append(loss)
+                    psnrs.append(psnr)
+                losses = torch.stack(losses).float().cpu().numpy()
+                psnrs = torch.stack(psnrs).float().cpu().numpy()
+                self._preempt_if_asked(epoch, complete=True)
+                global_step += self.steps_per_epoch
+                self._finish_epoch(epoch, global_step, losses, psnrs,
+                                   time.time() - t0)
+        finally:
+            signal.signal(signal.SIGTERM, self._prev_handler
+                          if self._prev_handler is not None else signal.SIG_DFL)
+            self.logger.close()
+        return self.models
+
+    def _finish_epoch(self, epoch, global_step, losses, psnrs, dt):
+        cfg = self.cfg
+        rays_per_s = self.steps_per_epoch * cfg.batch_size / max(dt, 1e-9)
+        self.logger.scalars(global_step, {
+            "lr": self.schedule(global_step),
+            "train/loss": float(losses.mean()),
+            "train/psnr": float(psnrs.mean()),
+            "train/rays_per_s": rays_per_s,
+        })
+        msg = (f"epoch {epoch}: loss {losses.mean():.5f} "
+               f"psnr {psnrs.mean():.2f} ({rays_per_s:,.0f} rays/s, {dt:.1f}s)")
+        do_val = ((epoch + 1) % cfg.val_every_n_epochs == 0
+                  or epoch == cfg.num_epochs - 1)
+        if do_val:
+            val_metrics = self.validation(epoch)
+            self._preempt_if_asked(epoch, complete=True)
+            self.logger.scalars(global_step, val_metrics)
+            msg += (f" | val loss {val_metrics['val/loss']:.5f} "
+                    f"psnr {val_metrics['val/psnr']:.2f}")
+            self.save_ckpt(epoch, val_metrics["val/loss"])
+        else:
+            # resumability must not depend on the validation cadence
+            self.save_ckpt(epoch, None, filename="last.ckpt")
+        print(msg, flush=True)

@@ -18,6 +18,14 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "msgpack", "PIL", "nerf_pl_tpu")
 def test_port_modules_import_without_jax_flax_msgpack_pil():
     assert "nerf_pl_tpu_torch.tools.serve" in MODULES
     assert "nerf_pl_tpu_torch.ops.native" in MODULES
+    # the training slice, PNG reader included (the card's machine has no PIL)
+    assert {"nerf_pl_tpu_torch.config", "nerf_pl_tpu_torch.train",
+            "nerf_pl_tpu_torch.bench", "nerf_pl_tpu_torch.graft_entry",
+            "nerf_pl_tpu_torch.data.png", "nerf_pl_tpu_torch.data.blender",
+            "nerf_pl_tpu_torch.tools.render", "nerf_pl_tpu_torch.training.trainer",
+            "nerf_pl_tpu_torch.training.optim", "nerf_pl_tpu_torch.training.losses",
+            "nerf_pl_tpu_torch.training.metrics", "nerf_pl_tpu_torch.training.logging",
+            "nerf_pl_tpu_torch.utils.visualization"} <= set(MODULES)
     # -I: no PYTHONPATH or user site, so nothing imported by a site hook
     # is counted against the port
     code = (

@@ -225,9 +225,15 @@ def test_fused_support_and_guards():
     assert not fused_mlp.supports_fused(narrow)
     model = nerf_from_numpy(np_nerf(11), device="cpu")
     x = t(_raw_t(12, 64))
-    # only the forward exists on the card: trainable parameters are refused
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        fused_mlp.fused_nerf_apply_raw_t_cuda(model, x)
+    # every kernel's wrapper takes only CUDA tensors, trainable or not
+    for fn in (fused_mlp.fused_nerf_apply_raw_t_cuda,
+               fused_mlp.fused_nerf_stash_fwd_cuda,
+               fused_mlp.fused_nerf_bwd_remat_cuda):
+        args = (x,) if fn is not fused_mlp.fused_nerf_bwd_remat_cuda else (x, x)
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(model, *args)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_mlp.fused_nerf_bwd_stash_cuda(model, x, x, torch.zeros(64, 2432))
     model.requires_grad_(False)
     with pytest.raises(ValueError, match="CUDA"):
         fused_mlp.fused_nerf_apply_raw_t_cuda(model, x)
