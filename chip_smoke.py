@@ -23,10 +23,12 @@ Phases (any failed check raises, so the script exits non-zero):
    CPU, compared.
 4. The training step: kernels D (stash forward), E (stash backward) and F
    (remat backward) against their plain versions in bf16 and f32, rgb and
-   sigma-only, at a ragged P (F also over five point chunks), and E against
-   F; their times at the training shapes (4,096 rays x 192 and x 64 points,
-   bf16) beside the plain versions, the bounds and a chain of bf16
-   ``torch.matmul`` calls as a yardstick.  Then ``python -m
+   sigma-only, at a P that spans two of the backward's point chunks, the
+   second ragged, and E against F; a control that the bf16 limits must
+   fail; their times at the training shapes (4,096 rays x 192 and x 64
+   points, bf16) beside the plain versions, the bounds and a chain of bf16
+   ``torch.matmul`` calls as a yardstick, and at those shapes the same
+   checks against the plain versions.  Then ``python -m
    nerf_pl_tpu_torch.train`` at full width in bf16 for 2 epochs on a scene
    this script writes (8 views of 100x100, batch 4,096, 64+128 samples):
    losses finite and falling, launch counts of A, C, D and E in the fit
@@ -85,14 +87,17 @@ TOL_F32_RENDER = 1e-2
 TOL_F32_RENDER_MEAN = 1e-3
 # Kernels D, E and F against their plain versions, per tensor, relative to
 # the tensor's largest magnitude (max and mean of |kernel - plain|).  f32:
-# sums in another order only.  bf16: a different sum order can round one
-# value of the stash or of a layer's g_pre to the neighbouring bf16 (2^-8
-# relative), or flip a ReLU mask at a near-zero pre-activation, and the
-# backward carries that down the layers; the weight grads are themselves
-# rounded to bf16 (2^-8).  An H100 (80GB HBM3, 700 W) measured at most
-# 1.9e-3 (max) and 8e-8 (mean); the bounds leave room for a few flips and fail a wrong layer,
-# mask or operand, which moves whole tensors.
-TOL_TRAIN = {torch.bfloat16: (2e-2, 1e-3), torch.float32: (1e-4, 1e-5)}
+# sums in another order only; an H100 (80GB HBM3, 700 W) read at most
+# 5.2e-6 (max) and 1.0e-6 (mean).  bf16: a different sum order can round a
+# layer's g_pre to the neighbouring bf16 and the backward carries that down
+# the layers; the weight grads are themselves rounded to bf16, where one
+# flip at a tensor's largest value moves it by at most 2^-7 = 7.8e-3.  The
+# same H100 read at most 2.7e-3 (max) and 1.0e-6 (mean) at the shapes held
+# here.  The control (``check_control``: the backward in f32 where bf16 is
+# stated, as a kernel that skipped the bf16 rounding would compute) read a
+# worst mean of 1.6e-3 to 2.2e-3 and failed the limits in 17 to 22 of the
+# 24 tensors; the mean limit sits 20x above the sound reading.
+TOL_TRAIN = {torch.bfloat16: (1e-2, 2e-5), torch.float32: (1e-4, 1e-5)}
 # E against F: the stash and F's recompute come from the same forward code,
 # so the two should agree to the last bit; JAX's own test of the stash
 # against the remat backward (tests/test_fused_mlp.py:209) allows rtol 1e-5
@@ -281,101 +286,167 @@ def check_searchsorted(gen, dev) -> dict:
     )
 
 
-def rel_errs(out, ref) -> tuple:
-    """(max, mean) of |out - ref| over max |ref|."""
-    d = (out.double() - ref.double()).abs()
-    scale = max(float(ref.double().abs().max()), 1e-30)
-    return float(d.max()) / scale, float(d.mean()) / scale
+def rel_errs(out, ref, rows: int = 1 << 16) -> tuple:
+    """(max, mean) of |out - ref| over max |ref|, in float64 blocks of
+    ``rows`` rows (a training-shape stash is 1.9e9 values)."""
+    mx = tot = scale = 0.0
+    for a, b in zip(out.split(rows), ref.split(rows)):
+        b = b.double()
+        d = (a.double() - b).abs()
+        mx, tot = max(mx, float(d.max())), tot + float(d.sum())
+        scale = max(scale, float(b.abs().max()))
+    scale = max(scale, 1e-30)
+    return mx / scale, tot / max(out.numel(), 1) / scale
 
 
-def check_grads(label: str, mine: list, ref: list, names: list, tol) -> tuple:
-    """Every parameter grad within ``tol = (max, mean)`` of its reference;
-    returns the worst relative max error and the largest absolute one."""
-    worst, worst_name, worst_mean, worst_abs = 0.0, "", 0.0, 0.0
-    for a, b, name in zip(mine, ref, names):
-        worst_abs = max(worst_abs, max_abs(a, b))
-        if not torch.isfinite(a).all():
-            raise AssertionError(f"{label}: {name} grad not finite")
-        mx, mean = rel_errs(a, b)
-        if not (mx <= tol[0] and mean <= tol[1]):
-            raise AssertionError(f"{label}: {name} grad off by {mx:.3e} "
-                                 f"(mean {mean:.3e}), tol {tol}")
-        if mx >= worst:
-            worst, worst_name, worst_mean = mx, name, mean
-    log(f"[{label}] {len(mine)} grads, worst rel max err {worst:.3e} "
-        f"({worst_name}, mean {worst_mean:.3e}); tol {tol[0]:.0e} max, "
-        f"{tol[1]:.0e} mean; largest abs err {worst_abs:.3e}")
-    return worst, worst_abs
-
-
-def check_train_kernels(model, gen, dev) -> dict:
-    """Kernels D, E and F against their plain versions on the same inputs,
-    in bf16 and f32, rgb and sigma-only, at a ragged P; F also over several
-    point chunks, and E against F."""
+def grad_names(model) -> list:
     from nerf_pl_tpu_torch.ops import fused_mlp as fm
 
-    P = (1 << 16) + 77
-    x = random_raw_t(gen, P, dev)
-    g = torch.randn((8, P), generator=gen).to(dev)
-    names = [f"{n}.{leaf}" for n, m in zip(
+    return [f"{n}.{leaf}" for n, m in zip(
         [f"xyz_layers.{i}" for i in range(8)]
         + ["sigma", "xyz_final", "dir_layer", "rgb"],
         fm.dense_layers(model)) for leaf in ("w", "b")]
-    errs = {"D": 0.0, "E": 0.0, "F": 0.0, "E_vs_F": 0.0, "E_rel": 0.0,
-            "F_rel": 0.0}
+
+
+def grad_readings(mine: list, ref: list, names: list) -> list:
+    """Per tensor ``(name, rel max, rel mean, abs max)`` of mine - ref,
+    relative to the reference tensor's largest magnitude."""
+    rows = []
+    for a, b, name in zip(mine, ref, names):
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"{name} grad not finite")
+        rows.append((name, *rel_errs(a, b), max_abs(a, b)))
+    return rows
+
+
+def summarize(rows: list) -> dict:
+    wmax = max(rows, key=lambda r: r[1])
+    wmean = max(rows, key=lambda r: r[2])
+    return dict(max_rel=wmax[1], max_name=wmax[0], mean_rel=wmean[2],
+                mean_name=wmean[0], max_abs=max(r[3] for r in rows))
+
+
+def check_grads(label: str, mine: list, ref: list, names: list, tol) -> dict:
+    """Every parameter grad within ``tol = (max, mean)`` of its reference;
+    the worst readings over the tensors."""
+    rows = grad_readings(mine, ref, names)
+    s = summarize(rows)
+    log(f"[{label}] {len(rows)} grads: worst rel max {s['max_rel']:.3e} "
+        f"({s['max_name']}), worst rel mean {s['mean_rel']:.3e} "
+        f"({s['mean_name']}); tol {tol[0]:.0e} max, {tol[1]:.0e} mean; "
+        f"largest abs err {s['max_abs']:.3e}")
+    for name, mx, mean, _ in rows:
+        if not (mx <= tol[0] and mean <= tol[1]):
+            raise AssertionError(f"{label}: {name} grad off by {mx:.3e} "
+                                 f"(mean {mean:.3e}), tol {tol}")
+    return s
+
+
+def check_control(label: str, model, x, g, stash, sigma_only, ref: list,
+                  names: list) -> dict:
+    """The control of the bf16 limits: the plain backward computed in f32
+    where bf16 is stated (g_pre, the dgrad and wgrad operands and the
+    weights left unrounded), reading the same bf16 stash, its weight grads
+    then rounded to bf16 as the wrapper rounds them.  A kernel that skipped
+    the bf16 rounding would read so; the limits must fail it."""
+    from nerf_pl_tpu_torch.ops import fused_mlp as fm
+
+    bf = torch.bfloat16
+    ctl = fm.unpack_grads(model, *fm.fused_nerf_bwd_plain(
+        model, x, g, sigma_only, torch.float32, stash=stash), bf)
+    rows = grad_readings(ctl, ref, names)
+    s = summarize(rows)
+    tol = TOL_TRAIN[bf]
+    caught = [r[0] for r in rows if not (r[1] <= tol[0] and r[2] <= tol[1])]
+    log(f"[control {label}] f32 backward on the bf16 stash against the bf16 "
+        f"plain: worst rel max {s['max_rel']:.3e} ({s['max_name']}), worst "
+        f"rel mean {s['mean_rel']:.3e} ({s['mean_name']}); {len(caught)} of "
+        f"{len(rows)} tensors outside the bf16 limits {tol}")
+    if not caught:
+        raise AssertionError(f"control {label}: the bf16 limits do not catch "
+                             "a backward that skips the bf16 rounding")
+    return s
+
+
+def hold_train(label: str, model, x, g, dtype, sigma_only: bool) -> dict:
+    """Kernels D, E and F against their plain versions on the same inputs,
+    E against F, and in bf16 the control of the limits; a miss raises."""
+    from nerf_pl_tpu_torch.ops import fused_mlp as fm
+
+    names = grad_names(model)
+    out, stash = fm.fused_nerf_stash_fwd_cuda(model, x, sigma_only, dtype)
+    out_p, stash_p = fm.fused_nerf_stash_fwd_plain(model, x, sigma_only, dtype)
+    torch.cuda.synchronize()
+    e_out = max_abs(out, out_p)
+    s_max, s_mean = rel_errs(stash, stash_p)
+    log(f"[D {label}] out max_abs_err={e_out:.3e} (tol {TOL_C[dtype]:.0e}); "
+        f"stash {tuple(stash.shape)} rel max {s_max:.3e} mean {s_mean:.3e} "
+        f"(tol {TOL_C[dtype]:.0e}, {TOL_C_MEAN:.0e}); bit-equal "
+        f"{torch.equal(stash, stash_p)}")
+    if not (torch.isfinite(out).all() and e_out <= TOL_C[dtype]
+            and s_max <= TOL_C[dtype] and s_mean <= TOL_C_MEAN):
+        raise AssertionError(f"kernel D {label} disagrees")
+    del out, out_p, stash_p
+
+    def grads(dw_db):
+        return fm.unpack_grads(model, *dw_db, dtype)
+
+    tol = TOL_TRAIN[dtype]
+    e_k = grads(fm.fused_nerf_bwd_stash_cuda(model, x, g, stash, sigma_only,
+                                             dtype))
+    e_p = grads(fm.fused_nerf_bwd_plain(model, x, g, sigma_only, dtype,
+                                        stash=stash))
+    e = check_grads(f"E {label}", e_k, e_p, names, tol)
+    f_k = grads(fm.fused_nerf_bwd_remat_cuda(model, x, g, sigma_only, dtype))
+    f = check_grads(f"F {label}", f_k, grads(fm.fused_nerf_bwd_plain(
+        model, x, g, sigma_only, dtype)), names, tol)
+    # the same point chunks, so the same order of the f32 sums
+    ef = check_grads(f"E vs F {label}", e_k, f_k, names,
+                     (TOL_E_VS_F, TOL_E_VS_F))
+    log(f"[E vs F {label}] bitwise equal: "
+        f"{all(torch.equal(a, b) for a, b in zip(e_k, f_k))}")
+    res = dict(D=e_out, E=e, F=f, E_vs_F=ef["max_rel"])
+    if dtype == torch.bfloat16:
+        res["control"] = check_control(label, model, x, g, stash, sigma_only,
+                                       e_p, names)
+    del stash
+    torch.cuda.empty_cache()
+    return res
+
+
+def merge_holds(holds: list) -> dict:
+    """The worst bf16 readings over ``holds`` (the kernels line's errors),
+    E against F over all, and the control's least readings."""
+    bf = [h for h in holds if "control" in h]
+    return dict(
+        D=max(h["D"] for h in bf),
+        E=max(h["E"]["max_abs"] for h in bf),
+        F=max(h["F"]["max_abs"] for h in bf),
+        E_rel=max(h["E"]["max_rel"] for h in bf),
+        F_rel=max(h["F"]["max_rel"] for h in bf),
+        mean_rel=max(max(h["E"]["mean_rel"], h["F"]["mean_rel"]) for h in bf),
+        E_vs_F=max(h["E_vs_F"] for h in holds),
+        control_max_rel=min(h["control"]["max_rel"] for h in bf),
+        control_mean_rel=min(h["control"]["mean_rel"] for h in bf))
+
+
+def check_train_kernels(model, gen, dev) -> list:
+    """Kernels D, E and F against their plain versions in bf16 and f32, rgb
+    and sigma-only, at a P that spans two of the backward's point chunks,
+    the second ragged (not a multiple of the 64-point tile)."""
+    from nerf_pl_tpu_torch.ops import fused_mlp as fm
+
+    P = fm.BWD_CHUNK + (1 << 16) + 77
+    x = random_raw_t(gen, P, dev)
+    g = torch.randn((8, P), generator=gen).to(dev)
+    holds = []
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).replace("torch.", "")
-        tol = TOL_TRAIN[dtype]
         for sigma_only in (True, False):
             mode = "sigma-only" if sigma_only else "rgb"
-            out, stash = fm.fused_nerf_stash_fwd_cuda(model, x, sigma_only,
-                                                      dtype)
-            out_p, stash_p = fm.fused_nerf_stash_fwd_plain(model, x,
-                                                           sigma_only, dtype)
-            torch.cuda.synchronize()
-            e_out = max_abs(out, out_p)
-            s_max, s_mean = rel_errs(stash.float(), stash_p.float())
-            log(f"[D {dname} {mode}] P={P} out max_abs_err={e_out:.3e} "
-                f"(tol {TOL_C[dtype]:.0e}); stash {tuple(stash.shape)} rel "
-                f"max {s_max:.3e} mean {s_mean:.3e} (tol {TOL_C[dtype]:.0e}, "
-                f"{TOL_C_MEAN:.0e})")
-            if not (torch.isfinite(out).all() and e_out <= TOL_C[dtype]
-                    and s_max <= TOL_C[dtype] and s_mean <= TOL_C_MEAN):
-                raise AssertionError(f"kernel D {dname} {mode} disagrees")
-            if dtype == torch.bfloat16:
-                errs["D"] = max(errs["D"], e_out)
-
-            def grads(dw_db):
-                return fm.unpack_grads(model, *dw_db, dtype)
-
-            e_k = grads(fm.fused_nerf_bwd_stash_cuda(model, x, g, stash,
-                                                     sigma_only, dtype))
-            e_p = grads(fm.fused_nerf_bwd_plain(model, x, g, sigma_only,
-                                                dtype, stash=stash))
-            torch.cuda.synchronize()
-            w, w_abs = check_grads(f"E {dname} {mode}", e_k, e_p, names, tol)
-            f_k = grads(fm.fused_nerf_bwd_remat_cuda(
-                model, x, g, sigma_only, dtype, chunk=1 << 14))
-            f_p = grads(fm.fused_nerf_bwd_plain(model, x, g, sigma_only,
-                                                dtype))
-            torch.cuda.synchronize()
-            wf, wf_abs = check_grads(f"F {dname} {mode} (5 chunks)", f_k,
-                                     f_p, names, tol)
-            # the same point chunks, so the same order of the f32 sums
-            e_c = grads(fm.fused_nerf_bwd_stash_cuda(
-                model, x, g, stash, sigma_only, dtype, chunk=1 << 14))
-            ef, _ = check_grads(f"E vs F {dname} {mode}", e_c, f_k, names,
-                                (TOL_E_VS_F, TOL_E_VS_F))
-            exact = all(torch.equal(a, b) for a, b in zip(e_c, f_k))
-            log(f"[E vs F {dname} {mode}] bitwise equal: {exact}")
-            if dtype == torch.bfloat16:
-                errs["E"], errs["F"] = max(errs["E"], w_abs), max(errs["F"], wf_abs)
-                errs["E_rel"], errs["F_rel"] = (max(errs["E_rel"], w),
-                                                max(errs["F_rel"], wf))
-            errs["E_vs_F"] = max(errs["E_vs_F"], ef)
-            del out, stash, out_p, stash_p
-    torch.cuda.empty_cache()
-    return errs
+            holds.append(hold_train(f"{dname} {mode} P={P}", model, x, g,
+                                    dtype, sigma_only))
+    return holds
 
 
 def matmul_chain_ms(model, P: int, dev) -> tuple:
@@ -413,13 +484,15 @@ def matmul_chain_ms(model, P: int, dev) -> tuple:
     return cuda_ms(fwd, iters=3), cuda_ms(bwd, iters=3)
 
 
-def time_train_kernels(model, gen, dev) -> dict:
+def time_train_kernels(model, gen, dev) -> tuple:
     """D, E and F at the training step's shapes (bf16, rgb): kernel and
-    plain times by CUDA events, the bound, and the bf16 matmul chain."""
+    plain times by CUDA events, the bound, and the bf16 matmul chain; then
+    each held against its plain version at that shape (the fine pass spans
+    three of the backward's point chunks)."""
     from nerf_pl_tpu_torch.ops import fused_mlp as fm
 
     bf = torch.bfloat16
-    rows = {}
+    rows, holds = {}, []
     for name, S in (("fine", N_SAMPLES + N_IMPORTANCE), ("coarse", N_SAMPLES)):
         P = TRAIN_BATCH * S
         x = random_raw_t(gen, P, dev)
@@ -463,9 +536,11 @@ def time_train_kernels(model, gen, dev) -> dict:
         log(f"[matmul chain bf16 {name}] P={P} forward {chain_fwd:.3f} ms, "
             f"backward (dgrad + wgrad) {chain_bwd:.3f} ms (torch.matmul, "
             f"a yardstick, not one call)")
+        holds.append(hold_train(f"bfloat16 rgb {name} P={P}", model, x, g,
+                                bf, False))
         del x, g
         torch.cuda.empty_cache()
-    return rows
+    return rows, holds
 
 
 # ---------------------------------------------------------------- phase 3
@@ -851,11 +926,10 @@ def step_grads_card_vs_cpu() -> float:
                          for name, m in models.items()
                          for k, p in m.named_parameters()}
     names = sorted(grads["cpu"])
-    worst, _ = check_grads("f32 step grads card vs cpu (256 rays)",
-                        [grads["cuda"][k] for k in names],
-                        [grads["cpu"][k] for k in names], names,
-                        TOL_STEP_GRADS)
-    return worst
+    return check_grads("f32 step grads card vs cpu (256 rays)",
+                       [grads["cuda"][k] for k in names],
+                       [grads["cpu"][k] for k in names], names,
+                       TOL_STEP_GRADS)["max_rel"]
 
 
 def bench_number() -> dict:
@@ -895,8 +969,9 @@ def main() -> int:
         sampler_counts = random_sampler_path(ckpt)
         f32_err = f32_card_vs_cpu(ckpt)
         with torch.no_grad():
-            tk = check_train_kernels(fine, gen, dev)
-            tt = time_train_kernels(fine, gen, dev)
+            holds = check_train_kernels(fine, gen, dev)
+            tt, train_holds = time_train_kernels(fine, gen, dev)
+            tk = merge_holds(holds + train_holds)
         del fine
         trained = train_end_to_end(tmp)
         step_err = step_grads_card_vs_cpu()
@@ -965,6 +1040,10 @@ def main() -> int:
     kernels[-2]["max_rel_err"] = tk["E_rel"]
     kernels[-1]["max_rel_err"] = tk["F_rel"]
     kernels[-1]["e_vs_f_rel_err"] = tk["E_vs_F"]
+    for row in kernels[-2:]:
+        row["mean_rel_err"] = tk["mean_rel"]
+        row["control_rel_err"] = dict(max=tk["control_max_rel"],
+                                      mean=tk["control_mean_rel"])
     log(f"[serve] {served['rays_per_s']:.1f} rays/s, "
         f"{served['ms']:.1f} ms per request; f32 card-vs-cpu err "
         f"{f32_err:.3e}")

@@ -373,7 +373,7 @@ def fused_nerf_stash_fwd_cuda(model: NeRF, x_rawT: torch.Tensor,
 fused_nerf_stash_fwd_cuda.launches = 0
 
 
-def _bwd_cuda(model, x_rawT, g, sigma_only, compute_dtype, stash, chunk):
+def _bwd_cuda(model, x_rawT, g, sigma_only, compute_dtype, stash):
     wbuf, bbuf = _operands(model, x_rawT, compute_dtype)
     _check_raw(g, "g")
     P = x_rawT.shape[1]
@@ -386,8 +386,6 @@ def _bwd_cuda(model, x_rawT, g, sigma_only, compute_dtype, stash, chunk):
                               or not stash.is_contiguous()):
         raise ValueError(f"stash must be a contiguous ({P}, {sc}) "
                          f"{compute_dtype} tensor on {x_rawT.device}")
-    if chunk < 1:
-        raise ValueError(f"chunk must be positive, got {chunk}")
     wt = pack_weights_t(model, compute_dtype)
     lib = _bwd_lib()
     _check_counts(lib, wbuf, bbuf, "nerf_bwd")
@@ -398,7 +396,7 @@ def _bwd_cuda(model, x_rawT, g, sigma_only, compute_dtype, stash, chunk):
     db = torch.zeros(bbuf.numel(), dtype=torch.float32, device=dev)
     if P == 0:
         return dw, db
-    chunk = min(chunk, P)
+    chunk = min(BWD_CHUNK, P)
     tp, rpg = lib.nerf_bwd_points_per_cta(), lib.nerf_bwd_bias_rows_per_group()
     tiles = -(-chunk // tp)
     gbuf = torch.empty((chunk, lib.nerf_bwd_g_cols()), dtype=compute_dtype,
@@ -428,13 +426,13 @@ def _bwd_cuda(model, x_rawT, g, sigma_only, compute_dtype, stash, chunk):
 def fused_nerf_bwd_stash_cuda(model: NeRF, x_rawT: torch.Tensor,
                               g: torch.Tensor, stash: torch.Tensor,
                               sigma_only: bool = False,
-                              compute_dtype=torch.bfloat16,
-                              chunk: int = BWD_CHUNK):
+                              compute_dtype=torch.bfloat16):
     """Kernel E on the card: packed f32 ``(dw, db)`` from D's stash."""
     if stash is None:
         raise ValueError("kernel E reads a stash; kernel F recomputes")
-    out = _bwd_cuda(model, x_rawT, g, sigma_only, compute_dtype, stash, chunk)
-    fused_nerf_bwd_stash_cuda.launches += 1
+    out = _bwd_cuda(model, x_rawT, g, sigma_only, compute_dtype, stash)
+    if x_rawT.shape[1]:  # no points, no launch
+        fused_nerf_bwd_stash_cuda.launches += 1
     return out
 
 
@@ -443,11 +441,11 @@ fused_nerf_bwd_stash_cuda.launches = 0
 
 def fused_nerf_bwd_remat_cuda(model: NeRF, x_rawT: torch.Tensor,
                               g: torch.Tensor, sigma_only: bool = False,
-                              compute_dtype=torch.bfloat16,
-                              chunk: int = BWD_CHUNK):
+                              compute_dtype=torch.bfloat16):
     """Kernel F on the card: packed f32 ``(dw, db)``, forward recomputed."""
-    out = _bwd_cuda(model, x_rawT, g, sigma_only, compute_dtype, None, chunk)
-    fused_nerf_bwd_remat_cuda.launches += 1
+    out = _bwd_cuda(model, x_rawT, g, sigma_only, compute_dtype, None)
+    if x_rawT.shape[1]:  # no points, no launch
+        fused_nerf_bwd_remat_cuda.launches += 1
     return out
 
 

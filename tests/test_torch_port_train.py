@@ -103,6 +103,28 @@ def test_weight_grads_rounded_bias_grads_not():
                    for n, p in model.named_parameters() if n.endswith(".b"))
 
 
+@pytest.mark.parametrize("sigma_only", [False, True], ids=["rgb", "sigma"])
+def test_bf16_backward_rounds_where_stated(sigma_only):
+    """The plain bf16 backward, which the kernels are held against on the
+    card, rounds g_pre and the product operands: the same backward in f32 on
+    the same bf16 stash (what a kernel that skipped the rounding computes)
+    moves the first layer's bias grad by far more than the 2e-5 x max mean
+    that chip_smoke.py allows the kernels."""
+    model = nerf_from_numpy(np_nerf(14), device="cpu")
+    P = 256
+    x = torch.from_numpy(_raw_t(15, P))
+    g = torch.from_numpy(
+        np.random.RandomState(16).normal(size=(8, P)).astype(np.float32))
+    _, stash = fused_mlp.fused_nerf_stash_fwd_plain(model, x, sigma_only,
+                                                    torch.bfloat16)
+    _, db = fused_mlp.fused_nerf_bwd_plain(model, x, g, sigma_only,
+                                           torch.bfloat16, stash=stash)
+    _, db32 = fused_mlp.fused_nerf_bwd_plain(model, x, g, sigma_only,
+                                             torch.float32, stash=stash)
+    b0, b0_32 = db[:256], db32[:256]  # xyz_layers.0.b
+    assert float((b0 - b0_32).abs().mean() / b0.abs().max()) > 2e-4
+
+
 def test_route_selection_follows_stash_blocks(monkeypatch):
     model = nerf_from_numpy(np_nerf(12), device="cpu")
     x = torch.from_numpy(_raw_t(13, 64))
