@@ -28,14 +28,26 @@ Phases (any failed check raises, so the script exits non-zero):
    fail; their times at the training shapes (4,096 rays x 192 and x 64
    points, bf16) beside the plain versions, the bounds and a chain of bf16
    ``torch.matmul`` calls as a yardstick, and at those shapes the same
-   checks against the plain versions.  Then ``python -m
-   nerf_pl_tpu_torch.train`` at full width in bf16 for 2 epochs on a scene
-   this script writes (8 views of 100x100, batch 4,096, 64+128 samples):
-   losses finite and falling, launch counts of A, C, D and E in the fit
-   (zeroed just before it, read just after) and per step; one step under
-   the profiler; F through ``stash_blocks=None``; one float32 step's grads
-   on the card against the CPU; ``nerf_pl_tpu_torch.bench``'s number.
-5. One JSON line of kernel numbers, the card's line, then the result line
+   checks against the plain versions.  The row-major twins C', D', E' and
+   F' (the ``--fused_channel_io false`` path) run beside each of these on
+   the same points: against the plain versions, bit for bit against C, D,
+   E and F, and timed; C' and C also at one eval chunk in float32.  Then
+   ``python -m nerf_pl_tpu_torch.train`` at full width in bf16 for 2 epochs
+   on a scene this script writes (8 views of 100x100, batch 4,096, 64+128
+   samples): losses finite and falling, launch counts of A, C, D and E in
+   the fit (zeroed just before it, read just after) and per step; one step
+   under the profiler; F through ``stash_blocks=None``.
+5. Evaluation: ``python -m nerf_pl_tpu_torch.eval`` on the fit's checkpoint,
+   the scene's two 800x800 test views at 400x400 (the LANCZOS resize),
+   64+128 samples, once with ``--fused_channel_io false`` (C' and B launch,
+   C does not) and once with ``true`` (C, not C'); the renders agree, the
+   PNGs, PFM depth maps and GIF read back; PSNR, s per view, rays/s.  Then
+   a 1-epoch fit with ``--fused_channel_io false`` (D' and E' every step,
+   C' in validation; its epoch-0 loss against the channel-major fit's) and
+   F' through ``fused_nerf_apply_raw(..., stash_blocks=None)``.  Last, one
+   float32 step's grads on the card against the CPU and
+   ``nerf_pl_tpu_torch.bench``'s number.
+6. One JSON line of kernel numbers, the card's line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Peak rates used for the bounds (NVIDIA H100 SXM data sheet, dense): 989
@@ -103,6 +115,21 @@ TOL_TRAIN = {torch.bfloat16: (1e-2, 2e-5), torch.float32: (1e-4, 1e-5)}
 # against the remat backward (tests/test_fused_mlp.py:209) allows rtol 1e-5
 # and atol 1e-6, which is kept here relative to each tensor.
 TOL_E_VS_F = 1e-5
+# The eval's float32 renders through C' and through C.  The kernels are held
+# bit-equal above, but the renderer reads their outputs as views of another
+# memory order ((8, P) rows permuted, or (P, 8) rows strided), and PyTorch's
+# reductions over the samples then add in another order: the renders agree
+# to float32 rounding, not to the bit.  1e-5 on values of order 1 (depth in
+# scene units: 1e-5 relative to the far bound); the 8-bit PNGs may differ by
+# one level where a value sits on a level's edge.
+TOL_EVAL_LAYOUTS = 1e-5
+# The row-major fit's epoch-0 loss against the channel-major fit's: the same
+# seed, data and bit-equal kernels, but the sums above run in another order,
+# and 19 bf16 steps carry a rounding difference on (a weight near a bf16
+# rounding edge is rounded the other way when the kernels pack it).  The CPU
+# test of the same comparison over 6 steps
+# (test_cli_trains_with_row_major_fused_io) reads 1.4e-5.
+TOL_FIT_LAYOUTS = 1e-3  # relative
 
 
 def log(msg: str) -> None:
@@ -188,26 +215,32 @@ def check_fused_mlp(model, gen, dev) -> dict:
 
     P = (1 << 18) + 77  # ragged tail: not a multiple of the 64-point tile
     x = random_raw_t(gen, P, dev)
-    worst = 0.0
+    xr = x.T.contiguous()  # the same points, row-major
+    worst = worst_rm = 0.0
     for dtype in (torch.bfloat16, torch.float32):
         for sigma_only in (True, False):
             out = fm.fused_nerf_apply_raw_t_cuda(model, x, sigma_only, dtype)
             ref = fm.fused_nerf_apply_raw_t_plain(model, x, sigma_only, dtype)
+            out_rm = fm.fused_nerf_apply_raw_cuda(model, xr, sigma_only, dtype)
             torch.cuda.synchronize()
-            err = max_abs(out, ref)
-            rel = err / max(float(ref.abs().max()), 1e-30)
             name = str(dtype).replace("torch.", "")
             mode = "sigma-only" if sigma_only else "rgb"
-            mean = float((out - ref).abs().mean())
-            log(f"[C {name} {mode}] P={P} max_abs_err={err:.3e} "
-                f"rel={rel:.3e} mean_abs_err={mean:.3e} tol={TOL_C[dtype]:.0e}"
-                f" (mean tol {TOL_C_MEAN:.0e})")
-            if (not torch.isfinite(out).all() or not err <= TOL_C[dtype]
-                    or not mean <= TOL_C_MEAN):
-                raise AssertionError(f"kernel C {name} {mode} disagrees "
-                                     f"with its plain version: {err}")
-            if dtype == torch.bfloat16:
-                worst = max(worst, err)
+            for kernel, got, want in (("C", out, ref), ("C'", out_rm, ref.T)):
+                err = max_abs(got, want)
+                rel = err / max(float(want.abs().max()), 1e-30)
+                mean = float((got - want).abs().mean())
+                log(f"[{kernel} {name} {mode}] P={P} max_abs_err={err:.3e} "
+                    f"rel={rel:.3e} mean_abs_err={mean:.3e} "
+                    f"tol={TOL_C[dtype]:.0e} (mean tol {TOL_C_MEAN:.0e})")
+                if (not torch.isfinite(got).all() or not err <= TOL_C[dtype]
+                        or not mean <= TOL_C_MEAN):
+                    raise AssertionError(f"kernel {kernel} {name} {mode} "
+                                         f"disagrees with its plain version")
+                if dtype == torch.bfloat16 and kernel == "C":
+                    worst = max(worst, err)
+                elif dtype == torch.bfloat16:
+                    worst_rm = max(worst_rm, err)
+            require_twins(f"C' vs C {name} {mode}", [out_rm], [out.T])
 
     rows = {}
     for sigma_only, S, macs in ((True, N_SAMPLES, MACS_SIGMA),
@@ -228,7 +261,7 @@ def check_fused_mlp(model, gen, dev) -> dict:
                           bound_by=by)
         del xc
     torch.cuda.empty_cache()
-    return dict(err=worst, rows=rows)
+    return dict(err=worst, err_rm=worst_rm, rows=rows)
 
 
 def check_searchsorted(gen, dev) -> dict:
@@ -368,25 +401,47 @@ def check_control(label: str, model, x, g, stash, sigma_only, ref: list,
     return s
 
 
+def require_twins(label: str, row_major: list, channel_major: list) -> None:
+    """A row-major kernel's results against its channel-major twin's on the
+    same points: the layout flag changes only the loads and stores, so the
+    arithmetic, and every bit of the results, must be the same."""
+    same = all(torch.equal(a, b) for a, b in zip(row_major, channel_major))
+    log(f"[{label}] bit-equal: {same}")
+    if not same:
+        worst = max(max_abs(a, b) for a, b in zip(row_major, channel_major))
+        raise AssertionError(f"{label}: the row-major kernel departs from its "
+                             f"channel-major twin by {worst:.3e}")
+
+
 def hold_train(label: str, model, x, g, dtype, sigma_only: bool) -> dict:
     """Kernels D, E and F against their plain versions on the same inputs,
-    E against F, and in bf16 the control of the limits; a miss raises."""
+    E against F, and in bf16 the control of the limits; then D', E' and F'
+    on the same points row-major, against the plain versions and bit for
+    bit against D, E and F.  A miss raises."""
     from nerf_pl_tpu_torch.ops import fused_mlp as fm
 
     names = grad_names(model)
+    xr, gr = x.T.contiguous(), g.T.contiguous()
     out, stash = fm.fused_nerf_stash_fwd_cuda(model, x, sigma_only, dtype)
     out_p, stash_p = fm.fused_nerf_stash_fwd_plain(model, x, sigma_only, dtype)
+    out_r, stash_r = fm.fused_nerf_raw_stash_fwd_cuda(model, xr, sigma_only,
+                                                      dtype)
     torch.cuda.synchronize()
-    e_out = max_abs(out, out_p)
-    s_max, s_mean = rel_errs(stash, stash_p)
-    log(f"[D {label}] out max_abs_err={e_out:.3e} (tol {TOL_C[dtype]:.0e}); "
-        f"stash {tuple(stash.shape)} rel max {s_max:.3e} mean {s_mean:.3e} "
-        f"(tol {TOL_C[dtype]:.0e}, {TOL_C_MEAN:.0e}); bit-equal "
-        f"{torch.equal(stash, stash_p)}")
-    if not (torch.isfinite(out).all() and e_out <= TOL_C[dtype]
-            and s_max <= TOL_C[dtype] and s_mean <= TOL_C_MEAN):
-        raise AssertionError(f"kernel D {label} disagrees")
-    del out, out_p, stash_p
+    errs = {}
+    for kernel, o, st, o_p in (("D", out, stash, out_p),
+                               ("D'", out_r, stash_r, out_p.T)):
+        e_out = max_abs(o, o_p)
+        s_max, s_mean = rel_errs(st, stash_p)
+        log(f"[{kernel} {label}] out max_abs_err={e_out:.3e} (tol "
+            f"{TOL_C[dtype]:.0e}); stash {tuple(st.shape)} rel max "
+            f"{s_max:.3e} mean {s_mean:.3e} (tol {TOL_C[dtype]:.0e}, "
+            f"{TOL_C_MEAN:.0e}); bit-equal {torch.equal(st, stash_p)}")
+        if not (torch.isfinite(o).all() and e_out <= TOL_C[dtype]
+                and s_max <= TOL_C[dtype] and s_mean <= TOL_C_MEAN):
+            raise AssertionError(f"kernel {kernel} {label} disagrees")
+        errs[kernel] = e_out
+    require_twins(f"D' vs D {label}", [out_r, stash_r], [out.T, stash])
+    del out, out_p, stash_p, out_r
 
     def grads(dw_db):
         return fm.unpack_grads(model, *dw_db, dtype)
@@ -398,18 +453,27 @@ def hold_train(label: str, model, x, g, dtype, sigma_only: bool) -> dict:
                                         stash=stash))
     e = check_grads(f"E {label}", e_k, e_p, names, tol)
     f_k = grads(fm.fused_nerf_bwd_remat_cuda(model, x, g, sigma_only, dtype))
-    f = check_grads(f"F {label}", f_k, grads(fm.fused_nerf_bwd_plain(
-        model, x, g, sigma_only, dtype)), names, tol)
+    f_p = grads(fm.fused_nerf_bwd_plain(model, x, g, sigma_only, dtype))
+    f = check_grads(f"F {label}", f_k, f_p, names, tol)
     # the same point chunks, so the same order of the f32 sums
     ef = check_grads(f"E vs F {label}", e_k, f_k, names,
                      (TOL_E_VS_F, TOL_E_VS_F))
     log(f"[E vs F {label}] bitwise equal: "
         f"{all(torch.equal(a, b) for a, b in zip(e_k, f_k))}")
-    res = dict(D=e_out, E=e, F=f, E_vs_F=ef["max_rel"])
+    e_r = grads(fm.fused_nerf_raw_bwd_stash_cuda(model, xr, gr, stash_r,
+                                                 sigma_only, dtype))
+    f_r = grads(fm.fused_nerf_raw_bwd_remat_cuda(model, xr, gr, sigma_only,
+                                                 dtype))
+    res = dict(D=errs["D"], E=e, F=f, E_vs_F=ef["max_rel"], **{
+        "D'": errs["D'"],
+        "E'": check_grads(f"E' {label}", e_r, e_p, names, tol),
+        "F'": check_grads(f"F' {label}", f_r, f_p, names, tol)})
+    require_twins(f"E' vs E {label}", e_r, e_k)
+    require_twins(f"F' vs F {label}", f_r, f_k)
     if dtype == torch.bfloat16:
         res["control"] = check_control(label, model, x, g, stash, sigma_only,
                                        e_p, names)
-    del stash
+    del stash, stash_r
     torch.cuda.empty_cache()
     return res
 
@@ -425,6 +489,13 @@ def merge_holds(holds: list) -> dict:
         E_rel=max(h["E"]["max_rel"] for h in bf),
         F_rel=max(h["F"]["max_rel"] for h in bf),
         mean_rel=max(max(h["E"]["mean_rel"], h["F"]["mean_rel"]) for h in bf),
+        **{"D'": max(h["D'"] for h in bf),
+           "E'": max(h["E'"]["max_abs"] for h in bf),
+           "F'": max(h["F'"]["max_abs"] for h in bf),
+           "E'_rel": max(h["E'"]["max_rel"] for h in bf),
+           "F'_rel": max(h["F'"]["max_rel"] for h in bf),
+           "mean_rel'": max(max(h["E'"]["mean_rel"], h["F'"]["mean_rel"])
+                            for h in bf)},
         E_vs_F=max(h["E_vs_F"] for h in holds),
         control_max_rel=min(h["control"]["max_rel"] for h in bf),
         control_mean_rel=min(h["control"]["mean_rel"] for h in bf))
@@ -449,10 +520,11 @@ def check_train_kernels(model, gen, dev) -> list:
     return holds
 
 
-def matmul_chain_ms(model, P: int, dev) -> tuple:
+def matmul_chain_ms(model, P: int, dev, backward: bool = True) -> tuple:
     """A yardstick, not a port: the same MLP as a chain of bf16
     ``torch.matmul`` calls (cuBLAS), forward, and the backward's dgrad and
-    wgrad products, at P points with random embedded inputs."""
+    wgrad products (None unless ``backward``), at P points with random
+    embedded inputs."""
     bf = torch.bfloat16
     ws = [m.w.detach().to(bf) for m in model.xyz_layers]
     wsig, wfin, wdir, wrgb = (m.w.detach().to(bf) for m in (
@@ -473,6 +545,8 @@ def matmul_chain_ms(model, P: int, dev) -> tuple:
         torch.sigmoid(torch.matmul(d, wrgb))
         return acts + [h, h, din, d]
 
+    if not backward:
+        return cuda_ms(fwd, iters=3), None
     ins = fwd()
     outs = [w for w in ws] + [wsig, wfin, wdir, wrgb]
     gs = [torch.randn((P, w.shape[1]), device=dev, dtype=bf) for w in outs]
@@ -485,10 +559,12 @@ def matmul_chain_ms(model, P: int, dev) -> tuple:
 
 
 def time_train_kernels(model, gen, dev) -> tuple:
-    """D, E and F at the training step's shapes (bf16, rgb): kernel and
-    plain times by CUDA events, the bound, and the bf16 matmul chain; then
-    each held against its plain version at that shape (the fine pass spans
-    three of the backward's point chunks)."""
+    """C, D, E and F and their row-major twins C', D', E' and F' at the
+    training step's shapes (bf16, rgb): kernel and plain times by CUDA
+    events (each twin timed right after its channel-major kernel), the
+    bound, and the bf16 matmul chain; then each held against its plain
+    version at that shape (the fine pass spans three of the backward's
+    point chunks)."""
     from nerf_pl_tpu_torch.ops import fused_mlp as fm
 
     bf = torch.bfloat16
@@ -497,26 +573,44 @@ def time_train_kernels(model, gen, dev) -> tuple:
         P = TRAIN_BATCH * S
         x = random_raw_t(gen, P, dev)
         g = torch.randn((8, P), generator=gen).to(dev)
+        xr, gr = x.T.contiguous(), g.T.contiguous()
         c_ms = cuda_ms(lambda: fm.fused_nerf_apply_raw_t_cuda(model, x, False,
                                                               bf), iters=3)
+        cr_ms = cuda_ms(lambda: fm.fused_nerf_apply_raw_cuda(model, xr, False,
+                                                             bf), iters=3)
         d_ms = cuda_ms(lambda: fm.fused_nerf_stash_fwd_cuda(model, x, False, bf),
                        iters=3)
+        dr_ms = cuda_ms(lambda: fm.fused_nerf_raw_stash_fwd_cuda(
+            model, xr, False, bf), iters=3)
         _, stash = fm.fused_nerf_stash_fwd_cuda(model, x, False, bf)
         e_ms = cuda_ms(lambda: fm.fused_nerf_bwd_stash_cuda(
             model, x, g, stash, False, bf), iters=3)
+        er_ms = cuda_ms(lambda: fm.fused_nerf_raw_bwd_stash_cuda(
+            model, xr, gr, stash, False, bf), iters=3)
         f_ms = cuda_ms(lambda: fm.fused_nerf_bwd_remat_cuda(
             model, x, g, False, bf), iters=2)
+        fr_ms = cuda_ms(lambda: fm.fused_nerf_raw_bwd_remat_cuda(
+            model, xr, gr, False, bf), iters=2)
+        c_plain = cuda_ms(lambda: fm.fused_nerf_apply_raw_plain(
+            model, xr, False, bf), iters=1)
         d_plain = cuda_ms(lambda: fm.fused_nerf_stash_fwd_plain(
             model, x, False, bf), iters=1)
+        dr_plain = cuda_ms(lambda: fm.fused_nerf_raw_stash_fwd_plain(
+            model, xr, False, bf), iters=1)
         e_plain = cuda_ms(lambda: fm.fused_nerf_bwd_plain(
             model, x, g, False, bf, stash=stash), iters=1)
+        er_plain = cuda_ms(lambda: fm.fused_nerf_raw_bwd_plain(
+            model, xr, gr, False, bf, stash=stash), iters=1)
         f_plain = cuda_ms(lambda: fm.fused_nerf_bwd_plain(
             model, x, g, False, bf), iters=1)
-        del stash
+        fr_plain = cuda_ms(lambda: fm.fused_nerf_raw_bwd_plain(
+            model, xr, gr, False, bf), iters=1)
+        del stash, xr, gr
         torch.cuda.empty_cache()
         chain_fwd, chain_bwd = matmul_chain_ms(model, P, dev)
         stash_b = P * 2 * 2432
         io_b = P * 4 * 8
+        bc = bound_ms(2 * io_b, 2 * MACS_RGB * P, BF16_TENSOR_FLOPS)
         bd = bound_ms(stash_b + 2 * io_b, 2 * MACS_RGB * P, BF16_TENSOR_FLOPS)
         be = bound_ms(stash_b + 2 * io_b + 4 * 593_408,
                       4 * MACS_RGB * P, BF16_TENSOR_FLOPS)
@@ -526,8 +620,13 @@ def time_train_kernels(model, gen, dev) -> tuple:
                           E=dict(ms=e_ms, plain_ms=e_plain, bound=be),
                           F=dict(ms=f_ms, plain_ms=f_plain, bound=bfb),
                           C_ms=c_ms, chain_fwd_ms=chain_fwd,
-                          chain_bwd_ms=chain_bwd)
-        for k in "DEF":
+                          chain_bwd_ms=chain_bwd, **{
+                              "C'": dict(ms=cr_ms, plain_ms=c_plain, bound=bc),
+                              "D'": dict(ms=dr_ms, plain_ms=dr_plain, bound=bd),
+                              "E'": dict(ms=er_ms, plain_ms=er_plain, bound=be),
+                              "F'": dict(ms=fr_ms, plain_ms=fr_plain,
+                                         bound=bfb)})
+        for k in ("D", "D'", "E", "E'", "F", "F'", "C'"):
             r = rows[name][k]
             log(f"[{k} time bf16 rgb {name}] P={P} kernel {r['ms']:.3f} ms, "
                 f"plain {r['plain_ms']:.3f} ms, bound {r['bound'][0]:.3f} ms "
@@ -564,11 +663,8 @@ def counters():
     from nerf_pl_tpu_torch.ops import fused_mlp as fm
     from nerf_pl_tpu_torch.ops import searchsorted as ss
 
-    return {"C": fm.fused_nerf_apply_raw_t_cuda,
-            "B": ss.searchsorted_interp_cuda, "A": ss.searchsorted_cuda,
-            "D": fm.fused_nerf_stash_fwd_cuda,
-            "E": fm.fused_nerf_bwd_stash_cuda,
-            "F": fm.fused_nerf_bwd_remat_cuda}
+    return {"B": ss.searchsorted_interp_cuda, "A": ss.searchsorted_cuda,
+            **fm.KERNELS}
 
 
 def reset_counts() -> None:
@@ -774,6 +870,12 @@ def f32_card_vs_cpu(ckpt: str) -> float:
 
 # ---------------------------------------------------------------- phase 4
 TRAIN_WH, TRAIN_VIEWS = 100, 8
+# the evaluation: test views written at the Blender scenes' 800x800 and
+# rendered at 400x400, as the reference's documented eval, so the loader's
+# LANCZOS resize runs
+EVAL_VIEWS, EVAL_WRITTEN_WH, EVAL_WH = 2, 800, 400
+# one eval chunk (the --chunk default) and its points per pass
+EVAL_CHUNK = 32 * 1024
 # One float32 training step's grads on the card against the CPU, per tensor
 # relative to its largest magnitude.  Same weights, rays and injected random
 # draws on both; the card runs kernels A, D and E, the CPU their plain
@@ -784,17 +886,22 @@ TOL_STEP_GRADS = (2e-2, 2e-3)
 
 
 def write_scene(root: str, n_train: int = TRAIN_VIEWS, n_val: int = 1,
-                wh: int = TRAIN_WH) -> None:
+                wh: int = TRAIN_WH, n_test: int = EVAL_VIEWS,
+                test_wh: int = EVAL_WRITTEN_WH) -> None:
     """A Blender-format scene written with the port's PNG writer: a shaded
-    disc on a transparent background, seen from a circle of cameras."""
+    disc on a transparent background, seen from a circle of cameras.  The
+    test split is written at ``test_wh``, as the Blender scenes' 800x800."""
     from nerf_pl_tpu_torch.data.png import write_png
 
     rng = np.random.RandomState(0)
-    for split, n in (("train", n_train), ("val", n_val)):
+    for split, n, wh in (("train", n_train, wh), ("val", n_val, wh),
+                         ("test", n_test, test_wh)):
         os.makedirs(os.path.join(root, split), exist_ok=True)
         frames = []
         for i in range(n):
             theta = 2 * np.pi * (i + (0 if split == "train" else 0.5)) / n
+            if split == "test":
+                theta += 0.25
             c, sn = np.cos(theta), np.sin(theta)
             eye = np.array([4 * sn, 0.5, 4 * c], np.float32)
             fwd = eye / np.linalg.norm(eye)
@@ -895,6 +1002,268 @@ def train_end_to_end(tmp: str) -> dict:
                 rays_per_s=rate, profile=prof)
 
 
+def time_eval_chunk(model, gen, dev) -> dict:
+    """C and C' at one eval chunk in float32, the eval's compute dtype:
+    32,768 rays x 192 points (the fine pass, rgb) and x 64 (the coarse pass,
+    sigma-only).  Kernel times by CUDA events (C' right after C), C''s
+    plain time and its error against it, the bound at the float32 rate
+    (outside the tensor cores), and the bf16 matmul chain's forward."""
+    from nerf_pl_tpu_torch.ops import fused_mlp as fm
+
+    f32 = torch.float32
+    rows = {}
+    for mode, S, macs in (("rgb", N_SAMPLES + N_IMPORTANCE, MACS_RGB),
+                          ("sigma-only", N_SAMPLES, MACS_SIGMA)):
+        sigma_only = mode == "sigma-only"
+        P = EVAL_CHUNK * S
+        xr = random_raw_t(gen, P, dev).T.contiguous()
+        x = xr.T.contiguous()
+        c_ms = cuda_ms(lambda: fm.fused_nerf_apply_raw_t_cuda(
+            model, x, sigma_only, f32), iters=2)
+        cr_ms = cuda_ms(lambda: fm.fused_nerf_apply_raw_cuda(
+            model, xr, sigma_only, f32), iters=2)
+        out_r = fm.fused_nerf_apply_raw_cuda(model, xr, sigma_only, f32)
+        require_twins(f"C' vs C f32 {mode} eval chunk P={P}", [out_r],
+                      [fm.fused_nerf_apply_raw_t_cuda(model, x, sigma_only,
+                                                      f32).T])
+        del x
+        plain_ms = cuda_ms(lambda: fm.fused_nerf_apply_raw_plain(
+            model, xr, sigma_only, f32), iters=1)
+        ref = fm.fused_nerf_apply_raw_plain(model, xr, sigma_only, f32)
+        err = max_abs(out_r, ref)
+        log(f"[C' f32 {mode} eval chunk] P={P} max_abs_err={err:.3e} "
+            f"tol={TOL_C[f32]:.0e}")
+        if not (torch.isfinite(out_r).all() and err <= TOL_C[f32]):
+            raise AssertionError(f"kernel C' f32 {mode} disagrees at the "
+                                 "eval chunk")
+        del out_r, ref, xr
+        torch.cuda.empty_cache()
+        chain_ms, _ = matmul_chain_ms(model, P, dev, backward=False)
+        torch.cuda.empty_cache()
+        b, by = bound_ms(P * 64, 2 * macs * P, F32_FLOPS)
+        log(f"[C' time f32 {mode} eval chunk] P={P} kernel {cr_ms:.3f} ms "
+            f"(C {c_ms:.3f} ms), plain {plain_ms:.3f} ms, bound {b:.3f} ms "
+            f"({by}, {2 * macs * P:.3e} FLOP at the f32 rate); bf16 matmul "
+            f"chain forward {chain_ms:.3f} ms")
+        rows[mode] = dict(P=P, ms=cr_ms, C_ms=c_ms, plain_ms=plain_ms,
+                          bound_ms=b, bound_by=by, err=err,
+                          matmul_chain_fwd_ms=chain_ms)
+    return rows
+
+
+def gif_frames(path: str) -> tuple:
+    """``(frames, delays in 1/100 s, loops)`` from a GIF's block structure."""
+    data = open(path, "rb").read()
+    if data[:6] != b"GIF89a":
+        raise AssertionError(f"{path} is not a GIF89a")
+    pos = 13 + (3 << ((data[10] & 7) + 1) if data[10] & 0x80 else 0)
+    frames, delays, loops = 0, [], False
+
+    def skip_blocks(pos):
+        while data[pos]:
+            pos += data[pos] + 1
+        return pos + 1
+
+    while data[pos] != 0x3B:
+        if data[pos] == 0x21:  # extension
+            if data[pos + 1] == 0xF9:
+                delays.append(int.from_bytes(data[pos + 4:pos + 6], "little"))
+            loops |= data[pos + 3:pos + 14] == b"NETSCAPE2.0"
+            pos = skip_blocks(pos + 2)
+        elif data[pos] == 0x2C:  # image
+            flags = data[pos + 9]
+            pos += 10 + (3 << ((flags & 7) + 1) if flags & 0x80 else 0)
+            pos = skip_blocks(pos + 1)
+            frames += 1
+        else:
+            raise AssertionError(f"{path}: unknown GIF block {data[pos]:#x}")
+    return frames, delays, loops
+
+
+def eval_end_to_end(tmp: str, ckpt: str) -> dict:
+    """``python -m nerf_pl_tpu_torch.eval`` on the fit's checkpoint: the
+    scene's 800x800 test views at 400x400, 64 + 128 samples, the default
+    chunk, once with ``--fused_channel_io false`` (kernel C') and once with
+    ``true`` (kernel C).  Launch counts per run, the two runs' images and
+    depths against each other, the files read back."""
+    from nerf_pl_tpu_torch import eval as eval_cli
+    from nerf_pl_tpu_torch.data.depth_utils import read_pfm
+    from nerf_pl_tpu_torch.data.png import read_png
+
+    runs = {}
+    for channel_io in ("false", "true"):
+        out_dir = os.path.join(tmp, f"eval_channel_io_{channel_io}")
+        argv = ["--root_dir", os.path.join(tmp, "scene"), "--ckpt_path", ckpt,
+                "--img_wh", str(EVAL_WH), str(EVAL_WH),
+                "--N_samples", str(N_SAMPLES),
+                "--N_importance", str(N_IMPORTANCE), "--white_back", "true",
+                "--fused_channel_io", channel_io, "--save_depth",
+                "--scene_name", "smoke", "--out_dir", out_dir,
+                "--device", "cuda"]
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        psnr = eval_cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        d = os.path.join(out_dir, "blender", "smoke")
+        names = sorted(os.listdir(d))
+        want = sorted([f"{i:03d}.png" for i in range(EVAL_VIEWS)]
+                      + [f"depth_{i:03d}.pfm" for i in range(EVAL_VIEWS)]
+                      + ["smoke.gif"])
+        if names != want:
+            raise AssertionError(f"eval wrote {names}, not {want}")
+        imgs, depths = [], []
+        for i in range(EVAL_VIEWS):
+            img, mode = read_png(os.path.join(d, f"{i:03d}.png"))
+            depth, _ = read_pfm(os.path.join(d, f"depth_{i:03d}.pfm"))
+            if img.shape != (EVAL_WH, EVAL_WH, 3) or mode != "RGB":
+                raise AssertionError(f"PNG {i}: {img.shape} {mode}")
+            if depth.shape != (EVAL_WH, EVAL_WH) or not np.isfinite(depth).all():
+                raise AssertionError(f"depth {i}: {depth.shape}")
+            imgs.append(img)
+            depths.append(depth)
+        frames, delays, _ = gif_frames(os.path.join(d, "smoke.gif"))
+        if frames != EVAL_VIEWS or delays != [3] * EVAL_VIEWS:
+            raise AssertionError(f"GIF: {frames} frames, delays {delays}")
+        rays = EVAL_VIEWS * EVAL_WH * EVAL_WH
+        label = "row-major (C')" if channel_io == "false" else \
+            "channel-major (C)"
+        log(f"[eval {label}] {EVAL_VIEWS} views of {EVAL_WRITTEN_WH}^2 at "
+            f"{EVAL_WH}x{EVAL_WH}, {N_SAMPLES}+{N_IMPORTANCE} samples, f32: "
+            f"mean PSNR {psnr:.4f} dB, {wall:.3f} s wall, "
+            f"{wall / EVAL_VIEWS:.3f} s per view, {rays / wall:.1f} rays/s; "
+            f"launches {counts}")
+        runs[channel_io] = dict(psnr=psnr, wall=wall, s_per_view=wall /
+                                EVAL_VIEWS, rays_per_s=rays / wall,
+                                counts=counts, imgs=imgs, depths=depths)
+    rm, cm = runs["false"], runs["true"]
+    if rm["counts"]["C'"] < 1 or rm["counts"]["B"] < 1 or rm["counts"]["C"]:
+        raise AssertionError(f"the row-major eval did not take C' and B "
+                             f"alone: {rm['counts']}")
+    if cm["counts"]["C"] < 1 or cm["counts"]["C'"]:
+        raise AssertionError(f"the channel-major eval did not take C alone: "
+                             f"{cm['counts']}")
+    png_diff = [np.abs(a.astype(int) - b.astype(int))
+                for a, b in zip(rm["imgs"], cm["imgs"])]
+    png_levels = max(int(d.max()) for d in png_diff)
+    png_count = sum(int((d > 0).sum()) for d in png_diff)
+    depth_err = max(float(np.abs(a - b).max())
+                    for a, b in zip(rm["depths"], cm["depths"]))
+    rgb_err = float_render_layouts(ckpt, os.path.join(tmp, "scene"))
+    log(f"[eval] row-major vs channel-major: PNGs differ in {png_count} "
+        f"values by at most {png_levels} level; depth max_abs_err "
+        f"{depth_err:.3e}, float rgb of view 0 max_abs_err {rgb_err:.3e} "
+        f"(tol {TOL_EVAL_LAYOUTS:.0e}); PSNR {rm['psnr']:.6f} vs "
+        f"{cm['psnr']:.6f}")
+    if not (png_levels <= 1 and depth_err <= TOL_EVAL_LAYOUTS
+            and rgb_err <= TOL_EVAL_LAYOUTS):
+        raise AssertionError("the two layouts' renders disagree")
+    for r in runs.values():
+        del r["imgs"], r["depths"]
+    return dict(row_major=rm, channel_major=cm, depth_err=depth_err,
+                rgb_err=rgb_err, png_values_differing=png_count)
+
+
+def float_render_layouts(ckpt: str, root: str) -> float:
+    """The eval's render of test view 0 (the same call the eval tool makes)
+    in both layouts: max |rgb_fine difference| in float32."""
+    from nerf_pl_tpu_torch.data.blender import BlenderDataset
+    from nerf_pl_tpu_torch.tools.evaluate import load_models
+    from nerf_pl_tpu_torch.tools.render import render_image
+
+    models = load_models(ckpt, "cuda")
+    ds = BlenderDataset(root, "test", img_wh=(EVAL_WH, EVAL_WH),
+                        white_back=True)
+    rays = torch.from_numpy(ds[0]["rays"]).cuda()
+    rgb = [render_image(models, rays, None, chunk=EVAL_CHUNK,
+                        N_samples=N_SAMPLES, N_importance=N_IMPORTANCE,
+                        perturb=0.0, noise_std=0.0, white_back=True,
+                        test_time=True, use_fused=True,
+                        fused_channel_io=io)["rgb_fine"]
+           for io in (False, True)]
+    return max_abs(rgb[0], rgb[1])
+
+
+def train_row_major(tmp: str, base_losses: list) -> dict:
+    """``python -m nerf_pl_tpu_torch.train --fused_channel_io false`` for one
+    epoch at full width in bf16, on the same scene and seed as the
+    channel-major fit: launches of D' and E' in the fit and per step, C' in
+    validation; the epoch-0 loss against the channel-major fit's; then F'
+    through ``fused_nerf_apply_raw(..., stash_blocks=None)``."""
+    from nerf_pl_tpu_torch import train as train_cli
+    from nerf_pl_tpu_torch.ops import fused_mlp as fm
+
+    argv = ["--root_dir", os.path.join(tmp, "scene"),
+            "--dataset_name", "blender",
+            "--img_wh", str(TRAIN_WH), str(TRAIN_WH),
+            "--N_samples", str(N_SAMPLES), "--N_importance", str(N_IMPORTANCE),
+            "--batch_size", str(TRAIN_BATCH), "--num_epochs", "1",
+            "--lr", "5e-4", "--white_back", "true",
+            "--compute_dtype", "bfloat16", "--fused_channel_io", "false",
+            "--exp_name", "smoke_rm", "--log_dir", os.path.join(tmp, "logs"),
+            "--ckpt_dir", os.path.join(tmp, "ckpts"), "--device", "cuda"]
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    system = train_cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    with open(os.path.join(tmp, "logs", "smoke_rm", "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    epochs = [r for r in recs if "train/loss" in r]
+    loss = epochs[0]["train/loss"]
+    steps = system.steps_per_epoch
+    log(f"[train row-major] 1 epoch, {steps} steps, bf16: loss {loss!r} "
+        f"(channel-major fit's epoch 0: {base_losses[0]!r}); "
+        f"{epochs[0]['train/rays_per_s']:.1f} train rays/s; fit {wall:.1f} s "
+        f"wall; launches in the fit {counts}")
+    if not np.isfinite(loss):
+        raise AssertionError(f"row-major fit loss not finite: {loss}")
+    rel = abs(loss - base_losses[0]) / abs(base_losses[0])
+    log(f"[train row-major] epoch-0 loss against the channel-major fit's: "
+        f"identical {loss == base_losses[0]}, relative difference {rel:.3e} "
+        f"(tol {TOL_FIT_LAYOUTS:.0e})")
+    if not rel <= TOL_FIT_LAYOUTS:
+        raise AssertionError("the row-major fit's epoch-0 loss departs from "
+                             "the channel-major fit's")
+    if (counts["D'"] < 2 * steps or counts["E'"] < 2 * steps
+            or counts["C'"] < 1 or counts["D"] or counts["E"] or counts["C"]):
+        raise AssertionError(f"the row-major fit did not take D', E' and C' "
+                             f"alone: {counts}")
+    rays, rgbs = system.rays[:TRAIN_BATCH], system.rgbs[:TRAIN_BATCH]
+    torch.cuda.synchronize()
+    reset_counts()
+    system.train_step(rays, rgbs)
+    torch.cuda.synchronize()
+    per_step = read_counts()
+    log(f"[train row-major] launches in one training step: {per_step}")
+    if per_step["D'"] != 2 or per_step["E'"] != 2:
+        raise AssertionError(f"a row-major step launched {per_step}")
+
+    # kernel F': the remat route of the row-major fused MLP
+    model = system.models["fine"]
+    xr = random_raw_t(torch.Generator().manual_seed(6),
+                      TRAIN_BATCH * (N_SAMPLES + N_IMPORTANCE), "cuda").T
+    torch.cuda.synchronize()
+    reset_counts()
+    out = fm.fused_nerf_apply_raw(model, xr[:, :3], xr[:, 3:6],
+                                  torch.bfloat16, stash_blocks=None)
+    out.square().mean().backward()
+    torch.cuda.synchronize()
+    remat = read_counts()
+    model.zero_grad(set_to_none=True)
+    log(f"[train row-major] fused_nerf_apply_raw(stash_blocks=None) forward "
+        f"+ backward at {xr.shape[0]} points: launches {remat}")
+    if remat["F'"] != 1 or remat["C'"] != 1 or remat["D'"] or remat["E'"]:
+        raise AssertionError(f"the row-major remat route did not take C' and "
+                             f"F': {remat}")
+    return dict(counts=counts, per_step=per_step, remat=remat, loss=loss,
+                loss_rel_diff=rel, rays_per_s=epochs[0]["train/rays_per_s"])
+
+
 def step_grads_card_vs_cpu() -> float:
     """One float32 training step's grads (render -> MSE -> backward through
     the fused MLP) on the card and on the CPU, at 256 rays."""
@@ -972,8 +1341,12 @@ def main() -> int:
             holds = check_train_kernels(fine, gen, dev)
             tt, train_holds = time_train_kernels(fine, gen, dev)
             tk = merge_holds(holds + train_holds)
+            te = time_eval_chunk(fine, gen, dev)
         del fine
         trained = train_end_to_end(tmp)
+        evaluated = eval_end_to_end(
+            tmp, os.path.join(tmp, "ckpts", "smoke", "epoch=1.ckpt"))
+        trained_rm = train_row_major(tmp, trained["losses"])
         step_err = step_grads_card_vs_cpu()
         benched = bench_number()
 
@@ -1044,6 +1417,58 @@ def main() -> int:
         row["mean_rel_err"] = tk["mean_rel"]
         row["control_rel_err"] = dict(max=tk["control_max_rel"],
                                       mean=tk["control_mean_rel"])
+    # the row-major twins (one source each with their channel-major kernels,
+    # a compile-time layout flag; held bit-equal to them above)
+    ev_rm, ev_cm = evaluated["row_major"], evaluated["channel_major"]
+    erow = te["rgb"]
+    kernels.append(dict(
+        name="fused_nerf_fwd_row_major", route="cuda",
+        source="nerf_pl_tpu_torch/csrc/fused_mlp.cu",
+        replaces="nerf_pl_tpu/ops/fused_mlp.py:644",
+        launches=ev_rm["counts"]["C'"], max_abs_err=c["err_rm"],
+        ms=erow["ms"], plain_ms=erow["plain_ms"], bound_ms=erow["bound_ms"],
+        bound_by=erow["bound_by"], library_ms=None,
+        shape=f"rgb f32 P={erow['P']} (one eval chunk)",
+        max_abs_err_eval_chunk_f32=erow["err"], twin_ms=erow["C_ms"],
+        matmul_chain_fwd_ms=erow["matmul_chain_fwd_ms"],
+        sigma_only=dict((k, te["sigma-only"][k]) for k in (
+            "P", "ms", "C_ms", "plain_ms", "bound_ms", "matmul_chain_fwd_ms")),
+        train_shapes={k: dict(P=tt[k]["P"], ms=tt[k]["C'"]["ms"],
+                              twin_ms=tt[k]["C_ms"],
+                              plain_ms=tt[k]["C'"]["plain_ms"],
+                              bound_ms=tt[k]["C'"]["bound"][0],
+                              matmul_chain_fwd_ms=tt[k]["chain_fwd_ms"])
+                      for k in ("fine", "coarse")},
+        launches_by_path=dict(eval_row_major=ev_rm["counts"]["C'"],
+                              eval_channel_major=ev_cm["counts"]["C'"],
+                              fit_row_major=trained_rm["counts"]["C'"],
+                              per_step=trained_rm["per_step"]["C'"],
+                              remat_drive=trained_rm["remat"]["C'"])))
+    for key, name, src, line, launches in (
+            ("D'", "fused_nerf_stash_fwd_row_major", "fused_mlp.cu", 707,
+             trained_rm["counts"]["D'"]),
+            ("E'", "fused_nerf_bwd_stash_row_major", "fused_mlp_bwd.cu", 727,
+             trained_rm["counts"]["E'"]),
+            ("F'", "fused_nerf_bwd_remat_row_major", "fused_mlp_bwd.cu", 660,
+             trained_rm["remat"]["F'"])):
+        row, twin = fine_t[key], fine_t[key[0]]
+        chain = "chain_fwd_ms" if key == "D'" else "chain_bwd_ms"
+        kernels.append(dict(
+            name=name, route="cuda", source=f"nerf_pl_tpu_torch/csrc/{src}",
+            replaces=f"nerf_pl_tpu/ops/fused_mlp.py:{line}",
+            launches=launches, max_abs_err=tk[key], ms=row["ms"],
+            plain_ms=row["plain_ms"], bound_ms=row["bound"][0],
+            bound_by=row["bound"][1], library_ms=None,
+            shape=f"rgb bf16 P={fine_t['P']}", twin_ms=twin["ms"],
+            coarse=dict(P=coarse_t["P"], ms=coarse_t[key]["ms"],
+                        twin_ms=coarse_t[key[0]]["ms"],
+                        plain_ms=coarse_t[key]["plain_ms"],
+                        bound_ms=coarse_t[key]["bound"][0]),
+            launches_per_step=trained_rm["per_step"][key],
+            matmul_chain_ms=dict(fine=fine_t[chain], coarse=coarse_t[chain])))
+    for row, key in ((kernels[-2], "E'"), (kernels[-1], "F'")):
+        row["max_rel_err"] = tk[f"{key}_rel"]
+        row["mean_rel_err"] = tk["mean_rel'"]
     log(f"[serve] {served['rays_per_s']:.1f} rays/s, "
         f"{served['ms']:.1f} ms per request; f32 card-vs-cpu err "
         f"{f32_err:.3e}")
@@ -1051,6 +1476,12 @@ def main() -> int:
         f"{benched['rays_per_s']:.1f} in the bench workload; f32 step grads "
         f"card vs cpu rel err {step_err:.3e}; total "
         f"{time.perf_counter() - t_start:.1f} s")
+    log(f"[eval] s per {EVAL_WH}^2 view: row-major "
+        f"{ev_rm['s_per_view']:.3f} ({ev_rm['rays_per_s']:.1f} rays/s), "
+        f"channel-major {ev_cm['s_per_view']:.3f} "
+        f"({ev_cm['rays_per_s']:.1f} rays/s); PSNR {ev_rm['psnr']:.4f} dB; "
+        f"row-major fit {trained_rm['rays_per_s']:.1f} train rays/s, epoch-0 "
+        f"loss relative difference {trained_rm['loss_rel_diff']:.3e}")
     log(f"[card] {card}")
     print(json.dumps({"kernels": kernels}))
     print(card)

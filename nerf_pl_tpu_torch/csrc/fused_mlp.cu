@@ -1,11 +1,22 @@
 // Kernels C and D: the fused NeRF MLP forward with in-kernel positional
 // encoding, on channel-major (8, P) input and output; D also writes the
-// activation stash that the backward kernel E reads.
+// activation stash that the backward kernel E reads.  C' and D': the same
+// kernels on row-major (P, 8) input and output (the ROW_MAJOR flag).
 //
 // Replaces (TPU, Pallas): nerf_pl_tpu/ops/fused_mlp.py::fused_nerf_apply_raw_t
 // (:1215) -> C: _raw_t_fwd_call (:1083) -> _fwd_kernel_raw_t (:1015);
 //            D: _raw_t_stash_fwd_call (:1106) -> _fwd_kernel_raw_stash_t
-//               (:1032).
+//               (:1032);
+// and fused_nerf_apply_raw (:1275) ->
+//            C': _fused_raw_fwd_call (:853) -> _fwd_kernel_raw (:644);
+//            D': _fused_raw_stash_fwd_call (:741) -> _fwd_kernel_raw_stash
+//                (:707).
+// The row-major variants differ only at the boundary: each tile's (64, 8)
+// input rows, 2 KB of contiguous f32, are staged into shared memory in
+// 16-byte loads before the embedding, and each point's 8 outputs leave as
+// two 16-byte stores.  The arithmetic is the same code, so C' and D' give
+// C's and D's bits on the same points.  Bounds as C and D (the boundary IO
+// is 64 bytes a point in either layout).
 //
 // Computes, for each point p (column of x):
 //   x rows [xyz(3) | dir(3) | 0 0]
@@ -52,7 +63,7 @@ namespace {
 
 using namespace nerf;
 
-template <typename T, bool SIGMA_ONLY, bool STASH>
+template <typename T, bool SIGMA_ONLY, bool STASH, bool ROW_MAJOR>
 __global__ void __launch_bounds__(THREADS, 2)
 fused_nerf_fwd_kernel(const float* __restrict__ x, float* __restrict__ out,
                       const T* __restrict__ wts,
@@ -61,14 +72,14 @@ fused_nerf_fwd_kernel(const float* __restrict__ x, float* __restrict__ out,
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int SC = SIGMA_ONLY ? SC_SIGMA : SC_RGB;
   const long long p0 = 1LL * blockIdx.x * TP;
-  forward_tile<T, SIGMA_ONLY, STASH>(x, out, wts, bias, P, p0, smem,
-                                     STASH ? stash + p0 * SC : nullptr);
+  forward_tile<T, SIGMA_ONLY, STASH, ROW_MAJOR>(
+      x, out, wts, bias, P, p0, smem, STASH ? stash + p0 * SC : nullptr);
 }
 
-template <typename T, bool SIGMA_ONLY, bool STASH>
+template <typename T, bool SIGMA_ONLY, bool STASH, bool ROW_MAJOR>
 int launch(const void* x, void* out, const void* w, const void* b,
            long long P, void* stash, cudaStream_t stream) {
-  auto kernel = fused_nerf_fwd_kernel<T, SIGMA_ONLY, STASH>;
+  auto kernel = fused_nerf_fwd_kernel<T, SIGMA_ONLY, STASH, ROW_MAJOR>;
   constexpr size_t smem = smem_bytes<T>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -82,16 +93,27 @@ int launch(const void* x, void* out, const void* w, const void* b,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool STASH, bool RM>
+int dispatch_io(const void* x, void* out, const void* w, const void* b,
+                long long P, int sigma_only, int bf16, void* stash,
+                cudaStream_t s) {
+  using BF = __nv_bfloat16;
+  if (bf16)
+    return sigma_only ? launch<BF, true, STASH, RM>(x, out, w, b, P, stash, s)
+                      : launch<BF, false, STASH, RM>(x, out, w, b, P, stash, s);
+  return sigma_only ? launch<float, true, STASH, RM>(x, out, w, b, P, stash, s)
+                    : launch<float, false, STASH, RM>(x, out, w, b, P, stash, s);
+}
+
 template <bool STASH>
 int dispatch(const void* x, void* out, const void* w, const void* b,
-             long long P, int sigma_only, int bf16, void* stash,
-             cudaStream_t s) {
-  if (bf16)
-    return sigma_only
-               ? launch<__nv_bfloat16, true, STASH>(x, out, w, b, P, stash, s)
-               : launch<__nv_bfloat16, false, STASH>(x, out, w, b, P, stash, s);
-  return sigma_only ? launch<float, true, STASH>(x, out, w, b, P, stash, s)
-                    : launch<float, false, STASH>(x, out, w, b, P, stash, s);
+             long long P, int sigma_only, int bf16, int row_major,
+             void* stash, cudaStream_t s) {
+  return row_major
+             ? dispatch_io<STASH, true>(x, out, w, b, P, sigma_only, bf16,
+                                        stash, s)
+             : dispatch_io<STASH, false>(x, out, w, b, P, sigma_only, bf16,
+                                         stash, s);
 }
 
 }  // namespace
@@ -109,20 +131,23 @@ int nerf_fused_stash_cols(int sigma_only) {
   return sigma_only ? SC_SIGMA : SC_RGB;
 }
 
-// Kernel C.  x (8, P) f32 -> out (8, P) f32; w: N_WEIGHTS elements of bf16
-// (bf16 = 1) or f32, b: N_BIASES f32; all contiguous on the stream's device.
+// Kernel C (row_major = 0: x and out (8, P)) and C' (row_major = 1: x and
+// out (P, 8), 16-byte aligned).  x f32 -> out f32; w: N_WEIGHTS elements of
+// bf16 (bf16 = 1) or f32, b: N_BIASES f32; all contiguous on the stream's
+// device.
 int nerf_fused_fwd(const void* x, void* out, const void* w, const void* b,
-                   long long P, int sigma_only, int bf16, void* stream) {
-  return dispatch<false>(x, out, w, b, P, sigma_only, bf16, nullptr,
-                         static_cast<cudaStream_t>(stream));
+                   long long P, int sigma_only, int bf16, int row_major,
+                   void* stream) {
+  return dispatch<false>(x, out, w, b, P, sigma_only, bf16, row_major,
+                         nullptr, static_cast<cudaStream_t>(stream));
 }
 
-// Kernel D.  As C, and stash (P, nerf_fused_stash_cols(sigma_only)) in the
-// weight type.
+// Kernels D and D'.  As C and C', and stash (P,
+// nerf_fused_stash_cols(sigma_only)) in the weight type.
 int nerf_fused_stash_fwd(const void* x, void* out, const void* w,
                          const void* b, long long P, int sigma_only, int bf16,
-                         void* stash, void* stream) {
-  return dispatch<true>(x, out, w, b, P, sigma_only, bf16, stash,
+                         int row_major, void* stash, void* stream) {
+  return dispatch<true>(x, out, w, b, P, sigma_only, bf16, row_major, stash,
                         static_cast<cudaStream_t>(stream));
 }
 

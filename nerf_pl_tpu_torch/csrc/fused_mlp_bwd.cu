@@ -1,13 +1,23 @@
 // Kernels E and F: the backward of the fused NeRF MLP on channel-major
 // (8, P) input: the f32 gradient of every packed weight and bias, given the
 // output cotangent g (8, P).  The input cotangent is zero (rays are data)
-// and is not computed.
+// and is not computed.  E' and F': the same on row-major (P, 8) x and g
+// (the dgrad kernel's ROW_MAJOR flag).
 //
 // Replaces (TPU, Pallas): nerf_pl_tpu/ops/fused_mlp.py::_raw_t_bwd_call
 // (:1140, pallas_call :1171) -> E: _bwd_kernel_raw_stash_t (:1052), which
 // reads the activation stash that kernel D wrote; F: _bwd_kernel_raw_t
 // (:1067), which recomputes the forward instead (the route past
 // STASH_MAX_POINTS, or stash_blocks=None).  Both run _bwd_core (:209-289).
+// Row-major: E': _fused_raw_stash_bwd_call (:775, pallas_call :788) ->
+// _bwd_kernel_raw_stash (:727), reading the stash of D'; F':
+// _fused_raw_bwd_rule (:884, pallas_call :899) -> _bwd_kernel_raw (:660).
+// Bounds as E and F (the boundary IO is 64 bytes a point in either
+// layout).  Only the loads of x
+// (staged in 16-byte vectors, as in C') and of g (one 16-byte load per
+// point) differ; the sweep, the wgrad and the reduction are shared, so E'
+// and F' give E's and F's bits on the same points.  The TPU kernels' zero
+// dx is not written: the input gets no gradient.
 //
 // Numerics of _bwd_core, layer by layer from the top:
 //   g_pre = g_h * (h_out > 0)                      f32
@@ -140,7 +150,7 @@ __device__ __forceinline__ void bwd_epilogue(
 // [p_begin, p_end).  stash: row 0 is point p_begin (E: kernel D's stash;
 // F: the scratch that this kernel fills first).  gbuf: row 0 is point
 // p_begin.  bpart: one row of N_BIASES partial sums per tile.
-template <typename T, bool SIGMA_ONLY, bool REMAT>
+template <typename T, bool SIGMA_ONLY, bool REMAT, bool ROW_MAJOR>
 __global__ void __launch_bounds__(THREADS, 2)
 fused_nerf_dgrad_kernel(const float* __restrict__ x,
                         const float* __restrict__ g,
@@ -167,13 +177,25 @@ fused_nerf_dgrad_kernel(const float* __restrict__ x,
   if (REMAT) {
     // the stash rows are written and read back by this CTA only; the
     // barrier at the end of forward_tile orders them
-    forward_tile<T, SIGMA_ONLY, true>(x, nullptr, wts, bias, P, p0, smem, st);
+    forward_tile<T, SIGMA_ONLY, true, ROW_MAJOR>(x, nullptr, wts, bias, P, p0,
+                                                 smem, st);
   } else {
-    embed<T>(x, P, p0, act, !SIGMA_ONLY);
+    embed<T, ROW_MAJOR>(x, P, p0, act, ws, !SIGMA_ONLY);
   }
-  for (int i = tid; i < 4 * TP; i += THREADS) {
-    const int r = i / TP, p = i - r * TP;
-    gout[i] = p < n_valid ? g[r * P + p0 + p] : 0.0f;
+  // the cotangent's first 4 channels (rgb, sigma; sigma-only: sigma)
+  if (ROW_MAJOR) {  // one 16-byte load per point
+    for (int p = tid; p < TP; p += THREADS) {
+      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (p < n_valid)
+        v = *reinterpret_cast<const float4*>(g + (p0 + p) * IO);
+      gout[p] = v.x; gout[TP + p] = v.y;
+      gout[2 * TP + p] = v.z; gout[3 * TP + p] = v.w;
+    }
+  } else {
+    for (int i = tid; i < 4 * TP; i += THREADS) {
+      const int r = i / TP, p = i - r * TP;
+      gout[i] = p < n_valid ? g[r * P + p0 + p] : 0.0f;
+    }
   }
   __syncthreads();
   // embeddings to the G buffer (wgrad of layer 0, the skip layer, dir head)
@@ -413,13 +435,13 @@ int reduce(const float* part, int rows, long long n, float* tmp, float* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool SIGMA_ONLY, bool REMAT>
+template <typename T, bool SIGMA_ONLY, bool REMAT, bool ROW_MAJOR>
 int run(const void* x, const void* g, const void* w, const void* b,
         const void* wt, long long P, void* stash, void* gbuf, void* wpart,
         void* bpart, void* btmp, void* dw, void* db, long long chunk,
         int split, cudaStream_t s) {
   constexpr int SC = SIGMA_ONLY ? SC_SIGMA : SC_RGB;
-  auto dgrad = fused_nerf_dgrad_kernel<T, SIGMA_ONLY, REMAT>;
+  auto dgrad = fused_nerf_dgrad_kernel<T, SIGMA_ONLY, REMAT, ROW_MAJOR>;
   constexpr size_t smem = bwd_smem_bytes<T>();
   cudaError_t err = cudaFuncSetAttribute(
       dgrad, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -453,20 +475,39 @@ int run(const void* x, const void* g, const void* w, const void* b,
   return 0;
 }
 
-template <typename T>
+template <typename T, bool RM>
 int run_t(int sigma_only, int remat, const void* x, const void* g,
           const void* w, const void* b, const void* wt, long long P,
           void* stash, void* gbuf, void* wpart, void* bpart, void* btmp,
           void* dw, void* db, long long chunk, int split, cudaStream_t s) {
   if (sigma_only)
-    return remat ? run<T, true, true>(x, g, w, b, wt, P, stash, gbuf, wpart,
-                                      bpart, btmp, dw, db, chunk, split, s)
-                 : run<T, true, false>(x, g, w, b, wt, P, stash, gbuf, wpart,
-                                       bpart, btmp, dw, db, chunk, split, s);
-  return remat ? run<T, false, true>(x, g, w, b, wt, P, stash, gbuf, wpart,
-                                     bpart, btmp, dw, db, chunk, split, s)
-               : run<T, false, false>(x, g, w, b, wt, P, stash, gbuf, wpart,
-                                      bpart, btmp, dw, db, chunk, split, s);
+    return remat ? run<T, true, true, RM>(x, g, w, b, wt, P, stash, gbuf,
+                                          wpart, bpart, btmp, dw, db, chunk,
+                                          split, s)
+                 : run<T, true, false, RM>(x, g, w, b, wt, P, stash, gbuf,
+                                           wpart, bpart, btmp, dw, db, chunk,
+                                           split, s);
+  return remat ? run<T, false, true, RM>(x, g, w, b, wt, P, stash, gbuf,
+                                         wpart, bpart, btmp, dw, db, chunk,
+                                         split, s)
+               : run<T, false, false, RM>(x, g, w, b, wt, P, stash, gbuf,
+                                          wpart, bpart, btmp, dw, db, chunk,
+                                          split, s);
+}
+
+template <typename T>
+int run_io(int row_major, int sigma_only, int remat, const void* x,
+           const void* g, const void* w, const void* b, const void* wt,
+           long long P, void* stash, void* gbuf, void* wpart, void* bpart,
+           void* btmp, void* dw, void* db, long long chunk, int split,
+           cudaStream_t s) {
+  return row_major
+             ? run_t<T, true>(sigma_only, remat, x, g, w, b, wt, P, stash,
+                              gbuf, wpart, bpart, btmp, dw, db, chunk, split,
+                              s)
+             : run_t<T, false>(sigma_only, remat, x, g, w, b, wt, P, stash,
+                               gbuf, wpart, bpart, btmp, dw, db, chunk, split,
+                               s);
 }
 
 }  // namespace
@@ -485,7 +526,8 @@ int nerf_bwd_points_per_cta() { return TP; }
 int nerf_bwd_bias_rows_per_group() { return BIAS_RPG; }
 
 // Kernels E (remat = 0; stash: kernel D's (P, SC) stash) and F (remat = 1;
-// stash: a (chunk, SC) scratch).  x, g (8, P) f32; w (N_WEIGHTS) and wt
+// stash: a (chunk, SC) scratch); with row_major = 1, E' and F' (x and g
+// (P, 8), 16-byte aligned).  x, g (8, P) f32; w (N_WEIGHTS) and wt
 // (N_WT) in T (bf16 = 1) or f32; b (N_BIASES) f32.  Workspace: gbuf
 // (chunk, GC) T, wpart (split, N_WEIGHTS) f32, bpart (ceil(chunk / TP),
 // N_BIASES) f32, btmp (ceil(ceil(chunk / TP) / BIAS_RPG), N_BIASES) f32.
@@ -493,16 +535,16 @@ int nerf_bwd_bias_rows_per_group() { return BIAS_RPG; }
 // wpart too (sigma-only runs write no partials for the heads past sigma).
 int nerf_fused_bwd(const void* x, const void* g, const void* w,
                    const void* b, const void* wt, long long P, int sigma_only,
-                   int bf16, int remat, void* stash, void* gbuf, void* wpart,
-                   void* bpart, void* btmp, void* dw, void* db,
+                   int bf16, int remat, int row_major, void* stash, void* gbuf,
+                   void* wpart, void* bpart, void* btmp, void* dw, void* db,
                    long long chunk, int split, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return run_t<__nv_bfloat16>(sigma_only, remat, x, g, w, b, wt, P, stash,
-                                gbuf, wpart, bpart, btmp, dw, db, chunk,
-                                split, s);
-  return run_t<float>(sigma_only, remat, x, g, w, b, wt, P, stash, gbuf,
-                      wpart, bpart, btmp, dw, db, chunk, split, s);
+    return run_io<__nv_bfloat16>(row_major, sigma_only, remat, x, g, w, b, wt,
+                                 P, stash, gbuf, wpart, bpart, btmp, dw, db,
+                                 chunk, split, s);
+  return run_io<float>(row_major, sigma_only, remat, x, g, w, b, wt, P, stash,
+                       gbuf, wpart, bpart, btmp, dw, db, chunk, split, s);
 }
 
 }  // extern "C"

@@ -200,12 +200,48 @@ __device__ __forceinline__ void dense(const T* __restrict__ w,
   __syncthreads();
 }
 
+// Ray IO layout at the kernel boundary, a compile-time parameter: channel-
+// major x and out (8, P), element (c, p) at c * P + p (kernels C-F), or
+// row-major (P, 8), element (p, c) at p * 8 + c (kernels C'-F').  Only the
+// loads of x and g and the store of out differ; the arithmetic is shared.
+constexpr int IO = 8;  // channels of x, out and g
+__host__ __device__ constexpr long long io_at(bool row_major, int c,
+                                              long long p, long long P) {
+  return row_major ? p * IO + c : c * P + p;
+}
+
+// Row-major only: copy the tile's (TP, 8) rows of x, 2 KB of contiguous
+// f32, into xs in 16-byte vectors, zeros past P.  Ends with a barrier.
+__device__ __forceinline__ void stage_rows(const float* __restrict__ x,
+                                           long long P, long long p0,
+                                           float* xs) {
+  const long long n_valid = P - p0;
+  for (int i = threadIdx.x; i < TP * IO / 4; i += THREADS) {
+    const int p = i / (IO / 4);
+    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (p < n_valid) v = reinterpret_cast<const float4*>(x + p0 * IO)[i];
+    reinterpret_cast<float4*>(xs)[i] = v;
+  }
+  __syncthreads();
+}
+
 // Embed the tile's points into act rows [0, CX) and, unless sigma-only,
 // [ROW_DIR, ROW_DIR + CD).  Points past P embed zeros and are never stored.
-template <typename T>
+// Row-major input is first staged in ws (the weight stage, free until the
+// first product, whose opening barrier orders these reads before it).
+template <typename T, bool ROW_MAJOR>
 __device__ __forceinline__ void embed(const float* __restrict__ x,
                                       long long P, long long p0, T* act,
-                                      bool with_dir) {
+                                      T* ws, bool with_dir) {
+  const float* src = x;  // element (c, p) of the tile at src[io_at(..)]
+  long long ld = P, q0 = p0;
+  if (ROW_MAJOR) {
+    float* xs = reinterpret_cast<float*>(ws);
+    stage_rows(x, P, p0, xs);
+    src = xs;
+    ld = TP;
+    q0 = 0;
+  }
   const int n_rows = with_dir ? CX + CD : CX;
   for (int i = threadIdx.x; i < n_rows * TP; i += THREADS) {
     const int r = i / TP, p = i - r * TP;
@@ -216,10 +252,11 @@ __device__ __forceinline__ void embed(const float* __restrict__ x,
     if (gp < P) {
       const int base = is_dir ? 3 : 0;
       if (c < 3) {
-        v = x[(base + c) * P + gp];
+        v = src[io_at(ROW_MAJOR, base + c, q0 + p, ld)];
       } else {
         const int q = c - 3, k = q / 6, s = q - 6 * k;  // s: sin 0-2, cos 3-5
-        const float t = x[(base + s % 3) * P + gp] * static_cast<float>(1 << k);
+        const float t = src[io_at(ROW_MAJOR, base + s % 3, q0 + p, ld)] *
+                        static_cast<float>(1 << k);
         v = s < 3 ? sinf(t) : cosf(t);
       }
     }
@@ -228,11 +265,11 @@ __device__ __forceinline__ void embed(const float* __restrict__ x,
 }
 
 // The forward of one tile of TP points starting at p0.  Writes the output
-// rows for the tile's points into out (8, P) unless out is null, and, with a
-// stash, each point's stash row (stash points at the tile's first row).  On
-// return act rows [0, CX) and [ROW_DIR, ROW_DIR + CD) still hold the
-// embedding.
-template <typename T, bool SIGMA_ONLY, bool STASH>
+// channels for the tile's points into out (8, P) or (P, 8) unless out is
+// null, and, with a stash, each point's stash row (stash points at the
+// tile's first row).  On return act rows [0, CX) and [ROW_DIR, ROW_DIR + CD)
+// still hold the embedding.
+template <typename T, bool SIGMA_ONLY, bool STASH, bool ROW_MAJOR>
 __device__ __forceinline__ void forward_tile(
     const float* __restrict__ x, float* __restrict__ out,
     const T* __restrict__ wts, const float* __restrict__ bias, long long P,
@@ -245,7 +282,7 @@ __device__ __forceinline__ void forward_tile(
   constexpr int SC = SIGMA_ONLY ? SC_SIGMA : SC_RGB;
   const long long n_valid = P - p0;
 
-  embed<T>(x, P, p0, act, !SIGMA_ONLY);
+  embed<T, ROW_MAJOR>(x, P, p0, act, ws, !SIGMA_ONLY);
   // layer 0 reads xyz_emb; the skip layer reads [xyz_emb | h] (rows 0..318);
   // layer i's output h_{i+1} goes to stash column i * W
   dense<T, 2, STASH>(wts, bias, CX, act, 0, ROW_H, ws, true, stash, SC, 0,
@@ -280,19 +317,25 @@ __device__ __forceinline__ void forward_tile(
   }
   __syncthreads();
   if (out == nullptr) return;
-  for (int i = tid; i < 8 * TP; i += THREADS) {
+  auto value = [&](int r, int p) {  // output channel r of point p
+    if (SIGMA_ONLY) return r == 0 ? sig[p] : 0.0f;
+    return r < 3 ? rgb[r * TP + p] : (r == 3 ? sig[p] : 0.0f);
+  };
+  if (ROW_MAJOR) {  // each point's 8 channels: two 16-byte stores
+    for (int i = tid; i < TP * IO / 4; i += THREADS) {
+      const int p = i / (IO / 4), r0 = (i % (IO / 4)) * 4;
+      if (p0 + p >= P) continue;
+      reinterpret_cast<float4*>(out + p0 * IO)[i] =
+          make_float4(value(r0, p), value(r0 + 1, p), value(r0 + 2, p),
+                      value(r0 + 3, p));
+    }
+    return;
+  }
+  for (int i = tid; i < IO * TP; i += THREADS) {
     const int r = i / TP, p = i - r * TP;
     const long long gp = p0 + p;
     if (gp >= P) continue;
-    float v = 0.0f;
-    if (SIGMA_ONLY) {
-      if (r == 0) v = sig[p];
-    } else if (r < 3) {
-      v = rgb[r * TP + p];
-    } else if (r == 3) {
-      v = sig[p];
-    }
-    out[r * P + gp] = v;
+    out[r * P + gp] = value(r, p);
   }
 }
 

@@ -9,9 +9,9 @@
     channels, with no alpha blend (as the reference).
   * near/far and ``white_back`` are arguments (upstream 2/6 by default).
 
-Images are read with the port's own PNG reader (``data/png.py``).  Images
-whose size differs from ``img_wh`` would need PIL's LANCZOS resize, which
-is not ported yet: they raise (ROADMAP.md, Queue 1).
+Images are read with the port's own PNG reader (``data/png.py``) and
+resized to ``img_wh`` with PIL's LANCZOS, repeated in numpy
+(``data/resize.py``).
 """
 from __future__ import annotations
 
@@ -22,17 +22,14 @@ from typing import Optional
 import numpy as np
 
 from .png import read_png, to_luma, to_rgba
+from .resize import resize_lanczos
 from .shadow_common import get_ray_directions, make_rays
 
 
 def _load_image(path, img_wh, black_and_white=False):
     """Returns (h*w, 4) float32 RGBA in [0, 1] (grayscale replicated if bw)."""
     img, mode = read_png(path)
-    h, w = img.shape[:2]
-    if (w, h) != tuple(img_wh):
-        raise ValueError(
-            f"{path} is {w}x{h}, not {tuple(img_wh)}: resizing (PIL's "
-            "LANCZOS) is not ported yet, see ROADMAP.md")
+    img = resize_lanczos(img, mode, img_wh)
     if black_and_white:
         alpha = None
         if mode == "RGBA":

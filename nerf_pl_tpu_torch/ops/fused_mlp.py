@@ -1,18 +1,23 @@
-"""The fused NeRF MLP on channel-major input, with its backward
-(``nerf_pl_tpu/ops/fused_mlp.py::fused_nerf_apply_raw_t``).
+"""The fused NeRF MLP with in-kernel positional encoding, with its backward
+(``nerf_pl_tpu/ops/fused_mlp.py::fused_nerf_apply_raw_t`` and
+``fused_nerf_apply_raw``).
 
 ``fused_nerf_apply_raw_t(model, x_rawT)`` takes ``(8, P)`` float32 rows
 ``[xyz(3) | dir(3) | 0 0]`` and returns ``(8, P)`` float32: rows
 ``[rgb(3) | sigma | 0 x 4]``, or sigma in row 0 and zeros below when
-``sigma_only``.  The positional encoding (10 xyz / 4 dir frequencies) runs
-inside the kernels.
+``sigma_only``.  ``fused_nerf_apply_raw(model, xyz, dirs)`` takes the same
+data row-major, ``(P, 8)`` at the kernels, and returns ``(P, 4)`` ``[rgb,
+sigma]`` or ``(P, 1)``.  The positional encoding (10 xyz / 4 dir
+frequencies) runs inside the kernels.
 
-Kernels (``csrc/fused_mlp.cu``, ``csrc/fused_mlp_bwd.cu``):
-  * C — the forward;
-  * D — the forward that also writes the activation stash ``(P, 2432)``
+Kernels (``csrc/fused_mlp.cu``, ``csrc/fused_mlp_bwd.cu``), each on the
+channel-major layout and, primed, on the row-major one (a compile-time
+layout flag on the same code, so both give the same bits):
+  * C, C' — the forward;
+  * D, D' — the forward that also writes the activation stash ``(P, 2432)``
     (sigma-only ``(P, 2048)``) in the compute dtype: h1..h8, fin, d;
-  * E — the backward that reads D's stash;
-  * F — the backward that recomputes the forward instead.
+  * E, E' — the backward that reads D's stash;
+  * F, F' — the backward that recomputes the forward instead.
 With grad enabled and trainable parameters, the call is a
 ``torch.autograd.Function`` whose forward is D and backward E, or C and F
 past ``STASH_MAX_POINTS`` points or with ``stash_blocks=None``
@@ -75,6 +80,40 @@ def stash_cols(sigma_only: bool) -> int:
     return STASH_COLS_SIGMA if sigma_only else STASH_COLS_RGB
 
 
+# the wide forward's weight budget (fused_mlp.py:441-452): the TPU kernel
+# keeps every weight resident in VMEM, packed at 128-lane input tiles
+CIN = 128
+_WIDE_WEIGHT_BUDGET = 9 << 20
+
+
+def _packed_weight_bytes(w: int, itemsize: int = 2) -> int:
+    wh = w // 2
+    rows = CIN * w + (D - 2) * w * w + (CIN + w) * w  # trunk incl. skip
+    rows += w * CIN + w * w + (w + CIN) * wh + wh * CIN  # heads
+    return rows * itemsize
+
+
+def supports_fused_wide(model, compute_dtype=torch.bfloat16) -> bool:
+    """The models that JAX's wide fused forward takes (``supports_fused_wide``,
+    fused_mlp.py:455-481): the reference topology at a width W != 256 that is
+    a multiple of 128, whose weights packed in ``compute_dtype`` fit the TPU
+    kernel's budget.  That kernel is not ported yet (ROADMAP.md)."""
+    if not isinstance(model, NeRF):
+        return False
+    layers = model.xyz_layers
+    w_ = int(layers[0].w.shape[1])
+    itemsize = torch.empty((), dtype=compute_dtype).element_size()
+    return (
+        len(layers) == D
+        and w_ % 128 == 0
+        and w_ != W
+        and tuple(layers[0].w.shape) == (CX, w_)
+        and tuple(layers[SKIP].w.shape) == (w_ + CX, w_)
+        and tuple(model.dir_layer.w.shape) == (w_ + CD, w_ // 2)
+        and _packed_weight_bytes(w_, itemsize) <= _WIDE_WEIGHT_BUDGET
+    )
+
+
 # ------------------------------------------------------------ plain versions
 def _forward_plain(model: NeRF, x_rawT: torch.Tensor, sigma_only: bool,
                    compute_dtype, keep_acts: bool = True) -> dict:
@@ -132,6 +171,35 @@ def fused_nerf_stash_fwd_plain(model: NeRF, x_rawT: torch.Tensor,
         pieces = f["acts"][1:] + ([] if sigma_only else [f["fin"], f["d"]])
         stash = torch.cat([a.to(compute_dtype) for a in pieces], dim=1)
         return _out_rows(f, sigma_only), stash
+
+
+def fused_nerf_apply_raw_plain(model: NeRF, x_raw: torch.Tensor,
+                               sigma_only: bool = False,
+                               compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """Plain PyTorch version of kernel C': C's on the transposed rows
+    (made contiguous, so the sums run in C's order)."""
+    return fused_nerf_apply_raw_t_plain(model, x_raw.T.contiguous(),
+                                        sigma_only,
+                                        compute_dtype).T.contiguous()
+
+
+def fused_nerf_raw_stash_fwd_plain(model: NeRF, x_raw: torch.Tensor,
+                                   sigma_only: bool = False,
+                                   compute_dtype=torch.bfloat16):
+    """Plain PyTorch version of kernel D': ``(out (P, 8), stash (P, SC))``."""
+    out, stash = fused_nerf_stash_fwd_plain(model, x_raw.T.contiguous(),
+                                            sigma_only, compute_dtype)
+    return out.T.contiguous(), stash
+
+
+def fused_nerf_raw_bwd_plain(model: NeRF, x_raw: torch.Tensor,
+                             g: torch.Tensor, sigma_only: bool = False,
+                             compute_dtype=torch.bfloat16, stash=None):
+    """Plain PyTorch version of kernels E' (with ``stash``) and F'
+    (without), on ``(P, 8)`` x and g: E's and F's on the transposes."""
+    return fused_nerf_bwd_plain(model, x_raw.T.contiguous(),
+                                g.T.contiguous(), sigma_only, compute_dtype,
+                                stash)
 
 
 def fused_nerf_bwd_plain(model: NeRF, x_rawT: torch.Tensor, g: torch.Tensor,
@@ -260,9 +328,9 @@ def _lib():
     lib = native.load("fused_mlp")
     if not getattr(lib, "_typed", False):
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.nerf_fused_fwd.argtypes = [p, p, p, p, ll, i, i, p]
+        lib.nerf_fused_fwd.argtypes = [p, p, p, p, ll, i, i, i, p]
         lib.nerf_fused_fwd.restype = i
-        lib.nerf_fused_stash_fwd.argtypes = [p, p, p, p, ll, i, i, p, p]
+        lib.nerf_fused_stash_fwd.argtypes = [p, p, p, p, ll, i, i, i, p, p]
         lib.nerf_fused_stash_fwd.restype = i
         lib.nerf_fused_stash_cols.argtypes = [i]
         lib.nerf_fused_stash_cols.restype = i
@@ -276,7 +344,7 @@ def _bwd_lib():
     lib = native.load("fused_mlp_bwd")
     if not getattr(lib, "_typed", False):
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.nerf_fused_bwd.argtypes = [p, p, p, p, p, ll, i, i, i, p, p, p,
+        lib.nerf_fused_bwd.argtypes = [p, p, p, p, p, ll, i, i, i, i, p, p, p,
                                        p, p, p, p, ll, i, p]
         lib.nerf_fused_bwd.restype = i
         for name in ("nerf_bwd_weight_count", "nerf_bwd_bias_count",
@@ -289,28 +357,43 @@ def _bwd_lib():
     return lib
 
 
-def _check_raw(t: torch.Tensor, name: str, rows: int = RAW_COLS) -> None:
+def _n_points(x: torch.Tensor, row_major: bool) -> int:
+    return x.shape[0] if row_major else x.shape[1]
+
+
+def _io_shape(P: int, row_major: bool) -> tuple:
+    return (P, OUT_COLS) if row_major else (OUT_COLS, P)
+
+
+def _check_raw(t: torch.Tensor, name: str, row_major: bool) -> None:
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if t.dtype != torch.float32:
         raise TypeError(f"{name} must be float32, got {t.dtype}")
-    if t.dim() != 2 or t.shape[0] != rows:
-        raise ValueError(f"{name} must be ({rows}, P), got {tuple(t.shape)}")
+    if row_major:
+        if t.dim() != 2 or t.shape[1] != RAW_COLS:
+            raise ValueError(f"{name} must be (P, {RAW_COLS}), got "
+                             f"{tuple(t.shape)}")
+        if t.data_ptr() % 16:  # the kernels move rows in 16-byte vectors
+            raise ValueError(f"{name} must be 16-byte aligned")
+    elif t.dim() != 2 or t.shape[0] != RAW_COLS:
+        raise ValueError(f"{name} must be ({RAW_COLS}, P), got "
+                         f"{tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
 
 
-def _operands(model: NeRF, x_rawT: torch.Tensor, compute_dtype):
+def _operands(model: NeRF, x: torch.Tensor, compute_dtype, row_major: bool):
     """Checks shared by every kernel's wrapper; the packed weights."""
-    _check_raw(x_rawT, "x_rawT")
+    _check_raw(x, "x_raw" if row_major else "x_rawT", row_major)
     if compute_dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"compute_dtype must be bfloat16 or float32, got "
                         f"{compute_dtype}")
     if not supports_fused(model):
         raise ValueError("the fused kernels need the reference architecture")
     wbuf, bbuf = pack_weights(model, compute_dtype)
-    if wbuf.device != x_rawT.device:
-        raise ValueError(f"weights on {wbuf.device}, input on {x_rawT.device}")
+    if wbuf.device != x.device:
+        raise ValueError(f"weights on {wbuf.device}, input on {x.device}")
     return wbuf, bbuf
 
 
@@ -320,78 +403,96 @@ def _check_counts(lib, wbuf, bbuf, prefix):
         raise ValueError("packed weights do not match the kernel's layout")
 
 
+def _fwd_cuda(model, x, sigma_only, compute_dtype, row_major, stash):
+    """Kernels C/C' (``stash=False``: the output) and D/D' (``(out,
+    stash)``) on the card."""
+    wbuf, bbuf = _operands(model, x, compute_dtype, row_major)
+    lib = _lib()
+    _check_counts(lib, wbuf, bbuf, "nerf_fused")
+    P, dev = _n_points(x, row_major), x.device
+    out = torch.empty(_io_shape(P, row_major), dtype=torch.float32, device=dev)
+    args = (x.data_ptr(), out.data_ptr(), wbuf.data_ptr(), bbuf.data_ptr(), P,
+            int(sigma_only), int(compute_dtype == torch.bfloat16),
+            int(row_major))
+    if not stash:
+        if P:
+            with torch.cuda.device(dev):  # the launch uses the current device
+                err = lib.nerf_fused_fwd(*args, native.stream_of(x))
+            native.check(lib, err, "nerf_fused_fwd")
+        return out
+    sc = stash_cols(sigma_only)
+    if lib.nerf_fused_stash_cols(int(sigma_only)) != sc:
+        raise ValueError("the stash layout does not match the kernel's")
+    st = torch.empty((P, sc), dtype=compute_dtype, device=dev)
+    if P:
+        with torch.cuda.device(dev):
+            err = lib.nerf_fused_stash_fwd(*args, st.data_ptr(),
+                                           native.stream_of(x))
+        native.check(lib, err, "nerf_fused_stash_fwd")
+    return out, st
+
+
+def _counted(fn, x, row_major):
+    """Count one launch of ``fn``'s kernel unless there were no points."""
+    if _n_points(x, row_major):
+        fn.launches += 1
+
+
 def fused_nerf_apply_raw_t_cuda(model: NeRF, x_rawT: torch.Tensor,
                                 sigma_only: bool = False,
                                 compute_dtype=torch.bfloat16) -> torch.Tensor:
-    """Kernel C on the card: the forward, no stash."""
-    wbuf, bbuf = _operands(model, x_rawT, compute_dtype)
-    lib = _lib()
-    _check_counts(lib, wbuf, bbuf, "nerf_fused")
-    P = x_rawT.shape[1]
-    out = torch.empty((OUT_COLS, P), dtype=torch.float32, device=x_rawT.device)
-    if P == 0:
-        return out
-    with torch.cuda.device(x_rawT.device):  # the launch uses the current device
-        err = lib.nerf_fused_fwd(
-            x_rawT.data_ptr(), out.data_ptr(), wbuf.data_ptr(), bbuf.data_ptr(),
-            P, int(sigma_only), int(compute_dtype == torch.bfloat16),
-            native.stream_of(x_rawT))
-    native.check(lib, err, "nerf_fused_fwd")
-    fused_nerf_apply_raw_t_cuda.launches += 1
+    """Kernel C on the card: the forward on (8, P), no stash."""
+    out = _fwd_cuda(model, x_rawT, sigma_only, compute_dtype, False, False)
+    _counted(fused_nerf_apply_raw_t_cuda, x_rawT, False)
     return out
 
 
-fused_nerf_apply_raw_t_cuda.launches = 0
+def fused_nerf_apply_raw_cuda(model: NeRF, x_raw: torch.Tensor,
+                              sigma_only: bool = False,
+                              compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """Kernel C' on the card: the forward on (P, 8), no stash."""
+    out = _fwd_cuda(model, x_raw, sigma_only, compute_dtype, True, False)
+    _counted(fused_nerf_apply_raw_cuda, x_raw, True)
+    return out
 
 
 def fused_nerf_stash_fwd_cuda(model: NeRF, x_rawT: torch.Tensor,
                               sigma_only: bool = False,
                               compute_dtype=torch.bfloat16):
     """Kernel D on the card: ``(out (8, P), stash (P, SC))``."""
-    wbuf, bbuf = _operands(model, x_rawT, compute_dtype)
-    lib = _lib()
-    _check_counts(lib, wbuf, bbuf, "nerf_fused")
-    P = x_rawT.shape[1]
-    sc = stash_cols(sigma_only)
-    if lib.nerf_fused_stash_cols(int(sigma_only)) != sc:
-        raise ValueError("the stash layout does not match the kernel's")
-    dev = x_rawT.device
-    out = torch.empty((OUT_COLS, P), dtype=torch.float32, device=dev)
-    stash = torch.empty((P, sc), dtype=compute_dtype, device=dev)
-    if P == 0:
-        return out, stash
-    with torch.cuda.device(dev):
-        err = lib.nerf_fused_stash_fwd(
-            x_rawT.data_ptr(), out.data_ptr(), wbuf.data_ptr(), bbuf.data_ptr(),
-            P, int(sigma_only), int(compute_dtype == torch.bfloat16),
-            stash.data_ptr(), native.stream_of(x_rawT))
-    native.check(lib, err, "nerf_fused_stash_fwd")
-    fused_nerf_stash_fwd_cuda.launches += 1
-    return out, stash
+    res = _fwd_cuda(model, x_rawT, sigma_only, compute_dtype, False, True)
+    _counted(fused_nerf_stash_fwd_cuda, x_rawT, False)
+    return res
 
 
-fused_nerf_stash_fwd_cuda.launches = 0
+def fused_nerf_raw_stash_fwd_cuda(model: NeRF, x_raw: torch.Tensor,
+                                  sigma_only: bool = False,
+                                  compute_dtype=torch.bfloat16):
+    """Kernel D' on the card: ``(out (P, 8), stash (P, SC))``."""
+    res = _fwd_cuda(model, x_raw, sigma_only, compute_dtype, True, True)
+    _counted(fused_nerf_raw_stash_fwd_cuda, x_raw, True)
+    return res
 
 
-def _bwd_cuda(model, x_rawT, g, sigma_only, compute_dtype, stash):
-    wbuf, bbuf = _operands(model, x_rawT, compute_dtype)
-    _check_raw(g, "g")
-    P = x_rawT.shape[1]
-    if g.shape[1] != P:
-        raise ValueError(f"g has {g.shape[1]} points, x_rawT {P}")
+def _bwd_cuda(model, x, g, sigma_only, compute_dtype, stash, row_major):
+    wbuf, bbuf = _operands(model, x, compute_dtype, row_major)
+    _check_raw(g, "g", row_major)
+    P = _n_points(x, row_major)
+    if _n_points(g, row_major) != P:
+        raise ValueError(f"g has {_n_points(g, row_major)} points, x {P}")
     sc = stash_cols(sigma_only)
     if stash is not None and (stash.shape != (P, sc)
                               or stash.dtype != compute_dtype
-                              or stash.device != x_rawT.device
+                              or stash.device != x.device
                               or not stash.is_contiguous()):
         raise ValueError(f"stash must be a contiguous ({P}, {sc}) "
-                         f"{compute_dtype} tensor on {x_rawT.device}")
+                         f"{compute_dtype} tensor on {x.device}")
     wt = pack_weights_t(model, compute_dtype)
     lib = _bwd_lib()
     _check_counts(lib, wbuf, bbuf, "nerf_bwd")
     if wt.numel() != lib.nerf_bwd_transposed_count():
         raise ValueError("transposed weights do not match the kernel's layout")
-    dev = x_rawT.device
+    dev = x.device
     dw = torch.zeros(wbuf.numel(), dtype=torch.float32, device=dev)
     db = torch.zeros(bbuf.numel(), dtype=torch.float32, device=dev)
     if P == 0:
@@ -413,14 +514,20 @@ def _bwd_cuda(model, x_rawT, g, sigma_only, compute_dtype, stash):
         remat = 0
     with torch.cuda.device(dev):
         err = lib.nerf_fused_bwd(
-            x_rawT.data_ptr(), g.data_ptr(), wbuf.data_ptr(), bbuf.data_ptr(),
+            x.data_ptr(), g.data_ptr(), wbuf.data_ptr(), bbuf.data_ptr(),
             wt.data_ptr(), P, int(sigma_only),
-            int(compute_dtype == torch.bfloat16), remat, stash.data_ptr(),
-            gbuf.data_ptr(), wpart.data_ptr(), bpart.data_ptr(),
-            btmp.data_ptr(), dw.data_ptr(), db.data_ptr(), chunk, BWD_SPLIT,
-            native.stream_of(x_rawT))
+            int(compute_dtype == torch.bfloat16), remat, int(row_major),
+            stash.data_ptr(), gbuf.data_ptr(), wpart.data_ptr(),
+            bpart.data_ptr(), btmp.data_ptr(), dw.data_ptr(), db.data_ptr(),
+            chunk, BWD_SPLIT, native.stream_of(x))
     native.check(lib, err, "nerf_fused_bwd")
     return dw, db
+
+
+def _need_stash(stash, kernel):
+    if stash is None:
+        raise ValueError(f"kernel {kernel} reads a stash; the remat kernel "
+                         "recomputes")
 
 
 def fused_nerf_bwd_stash_cuda(model: NeRF, x_rawT: torch.Tensor,
@@ -428,69 +535,126 @@ def fused_nerf_bwd_stash_cuda(model: NeRF, x_rawT: torch.Tensor,
                               sigma_only: bool = False,
                               compute_dtype=torch.bfloat16):
     """Kernel E on the card: packed f32 ``(dw, db)`` from D's stash."""
-    if stash is None:
-        raise ValueError("kernel E reads a stash; kernel F recomputes")
-    out = _bwd_cuda(model, x_rawT, g, sigma_only, compute_dtype, stash)
-    if x_rawT.shape[1]:  # no points, no launch
-        fused_nerf_bwd_stash_cuda.launches += 1
+    _need_stash(stash, "E")
+    out = _bwd_cuda(model, x_rawT, g, sigma_only, compute_dtype, stash, False)
+    _counted(fused_nerf_bwd_stash_cuda, x_rawT, False)
     return out
 
 
-fused_nerf_bwd_stash_cuda.launches = 0
+def fused_nerf_raw_bwd_stash_cuda(model: NeRF, x_raw: torch.Tensor,
+                                  g: torch.Tensor, stash: torch.Tensor,
+                                  sigma_only: bool = False,
+                                  compute_dtype=torch.bfloat16):
+    """Kernel E' on the card: packed f32 ``(dw, db)`` from the stash of D',
+    x and g ``(P, 8)``."""
+    _need_stash(stash, "E'")
+    out = _bwd_cuda(model, x_raw, g, sigma_only, compute_dtype, stash, True)
+    _counted(fused_nerf_raw_bwd_stash_cuda, x_raw, True)
+    return out
 
 
 def fused_nerf_bwd_remat_cuda(model: NeRF, x_rawT: torch.Tensor,
                               g: torch.Tensor, sigma_only: bool = False,
                               compute_dtype=torch.bfloat16):
     """Kernel F on the card: packed f32 ``(dw, db)``, forward recomputed."""
-    out = _bwd_cuda(model, x_rawT, g, sigma_only, compute_dtype, None)
-    if x_rawT.shape[1]:  # no points, no launch
-        fused_nerf_bwd_remat_cuda.launches += 1
+    out = _bwd_cuda(model, x_rawT, g, sigma_only, compute_dtype, None, False)
+    _counted(fused_nerf_bwd_remat_cuda, x_rawT, False)
     return out
 
 
-fused_nerf_bwd_remat_cuda.launches = 0
+def fused_nerf_raw_bwd_remat_cuda(model: NeRF, x_raw: torch.Tensor,
+                                  g: torch.Tensor, sigma_only: bool = False,
+                                  compute_dtype=torch.bfloat16):
+    """Kernel F' on the card: packed f32 ``(dw, db)``, forward recomputed,
+    x and g ``(P, 8)``."""
+    out = _bwd_cuda(model, x_raw, g, sigma_only, compute_dtype, None, True)
+    _counted(fused_nerf_raw_bwd_remat_cuda, x_raw, True)
+    return out
+
+
+KERNELS = {  # launch counters, by the letters PERF.md gives the kernels
+    "C": fused_nerf_apply_raw_t_cuda, "D": fused_nerf_stash_fwd_cuda,
+    "E": fused_nerf_bwd_stash_cuda, "F": fused_nerf_bwd_remat_cuda,
+    "C'": fused_nerf_apply_raw_cuda, "D'": fused_nerf_raw_stash_fwd_cuda,
+    "E'": fused_nerf_raw_bwd_stash_cuda, "F'": fused_nerf_raw_bwd_remat_cuda,
+}
+for _fn in KERNELS.values():
+    _fn.launches = 0
+del _fn
 
 
 # ------------------------------------------------------------------ autograd
 class _FusedRawT(torch.autograd.Function):
-    """Forward D (``use_stash``) or C; backward E or F.  Inputs: ``x_rawT``,
-    then the parameters in ``dense_layers`` order (w, b per layer)."""
+    """Forward D (``use_stash``) or C; backward E or F; with ``row_major``
+    D', C', E', F' on ``(P, 8)``.  Inputs: ``x``, then the parameters in
+    ``dense_layers`` order (w, b per layer)."""
 
     @staticmethod
-    def forward(ctx, x_rawT, model, sigma_only, compute_dtype, use_stash,
-                *params):
-        cuda = x_rawT.device.type == "cuda"
+    def forward(ctx, x, model, sigma_only, compute_dtype, use_stash,
+                row_major, *params):
+        cuda = x.device.type == "cuda"
         if use_stash:
-            fwd = fused_nerf_stash_fwd_cuda if cuda else fused_nerf_stash_fwd_plain
-            out, stash = fwd(model, x_rawT, sigma_only, compute_dtype)
-            ctx.save_for_backward(x_rawT, stash)
+            if cuda:
+                fwd = (fused_nerf_raw_stash_fwd_cuda if row_major
+                       else fused_nerf_stash_fwd_cuda)
+            else:
+                fwd = (fused_nerf_raw_stash_fwd_plain if row_major
+                       else fused_nerf_stash_fwd_plain)
+            out, stash = fwd(model, x, sigma_only, compute_dtype)
+            ctx.save_for_backward(x, stash)
         else:
-            fwd = fused_nerf_apply_raw_t_cuda if cuda else fused_nerf_apply_raw_t_plain
-            out = fwd(model, x_rawT, sigma_only, compute_dtype)
-            ctx.save_for_backward(x_rawT)
-        ctx.model, ctx.sigma_only, ctx.compute_dtype = (model, sigma_only,
-                                                        compute_dtype)
+            if cuda:
+                fwd = (fused_nerf_apply_raw_cuda if row_major
+                       else fused_nerf_apply_raw_t_cuda)
+            else:
+                fwd = (fused_nerf_apply_raw_plain if row_major
+                       else fused_nerf_apply_raw_t_plain)
+            out = fwd(model, x, sigma_only, compute_dtype)
+            ctx.save_for_backward(x)
+        ctx.model, ctx.sigma_only, ctx.compute_dtype, ctx.row_major = (
+            model, sigma_only, compute_dtype, row_major)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        x_rawT, *rest = ctx.saved_tensors
+        x, *rest = ctx.saved_tensors
         stash = rest[0] if rest else None
         model, sigma_only, cdt = ctx.model, ctx.sigma_only, ctx.compute_dtype
+        rm = ctx.row_major
         g = g.float().contiguous()
-        if x_rawT.device.type == "cuda":
+        if x.device.type == "cuda":
             if stash is not None:
-                dw, db = fused_nerf_bwd_stash_cuda(model, x_rawT, g, stash,
-                                                   sigma_only, cdt)
+                bwd = (fused_nerf_raw_bwd_stash_cuda if rm
+                       else fused_nerf_bwd_stash_cuda)
+                dw, db = bwd(model, x, g, stash, sigma_only, cdt)
             else:
-                dw, db = fused_nerf_bwd_remat_cuda(model, x_rawT, g,
-                                                   sigma_only, cdt)
+                bwd = (fused_nerf_raw_bwd_remat_cuda if rm
+                       else fused_nerf_bwd_remat_cuda)
+                dw, db = bwd(model, x, g, sigma_only, cdt)
         else:
-            dw, db = fused_nerf_bwd_plain(model, x_rawT, g, sigma_only, cdt,
-                                          stash)
-        return (None, None, None, None, None,
+            bwd = fused_nerf_raw_bwd_plain if rm else fused_nerf_bwd_plain
+            dw, db = bwd(model, x, g, sigma_only, cdt, stash)
+        return (None, None, None, None, None, None,
                 *unpack_grads(model, dw, db, cdt))
+
+
+def _apply(model, x, sigma_only, compute_dtype, stash_blocks, row_major):
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no fused MLP for device {x.device}")
+    params = [t for m in dense_layers(model) for t in (m.w, m.b)]
+    if torch.is_grad_enabled() and any(p.requires_grad for p in params):
+        use_stash = stash_blocks is not None and (
+            stash_blocks != "auto"
+            or _n_points(x, row_major) <= STASH_MAX_POINTS)
+        return _FusedRawT.apply(x, model, sigma_only, compute_dtype,
+                                use_stash, row_major, *params)
+    if x.device.type == "cuda":
+        fwd = (fused_nerf_apply_raw_cuda if row_major
+               else fused_nerf_apply_raw_t_cuda)
+    else:
+        fwd = (fused_nerf_apply_raw_plain if row_major
+               else fused_nerf_apply_raw_t_plain)
+    return fwd(model, x, sigma_only, compute_dtype)
 
 
 def fused_nerf_apply_raw_t(model: NeRF, x_rawT: torch.Tensor,
@@ -502,18 +666,26 @@ def fused_nerf_apply_raw_t(model: NeRF, x_rawT: torch.Tensor,
     the backward as in JAX: ``"auto"`` the stash (D then E) up to
     ``STASH_MAX_POINTS`` points, ``None`` the remat (C then F); any other
     value (the TPU's block sizes) the stash."""
-    if x_rawT.device.type not in ("cuda", "cpu"):
-        raise ValueError(f"no fused MLP for device {x_rawT.device}")
-    cuda = x_rawT.device.type == "cuda"
-    params = [t for m in dense_layers(model) for t in (m.w, m.b)]
-    if torch.is_grad_enabled() and any(p.requires_grad for p in params):
-        P = x_rawT.shape[1]
-        use_stash = stash_blocks is not None and (
-            stash_blocks != "auto" or P <= STASH_MAX_POINTS)
-        return _FusedRawT.apply(x_rawT, model, sigma_only, compute_dtype,
-                                use_stash, *params)
-    if cuda:
-        return fused_nerf_apply_raw_t_cuda(model, x_rawT, sigma_only,
-                                           compute_dtype)
-    return fused_nerf_apply_raw_t_plain(model, x_rawT, sigma_only,
-                                        compute_dtype)
+    return _apply(model, x_rawT, sigma_only, compute_dtype, stash_blocks,
+                  False)
+
+
+def fused_nerf_apply_raw(model: NeRF, xyz: torch.Tensor, dirs=None,
+                         compute_dtype=torch.bfloat16,
+                         stash_blocks="auto") -> torch.Tensor:
+    """Row-major fused MLP on raw ``xyz (P, 3)`` and ``dirs (P, 3)`` (None:
+    sigma-only, the dir columns are zeros): ``(P, 4)`` ``[rgb, sigma]`` or
+    ``(P, 1)`` sigma, float32.  The kernels take ``(P, 8)`` rows ``[xyz |
+    dir | 0 0]``: C' (no grad, or the remat route's forward), D' and E'
+    (the stash route) or F' (the remat route), chosen by ``stash_blocks``
+    as ``fused_nerf_apply_raw_t`` chooses; plain versions on a CPU
+    tensor."""
+    P = xyz.shape[0]
+    sigma_only = dirs is None
+    zeros = torch.zeros((P, RAW_COLS - 3), dtype=torch.float32,
+                        device=xyz.device)
+    parts = [xyz.float(), zeros] if sigma_only else [
+        xyz.float(), dirs.float(), zeros[:, 3:]]
+    x = torch.cat(parts, dim=1)
+    out = _apply(model, x, sigma_only, compute_dtype, stash_blocks, True)
+    return out[:, :1] if sigma_only else out[:, :4]

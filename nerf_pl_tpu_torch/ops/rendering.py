@@ -25,7 +25,9 @@ from torch.utils.checkpoint import checkpoint
 
 from ..models.embedding import posenc
 from .compositing import composite, compute_weights
-from .fused_mlp import RAW_COLS, fused_nerf_apply_raw_t, supports_fused
+from .fused_mlp import (RAW_COLS, fused_nerf_apply_raw,
+                        fused_nerf_apply_raw_t, supports_fused,
+                        supports_fused_wide)
 from .sampling import perturb_z_vals, sample_pdf, stratified_z_vals
 
 Results = Dict[str, torch.Tensor]
@@ -33,19 +35,38 @@ Results = Dict[str, torch.Tensor]
 
 def _query(model, xyz: torch.Tensor, dirs: Optional[torch.Tensor],
            xyz_freqs: int, sigma_only: bool, compute_dtype,
-           use_fused: bool = False, dir_freqs: int = 4):
+           use_fused: bool = False, dir_freqs: int = 4,
+           fused_channel_io: bool = False, fused_wide_infer: bool = False):
     """Run the MLP on ``xyz (N_rays, S, 3)`` with raw ``dirs (N_rays, 3)``
     (None when sigma-only).  Returns ``sigmas (N, S)`` and ``rgbs (N, S, 3)``
     or None.
 
     ``use_fused`` at the reference architecture and embedding takes the
-    channel-major branch through ``fused_nerf_apply_raw_t`` (kernel C on a
-    CUDA tensor); anything else (other widths included, as in JAX) takes
-    ``posenc`` + ``NeRF``."""
+    fused MLP: channel-major through ``fused_nerf_apply_raw_t`` (kernels
+    C-F on a CUDA tensor) with ``fused_channel_io``, else row-major through
+    ``fused_nerf_apply_raw`` (kernels C'-F').  Anything else (other widths
+    included, as in JAX) takes ``posenc`` + ``NeRF``, except the models
+    that JAX would send to its wide fused forward (``fused_wide_infer``),
+    which is not ported yet: they raise."""
     N_rays, S, _ = xyz.shape
     P = N_rays * S
     fused = (use_fused and supports_fused(model) and xyz_freqs == 10
              and (sigma_only or dir_freqs == 4))
+    if (use_fused and fused_wide_infer and not fused and xyz_freqs == 10
+            and (sigma_only or dir_freqs == 4)
+            and supports_fused_wide(model, compute_dtype)):
+        raise NotImplementedError(
+            "the wide fused forward (fused_wide_infer) is not ported yet; "
+            "see ROADMAP.md Queue 2")
+    if fused and not fused_channel_io:
+        xyz_flat = xyz.reshape(P, 3)
+        if sigma_only:
+            out = fused_nerf_apply_raw(model, xyz_flat, None, compute_dtype)
+            return out.reshape(N_rays, S), None
+        dirs_pt = dirs[:, None, :].expand(N_rays, S, 3).reshape(P, 3)
+        out = fused_nerf_apply_raw(model, xyz_flat, dirs_pt, compute_dtype)
+        out = out.reshape(N_rays, S, 4)
+        return out[..., 3], out[..., :3]
     if fused:
         xyz_t = xyz.permute(2, 0, 1).reshape(3, P)
         if sigma_only:
@@ -99,14 +120,6 @@ def render_rays(
     """Render a batch of rays coarse(+fine).  See the module docstring."""
     if mode not in ("rgb", "sigma", "rgb_disp"):
         raise ValueError(f"unknown mode {mode!r}")
-    if use_fused and not fused_channel_io:
-        raise NotImplementedError(
-            "the row-major fused kernels (fused_channel_io=False) are not "
-            "ported yet; see ROADMAP.md Queue 2")
-    if use_fused and fused_wide_infer:
-        raise NotImplementedError(
-            "the wide fused forward (fused_wide_infer) is not ported yet; "
-            "see ROADMAP.md Queue 2")
     ov = overrides or {}
     sigma_mode = mode == "sigma"
     want_disp = mode in ("sigma", "rgb_disp")
@@ -142,9 +155,12 @@ def render_rays(
     # test_time skips the coarse rgb head only when a fine pass will make
     # the image (reference rendering.py:237-241)
     coarse_sigma_only = sigma_mode or (test_time and N_importance > 0)
+    qkw = dict(use_fused=use_fused, dir_freqs=dir_freqs,
+               fused_channel_io=fused_channel_io,
+               fused_wide_infer=fused_wide_infer)
     sigmas_c, rgbs_c = _query(model_coarse, xyz_coarse, dirs_for_query,
                               xyz_freqs, coarse_sigma_only, compute_dtype,
-                              use_fused, dir_freqs)
+                              **qkw)
     weights_coarse = compute_weights(sigmas_c, z_vals, rays_d, noise_std,
                                      generator=generator,
                                      noise=ov.get("noise_coarse"))
@@ -169,7 +185,7 @@ def render_rays(
         xyz_fine = rays_o[:, None, :] + rays_d[:, None, :] * z_all[..., None]
         def fine_query(model, xyz, dirs):
             return _query(model, xyz, dirs, xyz_freqs, sigma_mode,
-                          compute_dtype, use_fused, dir_freqs)
+                          compute_dtype, **qkw)
 
         if remat_fine and torch.is_grad_enabled():
             # recompute the fine MLP in the backward instead of keeping its

@@ -1,5 +1,5 @@
 """The port stands alone: it imports torch, numpy and the standard library,
-never JAX, flax, msgpack, PIL or the JAX package."""
+never JAX, flax, msgpack, PIL, imageio or the JAX package."""
 import pathlib
 import re
 import subprocess
@@ -12,7 +12,7 @@ MODULES = sorted(
     ".".join(("nerf_pl_tpu_torch",) + p.relative_to(PKG).with_suffix("").parts)
     .removesuffix(".__init__")
     for p in PKG.rglob("*.py"))
-FORBIDDEN = ("jax", "jaxlib", "flax", "msgpack", "PIL", "nerf_pl_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "msgpack", "PIL", "imageio", "nerf_pl_tpu")
 
 
 def test_port_modules_import_without_jax_flax_msgpack_pil():
@@ -26,6 +26,11 @@ def test_port_modules_import_without_jax_flax_msgpack_pil():
             "nerf_pl_tpu_torch.training.optim", "nerf_pl_tpu_torch.training.losses",
             "nerf_pl_tpu_torch.training.metrics", "nerf_pl_tpu_torch.training.logging",
             "nerf_pl_tpu_torch.utils.visualization"} <= set(MODULES)
+    # the evaluation slice: its own resize, PFM and GIF codecs (the card's
+    # machine has neither PIL nor imageio)
+    assert {"nerf_pl_tpu_torch.eval", "nerf_pl_tpu_torch.tools.evaluate",
+            "nerf_pl_tpu_torch.data.resize", "nerf_pl_tpu_torch.data.depth_utils",
+            "nerf_pl_tpu_torch.utils.gif"} <= set(MODULES)
     # -I: no PYTHONPATH or user site, so nothing imported by a site hook
     # is counted against the port
     code = (
@@ -44,7 +49,7 @@ def test_port_modules_import_without_jax_flax_msgpack_pil():
 def test_port_sources_never_import_the_jax_package():
     # import statements and module-name strings (importlib, __import__)
     pattern = re.compile(
-        r"^\s*(from|import)\s+(nerf_pl_tpu(?!_torch)|jax|flax|msgpack|PIL)\b"
+        r"^\s*(from|import)\s+(nerf_pl_tpu(?!_torch)|jax|flax|msgpack|PIL|imageio)\b"
         r"|[\"']nerf_pl_tpu(?!_torch)[\w.]*[\"']", re.M)
     sources = list(PKG.rglob("*.py")) + [PKG.parent / "chip_smoke.py"]
     hits = [f"{p}: {m.group(0).strip()}" for p in sources

@@ -8,9 +8,12 @@ import numpy as np
 import pytest
 import torch
 
+import nerf_pl_tpu.ops.rendering as jrend
+from nerf_pl_tpu.ops import fused_mlp as jfused
 from nerf_pl_tpu.ops.rendering import render_rays as jax_render_rays
 from nerf_pl_tpu.training import checkpoints as jckpt
 from nerf_pl_tpu_torch.models.nerf import nerf_from_numpy, nerf_to_numpy
+from nerf_pl_tpu_torch.ops import fused_mlp
 from nerf_pl_tpu_torch.ops.rendering import render_rays
 from nerf_pl_tpu_torch.tools.evaluate import load_models
 from nerf_pl_tpu_torch.training import checkpoints as ckpt
@@ -79,17 +82,146 @@ def test_render_rays_guards():
         render_rays(m, m, rays, None, perturb=1.0, N_importance=4)
     with pytest.raises(ValueError, match="unknown mode"):
         render_rays(m, m, rays, None, mode="depth", noise_std=0.0)
-    with pytest.raises(NotImplementedError, match="fused_channel_io"):
-        render_rays(m, m, rays, None, use_fused=True, noise_std=0.0)
-    with pytest.raises(NotImplementedError, match="fused_wide_infer"):
-        render_rays(m, m, rays, None, use_fused=True, fused_channel_io=True,
-                    fused_wide_infer=True, noise_std=0.0)
-    # a narrow model with use_fused renders through posenc + NeRF, as in JAX
+    # a narrow model with use_fused renders through posenc + NeRF, as in
+    # JAX, in either IO layout and with fused_wide_infer (the wide kernel
+    # takes only lane-aligned widths)
+    for channel_io, wide in ((True, False), (False, False), (True, True)):
+        with torch.no_grad():
+            out = render_rays(m, m, rays, torch.Generator().manual_seed(0),
+                              N_samples=4, N_importance=4, perturb=1.0,
+                              use_fused=True, fused_channel_io=channel_io,
+                              fused_wide_infer=wide)
+        assert torch.isfinite(out["rgb_fine"]).all()
+
+
+@pytest.fixture
+def jax_fused_interpret(monkeypatch):
+    """JAX's renderer with its fused MLP kernels in interpret mode (Pallas
+    needs a TPU otherwise), at the caller's compute dtype and small blocks."""
+    raw, raw_t = jfused.fused_nerf_apply_raw, jfused.fused_nerf_apply_raw_t
+
+    def interp_raw(params, xyz, dirs=None, compute_dtype=jnp.bfloat16, **kw):
+        return raw(params, xyz, dirs, compute_dtype=compute_dtype,
+                   block=(64, 32), interpret=True, stash_blocks=(96, 48))
+
+    def interp_raw_t(params, x_t, sigma_only=False, compute_dtype=jnp.bfloat16,
+                     **kw):
+        return raw_t(params, x_t, sigma_only=sigma_only,
+                     compute_dtype=compute_dtype, block=(64, 32),
+                     interpret=True, stash_blocks=(96, 48))
+
+    monkeypatch.setattr(jrend, "fused_nerf_apply_raw", interp_raw)
+    monkeypatch.setattr(jrend, "fused_nerf_apply_raw_t", interp_raw_t)
+
+
+def _scene(seed_c, seed_f, **nerf_kw):
+    pc, pf = np_nerf(seed_c, **nerf_kw), np_nerf(seed_f, **nerf_kw)
+    for tree in (pc, pf):  # a partly opaque random scene
+        tree["sigma"]["w"] *= 40.0
+    return pc, pf
+
+
+# f32 end to end; the Pallas kernel computes cos(t) as sin(t + pi/2), which
+# moves a 2^9-frequency channel by up to ~1e-4 (test_torch_port_ops), and
+# the importance sampler carries that into the fine samples (1.6e-5 at most
+# on the CPU)
+ROW_MAJOR_TOL = 1e-4
+
+
+@pytest.mark.parametrize("case", ["rgb_test_time", "sigma", "rgb_disp_det"])
+def test_render_rays_row_major_matches_jax(case, jax_fused_interpret):
+    """Eval settings: ``use_fused=True, fused_channel_io=False`` takes the
+    row-major fused MLP (kernel C' plain here, the Pallas kernel in JAX)."""
+    kw = dict(CASES[case], N_samples=N_S, N_importance=N_I, white_back=True,
+              use_fused=True, fused_channel_io=False)
+    pc, pf = _scene(50, 51)
+    rays = _rays(52)
+    ov = _overrides(53)
+    ref = jax_render_rays(pc, pf, jnp.asarray(rays), None,
+                          overrides={k: jnp.asarray(v) for k, v in ov.items()}, **kw)
+    mc, mf = nerf_from_numpy(pc, device="cpu"), nerf_from_numpy(pf, device="cpu")
+    launches = {k: fn.launches for k, fn in fused_mlp.KERNELS.items()}
     with torch.no_grad():
-        out = render_rays(m, m, rays, torch.Generator().manual_seed(0), N_samples=4,
-                          N_importance=4, perturb=1.0, use_fused=True,
-                          fused_channel_io=True)
-    assert torch.isfinite(out["rgb_fine"]).all()
+        out = render_rays(mc, mf, torch.from_numpy(rays), None,
+                          overrides={k: torch.from_numpy(v) for k, v in ov.items()}, **kw)
+    assert launches == {k: fn.launches for k, fn in fused_mlp.KERNELS.items()}
+    assert set(out) == set(ref)
+    for k in ref:
+        np.testing.assert_allclose(out[k].numpy(), np.asarray(ref[k]),
+                                   atol=ROW_MAJOR_TOL, rtol=0, err_msg=k)
+
+
+def test_render_rays_row_major_grads_match_jax(jax_fused_interpret):
+    """Training settings (perturb and noise injected): the loss and every
+    parameter grad through the row-major stash route (D' and E' plain here,
+    the Pallas kernels in JAX)."""
+    from nerf_pl_tpu.training.losses import loss_dict as jloss_dict
+    from nerf_pl_tpu_torch.training.losses import mse_loss
+
+    kw = dict(CASES["rgb"], N_samples=N_S, N_importance=N_I, white_back=True,
+              use_fused=True, fused_channel_io=False)
+    pc, pf = _scene(54, 55)
+    rays, ov = _rays(56), _overrides(57)
+    rgbs = np.random.RandomState(58).uniform(size=(N_RAYS, 3)).astype(np.float32)
+
+    def loss_fn(p):
+        res = jax_render_rays(p["coarse"], p["fine"], jnp.asarray(rays), None,
+                              overrides={k: jnp.asarray(v) for k, v in ov.items()},
+                              **kw)
+        return jloss_dict["mse"](res, jnp.asarray(rgbs))
+
+    params = jax.tree_util.tree_map(jnp.asarray, {"coarse": pc, "fine": pf})
+    loss_j, grads_j = jax.value_and_grad(loss_fn)(params)
+    models = {"coarse": nerf_from_numpy(pc, device="cpu"),
+              "fine": nerf_from_numpy(pf, device="cpu")}
+    out = render_rays(models["coarse"], models["fine"], torch.from_numpy(rays), None,
+                      overrides={k: torch.from_numpy(v) for k, v in ov.items()}, **kw)
+    loss = mse_loss(out, torch.from_numpy(rgbs))
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(loss_j), rtol=1e-4)
+    for name, model in models.items():
+        for pname, p in model.named_parameters():
+            tree = grads_j[name]
+            for k in pname.split("."):
+                tree = tree[int(k)] if k.isdigit() else tree[k]
+            want = np.asarray(tree, np.float32)
+            got = p.grad.numpy()
+            assert got.shape == want.shape, pname
+            scale = max(np.abs(want).max(), 1e-30)
+            # f32; the kernels' sin(t + pi/2) (above), carried through the
+            # backward: 3.7e-5 of max|grad| at worst on the CPU
+            assert np.abs(got - want).max() <= 3e-4 * scale, (name, pname)
+
+
+@pytest.mark.parametrize("width", [16, 256, 512])
+@pytest.mark.parametrize("channel_io", [True, False], ids=["channel", "row"])
+def test_fused_wide_infer_gate_matches_jax(width, channel_io, jax_fused_interpret):
+    """``fused_wide_infer=True`` raises only where JAX would launch its wide
+    kernel (not ported yet): W = 512 in bf16.  Elsewhere the port renders as
+    JAX does: W = 256 through the reference fused MLP, W = 16 and W = 512 in
+    f32 (too many weight bytes for the wide kernel) through posenc + NeRF."""
+    pc, pf = _scene(60, 61, W=width)
+    rays = _rays(62, n=4)
+    kw = dict(N_samples=N_S, N_importance=N_I, white_back=True, perturb=0.0,
+              noise_std=0.0, test_time=True, use_fused=True,
+              fused_channel_io=channel_io, fused_wide_infer=True)
+    mc, mf = nerf_from_numpy(pc, device="cpu"), nerf_from_numpy(pf, device="cpu")
+    assert fused_mlp.supports_fused_wide(mc) == (width == 512)
+    assert fused_mlp.supports_fused_wide(mc, torch.bfloat16) == \
+        jfused.supports_fused_wide(pc, jnp.bfloat16)
+    assert fused_mlp.supports_fused_wide(mc, torch.float32) == \
+        jfused.supports_fused_wide(pc, jnp.float32) is False
+    if width == 512:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            render_rays(mc, mf, torch.from_numpy(rays), None,
+                        compute_dtype=torch.bfloat16, **kw)
+    ref = jax_render_rays(pc, pf, jnp.asarray(rays), None, **kw)
+    with torch.no_grad():
+        out = render_rays(mc, mf, torch.from_numpy(rays), None, **kw)
+    assert set(out) == set(ref)
+    for k in ref:
+        np.testing.assert_allclose(out[k].numpy(), np.asarray(ref[k]),
+                                   atol=ROW_MAJOR_TOL, rtol=0, err_msg=k)
 
 
 # ------------------------------------------------------------ checkpoints

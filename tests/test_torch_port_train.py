@@ -48,35 +48,55 @@ def _assert_grads(model, ref_tree, tol_max, tol_mean):
 
 
 # ------------------------------------------------------------ fused MLP grads
+def _fused_call(layout, x, sigma_only):
+    """``(JAX call on params, port call on a model, cotangent picker)`` for
+    one IO layout: channel-major ``fused_nerf_apply_raw_t`` on (8, P), or
+    row-major ``fused_nerf_apply_raw`` on raw xyz and dirs (None when
+    sigma-only), whose output is (P, 4) or (P, 1)."""
+    cols = 1 if sigma_only else 4
+    if layout == "channel":
+        return ((lambda p, dt, stash: jfused.fused_nerf_apply_raw_t(
+                    p, jnp.asarray(x), sigma_only=sigma_only, compute_dtype=dt,
+                    block=(64, 32), interpret=True, stash_blocks=stash)),
+                (lambda m, dt, stash: fused_mlp.fused_nerf_apply_raw_t(
+                    m, torch.from_numpy(x), sigma_only, dt, stash_blocks=stash)),
+                lambda g: g)
+    xyz, dirs = x[:3].T.copy(), None if sigma_only else x[3:6].T.copy()
+    return ((lambda p, dt, stash: jfused.fused_nerf_apply_raw(
+                p, jnp.asarray(xyz), None if dirs is None else jnp.asarray(dirs),
+                compute_dtype=dt, block=(64, 32), interpret=True,
+                stash_blocks=stash)),
+            (lambda m, dt, stash: fused_mlp.fused_nerf_apply_raw(
+                m, torch.from_numpy(xyz),
+                None if dirs is None else torch.from_numpy(dirs), dt,
+                stash_blocks=stash)),
+            lambda g: np.ascontiguousarray(g[:cols].T))
+
+
+@pytest.mark.parametrize("layout", ["channel", "row"])
 @pytest.mark.parametrize("stash", [(96, 48), None], ids=["stash", "remat"])
 @pytest.mark.parametrize("sigma_only", [False, True], ids=["rgb", "sigma"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_fused_grads_match_jax(dtype, sigma_only, stash):
+def test_fused_grads_match_jax(dtype, sigma_only, stash, layout):
     tree = np_nerf(8)
     P = 200  # ragged against every block
     x = _raw_t(9, P)
-    g = np.random.RandomState(3).normal(size=(8, P)).astype(np.float32)
+    jcall, tcall, pick = _fused_call(layout, x, sigma_only)
+    g = pick(np.random.RandomState(3).normal(size=(8, P)).astype(np.float32))
     jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
     tdt = torch.float32 if dtype == "float32" else torch.bfloat16
 
     def f(p):
-        out = jfused.fused_nerf_apply_raw_t(
-            p, jnp.asarray(x), sigma_only=sigma_only, compute_dtype=jdt,
-            block=(64, 32), interpret=True, stash_blocks=stash)
-        return jnp.sum(out * jnp.asarray(g))
+        return jnp.sum(jcall(p, jdt, stash) * jnp.asarray(g))
 
     ref = jax.grad(f)(jax.tree_util.tree_map(jnp.asarray, tree))
     model = nerf_from_numpy(tree, device="cpu")
-    launches = (fused_mlp.fused_nerf_stash_fwd_cuda.launches,
-                fused_mlp.fused_nerf_bwd_stash_cuda.launches,
-                fused_mlp.fused_nerf_bwd_remat_cuda.launches)
-    out = fused_mlp.fused_nerf_apply_raw_t(model, torch.from_numpy(x),
-                                           sigma_only, tdt, stash_blocks=stash)
+    launches = {k: fn.launches for k, fn in fused_mlp.KERNELS.items()}
+    out = tcall(model, tdt, stash)
+    assert out.shape == g.shape
     (out * torch.from_numpy(g)).sum().backward()
     # a CPU tensor takes the plain versions: no kernel was launched
-    assert launches == (fused_mlp.fused_nerf_stash_fwd_cuda.launches,
-                        fused_mlp.fused_nerf_bwd_stash_cuda.launches,
-                        fused_mlp.fused_nerf_bwd_remat_cuda.launches)
+    assert launches == {k: fn.launches for k, fn in fused_mlp.KERNELS.items()}
     if dtype == "float32":
         # only the order of the f32 sums differs (3.3e-6 on the CPU)
         _assert_grads(model, ref, 1e-5, 1e-6)
@@ -87,6 +107,45 @@ def test_fused_grads_match_jax(dtype, sigma_only, stash):
         # pre-activation, and the backward carries that down the layers
         # (2.9e-2 max, 1.6e-3 mean, per tensor, on the CPU)
         _assert_grads(model, ref, 5e-2, 3e-3)
+
+
+@pytest.mark.parametrize("stash", ["auto", None], ids=["stash", "remat"])
+@pytest.mark.parametrize("sigma_only", [False, True], ids=["rgb", "sigma"])
+def test_row_major_equals_channel_major(sigma_only, stash):
+    """The row-major path (C', D', E', F' plain) on the same points as the
+    channel-major one: the same outputs and grads, bit for bit."""
+    tree = np_nerf(17)
+    P = 130
+    x = _raw_t(18, P)
+    g = np.random.RandomState(19).normal(size=(8, P)).astype(np.float32)
+    g[1 if sigma_only else 4:] = 0.0  # the channels the row-major output drops
+    outs, grads = [], []
+    for layout in ("channel", "row"):
+        model = nerf_from_numpy(tree, device="cpu")
+        _, tcall, pick = _fused_call(layout, x, sigma_only)
+        out = tcall(model, torch.bfloat16, stash)
+        (out * torch.from_numpy(pick(g))).sum().backward()
+        o = out.detach().numpy()
+        outs.append(o[:1 if sigma_only else 4].T if layout == "channel" else o)
+        grads.append([p.grad.clone() for p in model.parameters()])
+    np.testing.assert_array_equal(outs[0], outs[1])
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+    # the plain versions themselves: C', D', E', F' on the transposes
+    model = nerf_from_numpy(tree, device="cpu")
+    xt = torch.from_numpy(x)
+    xr = xt.T.contiguous()
+    assert torch.equal(fused_mlp.fused_nerf_apply_raw_plain(model, xr, sigma_only),
+                       fused_mlp.fused_nerf_apply_raw_t_plain(model, xt, sigma_only).T)
+    out_r, st_r = fused_mlp.fused_nerf_raw_stash_fwd_plain(model, xr, sigma_only)
+    out_c, st_c = fused_mlp.fused_nerf_stash_fwd_plain(model, xt, sigma_only)
+    assert torch.equal(out_r, out_c.T) and torch.equal(st_r, st_c)
+    gt = torch.from_numpy(g)
+    for st in (st_c, None):
+        a = fused_mlp.fused_nerf_raw_bwd_plain(model, xr, gt.T.contiguous(),
+                                               sigma_only, stash=st)
+        b = fused_mlp.fused_nerf_bwd_plain(model, xt, gt, sigma_only, stash=st)
+        assert all(torch.equal(u, v) for u, v in zip(a, b))
 
 
 def test_weight_grads_rounded_bias_grads_not():
@@ -138,9 +197,13 @@ def test_route_selection_follows_stash_blocks(monkeypatch):
     monkeypatch.setattr(fused_mlp, "fused_nerf_bwd_plain", spy)
     for blocks in ("auto", None, (768, 768)):
         fused_mlp.fused_nerf_apply_raw_t(model, x, stash_blocks=blocks).sum().backward()
+    xyz = x[:3].T.contiguous()
+    fused_mlp.fused_nerf_apply_raw(model, xyz, stash_blocks="auto").sum().backward()
+    fused_mlp.fused_nerf_apply_raw(model, xyz, stash_blocks=None).sum().backward()
     monkeypatch.setattr(fused_mlp, "STASH_MAX_POINTS", 63)  # P = 64 is past it
     fused_mlp.fused_nerf_apply_raw_t(model, x).sum().backward()
-    assert seen == [True, False, True, False]
+    fused_mlp.fused_nerf_apply_raw(model, xyz).sum().backward()
+    assert seen == [True, False, True, True, False, False, False]
     # without trainable parameters the forward needs no stash and no Function
     model.requires_grad_(False)
     out = fused_mlp.fused_nerf_apply_raw_t(model, x)
