@@ -47,7 +47,21 @@ Phases (any failed check raises, so the script exits non-zero):
    F' through ``fused_nerf_apply_raw(..., stash_blocks=None)``.  Last, one
    float32 step's grads on the card against the CPU and
    ``nerf_pl_tpu_torch.bench``'s number.
-6. One JSON line of kernel numbers, the card's line, then the result line
+6. The wide path and the probe: kernel G (the fused MLP on pre-embedded
+   rows) against its plain version at every width it is built for (bf16 at
+   W = 128-640, f32 at 128-384), rgb and sigma-only, at a ragged P; kernel I
+   (the probe's chain, on the tensor cores) against its plain version, its
+   time beside cuBLAS's; kernel H (G's backward with dx) against its plain
+   version at W = 256 over two backward chunks, dx and every grad per
+   tensor, its time beside F, and ``fused_nerf_apply``'s autograd route
+   (G and H launched once each); G's time at W = 512 beside its bound, the
+   plain version, posenc + ``NeRF.forward`` and the bf16 matmul chain;
+   ``render_image`` of one 200x200 view of a W = 512 checkpoint through G
+   (``fused_wide_infer=True``: 2 launches a chunk) and through posenc + NeRF
+   (no G), compared, and 256 rays of a W = 384 checkpoint in float32 on the
+   card against the CPU; last, ``python -m
+   nerf_pl_tpu_torch.scripts.kernel_probe`` as a subprocess.
+7. One JSON line of kernel numbers, the card's line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Peak rates used for the bounds (NVIDIA H100 SXM data sheet, dense): 989
@@ -190,7 +204,8 @@ def setup():
                 # drop the mangled namespace: the kernel's name and template
                 # arguments are what tell the entries apart
                 starts = [entry.find(k) for k in ("fused_nerf", "rank",
-                                                  "reduce") if k in entry]
+                                                  "reduce", "chain_kernel")
+                          if k in entry]
                 entry = entry[min(starts):] if starts else entry
             elif "spill" in line:
                 spill = line.strip()
@@ -254,13 +269,19 @@ def check_fused_mlp(model, gen, dev) -> dict:
         b, by = bound_ms(Pc * 64, 2 * macs * Pc, BF16_TENSOR_FLOPS)
         sin_ms = Pc * (63 - 3 + (0 if sigma_only else 24)) / F32_FLOPS * 1e3
         mode = "sigma-only" if sigma_only else "rgb"
+        del xc
+        torch.cuda.empty_cache()
+        chain_ms = None
+        if not sigma_only:  # the chain computes the rgb heads
+            chain_ms, _ = matmul_chain_ms(model, Pc, dev, backward=False)
+            torch.cuda.empty_cache()
         log(f"[C time bf16 {mode}] P={Pc} kernel {ms:.3f} ms, plain "
             f"{plain_ms:.3f} ms, bound {b:.3f} ms ({by}); sinf/cosf "
-            f">= {sin_ms:.3f} ms at one op each on the f32 units")
+            f">= {sin_ms:.3f} ms at one op each on the f32 units"
+            + ("" if chain_ms is None else
+               f"; bf16 matmul chain forward {chain_ms:.3f} ms"))
         rows[mode] = dict(P=Pc, ms=ms, plain_ms=plain_ms, bound_ms=b,
-                          bound_by=by)
-        del xc
-    torch.cuda.empty_cache()
+                          bound_by=by, matmul_chain_fwd_ms=chain_ms)
     return dict(err=worst, err_rm=worst_rm, rows=rows)
 
 
@@ -532,11 +553,12 @@ def matmul_chain_ms(model, P: int, dev, backward: bool = True) -> tuple:
     xe = torch.randn((P, 63), device=dev, dtype=bf)
     de = torch.randn((P, 27), device=dev, dtype=bf)
 
-    def fwd():
+    def fwd():  # keeps each product's input only for the backward
         h, acts = xe, []
         for i, w in enumerate(ws):
             a = torch.cat([xe, h], -1) if i == 4 else h
-            acts.append(a)
+            if backward:
+                acts.append(a)
             h = torch.relu(torch.matmul(a, w))
         torch.matmul(h, wsig)
         fin = torch.matmul(h, wfin)
@@ -662,9 +684,10 @@ def write_checkpoint(path: str) -> None:
 def counters():
     from nerf_pl_tpu_torch.ops import fused_mlp as fm
     from nerf_pl_tpu_torch.ops import searchsorted as ss
+    from nerf_pl_tpu_torch.scripts import kernel_probe as kp
 
     return {"B": ss.searchsorted_interp_cuda, "A": ss.searchsorted_cuda,
-            **fm.KERNELS}
+            **fm.KERNELS, "I": kp.chain_cuda}
 
 
 def reset_counts() -> None:
@@ -1310,6 +1333,499 @@ def bench_number() -> dict:
     return dict(rays_per_s=rate)
 
 
+# ---------------------------------------------------------------- phase 6
+# Kernels G (the pre-embedded forward at any width), H (its backward with
+# dx) and I (the probe's chain).
+WIDE_WIDTHS = ((128, (torch.bfloat16, torch.float32)),
+               (256, (torch.bfloat16, torch.float32)),
+               (384, (torch.bfloat16, torch.float32)),
+               (512, (torch.bfloat16,)), (640, (torch.bfloat16,)))
+WIDE_P = 100_003  # ragged against both tiles (32 and 64 points)
+# Kernel G against its plain version, per live output column (rgb and
+# sigma, or sigma alone), relative to that column's standard deviation over
+# the points: (max, mean) of |kernel - plain| / std.  The models are drawn
+# with weights of variance 2 / fan_in (``spread_model``), so activations keep
+# their scale down the trunk and every output moves with the input.  Both
+# sides round the same operands and sum in f32 in different orders, and in
+# bf16 a sum's last bit can flip a rounded operand downstream.  Each case
+# prints what sum order alone does (the plain version with float64 sums
+# against float32, ``plain_f64``); the limits were set 4x (bf16) and 6-10x
+# (float32) above the worst such reading of a CPU calibration at W =
+# 128-640.  Each case also runs controls that must fail: the plain version
+# in float32 against the bf16 kernel, one trunk layer's weights x 1.01, and
+# (rgb) the dir head's last 64 columns x 1.01.
+TOL_G = {torch.bfloat16: (2e-1, 2e-3), torch.float32: (1e-4, 1e-5)}
+WIDE_W, WIDE_RENDER_WH, WIDE_CHUNK = 512, 200, 8192
+# The W = 512 view rendered in bf16 through G and through posenc + NeRF:
+# both round every layer's operands to bf16 and sum in f32, so only the
+# order of the sums differs.  On the CPU, the posenc + NeRF route with
+# float64 sums against float32 moved rgb by at most 5.4e-5 (mean 3.1e-6) on
+# 2,304 rays of the same checkpoint; 1e-2 leaves room for a rounding flip in
+# a rare ray and fails a wrong weight, channel or sample by far.
+TOL_WIDE_RENDER = (1e-2, 1e-4)
+# Kernel I against its plain version, relative to max |plain|: the tensor
+# cores sum in another order than torch's f32 product, and the pure chain
+# rounds every product to bf16, so a flip propagates through 8 layers.  On
+# the CPU, float64 sums against float32 moved the pure chain by 5.5e-3 of
+# max|ref| (mean 1.2e-5) and the fancy one by 3.6e-3 (mean 4.0e-6) at 32,768
+# rows.
+TOL_CHAIN = (3e-2, 3e-4)
+PROBE_TIMEOUT_S = 300
+
+
+def mlp_macs(width: int) -> int:
+    """Multiply-adds an rgb point of the reference topology at trunk width
+    W: the trunk (skip at 4), sigma, fin, the W/2 dir head and rgb."""
+    return (63 * width + 6 * width * width + (width + 63) * width + width
+            + width * width + (width + 27) * (width // 2) + (width // 2) * 3)
+
+
+def random_embedded(gen, P: int, device, cols: int = 90) -> torch.Tensor:
+    """(P, cols) pre-embedded rows [xyz_emb | dir_emb] of random points in
+    the [-1.5, 1.5] cube and unit directions."""
+    from nerf_pl_tpu_torch.models.embedding import posenc
+
+    x = random_raw_t(gen, P, "cpu")
+    emb = torch.cat([posenc(x[:3].T, 10), posenc(x[3:6].T, 4)], -1)
+    return emb[:, :cols].contiguous().to(device)
+
+
+def wide_model(width: int, device, seed: int = 7):
+    from nerf_pl_tpu_torch.models.nerf import init_nerf
+
+    return init_nerf(torch.Generator().manual_seed(seed), W=width,
+                     device=device).requires_grad_(False)
+
+
+def spread_model(width: int, device, seed: int = 7):
+    """``wide_model`` with every weight x sqrt(6): variance 2 / fan_in in
+    place of nn.Linear's 1 / (3 fan_in)."""
+    model = wide_model(width, device, seed)
+    for name, p in model.named_parameters():
+        if name.endswith(".w"):
+            p.mul_(6 ** 0.5)
+    return model
+
+
+def plain_f64(model, x: torch.Tensor, sigma_only: bool,
+              dtype) -> torch.Tensor:
+    """Kernel G's plain version with float64 sums: each layer's input and
+    weight rounded to ``dtype`` as there, the rest in float64.  Returns the
+    live columns, ``(P, 1)`` sigma or ``(P, 4)`` [rgb | sigma]."""
+    def dense(layer, h):
+        return (h.to(dtype).double() @ layer.w.to(dtype).double()
+                + layer.b.double())
+
+    xe = x[:, :63].double()
+    h = xe
+    for i, layer in enumerate(model.xyz_layers):
+        if i in model.skips:
+            h = torch.cat([xe, h], -1)
+        h = torch.relu(dense(layer, h))
+    sigma = dense(model.sigma, h)
+    if sigma_only:
+        return sigma
+    fin = dense(model.xyz_final, h)
+    d = torch.relu(dense(model.dir_layer,
+                         torch.cat([fin, x[:, 63:90].double()], -1)))
+    return torch.cat([torch.sigmoid(dense(model.rgb, d)), sigma], -1)
+
+
+def rel_err(out: torch.Tensor, ref: torch.Tensor) -> tuple:
+    """(max, mean) over the columns of ``ref`` of |out - ref| / std(ref)."""
+    err = (out[:, :ref.shape[1]].double() - ref.double()).abs()
+    std = ref.double().std(dim=0)
+    return (float((err.amax(dim=0) / std).max()),
+            float((err.mean(dim=0) / std).max()))
+
+
+def check_wide_forward(gen, dev) -> dict:
+    """Kernel G against its plain version at every width it is built for,
+    rgb and sigma-only, at a ragged P, under ``TOL_G``, with controls that
+    the limits must fail."""
+    import copy
+
+    from nerf_pl_tpu_torch.ops import fused_mlp as fm
+
+    worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    worst_rel = {torch.bfloat16: (0.0, 0.0), torch.float32: (0.0, 0.0)}
+    x90 = random_embedded(gen, WIDE_P, dev)
+    x63 = x90[:, :63].contiguous()
+    for width, dtypes in WIDE_WIDTHS:
+        model = spread_model(width, dev)
+        layer5 = copy.deepcopy(model)
+        layer5.xyz_layers[5].w.mul_(1.01)
+        head = copy.deepcopy(model)
+        head.dir_layer.w[:, width // 2 - 64:].mul_(1.01)
+        for dtype in dtypes:
+            tol_max, tol_mean = TOL_G[dtype]
+            for sigma_only, x in ((True, x63), (False, x90)):
+                live = 1 if sigma_only else 4
+                out = fm.fused_nerf_apply_cuda(model, x, sigma_only, dtype)
+                ref = fm.fused_nerf_apply_plain(model, x, sigma_only, dtype)
+                torch.cuda.synchronize()
+                rel = rel_err(out, ref[:, :live])
+                order = rel_err(ref, plain_f64(model, x, sigma_only, dtype))
+                controls = {"layer 5 x 1.01": fm.fused_nerf_apply_plain(
+                    layer5, x, sigma_only, dtype)}
+                if not sigma_only:
+                    controls["dir head's last 64 columns x 1.01"] = \
+                        fm.fused_nerf_apply_plain(head, x, sigma_only, dtype)
+                if dtype == torch.bfloat16:
+                    controls["plain in float32"] = fm.fused_nerf_apply_plain(
+                        model, x, sigma_only, torch.float32)
+                name = str(dtype).replace("torch.", "")
+                mode = "sigma-only" if sigma_only else "rgb"
+                log(f"[G W={width} {name} {mode}] P={WIDE_P} x "
+                    f"{tuple(x.shape)} |err|/std max {rel[0]:.3e} mean "
+                    f"{rel[1]:.3e} (tol {tol_max:.0e}, {tol_mean:.0e}); "
+                    f"float64 sums vs float32 in the plain version "
+                    f"{order[0]:.3e} / {order[1]:.3e}; max_abs_err "
+                    f"{max_abs(out, ref):.3e}, column std "
+                    + " ".join(f"{float(s):.3f}"
+                               for s in ref[:, :live].std(dim=0)))
+                if (not torch.isfinite(out).all()
+                        or not torch.equal(out[:, live:], ref[:, live:])
+                        or not rel[0] <= tol_max or not rel[1] <= tol_mean):
+                    raise AssertionError(f"kernel G W={width} {name} {mode} "
+                                         "disagrees with its plain version")
+                for label, c in controls.items():
+                    c_rel = rel_err(out, c[:, :live])
+                    log(f"[G W={width} {name} {mode} control: {label}] "
+                        f"|err|/std max {c_rel[0]:.3e} mean {c_rel[1]:.3e}")
+                    if c_rel[0] <= tol_max and c_rel[1] <= tol_mean:
+                        raise AssertionError(
+                            f"kernel G W={width} {name} {mode}: the control "
+                            f"'{label}' passes the limits, so they cannot "
+                            "fail a wrong kernel")
+                worst[dtype] = max(worst[dtype], max_abs(out, ref))
+                worst_rel[dtype] = tuple(map(max, worst_rel[dtype], rel))
+        del model, layer5, head
+    return dict(err=worst[torch.bfloat16], err_f32=worst[torch.float32],
+                rel=worst_rel[torch.bfloat16], rel_f32=worst_rel[torch.float32])
+
+
+def time_wide_forward(gen, dev) -> dict:
+    """Kernel G at W = 512 in bf16 (rgb) at the training step's fine pass
+    (786,432 points) and at one serve chunk (32,000 rays x 192): kernel time,
+    the bound, and at 786,432 points the plain version, the bf16 matmul
+    chain and the posenc + NeRF route (bf16 operands, f32 products)."""
+    from nerf_pl_tpu_torch.models.embedding import posenc
+    from nerf_pl_tpu_torch.ops import fused_mlp as fm
+
+    bf = torch.bfloat16
+    model = wide_model(WIDE_W, dev)
+    macs = mlp_macs(WIDE_W)
+    rows = {}
+    for name, P in (("train", TRAIN_BATCH * (N_SAMPLES + N_IMPORTANCE)),
+                    ("serve", CHUNK_RAYS * (N_SAMPLES + N_IMPORTANCE))):
+        xr = random_raw_t(gen, P, dev)
+        x = torch.cat([posenc(xr[:3].T, 10), posenc(xr[3:6].T, 4)],
+                      -1).contiguous()
+        ms = cuda_ms(lambda: fm.fused_nerf_apply_cuda(model, x, False, bf),
+                     iters=3 if name == "train" else 2)
+        b, by = bound_ms(P * (90 * 4 + 8 * 4), 2 * macs * P, BF16_TENSOR_FLOPS)
+        row = dict(P=P, ms=ms, bound_ms=b, bound_by=by)
+        if name == "train":
+            row["plain_ms"] = cuda_ms(lambda: fm.fused_nerf_apply_plain(
+                model, x, False, bf), iters=1)
+            del x
+            torch.cuda.empty_cache()
+
+            def posenc_nerf():
+                emb = torch.cat([posenc(xr[:3].T, 10), posenc(xr[3:6].T, 4)],
+                                -1)
+                return model(emb, compute_dtype=bf)
+            with torch.no_grad():
+                row["posenc_nerf_ms"] = cuda_ms(posenc_nerf, iters=2)
+            row["matmul_chain_fwd_ms"], _ = matmul_chain_ms(model, P, dev,
+                                                            backward=False)
+        log(f"[G time W={WIDE_W} bf16 rgb {name}] P={P} kernel {ms:.3f} ms, "
+            f"bound {b:.3f} ms ({by}, {2 * macs * P:.3e} FLOP)"
+            + ("" if name != "train" else
+               f", plain {row['plain_ms']:.3f} ms, posenc + NeRF.forward "
+               f"(bf16 operands, f32 products) {row['posenc_nerf_ms']:.3f} "
+               f"ms, bf16 matmul chain forward "
+               f"{row['matmul_chain_fwd_ms']:.3f} ms"))
+        rows[name] = row
+        del xr
+        torch.cuda.empty_cache()
+    return rows
+
+
+def view_rays(wh: int, device, eye=(2.5, 1.0, 3.0)) -> torch.Tensor:
+    """One wh x wh view of the origin (the Blender camera angle), rays
+    [o, d, near 2, far 6]."""
+    from nerf_pl_tpu_torch.models.camera import c2w_from_lookat
+    from nerf_pl_tpu_torch.ops.ray_utils import get_ray_directions, get_rays
+
+    c2w = torch.from_numpy(c2w_from_lookat(
+        np.asarray(eye, np.float32), np.zeros(3, np.float32))[:3, :4])
+    focal = 0.5 * wh / np.tan(0.5 * 0.6911)
+    o, d = get_rays(get_ray_directions(wh, wh, focal, device="cpu"), c2w)
+    nf = torch.ones((o.shape[0], 1))
+    return torch.cat([o, d, 2.0 * nf, 6.0 * nf], -1).to(device)
+
+
+def write_wide_checkpoint(path: str, width: int, seed: int) -> None:
+    """Seeded coarse and fine models at ``width`` (seeds ``seed`` and
+    ``seed + 1``), the sigma head scaled as ``write_checkpoint`` scales it,
+    written with the port's codec."""
+    from nerf_pl_tpu_torch.models.nerf import init_nerf
+    from nerf_pl_tpu_torch.training.checkpoints import save_checkpoint
+
+    models = {}
+    for k, name in enumerate(("coarse", "fine")):
+        m = init_nerf(torch.Generator().manual_seed(seed + k), W=width,
+                      device="cpu")
+        with torch.no_grad():
+            m.sigma.w.mul_(40.0)
+        models[name] = m
+    save_checkpoint(path, {"params": models, "step": 0, "epoch": 0})
+
+
+def require_content(label: str, out: dict) -> None:
+    """A render of a random checkpoint holds something besides the white
+    background, so comparing two of them can fail."""
+    rgb, opacity = out["rgb_fine"], out["opacity_fine"]
+    log(f"[{label}] rgb mean {float(rgb.mean()):.4f} min "
+        f"{float(rgb.min()):.4f}, opacity mean {float(opacity.mean()):.4f}")
+    if not float(rgb.min()) < 0.9:
+        raise AssertionError(f"{label}: the render is blank")
+
+
+def wide_render(tmp: str) -> dict:
+    """The wide path end to end: ``render_image`` of one 200x200 view of a
+    W = 512 checkpoint (``load_models`` reads the width) at 64 + 128 samples
+    in bf16, through kernel G (``use_fused=True, fused_wide_infer=True``:
+    2 launches a chunk) and through posenc + NeRF (``fused_wide_infer=False``:
+    none), compared; then 256 rays of a W = 384 checkpoint in float32 through
+    G on the card and the plain version on the CPU."""
+    from nerf_pl_tpu_torch.tools.evaluate import load_models
+    from nerf_pl_tpu_torch.tools.render import render_image
+
+    ckpt = os.path.join(tmp, "wide512.ckpt")
+    write_wide_checkpoint(ckpt, WIDE_W, seed=0)
+    models = load_models(ckpt, "cuda")
+    if models["fine"].width != WIDE_W:
+        raise AssertionError(f"load_models read W={models['fine'].width}")
+    rays = view_rays(WIDE_RENDER_WH, "cuda")
+    kw = dict(chunk=WIDE_CHUNK, N_samples=N_SAMPLES, N_importance=N_IMPORTANCE,
+              perturb=0.0, noise_std=0.0, white_back=True, test_time=True,
+              use_fused=True, compute_dtype=torch.bfloat16)
+    runs = {}
+    for wide in (True, False):
+        render_image(models, rays[:WIDE_CHUNK], None,
+                     **kw, fused_wide_infer=wide)  # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = render_image(models, rays, None, **kw, fused_wide_infer=wide)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        rgb = out["rgb_fine"]
+        if not torch.isfinite(rgb).all() or rgb.shape != (rays.shape[0], 3):
+            raise AssertionError(f"wide render: {tuple(rgb.shape)}, finite "
+                                 f"{bool(torch.isfinite(rgb).all())}")
+        require_content(f"W={WIDE_W} view", out)
+        runs[wide] = dict(rgb=rgb, wall=wall, counts=counts,
+                          rays_per_s=rays.shape[0] / wall)
+        label = "G (fused_wide_infer=True)" if wide else \
+            "posenc + NeRF (fused_wide_infer=False)"
+        log(f"[wide render {label}] W={WIDE_W} {WIDE_RENDER_WH}^2, "
+            f"{N_SAMPLES}+{N_IMPORTANCE} samples, bf16, chunk {WIDE_CHUNK}: "
+            f"{wall:.3f} s, {rays.shape[0] / wall:.1f} rays/s; launches "
+            f"{counts}")
+    n_chunks = -(-rays.shape[0] // WIDE_CHUNK)
+    if runs[True]["counts"]["G"] != 2 * n_chunks:
+        raise AssertionError(f"the wide render launched G "
+                             f"{runs[True]['counts']['G']} times, not 2 per "
+                             f"chunk ({n_chunks} chunks)")
+    if runs[False]["counts"]["G"]:
+        raise AssertionError("fused_wide_infer=False launched kernel G")
+    d = (runs[True]["rgb"] - runs[False]["rgb"]).abs()
+    err, mean = float(d.max()), float(d.mean())
+    log(f"[wide render] G vs posenc + NeRF, rgb_fine: max_abs_err {err:.3e} "
+        f"mean {mean:.3e} (tol {TOL_WIDE_RENDER[0]:.0e}, "
+        f"{TOL_WIDE_RENDER[1]:.0e}); image mean "
+        f"{float(runs[True]['rgb'].mean()):.4f}")
+    if not (err <= TOL_WIDE_RENDER[0] and mean <= TOL_WIDE_RENDER[1]):
+        raise AssertionError("the wide render through G departs from posenc "
+                             "+ NeRF")
+
+    ckpt384 = os.path.join(tmp, "wide384.ckpt")
+    write_wide_checkpoint(ckpt384, 384, seed=8)
+    imgs, f32_counts = {}, None
+    for device in ("cuda", "cpu"):
+        m384 = load_models(ckpt384, device)
+        reset_counts()
+        out = render_image(m384, view_rays(16, device), None,
+                           **dict(kw, compute_dtype=torch.float32),
+                           fused_wide_infer=True)
+        imgs[device] = out["rgb_fine"].cpu()
+        if device == "cuda":
+            torch.cuda.synchronize()
+            f32_counts = read_counts()
+        require_content(f"W=384 view on {device}", out)
+    d = (imgs["cuda"] - imgs["cpu"]).abs()
+    err384, mean384 = float(d.max()), float(d.mean())
+    log(f"[wide render W=384 f32 card vs cpu] 256 rays, max_abs_err "
+        f"{err384:.3e} tol={TOL_F32_RENDER:.0e}, mean {mean384:.3e} "
+        f"tol={TOL_F32_RENDER_MEAN:.0e}; card launches {f32_counts}")
+    if f32_counts["G"] < 2:
+        raise AssertionError("the W=384 f32 render did not take kernel G")
+    if not (torch.isfinite(imgs["cuda"]).all() and err384 <= TOL_F32_RENDER
+            and mean384 <= TOL_F32_RENDER_MEAN):
+        raise AssertionError("the W=384 f32 render disagrees with the CPU")
+    res = {k: dict(wall=v["wall"], rays_per_s=v["rays_per_s"],
+                   counts=v["counts"]) for k, v in runs.items()}
+    return dict(wide=res[True], posenc_nerf=res[False], err=err, mean=mean,
+                err_f32_384=err384, chunks=n_chunks)
+
+
+def check_wide_backward(model, gen, dev) -> dict:
+    """Kernel H against its plain version at W = 256 (the checkpoint's fine
+    model), bf16 and f32, rgb on (P, 90) rows and sigma-only on (P, 63), at
+    a P that spans two of the backward's point chunks: dx and every weight
+    and bias grad, per tensor, under TOL_TRAIN.  Then its time at 786,432
+    points beside F, and the autograd route of ``fused_nerf_apply``."""
+    from nerf_pl_tpu_torch.ops import fused_mlp as fm
+
+    P = fm.BWD_CHUNK + (1 << 16) + 77
+    names = ["dx"] + grad_names(model)
+    x90 = random_embedded(gen, P, dev)
+    x63 = x90[:, :63].contiguous()
+    g = torch.randn((P, 8), generator=gen).to(dev)
+    worst = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).replace("torch.", "")
+        for sigma_only, x in ((False, x90), (True, x63)):
+            mode = "sigma-only" if sigma_only else "rgb"
+            gg = g.clone()
+            gg[:, 1 if sigma_only else 4:] = 0.0  # what fused_nerf_apply drops
+            dx, dw, db = fm.fused_nerf_bwd_dx_cuda(model, x, gg, sigma_only,
+                                                   dtype)
+            rdx, rw, rb = fm.fused_nerf_bwd_dx_plain(model, x, gg, sigma_only,
+                                                     dtype)
+            torch.cuda.synchronize()
+            s = check_grads(f"H {dname} {mode} P={P} x {tuple(x.shape)}",
+                            [dx] + fm.unpack_grads(model, dw, db, dtype),
+                            [rdx] + fm.unpack_grads(model, rw, rb, dtype),
+                            names, TOL_TRAIN[dtype])
+            if dtype == torch.bfloat16:
+                for k in ("max_rel", "mean_rel", "max_abs"):
+                    worst[k] = max(worst.get(k, 0.0), s[k])
+            del dx, dw, db, rdx, rw, rb
+    del x90, x63, g
+    torch.cuda.empty_cache()
+
+    bf = torch.bfloat16
+    Pt = TRAIN_BATCH * (N_SAMPLES + N_IMPORTANCE)
+    xr = random_raw_t(gen, Pt, dev)
+    x = random_embedded(gen, Pt, dev)
+    g8 = torch.randn((Pt, 8), generator=gen).to(dev)
+    g8[:, 4:] = 0.0
+    h_ms = cuda_ms(lambda: fm.fused_nerf_bwd_dx_cuda(model, x, g8, False, bf),
+                   iters=2)
+    f_ms = cuda_ms(lambda: fm.fused_nerf_bwd_remat_cuda(
+        model, xr, g8.T.contiguous(), False, bf), iters=2)
+    h_plain = cuda_ms(lambda: fm.fused_nerf_bwd_dx_plain(model, x, g8, False,
+                                                         bf), iters=1)
+    flop = 2 * (3 * MACS_RGB + 35_712) * Pt
+    b, by = bound_ms(Pt * (90 * 4 * 2 + 8 * 4) + 4 * 593_408, flop,
+                     BF16_TENSOR_FLOPS)
+    chain_fwd, chain_bwd = matmul_chain_ms(model, Pt, dev)
+    log(f"[H time bf16 rgb] P={Pt} kernel {h_ms:.3f} ms (F {f_ms:.3f} ms), "
+        f"plain {h_plain:.3f} ms, bound {b:.3f} ms ({by}, {flop:.3e} FLOP); "
+        f"bf16 matmul chain backward {chain_bwd:.3f} ms")
+    del xr, g8
+    torch.cuda.empty_cache()
+
+    # the autograd route: fused_nerf_apply with x requiring grad
+    xg = x[:TRAIN_BATCH * N_SAMPLES].clone().requires_grad_(True)
+    torch.cuda.synchronize()
+    reset_counts()
+    with torch.enable_grad():
+        out = fm.fused_nerf_apply(model, xg, False, bf)
+        out.square().mean().backward()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"[fused_nerf_apply autograd W=256] {xg.shape[0]} points, forward + "
+        f"backward: launches {counts}; dx finite "
+        f"{bool(torch.isfinite(xg.grad).all())}")
+    if counts["G"] != 1 or counts["H"] != 1:
+        raise AssertionError(f"fused_nerf_apply's autograd did not take G and "
+                             f"H: {counts}")
+    if xg.grad is None or not torch.isfinite(xg.grad).all():
+        raise AssertionError("fused_nerf_apply gave no finite dx")
+    del x, xg
+    torch.cuda.empty_cache()
+    return dict(err=worst["max_abs"], max_rel=worst["max_rel"],
+                mean_rel=worst["mean_rel"], P=Pt, ms=h_ms, F_ms=f_ms,
+                plain_ms=h_plain, bound_ms=b, bound_by=by,
+                matmul_chain_bwd_ms=chain_bwd, counts=counts)
+
+
+def check_chain(dev) -> dict:
+    """Kernel I against its plain version, pure and fancy, at 786,432 rows:
+    the error relative to max |plain|, the kernel's time and TFLOP/s, the
+    plain version's, and the same eight products as bf16 torch.matmul calls
+    (cuBLAS)."""
+    from nerf_pl_tpu_torch.scripts import kernel_probe as kp
+
+    P = TRAIN_BATCH * (N_SAMPLES + N_IMPORTANCE)
+    x, w0, w = kp.probe_inputs(P, dev)
+    flop = P * kp.CHAIN_FLOP_PER_ROW
+    b, by = bound_ms(P * (128 * 4 * 2), flop, BF16_TENSOR_FLOPS)
+    rows = {}
+    for fancy in (False, True):
+        mode = "fancy" if fancy else "pure"
+        out = kp.chain_cuda(x, w0, w, fancy)
+        ref = kp.chain_plain(x, w0, w, fancy)
+        torch.cuda.synchronize()
+        rel, mean = rel_errs(out, ref)
+        ms = cuda_ms(lambda: kp.chain_cuda(x, w0, w, fancy), iters=10)
+        plain = cuda_ms(lambda: kp.chain_plain(x, w0, w, fancy), iters=2)
+        log(f"[I {mode}] P={P} rel max err {rel:.3e} rel mean {mean:.3e} "
+            f"(tol {TOL_CHAIN[0]:.0e}, {TOL_CHAIN[1]:.0e}); kernel {ms:.4f} "
+            f"ms ({flop / ms / 1e9:.1f} TFLOP/s), plain {plain:.4f} ms, "
+            f"bound {b:.4f} ms ({by})")
+        if not (torch.isfinite(out).all() and rel <= TOL_CHAIN[0]
+                and mean <= TOL_CHAIN[1]):
+            raise AssertionError(f"kernel I ({mode}) disagrees with its plain "
+                                 "version")
+        rows[mode] = dict(ms=ms, plain_ms=plain, rel=rel, mean_rel=mean,
+                          max_abs=max_abs(out, ref),
+                          tflops=flop / ms / 1e9)
+    lib_ms = cuda_ms(lambda: kp.chain_matmul(x, w0, w), iters=10)
+    log(f"[I] cuBLAS chain (8 bf16 torch.matmul calls, pure) {lib_ms:.4f} ms "
+        f"({flop / lib_ms / 1e9:.1f} TFLOP/s); bound {b:.4f} ms")
+    return dict(P=P, rows=rows, library_ms=lib_ms, bound_ms=b, bound_by=by)
+
+
+def run_probe() -> dict:
+    """``python -m nerf_pl_tpu_torch.scripts.kernel_probe`` as a
+    subprocess; its lines are printed and its launch counts read from its
+    last line."""
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "nerf_pl_tpu_torch.scripts.kernel_probe"],
+        capture_output=True, text=True, timeout=PROBE_TIMEOUT_S,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    for line in res.stdout.splitlines():
+        log(f"[probe] {line}")
+    if res.returncode != 0:
+        raise AssertionError(f"kernel_probe failed ({res.returncode}): "
+                             f"{res.stderr[-2000:]}")
+    launches = json.loads(res.stdout.strip().splitlines()[-1])["launches"]
+    for k in ("I", "G", "C'", "F'", "D'", "E'"):
+        if launches.get(k, 0) < 1:
+            raise AssertionError(f"the probe did not launch kernel {k}")
+    log(f"[probe] {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1349,6 +1865,17 @@ def main() -> int:
         trained_rm = train_row_major(tmp, trained["losses"])
         step_err = step_grads_card_vs_cpu()
         benched = bench_number()
+        t_wide = time.perf_counter()
+        fine = load_models(ckpt, dev)["fine"]
+        with torch.no_grad():
+            wg = check_wide_forward(gen, dev)
+            wi = check_chain(dev)
+            wh = check_wide_backward(fine, gen, dev)
+            wt = time_wide_forward(gen, dev)
+        del fine
+        wr = wide_render(tmp)
+        probe = run_probe()
+        log(f"[wide] phase 6: {time.perf_counter() - t_wide:.1f} s")
 
     fine_row, coarse_row = c["rows"]["rgb"], c["rows"]["sigma-only"]
     kernels = [
@@ -1360,6 +1887,7 @@ def main() -> int:
              bound_ms=fine_row["bound_ms"], bound_by=fine_row["bound_by"],
              library_ms=None, shape=f"rgb bf16 P={fine_row['P']}",
              sigma_only=coarse_row,
+             matmul_chain_fwd_ms=fine_row["matmul_chain_fwd_ms"],
              launches_train=dict(fit=trained["counts"]["C"],
                                  per_step=trained["per_step"]["C"]),
              train_shapes={k: dict(P=tt[k]["P"], ms=tt[k]["C_ms"],
@@ -1469,6 +1997,50 @@ def main() -> int:
     for row, key in ((kernels[-2], "E'"), (kernels[-1], "F'")):
         row["max_rel_err"] = tk[f"{key}_rel"]
         row["mean_rel_err"] = tk["mean_rel'"]
+    # slice 4: the wide pre-embedded forward, its backward, the probe's chain
+    gt, gs = wt["train"], wt["serve"]
+    kernels.append(dict(
+        name="fused_nerf_wide_fwd", route="cuda",
+        source="nerf_pl_tpu_torch/csrc/fused_mlp_wide.cu",
+        replaces="nerf_pl_tpu/ops/fused_mlp.py:184",
+        launches=wr["wide"]["counts"]["G"], max_abs_err=wg["err"],
+        ms=gt["ms"], plain_ms=gt["plain_ms"], bound_ms=gt["bound_ms"],
+        bound_by=gt["bound_by"], library_ms=None,
+        shape=f"W={WIDE_W} rgb bf16 P={gt['P']}",
+        max_abs_err_f32=wg["err_f32"], rel_err_of_std=dict(
+            bf16=wg["rel"], f32=wg["rel_f32"]),
+        matmul_chain_fwd_ms=gt["matmul_chain_fwd_ms"],
+        posenc_nerf_ms=gt["posenc_nerf_ms"],
+        serve_chunk=dict(P=gs["P"], ms=gs["ms"], bound_ms=gs["bound_ms"]),
+        launches_by_path=dict(wide_render=wr["wide"]["counts"]["G"],
+                              posenc_nerf_render=wr["posenc_nerf"]["counts"]
+                              ["G"], autograd=wh["counts"]["G"],
+                              probe=probe["G"])))
+    kernels.append(dict(
+        name="fused_nerf_bwd_dx", route="cuda",
+        source="nerf_pl_tpu_torch/csrc/fused_mlp_bwd.cu",
+        replaces="nerf_pl_tpu/ops/fused_mlp.py:327",
+        launches=wh["counts"]["H"], max_abs_err=wh["err"], ms=wh["ms"],
+        plain_ms=wh["plain_ms"], bound_ms=wh["bound_ms"],
+        bound_by=wh["bound_by"], library_ms=None,
+        shape=f"W=256 rgb bf16 P={wh['P']}", max_rel_err=wh["max_rel"],
+        mean_rel_err=wh["mean_rel"], F_ms=wh["F_ms"],
+        matmul_chain_bwd_ms=wh["matmul_chain_bwd_ms"],
+        launches_by_path=dict(autograd=wh["counts"]["H"])))
+    pure, fancy = wi["rows"]["pure"], wi["rows"]["fancy"]
+    kernels.append(dict(
+        name="chain_probe", route="cuda",
+        source="nerf_pl_tpu_torch/csrc/chain_probe.cu",
+        replaces="scripts/kernel_probe.py:58", launches=probe["I"],
+        max_abs_err=max(pure["max_abs"], fancy["max_abs"]), ms=pure["ms"],
+        plain_ms=pure["plain_ms"], bound_ms=wi["bound_ms"],
+        bound_by=wi["bound_by"], library_ms=None,
+        shape=f"pure bf16 P={wi['P']}", tflops=pure["tflops"],
+        fancy=dict(ms=fancy["ms"], plain_ms=fancy["plain_ms"],
+                   tflops=fancy["tflops"]),
+        max_rel_err=max(pure["rel"], fancy["rel"]),
+        matmul_chain_ms=wi["library_ms"],
+        launches_by_path=dict(probe=probe["I"])))
     log(f"[serve] {served['rays_per_s']:.1f} rays/s, "
         f"{served['ms']:.1f} ms per request; f32 card-vs-cpu err "
         f"{f32_err:.3e}")
@@ -1482,6 +2054,12 @@ def main() -> int:
         f"({ev_cm['rays_per_s']:.1f} rays/s); PSNR {ev_rm['psnr']:.4f} dB; "
         f"row-major fit {trained_rm['rays_per_s']:.1f} train rays/s, epoch-0 "
         f"loss relative difference {trained_rm['loss_rel_diff']:.3e}")
+    log(f"[wide] W={WIDE_W} {WIDE_RENDER_WH}^2 view: "
+        f"{wr['wide']['rays_per_s']:.1f} rays/s through G, "
+        f"{wr['posenc_nerf']['rays_per_s']:.1f} through posenc + NeRF; G "
+        f"{gt['ms']:.3f} ms at {gt['P']} points; H {wh['ms']:.3f} ms (F "
+        f"{wh['F_ms']:.3f}); I {pure['ms']:.4f} ms ({pure['tflops']:.1f} "
+        f"TFLOP/s), cuBLAS chain {wi['library_ms']:.4f} ms")
     log(f"[card] {card}")
     print(json.dumps({"kernels": kernels}))
     print(card)

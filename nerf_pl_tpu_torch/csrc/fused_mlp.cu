@@ -72,8 +72,8 @@ fused_nerf_fwd_kernel(const float* __restrict__ x, float* __restrict__ out,
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int SC = SIGMA_ONLY ? SC_SIGMA : SC_RGB;
   const long long p0 = 1LL * blockIdx.x * TP;
-  forward_tile<T, SIGMA_ONLY, STASH, ROW_MAJOR>(
-      x, out, wts, bias, P, p0, smem, STASH ? stash + p0 * SC : nullptr);
+  forward_tile<Ref, T, SIGMA_ONLY, STASH, ROW_MAJOR ? IO_ROW : IO_CHANNEL>(
+      x, out, wts, bias, P, p0, smem, STASH ? stash + p0 * SC : nullptr, 0);
 }
 
 template <typename T, bool SIGMA_ONLY, bool STASH, bool ROW_MAJOR>

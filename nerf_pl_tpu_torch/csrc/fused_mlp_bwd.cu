@@ -2,7 +2,8 @@
 // (8, P) input: the f32 gradient of every packed weight and bias, given the
 // output cotangent g (8, P).  The input cotangent is zero (rays are data)
 // and is not computed.  E' and F': the same on row-major (P, 8) x and g
-// (the dgrad kernel's ROW_MAJOR flag).
+// (the dgrad kernel's IO_ROW input).  H: F on pre-embedded rows x (P, 63)
+// or (P, 90) and g (P, 8) (IO_EMBEDDED), which also returns dx.
 //
 // Replaces (TPU, Pallas): nerf_pl_tpu/ops/fused_mlp.py::_raw_t_bwd_call
 // (:1140, pallas_call :1171) -> E: _bwd_kernel_raw_stash_t (:1052), which
@@ -12,6 +13,10 @@
 // Row-major: E': _fused_raw_stash_bwd_call (:775, pallas_call :788) ->
 // _bwd_kernel_raw_stash (:727), reading the stash of D'; F':
 // _fused_raw_bwd_rule (:884, pallas_call :899) -> _bwd_kernel_raw (:660).
+// H: nerf_pl_tpu/ops/fused_mlp.py::_fused_bwd_rule (:387, pallas_call
+// :400) -> _bwd_kernel (:327), _bwd_core with want_dx, the backward of
+// fused_nerf_apply (the pre-embedded kernel G's forward, fused_mlp_wide.cu),
+// at the reference width only (as in JAX, whose _bwd_core slices at W = 256).
 // Bounds as E and F (the boundary IO is 64 bytes a point in either
 // layout).  Only the loads of x
 // (staged in 16-byte vectors, as in C') and of g (one 16-byte load per
@@ -53,6 +58,20 @@
 //      in a fixed order into dW and db, accumulating over the chunks.
 // Workspace (from the wrapper): in bf16 at a chunk of 262,144 points the
 // G buffer is 1.33 GB and F's scratch stash 1.28 GB.
+//
+// Kernel H is F (the remat route) whose tile input is the pre-embedded rows
+// (rounded to T, as _fwd_body rounds x) and whose dgrad sweep goes on to
+// the input cotangent, as _bwd_core with want_dx (:229-289):
+//   dx[:, 63:90] = round(g_dpre) @ Wdir[W:]^T          (rgb mode; else 0)
+//   dx[:, :63]   = round(g_pre_4) @ W_4[:63]^T + round(g_pre_0) @ W_0^T
+// each product f32, the two xyz terms added in that order (JAX adds the
+// skip term to a zero and then layer 0's term, which gives the same bits).
+// The three extra products, 2 x (63 x 256) + 27 x 128 = 35,712
+// multiply-adds a point, run through the same product loop on transposed
+// operands padded to 64 columns (DXC below), and each thread stores its own
+// points' dx columns straight to device memory; layer 0 adds to the skip
+// term that the same thread stored.  Bound: operations, 2 x (3 x 593,408 +
+// 35,712) FLOP a point.
 #include "fused_mlp_common.cuh"
 
 #include <algorithm>
@@ -75,6 +94,14 @@ constexpr int GC = G_DE + 32;        // 2544
 // rows of Wdir, transposed (128 x 256), at WT_DIR.
 constexpr long long WT_FIN = 7LL * W * W, WT_DIR = 8LL * W * W;
 constexpr long long N_WT = WT_DIR + 1LL * WH * W;
+// Kernel H's dx operands, in T, each padded to DXC output columns (zeros
+// past the live ones): the dir rows of Wdir transposed (WH x DXC, 27 live)
+// at WX_DIR, the xyz rows of W_4 transposed (W x DXC, 63 live) at WX_SKIP,
+// W_0 transposed (W x DXC, 63 live) at WX_0.
+constexpr int DXC = 64;
+constexpr long long WX_DIR = 0, WX_SKIP = WX_DIR + 1LL * WH * DXC;
+constexpr long long WX_0 = WX_SKIP + 1LL * W * DXC;
+constexpr long long N_WX = WX_0 + 1LL * W * DXC;
 
 template <typename T>
 constexpr size_t bwd_smem_bytes() {
@@ -146,11 +173,39 @@ __device__ __forceinline__ void bwd_epilogue(
   __syncthreads();
 }
 
+// Kernel H: one dx product's outputs (from dense_acc with DXC columns:
+// point 8 warp + i, column CPL lane + j) to dx's columns [col0, col0 +
+// n_live) of the tile's points, or with accumulate added to what this
+// thread stored there before (the same mapping).  Columns past x_cols (the
+// dir columns of 63-column rows) and points past the chunk are not stored.
+__device__ __forceinline__ void dx_store(const float (&ax)[8][DXC / 32],
+                                         float* dx, long long p0,
+                                         long long n_valid, int x_cols,
+                                         int col0, int n_live,
+                                         bool accumulate) {
+  constexpr int CPL = Lanes<DXC>::CPL;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int p = warp * 8 + i;
+    if (p >= n_valid) continue;
+    float* row = dx + (p0 + p) * x_cols + col0;
+#pragma unroll
+    for (int j = 0; j < CPL; ++j) {
+      const int c = lane * CPL + j;
+      if (c < n_live && col0 + c < x_cols)
+        row[c] = accumulate ? row[c] + ax[i][j] : ax[i][j];
+    }
+  }
+}
+
 // Pass 1: the gradient sweep of one 64-point tile of the chunk
 // [p_begin, p_end).  stash: row 0 is point p_begin (E: kernel D's stash;
 // F: the scratch that this kernel fills first).  gbuf: row 0 is point
-// p_begin.  bpart: one row of N_BIASES partial sums per tile.
-template <typename T, bool SIGMA_ONLY, bool REMAT, bool ROW_MAJOR>
+// p_begin.  bpart: one row of N_BIASES partial sums per tile.  Kernel H
+// (IO_EMBEDDED): x_cols, the dx operands wx and dx (P, x_cols) f32, whose
+// columns it does not store stay as the caller zeroed them.
+template <typename T, bool SIGMA_ONLY, bool REMAT, int IN>
 __global__ void __launch_bounds__(THREADS, 2)
 fused_nerf_dgrad_kernel(const float* __restrict__ x,
                         const float* __restrict__ g,
@@ -158,9 +213,11 @@ fused_nerf_dgrad_kernel(const float* __restrict__ x,
                         const float* __restrict__ bias,
                         const T* __restrict__ wt, long long P,
                         long long p_begin, long long p_end, T* stash,
-                        T* gbuf, float* __restrict__ bpart) {
+                        T* gbuf, float* __restrict__ bpart, int x_cols,
+                        const T* __restrict__ wx, float* dx) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int SC = SIGMA_ONLY ? SC_SIGMA : SC_RGB;
+  constexpr bool DX = IN == IO_EMBEDDED;  // kernel H: dx too
   T* act = reinterpret_cast<T*>(smem);
   T* ws = act + ROWS * TP;
   float* gout = reinterpret_cast<float*>(smem + smem_bytes<T>());
@@ -177,13 +234,13 @@ fused_nerf_dgrad_kernel(const float* __restrict__ x,
   if (REMAT) {
     // the stash rows are written and read back by this CTA only; the
     // barrier at the end of forward_tile orders them
-    forward_tile<T, SIGMA_ONLY, true, ROW_MAJOR>(x, nullptr, wts, bias, P, p0,
-                                                 smem, st);
+    forward_tile<Ref, T, SIGMA_ONLY, true, IN>(x, nullptr, wts, bias, P, p0,
+                                               smem, st, x_cols);
   } else {
-    embed<T, ROW_MAJOR>(x, P, p0, act, ws, !SIGMA_ONLY);
+    tile_input<Ref, T, IN>(x, x_cols, P, p0, act, ws, !SIGMA_ONLY);
   }
   // the cotangent's first 4 channels (rgb, sigma; sigma-only: sigma)
-  if (ROW_MAJOR) {  // one 16-byte load per point
+  if (IN != IO_CHANNEL) {  // (P, 8) rows: one 16-byte load per point
     for (int p = tid; p < TP; p += THREADS) {
       float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
       if (p < n_valid)
@@ -276,21 +333,38 @@ fused_nerf_dgrad_kernel(const float* __restrict__ x,
       }
       bp[BOFF_DIR + k] = s;
     }
+    if constexpr (DX) {  // dx's dir columns = round(g_dpre) @ Wdir[W:]^T
+      float ax[8][DXC / 32];
+      dense_acc<Ref, T, DXC>(wx + WX_DIR, WH, act, ROW_H, ws, ax);
+      dx_store(ax, dx, p0, n_valid, x_cols, CX, CD, false);
+    }
     // g_fin = round(g_dpre) @ Wdir[:W]^T (no activation on fin)
-    dense_acc<T, 2>(wt + WT_DIR, WH, act, ROW_H, ws, acc);
+    dense_acc<Ref, T, W>(wt + WT_DIR, WH, act, ROW_H, ws, acc);
     bwd_epilogue<T>(acc, st, SC, -1, nullptr, nullptr, act, gb, G_FIN, red,
                     bp + BOFF_FIN, n_valid);
     // g_h8 = round(g_fin) @ Wfin^T, plus the sigma term below
-    dense_acc<T, 2>(wt + WT_FIN, W, act, ROW_H, ws, acc);
+    dense_acc<Ref, T, W>(wt + WT_FIN, W, act, ROW_H, ws, acc);
   }
   // g_pre of layer 7 = (acc + round(g_sigma) * Wsig) * (h8 > 0)
   bwd_epilogue<T>(acc, st, SC, (D - 1) * W, gsig, wts + OFF_SIG, act, gb,
                   (D - 1) * W, red, bp + (D - 1) * W, n_valid);
   for (int i = D - 1; i >= 1; --i) {
+    if constexpr (DX) {
+      if (i == SKIP) {  // dx's xyz columns, the skip term
+        float ax[8][DXC / 32];
+        dense_acc<Ref, T, DXC>(wx + WX_SKIP, W, act, ROW_H, ws, ax);
+        dx_store(ax, dx, p0, n_valid, x_cols, 0, CX, false);
+      }
+    }
     // g_h = round(g_pre_i) @ W_i[h rows]^T; g_pre_{i-1} = g_h * (h_i > 0)
-    dense_acc<T, 2>(wt + 1LL * (i - 1) * W * W, W, act, ROW_H, ws, acc);
+    dense_acc<Ref, T, W>(wt + 1LL * (i - 1) * W * W, W, act, ROW_H, ws, acc);
     bwd_epilogue<T>(acc, st, SC, (i - 1) * W, nullptr, nullptr, act, gb,
                     (i - 1) * W, red, bp + (i - 1) * W, n_valid);
+  }
+  if constexpr (DX) {  // + layer 0's term, round(g_pre_0) @ W_0^T
+    float ax[8][DXC / 32];
+    dense_acc<Ref, T, DXC>(wx + WX_0, W, act, ROW_H, ws, ax);
+    dx_store(ax, dx, p0, n_valid, x_cols, 0, CX, true);
   }
 }
 
@@ -435,13 +509,22 @@ int reduce(const float* part, int rows, long long n, float* tmp, float* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool SIGMA_ONLY, bool REMAT, bool ROW_MAJOR>
-int run(const void* x, const void* g, const void* w, const void* b,
-        const void* wt, long long P, void* stash, void* gbuf, void* wpart,
-        void* bpart, void* btmp, void* dw, void* db, long long chunk,
-        int split, cudaStream_t s) {
+// Operands of one backward call (see nerf_fused_bwd).
+struct BwdArgs {
+  const void *x, *g, *w, *b, *wt;
+  long long P;
+  void *stash, *gbuf, *wpart, *bpart, *btmp, *dw, *db;
+  long long chunk;
+  int split, x_cols;
+  const void* wx;
+  void* dx;
+};
+
+template <typename T, bool SIGMA_ONLY, bool REMAT, int IN>
+int run(const BwdArgs& a, cudaStream_t s) {
   constexpr int SC = SIGMA_ONLY ? SC_SIGMA : SC_RGB;
-  auto dgrad = fused_nerf_dgrad_kernel<T, SIGMA_ONLY, REMAT, ROW_MAJOR>;
+  const long long P = a.P, chunk = a.chunk;
+  auto dgrad = fused_nerf_dgrad_kernel<T, SIGMA_ONLY, REMAT, IN>;
   constexpr size_t smem = bwd_smem_bytes<T>();
   cudaError_t err = cudaFuncSetAttribute(
       dgrad, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -453,61 +536,52 @@ int run(const void* x, const void* g, const void* w, const void* b,
     const long long n = p_end - p_begin;
     const int tiles = static_cast<int>((n + TP - 1) / TP);
     // E reads kernel D's stash at the chunk's rows; F fills its scratch
-    T* st = static_cast<T*>(stash) + (REMAT ? 0 : p_begin * SC);
+    T* st = static_cast<T*>(a.stash) + (REMAT ? 0 : p_begin * SC);
     dgrad<<<tiles, THREADS, smem, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(g),
-        static_cast<const T*>(w), static_cast<const float*>(b),
-        static_cast<const T*>(wt), P, p_begin, p_end, st,
-        static_cast<T*>(gbuf), static_cast<float*>(bpart));
+        static_cast<const float*>(a.x), static_cast<const float*>(a.g),
+        static_cast<const T*>(a.w), static_cast<const float*>(a.b),
+        static_cast<const T*>(a.wt), P, p_begin, p_end, st,
+        static_cast<T*>(a.gbuf), static_cast<float*>(a.bpart), a.x_cols,
+        static_cast<const T*>(a.wx), static_cast<float*>(a.dx));
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
     fused_nerf_wgrad_kernel<T, SC>
-        <<<dim3(jobs.tiles, split), 256, 0, s>>>(
-            st, static_cast<const T*>(gbuf), n, jobs,
-            static_cast<float*>(wpart));
+        <<<dim3(jobs.tiles, a.split), 256, 0, s>>>(
+            st, static_cast<const T*>(a.gbuf), n, jobs,
+            static_cast<float*>(a.wpart));
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-    int e = reduce(static_cast<const float*>(wpart), split, N_WEIGHTS,
-                   nullptr, static_cast<float*>(dw), s);
+    int e = reduce(static_cast<const float*>(a.wpart), a.split, N_WEIGHTS,
+                   nullptr, static_cast<float*>(a.dw), s);
     if (e != 0) return e;
-    e = reduce(static_cast<const float*>(bpart), tiles, N_BIASES,
-               static_cast<float*>(btmp), static_cast<float*>(db), s);
+    e = reduce(static_cast<const float*>(a.bpart), tiles, N_BIASES,
+               static_cast<float*>(a.btmp), static_cast<float*>(a.db), s);
     if (e != 0) return e;
   }
   return 0;
 }
 
-template <typename T, bool RM>
-int run_t(int sigma_only, int remat, const void* x, const void* g,
-          const void* w, const void* b, const void* wt, long long P,
-          void* stash, void* gbuf, void* wpart, void* bpart, void* btmp,
-          void* dw, void* db, long long chunk, int split, cudaStream_t s) {
+template <typename T, int IN>
+int run_t(int sigma_only, int remat, const BwdArgs& a, cudaStream_t s) {
   if (sigma_only)
-    return remat ? run<T, true, true, RM>(x, g, w, b, wt, P, stash, gbuf,
-                                          wpart, bpart, btmp, dw, db, chunk,
-                                          split, s)
-                 : run<T, true, false, RM>(x, g, w, b, wt, P, stash, gbuf,
-                                           wpart, bpart, btmp, dw, db, chunk,
-                                           split, s);
-  return remat ? run<T, false, true, RM>(x, g, w, b, wt, P, stash, gbuf,
-                                         wpart, bpart, btmp, dw, db, chunk,
-                                         split, s)
-               : run<T, false, false, RM>(x, g, w, b, wt, P, stash, gbuf,
-                                          wpart, bpart, btmp, dw, db, chunk,
-                                          split, s);
+    return remat ? run<T, true, true, IN>(a, s) : run<T, true, false, IN>(a, s);
+  return remat ? run<T, false, true, IN>(a, s) : run<T, false, false, IN>(a, s);
 }
 
 template <typename T>
-int run_io(int row_major, int sigma_only, int remat, const void* x,
-           const void* g, const void* w, const void* b, const void* wt,
-           long long P, void* stash, void* gbuf, void* wpart, void* bpart,
-           void* btmp, void* dw, void* db, long long chunk, int split,
+int run_io(int io, int sigma_only, int remat, const BwdArgs& a,
            cudaStream_t s) {
-  return row_major
-             ? run_t<T, true>(sigma_only, remat, x, g, w, b, wt, P, stash,
-                              gbuf, wpart, bpart, btmp, dw, db, chunk, split,
-                              s)
-             : run_t<T, false>(sigma_only, remat, x, g, w, b, wt, P, stash,
-                               gbuf, wpart, bpart, btmp, dw, db, chunk, split,
-                               s);
+  switch (io) {
+    case IO_CHANNEL:
+      return run_t<T, IO_CHANNEL>(sigma_only, remat, a, s);
+    case IO_ROW:
+      return run_t<T, IO_ROW>(sigma_only, remat, a, s);
+    case IO_EMBEDDED:  // kernel H: the remat route only, as in JAX
+      if (!remat) break;
+      return sigma_only ? run<T, true, true, IO_EMBEDDED>(a, s)
+                        : run<T, false, true, IO_EMBEDDED>(a, s);
+    default:
+      break;
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -521,30 +595,32 @@ const char* cuda_error_string(int err) {
 long long nerf_bwd_weight_count() { return N_WEIGHTS; }
 long long nerf_bwd_bias_count() { return N_BIASES; }
 long long nerf_bwd_transposed_count() { return N_WT; }
+long long nerf_bwd_dx_transposed_count() { return N_WX; }
 int nerf_bwd_g_cols() { return GC; }
 int nerf_bwd_points_per_cta() { return TP; }
 int nerf_bwd_bias_rows_per_group() { return BIAS_RPG; }
 
 // Kernels E (remat = 0; stash: kernel D's (P, SC) stash) and F (remat = 1;
-// stash: a (chunk, SC) scratch); with row_major = 1, E' and F' (x and g
-// (P, 8), 16-byte aligned).  x, g (8, P) f32; w (N_WEIGHTS) and wt
-// (N_WT) in T (bf16 = 1) or f32; b (N_BIASES) f32.  Workspace: gbuf
+// stash: a (chunk, SC) scratch) with io = 0 (x, g (8, P)); with io = 1, E'
+// and F' (x and g (P, 8), 16-byte aligned); with io = 2 and remat = 1,
+// kernel H (x (P, x_cols) pre-embedded, x_cols 63 or 90; g (P, 8), 16-byte
+// aligned; wx (N_WX) in T; dx (P, x_cols) f32, zeroed).  w (N_WEIGHTS) and
+// wt (N_WT) in T (bf16 = 1) or f32; b (N_BIASES) f32.  Workspace: gbuf
 // (chunk, GC) T, wpart (split, N_WEIGHTS) f32, bpart (ceil(chunk / TP),
 // N_BIASES) f32, btmp (ceil(ceil(chunk / TP) / BIAS_RPG), N_BIASES) f32.
 // dw (N_WEIGHTS) and db (N_BIASES) f32 are accumulated into: zero them, and
 // wpart too (sigma-only runs write no partials for the heads past sigma).
 int nerf_fused_bwd(const void* x, const void* g, const void* w,
                    const void* b, const void* wt, long long P, int sigma_only,
-                   int bf16, int remat, int row_major, void* stash, void* gbuf,
+                   int bf16, int remat, int io, void* stash, void* gbuf,
                    void* wpart, void* bpart, void* btmp, void* dw, void* db,
-                   long long chunk, int split, void* stream) {
+                   long long chunk, int split, int x_cols, const void* wx,
+                   void* dx, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return run_io<__nv_bfloat16>(row_major, sigma_only, remat, x, g, w, b, wt,
-                                 P, stash, gbuf, wpart, bpart, btmp, dw, db,
-                                 chunk, split, s);
-  return run_io<float>(row_major, sigma_only, remat, x, g, w, b, wt, P, stash,
-                       gbuf, wpart, bpart, btmp, dw, db, chunk, split, s);
+  const BwdArgs a{x, g, w, b, wt, P, stash, gbuf, wpart, bpart, btmp,
+                  dw, db, chunk, split, x_cols, wx, dx};
+  if (bf16) return run_io<__nv_bfloat16>(io, sigma_only, remat, a, s);
+  return run_io<float>(io, sigma_only, remat, a, s);
 }
 
 }  // extern "C"

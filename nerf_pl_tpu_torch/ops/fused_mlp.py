@@ -1,6 +1,7 @@
 """The fused NeRF MLP with in-kernel positional encoding, with its backward
 (``nerf_pl_tpu/ops/fused_mlp.py::fused_nerf_apply_raw_t`` and
-``fused_nerf_apply_raw``).
+``fused_nerf_apply_raw``), and on pre-embedded rows at any width that the
+wide kernel takes (``fused_nerf_apply``).
 
 ``fused_nerf_apply_raw_t(model, x_rawT)`` takes ``(8, P)`` float32 rows
 ``[xyz(3) | dir(3) | 0 0]`` and returns ``(8, P)`` float32: rows
@@ -17,14 +18,18 @@ layout flag on the same code, so both give the same bits):
   * D, D' — the forward that also writes the activation stash ``(P, 2432)``
     (sigma-only ``(P, 2048)``) in the compute dtype: h1..h8, fin, d;
   * E, E' — the backward that reads D's stash;
-  * F, F' — the backward that recomputes the forward instead.
+  * F, F' — the backward that recomputes the forward instead;
+  * G — the forward on pre-embedded rows ``(P, 63)`` or ``(P, 90)`` at
+    W = 128..640 (``csrc/fused_mlp_wide.cu``), behind ``fused_nerf_apply``;
+  * H — F on pre-embedded rows, which also returns dx (W = 256 only, as
+    JAX's ``_bwd_core``), the backward of ``fused_nerf_apply``.
 With grad enabled and trainable parameters, the call is a
 ``torch.autograd.Function`` whose forward is D and backward E, or C and F
 past ``STASH_MAX_POINTS`` points or with ``stash_blocks=None``
 (``_auto_stash_blocks``, fused_mlp.py:1267-1272).  Weight grads are rounded
 to the compute dtype and bias grads are not, as ``_fused_raw_t_bwd_rule``
-casts each packed grad to its packed dtype.  The input gets no gradient:
-rays are data.
+casts each packed grad to its packed dtype.  The raw kernels' input gets
+no gradient (rays are data); ``fused_nerf_apply``'s does, as in JAX.
 
 Dispatch follows the input's device: a CUDA tensor launches the kernels or
 raises, a CPU tensor runs their plain PyTorch versions, which repeat the
@@ -97,7 +102,9 @@ def supports_fused_wide(model, compute_dtype=torch.bfloat16) -> bool:
     """The models that JAX's wide fused forward takes (``supports_fused_wide``,
     fused_mlp.py:455-481): the reference topology at a width W != 256 that is
     a multiple of 128, whose weights packed in ``compute_dtype`` fit the TPU
-    kernel's budget.  That kernel is not ported yet (ROADMAP.md)."""
+    kernel's budget (W <= 640 in bf16, W <= 384 in f32).  The budget is the
+    TPU's VMEM; it is kept so the port takes the wide kernel exactly where
+    JAX does, and kernel G is built for just those widths."""
     if not isinstance(model, NeRF):
         return False
     layers = model.xyz_layers
@@ -114,14 +121,40 @@ def supports_fused_wide(model, compute_dtype=torch.bfloat16) -> bool:
     )
 
 
+def supports_fused_apply(model, compute_dtype=torch.bfloat16) -> bool:
+    """The models that ``fused_nerf_apply`` (kernel G) takes: the reference
+    architecture, or a wide one that ``supports_fused_wide`` admits."""
+    return supports_fused(model) or supports_fused_wide(model, compute_dtype)
+
+
 # ------------------------------------------------------------ plain versions
-def _forward_plain(model: NeRF, x_rawT: torch.Tensor, sigma_only: bool,
-                   compute_dtype, keep_acts: bool = True) -> dict:
-    """``_fwd_body`` (fused_mlp.py:155-181) on the raw layout: each layer's
-    input and weight rounded to ``compute_dtype``, f32 products and sums,
-    f32 bias, ReLU and sigmoid.  Activations are returned in f32 (the trunk's
-    only with ``keep_acts``)."""
+def _raw_embed(x_rawT: torch.Tensor, sigma_only: bool) -> tuple:
+    """The in-kernel positional encoding of (8, P) raw rows: ``(xyz_emb,
+    dir_emb or None)``."""
     xe = posenc(x_rawT[0:3].T.float(), XYZ_FREQS)
+    return xe, None if sigma_only else posenc(x_rawT[3:6].T.float(),
+                                              DIR_FREQS)
+
+
+def _split_embedded(x: torch.Tensor, sigma_only: bool) -> tuple:
+    """Pre-embedded rows ``(P, 63)`` or ``(P, 90)`` -> ``(xyz_emb, dir_emb
+    or None)``; 63-column rows in rgb mode get a zero dir_emb, as JAX pads x
+    with zero columns."""
+    x = x.float()
+    if sigma_only:
+        return x[:, :CX], None
+    if x.shape[1] >= CX + CD:
+        return x[:, :CX], x[:, CX:CX + CD]
+    return x[:, :CX], x.new_zeros((x.shape[0], CD))
+
+
+def _forward_plain(model: NeRF, xe: torch.Tensor, de, sigma_only: bool,
+                   compute_dtype, keep_acts: bool = True) -> dict:
+    """``_fwd_body`` (fused_mlp.py:155-181) on the embedded input ``xe``
+    (and ``de`` unless sigma-only), at the model's width: each layer's input
+    and weight rounded to ``compute_dtype``, f32 products and sums, f32
+    bias, ReLU and sigmoid.  Activations are returned in f32 (the trunk's
+    only with ``keep_acts``)."""
     h, acts = xe, [xe]
     for i, layer in enumerate(model.xyz_layers):
         if i == SKIP:
@@ -131,7 +164,6 @@ def _forward_plain(model: NeRF, x_rawT: torch.Tensor, sigma_only: bool,
             acts.append(h)
     res = {"xe": xe, "acts": acts, "sigma": model.sigma(h, compute_dtype)[:, 0]}
     if not sigma_only:
-        de = posenc(x_rawT[3:6].T.float(), DIR_FREQS)
         fin = model.xyz_final(h, compute_dtype)
         d = torch.relu(model.dir_layer(torch.cat([fin, de], -1), compute_dtype))
         res.update(de=de, fin=fin, d=d,
@@ -156,8 +188,9 @@ def fused_nerf_apply_raw_t_plain(model: NeRF, x_rawT: torch.Tensor,
                                  compute_dtype=torch.bfloat16) -> torch.Tensor:
     """Plain PyTorch version of kernel C on any device."""
     with torch.no_grad():
-        return _out_rows(_forward_plain(model, x_rawT, sigma_only,
-                                        compute_dtype, keep_acts=False),
+        return _out_rows(_forward_plain(model, *_raw_embed(x_rawT, sigma_only),
+                                        sigma_only, compute_dtype,
+                                        keep_acts=False),
                          sigma_only)
 
 
@@ -167,7 +200,8 @@ def fused_nerf_stash_fwd_plain(model: NeRF, x_rawT: torch.Tensor,
     """Plain PyTorch version of kernel D: ``(out (8, P), stash (P, SC))``,
     the stash holding each activation rounded to ``compute_dtype``."""
     with torch.no_grad():
-        f = _forward_plain(model, x_rawT, sigma_only, compute_dtype)
+        f = _forward_plain(model, *_raw_embed(x_rawT, sigma_only), sigma_only,
+                           compute_dtype)
         pieces = f["acts"][1:] + ([] if sigma_only else [f["fin"], f["d"]])
         stash = torch.cat([a.to(compute_dtype) for a in pieces], dim=1)
         return _out_rows(f, sigma_only), stash
@@ -211,10 +245,48 @@ def fused_nerf_bwd_plain(model: NeRF, x_rawT: torch.Tensor, g: torch.Tensor,
     fin and d from the stash and recomputes rgb from the stashed d; F
     recomputes the forward in f32 (the wgrad operands round either way)."""
     with torch.no_grad():
-        return _bwd_plain(model, x_rawT, g, sigma_only, compute_dtype, stash)
+        dw, db, _ = _bwd_plain(model, *_raw_embed(x_rawT, sigma_only), g,
+                               sigma_only, compute_dtype, stash)
+        return dw, db
 
 
-def _bwd_plain(model, x_rawT, g, sigma_only, cdt, stash):
+def fused_nerf_apply_plain(model: NeRF, x: torch.Tensor,
+                           sigma_only: bool = False,
+                           compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """Plain PyTorch version of kernel G on any device: pre-embedded rows
+    ``x (P, 63)`` or ``(P, 90)`` -> ``(P, 8)`` float32 ``[rgb | sigma | 0]``
+    (sigma-only: sigma in column 0), at the model's width."""
+    with torch.no_grad():
+        return _out_rows(_forward_plain(model, *_split_embedded(x, sigma_only),
+                                        sigma_only, compute_dtype,
+                                        keep_acts=False), sigma_only).T \
+            .contiguous()
+
+
+def fused_nerf_bwd_dx_plain(model: NeRF, x: torch.Tensor, g: torch.Tensor,
+                            sigma_only: bool = False,
+                            compute_dtype=torch.bfloat16):
+    """Plain PyTorch version of kernel H: ``(dx, dw, db)`` for pre-embedded
+    rows ``x (P, C)`` and the cotangent ``g (P, 8)`` of G's output, step for
+    step as ``_bwd_core`` with ``want_dx``: dx ``(P, C)`` f32 holds
+    ``round(g_pre_4) @ W_4[:63]^T + round(g_pre_0) @ W_0^T`` in its xyz
+    columns and, in rgb mode, ``round(g_dpre) @ Wdir[W:]^T`` in its dir
+    columns; dw, db the packed f32 grads as ``fused_nerf_bwd_plain``."""
+    with torch.no_grad():
+        xe, de = _split_embedded(x, sigma_only)
+        dw, db, parts = _bwd_plain(model, xe, de, g.float().T, sigma_only,
+                                   compute_dtype, None, want_dx=True)
+        dx = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        dx[:, :CX] = parts["skip"] + parts["l0"]
+        if not sigma_only and x.shape[1] >= CX + CD:
+            dx[:, CX:CX + CD] = parts["dir"]
+        return dx, dw, db
+
+
+def _bwd_plain(model, xe, de, g, sigma_only, cdt, stash, want_dx=False):
+    """``_bwd_core`` on the embedded input and the cotangent ``g (8, P)``:
+    ``(dw, db, dx parts)``, the parts (``want_dx``) the three products that
+    reach the input, by name."""
     def r(t):  # an operand rounded to the compute dtype, held in f32
         return t.to(cdt).float()
 
@@ -222,8 +294,8 @@ def _bwd_plain(model, x_rawT, g, sigma_only, cdt, stash):
         return r(a).T @ r(gp)
 
     dense = dense_layers(model)
-    f = _forward_plain(model, x_rawT, sigma_only, cdt)
-    xe = f["xe"]
+    f = _forward_plain(model, xe, de, sigma_only, cdt)
+    parts = {}
     if stash is None:
         act = f["acts"].__getitem__
         fin, d, rgb = f.get("fin"), f.get("d"), f.get("rgb")
@@ -251,7 +323,8 @@ def _bwd_plain(model, x_rawT, g, sigma_only, cdt, stash):
         g_dpre = (r(g_rgbpre) @ r(rgb_l.w).T) * (d > 0)
         din = torch.cat([fin, f["de"]], dim=1)
         gw[D + 2], gb[D + 2] = wgrad(din, g_dpre), g_dpre.sum(0)
-        g_fin = (r(g_dpre) @ r(dir_l.w).T)[:, :W]
+        g_din = r(g_dpre) @ r(dir_l.w).T
+        g_fin, parts["dir"] = g_din[:, :W], g_din[:, W:]
         gw[D + 1], gb[D + 1] = wgrad(h8, g_fin), g_fin.sum(0)
         g_h = r(g_fin) @ r(fin_l.w).T + r(g_sigma) @ r(sig.w).T
     gw[D], gb[D] = wgrad(h8, g_sigma), g_sigma.sum(0)
@@ -259,11 +332,16 @@ def _bwd_plain(model, x_rawT, g, sigma_only, cdt, stash):
         g_pre = g_h * (act(i + 1) > 0)
         a_in = torch.cat([xe, act(i)], dim=1) if i == SKIP else act(i)
         gw[i], gb[i] = wgrad(a_in, g_pre), g_pre.sum(0)
-        if i > 0:
+        if i > 0 or want_dx:
             g_in = r(g_pre) @ r(dense[i].w).T
-            g_h = g_in[:, CX:] if i == SKIP else g_in
+            if i == SKIP:
+                parts["skip"], g_h = g_in[:, :CX], g_in[:, CX:]
+            elif i == 0:
+                parts["l0"] = g_in
+            else:
+                g_h = g_in
     return (torch.cat([t.reshape(-1) for t in gw]),
-            torch.cat([t.reshape(-1) for t in gb]))
+            torch.cat([t.reshape(-1) for t in gb]), parts)
 
 
 # ------------------------------------------------------------------ packing
@@ -286,8 +364,9 @@ def _cached(model, attr, compute_dtype, build):
 def pack_weights(model: NeRF, compute_dtype):
     """Kernel operands: all weights as one ``compute_dtype`` buffer in the
     order W_0..W_7, Wsig, Wfin, Wdir, Wrgb (each ``(fan_in, fan_out)``
-    row-major), all biases as one f32 buffer in the same order.  Cached on
-    the module until a parameter is replaced or changed in place."""
+    row-major, unpadded, at the model's width), all biases as one f32 buffer
+    in the same order.  Cached on the module until a parameter is replaced
+    or changed in place."""
     def build():
         dense = dense_layers(model)
         wbuf = torch.cat([m.w.reshape(-1) for m in dense]).to(compute_dtype)
@@ -310,10 +389,31 @@ def pack_weights_t(model: NeRF, compute_dtype) -> torch.Tensor:
     return _cached(model, "_fused_pack_t", compute_dtype, build)
 
 
+# kernel H's dx operands are padded to this many output columns
+DX_COLS = 64
+
+
+def pack_weights_dx(model: NeRF, compute_dtype) -> torch.Tensor:
+    """Kernel H's dx operands in ``compute_dtype``, each padded with zero
+    columns to ``DX_COLS``: the dir rows of Wdir transposed (128 x 27 live),
+    the xyz rows of W_4 transposed (256 x 63 live), W_0 transposed (256 x 63
+    live), in the order the sweep reaches them.  Cached like
+    ``pack_weights``."""
+    def build():
+        blocks = [model.dir_layer.w[W:].T, model.xyz_layers[SKIP].w[:CX].T,
+                  model.xyz_layers[0].w.T]
+        return torch.cat([
+            torch.nn.functional.pad(b, (0, DX_COLS - b.shape[1])).reshape(-1)
+            for b in blocks]).to(compute_dtype).contiguous()
+
+    return _cached(model, "_fused_pack_dx", compute_dtype, build)
+
+
 def unpack_grads(model: NeRF, dw: torch.Tensor, db: torch.Tensor,
                  compute_dtype) -> list:
     """Packed f32 grads -> ``[gW_0, gb_0, ..., gW_rgb, gb_rgb]`` in
-    ``dense_layers`` order; weight grads rounded to ``compute_dtype``."""
+    ``dense_layers`` order, at the model's width; weight grads rounded to
+    ``compute_dtype``."""
     out, wo, bo = [], 0, 0
     for m in dense_layers(model):
         nw, nb = m.w.numel(), m.b.numel()
@@ -345,16 +445,37 @@ def _bwd_lib():
     if not getattr(lib, "_typed", False):
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.nerf_fused_bwd.argtypes = [p, p, p, p, p, ll, i, i, i, i, p, p, p,
-                                       p, p, p, p, ll, i, p]
+                                       p, p, p, p, ll, i, i, p, p, p]
         lib.nerf_fused_bwd.restype = i
         for name in ("nerf_bwd_weight_count", "nerf_bwd_bias_count",
-                     "nerf_bwd_transposed_count"):
+                     "nerf_bwd_transposed_count",
+                     "nerf_bwd_dx_transposed_count"):
             getattr(lib, name).restype = ll
         for name in ("nerf_bwd_g_cols", "nerf_bwd_points_per_cta",
                      "nerf_bwd_bias_rows_per_group"):
             getattr(lib, name).restype = i
         lib._typed = True
     return lib
+
+
+def _wide_lib():
+    lib = native.load("fused_mlp_wide")
+    if not getattr(lib, "_typed", False):
+        p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        lib.nerf_wide_fwd.argtypes = [p, i, p, p, p, ll, i, i, i, p]
+        lib.nerf_wide_fwd.restype = i
+        lib.nerf_wide_supported.argtypes = [i, i]
+        lib.nerf_wide_supported.restype = i
+        for name in ("nerf_wide_weight_count", "nerf_wide_bias_count"):
+            getattr(lib, name).argtypes = [i]
+            getattr(lib, name).restype = ll
+        lib._typed = True
+    return lib
+
+
+# the tile input of the backward kernel (csrc's Io): raw rays channel-major
+# (E, F) or row-major (E', F'), or pre-embedded rows (H)
+IO_CHANNEL, IO_ROW, IO_EMBEDDED = 0, 1, 2
 
 
 def _n_points(x: torch.Tensor, row_major: bool) -> int:
@@ -487,11 +608,25 @@ def _bwd_cuda(model, x, g, sigma_only, compute_dtype, stash, row_major):
                               or not stash.is_contiguous()):
         raise ValueError(f"stash must be a contiguous ({P}, {sc}) "
                          f"{compute_dtype} tensor on {x.device}")
+    return _bwd_launch(model, x, g, wbuf, bbuf, P, sigma_only, compute_dtype,
+                       stash, IO_ROW if row_major else IO_CHANNEL)
+
+
+def _bwd_launch(model, x, g, wbuf, bbuf, P, sigma_only, compute_dtype, stash,
+                io, dx=None):
+    """The backward kernels' workspace and launch: E or F (E', F') on raw
+    rays, or H with ``dx`` (P, C) zeros on pre-embedded rows."""
+    sc = stash_cols(sigma_only)
     wt = pack_weights_t(model, compute_dtype)
     lib = _bwd_lib()
     _check_counts(lib, wbuf, bbuf, "nerf_bwd")
     if wt.numel() != lib.nerf_bwd_transposed_count():
         raise ValueError("transposed weights do not match the kernel's layout")
+    wx, x_cols = None, 0
+    if dx is not None:
+        wx, x_cols = pack_weights_dx(model, compute_dtype), x.shape[1]
+        if wx.numel() != lib.nerf_bwd_dx_transposed_count():
+            raise ValueError("dx operands do not match the kernel's layout")
     dev = x.device
     dw = torch.zeros(wbuf.numel(), dtype=torch.float32, device=dev)
     db = torch.zeros(bbuf.numel(), dtype=torch.float32, device=dev)
@@ -516,10 +651,11 @@ def _bwd_cuda(model, x, g, sigma_only, compute_dtype, stash, row_major):
         err = lib.nerf_fused_bwd(
             x.data_ptr(), g.data_ptr(), wbuf.data_ptr(), bbuf.data_ptr(),
             wt.data_ptr(), P, int(sigma_only),
-            int(compute_dtype == torch.bfloat16), remat, int(row_major),
+            int(compute_dtype == torch.bfloat16), remat, io,
             stash.data_ptr(), gbuf.data_ptr(), wpart.data_ptr(),
             bpart.data_ptr(), btmp.data_ptr(), dw.data_ptr(), db.data_ptr(),
-            chunk, BWD_SPLIT, native.stream_of(x))
+            chunk, BWD_SPLIT, x_cols, None if wx is None else wx.data_ptr(),
+            None if dx is None else dx.data_ptr(), native.stream_of(x))
     native.check(lib, err, "nerf_fused_bwd")
     return dw, db
 
@@ -572,11 +708,95 @@ def fused_nerf_raw_bwd_remat_cuda(model: NeRF, x_raw: torch.Tensor,
     return out
 
 
+# pre-embedded rows: xyz_emb, or [xyz_emb | dir_emb]
+EMB_COLS = (CX, CX + CD)
+
+
+def _check_embedded(x: torch.Tensor) -> None:
+    if x.dim() != 2 or x.shape[1] not in EMB_COLS:
+        raise ValueError(f"x must be (P, {CX}) or (P, {CX + CD}) embedded "
+                         f"rows, got {tuple(x.shape)}")
+
+
+def _embedded_operands(model: NeRF, x: torch.Tensor, compute_dtype):
+    """Checks shared by kernels G's and H's wrappers; the packed weights."""
+    if x.device.type != "cuda":
+        raise ValueError(f"x must be a CUDA tensor, got {x.device}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"x must be float32, got {x.dtype}")
+    _check_embedded(x)
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+    if compute_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"compute_dtype must be bfloat16 or float32, got "
+                        f"{compute_dtype}")
+    if not supports_fused_apply(model, compute_dtype):
+        raise ValueError("kernel G takes the reference architecture at W = "
+                         "256 or a width that supports_fused_wide admits")
+    wbuf, bbuf = pack_weights(model, compute_dtype)
+    if wbuf.device != x.device:
+        raise ValueError(f"weights on {wbuf.device}, input on {x.device}")
+    return wbuf, bbuf
+
+
+def fused_nerf_apply_cuda(model: NeRF, x: torch.Tensor,
+                          sigma_only: bool = False,
+                          compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """Kernel G on the card: pre-embedded rows ``x (P, 63)`` or ``(P, 90)``
+    -> ``(P, 8)`` float32, at the model's width."""
+    wbuf, bbuf = _embedded_operands(model, x, compute_dtype)
+    lib = _wide_lib()
+    width, bf = model.width, int(compute_dtype == torch.bfloat16)
+    if not lib.nerf_wide_supported(width, bf):
+        raise ValueError(f"kernel G is not built for W = {width} in "
+                         f"{compute_dtype}")
+    if (wbuf.numel() != lib.nerf_wide_weight_count(width)
+            or bbuf.numel() != lib.nerf_wide_bias_count(width)):
+        raise ValueError("packed weights do not match the kernel's layout")
+    P = x.shape[0]
+    out = torch.empty((P, OUT_COLS), dtype=torch.float32, device=x.device)
+    if P:
+        with torch.cuda.device(x.device):
+            err = lib.nerf_wide_fwd(x.data_ptr(), x.shape[1], out.data_ptr(),
+                                    wbuf.data_ptr(), bbuf.data_ptr(), P, width,
+                                    int(sigma_only), bf, native.stream_of(x))
+        native.check(lib, err, "nerf_wide_fwd")
+    _counted(fused_nerf_apply_cuda, x, True)
+    return out
+
+
+_NO_WIDE_GRAD = ("fused_nerf_apply has no backward at W = {w}: the fused "
+                 "backward (JAX's _bwd_core, fused_mlp.py:261) is written for "
+                 "W = 256, and JAX cannot differentiate the wide forward "
+                 "either")
+
+
+def fused_nerf_bwd_dx_cuda(model: NeRF, x: torch.Tensor, g: torch.Tensor,
+                           sigma_only: bool = False,
+                           compute_dtype=torch.bfloat16):
+    """Kernel H on the card: ``(dx (P, C), dw, db)`` f32 for pre-embedded
+    rows ``x (P, C)`` and the cotangent ``g (P, 8)`` of G's output, the
+    forward recomputed; W = 256 only."""
+    wbuf, bbuf = _embedded_operands(model, x, compute_dtype)
+    if model.width != W:
+        raise ValueError(_NO_WIDE_GRAD.format(w=model.width))
+    _check_raw(g, "g", True)
+    P = x.shape[0]
+    if g.shape[0] != P:
+        raise ValueError(f"g has {g.shape[0]} points, x {P}")
+    dx = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    dw, db = _bwd_launch(model, x, g, wbuf, bbuf, P, sigma_only,
+                         compute_dtype, None, IO_EMBEDDED, dx)
+    _counted(fused_nerf_bwd_dx_cuda, x, True)
+    return dx, dw, db
+
+
 KERNELS = {  # launch counters, by the letters PERF.md gives the kernels
     "C": fused_nerf_apply_raw_t_cuda, "D": fused_nerf_stash_fwd_cuda,
     "E": fused_nerf_bwd_stash_cuda, "F": fused_nerf_bwd_remat_cuda,
     "C'": fused_nerf_apply_raw_cuda, "D'": fused_nerf_raw_stash_fwd_cuda,
     "E'": fused_nerf_raw_bwd_stash_cuda, "F'": fused_nerf_raw_bwd_remat_cuda,
+    "G": fused_nerf_apply_cuda, "H": fused_nerf_bwd_dx_cuda,
 }
 for _fn in KERNELS.values():
     _fn.launches = 0
@@ -688,4 +908,63 @@ def fused_nerf_apply_raw(model: NeRF, xyz: torch.Tensor, dirs=None,
         xyz.float(), dirs.float(), zeros[:, 3:]]
     x = torch.cat(parts, dim=1)
     out = _apply(model, x, sigma_only, compute_dtype, stash_blocks, True)
+    return out[:, :1] if sigma_only else out[:, :4]
+
+
+class _FusedEmbedded(torch.autograd.Function):
+    """Forward G, backward H, on pre-embedded rows ``(P, C)``; the ``(P, 8)``
+    output.  Inputs: ``x``, then the parameters in ``dense_layers`` order
+    (w, b per layer)."""
+
+    @staticmethod
+    def forward(ctx, x, model, sigma_only, compute_dtype, *params):
+        fwd = (fused_nerf_apply_cuda if x.device.type == "cuda"
+               else fused_nerf_apply_plain)
+        ctx.save_for_backward(x)
+        ctx.model, ctx.sigma_only, ctx.compute_dtype = (model, sigma_only,
+                                                        compute_dtype)
+        return fwd(model, x, sigma_only, compute_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        model, cdt = ctx.model, ctx.compute_dtype
+        bwd = (fused_nerf_bwd_dx_cuda if x.device.type == "cuda"
+               else fused_nerf_bwd_dx_plain)
+        dx, dw, db = bwd(model, x, g.float().contiguous(), ctx.sigma_only, cdt)
+        return (dx if ctx.needs_input_grad[0] else None, None, None, None,
+                *unpack_grads(model, dw, db, cdt))
+
+
+def fused_nerf_apply(model: NeRF, x: torch.Tensor, sigma_only: bool = False,
+                     compute_dtype=torch.bfloat16, block=None) -> torch.Tensor:
+    """The fused MLP on pre-embedded rows (``fused_nerf_apply``,
+    fused_mlp.py:495-523): ``x (P, 63)`` xyz_emb or ``(P, 90)`` [xyz_emb |
+    dir_emb] -> ``(P, 1)`` sigma or ``(P, 4)`` ``[rgb, sigma]``, float32, at
+    the reference width or a wide one (``supports_fused_apply``).  Kernel G
+    on a CUDA tensor, its plain version on a CPU tensor.  With grad enabled
+    and a trainable parameter or input, a ``torch.autograd.Function`` whose
+    backward is kernel H (grads for the parameters and x), at W = 256 only:
+    any other width raises, as JAX's backward fails there.  ``block``, the
+    TPU kernel's point block, means nothing to the CUDA kernel (whose tile
+    follows from the width) and is ignored."""
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no fused MLP for device {x.device}")
+    _check_embedded(x)
+    if not supports_fused_apply(model, compute_dtype):
+        raise ValueError("fused_nerf_apply takes the reference architecture "
+                         "at W = 256 or a width that supports_fused_wide "
+                         "admits at the compute dtype")
+    x = x.float().contiguous()
+    params = [t for m in dense_layers(model) for t in (m.w, m.b)]
+    if torch.is_grad_enabled() and (
+            x.requires_grad or any(p.requires_grad for p in params)):
+        if model.width != W:
+            raise ValueError(_NO_WIDE_GRAD.format(w=model.width))
+        out = _FusedEmbedded.apply(x, model, sigma_only, compute_dtype,
+                                   *params)
+    else:
+        fwd = (fused_nerf_apply_cuda if x.device.type == "cuda"
+               else fused_nerf_apply_plain)
+        out = fwd(model, x, sigma_only, compute_dtype)
     return out[:, :1] if sigma_only else out[:, :4]

@@ -24,7 +24,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "nerf_pl_tpu_torch"
-SOURCES = ("fused_mlp", "fused_mlp_bwd", "searchsorted")
+SOURCES = ("fused_mlp", "fused_mlp_bwd", "fused_mlp_wide", "searchsorted",
+           "chain_probe")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",

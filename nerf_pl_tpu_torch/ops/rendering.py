@@ -25,7 +25,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..models.embedding import posenc
 from .compositing import composite, compute_weights
-from .fused_mlp import (RAW_COLS, fused_nerf_apply_raw,
+from .fused_mlp import (RAW_COLS, fused_nerf_apply, fused_nerf_apply_raw,
                         fused_nerf_apply_raw_t, supports_fused,
                         supports_fused_wide)
 from .sampling import perturb_z_vals, sample_pdf, stratified_z_vals
@@ -44,20 +44,18 @@ def _query(model, xyz: torch.Tensor, dirs: Optional[torch.Tensor],
     ``use_fused`` at the reference architecture and embedding takes the
     fused MLP: channel-major through ``fused_nerf_apply_raw_t`` (kernels
     C-F on a CUDA tensor) with ``fused_channel_io``, else row-major through
-    ``fused_nerf_apply_raw`` (kernels C'-F').  Anything else (other widths
-    included, as in JAX) takes ``posenc`` + ``NeRF``, except the models
-    that JAX would send to its wide fused forward (``fused_wide_infer``),
-    which is not ported yet: they raise."""
+    ``fused_nerf_apply_raw`` (kernels C'-F').  With ``fused_wide_infer``, a
+    wide trunk that ``supports_fused_wide`` admits at the compute dtype
+    (rendering.py:78-101) is embedded here and takes ``fused_nerf_apply``
+    (kernel G); the reference width ignores the flag.  Anything else (other
+    widths included, as in JAX) takes ``posenc`` + ``NeRF``."""
     N_rays, S, _ = xyz.shape
     P = N_rays * S
     fused = (use_fused and supports_fused(model) and xyz_freqs == 10
              and (sigma_only or dir_freqs == 4))
-    if (use_fused and fused_wide_infer and not fused and xyz_freqs == 10
+    wide = (use_fused and fused_wide_infer and not fused and xyz_freqs == 10
             and (sigma_only or dir_freqs == 4)
-            and supports_fused_wide(model, compute_dtype)):
-        raise NotImplementedError(
-            "the wide fused forward (fused_wide_infer) is not ported yet; "
-            "see ROADMAP.md Queue 2")
+            and supports_fused_wide(model, compute_dtype))
     if fused and not fused_channel_io:
         xyz_flat = xyz.reshape(P, 3)
         if sigma_only:
@@ -81,15 +79,18 @@ def _query(model, xyz: torch.Tensor, dirs: Optional[torch.Tensor],
         sigmas = outT[3].reshape(N_rays, S)
         rgbs = outT[:3].reshape(3, N_rays, S).permute(1, 2, 0)
         return sigmas, rgbs
-    x = posenc(xyz.reshape(-1, 3), xyz_freqs)
+    x = posenc(xyz.reshape(P, 3), xyz_freqs)
+    if not sigma_only:
+        # embed per ray THEN broadcast (S x fewer transcendentals)
+        dir_emb = posenc(dirs, dir_freqs)
+        dir_emb = dir_emb[:, None, :].expand(N_rays, S, dir_emb.shape[-1])
+        x = torch.cat([x, dir_emb.reshape(P, -1)], dim=-1)
+    if wide:
+        out = fused_nerf_apply(model, x, sigma_only, compute_dtype)
+    else:
+        out = model(x, sigma_only=sigma_only, compute_dtype=compute_dtype)
     if sigma_only:
-        out = model(x, sigma_only=True, compute_dtype=compute_dtype)
         return out.reshape(N_rays, S), None
-    # embed per ray THEN broadcast (S x fewer transcendentals)
-    dir_emb = posenc(dirs, dir_freqs)
-    dir_emb = dir_emb[:, None, :].expand(N_rays, S, dir_emb.shape[-1])
-    x = torch.cat([x, dir_emb.reshape(P, -1)], dim=-1)
-    out = model(x, sigma_only=False, compute_dtype=compute_dtype)
     out = out.reshape(N_rays, S, 4)
     return out[..., 3], out[..., :3]
 

@@ -22,9 +22,13 @@ def render_image(
     **render_kwargs,
 ) -> Dict[str, torch.Tensor]:
     """Render N rays with bounded memory under ``torch.no_grad()``; returns
-    the ``render_rays`` dict with every output concatenated over the rays."""
+    the ``render_rays`` dict with every output concatenated over the rays.
+    With ``use_fused``, ``fused_channel_io`` defaults to True (the
+    channel-major kernel C), as in JAX, unless the caller sets it."""
     if chunk < 1:
         raise ValueError(f"chunk must be positive, got {chunk}")
+    if render_kwargs.get("use_fused"):
+        render_kwargs.setdefault("fused_channel_io", True)
     parts = []
     with torch.no_grad():
         for rays_c in rays.split(chunk):

@@ -31,6 +31,9 @@ def test_port_modules_import_without_jax_flax_msgpack_pil():
     assert {"nerf_pl_tpu_torch.eval", "nerf_pl_tpu_torch.tools.evaluate",
             "nerf_pl_tpu_torch.data.resize", "nerf_pl_tpu_torch.data.depth_utils",
             "nerf_pl_tpu_torch.utils.gif"} <= set(MODULES)
+    # slice 4: the probe of the fused MLP kernels, run on the card
+    assert {"nerf_pl_tpu_torch.scripts",
+            "nerf_pl_tpu_torch.scripts.kernel_probe"} <= set(MODULES)
     # -I: no PYTHONPATH or user site, so nothing imported by a site hook
     # is counted against the port
     code = (
