@@ -12,7 +12,11 @@ Phases (any failed check raises, so the script exits non-zero):
    fine points per ray, 63 CDF entries and 128 draws per ray): max abs
    error against a stated tolerance, kernel time, plain time, the bound
    (the least time the card could take for the same work) and, where one
-   PyTorch call computes the same function, that call's time.
+   PyTorch call computes the same function, that call's time.  Kernel A
+   (the bisection) bit for bit against its plain version and
+   ``torch.searchsorted``, both sides, on CDF rows with plateaus at B =
+   32,000 and at the training step's B = 4,096, timed in turns with
+   ``torch.searchsorted`` (library, kernel, kernel, library).
 3. The render server end to end at full width: a seeded checkpoint, then
    ``build_server`` at 200x200, 64+128 samples, ``--max_batch 4``; 4
    concurrent POSTs and 1 GET over HTTP.  The kernels' launch counters are
@@ -24,8 +28,9 @@ Phases (any failed check raises, so the script exits non-zero):
 4. The training step: kernels D (stash forward), E (stash backward) and F
    (remat backward) against their plain versions in bf16 and f32, rgb and
    sigma-only, at a P that spans two of the backward's point chunks, the
-   second ragged, and E against F; a control that the bf16 limits must
-   fail; their times at the training shapes (4,096 rays x 192 and x 64
+   second ragged, and E against F; E run twice on the same inputs, bit
+   for bit (the backward is deterministic); a control that the bf16
+   limits must fail; their times at the training shapes (4,096 rays x 192 and x 64
    points, bf16) beside the plain versions, the bounds and a chain of bf16
    ``torch.matmul`` calls as a yardstick, and at those shapes the same
    checks against the plain versions.  The row-major twins C', D', E' and
@@ -165,6 +170,26 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int) -> float:
+    """Mean device time of the kernels ``fn()`` launches, from
+    ``torch.profiler`` over ``iters`` runs: the launches' own time, without
+    the host's gaps between them (which CUDA events over back-to-back calls
+    include when the host is the slower side)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", 0.0)
+             for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / 1e3 / iters
+
+
 def bound_ms(n_bytes: float, n_ops: float, op_rate: float):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / op_rate * 1e3
@@ -285,6 +310,69 @@ def check_fused_mlp(model, gen, dev) -> dict:
     return dict(err=worst, err_rm=worst_rm, rows=rows)
 
 
+def plateau_cdf(gen, B: int, M: int) -> torch.Tensor:
+    """(B, M) CDF rows as ``sample_pdf`` builds them (weights + 1e-5,
+    normalised, a cumulative sum after a zero), from weights where a heavy
+    bin (1e3) stands before a near-empty one (1e-30): past the heavy bins
+    the small increments vanish in the float sum, so the rows hold exact
+    plateaus (ties), as trained scenes' CDFs do."""
+    w = torch.rand((B, M - 1), generator=gen)
+    w[:, ::4] = 1e3
+    w[:, 1::4] = 1e-30
+    w = w + 1e-5
+    cdf = torch.cumsum(w / w.sum(-1, keepdim=True), -1)
+    return torch.cat([torch.zeros((B, 1)), cdf], -1).contiguous()
+
+
+def check_rank(gen, dev, B: int) -> dict:
+    """Kernel A on plateau rows (M = 63, K = 128) against its plain version
+    and ``torch.searchsorted``, both sides, bit for bit; draws at 0, at 1
+    and on row entries; then A and ``torch.searchsorted`` timed in turns."""
+    from nerf_pl_tpu_torch.ops import searchsorted as ss
+
+    M, K = N_SAMPLES - 1, N_IMPORTANCE
+    cdf = plateau_cdf(gen, B, M)
+    u = torch.rand((B, K), generator=gen)
+    u[:, 0] = 0.0  # ties with row[0]
+    u[:, -1] = 1.0  # at / past the row's end
+    cols = torch.randint(0, M, (B, K // 4), generator=gen)
+    u[:, 1:1 + K // 4] = torch.gather(cdf, 1, cols)  # exact ties, plateaus
+    plateaus = int((cdf[:, 1:] == cdf[:, :-1]).sum())
+    cdf, u = cdf.to(dev), u.contiguous().to(dev)
+    for side in ("right", "left"):
+        a = ss.searchsorted_cuda(cdf, u, side)
+        ap = ss.searchsorted_plain(cdf, u, side)
+        lib = torch.searchsorted(cdf, u, right=(side == "right"))
+        torch.cuda.synchronize()
+        same = torch.equal(a, ap) and torch.equal(a.long(), lib)
+        log(f"[A {side} B={B}] M={M} K={K}, {plateaus} plateau steps in the "
+            f"rows: bit-equal to its plain version and torch.searchsorted: "
+            f"{same} (tol 0)")
+        if not same:
+            raise AssertionError(f"kernel A ({side}, B={B}) disagrees")
+    # in turns: library, kernel, kernel, library
+    lib1 = cuda_ms(lambda: torch.searchsorted(cdf, u, right=True), iters=20)
+    k1 = cuda_ms(lambda: ss.searchsorted_cuda(cdf, u), iters=20)
+    k2 = cuda_ms(lambda: ss.searchsorted_cuda(cdf, u), iters=20)
+    lib2 = cuda_ms(lambda: torch.searchsorted(cdf, u, right=True), iters=20)
+    plain = cuda_ms(lambda: ss.searchsorted_plain(cdf, u), iters=5)
+    # the launches' device time alone (the profiler), library then kernel
+    lib_dev = device_ms(lambda: torch.searchsorted(cdf, u, right=True), 20)
+    k_dev = device_ms(lambda: ss.searchsorted_cuda(cdf, u), 20)
+    steps = M.bit_length()  # ceil(log2(M + 1)) halving steps a query
+    bound, by = bound_ms(4 * B * M + 4 * B * K + 4 * B * K,
+                         2 * B * K * steps, F32_FLOPS)
+    log(f"[A time B={B}] CUDA events over back-to-back calls: "
+        f"torch.searchsorted {lib1:.4f}, kernel {k1:.4f}, kernel {k2:.4f}, "
+        f"torch.searchsorted {lib2:.4f} ms; device time alone (profiler): "
+        f"kernel {k_dev:.4f}, torch.searchsorted {lib_dev:.4f} ms; plain "
+        f"{plain:.4f} ms, bound {bound:.4f} ms ({by})")
+    return dict(err=0.0, ms=(k1 + k2) / 2, plain_ms=plain, bound_ms=bound,
+                bound_by=by, library_ms=(lib1 + lib2) / 2,
+                turns=[lib1, k1, k2, lib2], device_ms=k_dev,
+                library_device_ms=lib_dev, plateau_steps=plateaus)
+
+
 def check_searchsorted(gen, dev) -> dict:
     from nerf_pl_tpu_torch.ops import searchsorted as ss
 
@@ -306,37 +394,17 @@ def check_searchsorted(gen, dev) -> dict:
         f"min and max only)")
     if err_b != 0.0:
         raise AssertionError(f"kernel B disagrees with its plain version")
-    err_a = 0.0
-    for side in ("right", "left"):
-        a = ss.searchsorted_cuda(cdf, u, side)
-        ap = ss.searchsorted_plain(cdf, u, side)
-        lib = torch.searchsorted(cdf, u, right=(side == "right"))
-        torch.cuda.synchronize()
-        e = max_abs(a, ap)
-        log(f"[A {side}] max_abs_err={e:.3e} tol=0; torch.searchsorted "
-            f"agrees: {bool((lib == a).all())}")
-        if e != 0.0:
-            raise AssertionError(f"kernel A ({side}) disagrees")
-        err_a = max(err_a, e)
-
     ms_b = cuda_ms(lambda: ss.searchsorted_interp_cuda(cdf, u), iters=20)
     plain_b = cuda_ms(lambda: ss.searchsorted_interp_plain(cdf, u), iters=5)
     bytes_b = 4 * B * M + 4 * B * K + 3 * 4 * B * K
     bound_b, by_b = bound_ms(bytes_b, 6 * B * K * M, F32_FLOPS)
-    ms_a = cuda_ms(lambda: ss.searchsorted_cuda(cdf, u), iters=20)
-    plain_a = cuda_ms(lambda: ss.searchsorted_plain(cdf, u), iters=5)
-    lib_a = cuda_ms(lambda: torch.searchsorted(cdf, u, right=True), iters=20)
-    bytes_a = 4 * B * M + 4 * B * K + 4 * B * K
-    bound_a, by_a = bound_ms(bytes_a, 2 * B * K * M, F32_FLOPS)
     log(f"[B time] kernel {ms_b:.4f} ms, plain {plain_b:.4f} ms, bound "
         f"{bound_b:.4f} ms ({by_b})")
-    log(f"[A time] kernel {ms_a:.4f} ms, plain {plain_a:.4f} ms, "
-        f"torch.searchsorted {lib_a:.4f} ms, bound {bound_a:.4f} ms ({by_a})")
     return dict(
         B=dict(err=err_b, ms=ms_b, plain_ms=plain_b, bound_ms=bound_b,
                bound_by=by_b),
-        A=dict(err=err_a, ms=ms_a, plain_ms=plain_a, bound_ms=bound_a,
-               bound_by=by_a, library_ms=lib_a),
+        A=check_rank(gen, dev, CHUNK_RAYS),
+        A_train=check_rank(gen, dev, TRAIN_BATCH),
     )
 
 
@@ -470,6 +538,14 @@ def hold_train(label: str, model, x, g, dtype, sigma_only: bool) -> dict:
     tol = TOL_TRAIN[dtype]
     e_k = grads(fm.fused_nerf_bwd_stash_cuda(model, x, g, stash, sigma_only,
                                              dtype))
+    # deterministic: fixed-order sums, no atomics
+    again = grads(fm.fused_nerf_bwd_stash_cuda(model, x, g, stash, sigma_only,
+                                               dtype))
+    same = all(torch.equal(a, b) for a, b in zip(again, e_k))
+    log(f"[E run twice {label}] bit-equal: {same}")
+    if not same:
+        raise AssertionError(f"kernel E {label} differs from run to run")
+    del again
     e_p = grads(fm.fused_nerf_bwd_plain(model, x, g, sigma_only, dtype,
                                         stash=stash))
     e = check_grads(f"E {label}", e_k, e_p, names, tol)
@@ -1909,6 +1985,12 @@ def main() -> int:
              bound_ms=s["A"]["bound_ms"], bound_by=s["A"]["bound_by"],
              library_ms=s["A"]["library_ms"],
              shape=f"B={CHUNK_RAYS} M={N_SAMPLES - 1} K={N_IMPORTANCE}",
+             turns_ms=s["A"]["turns"],
+             device_ms=s["A"]["device_ms"],
+             library_device_ms=s["A"]["library_device_ms"],
+             train_shape=dict(B=TRAIN_BATCH, **{k: s["A_train"][k] for k in (
+                 "ms", "plain_ms", "bound_ms", "library_ms", "turns",
+                 "device_ms", "library_device_ms")}),
              path="training (the fit); not on the serve path",
              launches_by_path=dict(fit=trained["counts"]["A"],
                                    per_step=trained["per_step"]["A"],

@@ -31,13 +31,11 @@
 // fall in distinct banks.  Between products the accumulators, rounded to
 // bf16, overwrite the activation after a barrier; the last product writes
 // its first 128 columns to out.  Rows past P load zeros and are not stored.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstdint>
+#include "mma.cuh"
 
 namespace {
 
+using namespace mma;
 using bf16 = __nv_bfloat16;
 
 constexpr int K0 = 128;    // x's columns, W0's rows
@@ -52,42 +50,6 @@ constexpr int CHUNKS0 = K0 / KC, CHUNKS = N / KC;
 constexpr int N_CHUNKS = CHUNKS0 + (LAYERS - 1) * CHUNKS;
 constexpr size_t SMEM = sizeof(bf16) * (BM * LD + 2 * KC * LD);
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// c += a (16 x 16, row-major fragment) . b (16 x 8, column-major fragment)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // Stage c of the weight stream: W0's rows [32 c, 32 c + 32) for the first
 // product, then W's rows, 8 stages a product, into a stage buffer.
 __device__ __forceinline__ void load_stage(int c, const bf16* __restrict__ w0,
@@ -99,7 +61,7 @@ __device__ __forceinline__ void load_stage(int c, const bf16* __restrict__ w0,
     const int r = i / (N / 8), c8 = i - r * (N / 8);
     cp_async16(buf + r * LD + c8 * 8, src + r * N + c8 * 8);
   }
-  asm volatile("cp.async.commit_group;\n" ::);
+  cp_async_commit();
 }
 
 template <bool FANCY>

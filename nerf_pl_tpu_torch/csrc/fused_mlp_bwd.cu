@@ -40,22 +40,47 @@
 // and wgrad) against a 4,864-byte stash read in bf16 (2.4 us per 1,000
 // points at the tensor rate against 1.5 us of bytes); F: 6 x 593,408 FLOP
 // (the forward again) and no stash.
-// Design (simple first; tensor cores come later).  On the TPU the grid runs
-// in order and the f32 weight grads stay resident across it; on Hopper the
-// blocks run in parallel, so the weight-grad sum over points is a second
-// pass, deterministic and without atomics.  Points go in chunks of `chunk`:
+// Design.  On the TPU the grid runs in order and the f32 weight grads stay
+// resident across it; on Hopper the blocks run in parallel, so the
+// weight-grad sum over points is a second pass, deterministic and without
+// atomics.  Points go in chunks of `chunk`:
 //   1. dgrad kernel, one CTA of 256 threads per 64-point tile (F first runs
 //      the forward tile of kernel C/D into a chunk-sized scratch stash).
-//      The sweep reuses the forward's product loop (dense_acc) against the
-//      transposed weights, so each layer's gradient tile stays in shared
-//      memory.  Each layer's rounded g_pre, and the embeddings, go to a
-//      (chunk, GC) buffer in T; the f32 bias partials of each tile go to
-//      their own row.
-//   2. wgrad kernel: every dW tile (64 x 64 outputs) of every layer, split
-//      over `split` point ranges; each CTA stages 32 points of a_in and g_pre
-//      in shared memory and accumulates 4 x 4 outputs per thread in f32.
+//      Each layer's gradient tile stays in shared memory.  Each layer's
+//      rounded g_pre, and the embeddings, go to a (chunk, GC) buffer in T;
+//      the f32 bias partials of each tile go to their own row.
+//   2. wgrad kernel: every dW tile of every layer, split over `split` point
+//      ranges, each CTA summing its range in f32 over 32-point slabs of
+//      a_in and g_pre.
 //   3. reduce: the split partials, and the tiles' bias partials, are summed
 //      in a fixed order into dW and db, accumulating over the chunks.
+// In bf16 the products of passes 1 and 2 run on the tensor cores
+// (mma.sync m16n8k16, bf16 operands, f32 sums; see mma.cuh):
+//   - the sweep's g tile is feature-major with rows padded to TPG points
+//     (ldmatrix.trans gives the A fragments without bank conflicts), laid
+//     over the forward's activation rows once the embeddings are in the G
+//     buffer; the B operand of g_pre @ W^T is W's own row-major layout, so
+//     the sweep streams the forward's packed weights in 32-column stages
+//     through a two-stage cp.async ring.  Warp (wm, wn) of the 2 x 4 grid
+//     owns 32 points x 64 columns; each 16-term tensor-core sum starts from
+//     zero and is added in f32.  The epilogue reads the ReLU mask from the
+//     stash in the fragment's column pairs, sums the bias partials with quad
+//     shuffles, then the two point halves in order, and recomputes in the
+//     plain version's order each output that lies near a bf16 rounding tie
+//     (see TIE_MARGIN: without it the rounded g_pre would depart from the
+//     plain version's now and then, and each such step grows down the
+//     layers);
+//   - the wgrad CTA owns a 128 x 128 tile (8 warps as 2 x 4 of 64 x 32),
+//     its 32-point slabs staged point-major by cp.async in 16-byte vectors
+//     through a four-slab ring and read by ldmatrix.trans for both operands;
+//     ragged columns (x_emb's 63, dir_emb's 27, whose pad columns in the G
+//     buffer are never written) are zero-filled as they are staged.  The
+//     sigma and rgb jobs (1 and 3 columns) run a narrow kernel, a warp a
+//     slice of the points.
+// In f32 (whose limits TF32 would break) every product keeps the scalar
+// FMA loop: the sweep runs dense_acc against the transposed weights (wt),
+// the wgrad 64 x 64 tiles with 4 x 4 outputs a thread.  The wrapper builds
+// the wgrad job table and marks each job's route.
 // Workspace (from the wrapper): in bf16 at a chunk of 262,144 points the
 // G buffer is 1.33 GB and F's scratch stash 1.28 GB.
 //
@@ -73,14 +98,17 @@
 // term that the same thread stored.  Bound: operations, 2 x (3 x 593,408 +
 // 35,712) FLOP a point.
 #include "fused_mlp_common.cuh"
+#include "mma.cuh"
 
 #include <algorithm>
+#include <type_traits>
 
 namespace {
 
 using namespace nerf;
 
-// G buffer: one row of GC elements of T per point of the chunk
+// G buffer: one row of GC elements of T per point of the chunk; layer i's
+// g_pre at column i * W (i < D)
 constexpr int G_FIN = D * W;         // g_fin (256)
 constexpr int G_DPRE = G_FIN + W;    // g_dpre (128)
 constexpr int G_RGB = G_DPRE + WH;   // g_rgbpre (3)
@@ -89,9 +117,10 @@ constexpr int G_XE = G_SIG + 8;      // x_emb (63)
 constexpr int G_DE = G_XE + 64;      // dir_emb (27)
 constexpr int GC = G_DE + 32;        // 2544
 
-// Transposed weights (the dgrad operands), in T: for i = 1..7 the h rows of
-// W_i, transposed (256 x 256) at (i - 1) * W * W; Wfin^T at WT_FIN; the fin
-// rows of Wdir, transposed (128 x 256), at WT_DIR.
+// Transposed weights (the f32 sweep's dgrad operands): for i = 1..7 the h
+// rows of W_i, transposed (256 x 256) at (i - 1) * W * W; Wfin^T at WT_FIN;
+// the fin rows of Wdir, transposed (128 x 256), at WT_DIR.  The bf16 sweep
+// reads the packed weights instead.
 constexpr long long WT_FIN = 7LL * W * W, WT_DIR = 8LL * W * W;
 constexpr long long N_WT = WT_DIR + 1LL * WH * W;
 // Kernel H's dx operands, in T, each padded to DXC output columns (zeros
@@ -103,14 +132,30 @@ constexpr long long WX_DIR = 0, WX_SKIP = WX_DIR + 1LL * WH * DXC;
 constexpr long long WX_0 = WX_SKIP + 1LL * W * DXC;
 constexpr long long N_WX = WX_0 + 1LL * W * DXC;
 
+using bf16 = __nv_bfloat16;
+template <typename T>
+constexpr bool kTensorCores = std::is_same<T, bf16>::value;
+
+// The bf16 sweep: the g tile's row pitch (TP points + 8: ldmatrix's eight
+// row addresses, 144 bytes apart, fall in distinct banks); the weight
+// stages of its products, DK columns of the 256 fan_in rows of W, rows
+// padded to DKP (80 bytes: again distinct banks); the ring of DSTAGES
+// stages, DSTAGES - 1 in flight while one is consumed.
+constexpr int TPG = TP + 8;
+constexpr int DK = 32, DKP = DK + 8, DSTAGES = 2;
+constexpr int RING = DSTAGES * W * DKP;
+static_assert(W * TPG <= ROWS * TP, "the g tile fits over the activation rows");
+
 template <typename T>
 constexpr size_t bwd_smem_bytes() {
   // the forward's layout, then the cotangent tile (4 rows), g_rgbpre
-  // (3 rows, f32) and the bias-partial scratch (8 warps x 256)
-  return smem_bytes<T>() + sizeof(float) * (4 * TP + 3 * TP + 8 * W);
+  // (3 rows, f32) and the bias-partial scratch (8 warps x 256); in bf16
+  // the weight ring
+  return smem_bytes<T>() + sizeof(float) * (4 * TP + 3 * TP + 8 * W) +
+         (kTensorCores<T> ? sizeof(T) * RING : 0);
 }
 
-// The gradient tile's epilogue after a dgrad product with 256 outputs:
+// The f32 sweep's epilogue after a dgrad product with 256 outputs:
 //   v = acc (+ round(g_sigma[p]) * wsig[n]);  g_pre = v * (mask > 0)
 // with the mask read from the stash column mcol (none when mcol < 0).  The
 // rounded g_pre goes to act rows [ROW_H, ROW_H + 256) (the next product's
@@ -173,6 +218,291 @@ __device__ __forceinline__ void bwd_epilogue(
   __syncthreads();
 }
 
+// One stage of a bf16 dgrad product's weight stream: columns [k0, k0 + DK)
+// of the 256 rows of the (256 x ld) row-major block w, to buf (pitch DKP),
+// in 16-byte cp.async vectors; one committed group.
+__device__ __forceinline__ void dgrad_stage(const bf16* __restrict__ w,
+                                            int ld, int k0, bf16* buf) {
+  for (int i = threadIdx.x; i < W * DK / 8; i += THREADS) {
+    const int n = i / (DK / 8), c = (i % (DK / 8)) * 8;
+    mma::cp_async16(buf + n * DKP + c, w + 1LL * n * ld + k0 + c);
+  }
+  mma::cp_async_commit();
+}
+
+// The bf16 sweep's product on the tensor cores: acc = g[:, :K] @ w[:, :K]^T
+// for the tile's TP points, g the g tile (feature-major, element (k, p) at
+// k * TPG + p), w the layer's 256 fan_in rows (row-major, ld apart), whose
+// first K columns are the layer's outputs: for each output n, its k values
+// are contiguous, the .col layout of mma's B operand.  Warp (wm, wn) =
+// (warp / 4, warp % 4) owns points [32 wm, 32 wm + 32) and columns [64 wn,
+// 64 wn + 64); acc[mi][nt] is the m16n8 tile at point 32 wm + 16 mi,
+// column 64 wn + 8 nt.  The stages go through the ring, each a committed
+// cp.async group (an empty one past the last stage, so that every thread
+// counts its groups alike).  K is a multiple of DK.  Ends with a barrier
+// and the ring idle: every read of g is done.
+__device__ __forceinline__ void mma_dgrad(const bf16* __restrict__ w, int ld,
+                                          int K, const bf16* g, bf16* ring,
+                                          float (&acc)[2][8][4]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = warp >> 2, wn = warp & 3;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][nt][e] = 0.0f;
+  const int n_stages = K / DK;
+  auto stage = [&](int s) {
+    if (s < n_stages)
+      dgrad_stage(w, ld, s * DK, ring + (s % DSTAGES) * W * DKP);
+    else
+      mma::cp_async_commit();
+  };
+  for (int s = 0; s < DSTAGES - 1; ++s) stage(s);
+  for (int s = 0; s < n_stages; ++s) {
+    mma::cp_async_wait<DSTAGES - 2>();  // this thread's copies of stage s
+    // every thread's copies of stage s have landed (and, at s = 0, the g
+    // tile's last writes are visible); every warp is done with stage s - 1,
+    // whose slot the next stage fills
+    __syncthreads();
+    stage(s + DSTAGES - 1);
+    const bf16* wb = ring + (s % DSTAGES) * W * DKP;
+#pragma unroll
+    for (int ks = 0; ks < DK; ks += 16) {
+      const int k = s * DK + ks;
+      // A (points x k): lanes 0-7 rows k..k+7 at points +0, 8-15 at +8,
+      // 16-31 rows k+8..k+15; .trans turns the k-major rows into the
+      // row-major fragment
+      uint32_t a[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+        mma::ldmatrix_x4_trans(
+            a[mi], g + (k + (lane & 7) + ((lane >> 4) & 1) * 8) * TPG +
+                       wm * 32 + mi * 16 + ((lane >> 3) & 1) * 8);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        // B (k x n) of two n8 tiles: rows n of the stage, k halves
+        uint32_t b[4];
+        mma::ldmatrix_x4(b, wb + (wn * 64 + np * 16 + (lane & 7) +
+                                  (lane >> 4) * 8) * DKP +
+                                ks + ((lane >> 3) & 1) * 8);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          // each 16-term sum from zero, then added in f32 (round to
+          // nearest): the tensor cores' own additions stay short
+          float t0[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          float t1[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          mma::mma_bf16(t0, a[mi], b[0], b[1]);
+          mma::mma_bf16(t1, a[mi], b[2], b[3]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            acc[mi][2 * np][e] += t0[e];
+            acc[mi][2 * np + 1][e] += t1[e];
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();  // every warp is done with the ring and with g
+}
+
+// Ties.  The plain version (and the f32 sweep) sums each dgrad output in
+// f32, one fused multiply-add a term in order of k; the tensor cores sum
+// 16 terms at a time in another order and precision, so the f32 values
+// differ in their last bits.  Where a value lies that close to a rounding
+// tie of bf16, the rounded g_pre would differ by one bf16 step, and such a
+// step in a layer's input moves every output of the point in the layers
+// below: the differences would grow down the sweep.  So the epilogue marks
+// each output within TIE_MARGIN (relative) of a bf16 tie and recomputes it
+// term by term in the plain order (fmaf over k from 0), from the product's
+// own operands, before rounding it; about one output in a thousand.  Each
+// warp keeps up to FIXW marks a product in shared memory (past that, an
+// output keeps its tensor-core value).
+constexpr float TIE_MARGIN = 1.0f / 65536.0f;
+constexpr int FIXW = 64;
+
+__device__ __forceinline__ bool near_tie(float v) {
+  return to_f(from_f<bf16>(v * (1.0f + TIE_MARGIN))) !=
+         to_f(from_f<bf16>(v * (1.0f - TIE_MARGIN)));
+}
+
+// The bf16 sweep's epilogue, bwd_epilogue's arithmetic in mma_dgrad's
+// fragment mapping: lane t holds points 32 wm + 16 mi + t / 4 (+ 8) and
+// columns 64 wn + 8 nt + 2 (t % 4) (+ 1), so the mask is read from the
+// stash, and g_pre written to the G buffer, as 4-byte pairs.  Output e =
+// 32 mi + 16 h + 2 nt + j of the thread is acc[mi][nt][2 h + j].  Three
+// phases around two barriers: (A) g_pre into acc, the bias partial of each
+// column (the thread's four points, then the eight lanes of its quad
+// position by xor shuffles, lanes 0-3 keeping the sums, each in a fixed
+// order), and a bit for each output near a tie, the warp's marks numbered
+// by a prefix sum over the lanes; (B) each warp recomputes its marked
+// outputs, g (the product's input) still in place, w the product's (256 x
+// ld) fan_in rows and K its depth, and the tile's bias partials are summed
+// over the two point halves in order; (C) g_pre, rounded, to the g tile and
+// the G buffer, then each thread's marked outputs over them from (B).
+__device__ __forceinline__ void mma_epilogue(
+    float (&acc)[2][8][4], const bf16* __restrict__ w, int ld, int K,
+    const bf16* st, int sc, int mcol, const float* gsig, const bf16* wsig,
+    bf16* g, bf16* gb, int gcol, float* red, float* bp, long long n_valid) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = warp >> 2, wn = warp & 3;
+  int* fix_pn = reinterpret_cast<int*>(red + 2 * W) + warp * 2 * FIXW;
+  float* fix_val = reinterpret_cast<float*>(fix_pn + FIXW);
+  // output e's point and column
+  auto point = [&](int e) {
+    return wm * 32 + (e >> 5) * 16 + (lane >> 2) + ((e >> 4) & 1) * 8;
+  };
+  auto column = [&](int e) {
+    return wn * 64 + ((e >> 1) & 7) * 8 + (lane & 3) * 2 + (e & 1);
+  };
+  float bsum[8][2];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) bsum[nt][0] = bsum[nt][1] = 0.0f;
+  unsigned long long ties = 0;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = point(32 * mi + 16 * h);
+      const bool valid = p < n_valid;
+      const float gs =
+          wsig != nullptr ? to_f(from_f<bf16>(gsig[p])) : 0.0f;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const int n = column(2 * nt);
+        float m[2] = {1.0f, 1.0f};
+        if (mcol >= 0) {
+          if (valid) {
+            load2(st + 1LL * p * sc + mcol + n, m);
+          } else {
+            m[0] = m[1] = 0.0f;
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          float v = acc[mi][nt][2 * h + j];
+          if (wsig != nullptr) v += gs * to_f(wsig[n + j]);
+          const float x = (valid && m[j] > 0.0f) ? v : 0.0f;
+          acc[mi][nt][2 * h + j] = x;
+          bsum[nt][j] += x;
+          if (near_tie(x)) ties |= 1ull << (32 * mi + 16 * h + 2 * nt + j);
+        }
+      }
+    }
+  // the warp's marks: this lane's from slot `first` on, in order of e
+  const int count = __popcll(ties);
+  int upto = count;  // inclusive prefix sum over the lanes
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int t = __shfl_up_sync(0xffffffffu, upto, d);
+    if (lane >= d) upto += t;
+  }
+  const int first = upto - count;
+  const int marks = min(__shfl_sync(0xffffffffu, upto, 31), FIXW);
+  {
+    unsigned long long rest = ties;
+    for (int slot = first; rest != 0 && slot < FIXW; ++slot) {
+      const int e = __ffsll(static_cast<long long>(rest)) - 1;
+      rest &= rest - 1;
+      fix_pn[slot] = (point(e) << 16) | column(e);
+    }
+  }
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      float v = bsum[nt][j];
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      if (lane < 4) red[wm * W + wn * 64 + nt * 8 + lane * 2 + j] = v;
+    }
+  __syncthreads();
+  for (int e = lane; e < marks; e += 32) {
+    const int p = fix_pn[e] >> 16, n = fix_pn[e] & 0xffff;
+    const bf16* wr = w + 1LL * n * ld;
+    float s = 0.0f;
+    for (int k = 0; k < K; k += 8) {
+      float b[8];
+      load8(wr + k, b);
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        s = fmaf(to_f(g[(k + u) * TPG + p]), b[u], s);
+    }
+    if (wsig != nullptr) s += to_f(from_f<bf16>(gsig[p])) * to_f(wsig[n]);
+    fix_val[e] = s;
+  }
+  if (threadIdx.x < W)
+    bp[threadIdx.x] = red[threadIdx.x] + red[W + threadIdx.x];
+  __syncthreads();  // every recompute has read the product's input
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = point(32 * mi + 16 * h);
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const int n = column(2 * nt);
+        const __nv_bfloat162 r = __floats2bfloat162_rn(
+            acc[mi][nt][2 * h], acc[mi][nt][2 * h + 1]);
+        g[n * TPG + p] = r.x;
+        g[(n + 1) * TPG + p] = r.y;
+        if (p < n_valid)
+          *reinterpret_cast<__nv_bfloat162*>(gb + 1LL * p * GC + gcol + n) = r;
+      }
+    }
+  for (int slot = first; ties != 0 && slot < FIXW; ++slot) {
+    const int e = __ffsll(static_cast<long long>(ties)) - 1;
+    ties &= ties - 1;
+    const int p = point(e), n = column(e);
+    const bf16 r = from_f<bf16>(fix_val[slot]);
+    g[n * TPG + p] = r;
+    if (p < n_valid) gb[1LL * p * GC + gcol + n] = r;
+  }
+}
+
+// One layer of the sweep: the dgrad product g_in = round(g_pre) @ W^T
+// over the g tile's first K rows (W's outputs; K = 0: no product, zeros),
+// 256 outputs (W's fan_in rows), and its epilogue.  bf16: on the tensor
+// cores, from the packed weights wts at off (rows ld apart); f32: the
+// scalar loop, from the transposed weights wt at wt_off.  The overloads
+// follow the accumulator's shape.
+__device__ __forceinline__ void sweep_layer(
+    float (&acc)[2][8][4], const bf16* wts, long long off, int ld,
+    const bf16*, long long, int K, bf16* act, bf16*, bf16* ring,
+    const bf16* st, int sc, int mcol, const float* gsig, const bf16* wsig,
+    bf16* gb, int gcol, float* red, float* bp, long long n_valid) {
+  if (K > 0) {
+    mma_dgrad(wts + off, ld, K, act, ring, acc);
+  } else {
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][nt][e] = 0.0f;
+  }
+  mma_epilogue(acc, wts + off, ld, K, st, sc, mcol, gsig, wsig, act, gb, gcol,
+               red, bp, n_valid);
+}
+__device__ __forceinline__ void sweep_layer(
+    float (&acc)[8][8], const float*, long long, int, const float* wt,
+    long long wt_off, int K, float* act, float* ws, float*, const float* st,
+    int sc, int mcol, const float* gsig, const float* wsig, float* gb,
+    int gcol, float* red, float* bp, long long n_valid) {
+  if (K > 0) {
+    dense_acc<Ref, float, W>(wt + wt_off, K, act, ROW_H, ws, acc);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+  }
+  bwd_epilogue<float>(acc, st, sc, mcol, gsig, wsig, act, gb, gcol, red, bp,
+                      n_valid);
+}
+
 // Kernel H: one dx product's outputs (from dense_acc with DXC columns:
 // point 8 warp + i, column CPL lane + j) to dx's columns [col0, col0 +
 // n_live) of the tile's points, or with accumulate added to what this
@@ -202,9 +532,10 @@ __device__ __forceinline__ void dx_store(const float (&ax)[8][DXC / 32],
 // Pass 1: the gradient sweep of one 64-point tile of the chunk
 // [p_begin, p_end).  stash: row 0 is point p_begin (E: kernel D's stash;
 // F: the scratch that this kernel fills first).  gbuf: row 0 is point
-// p_begin.  bpart: one row of N_BIASES partial sums per tile.  Kernel H
-// (IO_EMBEDDED): x_cols, the dx operands wx and dx (P, x_cols) f32, whose
-// columns it does not store stay as the caller zeroed them.
+// p_begin.  bpart: one row of N_BIASES partial sums per tile.  wt: the
+// transposed weights (f32 only).  Kernel H (IO_EMBEDDED): x_cols, the dx
+// operands wx and dx (P, x_cols) f32, whose columns it does not store stay
+// as the caller zeroed them.
 template <typename T, bool SIGMA_ONLY, bool REMAT, int IN>
 __global__ void __launch_bounds__(THREADS, 2)
 fused_nerf_dgrad_kernel(const float* __restrict__ x,
@@ -218,11 +549,17 @@ fused_nerf_dgrad_kernel(const float* __restrict__ x,
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int SC = SIGMA_ONLY ? SC_SIGMA : SC_RGB;
   constexpr bool DX = IN == IO_EMBEDDED;  // kernel H: dx too
+  constexpr bool TC = kTensorCores<T>;
   T* act = reinterpret_cast<T*>(smem);
   T* ws = act + ROWS * TP;
   float* gout = reinterpret_cast<float*>(smem + smem_bytes<T>());
   float* grgb = gout + 4 * TP;  // g_rgbpre, f32
   float* red = grgb + 3 * TP;
+  T* ring = TC ? reinterpret_cast<T*>(red + 8 * W) : nullptr;
+  // the gradient rows of the sweep, element (k, p) at gt[k * LDG + p]: in
+  // bf16 the padded g tile over the activation rows, in f32 act's h rows
+  T* gt = TC ? act : act + ROW_H * TP;
+  constexpr int LDG = TC ? TPG : TP;
   const int tid = threadIdx.x;
   const long long lp0 = 1LL * blockIdx.x * TP;  // first point in the chunk
   const long long p0 = p_begin + lp0;
@@ -276,21 +613,17 @@ fused_nerf_dgrad_kernel(const float* __restrict__ x,
   }
   for (int p = tid; p < TP; p += THREADS)
     if (p < n_valid) gb[1LL * p * GC + G_SIG] = from_f<T>(gsig[p]);
-  __syncthreads();  // act's embedding rows may now be overwritten
+  __syncthreads();  // the activation rows may now be overwritten
 
-  float acc[8][8];
+  std::conditional_t<TC, float[2][8][4], float[8][8]> acc;
   if (SIGMA_ONLY) {
     for (int i = tid; i < N_BIASES - BOFF_FIN; i += THREADS)
       bp[BOFF_FIN + i] = 0.0f;  // no heads past sigma
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
   } else {
-    // stage d into act rows [ROW_H, ROW_H + WH)
+    // stage d into the gradient rows [0, WH)
     for (int i = tid; i < TP * WH; i += THREADS) {
       const int p = i / WH, k = i - p * WH;
-      act[(ROW_H + k) * TP + p] =
+      gt[k * LDG + p] =
           p < n_valid ? st[1LL * p * SC + S_D + k] : from_f<T>(0.0f);
     }
     __syncthreads();
@@ -298,8 +631,7 @@ fused_nerf_dgrad_kernel(const float* __restrict__ x,
       const int c = tid / TP, p = tid - c * TP;
       float v = 0.0f;
       for (int k = 0; k < WH; ++k)
-        v = fmaf(to_f(act[(ROW_H + k) * TP + p]),
-                 to_f(wts[OFF_RGB + 3 * k + c]), v);
+        v = fmaf(to_f(gt[k * LDG + p]), to_f(wts[OFF_RGB + 3 * k + c]), v);
       v += bias[BOFF_RGB + c];
       const float rgb = 1.0f / (1.0f + expf(-v));
       grgb[c * TP + p] = p < n_valid ? gout[c * TP + p] * rgb * (1.0f - rgb)
@@ -324,51 +656,51 @@ fused_nerf_dgrad_kernel(const float* __restrict__ x,
         float gd = 0.0f;
         for (int c = 0; c < 3; ++c)
           gd = fmaf(to_f(from_f<T>(grgb[c * TP + p])), wr[c], gd);
-        const float d = to_f(act[(ROW_H + k) * TP + p]);
+        const float d = to_f(gt[k * LDG + p]);
         const float gdp = (p < n_valid && d > 0.0f) ? gd : 0.0f;
         s += gdp;
         const T r = from_f<T>(gdp);
-        act[(ROW_H + k) * TP + p] = r;
+        gt[k * LDG + p] = r;
         if (p < n_valid) gb[1LL * p * GC + G_DPRE + k] = r;
       }
       bp[BOFF_DIR + k] = s;
     }
     if constexpr (DX) {  // dx's dir columns = round(g_dpre) @ Wdir[W:]^T
       float ax[8][DXC / 32];
-      dense_acc<Ref, T, DXC>(wx + WX_DIR, WH, act, ROW_H, ws, ax);
+      dense_acc<Ref, T, DXC, LDG>(wx + WX_DIR, WH, gt, 0, ws, ax);
       dx_store(ax, dx, p0, n_valid, x_cols, CX, CD, false);
     }
     // g_fin = round(g_dpre) @ Wdir[:W]^T (no activation on fin)
-    dense_acc<Ref, T, W>(wt + WT_DIR, WH, act, ROW_H, ws, acc);
-    bwd_epilogue<T>(acc, st, SC, -1, nullptr, nullptr, act, gb, G_FIN, red,
-                    bp + BOFF_FIN, n_valid);
-    // g_h8 = round(g_fin) @ Wfin^T, plus the sigma term below
-    dense_acc<Ref, T, W>(wt + WT_FIN, W, act, ROW_H, ws, acc);
+    sweep_layer(acc, wts, OFF_DIR, WH, wt, WT_DIR, WH, act, ws, ring, st, SC,
+                -1, nullptr, nullptr, gb, G_FIN, red, bp + BOFF_FIN, n_valid);
   }
-  // g_pre of layer 7 = (acc + round(g_sigma) * Wsig) * (h8 > 0)
-  bwd_epilogue<T>(acc, st, SC, (D - 1) * W, gsig, wts + OFF_SIG, act, gb,
-                  (D - 1) * W, red, bp + (D - 1) * W, n_valid);
+  // g_pre of layer 7 = (round(g_fin) @ Wfin^T + round(g_sigma) * Wsig) *
+  // (h8 > 0); sigma-only: the sigma term alone
+  sweep_layer(acc, wts, OFF_FIN, W, wt, WT_FIN, SIGMA_ONLY ? 0 : W, act, ws,
+              ring, st, SC, (D - 1) * W, gsig, wts + OFF_SIG, gb, (D - 1) * W,
+              red, bp + (D - 1) * W, n_valid);
   for (int i = D - 1; i >= 1; --i) {
     if constexpr (DX) {
       if (i == SKIP) {  // dx's xyz columns, the skip term
         float ax[8][DXC / 32];
-        dense_acc<Ref, T, DXC>(wx + WX_SKIP, W, act, ROW_H, ws, ax);
+        dense_acc<Ref, T, DXC, LDG>(wx + WX_SKIP, W, gt, 0, ws, ax);
         dx_store(ax, dx, p0, n_valid, x_cols, 0, CX, false);
       }
     }
     // g_h = round(g_pre_i) @ W_i[h rows]^T; g_pre_{i-1} = g_h * (h_i > 0)
-    dense_acc<Ref, T, W>(wt + 1LL * (i - 1) * W * W, W, act, ROW_H, ws, acc);
-    bwd_epilogue<T>(acc, st, SC, (i - 1) * W, nullptr, nullptr, act, gb,
-                    (i - 1) * W, red, bp + (i - 1) * W, n_valid);
+    sweep_layer(acc, wts, layer_off(i) + (i == SKIP ? 1LL * CX * W : 0), W,
+                wt, 1LL * (i - 1) * W * W, W, act, ws, ring, st, SC,
+                (i - 1) * W, nullptr, nullptr, gb, (i - 1) * W, red,
+                bp + (i - 1) * W, n_valid);
   }
   if constexpr (DX) {  // + layer 0's term, round(g_pre_0) @ W_0^T
     float ax[8][DXC / 32];
-    dense_acc<Ref, T, DXC>(wx + WX_0, W, act, ROW_H, ws, ax);
+    dense_acc<Ref, T, DXC, LDG>(wx + WX_0, W, gt, 0, ws, ax);
     dx_store(ax, dx, p0, n_valid, x_cols, 0, CX, true);
   }
 }
 
-// Pass 2: dW[k][n] over a point range, for one 64 x 64 tile of one product
+// Pass 2: dW[k][n] over a point range, for one output tile of one product
 // a_in^T @ g_pre.  a_in is read from the stash (ld SC) or the G buffer.
 struct WJob {
   int a_in_g, a_col, K, g_col, N, tiles_n, tile0;
@@ -379,8 +711,23 @@ struct WJobs {
   int n, tiles;
 };
 
+// the job of CTA column blockIdx.x, and its tile's first k and n
+__device__ __forceinline__ WJob find_job(const WJobs& jobs, int tk, int tn,
+                                         int& k0, int& n0) {
+  int j = 0;
+  while (j + 1 < jobs.n &&
+         jobs.job[j + 1].tile0 <= static_cast<int>(blockIdx.x))
+    ++j;
+  const WJob jb = jobs.job[j];
+  const int local = blockIdx.x - jb.tile0;
+  k0 = (local / jb.tiles_n) * tk;
+  n0 = (local % jb.tiles_n) * tn;
+  return jb;
+}
+
 constexpr int WK = 64, WN = 64, WP = 32;  // output tile; points per stage
 
+// The f32 wgrad: a 64 x 64 tile, 4 x 4 outputs a thread.
 template <typename T, int SC>
 __global__ void __launch_bounds__(256)
 fused_nerf_wgrad_kernel(const T* __restrict__ stash,
@@ -389,11 +736,8 @@ fused_nerf_wgrad_kernel(const T* __restrict__ stash,
   __shared__ __align__(16) float As[WP][WK];
   __shared__ __align__(16) float Gs[WP][WN];
   const int tid = threadIdx.x;
-  int j = 0;
-  while (j + 1 < jobs.n && jobs.job[j + 1].tile0 <= static_cast<int>(blockIdx.x)) ++j;
-  const WJob jb = jobs.job[j];
-  const int local = blockIdx.x - jb.tile0;
-  const int k0 = (local / jb.tiles_n) * WK, n0 = (local % jb.tiles_n) * WN;
+  int k0, n0;
+  const WJob jb = find_job(jobs, WK, WN, k0, n0);
   const long long per =
       ((n_points + gridDim.y - 1) / gridDim.y + WP - 1) / WP * WP;
   const long long pb = blockIdx.y * per;
@@ -443,6 +787,185 @@ fused_nerf_wgrad_kernel(const T* __restrict__ stash,
   }
 }
 
+// The bf16 wgrad on the tensor cores: a TK x TN output tile a CTA, warp
+// (wm, wn) = (warp / 4, warp % 4) owning rows [64 wm, 64 wm + 64) and
+// columns [32 wn, 32 wn + 32) (acc[mi][nt]: the m16n8 tile at row 64 wm +
+// 16 mi, column 32 wn + 8 nt).  The point range goes in slabs of TPS
+// points, a_in's and g_pre's tile columns staged point-major (row pitch
+// TLD: ldmatrix's row addresses 272 bytes apart, distinct banks) through a
+// ring of WSTAGES slabs in dynamic shared memory, WSTAGES - 1 of them in
+// flight by cp.async while one is consumed.  The mma's A operand is a_in^T
+// and its B operand g_pre, both read by ldmatrix.trans from the slabs.
+constexpr int TK = 128, TN = 128, TPS = 32, TLD = 128 + 8, WSTAGES = 4;
+constexpr size_t WGRAD_SMEM = sizeof(bf16) * WSTAGES * 2 * TPS * TLD;
+static_assert(TPS == WP, "the wgrad kernels split the points alike");
+
+template <int SC>
+__global__ void __launch_bounds__(256, 2)
+fused_nerf_wgrad_mma_kernel(const bf16* __restrict__ stash,
+                            const bf16* __restrict__ gbuf,
+                            long long n_points, WJobs jobs,
+                            float* __restrict__ part) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  // slab b: As[b] (a_in) then Gs[b] (g_pre), TPS rows of TLD each
+  auto As = reinterpret_cast<bf16(*)[TPS][TLD]>(smem);
+  auto Gs = As + WSTAGES;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp >> 2, wn = warp & 3;
+  int k0, n0;
+  const WJob jb = find_job(jobs, TK, TN, k0, n0);
+  const long long per =
+      ((n_points + gridDim.y - 1) / gridDim.y + TPS - 1) / TPS * TPS;
+  const long long pb = blockIdx.y * per;
+  const long long pe = min(n_points, pb + per);
+  const bf16* A = (jb.a_in_g ? gbuf : stash) + jb.a_col + k0;
+  const long long lda = jb.a_in_g ? GC : SC;
+  const bf16* G = gbuf + jb.g_col + n0;
+  const int live_k = jb.K - k0, live_n = jb.N - n0;  // columns in the tile
+  const int n_slabs = pe > pb ? static_cast<int>((pe - pb + TPS - 1) / TPS) : 0;
+
+  // slab s into ring slot s % WSTAGES, one committed group (empty past the
+  // last slab, so that every thread counts its groups alike): 8 columns a
+  // vector; a vector that is not wholly live (past the point range, or
+  // reaching past K or N into columns that may never have been written)
+  // reads only its live elements and zero-fills the rest
+  auto stage = [&](int s) {
+    if (s < n_slabs) {
+      const long long q0 = pb + 1LL * s * TPS;
+      const int b = s % WSTAGES;
+      for (int i = tid; i < 2 * TPS * (TK / 8); i += 256) {
+        const bool is_g = i >= TPS * (TK / 8);
+        const int r = is_g ? i - TPS * (TK / 8) : i;
+        const int pp = r / (TK / 8), c = (r % (TK / 8)) * 8;
+        const long long p = q0 + pp;
+        const int live = is_g ? live_n : live_k;
+        const bf16* src = is_g ? G + p * GC + c : A + p * lda + c;
+        bf16* dst = is_g ? &Gs[b][pp][c] : &As[b][pp][c];
+        const int n_live = p < pe ? max(0, min(8, live - c)) : 0;
+        // a dead vector reads nothing; its address is any valid one
+        mma::cp_async16_zfill(dst, n_live ? src : G,
+                              static_cast<int>(sizeof(bf16)) * n_live);
+      }
+    }
+    mma::cp_async_commit();
+  };
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][nt][e] = 0.0f;
+
+  for (int s = 0; s < WSTAGES - 1; ++s) stage(s);
+  for (int s = 0; s < n_slabs; ++s) {
+    mma::cp_async_wait<WSTAGES - 2>();  // this thread's copies of slab s
+    // every thread's copies of slab s have landed, and every warp is done
+    // with slab s - 1, whose slot the next stage fills
+    __syncthreads();
+    stage(s + WSTAGES - 1);
+    const int b = s % WSTAGES;
+#pragma unroll
+    for (int ks = 0; ks < TPS; ks += 16) {
+      // B (points x n): rows ks..ks+7 / ks+8..ks+15 of two n8 tiles
+      uint32_t bf[4][2];
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        uint32_t r[4];
+        mma::ldmatrix_x4_trans(
+            r, &Gs[b][ks + (lane & 7) + ((lane >> 3) & 1) * 8]
+                  [wn * 32 + np * 16 + (lane >> 4) * 8]);
+        bf[2 * np][0] = r[0]; bf[2 * np][1] = r[1];
+        bf[2 * np + 1][0] = r[2]; bf[2 * np + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi) {
+        // A (k x points): a_in^T, from the point-major slab by .trans
+        uint32_t a[4];
+        mma::ldmatrix_x4_trans(
+            a, &As[b][ks + (lane & 7) + ((lane >> 4) & 1) * 8]
+                  [wm * 64 + mi * 16 + ((lane >> 3) & 1) * 8]);
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+          mma::mma_bf16(acc[mi][nt], a, bf[nt][0], bf[nt][1]);
+      }
+    }
+  }
+  float* out = part + blockIdx.y * N_WEIGHTS + jb.out;
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int k = k0 + wm * 64 + mi * 16 + (lane >> 2) + (e >> 1) * 8;
+        const int n = n0 + wn * 32 + nt * 8 + (lane & 3) * 2 + (e & 1);
+        if (k < jb.K && n < jb.N) out[1LL * k * jb.N + n] = acc[mi][nt][e];
+      }
+}
+
+// The bf16 wgrad of the narrow heads (sigma, N = 1; rgb, N = 3), one job a
+// CTA column: warp w sums the w-th eighth of the CTA's point range in order
+// of p, one fused multiply-add a term, lane l owning rows k = 8 l .. 8 l + 7
+// of the job's dW (K <= 256): a point's a_in row is one 16-byte vector a
+// lane, coalesced over the lanes, and its NARROW_N g_pre columns one 8-byte
+// broadcast (the G buffer's columns past N are read and never used); then
+// the eight warps' sums are added in order of w.
+constexpr int NARROW_N = 4;
+
+template <int SC>
+__global__ void __launch_bounds__(256)
+fused_nerf_wgrad_narrow_kernel(const bf16* __restrict__ stash,
+                               const bf16* __restrict__ gbuf,
+                               long long n_points, WJobs jobs,
+                               float* __restrict__ part) {
+  __shared__ float sums[8][256 * NARROW_N];
+  const WJob jb = jobs.job[blockIdx.x];
+  const long long per =
+      ((n_points + gridDim.y - 1) / gridDim.y + WP - 1) / WP * WP;
+  const long long pb = blockIdx.y * per;
+  const long long pe = min(n_points, pb + per);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long sub = pe > pb ? (pe - pb + 7) / 8 : 0;
+  const long long q0 = pb + warp * sub, q1 = min(pe, q0 + sub);
+  const bool live = 8 * lane < jb.K;
+  const bf16* A = (jb.a_in_g ? gbuf : stash) + jb.a_col + 8 * lane;
+  const long long lda = jb.a_in_g ? GC : SC;
+  const bf16* G = gbuf + jb.g_col;
+  float acc[8][NARROW_N];
+#pragma unroll
+  for (int c = 0; c < 8; ++c)
+#pragma unroll
+    for (int n = 0; n < NARROW_N; ++n) acc[c][n] = 0.0f;
+  if (live) {
+#pragma unroll 4
+    for (long long p = q0; p < q1; ++p) {
+      float a[8], gv[NARROW_N];
+      load8(A + p * lda, a);
+      load4(G + p * GC, gv);
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+#pragma unroll
+        for (int n = 0; n < NARROW_N; ++n)
+          acc[c][n] = fmaf(a[c], gv[n], acc[c][n]);
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < 8; ++c)
+#pragma unroll
+    for (int n = 0; n < NARROW_N; ++n)
+      sums[warp][(8 * lane + c) * NARROW_N + n] = acc[c][n];
+  __syncthreads();
+  float* out = part + blockIdx.y * N_WEIGHTS + jb.out;
+  for (int i = threadIdx.x; i < jb.K * jb.N; i += 256) {
+    const int k = i / jb.N, n = i - k * jb.N;
+    float s = 0.0f;
+    for (int w = 0; w < 8; ++w) s += sums[w][k * NARROW_N + n];
+    out[i] = s;
+  }
+}
+
 // Pass 3: out[g * n + j] = sum of part rows [g * rpg, (g + 1) * rpg), in
 // order; with accumulate (one group) out[j] += that sum instead.
 __global__ void __launch_bounds__(256)
@@ -459,34 +982,55 @@ reduce_rows_kernel(const float* __restrict__ part, int rows, long long n,
     out[blockIdx.y * n + j] = s;
 }
 
-WJobs make_jobs(bool sigma_only) {
-  WJobs js{};
-  auto add = [&js](int a_in_g, int a_col, int K, int g_col, int N,
-                   long long out) {
+// The wrapper's job table, JOB_FIELDS values a job: (a_in_g, a_col, K,
+// g_col, N, out, route), split by route: ROUTE_SCALAR (f32 only: WK x WN
+// tiles), ROUTE_TC (bf16 only: TK x TN tiles on the tensor cores, 16-byte
+// aligned columns) and ROUTE_NARROW (bf16 only: N <= NARROW_N, K <= 256
+// and a multiple of 8, 16-byte aligned a_in and 8-byte aligned g_pre
+// columns; one CTA column a job).  Each job's columns must lie in its rows
+// and its output block in the packed weights.
+constexpr int JOB_FIELDS = 7;
+enum Route : int { ROUTE_SCALAR = 0, ROUTE_TC = 1, ROUTE_NARROW = 2 };
+
+struct JobLists {
+  WJobs by_route[3];
+};
+
+int split_jobs(const long long* table, int n, bool bf16_route, int sc,
+               JobLists& lists) {
+  lists = JobLists{};
+  for (int i = 0; i < n; ++i) {
+    const long long* f = table + 1LL * i * JOB_FIELDS;
+    const long long route = f[6];
+    const long long a_end = f[1] + f[2], lda = f[0] ? GC : sc;
+    const bool bad_route =
+        route < ROUTE_SCALAR || route > ROUTE_NARROW ||
+        (route == ROUTE_SCALAR) == bf16_route ||
+        (route == ROUTE_TC && (f[1] % 8 || f[3] % 8)) ||
+        (route == ROUTE_NARROW &&
+         (f[4] > NARROW_N || f[2] > 256 || f[2] % 8 || f[1] % 8 || f[3] % 4 ||
+          f[3] + NARROW_N > GC));
+    if (bad_route || f[1] < 0 || f[2] < 1 || a_end > lda || f[3] < 0 ||
+        f[4] < 1 || f[3] + f[4] > GC || f[5] < 0 ||
+        f[5] + f[2] * f[4] > N_WEIGHTS)
+      return static_cast<int>(cudaErrorInvalidValue);
+    WJobs& js = lists.by_route[route];
+    if (js.n == 16) return static_cast<int>(cudaErrorInvalidValue);
+    const int tk = route == ROUTE_TC ? TK : route == ROUTE_SCALAR ? WK : 256;
+    const int tn =
+        route == ROUTE_TC ? TN : route == ROUTE_SCALAR ? WN : NARROW_N;
     WJob& jb = js.job[js.n++];
-    jb.a_in_g = a_in_g; jb.a_col = a_col; jb.K = K;
-    jb.g_col = g_col; jb.N = N; jb.out = out;
-    jb.tiles_n = (N + WN - 1) / WN;
+    jb.a_in_g = static_cast<int>(f[0]);
+    jb.a_col = static_cast<int>(f[1]);
+    jb.K = static_cast<int>(f[2]);
+    jb.g_col = static_cast<int>(f[3]);
+    jb.N = static_cast<int>(f[4]);
+    jb.out = f[5];
+    jb.tiles_n = (jb.N + tn - 1) / tn;
     jb.tile0 = js.tiles;
-    js.tiles += (K + WK - 1) / WK * jb.tiles_n;
-  };
-  add(1, G_XE, CX, 0, W, layer_off(0));
-  for (int i = 1; i < D; ++i) {
-    if (i == SKIP) {
-      add(1, G_XE, CX, i * W, W, layer_off(i));  // rows of x_emb
-      add(0, (i - 1) * W, W, i * W, W, layer_off(i) + 1LL * CX * W);
-    } else {
-      add(0, (i - 1) * W, W, i * W, W, layer_off(i));
-    }
+    js.tiles += (jb.K + tk - 1) / tk * jb.tiles_n;
   }
-  add(0, (D - 1) * W, W, G_SIG, 1, OFF_SIG);
-  if (!sigma_only) {
-    add(0, (D - 1) * W, W, G_FIN, W, OFF_FIN);
-    add(0, S_FIN, W, G_DPRE, WH, OFF_DIR);  // rows of fin
-    add(1, G_DE, CD, G_DPRE, WH, OFF_DIR + 1LL * W * WH);  // rows of dir_emb
-    add(0, S_D, WH, G_RGB, 3, OFF_RGB);
-  }
-  return js;
+  return 0;
 }
 
 constexpr int BIAS_RPG = 64;  // tiles per group in the bias reduction
@@ -518,25 +1062,42 @@ struct BwdArgs {
   int split, x_cols;
   const void* wx;
   void* dx;
+  const long long* jobs;
+  int n_jobs;
 };
 
 template <typename T, bool SIGMA_ONLY, bool REMAT, int IN>
 int run(const BwdArgs& a, cudaStream_t s) {
   constexpr int SC = SIGMA_ONLY ? SC_SIGMA : SC_RGB;
   const long long P = a.P, chunk = a.chunk;
+  if (!kTensorCores<T> && a.wt == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  JobLists jobs;
+  int e = split_jobs(a.jobs, a.n_jobs, kTensorCores<T>, SC, jobs);
+  if (e != 0) return e;
   auto dgrad = fused_nerf_dgrad_kernel<T, SIGMA_ONLY, REMAT, IN>;
   constexpr size_t smem = bwd_smem_bytes<T>();
   cudaError_t err = cudaFuncSetAttribute(
       dgrad, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const WJobs jobs = make_jobs(SIGMA_ONLY);
+  if constexpr (kTensorCores<T>) {
+    err = cudaFuncSetAttribute(fused_nerf_wgrad_mma_kernel<SC>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(WGRAD_SMEM));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const WJobs& tc = jobs.by_route[ROUTE_TC];
+  const WJobs& narrow = jobs.by_route[ROUTE_NARROW];
+  const WJobs& scalar = jobs.by_route[ROUTE_SCALAR];
   for (long long p_begin = 0; p_begin < P; p_begin += chunk) {
     const long long p_end = std::min(P, p_begin + chunk);
     const long long n = p_end - p_begin;
     const int tiles = static_cast<int>((n + TP - 1) / TP);
     // E reads kernel D's stash at the chunk's rows; F fills its scratch
     T* st = static_cast<T*>(a.stash) + (REMAT ? 0 : p_begin * SC);
+    const T* gbuf = static_cast<const T*>(a.gbuf);
+    float* wpart = static_cast<float*>(a.wpart);
     dgrad<<<tiles, THREADS, smem, s>>>(
         static_cast<const float*>(a.x), static_cast<const float*>(a.g),
         static_cast<const T*>(a.w), static_cast<const float*>(a.b),
@@ -544,13 +1105,30 @@ int run(const BwdArgs& a, cudaStream_t s) {
         static_cast<T*>(a.gbuf), static_cast<float*>(a.bpart), a.x_cols,
         static_cast<const T*>(a.wx), static_cast<float*>(a.dx));
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-    fused_nerf_wgrad_kernel<T, SC>
-        <<<dim3(jobs.tiles, a.split), 256, 0, s>>>(
-            st, static_cast<const T*>(a.gbuf), n, jobs,
-            static_cast<float*>(a.wpart));
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-    int e = reduce(static_cast<const float*>(a.wpart), a.split, N_WEIGHTS,
-                   nullptr, static_cast<float*>(a.dw), s);
+    if constexpr (kTensorCores<T>) {
+      if (tc.n) {
+        fused_nerf_wgrad_mma_kernel<SC>
+            <<<dim3(tc.tiles, a.split), 256, WGRAD_SMEM, s>>>(st, gbuf, n, tc,
+                                                             wpart);
+        if ((err = cudaGetLastError()) != cudaSuccess)
+          return static_cast<int>(err);
+      }
+      if (narrow.n) {
+        fused_nerf_wgrad_narrow_kernel<SC>
+            <<<dim3(narrow.n, a.split), 256, 0, s>>>(st, gbuf, n, narrow,
+                                                     wpart);
+        if ((err = cudaGetLastError()) != cudaSuccess)
+          return static_cast<int>(err);
+      }
+    } else if (scalar.n) {
+      fused_nerf_wgrad_kernel<T, SC>
+          <<<dim3(scalar.tiles, a.split), 256, 0, s>>>(st, gbuf, n, scalar,
+                                                       wpart);
+      if ((err = cudaGetLastError()) != cudaSuccess)
+        return static_cast<int>(err);
+    }
+    e = reduce(static_cast<const float*>(a.wpart), a.split, N_WEIGHTS,
+               nullptr, static_cast<float*>(a.dw), s);
     if (e != 0) return e;
     e = reduce(static_cast<const float*>(a.bpart), tiles, N_BIASES,
                static_cast<float*>(a.btmp), static_cast<float*>(a.db), s);
@@ -599,26 +1177,36 @@ long long nerf_bwd_dx_transposed_count() { return N_WX; }
 int nerf_bwd_g_cols() { return GC; }
 int nerf_bwd_points_per_cta() { return TP; }
 int nerf_bwd_bias_rows_per_group() { return BIAS_RPG; }
+int nerf_bwd_job_fields() { return JOB_FIELDS; }
+// the G buffer's columns: g_fin, g_dpre, g_rgbpre, g_sigma, x_emb, dir_emb,
+// then the row length (i = 0..6)
+int nerf_bwd_g_layout(int i) {
+  const int cols[] = {G_FIN, G_DPRE, G_RGB, G_SIG, G_XE, G_DE, GC};
+  return i >= 0 && i < 7 ? cols[i] : -1;
+}
 
 // Kernels E (remat = 0; stash: kernel D's (P, SC) stash) and F (remat = 1;
 // stash: a (chunk, SC) scratch) with io = 0 (x, g (8, P)); with io = 1, E'
 // and F' (x and g (P, 8), 16-byte aligned); with io = 2 and remat = 1,
 // kernel H (x (P, x_cols) pre-embedded, x_cols 63 or 90; g (P, 8), 16-byte
-// aligned; wx (N_WX) in T; dx (P, x_cols) f32, zeroed).  w (N_WEIGHTS) and
-// wt (N_WT) in T (bf16 = 1) or f32; b (N_BIASES) f32.  Workspace: gbuf
-// (chunk, GC) T, wpart (split, N_WEIGHTS) f32, bpart (ceil(chunk / TP),
-// N_BIASES) f32, btmp (ceil(ceil(chunk / TP) / BIAS_RPG), N_BIASES) f32.
-// dw (N_WEIGHTS) and db (N_BIASES) f32 are accumulated into: zero them, and
-// wpart too (sigma-only runs write no partials for the heads past sigma).
+// aligned; wx (N_WX) in T; dx (P, x_cols) f32, zeroed).  w (N_WEIGHTS) in T
+// (bf16 = 1) or f32; wt (N_WT) in f32 (null in bf16); b (N_BIASES) f32.
+// jobs: n_jobs rows of JOB_FIELDS (host memory), the weight-grad products.
+// Workspace: gbuf (chunk, GC) T, wpart (split, N_WEIGHTS) f32, bpart
+// (ceil(chunk / TP), N_BIASES) f32, btmp (ceil(ceil(chunk / TP) /
+// BIAS_RPG), N_BIASES) f32.  dw (N_WEIGHTS) and db (N_BIASES) f32 are
+// accumulated into: zero them, and wpart too (sigma-only runs write no
+// partials for the heads past sigma).
 int nerf_fused_bwd(const void* x, const void* g, const void* w,
                    const void* b, const void* wt, long long P, int sigma_only,
                    int bf16, int remat, int io, void* stash, void* gbuf,
                    void* wpart, void* bpart, void* btmp, void* dw, void* db,
                    long long chunk, int split, int x_cols, const void* wx,
-                   void* dx, void* stream) {
+                   void* dx, const long long* jobs, int n_jobs,
+                   void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   const BwdArgs a{x, g, w, b, wt, P, stash, gbuf, wpart, bpart, btmp,
-                  dw, db, chunk, split, x_cols, wx, dx};
+                  dw, db, chunk, split, x_cols, wx, dx, jobs, n_jobs};
   if (bf16) return run_io<__nv_bfloat16>(io, sigma_only, remat, a, s);
   return run_io<float>(io, sigma_only, remat, a, s);
 }

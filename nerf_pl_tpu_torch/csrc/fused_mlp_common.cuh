@@ -182,13 +182,14 @@ struct Lanes {
 // acc[i][g * CPL + j] = sum_k act[in_row + k][PPW * warp + i] * w[k][n],
 // n = g * GW + CPL * lane + j, for k < K; w is (K, N) row-major, streamed
 // through the shared stage ws, KC rows at a time.  Products and sums in
-// f32, in order of k.  Ends with a barrier: every read of the input rows is
-// done when it returns.
-template <class Geo, typename T, int N>
+// f32, in order of k.  act's rows are LDA elements apart (the tile's TP
+// points unless a caller pads them).  Ends with a barrier: every read of
+// the input rows is done when it returns.
+template <class Geo, typename T, int N, int LDA = Geo::TP>
 __device__ __forceinline__ void dense_acc(const T* __restrict__ w, int K,
                                           const T* act, int in_row, T* ws,
                                           float (&acc)[Geo::PPW][N / 32]) {
-  constexpr int PPW = Geo::PPW, TPP = Geo::TP;
+  constexpr int PPW = Geo::PPW, TPP = LDA;
   constexpr int CPL = Lanes<N>::CPL, GW = Lanes<N>::GW, NG = Lanes<N>::NG;
   constexpr int KC = Cfg<T>::KC;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;

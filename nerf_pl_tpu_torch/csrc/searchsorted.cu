@@ -13,41 +13,109 @@
 //   lo   = max over m < M-1 of (r[m] if v >= r[m] else 0)
 //   hi   = min over m >= 1  of (r[M-1] if v >= r[m] else r[m]),
 //          starting from r[M-1]
-// The same fixed-length, branch-free compare loop as the TPU kernels, so the
-// results are bit-identical to the plain versions: no arithmetic is done on
-// the values, only compares, max and min.
+// No arithmetic is done on the values, only compares, max and min, so the
+// results are bit-identical to the plain versions.
+//
+// Contract of A: every row is non-decreasing (r[m] <= r[m+1]; ties and
+// plateaus allowed), as the importance sampler's CDF rows are: a float
+// cumulative sum of non-negative terms after a leading zero
+// (ops/sampling.py).  On such a row the set {m : r[m] <= v} ({m : r[m] < v}
+// for side left) is a prefix, so the rank, its length, is what a bisection
+// returns: A makes ceil(log2(M + 1)) branch-free halving steps (6 at M = 63)
+// in place of the TPU kernel's M compares, and gives the same count for any
+// v, at ties, at 0 and past the row's end.  B keeps the fixed-length
+// compare loop of the TPU kernel (it needs the whole row for lo and hi).
 //
 // Bound on the H100: bytes.  At the serving shape (B = 32000 rays, M = 63
-// CDF entries, K = 128 draws) B reads 8 MB of rows and 16 MB of queries and
-// writes 49 MB of outputs; the compares are ~6 operations per (b, k, m),
-// about as long at the f32 rate as the bytes take at 3.35 TB/s.
-// Design: one CTA per row.  The row is staged once in shared memory and read
-// back as a broadcast by every thread, so each input byte is read from
-// device memory once; one thread per query, with consecutive threads on
-// consecutive queries, so loads and stores of vals/out are coalesced.
+// CDF entries, K = 128 draws) A reads 8 MB of rows and 16 MB of queries and
+// writes 16 MB of ranks (12 us at 3.35 TB/s); B writes 49 MB of outputs
+// and makes ~6 operations per (b, k, m), about as long at the f32 rate as
+// its bytes take.
+// Design.  A: several rows to a 256-thread CTA (32 threads a row at K =
+// 128), the rows staged once in shared memory; each thread bisects 4
+// consecutive queries of its row, read and written as 16-byte vectors when
+// K is a multiple of 4, so loads and stores stay coalesced.  B: one CTA per
+// row, the row staged in shared memory and read back as a broadcast, one
+// thread per query.
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 128;     // kernel B
+constexpr int kRankThreads = 256; // kernel A
+constexpr int kRankSmemFloats = 12 * 1024;  // A's staged rows: 48 KB
+
+// Kernel A: the block's rows [b0, b0 + rows) staged in shared memory;
+// thread t bisects query groups j, j + tpr, ... of row t / tpr (j = t %
+// tpr), VEC consecutive queries a group.  top: the smallest power of two
+// with 2 top - 1 >= M, so the halving steps can reach every count 0..M.
+template <bool RIGHT, int VEC>
+__global__ void __launch_bounds__(kRankThreads)
+rank_kernel(const float* __restrict__ seq, const float* __restrict__ vals,
+            int32_t* __restrict__ out, long long B, int M, int K, int tpr,
+            int top) {
+  extern __shared__ float rows[];
+  const int rpc = blockDim.x / tpr;  // rows per CTA
+  const long long b0 = 1LL * blockIdx.x * rpc;
+  const int n_rows = static_cast<int>(min(static_cast<long long>(rpc), B - b0));
+  for (int i = threadIdx.x; i < n_rows * M; i += blockDim.x)
+    rows[i] = seq[b0 * M + i];
+  __syncthreads();
+  const int r = threadIdx.x / tpr, j = threadIdx.x - r * tpr;
+  if (r >= n_rows) return;
+  const float* row = rows + r * M;
+  const long long base_q = (b0 + r) * K;
+  for (int q = j; q < K / VEC; q += tpr) {
+    float v[VEC];
+    if constexpr (VEC == 4) {
+      const float4 u = reinterpret_cast<const float4*>(vals + base_q)[q];
+      v[0] = u.x; v[1] = u.y; v[2] = u.z; v[3] = u.w;
+    } else {
+      v[0] = vals[base_q + q];
+    }
+    int res[VEC];
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      // invariant: every m < base satisfies the compare
+      int base = 0;
+      for (int half = top; half > 0; half >>= 1) {
+        const int probe = base + half;
+        const float c = row[min(probe, M) - 1];
+        const bool take = probe <= M && (RIGHT ? v[e] >= c : v[e] > c);
+        base = take ? probe : base;
+      }
+      res[e] = base;
+    }
+    if constexpr (VEC == 4)
+      reinterpret_cast<int4*>(out + base_q)[q] =
+          make_int4(res[0], res[1], res[2], res[3]);
+    else
+      out[base_q + q] = res[0];
+  }
+}
 
 template <bool RIGHT>
-__global__ void __launch_bounds__(kThreads)
-rank_kernel(const float* __restrict__ seq, const float* __restrict__ vals,
-            int32_t* __restrict__ out, int M, int K) {
-  extern __shared__ float row[];
-  const long long b = blockIdx.x;
-  const float* srow = seq + b * M;
-  for (int m = threadIdx.x; m < M; m += blockDim.x) row[m] = srow[m];
-  __syncthreads();
-  for (int k = threadIdx.x; k < K; k += blockDim.x) {
-    const float v = vals[b * K + k];
-    int acc = 0;
-    for (int m = 0; m < M; ++m) acc += RIGHT ? (v >= row[m]) : (v > row[m]);
-    out[b * K + k] = acc;
-  }
+int launch_rank(const float* seq, const float* vals, int32_t* out,
+                long long B, int M, int K, cudaStream_t s) {
+  const bool vec = K % 4 == 0;
+  const int groups = vec ? K / 4 : K;
+  int tpr = 1;
+  while (tpr < groups && tpr < kRankThreads) tpr *= 2;
+  const int rpc = std::min(kRankThreads / tpr, kRankSmemFloats / M);
+  int top = 1;
+  while (2 * top - 1 < M) top *= 2;
+  const long long grid = (B + rpc - 1) / rpc;
+  const size_t smem = sizeof(float) * static_cast<size_t>(rpc) * M;
+  if (vec)
+    rank_kernel<RIGHT, 4><<<static_cast<unsigned>(grid), rpc * tpr, smem, s>>>(
+        seq, vals, out, B, M, K, tpr, top);
+  else
+    rank_kernel<RIGHT, 1><<<static_cast<unsigned>(grid), rpc * tpr, smem, s>>>(
+        seq, vals, out, B, M, K, tpr, top);
+  return static_cast<int>(cudaGetLastError());
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -86,21 +154,16 @@ const char* cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// seq (B, M) f32, vals (B, K) f32 -> out (B, K) int32; all contiguous.
+// seq (B, M) f32 with non-decreasing rows, vals (B, K) f32 -> out (B, K)
+// int32; all contiguous, M <= 12288.
 int searchsorted_rank(const void* seq, const void* vals, void* out,
                       long long B, int M, int K, int right, void* stream) {
-  const size_t smem = sizeof(float) * static_cast<size_t>(M);
   auto s = static_cast<cudaStream_t>(stream);
   auto seq_f = static_cast<const float*>(seq);
   auto vals_f = static_cast<const float*>(vals);
   auto out_i = static_cast<int32_t*>(out);
-  if (right)
-    rank_kernel<true><<<static_cast<unsigned>(B), kThreads, smem, s>>>(
-        seq_f, vals_f, out_i, M, K);
-  else
-    rank_kernel<false><<<static_cast<unsigned>(B), kThreads, smem, s>>>(
-        seq_f, vals_f, out_i, M, K);
-  return static_cast<int>(cudaGetLastError());
+  return right ? launch_rank<true>(seq_f, vals_f, out_i, B, M, K, s)
+               : launch_rank<false>(seq_f, vals_f, out_i, B, M, K, s);
 }
 
 // seq (B, M) f32, vals (B, K) f32 -> ranks (B, K) int32, lo, hi (B, K) f32.

@@ -33,7 +33,10 @@ no gradient (rays are data); ``fused_nerf_apply``'s does, as in JAX.
 
 Dispatch follows the input's device: a CUDA tensor launches the kernels or
 raises, a CPU tensor runs their plain PyTorch versions, which repeat the
-kernels' rounding step by step (``_bwd_core``, fused_mlp.py:209-289).
+kernels' rounding step by step (``_bwd_core``, fused_mlp.py:209-289).  In
+bf16 the backward's products (E-H) run on the tensor cores, in float32 on
+the scalar path; the weight-grad products are a job table built here
+(``wgrad_jobs``).
 """
 from __future__ import annotations
 
@@ -58,6 +61,25 @@ STASH_COLS_RGB, STASH_COLS_SIGMA = STASH_D + WH, D * W
 STASH_MAX_POINTS = 2_000_000
 # the backward's point chunk and the split of its weight-grad sums
 BWD_CHUNK, BWD_SPLIT = 262_144, 32
+# The backward's G buffer (csrc/fused_mlp_bwd.cu): one row of G_COLS values
+# of the compute dtype a point of the chunk, each rounded g_pre (layer i's at
+# column i * W, i < D; then the heads') and the two embeddings, the operands
+# of the weight grads.  Columns past a block's live ones are never written.
+G_FIN = D * W              # g_fin (256)
+G_DPRE = G_FIN + W         # g_dpre (128)
+G_RGB = G_DPRE + WH        # g_rgbpre (3)
+G_SIG = G_RGB + 8          # g_sigma (1)
+G_XE = G_SIG + 8           # x_emb (63)
+G_DE = G_XE + 64           # dir_emb (27)
+G_COLS = G_DE + 32         # 2544
+G_LAYOUT = (G_FIN, G_DPRE, G_RGB, G_SIG, G_XE, G_DE, G_COLS)
+# a weight-grad job: dW[out : out + K * N] (row-major K x N, the packed
+# layer's rows) = a_in[:, a_col : a_col + K]^T @ G[:, g_col : g_col + N]
+# summed over the points, a_in the stash (a_in_g = 0) or the G buffer (1),
+# by the kernel of its route: the scalar tiles, the tensor cores, or the
+# narrow heads' kernel (bf16 only, N <= 4)
+WGRAD_JOB_FIELDS = ("a_in_g", "a_col", "K", "g_col", "N", "out", "route")
+ROUTE_SCALAR, ROUTE_TC, ROUTE_NARROW = 0, 1, 2
 
 
 def supports_fused(model) -> bool:
@@ -83,6 +105,48 @@ def dense_layers(model: NeRF) -> list:
 
 def stash_cols(sigma_only: bool) -> int:
     return STASH_COLS_SIGMA if sigma_only else STASH_COLS_RGB
+
+
+def block_offsets() -> list:
+    """Offsets of each dense layer's weight block in ``pack_weights``' buffer
+    at the reference architecture, in ``dense_layers`` order."""
+    sizes = [CX * W] + [(W + CX) * W if i == SKIP else W * W
+                        for i in range(1, D)]
+    sizes += [W, W * W, (W + CD) * WH, WH * 3]  # sigma, fin, dir, rgb
+    return [sum(sizes[:i]) for i in range(len(sizes))]
+
+
+def wgrad_jobs(sigma_only: bool, compute_dtype) -> list:
+    """The backward's weight-grad products, the job table of the wgrad
+    kernels: one tuple of ``WGRAD_JOB_FIELDS`` for each ``wgrad`` call of
+    ``_bwd_core`` (the skip layer and the dir head as two jobs each, for
+    their rows from the embedding and from h).  In bf16 every product with
+    128 or more output columns runs on the tensor cores and the sigma and
+    rgb heads (1 and 3 columns) on the narrow kernel; in f32 every product
+    runs the scalar kernel."""
+    off = block_offsets()
+    bf16 = compute_dtype == torch.bfloat16
+    jobs = []
+
+    def add(a_in_g, a_col, k, g_col, n, out):
+        route = (ROUTE_SCALAR if not bf16 else
+                 ROUTE_TC if n >= 128 else ROUTE_NARROW)
+        jobs.append((a_in_g, a_col, k, g_col, n, out, route))
+
+    add(1, G_XE, CX, 0, W, off[0])
+    for i in range(1, D):  # layer i reads h_i, stash column (i - 1) * W
+        if i == SKIP:
+            add(1, G_XE, CX, i * W, W, off[i])  # the rows of x_emb
+            add(0, (i - 1) * W, W, i * W, W, off[i] + CX * W)
+        else:
+            add(0, (i - 1) * W, W, i * W, W, off[i])
+    add(0, (D - 1) * W, W, G_SIG, 1, off[D])
+    if not sigma_only:
+        add(0, (D - 1) * W, W, G_FIN, W, off[D + 1])
+        add(0, STASH_FIN, W, G_DPRE, WH, off[D + 2])  # the rows of fin
+        add(1, G_DE, CD, G_DPRE, WH, off[D + 2] + W * WH)  # of dir_emb
+        add(0, STASH_D, WH, G_RGB, 3, off[D + 3])
+    return jobs
 
 
 # the wide forward's weight budget (fused_mlp.py:441-452): the TPU kernel
@@ -283,12 +347,20 @@ def fused_nerf_bwd_dx_plain(model: NeRF, x: torch.Tensor, g: torch.Tensor,
         return dx, dw, db
 
 
-def _bwd_plain(model, xe, de, g, sigma_only, cdt, stash, want_dx=False):
+def _bwd_plain(model, xe, de, g, sigma_only, cdt, stash, want_dx=False,
+               gbuf=None):
     """``_bwd_core`` on the embedded input and the cotangent ``g (8, P)``:
     ``(dw, db, dx parts)``, the parts (``want_dx``) the three products that
-    reach the input, by name."""
+    reach the input, by name.  With ``gbuf`` (a ``(P, G_COLS)`` f32
+    tensor), also what the kernels write to their G buffer, each value
+    rounded to the compute dtype; the columns they never write are left as
+    they are."""
     def r(t):  # an operand rounded to the compute dtype, held in f32
         return t.to(cdt).float()
+
+    def keep(col, t):
+        if gbuf is not None:
+            gbuf[:, col:col + t.shape[1]] = r(t)
 
     def wgrad(a, gp):
         return r(a).T @ r(gp)
@@ -313,6 +385,7 @@ def _bwd_plain(model, xe, de, g, sigma_only, cdt, stash, want_dx=False):
     g = g.float()
     h8 = act(D)
     sig, fin_l, dir_l, rgb_l = dense[D:]
+    keep(G_XE, xe)
     if sigma_only:
         g_sigma = g[0][:, None]
         g_h = r(g_sigma) @ r(sig.w).T
@@ -327,9 +400,14 @@ def _bwd_plain(model, xe, de, g, sigma_only, cdt, stash, want_dx=False):
         g_fin, parts["dir"] = g_din[:, :W], g_din[:, W:]
         gw[D + 1], gb[D + 1] = wgrad(h8, g_fin), g_fin.sum(0)
         g_h = r(g_fin) @ r(fin_l.w).T + r(g_sigma) @ r(sig.w).T
+        for col, t in ((G_DE, f["de"]), (G_RGB, g_rgbpre), (G_DPRE, g_dpre),
+                       (G_FIN, g_fin)):
+            keep(col, t)
+    keep(G_SIG, g_sigma)
     gw[D], gb[D] = wgrad(h8, g_sigma), g_sigma.sum(0)
     for i in range(D - 1, -1, -1):
         g_pre = g_h * (act(i + 1) > 0)
+        keep(i * W, g_pre)
         a_in = torch.cat([xe, act(i)], dim=1) if i == SKIP else act(i)
         gw[i], gb[i] = wgrad(a_in, g_pre), g_pre.sum(0)
         if i > 0 or want_dx:
@@ -377,7 +455,9 @@ def pack_weights(model: NeRF, compute_dtype):
 
 
 def pack_weights_t(model: NeRF, compute_dtype) -> torch.Tensor:
-    """The backward's dgrad operands in ``compute_dtype``: the h rows of
+    """The f32 backward's dgrad operands (its scalar sweep streams the
+    transposes; the bf16 sweep reads ``pack_weights`` as it is, the .col B
+    operand of its tensor-core products) in ``compute_dtype``: the h rows of
     W_1..W_7 transposed (256 x 256 each), Wfin transposed, and the fin rows
     of Wdir transposed (128 x 256).  Cached like ``pack_weights``."""
     def build():
@@ -445,15 +525,22 @@ def _bwd_lib():
     if not getattr(lib, "_typed", False):
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.nerf_fused_bwd.argtypes = [p, p, p, p, p, ll, i, i, i, i, p, p, p,
-                                       p, p, p, p, ll, i, i, p, p, p]
+                                       p, p, p, p, ll, i, i, p, p, p, i, p]
         lib.nerf_fused_bwd.restype = i
+        lib.nerf_bwd_g_layout.argtypes = [i]
         for name in ("nerf_bwd_weight_count", "nerf_bwd_bias_count",
                      "nerf_bwd_transposed_count",
                      "nerf_bwd_dx_transposed_count"):
             getattr(lib, name).restype = ll
         for name in ("nerf_bwd_g_cols", "nerf_bwd_points_per_cta",
-                     "nerf_bwd_bias_rows_per_group"):
+                     "nerf_bwd_bias_rows_per_group", "nerf_bwd_job_fields",
+                     "nerf_bwd_g_layout"):
             getattr(lib, name).restype = i
+        if (tuple(lib.nerf_bwd_g_layout(k) for k in range(len(G_LAYOUT)))
+                != G_LAYOUT
+                or lib.nerf_bwd_job_fields() != len(WGRAD_JOB_FIELDS)):
+            raise ValueError("the G buffer or the job table does not match "
+                             "the kernel's layout")
         lib._typed = True
     return lib
 
@@ -617,11 +704,17 @@ def _bwd_launch(model, x, g, wbuf, bbuf, P, sigma_only, compute_dtype, stash,
     """The backward kernels' workspace and launch: E or F (E', F') on raw
     rays, or H with ``dx`` (P, C) zeros on pre-embedded rows."""
     sc = stash_cols(sigma_only)
-    wt = pack_weights_t(model, compute_dtype)
     lib = _bwd_lib()
     _check_counts(lib, wbuf, bbuf, "nerf_bwd")
-    if wt.numel() != lib.nerf_bwd_transposed_count():
-        raise ValueError("transposed weights do not match the kernel's layout")
+    wt = None
+    if compute_dtype == torch.float32:  # the scalar sweep's operands
+        wt = pack_weights_t(model, compute_dtype)
+        if wt.numel() != lib.nerf_bwd_transposed_count():
+            raise ValueError("transposed weights do not match the kernel's "
+                             "layout")
+    jobs = wgrad_jobs(sigma_only, compute_dtype)
+    table = (ctypes.c_longlong * (len(jobs) * len(WGRAD_JOB_FIELDS)))(
+        *[v for job in jobs for v in job])
     wx, x_cols = None, 0
     if dx is not None:
         wx, x_cols = pack_weights_dx(model, compute_dtype), x.shape[1]
@@ -635,8 +728,7 @@ def _bwd_launch(model, x, g, wbuf, bbuf, P, sigma_only, compute_dtype, stash,
     chunk = min(BWD_CHUNK, P)
     tp, rpg = lib.nerf_bwd_points_per_cta(), lib.nerf_bwd_bias_rows_per_group()
     tiles = -(-chunk // tp)
-    gbuf = torch.empty((chunk, lib.nerf_bwd_g_cols()), dtype=compute_dtype,
-                       device=dev)
+    gbuf = torch.empty((chunk, G_COLS), dtype=compute_dtype, device=dev)
     wpart = torch.zeros((BWD_SPLIT, wbuf.numel()), dtype=torch.float32,
                         device=dev)
     bpart = torch.empty((tiles, bbuf.numel()), dtype=torch.float32, device=dev)
@@ -650,12 +742,13 @@ def _bwd_launch(model, x, g, wbuf, bbuf, P, sigma_only, compute_dtype, stash,
     with torch.cuda.device(dev):
         err = lib.nerf_fused_bwd(
             x.data_ptr(), g.data_ptr(), wbuf.data_ptr(), bbuf.data_ptr(),
-            wt.data_ptr(), P, int(sigma_only),
+            None if wt is None else wt.data_ptr(), P, int(sigma_only),
             int(compute_dtype == torch.bfloat16), remat, io,
             stash.data_ptr(), gbuf.data_ptr(), wpart.data_ptr(),
             bpart.data_ptr(), btmp.data_ptr(), dw.data_ptr(), db.data_ptr(),
             chunk, BWD_SPLIT, x_cols, None if wx is None else wx.data_ptr(),
-            None if dx is None else dx.data_ptr(), native.stream_of(x))
+            None if dx is None else dx.data_ptr(), ctypes.addressof(table),
+            len(jobs), native.stream_of(x))
     native.check(lib, err, "nerf_fused_bwd")
     return dw, db
 

@@ -12,6 +12,13 @@ deterministic importance sampler needs, as masked reductions over the row:
 Dispatch follows the tensor's device: a CUDA tensor launches the kernel in
 ``csrc/searchsorted.cu`` (A: rank, B: rank + interp), a CPU tensor runs the
 plain version.  Inputs are detached, as the JAX package stop-gradients them.
+
+The rows must be non-decreasing (ties and plateaus allowed), as the
+importance sampler's CDF rows are: a cumulative sum of non-negative floats
+after a leading zero.  On such a row the compares that hold form a prefix,
+so kernel A finds the rank, the prefix's length, by bisection
+(``ceil(log2(M + 1))`` halving steps) and returns the plain count's value
+exactly; kernel B counts as the TPU kernel does.
 """
 from __future__ import annotations
 
@@ -80,7 +87,8 @@ def _check_inputs(sorted_seq: torch.Tensor, values: torch.Tensor):
 
 def searchsorted_cuda(sorted_seq: torch.Tensor, values: torch.Tensor,
                       side: str = "right") -> torch.Tensor:
-    """Kernel A: rank on the card."""
+    """Kernel A: rank on the card, by bisection of each (non-decreasing)
+    row; exactly ``searchsorted_plain``'s count on such rows."""
     if side not in ("left", "right"):
         raise ValueError(f"side must be 'left' or 'right', got {side}")
     B, M, K = _check_inputs(sorted_seq, values)
