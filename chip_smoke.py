@@ -30,7 +30,10 @@ Phases (any failed check raises, so the script exits non-zero):
    sigma-only, at a P that spans two of the backward's point chunks, the
    second ragged, and E against F; E run twice on the same inputs, bit
    for bit (the backward is deterministic); a control that the bf16
-   limits must fail; their times at the training shapes (4,096 rays x 192 and x 64
+   limits must fail, and controls of D's forward hold (``FORWARD_CONTROLS``)
+   that TOL_C must fail; the sigma head's weight grad of each route against
+   its float64 sum, and each kernel's worst bf16 mean reading with its
+   tensor; their times at the training shapes (4,096 rays x 192 and x 64
    points, bf16) beside the plain versions, the bounds and a chain of bf16
    ``torch.matmul`` calls as a yardstick, and at those shapes the same
    checks against the plain versions.  The row-major twins C', D', E' and
@@ -502,6 +505,94 @@ def require_twins(label: str, row_major: list, channel_major: list) -> None:
                              f"channel-major twin by {worst:.3e}")
 
 
+# The control of TOL_C's hold on kernels D and D' (bf16): the plain forward
+# with one of these faults, against the kernel's outputs and stash.  A
+# tile that lost a product's ragged last 16-row step (layer 0's rows 48-62)
+# or a layer's bias would read so, and TOL_C must fail both.  The readings
+# of two faults TOL_C is too wide to fail reliably (a forward that skips
+# every bf16 rounding, and one that loses the skip layer's ragged step: on
+# an H100 they read out max_abs_err of about 9e-3 and 2e-2 against the
+# 2e-2 limit) are printed beside them.
+FORWARD_CONTROLS = (
+    ("layer 0's ragged last step dropped", True,
+     lambda m: m.xyz_layers[0].w[48:].zero_()),
+    ("layer 3's bias dropped", True, lambda m: m.xyz_layers[3].b.zero_()),
+    ("the skip layer's ragged last step dropped", False,
+     lambda m: m.xyz_layers[4].w[304:].zero_()),
+)
+
+
+def check_forward_control(label: str, model, x, sigma_only, out, stash,
+                          tol) -> dict:
+    """Kernel D's outputs and stash against the plain forward with each of
+    FORWARD_CONTROLS' faults, and against the plain forward in float32
+    where bf16 is stated; TOL_C (``tol``) must fail every fault marked so.
+    Returns the least readings of the faults that must fail."""
+    import copy
+
+    from nerf_pl_tpu_torch.ops import fused_mlp as fm
+
+    least = None
+    cases = [(name, must, fault) for name, must, fault in FORWARD_CONTROLS]
+    cases.append(("plain in float32", False, None))
+    for name, must_fail, fault in cases:
+        if fault is None:
+            o_c, s_c = fm.fused_nerf_stash_fwd_plain(model, x, sigma_only,
+                                                     torch.float32)
+        else:
+            faulty = copy.deepcopy(model)
+            with torch.no_grad():
+                fault(faulty)
+            o_c, s_c = fm.fused_nerf_stash_fwd_plain(faulty, x, sigma_only,
+                                                     torch.bfloat16)
+        r = (max_abs(out, o_c), *rel_errs(stash, s_c))  # TOL_C's readings
+        del o_c, s_c
+        caught = not (r[0] <= tol and r[1] <= tol and r[2] <= TOL_C_MEAN)
+        log(f"[forward control {label}: {name}] out max_abs_err {r[0]:.3e}, "
+            f"stash rel max {r[1]:.3e} mean {r[2]:.3e} (TOL_C {tol:.0e}, "
+            f"{TOL_C_MEAN:.0e}): "
+            + ("caught" if caught else "not caught")
+            + (" (must be caught)" if must_fail else " (printed only)"))
+        if must_fail and not caught:
+            raise AssertionError(f"forward control {label} '{name}' passes "
+                                 "TOL_C, so the limits cannot fail a wrong "
+                                 "forward tile")
+        if must_fail:
+            least = r if least is None else tuple(map(min, least, r))
+    return dict(out_max_abs=least[0], stash_rel_max=least[1],
+                stash_rel_mean=least[2])
+
+
+def sigma_grad_orders(label: str, model, g, sigma_only, dw, stash) -> dict:
+    """The sigma head's weight grad (256 values, sum over the P points of
+    round(h8) x round(g_sigma)) of the packed f32 grads ``dw`` ({route:
+    tensor}), each against the float64 sum of the same bf16 operands (h8
+    from ``stash``: {route: the stash that route's h8 comes from}): the
+    relative error of each route's f32 sum order, and how many of the 256
+    values round to another bf16 than the exact sum's."""
+    from nerf_pl_tpu_torch.ops import fused_mlp as fm
+
+    off, w = fm.block_offsets()[fm.D], fm.W
+    gs = g[0 if sigma_only else 3].to(torch.bfloat16).double()
+    res = {}
+    for route, d in dw.items():
+        h8 = stash[route][:, (fm.D - 1) * w:fm.D * w].double()
+        exact = h8.T @ gs
+        got = d[off:off + w].double()
+        scale = float(exact.abs().max())
+        flips = int((d[off:off + w].to(torch.bfloat16)
+                     != exact.float().to(torch.bfloat16)).sum())
+        res[route] = dict(rel_max=float((got - exact).abs().max()) / scale,
+                          rel_mean=float((got - exact).abs().mean()) / scale,
+                          bf16_flips=flips)
+    log(f"[sigma head wgrad orders {label}] vs the float64 sum of the same "
+        f"bf16 operands: " + "; ".join(
+            f"{k} f32 rel max {v['rel_max']:.3e} mean {v['rel_mean']:.3e}, "
+            f"{v['bf16_flips']} of {w} round to another bf16"
+            for k, v in res.items()))
+    return res
+
+
 def hold_train(label: str, model, x, g, dtype, sigma_only: bool) -> dict:
     """Kernels D, E and F against their plain versions on the same inputs,
     E against F, and in bf16 the control of the limits; then D', E' and F'
@@ -530,14 +621,18 @@ def hold_train(label: str, model, x, g, dtype, sigma_only: bool) -> dict:
             raise AssertionError(f"kernel {kernel} {label} disagrees")
         errs[kernel] = e_out
     require_twins(f"D' vs D {label}", [out_r, stash_r], [out.T, stash])
-    del out, out_p, stash_p, out_r
+    if dtype == torch.bfloat16:
+        errs["control"] = check_forward_control(label, model, x, sigma_only,
+                                                out, stash, TOL_C[dtype])
+    del out, out_p, out_r
 
     def grads(dw_db):
         return fm.unpack_grads(model, *dw_db, dtype)
 
     tol = TOL_TRAIN[dtype]
-    e_k = grads(fm.fused_nerf_bwd_stash_cuda(model, x, g, stash, sigma_only,
-                                             dtype))
+    e_raw = fm.fused_nerf_bwd_stash_cuda(model, x, g, stash, sigma_only,
+                                         dtype)
+    e_k = grads(e_raw)
     # deterministic: fixed-order sums, no atomics
     again = grads(fm.fused_nerf_bwd_stash_cuda(model, x, g, stash, sigma_only,
                                                dtype))
@@ -546,12 +641,23 @@ def hold_train(label: str, model, x, g, dtype, sigma_only: bool) -> dict:
     if not same:
         raise AssertionError(f"kernel E {label} differs from run to run")
     del again
-    e_p = grads(fm.fused_nerf_bwd_plain(model, x, g, sigma_only, dtype,
-                                        stash=stash))
+    e_p_raw = fm.fused_nerf_bwd_plain(model, x, g, sigma_only, dtype,
+                                      stash=stash)
+    e_p = grads(e_p_raw)
     e = check_grads(f"E {label}", e_k, e_p, names, tol)
-    f_k = grads(fm.fused_nerf_bwd_remat_cuda(model, x, g, sigma_only, dtype))
-    f_p = grads(fm.fused_nerf_bwd_plain(model, x, g, sigma_only, dtype))
+    f_raw = fm.fused_nerf_bwd_remat_cuda(model, x, g, sigma_only, dtype)
+    f_k = grads(f_raw)
+    f_p_raw = fm.fused_nerf_bwd_plain(model, x, g, sigma_only, dtype)
+    f_p = grads(f_p_raw)
     f = check_grads(f"F {label}", f_k, f_p, names, tol)
+    orders = None
+    if dtype == torch.bfloat16:  # where the bf16 mean readings come from
+        orders = sigma_grad_orders(
+            label, model, g, sigma_only,
+            {"E": e_raw[0], "E plain": e_p_raw[0], "F": f_raw[0],
+             "F plain": f_p_raw[0]},
+            {"E": stash, "E plain": stash, "F": stash, "F plain": stash_p})
+    del stash_p, e_raw, e_p_raw, f_raw, f_p_raw
     # the same point chunks, so the same order of the f32 sums
     ef = check_grads(f"E vs F {label}", e_k, f_k, names,
                      (TOL_E_VS_F, TOL_E_VS_F))
@@ -561,7 +667,9 @@ def hold_train(label: str, model, x, g, dtype, sigma_only: bool) -> dict:
                                                  sigma_only, dtype))
     f_r = grads(fm.fused_nerf_raw_bwd_remat_cuda(model, xr, gr, sigma_only,
                                                  dtype))
-    res = dict(D=errs["D"], E=e, F=f, E_vs_F=ef["max_rel"], **{
+    res = dict(D=errs["D"], E=e, F=f, E_vs_F=ef["max_rel"],
+               forward_control=errs.get("control"), sigma_orders=orders,
+               label=label, **{
         "D'": errs["D'"],
         "E'": check_grads(f"E' {label}", e_r, e_p, names, tol),
         "F'": check_grads(f"F' {label}", f_r, f_p, names, tol)})
@@ -577,9 +685,21 @@ def hold_train(label: str, model, x, g, dtype, sigma_only: bool) -> dict:
 
 def merge_holds(holds: list) -> dict:
     """The worst bf16 readings over ``holds`` (the kernels line's errors),
-    E against F over all, and the control's least readings."""
+    each kernel's worst mean reading with its tensor and hold, E against F
+    over all, and the controls' least readings."""
     bf = [h for h in holds if "control" in h]
+    means = {}
+    for k in ("E", "F", "E'", "F'"):
+        h = max(bf, key=lambda h: h[k]["mean_rel"])
+        means[k] = dict(mean_rel=h[k]["mean_rel"], tensor=h[k]["mean_name"],
+                        hold=h["label"])
+        log(f"[bf16 mean {k}] worst rel mean {h[k]['mean_rel']:.3e} on "
+            f"{h[k]['mean_name']} ({h['label']}; tol "
+            f"{TOL_TRAIN[torch.bfloat16][1]:.0e})")
+    ctl = [h["forward_control"] for h in bf]
     return dict(
+        means=means,
+        forward_control={k: min(c[k] for c in ctl) for k in ctl[0]},
         D=max(h["D"] for h in bf),
         E=max(h["E"]["max_abs"] for h in bf),
         F=max(h["F"]["max_abs"] for h in bf),
@@ -672,6 +792,9 @@ def time_train_kernels(model, gen, dev) -> tuple:
         x = random_raw_t(gen, P, dev)
         g = torch.randn((8, P), generator=gen).to(dev)
         xr, gr = x.T.contiguous(), g.T.contiguous()
+        # in turns: the chain's forward before the kernels and after them
+        chain_pre, _ = matmul_chain_ms(model, P, dev, backward=False)
+        torch.cuda.empty_cache()
         c_ms = cuda_ms(lambda: fm.fused_nerf_apply_raw_t_cuda(model, x, False,
                                                               bf), iters=3)
         cr_ms = cuda_ms(lambda: fm.fused_nerf_apply_raw_cuda(model, xr, False,
@@ -718,6 +841,7 @@ def time_train_kernels(model, gen, dev) -> tuple:
                           E=dict(ms=e_ms, plain_ms=e_plain, bound=be),
                           F=dict(ms=f_ms, plain_ms=f_plain, bound=bfb),
                           C_ms=c_ms, chain_fwd_ms=chain_fwd,
+                          chain_fwd_turns_ms=[chain_pre, chain_fwd],
                           chain_bwd_ms=chain_bwd, **{
                               "C'": dict(ms=cr_ms, plain_ms=c_plain, bound=bc),
                               "D'": dict(ms=dr_ms, plain_ms=dr_plain, bound=bd),
@@ -730,7 +854,8 @@ def time_train_kernels(model, gen, dev) -> tuple:
                 f"plain {r['plain_ms']:.3f} ms, bound {r['bound'][0]:.3f} ms "
                 f"({r['bound'][1]})")
         log(f"[C time bf16 rgb {name}] P={P} kernel {c_ms:.3f} ms (no stash)")
-        log(f"[matmul chain bf16 {name}] P={P} forward {chain_fwd:.3f} ms, "
+        log(f"[matmul chain bf16 {name}] P={P} forward {chain_pre:.3f} ms "
+            f"(before the kernels), {chain_fwd:.3f} ms (after), "
             f"backward (dgrad + wgrad) {chain_bwd:.3f} ms (torch.matmul, "
             f"a yardstick, not one call)")
         holds.append(hold_train(f"bfloat16 rgb {name} P={P}", model, x, g,
@@ -1790,6 +1915,8 @@ def check_wide_backward(model, gen, dev) -> dict:
                             [rdx] + fm.unpack_grads(model, rw, rb, dtype),
                             names, TOL_TRAIN[dtype])
             if dtype == torch.bfloat16:
+                if s["mean_rel"] >= worst.get("mean_rel", 0.0):
+                    worst["mean_name"] = f"{s['mean_name']} ({mode})"
                 for k in ("max_rel", "mean_rel", "max_abs"):
                     worst[k] = max(worst.get(k, 0.0), s[k])
             del dx, dw, db, rdx, rw, rb
@@ -1837,8 +1964,11 @@ def check_wide_backward(model, gen, dev) -> dict:
         raise AssertionError("fused_nerf_apply gave no finite dx")
     del x, xg
     torch.cuda.empty_cache()
+    log(f"[bf16 mean H] worst rel mean {worst['mean_rel']:.3e} on "
+        f"{worst['mean_name']} (tol {TOL_TRAIN[bf][1]:.0e})")
     return dict(err=worst["max_abs"], max_rel=worst["max_rel"],
-                mean_rel=worst["mean_rel"], P=Pt, ms=h_ms, F_ms=f_ms,
+                mean_rel=worst["mean_rel"], mean_name=worst["mean_name"],
+                P=Pt, ms=h_ms, F_ms=f_ms,
                 plain_ms=h_plain, bound_ms=b, bound_by=by,
                 matmul_chain_bwd_ms=chain_bwd, counts=counts)
 
@@ -2023,10 +2153,11 @@ def main() -> int:
     kernels[-2]["max_rel_err"] = tk["E_rel"]
     kernels[-1]["max_rel_err"] = tk["F_rel"]
     kernels[-1]["e_vs_f_rel_err"] = tk["E_vs_F"]
-    for row in kernels[-2:]:
-        row["mean_rel_err"] = tk["mean_rel"]
+    for row, key in ((kernels[-2], "E"), (kernels[-1], "F")):
+        row["mean_rel_err"] = tk["means"][key]
         row["control_rel_err"] = dict(max=tk["control_max_rel"],
                                       mean=tk["control_mean_rel"])
+    kernels[-3]["forward_control"] = tk["forward_control"]
     # the row-major twins (one source each with their channel-major kernels,
     # a compile-time layout flag; held bit-equal to them above)
     ev_rm, ev_cm = evaluated["row_major"], evaluated["channel_major"]
@@ -2078,7 +2209,7 @@ def main() -> int:
             matmul_chain_ms=dict(fine=fine_t[chain], coarse=coarse_t[chain])))
     for row, key in ((kernels[-2], "E'"), (kernels[-1], "F'")):
         row["max_rel_err"] = tk[f"{key}_rel"]
-        row["mean_rel_err"] = tk["mean_rel'"]
+        row["mean_rel_err"] = tk["means"][key]
     # slice 4: the wide pre-embedded forward, its backward, the probe's chain
     gt, gs = wt["train"], wt["serve"]
     kernels.append(dict(
@@ -2106,7 +2237,8 @@ def main() -> int:
         plain_ms=wh["plain_ms"], bound_ms=wh["bound_ms"],
         bound_by=wh["bound_by"], library_ms=None,
         shape=f"W=256 rgb bf16 P={wh['P']}", max_rel_err=wh["max_rel"],
-        mean_rel_err=wh["mean_rel"], F_ms=wh["F_ms"],
+        mean_rel_err=dict(mean_rel=wh["mean_rel"], tensor=wh["mean_name"]),
+        F_ms=wh["F_ms"],
         matmul_chain_bwd_ms=wh["matmul_chain_bwd_ms"],
         launches_by_path=dict(autograd=wh["counts"]["H"])))
     pure, fancy = wi["rows"]["pure"], wi["rows"]["fancy"]

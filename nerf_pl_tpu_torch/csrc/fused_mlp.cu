@@ -43,20 +43,31 @@
 // point are ~0.1% of the work.  D: bytes, by its stash write (4,864 B per
 // rgb point in bf16 against 1.19 MFLOP: 1.46 us per 1,000 points at
 // 3.35 TB/s against 1.20 us at the tensor rate).
-// Design (simple first; wgmma/TMA come later): one CTA of 256 threads per
-// tile of 64 points.  The tile's embedded input and its current activation
-// live in shared memory, stored in T: rows [xyz_emb 63 | h 256 | dir_emb 27],
-// so the skip concat [xyz_emb, h] and the dir-head concat [fin, dir_emb] are
-// contiguous row ranges and need no copy.  Weights stream per layer from
-// global memory (L2) through a shared staging buffer of KC rows.  Each warp
-// owns 8 points and each lane 8 (or 4) output features: scalar FMA with f32
-// accumulators in registers.  Each layer's outputs overwrite its inputs only
-// after a barrier.  D is C with the STASH flag: after each layer's epilogue
-// every thread reads its own rounded outputs back from shared memory and
-// stores each point's 4 to the point's stash row, one 8-byte (bf16) store per
-// lane, a warp's 32 lanes writing 256 contiguous bytes; the stores drain
-// while the next layer computes.  The ragged tail of P is masked on load and
-// store.  Shared device code: fused_mlp_common.cuh.
+// Design (wgmma/TMA come later): one CTA of 256 threads per tile of 64
+// points.  The tile's embedded input and its current activation live in
+// shared memory, stored in T: rows [xyz_emb 63 | h 256 | dir_emb 27],
+// feature-major, so the skip concat [xyz_emb, h] and the dir-head concat
+// [fin, dir_emb] are contiguous row ranges and need no copy.  Each layer's
+// outputs overwrite its inputs only after a barrier.
+//   bf16: every product of the trunk, fin and the dir head runs on the
+//   tensor cores (mma.sync m16n8k16, f32 sums; fused_mlp_common.cuh
+//   mma_dense): the A operand is the activation rows (pitch 72 points, read
+//   by ldmatrix.trans), the B operand W's own row-major layout, streamed
+//   from L2 in 32-row stages through a three-stage cp.async ring (rows
+//   padded to N + 8; ragged K zero-filled); warps as 2 x 4 of 32 points x
+//   64 columns.  Each 16-term sum starts from zero and is added in f32, and
+//   every output near a bf16 rounding tie is recomputed in the scalar
+//   loop's order (TIE_ULPS, TIE_FLOOR), so the rounded activations are
+//   those of a sum in k order.  The sigma (N = 1) and rgb (N = 3) heads and
+//   the sin/cos embedding stay scalar.
+//   f32 (whose limits TF32 would break): weights stream per layer through
+//   a shared staging buffer of KC rows; each warp owns 8 points and each
+//   lane 8 (or 4) output features, scalar FMA with f32 accumulators.
+// D is C with the STASH flag: each layer's rounded outputs also go to the
+// point's stash row (bf16: each thread's column pairs, 4-byte stores; f32:
+// each thread reads its own outputs back and stores 4 a point).  The ragged
+// tail of P is masked on load and store.  Shared device code:
+// fused_mlp_common.cuh.
 #include "fused_mlp_common.cuh"
 
 namespace {

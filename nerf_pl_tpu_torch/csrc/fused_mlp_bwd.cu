@@ -45,7 +45,8 @@
 // weight-grad sum over points is a second pass, deterministic and without
 // atomics.  Points go in chunks of `chunk`:
 //   1. dgrad kernel, one CTA of 256 threads per 64-point tile (F first runs
-//      the forward tile of kernel C/D into a chunk-sized scratch stash).
+//      the forward tile of kernel C/D, the same code and so the same bits,
+//      into a chunk-sized scratch stash).
 //      Each layer's gradient tile stays in shared memory.  Each layer's
 //      rounded g_pre, and the embeddings, go to a (chunk, GC) buffer in T;
 //      the f32 bias partials of each tile go to their own row.
@@ -61,7 +62,8 @@
 //     over the forward's activation rows once the embeddings are in the G
 //     buffer; the B operand of g_pre @ W^T is W's own row-major layout, so
 //     the sweep streams the forward's packed weights in 32-column stages
-//     through a two-stage cp.async ring.  Warp (wm, wn) of the 2 x 4 grid
+//     through a two-stage cp.async ring (over the forward's own ring).
+//     Warp (wm, wn) of the 2 x 4 grid
 //     owns 32 points x 64 columns; each 16-term tensor-core sum starts from
 //     zero and is added in f32.  The epilogue reads the ReLU mask from the
 //     stash in the fragment's column pairs, sums the bias partials with quad
@@ -132,28 +134,29 @@ constexpr long long WX_DIR = 0, WX_SKIP = WX_DIR + 1LL * WH * DXC;
 constexpr long long WX_0 = WX_SKIP + 1LL * W * DXC;
 constexpr long long N_WX = WX_0 + 1LL * W * DXC;
 
-using bf16 = __nv_bfloat16;
-template <typename T>
-constexpr bool kTensorCores = std::is_same<T, bf16>::value;
-
 // The bf16 sweep: the g tile's row pitch (TP points + 8: ldmatrix's eight
-// row addresses, 144 bytes apart, fall in distinct banks); the weight
-// stages of its products, DK columns of the 256 fan_in rows of W, rows
-// padded to DKP (80 bytes: again distinct banks); the ring of DSTAGES
-// stages, DSTAGES - 1 in flight while one is consumed.
-constexpr int TPG = TP + 8;
+// row addresses, 144 bytes apart, fall in distinct banks; the forward's
+// activation pitch); the weight stages of its products, DK columns of the
+// 256 fan_in rows of W, rows padded to DKP (80 bytes: again distinct
+// banks); the ring of DSTAGES stages, DSTAGES - 1 in flight while one is
+// consumed, over the forward's weight ring (idle once the forward is done).
+constexpr int TPG = Ref::LDA_MMA;
 constexpr int DK = 32, DKP = DK + 8, DSTAGES = 2;
 constexpr int RING = DSTAGES * W * DKP;
-static_assert(W * TPG <= ROWS * TP, "the g tile fits over the activation rows");
+static_assert(W * TPG <= Ref::act_elems<bf16>(),
+              "the g tile fits over the activation rows");
+static_assert(RING <= Ref::ws_elems<bf16>(),
+              "the sweep's ring fits over the forward's");
 
 template <typename T>
 constexpr size_t bwd_smem_bytes() {
   // the forward's layout, then the cotangent tile (4 rows), g_rgbpre
-  // (3 rows, f32) and the bias-partial scratch (8 warps x 256); in bf16
-  // the weight ring
-  return smem_bytes<T>() + sizeof(float) * (4 * TP + 3 * TP + 8 * W) +
-         (kTensorCores<T> ? sizeof(T) * RING : 0);
+  // (3 rows, f32) and the bias-partial scratch (8 warps x 256)
+  return smem_bytes<T>() + sizeof(float) * (4 * TP + 3 * TP + 8 * W);
 }
+// two CTAs an SM: 228 KB of shared memory, 1 KB of it reserved a CTA
+static_assert(2 * (bwd_smem_bytes<bf16>() + 1024) <= 228 * 1024,
+              "two dgrad CTAs fit an SM");
 
 // The f32 sweep's epilogue after a dgrad product with 256 outputs:
 //   v = acc (+ round(g_sigma[p]) * wsig[n]);  g_pre = v * (mask > 0)
@@ -307,25 +310,10 @@ __device__ __forceinline__ void mma_dgrad(const bf16* __restrict__ w, int ld,
   __syncthreads();  // every warp is done with the ring and with g
 }
 
-// Ties.  The plain version (and the f32 sweep) sums each dgrad output in
-// f32, one fused multiply-add a term in order of k; the tensor cores sum
-// 16 terms at a time in another order and precision, so the f32 values
-// differ in their last bits.  Where a value lies that close to a rounding
-// tie of bf16, the rounded g_pre would differ by one bf16 step, and such a
-// step in a layer's input moves every output of the point in the layers
-// below: the differences would grow down the sweep.  So the epilogue marks
-// each output within TIE_MARGIN (relative) of a bf16 tie and recomputes it
-// term by term in the plain order (fmaf over k from 0), from the product's
-// own operands, before rounding it; about one output in a thousand.  Each
-// warp keeps up to FIXW marks a product in shared memory (past that, an
-// output keeps its tensor-core value).
-constexpr float TIE_MARGIN = 1.0f / 65536.0f;
-constexpr int FIXW = 64;
-
-__device__ __forceinline__ bool near_tie(float v) {
-  return to_f(from_f<bf16>(v * (1.0f + TIE_MARGIN))) !=
-         to_f(from_f<bf16>(v * (1.0f - TIE_MARGIN)));
-}
+// Ties: the plain version (and the f32 sweep) sums each dgrad output in
+// f32, one fused multiply-add a term in order of k; mma_epilogue repairs
+// the outputs near a bf16 tie with the shared scheme (TIE_ULPS, near_tie,
+// list_marks and for_marks in fused_mlp_common.cuh).
 
 // The bf16 sweep's epilogue, bwd_epilogue's arithmetic in mma_dgrad's
 // fragment mapping: lane t holds points 32 wm + 16 mi + t / 4 (+ 8) and
@@ -359,7 +347,7 @@ __device__ __forceinline__ void mma_epilogue(
   float bsum[8][2];
 #pragma unroll
   for (int nt = 0; nt < 8; ++nt) bsum[nt][0] = bsum[nt][1] = 0.0f;
-  unsigned long long ties = 0;
+  unsigned long long ties[1] = {0};
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
@@ -386,28 +374,14 @@ __device__ __forceinline__ void mma_epilogue(
           const float x = (valid && m[j] > 0.0f) ? v : 0.0f;
           acc[mi][nt][2 * h + j] = x;
           bsum[nt][j] += x;
-          if (near_tie(x)) ties |= 1ull << (32 * mi + 16 * h + 2 * nt + j);
+          if (near_tie(x)) ties[0] |= 1ull << (32 * mi + 16 * h + 2 * nt + j);
         }
       }
     }
   // the warp's marks: this lane's from slot `first` on, in order of e
-  const int count = __popcll(ties);
-  int upto = count;  // inclusive prefix sum over the lanes
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int t = __shfl_up_sync(0xffffffffu, upto, d);
-    if (lane >= d) upto += t;
-  }
-  const int first = upto - count;
-  const int marks = min(__shfl_sync(0xffffffffu, upto, 31), FIXW);
-  {
-    unsigned long long rest = ties;
-    for (int slot = first; rest != 0 && slot < FIXW; ++slot) {
-      const int e = __ffsll(static_cast<long long>(rest)) - 1;
-      rest &= rest - 1;
-      fix_pn[slot] = (point(e) << 16) | column(e);
-    }
-  }
+  int first;
+  const int marks = list_marks(
+      ties, fix_pn, first, [&](int e) { return (point(e) << 16) | column(e); });
 #pragma unroll
   for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
@@ -452,14 +426,12 @@ __device__ __forceinline__ void mma_epilogue(
           *reinterpret_cast<__nv_bfloat162*>(gb + 1LL * p * GC + gcol + n) = r;
       }
     }
-  for (int slot = first; ties != 0 && slot < FIXW; ++slot) {
-    const int e = __ffsll(static_cast<long long>(ties)) - 1;
-    ties &= ties - 1;
+  for_marks(ties, first, [&](int e, int slot) {
     const int p = point(e), n = column(e);
     const bf16 r = from_f<bf16>(fix_val[slot]);
     g[n * TPG + p] = r;
     if (p < n_valid) gb[1LL * p * GC + gcol + n] = r;
-  }
+  });
 }
 
 // One layer of the sweep: the dgrad product g_in = round(g_pre) @ W^T
@@ -550,12 +522,13 @@ fused_nerf_dgrad_kernel(const float* __restrict__ x,
   constexpr int SC = SIGMA_ONLY ? SC_SIGMA : SC_RGB;
   constexpr bool DX = IN == IO_EMBEDDED;  // kernel H: dx too
   constexpr bool TC = kTensorCores<T>;
+  constexpr int LDA = Ref::lda<T>();  // the forward's activation pitch
   T* act = reinterpret_cast<T*>(smem);
-  T* ws = act + ROWS * TP;
+  T* ws = act + Ref::act_elems<T>();
   float* gout = reinterpret_cast<float*>(smem + smem_bytes<T>());
   float* grgb = gout + 4 * TP;  // g_rgbpre, f32
   float* red = grgb + 3 * TP;
-  T* ring = TC ? reinterpret_cast<T*>(red + 8 * W) : nullptr;
+  T* ring = TC ? ws : nullptr;
   // the gradient rows of the sweep, element (k, p) at gt[k * LDG + p]: in
   // bf16 the padded g tile over the activation rows, in f32 act's h rows
   T* gt = TC ? act : act + ROW_H * TP;
@@ -595,13 +568,13 @@ fused_nerf_dgrad_kernel(const float* __restrict__ x,
   // embeddings to the G buffer (wgrad of layer 0, the skip layer, dir head)
   for (int i = tid; i < TP * 64; i += THREADS) {
     const int p = i / 64, c = i - p * 64;
-    if (p < n_valid && c < CX) gb[1LL * p * GC + G_XE + c] = act[c * TP + p];
+    if (p < n_valid && c < CX) gb[1LL * p * GC + G_XE + c] = act[c * LDA + p];
   }
   if (!SIGMA_ONLY) {
     for (int i = tid; i < TP * 32; i += THREADS) {
       const int p = i / 32, c = i - p * 32;
       if (p < n_valid && c < CD)
-        gb[1LL * p * GC + G_DE + c] = act[(ROW_DIR + c) * TP + p];
+        gb[1LL * p * GC + G_DE + c] = act[(ROW_DIR + c) * LDA + p];
     }
   }
   // g_sigma: its bias partial and its G column

@@ -1,8 +1,10 @@
 // Shared device code of the fused NeRF MLP kernels: the packed weight
 // layout, the activation stash layout, the input of a tile (the positional
-// encoding of raw rays, or pre-embedded rows) and the tile forward that
+// encoding of raw rays, or pre-embedded rows), the tile forward that
 // kernels C, D (fused_mlp.cu), G (fused_mlp_wide.cu) and F, H
-// (fused_mlp_bwd.cu) run.  See fused_mlp.cu for the numerics and the design.
+// (fused_mlp_bwd.cu) run, and the rounding-tie repair of the tensor-core
+// products (the forward's and the backward's dgrad sweep).  See
+// fused_mlp.cu for the numerics and the design.
 //
 // The network's geometry is a template parameter (struct Net): the trunk
 // width W and the points per warp PPW (a CTA's tile is TP = 8 * PPW points).
@@ -14,8 +16,17 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
+
+#include "mma.cuh"
 
 namespace nerf {
+
+using bf16 = __nv_bfloat16;
+// bf16 products run on the tensor cores (mma.sync); f32 keeps the scalar
+// FMA loops, whose limits TF32 would break
+template <typename T>
+constexpr bool kTensorCores = std::is_same<T, bf16>::value;
 
 constexpr int CX = 63, CD = 27, D = 8, SKIP = 4;
 constexpr int THREADS = 256;  // 8 warps; warp w owns points [PPW w, PPW w + PPW)
@@ -64,11 +75,40 @@ struct Net {
                     block_off(W_, 1) % 8 == 0 &&
                     block_off(W_, SKIP + 1) % 8 == 0,
                 "16-byte aligned weight blocks");
-  // shared memory: the activation rows, the weight stage (KC rows of the
-  // widest product), then 4 f32 rows of TP (sigma, rgb)
+  // The bf16 tile on the tensor cores: the activation rows padded to LDA_MMA
+  // points (ldmatrix.trans reads eight rows 16 (TP = 64) or 8 (TP = 32)
+  // bytes past a multiple of 128 apart: distinct banks), their count to a
+  // multiple of 16 (a product's last 16-row step stays inside the rows);
+  // the weights stream through a ring of STAGES stages of KC_MMA rows, each
+  // row padded to N + 8 elements (distinct banks again), a stage's slot
+  // sized for the widest product; three stages where two CTAs still fit
+  // an SM, else two.
+  static constexpr int LDA_MMA = TP + 8;
+  static constexpr int ACT_ROWS_MMA = (ROWS + 15) / 16 * 16;
+  static constexpr int KC_MMA = W_ <= 256 ? 32 : 16;
+  static constexpr int SLOT = KC_MMA * (W_ + 8);
+  static constexpr int STAGES =
+      2 * (ACT_ROWS_MMA * LDA_MMA + 3 * SLOT) + 16 * TP <= 112 * 1024 ? 3
+                                                                        : 2;
+  // the activation rows' pitch, and the elements of T before the f32 rows
+  template <typename T>
+  __host__ __device__ static constexpr int lda() {
+    return kTensorCores<T> ? LDA_MMA : TP;
+  }
+  template <typename T>
+  __host__ __device__ static constexpr int act_elems() {
+    return kTensorCores<T> ? ACT_ROWS_MMA * LDA_MMA : ROWS * TP;
+  }
+  template <typename T>
+  __host__ __device__ static constexpr int ws_elems() {
+    return kTensorCores<T> ? STAGES * SLOT : Cfg<T>::KC * W;
+  }
+  // shared memory: the activation rows, the weight stage (f32: KC rows of
+  // the widest product; bf16: the ring), then 4 f32 rows of TP (sigma, rgb)
   template <typename T>
   __host__ __device__ static constexpr size_t smem_bytes() {
-    return sizeof(T) * (ROWS * TP + Cfg<T>::KC * W) + sizeof(float) * 4 * TP;
+    return sizeof(T) * (act_elems<T>() + ws_elems<T>()) +
+           sizeof(float) * 4 * TP;
   }
 };
 
@@ -276,6 +316,347 @@ __device__ __forceinline__ void dense(const T* __restrict__ w,
   __syncthreads();
 }
 
+// Ties.  The scalar loops sum each output in f32, one fused multiply-add a
+// term in order of k (the order of dense_acc); the tensor cores sum 16 terms
+// at a time in another order and precision, and each 16-term sum, started
+// from zero, is then added in f32, so the f32 values differ in their last
+// bits.  Where a value lies that close to a rounding tie of bf16, the
+// rounded value would differ by one bf16 step, and such a step in a layer's
+// input moves every later output of the point (down the forward's trunk, or
+// down the backward's sweep).  So each tensor-core epilogue marks every
+// output near a bf16 tie and recomputes it term by term in k order (fmaf
+// from 0) from the product's own operands before rounding it.  Near: the tie
+// of v's own bf16 interval (v's bits with the low 16 set to 0x8000) lies
+// within TIE_ULPS f32 ulps of v (at least TIE_MARGIN |v|: the ties of the
+// next intervals lie at least 2^-9 |v| away).  A relative margin misses an
+// output whose terms cancel (|v| far below the sum of |terms|, which sets
+// the f32 error of either order), so the forward also marks an output
+// whose own tie lies within a floor, or that is below 256 floors (where
+// bf16 steps are finer than twice the floor): TIE_FLOOR times the largest
+// |output| of the warp's block of the product (the sweep's floor is 0).
+// About one output in 150 is marked in the forward.  Each warp keeps up to
+// FIXW marks a product in shared memory (past that, an output keeps its
+// tensor-core value).  The rule's test: tests/test_torch_port_forward_tile.py.
+constexpr unsigned TIE_ULPS = 256;
+constexpr float TIE_MARGIN = 1.0f / 65536.0f;
+static_assert(TIE_ULPS / 16777216.0f == TIE_MARGIN,
+              "TIE_ULPS ulps of v (2^-24 |v| or more each) >= TIE_MARGIN |v|");
+constexpr float TIE_FLOOR = 1.0f / 1048576.0f;
+constexpr int FIXW = 64;
+
+__device__ __forceinline__ bool near_tie(float v, float floor = 0.0f) {
+  const uint32_t u = __float_as_uint(v);
+  const float tie = __uint_as_float((u & 0xffff0000u) | 0x8000u);
+  return (u & 0xffffu) - (0x8000u - TIE_ULPS + 1) < 2 * TIE_ULPS - 1 ||
+         fabsf(v) < 256.0f * floor || fabsf(v - tie) < floor;
+}
+
+// The warp's list of marks.  ties: this lane's marked outputs e (bit e % 64
+// of word e / 64).  The lanes' marks are numbered by a prefix sum over the
+// lanes, lane l's from slot `first` on in order of e, and fix_pn[slot] =
+// pn(e) for every slot below FIXW.  Returns the warp's count of listed
+// marks (at most FIXW).
+template <int MW, class PN>
+__device__ __forceinline__ int list_marks(const unsigned long long (&ties)[MW],
+                                          int* fix_pn, int& first, PN pn) {
+  const int lane = threadIdx.x & 31;
+  int count = 0;
+#pragma unroll
+  for (int w = 0; w < MW; ++w) count += __popcll(ties[w]);
+  int upto = count;  // inclusive prefix sum over the lanes
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int t = __shfl_up_sync(0xffffffffu, upto, d);
+    if (lane >= d) upto += t;
+  }
+  first = upto - count;
+  int slot = first;
+#pragma unroll
+  for (int w = 0; w < MW; ++w) {
+    unsigned long long rest = ties[w];
+    for (; rest != 0 && slot < FIXW; ++slot) {
+      const int e = 64 * w + __ffsll(static_cast<long long>(rest)) - 1;
+      rest &= rest - 1;
+      fix_pn[slot] = pn(e);
+    }
+  }
+  return min(__shfl_sync(0xffffffffu, upto, 31), FIXW);
+}
+
+// f(e, slot) for each of this lane's listed marks, in the order and slots
+// of list_marks.
+template <int MW, class F>
+__device__ __forceinline__ void for_marks(const unsigned long long (&ties)[MW],
+                                          int first, F f) {
+  int slot = first;
+#pragma unroll
+  for (int w = 0; w < MW; ++w) {
+    unsigned long long rest = ties[w];
+    for (; rest != 0 && slot < FIXW; ++slot) {
+      const int e = 64 * w + __ffsll(static_cast<long long>(rest)) - 1;
+      rest &= rest - 1;
+      f(e, slot);
+    }
+  }
+}
+
+// The bf16 product of a tile on the tensor cores (mma.sync m16n8k16, bf16
+// operands, f32 sums): the TP x K activation block (rows [in_row, in_row +
+// K) of act, feature-major, pitch LDA_MMA) times w (K x N row-major, the
+// packed layout).  Warp (wm, wn) = (warp / 4, warp % 4) owns points [TP / 2
+// wm, TP / 2 (wm + 1)) and columns [N / 4 wn, N / 4 (wn + 1)); acc[mi][nt]
+// is the m16n8 tile at point TP / 2 wm + 16 mi, column N / 4 wn + 8 nt:
+// lane t holds its points t / 4 (acc[..][0], [1]) and t / 4 + 8 ([2],
+// [3]), columns 2 (t % 4) and 2 (t % 4) + 1.
+template <class Geo, int N>
+struct MmaTile {
+  static_assert(N % 64 == 0 && Geo::TP % 32 == 0, "whole 16 x 16 pairs");
+  static constexpr int MI = Geo::TP / 32, NT = N / 32, E = MI * NT * 4;
+  static constexpr int MW = (E + 63) / 64;  // words of tie bits a thread
+  static constexpr int NPITCH = N + 8;      // a weight stage's row pitch
+  static_assert(Geo::KC_MMA * NPITCH <= Geo::SLOT, "a stage fits its slot");
+  __device__ static int point(int e) {  // output e = acc[..] index flat
+    const int lane = threadIdx.x & 31, wm = (threadIdx.x >> 5) >> 2;
+    return wm * (Geo::TP / 2) + (e / (4 * NT)) * 16 + (lane >> 2) +
+           ((e >> 1) & 1) * 8;
+  }
+  __device__ static int column(int e) {
+    const int lane = threadIdx.x & 31, wn = (threadIdx.x >> 5) & 3;
+    return wn * (N / 4) + ((e >> 2) % NT) * 8 + (lane & 3) * 2 + (e & 1);
+  }
+};
+
+// acc = act rows [in_row, in_row + K) (as the A operand, by ldmatrix.trans)
+// @ w.  w's rows stream through the ring in stages of KC_MMA rows, each a
+// committed cp.async group (an empty one past the last stage, so that every
+// thread counts its groups alike), STAGES - 1 in flight while one is
+// consumed; rows past K are zero-filled, and the A fragments' columns past
+// K are zeroed in registers (the rows there may hold anything).  Each
+// 16-term tensor-core sum starts from zero and is added to acc in f32.
+// Ends with a barrier: every read of the input rows and the ring is done.
+template <class Geo, int N>
+__device__ __forceinline__ void mma_product(
+    const bf16* __restrict__ w, int K, const bf16* act, int in_row,
+    bf16* ring, float (&acc)[MmaTile<Geo, N>::MI][MmaTile<Geo, N>::NT][4]) {
+  using Tile = MmaTile<Geo, N>;
+  constexpr int MI = Tile::MI, NT = Tile::NT, NPITCH = Tile::NPITCH;
+  constexpr int LDA = Geo::LDA_MMA, KC = Geo::KC_MMA, S = Geo::STAGES;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = warp >> 2, wn = warp & 3;
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][nt][e] = 0.0f;
+  const int n_stages = (K + KC - 1) / KC;
+  auto stage = [&](int s) {
+    if (s < n_stages) {
+      bf16* buf = ring + (s % S) * Geo::SLOT;
+      for (int i = threadIdx.x; i < KC * (N / 8); i += THREADS) {
+        const int r = i / (N / 8), c = (i - r * (N / 8)) * 8;
+        const int k = s * KC + r;
+        const bool live = k < K;
+        // a dead row reads nothing; its address is any valid one
+        mma::cp_async16_zfill(buf + r * NPITCH + c,
+                              live ? w + 1LL * k * N + c : w, live ? 16 : 0);
+      }
+    }
+    mma::cp_async_commit();
+  };
+  for (int s = 0; s < S - 1; ++s) stage(s);
+  // A (points x k): lanes 0-7 rows k..k+7 at points +0, 8-15 at +8, 16-31
+  // rows k+8..k+15; B (k x n) of two n8 tiles: lanes 0-7 rows k..k+7 at
+  // columns +0, 8-15 rows k+8..k+15, 16-31 the same at columns +8; .trans
+  // turns both row-major blocks into the fragments
+  const bf16* abase = act + ((lane & 7) + ((lane >> 4) & 1) * 8) * LDA +
+                      wm * (Geo::TP / 2) + ((lane >> 3) & 1) * 8;
+  const int boff = ((lane & 7) + ((lane >> 3) & 1) * 8) * NPITCH +
+                   wn * (N / 4) + (lane >> 4) * 8;
+  for (int s = 0; s < n_stages; ++s) {
+    mma::cp_async_wait<S - 2>();  // this thread's copies of stage s
+    // every thread's copies of stage s have landed (and, at s = 0, the
+    // input rows' last writes are visible); every warp is done with stage
+    // s - 1, whose slot the next stage fills
+    __syncthreads();
+    stage(s + S - 1);
+    const bf16* wb = ring + (s % S) * Geo::SLOT;
+#pragma unroll
+    for (int ks = 0; ks < KC; ks += 16) {
+      const int k = s * KC + ks;
+      if (k >= K) break;
+      uint32_t a[MI][4];
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi)
+        mma::ldmatrix_x4_trans(a[mi], abase + (in_row + k) * LDA + mi * 16);
+      if (k + 16 > K) {  // the ragged last step: zero the columns past K
+        const int kq = k + 2 * (lane & 3);
+        const uint32_t lo = (kq < K ? 0x0000ffffu : 0u) |
+                            (kq + 1 < K ? 0xffff0000u : 0u);
+        const uint32_t hi = (kq + 8 < K ? 0x0000ffffu : 0u) |
+                            (kq + 9 < K ? 0xffff0000u : 0u);
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi) {
+          a[mi][0] &= lo; a[mi][1] &= lo; a[mi][2] &= hi; a[mi][3] &= hi;
+        }
+      }
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t b[4];
+        mma::ldmatrix_x4_trans(b, wb + boff + ks * NPITCH + np * 16);
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi) {
+          float t0[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          float t1[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          mma::mma_bf16(t0, a[mi], b[0], b[1]);
+          mma::mma_bf16(t1, a[mi], b[2], b[3]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            acc[mi][2 * np][e] += t0[e];
+            acc[mi][2 * np + 1][e] += t1[e];
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();  // every warp is done with the ring and the input rows
+}
+
+// dense's bf16 counterpart on the tensor cores: act rows [out_row, out_row
+// + N) = act(rows [in_row, in_row + K)) @ w + bias, optional ReLU, rounded
+// to bf16, and with a stash each point's rounded outputs to its stash row
+// at column scol (points past P are not stored).  Three phases around the
+// product: (A) bias and ReLU into acc, and a tie bit for each output near a
+// bf16 tie (the warp's marks listed in the idle ring); (B) each warp
+// recomputes its marked outputs in k order from the input rows, still in
+// place, and w (device memory); a barrier, after which the outputs may
+// overwrite the inputs; (C) the rounded outputs to act and the stash in the
+// fragment's column pairs, then each thread's marked outputs over them from
+// (B).  The tie floor is TIE_FLOOR times the warp's largest |x| (x = acc +
+// bias, before the ReLU); under the ReLU a negative x is marked only where
+// |x| is below the floor (where the other order may cross 0).  Ends with a
+// barrier.
+template <class Geo, int N, bool STASH>
+__device__ __forceinline__ void mma_dense(const bf16* __restrict__ w,
+                                          const float* __restrict__ bias,
+                                          int K, bf16* act, int in_row,
+                                          int out_row, bf16* ring, bool relu,
+                                          bf16* stash, int sc, int scol,
+                                          long long n_valid) {
+  using Tile = MmaTile<Geo, N>;
+  constexpr int MI = Tile::MI, NT = Tile::NT, MW = Tile::MW;
+  constexpr int LDA = Geo::LDA_MMA;
+  static_assert(!STASH || Geo::W == W, "the stash is written at the "
+                "reference geometry");
+  static_assert(2 * FIXW * 8 * sizeof(int) <= Geo::SLOT * sizeof(bf16),
+                "the marks fit the ring");
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float acc[MI][NT][4];
+  mma_product<Geo, N>(w, K, act, in_row, ring, acc);
+  int* fix_pn = reinterpret_cast<int*>(ring) + warp * 2 * FIXW;
+  float* fix_val = reinterpret_cast<float*>(fix_pn + FIXW);
+
+  // the outputs are rounded into bf16 pairs as they are marked, so the
+  // f32 accumulators die during the marking (fewer live registers)
+  float amax = 0.0f;
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int n = Tile::column((mi * NT + nt) * 4);
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        amax = fmaxf(amax, fabsf(acc[mi][nt][q] + bias[n + (q & 1)]));
+    }
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1)
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, d));
+  const float floor = TIE_FLOOR * amax;
+  unsigned long long ties[MW];
+  __nv_bfloat162 out[MI][NT][2];
+#pragma unroll
+  for (int i = 0; i < MW; ++i) ties[i] = 0;
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int n = Tile::column((mi * NT + nt) * 4);
+      float v[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float x = acc[mi][nt][q] + bias[n + (q & 1)];
+        const bool mark = relu && x < 0.0f ? -x < floor : near_tie(x, floor);
+        const int e = (mi * NT + nt) * 4 + q;
+        if (mark) ties[e / 64] |= 1ull << (e % 64);
+        v[q] = relu ? fmaxf(x, 0.0f) : x;
+      }
+      out[mi][nt][0] = __floats2bfloat162_rn(v[0], v[1]);
+      out[mi][nt][1] = __floats2bfloat162_rn(v[2], v[3]);
+    }
+  int first;
+  const int marks = list_marks(ties, fix_pn, first, [](int e) {
+    return (Tile::point(e) << 16) | Tile::column(e);
+  });
+  __syncwarp();
+  for (int i = lane; i < marks; i += 32) {
+    const int p = fix_pn[i] >> 16, n = fix_pn[i] & 0xffff;
+    const bf16* a = act + in_row * LDA + p;
+    const bf16* wn = w + n;
+    float s = 0.0f;
+    int k = 0;
+    for (; k + 4 <= K; k += 4) {  // 4 weight loads in flight at a time
+      float wk[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) wk[u] = to_f(wn[1LL * (k + u) * N]);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) s = fmaf(to_f(a[(k + u) * LDA]), wk[u], s);
+    }
+    for (; k < K; ++k) s = fmaf(to_f(a[k * LDA]), to_f(wn[1LL * k * N]), s);
+    float v = s + bias[n];
+    if (relu) v = fmaxf(v, 0.0f);
+    fix_val[i] = v;
+  }
+  __syncthreads();  // every read of the input rows is done
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int e = (mi * NT + nt) * 4 + 2 * h;
+        const int p = Tile::point(e), n = Tile::column(e);
+        const __nv_bfloat162 r = out[mi][nt][h];
+        act[(out_row + n) * LDA + p] = r.x;
+        act[(out_row + n + 1) * LDA + p] = r.y;
+        if (STASH && p < n_valid)
+          *reinterpret_cast<__nv_bfloat162*>(stash + 1LL * p * sc + scol + n) =
+              r;
+      }
+  for_marks(ties, first, [&](int e, int slot) {
+    const int p = Tile::point(e), n = Tile::column(e);
+    const bf16 r = from_f<bf16>(fix_val[slot]);
+    act[(out_row + n) * LDA + p] = r;
+    if (STASH && p < n_valid) stash[1LL * p * sc + scol + n] = r;
+  });
+  __syncthreads();  // the outputs are in place; the ring is idle again
+}
+
+// One layer of the tile forward: the tensor cores in bf16, the scalar loop
+// in f32.
+template <class Geo, typename T, int N, bool STASH>
+__device__ __forceinline__ void layer(const T* __restrict__ w,
+                                      const float* __restrict__ bias, int K,
+                                      T* act, int in_row, int out_row, T* ws,
+                                      bool relu, T* stash, int sc, int scol,
+                                      long long n_valid) {
+  if constexpr (kTensorCores<T>)
+    mma_dense<Geo, N, STASH>(w, bias, K, act, in_row, out_row, ws, relu,
+                             stash, sc, scol, n_valid);
+  else
+    dense<Geo, T, N, STASH>(w, bias, K, act, in_row, out_row, ws, relu, stash,
+                            sc, scol, n_valid);
+}
+
 // The input of a tile at the kernel boundary, a compile-time parameter:
 //   IO_CHANNEL  raw rays, channel-major x and out (8, P), element (c, p) at
 //               c * P + p (kernels C-F);
@@ -316,7 +697,7 @@ template <class Geo, typename T, bool ROW_MAJOR>
 __device__ __forceinline__ void embed(const float* __restrict__ x,
                                       long long P, long long p0, T* act,
                                       T* ws, bool with_dir) {
-  constexpr int TPP = Geo::TP;
+  constexpr int TPP = Geo::TP, LD = Geo::template lda<T>();
   const float* src = x;  // element (c, p) of the tile at src[io_at(..)]
   long long ld = P, q0 = p0;
   if (ROW_MAJOR) {
@@ -344,7 +725,7 @@ __device__ __forceinline__ void embed(const float* __restrict__ x,
         v = s < 3 ? sinf(t) : cosf(t);
       }
     }
-    act[(is_dir ? Geo::ROW_DIR + c : c) * TPP + p] = from_f<T>(v);
+    act[(is_dir ? Geo::ROW_DIR + c : c) * LD + p] = from_f<T>(v);
   }
 }
 
@@ -357,14 +738,14 @@ __device__ __forceinline__ void load_embedded(const float* __restrict__ x,
                                               int x_cols, long long P,
                                               long long p0, T* act,
                                               bool with_dir) {
-  constexpr int TPP = Geo::TP;
+  constexpr int TPP = Geo::TP, LD = Geo::template lda<T>();
   const int n_rows = with_dir ? CX + CD : CX;
   for (int i = threadIdx.x; i < n_rows * TPP; i += THREADS) {
     const int p = i / n_rows, c = i - p * n_rows;
     const long long gp = p0 + p;
     float v = 0.0f;
     if (gp < P && c < x_cols) v = x[gp * x_cols + c];
-    act[(c < CX ? c : Geo::ROW_DIR + c - CX) * TPP + p] = from_f<T>(v);
+    act[(c < CX ? c : Geo::ROW_DIR + c - CX) * LD + p] = from_f<T>(v);
   }
 }
 
@@ -392,21 +773,25 @@ __device__ __forceinline__ void forward_tile(
     const T* __restrict__ wts, const float* __restrict__ bias, long long P,
     long long p0, unsigned char* smem, T* stash, int x_cols) {
   constexpr int GW_ = Geo::W, TPP = Geo::TP, RH = Geo::ROW_H;
+  constexpr int LD = Geo::template lda<T>();
   T* act = reinterpret_cast<T*>(smem);
-  T* ws = act + Geo::ROWS * TPP;
-  float* sig = reinterpret_cast<float*>(ws + Cfg<T>::KC * GW_);
+  T* ws = act + Geo::template act_elems<T>();
+  float* sig = reinterpret_cast<float*>(ws + Geo::template ws_elems<T>());
   float* rgb = sig + TPP;  // 3 rows of TP
   const int tid = threadIdx.x;
   constexpr int SC = SIGMA_ONLY ? SC_SIGMA : SC_RGB;
   const long long n_valid = P - p0;
 
   tile_input<Geo, T, IN>(x, x_cols, P, p0, act, ws, !SIGMA_ONLY);
+  // the tensor cores' first weight copies go out before any barrier of the
+  // product: the row-major input staged in ws must be read by then
+  if (kTensorCores<T>) __syncthreads();
   // layer 0 reads xyz_emb; the skip layer reads [xyz_emb | h] (rows
   // 0 .. CX + W); layer i's output h_{i+1} goes to stash column i * W
-  dense<Geo, T, GW_, STASH>(wts, bias, CX, act, 0, RH, ws, true, stash, SC, 0,
+  layer<Geo, T, GW_, STASH>(wts, bias, CX, act, 0, RH, ws, true, stash, SC, 0,
                             n_valid);
   for (int i = 1; i < D; ++i)
-    dense<Geo, T, GW_, STASH>(wts + Geo::layer_off(i), bias + i * GW_,
+    layer<Geo, T, GW_, STASH>(wts + Geo::layer_off(i), bias + i * GW_,
                               i == SKIP ? GW_ + CX : GW_, act,
                               i == SKIP ? 0 : RH, RH, ws, true, stash, SC,
                               i * GW_, n_valid);
@@ -414,24 +799,25 @@ __device__ __forceinline__ void forward_tile(
   if (tid < TPP) {  // sigma head: one thread per point
     float s = 0.0f;
     for (int k = 0; k < GW_; ++k)
-      s = fmaf(to_f(act[(RH + k) * TPP + tid]), to_f(wts[Geo::OFF_SIG + k]),
+      s = fmaf(to_f(act[(RH + k) * LD + tid]), to_f(wts[Geo::OFF_SIG + k]),
                s);
     sig[tid] = s + bias[Geo::BOFF_SIG];
   }
   if (!SIGMA_ONLY) {
-    // fin overwrites h (after dense's barrier: the sigma head has read it)
-    dense<Geo, T, GW_, STASH>(wts + Geo::OFF_FIN, bias + Geo::BOFF_FIN, GW_,
+    // fin overwrites h (after the layer's barrier: the sigma head has read
+    // it)
+    layer<Geo, T, GW_, STASH>(wts + Geo::OFF_FIN, bias + Geo::BOFF_FIN, GW_,
                               act, RH, RH, ws, false, stash, SC, S_FIN,
                               n_valid);
     // dir head reads [fin | dir_emb] = rows ROW_H .. ROW_H + W + CD
-    dense<Geo, T, Geo::WH, STASH>(wts + Geo::OFF_DIR, bias + Geo::BOFF_DIR,
+    layer<Geo, T, Geo::WH, STASH>(wts + Geo::OFF_DIR, bias + Geo::BOFF_DIR,
                                   GW_ + CD, act, RH, RH, ws, true, stash, SC,
                                   S_D, n_valid);
     if (tid < 3 * TPP) {  // rgb head: one thread per (channel, point)
       const int c = tid / TPP, p = tid - c * TPP;
       float v = 0.0f;
       for (int k = 0; k < Geo::WH; ++k)
-        v = fmaf(to_f(act[(RH + k) * TPP + p]),
+        v = fmaf(to_f(act[(RH + k) * LD + p]),
                  to_f(wts[Geo::OFF_RGB + 3 * k + c]), v);
       v += bias[Geo::BOFF_RGB + c];
       rgb[c * TPP + p] = 1.0f / (1.0f + expf(-v));

@@ -27,18 +27,22 @@
 // rgb point (1,900,032 sigma-only) against 360 bytes of input and 32 of
 // output; the 4.6 MB bf16 weight set stays in the 50 MB L2.  At the bf16
 // tensor rate (989 TFLOP/s) a 6.1M-point fine chunk needs 28.6 ms.
-// Design (simple first, as kernel C; tensor cores come later): the same
-// tile forward as C (fused_mlp_common.cuh), with the tile's input loaded
-// from x's rows (consecutive threads read consecutive floats; a row of 63 or
-// 90 floats is not 16-byte aligned, so no vector loads) and the width a
-// template parameter.  A thread accumulates PPW points x W / 32 features,
-// all of a layer's outputs in one pass, so each layer may overwrite its
-// input rows after a barrier.  At W <= 256 a warp owns 8 points (64-point
-// tiles, as C); at W > 256 it owns 4 (32-point tiles), which keeps the
-// accumulators at 48-80 floats a thread.  Products whose width is not a
-// multiple of 128 (the dir heads W / 2 = 64, 192, 320) give each lane 2
-// features per 64-column group instead of 4 per 128.  Shared memory per
-// CTA: 37-88 KB, so two CTAs share an SM at every width.
+// Design: the same tile forward as C (fused_mlp_common.cuh), with the
+// tile's input loaded from x's rows (consecutive threads read consecutive
+// floats; a row of 63 or 90 floats is not 16-byte aligned, so no vector
+// loads) and the width a template parameter.  At W <= 256 a tile is 64
+// points, at W > 256 32 (so that the f32 loop's accumulators stay within
+// 80 floats a thread).  bf16 runs every product on the tensor cores as C
+// does: 2 x 4 warps of TP / 2 points x N / 4 columns (1 or 2 m16 tiles, up
+// to 20 n8 tiles a warp at W = 640), the weights streamed from L2 in
+// stages of 32 rows (W <= 256) or 16 through a ring of three stages (two at
+// W = 640), every output near a bf16 tie recomputed in k order.  Each tile
+// reads the whole weight set from L2 (4.6 MB at W = 512).  f32 keeps the
+// scalar loop: a thread accumulates PPW points x W / 32 features, all of a
+// layer's outputs in one pass (products whose width is not a multiple of
+// 128, the dir heads W / 2 = 64, 192, 320, give each lane 2 features per
+// 64-column group).  Shared memory per CTA stays below 113 KB, so two CTAs
+// share an SM at every width.
 #include "fused_mlp_common.cuh"
 
 namespace {

@@ -34,7 +34,9 @@
 // Design.  A: several rows to a 256-thread CTA (32 threads a row at K =
 // 128), the rows staged once in shared memory; each thread bisects 4
 // consecutive queries of its row, read and written as 16-byte vectors when
-// K is a multiple of 4, so loads and stores stay coalesced.  B: one CTA per
+// K is a multiple of 4 and vals starts on 16 bytes (the wrapper passes the
+// vector width; a view at another offset takes one query a thread), so
+// loads and stores stay coalesced.  B: one CTA per
 // row, the row staged in shared memory and read back as a broadcast, one
 // thread per query.
 #include <cuda_runtime.h>
@@ -50,7 +52,8 @@ constexpr int kRankSmemFloats = 12 * 1024;  // A's staged rows: 48 KB
 
 // Kernel A: the block's rows [b0, b0 + rows) staged in shared memory;
 // thread t bisects query groups j, j + tpr, ... of row t / tpr (j = t %
-// tpr), VEC consecutive queries a group.  top: the smallest power of two
+// tpr), VEC consecutive queries a group (VEC = 4: 16-byte vectors, which
+// need vals 16-byte aligned and K % 4 == 0).  top: the smallest power of two
 // with 2 top - 1 >= M, so the halving steps can reach every count 0..M.
 template <bool RIGHT, int VEC>
 __global__ void __launch_bounds__(kRankThreads)
@@ -99,8 +102,11 @@ rank_kernel(const float* __restrict__ seq, const float* __restrict__ vals,
 
 template <bool RIGHT>
 int launch_rank(const float* seq, const float* vals, int32_t* out,
-                long long B, int M, int K, cudaStream_t s) {
-  const bool vec = K % 4 == 0;
+                long long B, int M, int K, int vec_width, cudaStream_t s) {
+  const bool vec = vec_width == 4;
+  if (vec && (K % 4 || reinterpret_cast<uintptr_t>(vals) % 16 ||
+              reinterpret_cast<uintptr_t>(out) % 16))
+    return static_cast<int>(cudaErrorMisalignedAddress);
   const int groups = vec ? K / 4 : K;
   int tpr = 1;
   while (tpr < groups && tpr < kRankThreads) tpr *= 2;
@@ -155,15 +161,20 @@ const char* cuda_error_string(int err) {
 }
 
 // seq (B, M) f32 with non-decreasing rows, vals (B, K) f32 -> out (B, K)
-// int32; all contiguous, M <= 12288.
+// int32; all contiguous, M <= 12288.  vec_width: 4 to move 4 queries as
+// one 16-byte vector (K % 4 == 0, vals and out 16-byte aligned; otherwise
+// the call returns cudaErrorMisalignedAddress), or 1.
 int searchsorted_rank(const void* seq, const void* vals, void* out,
-                      long long B, int M, int K, int right, void* stream) {
+                      long long B, int M, int K, int right, int vec_width,
+                      void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto seq_f = static_cast<const float*>(seq);
   auto vals_f = static_cast<const float*>(vals);
   auto out_i = static_cast<int32_t*>(out);
-  return right ? launch_rank<true>(seq_f, vals_f, out_i, B, M, K, s)
-               : launch_rank<false>(seq_f, vals_f, out_i, B, M, K, s);
+  return right
+             ? launch_rank<true>(seq_f, vals_f, out_i, B, M, K, vec_width, s)
+             : launch_rank<false>(seq_f, vals_f, out_i, B, M, K, vec_width,
+                                  s);
 }
 
 // seq (B, M) f32, vals (B, K) f32 -> ranks (B, K) int32, lo, hi (B, K) f32.

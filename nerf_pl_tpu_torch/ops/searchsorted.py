@@ -57,7 +57,7 @@ def _lib():
     lib = native.load("searchsorted")
     if not getattr(lib, "_typed", False):
         p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.searchsorted_rank.argtypes = [p, p, p, i64, i32, i32, i32, p]
+        lib.searchsorted_rank.argtypes = [p, p, p, i64, i32, i32, i32, i32, p]
         lib.searchsorted_rank.restype = ctypes.c_int
         lib.searchsorted_rank_interp.argtypes = [p, p, p, p, p, i64, i32, i32, p]
         lib.searchsorted_rank_interp.restype = ctypes.c_int
@@ -80,9 +80,17 @@ def _check_inputs(sorted_seq: torch.Tensor, values: torch.Tensor):
         raise ValueError(f"batch mismatch: {B} rows vs {values.shape[0]}")
     if M < 1 or M * 4 > 48 * 1024:
         raise ValueError(f"row length {M} outside the kernel's 1..12288")
-    if B >= 2 ** 31:  # one CTA per row
+    if B >= 2 ** 31:  # kernel B runs one CTA per row (A fewer)
         raise ValueError(f"{B} rows exceed the kernel's grid")
     return B, M, values.shape[1]
+
+
+def rank_vector_width(values_ptr: int, K: int) -> int:
+    """Queries a thread of kernel A reads and writes as one vector: 4 (16
+    bytes) where every row of ``values`` starts on 16 bytes (K a multiple
+    of 4 and ``values_ptr`` 16-byte aligned: a contiguous view at another
+    offset is not), else 1."""
+    return 4 if K % 4 == 0 and values_ptr % 16 == 0 else 1
 
 
 def searchsorted_cuda(sorted_seq: torch.Tensor, values: torch.Tensor,
@@ -99,7 +107,8 @@ def searchsorted_cuda(sorted_seq: torch.Tensor, values: torch.Tensor,
     with torch.cuda.device(values.device):
         err = lib.searchsorted_rank(
             sorted_seq.data_ptr(), values.data_ptr(), out.data_ptr(), B, M, K,
-            int(side == "right"), native.stream_of(values))
+            int(side == "right"), rank_vector_width(values.data_ptr(), K),
+            native.stream_of(values))
     native.check(lib, err, "searchsorted_rank")
     searchsorted_cuda.launches += 1
     return out

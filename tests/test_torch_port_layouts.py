@@ -134,6 +134,19 @@ def test_rank_bisection_is_exact_on_cdf_rows(M, side, monkeypatch):
                                       _bisect_like_kernel(rows, vals, side))
 
 
+@pytest.mark.parametrize("offset,K,width", [
+    (0, 128, 4), (1, 128, 1), (2, 128, 1), (3, 128, 1), (4, 128, 4),
+    (0, 6, 1), (0, 1, 1)])
+def test_rank_vector_width_follows_the_alignment(offset, K, width):
+    # kernel A moves 4 queries as one 16-byte vector only where every row of
+    # values starts on 16 bytes; a contiguous view at another offset (here
+    # `offset` floats into a fresh allocation) takes one query a thread
+    base = torch.zeros(8 * K + 8)
+    values = base[offset:offset + 8 * K].view(8, K)
+    assert values.is_contiguous() and base.data_ptr() % 16 == 0
+    assert ss.rank_vector_width(values.data_ptr(), K) == width
+
+
 # ------------------------------------------------------------- kernel E
 def _dense_shapes(tree):
     """The JAX parameter tree's kernel shapes in the packing order
