@@ -1,7 +1,7 @@
 // Kernel I: the probe's chain of eight products of the NeRF MLP's shapes,
-// x (P, 128) . W0 (128 x 256) . W (256 x 256) x 7, on the tensor cores.  A
-// measurement of the ceiling that the fused MLP kernels are held against,
-// not a part of the model.
+// x (P, 128) . W0 (128 x 256) . W (256 x 256) x 7, on Hopper's warpgroup
+// tensor cores (wgmma) fed by TMA.  A measurement of the ceiling that the
+// fused MLP kernels are held against, not a part of the model.
 //
 // Replaces (TPU, Pallas): scripts/kernel_probe.py::chain (:76, pallas_call
 // :83) -> _chain_kernel (:58).
@@ -19,166 +19,265 @@
 // FLOP a row against 1,024 bytes of IO (512 in, 512 out); at P = 786,432,
 // 7.73e11 FLOP, 0.78 ms at the bf16 tensor rate (989 TFLOP/s), against
 // 0.24 ms of bytes.
-// Design (mma.sync; wgmma and TMA are later work): one CTA of 8 warps per
-// tile of 128 rows.  The tile's activation (128 x 256 bf16, 66 KB) stays in
-// shared memory for all eight products; each warp owns 32 rows x 128
-// columns of the product (2 x 16 tiles of m16n8k16, 128 f32 accumulators a
-// thread).  Weights stream from L2 through a double-buffered shared stage
-// of 32 rows (cp.async, 16 KB a stage), the next stage in flight while the
-// current one is consumed, across layer boundaries too.  Operands reach the
-// tensor cores by ldmatrix (A row-major, B row-major through .trans); rows
-// are padded by 8 elements so the eight row addresses of each 8 x 8 matrix
-// fall in distinct banks.  Between products the accumulators, rounded to
-// bf16, overwrite the activation after a barrier; the last product writes
-// its first 128 columns to out.  Rows past P load zeros and are not stored.
-#include "mma.cuh"
+//
+// Design.  A persistent grid, one CTA an SM, walks the rows 128 at a time.
+// A CTA is three warpgroups: two consumers, each on its own 64 rows, and
+// one producer warp.
+//  * Products: wgmma.mma_async m64n256k16, bf16 in, f32 sums (128
+//    accumulators a thread).  A comes from registers, B (the weights) from
+//    shared memory through descriptors.  W is stored K x N row-major, which
+//    is MN-major for B: the transpose bit takes it as it is.
+//  * The activation never leaves the registers.  For a 16-bit type, the
+//    m64nN accumulator's columns [16 k, 16 k + 16), rounded to bf16 in
+//    pairs, are exactly the A fragment of k-step k (wgmma.cuh), so the
+//    epilogue between two products is a bias, a ReLU and a conversion in
+//    registers (64 A registers a thread); x's rows are read straight into
+//    the first product's fragments, and the last product's first 128
+//    columns go straight to out.
+//  * The weights stream from L2 by TMA through a ring of STAGES stages of
+//    64 weight rows (32 KB: four 64-column boxes with the 128-byte swizzle
+//    that the descriptors name), W0's two stages and W's four for each of
+//    the seven later products, across tiles without a break.  The
+//    producer issues a stage once both consumers have released its slot
+//    (an mbarrier each way, no CTA-wide barrier); each consumer waits for a
+//    stage, issues its four k-steps, and releases the stage before once
+//    those have retired (wgmma.wait_group 1), so one stage's products are
+//    in flight while the next one lands.  setmaxnreg moves registers from
+//    the producer (40) to the consumers (232).
+//  * The two consumers share the tensor cores; when one is in its
+//    epilogue or waits for x, the other's products run.
+// What the stream costs: a 128-row tile does 128 FLOP for every weight byte
+// it streams (960 KB a tile), so at the bound the card would read ~7.7 TB/s
+// from L2, about what the L2 can give.  If the stream proves the limit, the
+// lever is a 2-CTA cluster that multicasts each stage by TMA to both CTAs.
+// Rows past P read zeros and are not stored.
+#include <cuda_bf16.h>
+
+#include "wgmma.cuh"
 
 namespace {
 
-using namespace mma;
-using bf16 = __nv_bfloat16;
+constexpr int K0 = 128;   // x's columns, W0's rows
+constexpr int N = 256;    // every product's width; W's rows
+constexpr int OUT = 128;  // the columns of h kept in out
+constexpr int BM = 128;   // rows a CTA step: two consumers of 64
+constexpr int KS = 64;    // weight rows a stage
+constexpr int BOX_COLS = 64;                    // one 128-byte swizzle atom
+constexpr int BOX_BYTES = KS * BOX_COLS * 2;    // 8 KB, one TMA box
+constexpr int STAGE_BYTES = KS * N * 2;         // 32 KB, four boxes
+constexpr int STAGES = 6;
+constexpr int STAGES_W0 = K0 / KS, STAGES_W = N / KS;
+constexpr int STAGES_PER_TILE = STAGES_W0 + 7 * STAGES_W;  // 30
+constexpr int THREADS = 384;  // consumers: warpgroups 0, 1; producer: 2
+constexpr int CONSUMER_WARPS = 8;
+// the ring, on the swizzle pattern's 1024-byte period
+constexpr size_t SMEM = STAGES * STAGE_BYTES + 1024;
+constexpr int ERR_ENCODE = 20000;  // + the CUresult of a failed encode
 
-constexpr int K0 = 128;    // x's columns, W0's rows
-constexpr int N = 256;     // every product's width; W's rows
-constexpr int OUT = 128;   // the columns of h kept in out
-constexpr int LAYERS = 8;
-constexpr int BM = 128;    // rows per CTA
-constexpr int KC = 32;     // weight rows per stage
-constexpr int LD = N + 8;  // shared row stride in elements (528 bytes)
-constexpr int THREADS = 256;
-constexpr int CHUNKS0 = K0 / KC, CHUNKS = N / KC;
-constexpr int N_CHUNKS = CHUNKS0 + (LAYERS - 1) * CHUNKS;
-constexpr size_t SMEM = sizeof(bf16) * (BM * LD + 2 * KC * LD);
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
 
-// Stage c of the weight stream: W0's rows [32 c, 32 c + 32) for the first
-// product, then W's rows, 8 stages a product, into a stage buffer.
-__device__ __forceinline__ void load_stage(int c, const bf16* __restrict__ w0,
-                                           const bf16* __restrict__ w,
-                                           bf16* buf) {
-  const bf16* src = c < CHUNKS0 ? w0 + 1LL * c * KC * N
-                                : w + 1LL * ((c - CHUNKS0) % CHUNKS) * KC * N;
-  for (int i = threadIdx.x; i < KC * N / 8; i += THREADS) {
-    const int r = i / (N / 8), c8 = i - r * (N / 8);
-    cp_async16(buf + r * LD + c8 * 8, src + r * N + c8 * 8);
+struct Ring {
+  uint32_t base;  // shared address of stage 0
+  uint64_t* full;
+  uint64_t* empty;
+  int stage = 0;
+  uint32_t phase = 0;
+  __device__ __forceinline__ void advance() {
+    if (++stage == STAGES) {
+      stage = 0;
+      phase ^= 1;
+    }
   }
-  cp_async_commit();
+};
+
+// One product of a consumer warpgroup: NS stages of 64 weight rows against
+// the A fragments a[4 (4 s + kk) + r]; acc starts from zero.
+template <int NS>
+__device__ __forceinline__ void product(Ring& ring, const uint32_t (&a)[64],
+                                        float (&acc)[128]) {
+  const int lane = threadIdx.x & 31;
+  int prev = 0;
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    wg::mbar_wait(&ring.full[ring.stage], ring.phase);
+    const uint32_t stage_addr = ring.base + ring.stage * STAGE_BYTES;
+#pragma unroll
+    for (int i = 0; i < 128; ++i) wg::fence_operand(acc[i]);
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint32_t frag[4] = {a[16 * s + 4 * kk], a[16 * s + 4 * kk + 1],
+                                a[16 * s + 4 * kk + 2],
+                                a[16 * s + 4 * kk + 3]};
+      // k-step kk: 16 weight rows, 2048 bytes into each box; the boxes
+      // (64 columns each) BOX_BYTES apart, 8-row groups 1024 bytes apart
+      const uint64_t desc =
+          wg::desc_sw128(stage_addr + kk * 2048, BOX_BYTES, 1024);
+      wg::mma_m64n256k16<1>(acc, frag, desc, s > 0 || kk > 0);
+    }
+    wg::commit();
+#pragma unroll
+    for (int i = 0; i < 128; ++i) wg::fence_operand(acc[i]);
+    if (s > 0) {
+      wg::wait<1>();  // the previous stage's products have retired
+      if (lane == 0) wg::mbar_arrive(&ring.empty[prev]);
+    }
+    prev = ring.stage;
+    ring.advance();
+  }
+  wg::wait<0>();
+#pragma unroll
+  for (int i = 0; i < 128; ++i) wg::fence_operand(acc[i]);
+  if (lane == 0) wg::mbar_arrive(&ring.empty[prev]);
 }
 
 template <bool FANCY>
 __global__ void __launch_bounds__(THREADS, 1)
-chain_kernel(const float* __restrict__ x, const bf16* __restrict__ w0,
-             const bf16* __restrict__ w, float* __restrict__ out,
-             long long P) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* act = reinterpret_cast<bf16*>(smem);
-  bf16* stage = act + BM * LD;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wm = warp >> 1, wn = warp & 1;  // 4 x 2 warps over the tile
-  const long long row0 = 1LL * blockIdx.x * BM;
+chain_kernel(const __grid_constant__ CUtensorMap map_w0,
+             const __grid_constant__ CUtensorMap map_w,
+             const float* __restrict__ x, float* __restrict__ out,
+             long long P, long long n_tiles) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[STAGES];
+  __shared__ __align__(8) uint64_t empty[STAGES];
+  const uint32_t raw = wg::smem_addr(smem_raw);
+  Ring ring{(raw + 1023) & ~1023u, full, empty};
+  unsigned char* ring_ptr = smem_raw + (ring.base - raw);
 
-  load_stage(0, w0, w, stage);
-  // x's rows, rounded to bf16, into act columns [0, 128)
-  for (int i = threadIdx.x; i < BM * K0 / 4; i += THREADS) {
-    const int r = i / (K0 / 4), c4 = i - r * (K0 / 4);
-    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (row0 + r < P)
-      v = reinterpret_cast<const float4*>(x + (row0 + r) * K0)[c4];
-    __nv_bfloat162* dst =
-        reinterpret_cast<__nv_bfloat162*>(act + r * LD + c4 * 4);
-    dst[0] = __floats2bfloat162_rn(v.x, v.y);
-    dst[1] = __floats2bfloat162_rn(v.z, v.w);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      wg::mbar_init(&full[s], 1);
+      wg::mbar_init(&empty[s], CONSUMER_WARPS);
+    }
+    wg::mbar_fence_init();
   }
+  __syncthreads();
 
-  float acc[2][16][4];
+  const int warpgroup = threadIdx.x / 128;
+  if (warpgroup == 2) {
+    // ---------------------------------------------------------- producer
+    wg::setmaxnreg_dec<40>();
+    if (threadIdx.x == 256) {
+      for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+        for (int c = 0; c < STAGES_PER_TILE; ++c) {
+          wg::mbar_wait(&ring.empty[ring.stage], ring.phase ^ 1);
+          wg::mbar_arrive_expect_tx(&ring.full[ring.stage], STAGE_BYTES);
+          const bool first = c < STAGES_W0;
+          const CUtensorMap* map = first ? &map_w0 : &map_w;
+          const int row = (first ? c : (c - STAGES_W0) % STAGES_W) * KS;
+          unsigned char* dst = ring_ptr + ring.stage * STAGE_BYTES;
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int nt = 0; nt < 16; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][nt][e] = 0.0f;
-
-  int c = 0;  // the stage being consumed
-  for (int layer = 0; layer < LAYERS; ++layer) {
-    const int n_stages = layer == 0 ? CHUNKS0 : CHUNKS;
-    for (int kc = 0; kc < n_stages; ++kc, ++c) {
-      // stage c has landed, and every warp is done with stage c - 1 (and,
-      // at a layer's start, the epilogue's writes to act are visible)
-      asm volatile("cp.async.wait_all;\n" ::: "memory");
-      __syncthreads();
-      if (c + 1 < N_CHUNKS)
-        load_stage(c + 1, w0, w, stage + ((c + 1) & 1) * KC * LD);
-      const bf16* wb = stage + (c & 1) * KC * LD;
-#pragma unroll
-      for (int ks = 0; ks < KC; ks += 16) {
-        const int k = kc * KC + ks;  // the act column of this step
-        uint32_t a[2][4];
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-          ldmatrix_x4(a[mi], act + (wm * 32 + mi * 16 + (lane & 15)) * LD +
-                                 k + (lane >> 4) * 8);
-#pragma unroll
-        for (int np = 0; np < 8; ++np) {
-          uint32_t b[4];
-          ldmatrix_x4_trans(b, wb + (ks + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                                        LD +
-                                    wn * 128 + np * 16 + (lane >> 4) * 8);
-#pragma unroll
-          for (int mi = 0; mi < 2; ++mi) {
-            mma_bf16(acc[mi][2 * np], a[mi], b[0], b[1]);
-            mma_bf16(acc[mi][2 * np + 1], a[mi], b[2], b[3]);
-          }
+          for (int b = 0; b < N / BOX_COLS; ++b)
+            wg::tma_load_2d(dst + b * BOX_BYTES, map, &ring.full[ring.stage],
+                            b * BOX_COLS, row);
+          ring.advance();
         }
       }
     }
-    __syncthreads();  // every warp has read this product's act
-    const float bias = layer == 0 ? 0.0f : 0.1f;
+  } else {
+    // --------------------------------------------------------- consumers
+    wg::setmaxnreg_inc<232>();
+    const int t = threadIdx.x % 128;
+    const int g = (t & 31) >> 2, q = t & 3;
+    const int r16 = (t >> 5) * 16 + g;  // this thread's rows: r16, r16 + 8
+    uint32_t a[64];
+    float acc[128];
 #pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
+    for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
+    for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      const long long row0 = tile * BM + warpgroup * 64 + r16;
+      // the next tile's rows of x (512 bytes each) into L2 while this one
+      // runs: the four threads of a row pair take two 128-byte lines each
+      const long long next = row0 + 8 * (q >> 1) + 1LL * gridDim.x * BM;
+      if (next < P) {
+        const float* line = x + next * K0 + (q & 1) * 64;
+        asm volatile("prefetch.global.L2 [%0];" ::"l"(line));
+        asm volatile("prefetch.global.L2 [%0];" ::"l"(line + 32));
+      }
+      // x's rows, rounded to bf16, as the first product's A fragments
 #pragma unroll
-      for (int nt = 0; nt < 16; ++nt) {
-        const int r = wm * 32 + mi * 16 + (lane >> 2);
-        const int col = wn * 128 + nt * 8 + (lane & 3) * 2;
-        float v[4];
+      for (int k = 0; k < K0 / 16; ++k)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          v[e] = acc[mi][nt][e];
-          if (FANCY) v[e] = fmaxf(v[e] + bias, 0.0f);
-          acc[mi][nt][e] = 0.0f;
+        for (int r = 0; r < 4; ++r) {
+          const long long row = row0 + 8 * (r & 1);
+          float2 v = make_float2(0.0f, 0.0f);
+          if (row < P)
+            v = __ldg(reinterpret_cast<const float2*>(
+                x + row * K0 + 16 * k + 8 * (r >> 1) + 2 * q));
+          a[4 * k + r] = pack_bf16(v.x, v.y);
         }
-        if (layer + 1 < LAYERS) {
-          *reinterpret_cast<__nv_bfloat162*>(act + r * LD + col) =
-              __floats2bfloat162_rn(v[0], v[1]);
-          *reinterpret_cast<__nv_bfloat162*>(act + (r + 8) * LD + col) =
-              __floats2bfloat162_rn(v[2], v[3]);
-        } else if (col < OUT) {
-          if (!FANCY) {  // h is bf16 in pure mode
 #pragma unroll
-            for (int e = 0; e < 4; ++e)
-              v[e] = __bfloat162float(__float2bfloat16_rn(v[e]));
-          }
-          if (row0 + r < P)
-            *reinterpret_cast<float2*>(out + (row0 + r) * OUT + col) =
-                make_float2(v[0], v[1]);
-          if (row0 + r + 8 < P)
-            *reinterpret_cast<float2*>(out + (row0 + r + 8) * OUT + col) =
-                make_float2(v[2], v[3]);
+      for (int i = 0; i < 32; ++i) wg::fence_operand(a[i]);
+#pragma unroll 1
+      for (int layer = 0; layer < 8; ++layer) {
+        if (layer == 0)
+          product<STAGES_W0>(ring, a, acc);
+        else
+          product<STAGES_W>(ring, a, acc);
+        const float bias = layer == 0 ? 0.0f : 0.1f;
+        if (layer < 7) {
+          // h, rounded to bf16, as the next product's A fragments
+#pragma unroll
+          for (int k = 0; k < 16; ++k)
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+              float v0 = acc[8 * k + 2 * r], v1 = acc[8 * k + 2 * r + 1];
+              if (FANCY) {
+                v0 = fmaxf(v0 + bias, 0.0f);
+                v1 = fmaxf(v1 + bias, 0.0f);
+              }
+              a[4 * k + r] = pack_bf16(v0, v1);
+            }
+#pragma unroll
+          for (int i = 0; i < 64; ++i) wg::fence_operand(a[i]);
+        } else {
+#pragma unroll
+          for (int j = 0; j < OUT / 8; ++j)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+              if (FANCY) {
+                v0 = fmaxf(v0 + bias, 0.0f);
+                v1 = fmaxf(v1 + bias, 0.0f);
+              } else {  // h is bf16 in pure mode
+                v0 = __bfloat162float(__float2bfloat16_rn(v0));
+                v1 = __bfloat162float(__float2bfloat16_rn(v1));
+              }
+              const long long row = row0 + 8 * h;
+              if (row < P)
+                *reinterpret_cast<float2*>(out + row * OUT + 8 * j + 2 * q) =
+                    make_float2(v0, v1);
+            }
         }
       }
+    }
   }
 }
 
 template <bool FANCY>
 int launch(const void* x, const void* w0, const void* w, void* out,
            long long P, cudaStream_t stream) {
+  CUtensorMap map_w0, map_w;
+  int err = wg::encode_bf16_sw128(&map_w0, w0, K0, N, KS, BOX_COLS);
+  if (!err) err = wg::encode_bf16_sw128(&map_w, w, N, N, KS, BOX_COLS);
+  if (err) return ERR_ENCODE + err;
+  int device = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e != cudaSuccess) return static_cast<int>(e);
   auto kernel = chain_kernel<FANCY>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(SMEM));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long grid = (P + BM - 1) / BM;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(SMEM));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long n_tiles = (P + BM - 1) / BM;
+  const long long grid = n_tiles < sms ? n_tiles : sms;
   kernel<<<static_cast<unsigned>(grid), THREADS, SMEM, stream>>>(
-      static_cast<const float*>(x), static_cast<const bf16*>(w0),
-      static_cast<const bf16*>(w), static_cast<float*>(out), P);
+      map_w0, map_w, static_cast<const float*>(x), static_cast<float*>(out),
+      P, n_tiles);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -187,11 +286,14 @@ int launch(const void* x, const void* w0, const void* w, void* out,
 extern "C" {
 
 const char* cuda_error_string(int err) {
+  if (err >= ERR_ENCODE)
+    return "cuTensorMapEncodeTiled refused the weights' tensor map";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
 // Kernel I.  x (P, 128) f32, w0 (128, 256) and w (256, 256) bf16, out
-// (P, 128) f32; all contiguous and 16-byte aligned on the stream's device.
+// (P, 128) f32; all contiguous and 16-byte aligned on the stream's device
+// (TMA reads the weights: 16-byte base and row pitch).
 int nerf_chain(const void* x, const void* w0, const void* w, void* out,
                long long P, int fancy, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);

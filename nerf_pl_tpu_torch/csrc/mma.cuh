@@ -1,6 +1,7 @@
 // The tensor-core building blocks of the kernels on Hopper's mma.sync path
-// (kernels E-F and H in bf16, I): cp.async copies into shared memory,
-// ldmatrix fragment loads and the m16n8k16 bf16 product with f32 sums.
+// (the bf16 forward tile and kernels E-F and H): cp.async copies into
+// shared memory, ldmatrix fragment loads and the m16n8k16 bf16 product with
+// f32 sums.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -13,12 +13,15 @@ Dispatch follows the tensor's device: a CUDA tensor launches the kernel in
 ``csrc/searchsorted.cu`` (A: rank, B: rank + interp), a CPU tensor runs the
 plain version.  Inputs are detached, as the JAX package stop-gradients them.
 
-The rows must be non-decreasing (ties and plateaus allowed), as the
-importance sampler's CDF rows are: a cumulative sum of non-negative floats
-after a leading zero.  On such a row the compares that hold form a prefix,
-so kernel A finds the rank, the prefix's length, by bisection
-(``ceil(log2(M + 1))`` halving steps) and returns the plain count's value
-exactly; kernel B counts as the TPU kernel does.
+The rows must be non-decreasing (ties and plateaus allowed) and, for
+``searchsorted_interp``, non-negative, as the importance sampler's CDF rows
+are: a cumulative sum of non-negative floats after a leading zero.  On such
+a row the compares that hold form a prefix, so kernels A and B find the
+rank, the prefix's length, by bisection (``ceil(log2(M + 1))`` halving
+steps) and return the plain count's value exactly; B then reads ``lo`` and
+``hi`` off the row at the rank (``row[min(rank, M-1) - 1]``, or 0, and
+``row[min(max(rank, 1), M-1)]``), the values the masked reductions select.
+The plain versions keep the full reductions.
 """
 from __future__ import annotations
 
@@ -59,7 +62,8 @@ def _lib():
         p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.searchsorted_rank.argtypes = [p, p, p, i64, i32, i32, i32, i32, p]
         lib.searchsorted_rank.restype = ctypes.c_int
-        lib.searchsorted_rank_interp.argtypes = [p, p, p, p, p, i64, i32, i32, p]
+        lib.searchsorted_rank_interp.argtypes = [p, p, p, p, p, i64, i32, i32,
+                                                 i32, p]
         lib.searchsorted_rank_interp.restype = ctypes.c_int
         lib._typed = True
     return lib
@@ -80,16 +84,17 @@ def _check_inputs(sorted_seq: torch.Tensor, values: torch.Tensor):
         raise ValueError(f"batch mismatch: {B} rows vs {values.shape[0]}")
     if M < 1 or M * 4 > 48 * 1024:
         raise ValueError(f"row length {M} outside the kernel's 1..12288")
-    if B >= 2 ** 31:  # kernel B runs one CTA per row (A fewer)
+    if B >= 2 ** 31:  # at least one row a CTA
         raise ValueError(f"{B} rows exceed the kernel's grid")
     return B, M, values.shape[1]
 
 
 def rank_vector_width(values_ptr: int, K: int) -> int:
-    """Queries a thread of kernel A reads and writes as one vector: 4 (16
-    bytes) where every row of ``values`` starts on 16 bytes (K a multiple
-    of 4 and ``values_ptr`` 16-byte aligned: a contiguous view at another
-    offset is not), else 1."""
+    """Queries a thread of kernel A or B reads and writes as one vector: 4
+    (16 bytes) where every row of ``values`` starts on 16 bytes (K a
+    multiple of 4 and ``values_ptr`` 16-byte aligned: a contiguous view at
+    another offset is not), else 1.  The outputs are fresh allocations, so
+    aligned."""
     return 4 if K % 4 == 0 and values_ptr % 16 == 0 else 1
 
 
@@ -118,7 +123,9 @@ searchsorted_cuda.launches = 0
 
 
 def searchsorted_interp_cuda(sorted_seq: torch.Tensor, values: torch.Tensor):
-    """Kernel B: rank plus bin endpoints on the card."""
+    """Kernel B: rank plus bin endpoints on the card, by bisection of each
+    (non-decreasing, non-negative) row; exactly
+    ``searchsorted_interp_plain``'s values on such rows."""
     B, M, K = _check_inputs(sorted_seq, values)
     dev = values.device
     ranks = torch.empty((B, K), dtype=torch.int32, device=dev)
@@ -130,7 +137,8 @@ def searchsorted_interp_cuda(sorted_seq: torch.Tensor, values: torch.Tensor):
     with torch.cuda.device(values.device):
         err = lib.searchsorted_rank_interp(
             sorted_seq.data_ptr(), values.data_ptr(), ranks.data_ptr(),
-            lo.data_ptr(), hi.data_ptr(), B, M, K, native.stream_of(values))
+            lo.data_ptr(), hi.data_ptr(), B, M, K,
+            rank_vector_width(values.data_ptr(), K), native.stream_of(values))
     native.check(lib, err, "searchsorted_rank_interp")
     searchsorted_interp_cuda.launches += 1
     return ranks, lo, hi

@@ -8,9 +8,10 @@ warm-up call, with CUDA events, at P = 4096 x 192 points (the training
 step's fine pass), and prints ms per call and TFLOP/s:
   * kernel I (``csrc/chain_probe.cu``): a bare chain of eight products of
     the MLP's shapes, x (P, 128) . W0 (128 x 256) . W (256 x 256) x 7, on the
-    tensor cores: pure bf16, and with f32 accumulation, bias, ReLU and a bf16
-    recast per layer, as the production kernels round.  The ceiling that the
-    fused MLP kernels are held against;
+    warpgroup tensor cores (wgmma, the weights streamed by TMA): pure bf16,
+    and with f32 accumulation, bias, ReLU and a bf16 recast per layer, as
+    the production kernels round.  The ceiling that the fused MLP kernels
+    are held against;
   * the same eight products as bf16 ``torch.matmul`` calls (cuBLAS), a
     yardstick beside kernel I, not a route of the port;
   * kernel G at W = 256 on pre-embedded rows (no in-kernel sin);
@@ -70,7 +71,9 @@ def chain_cuda(x: torch.Tensor, w0: torch.Tensor, w: torch.Tensor,
                fancy: bool = False) -> torch.Tensor:
     """Kernel I on the card: ``x (P, 128)`` f32, ``w0 (128, 256)`` and
     ``w (256, 256)`` bf16 -> ``(P, 128)`` f32, the first 128 columns of the
-    eighth product (see ``chain_plain``)."""
+    eighth product (see ``chain_plain``).  Every tensor must be contiguous
+    and start on 16 bytes: TMA reads the weights (16-byte base, 512-byte
+    row pitch) and the kernel moves x and out in 8-byte pairs."""
     _check(x, "x", torch.float32, K0)
     _check(w0, "w0", torch.bfloat16, N, K0)
     _check(w, "w", torch.bfloat16, N, N)

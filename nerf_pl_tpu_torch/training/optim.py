@@ -55,6 +55,14 @@ def make_lr_schedule(
     return schedule
 
 
+def host_to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """``t`` (on the CPU) on ``device``; to a card by a non-blocking copy
+    from pinned memory, which the host does not wait for."""
+    if device.type == "cpu":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 class Adam:
     """optax's ``scale_by_adam`` + ``scale_by_learning_rate`` over named
     parameters, updated in place.  ``params``: ``{name: Parameter}`` with
@@ -93,23 +101,36 @@ class Adam:
 
     @torch.no_grad()
     def step(self) -> None:
+        """One update with no synchronising call: the step's scalars reach
+        each parameter's device in one copy from pinned memory, queued
+        behind the work already on the stream.  They stay tensors on that
+        device, so the divisions and the ``lr`` product take the same
+        kernels, and give the same bits, as ever (a CPU scalar divisor
+        would make CUDA's ``div`` multiply by its reciprocal), and the
+        product is rounded before the add (no fused multiply-add)."""
         b1, b2 = self.b1, self.b2
         count = self.count + 1
         # float32 bias corrections, as optax computes decay ** count
         c1 = 1.0 - torch.tensor(b1, dtype=torch.float32) ** count
         c2 = 1.0 - torch.tensor(b2, dtype=torch.float32) ** count
-        lr = -self.schedule(self.sched_count)
+        lr = torch.tensor(-self.schedule(self.sched_count), dtype=torch.float32)
+        host = torch.stack([c1, c2, lr])
+        scalars: dict = {}
         for k, g in self._grads().items():
             p = self.params[k]
+            key = (p.device, p.dtype)
+            if key not in scalars:
+                scalars[key] = host_to_device(host.to(p.dtype), p.device)
+            c1_p, c2_p, lr_p = scalars[key]
             if self.weight_decay > 0:
                 g = g + self.weight_decay * p
             mu, nu = self.mu[k], self.nu[k]
             mu.copy_((1 - b1) * g + b1 * mu)
             nu.copy_((1 - b2) * (g * g) + b2 * nu)
-            mu_hat = mu / c1.to(mu.device, mu.dtype)
-            nu_hat = nu / c2.to(nu.device, nu.dtype)
+            mu_hat = mu / c1_p
+            nu_hat = nu / c2_p
             update = mu_hat / (torch.sqrt(nu_hat) + self.eps)
-            p.add_(torch.tensor(lr, dtype=p.dtype, device=p.device) * update)
+            p.add_(lr_p * update)
         self.count = count
         self.sched_count += 1
 

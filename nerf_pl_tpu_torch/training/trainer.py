@@ -41,7 +41,8 @@ from . import checkpoints
 from .logging import RunLogger
 from .losses import loss_dict
 from .metrics import psnr as psnr_metric
-from .optim import get_optimizer, make_lr_schedule, named_params
+from .optim import (get_optimizer, host_to_device, make_lr_schedule,
+                    named_params)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -266,10 +267,13 @@ class NeRFSystem:
                 t0 = time.time()
                 perm = torch.randperm(self.rays.shape[0],
                                       generator=self.shuffle_gen)
+                # one copy an epoch, queued behind the card's work; each
+                # step's indices are then a slice on the device
+                perm = host_to_device(perm, self.device)
                 losses, psnrs = [], []
                 for i in range(self.steps_per_epoch):
                     self._preempt_if_asked(epoch, complete=False)
-                    idx = perm[i * B:(i + 1) * B].to(self.device)
+                    idx = perm[i * B:(i + 1) * B]
                     loss, psnr = self.train_step(self.rays[idx], self.rgbs[idx])
                     losses.append(loss)
                     psnrs.append(psnr)

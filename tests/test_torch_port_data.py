@@ -248,6 +248,35 @@ def test_sigterm_saves_an_incomplete_epoch_as_the_one_before(blender_root, tmp_p
     assert int(saved["epoch"]) == -1  # epoch 0 incomplete: resume re-runs it
 
 
+def test_fit_takes_the_batches_in_the_same_order(blender_root, tmp_path):
+    # the epoch's permutation moves to the device once; each step's batch is
+    # still rows perm[i B:(i + 1) B] of a fresh permutation from the
+    # trainer's CPU generator, epoch after epoch
+    system = NeRFSystem(get_opts(_argv(blender_root, tmp_path, epochs=3)),
+                        device="cpu")
+    system.cfg.num_sanity_val_steps = 0
+    seen = []
+
+    def step(rays, rgbs):
+        seen.append((rays.clone(), rgbs.clone()))
+        return torch.zeros(()), torch.zeros(())
+
+    system.train_step = step
+    system._finish_epoch = lambda *args: None
+    system.fit()
+    gen = torch.Generator().manual_seed(system.cfg.seed)
+    B, n = system.cfg.batch_size, system.rays.shape[0]
+    want = []
+    for _ in range(3):
+        perm = torch.randperm(n, generator=gen)
+        for i in range(system.steps_per_epoch):
+            idx = perm[i * B:(i + 1) * B]
+            want.append((system.rays[idx], system.rgbs[idx]))
+    assert len(seen) == len(want) == 3 * system.steps_per_epoch
+    for (r, c), (wr, wc) in zip(seen, want):
+        assert torch.equal(r, wr) and torch.equal(c, wc)
+
+
 def test_trainer_refuses_flags_it_cannot_honour(blender_root, tmp_path):
     for extra in (["--num_devices", "2"], ["--multihost"], ["--per_host_data"],
                   ["--data_device_resident", "false"], ["--global_reshuffle"],

@@ -1,11 +1,14 @@
-"""The index arithmetic of the redesigned kernels A and E on the CPU.
+"""The index arithmetic of the redesigned kernels A, B and E on the CPU.
 
-Kernel A (``csrc/searchsorted.cu``) bisects each row instead of counting it:
-that is exact on non-decreasing rows.  The CDF rows that both packages'
-``sample_pdf`` hand to ``searchsorted`` are checked to be non-decreasing,
-with float plateaus, and the kernel's halving loop (mirrored here in numpy)
-is held bit for bit against the plain count, ``torch.searchsorted`` and the
-Pallas kernel in interpret mode.
+Kernels A and B (``csrc/searchsorted.cu``) bisect each row instead of
+counting it: that is exact on non-decreasing rows.  The CDF rows that both
+packages' ``sample_pdf`` hand to ``searchsorted`` are checked to be
+non-decreasing, with float plateaus, and the kernels' halving loop (mirrored
+here in numpy) is held bit for bit against the plain count,
+``torch.searchsorted`` and the Pallas kernel in interpret mode; B's two reads
+of the row at the rank against the masked max and min of
+``searchsorted_interp_plain``, ``searchsorted_interp_jnp`` and the Pallas
+kernel.
 
 Kernel E's weight-grad pass runs a job table that the wrapper builds
 (``fused_mlp.wgrad_jobs``) over the stash and the G buffer: each job is
@@ -132,6 +135,50 @@ def test_rank_bisection_is_exact_on_cdf_rows(M, side, monkeypatch):
         np.testing.assert_array_equal(plain, pal)
         np.testing.assert_array_equal(plain,
                                       _bisect_like_kernel(rows, vals, side))
+
+
+def _interp_like_kernel(rows, vals):
+    """``rank_kernel``'s INTERP epilogue: the rank by bisection, then lo and
+    hi read off the row at the rank."""
+    M = rows.shape[1]
+    rank = _bisect_like_kernel(rows, vals, "right").astype(np.int64)
+    j = np.minimum(rank, M - 1)
+    lo = np.where(j > 0, np.take_along_axis(rows, np.maximum(j - 1, 0), 1),
+                  np.float32(0.0))
+    hi = np.take_along_axis(rows, np.minimum(np.maximum(rank, 1), M - 1), 1)
+    return rank.astype(np.int32), lo.astype(np.float32), hi
+
+
+@pytest.mark.parametrize("M", [2, 63, 127])
+def test_interp_bisection_reads_the_plain_endpoints(M, monkeypatch):
+    rng = np.random.RandomState(100 + M)
+    B = 24
+    port, jax_rows = _captured_cdfs(monkeypatch, B, M, seed=20 + M)
+    for rows in (port, jax_rows):
+        # B's contract: non-decreasing and non-negative rows
+        assert (np.diff(rows, axis=1) >= 0).all() and (rows >= 0).all()
+        if M >= 63:
+            assert (np.diff(rows, axis=1) == 0).sum() > B
+        vals = _queries(rng, rows, 40)
+        vals[:, 3] = 1.5  # past the row's end
+        vals[:, 4] = np.nan  # no hit: rank 0, lo 0, hi row[1]
+        vals[:, 5] = rows[:, -1]  # at the last entry
+        mine = _interp_like_kernel(rows, vals)
+        plain = ss.searchsorted_interp_plain(torch.from_numpy(rows),
+                                             torch.from_numpy(vals))
+        jnp_out = jss.searchsorted_interp_jnp(jnp.asarray(rows),
+                                              jnp.asarray(vals))
+        pal = jss.searchsorted_interp_pallas(jnp.asarray(rows),
+                                             jnp.asarray(vals), block_b=8,
+                                             interpret=True)
+        for got, p, j, k in zip(mine, plain, jnp_out, pal):
+            np.testing.assert_array_equal(got, p.numpy())
+            np.testing.assert_array_equal(got, np.asarray(j))
+            np.testing.assert_array_equal(got, np.asarray(k))
+        # the reads land where the reductions would: the same bits
+        for got, p in zip(mine[1:], plain[1:]):
+            assert got.view(np.uint32).tolist() == \
+                p.numpy().view(np.uint32).tolist()
 
 
 @pytest.mark.parametrize("offset,K,width", [

@@ -340,6 +340,64 @@ def test_adam_state_tree_is_optax_layout():
     assert again.count == 1 and all(torch.equal(again.mu[k], opt.mu[k]) for k in opt.mu)
 
 
+def _adam_step_before(opt):
+    """``Adam.step`` as it was before its scalars moved in one non-blocking
+    copy (a scalar copied to each parameter's device per parameter): the
+    frozen reference of the update's bits."""
+    b1, b2 = opt.b1, opt.b2
+    count = opt.count + 1
+    c1 = 1.0 - torch.tensor(b1, dtype=torch.float32) ** count
+    c2 = 1.0 - torch.tensor(b2, dtype=torch.float32) ** count
+    lr = -opt.schedule(opt.sched_count)
+    with torch.no_grad():
+        for k, g in opt._grads().items():
+            p = opt.params[k]
+            if opt.weight_decay > 0:
+                g = g + opt.weight_decay * p
+            mu, nu = opt.mu[k], opt.nu[k]
+            mu.copy_((1 - b1) * g + b1 * mu)
+            nu.copy_((1 - b2) * (g * g) + b2 * nu)
+            mu_hat = mu / c1.to(mu.device, mu.dtype)
+            nu_hat = nu / c2.to(nu.device, nu.dtype)
+            update = mu_hat / (torch.sqrt(nu_hat) + opt.eps)
+            p.add_(torch.tensor(lr, dtype=p.dtype, device=p.device) * update)
+    opt.count = count
+    opt.sched_count += 1
+
+
+@pytest.mark.parametrize("grad_clip", [0.0, 0.05], ids=["noclip", "clip"])
+@pytest.mark.parametrize("weight_decay", [0.0, 1e-2], ids=["nowd", "wd"])
+def test_adam_step_is_bit_equal_to_the_step_before(weight_decay, grad_clip):
+    # 6 steps at 2 steps an epoch, the rate halved at epochs 1 and 2: two
+    # step-LR boundaries; one parameter without a grad at every third step
+    tree = np_nerf(26, D=2, W=16, skips=())
+    opts = []
+    for _ in range(2):
+        models = {"coarse": nerf_from_numpy(tree, device="cpu")}
+        sched = optim.make_lr_schedule(1e-2, "steplr", 2, 3,
+                                       decay_step=(1, 2), decay_gamma=0.5)
+        opts.append(optim.get_optimizer(
+            "adam", sched, optim.named_params(models),
+            weight_decay=weight_decay, grad_clip=grad_clip))
+    new, old = opts
+    rng = np.random.RandomState(27)
+    for step in range(6):
+        grads = {k: rng.normal(scale=0.1, size=tuple(p.shape)).astype(
+            np.float32) for k, p in new.params.items()}
+        for opt in opts:
+            for k, p in opt.params.items():
+                none = step % 3 == 2 and k.endswith("rgb/b")
+                p.grad = None if none else torch.from_numpy(grads[k].copy())
+        new.step()
+        _adam_step_before(old)
+        assert (new.count, new.sched_count) == (old.count, old.sched_count)
+        for k in new.params:
+            assert torch.equal(new.params[k], old.params[k]), (step, k)
+            assert torch.equal(new.mu[k], old.mu[k]), (step, k)
+            assert torch.equal(new.nu[k], old.nu[k]), (step, k)
+    assert new.count == 6 and new.schedule(5) == float(np.float32(2.5e-3))
+
+
 # ------------------------------------------------------------ gradient clip
 def test_grad_clip_matches_jax_and_keeps_dtypes():
     tree = np_nerf(25, D=2, W=16, skips=())
