@@ -78,7 +78,18 @@ Phases (any failed check raises, so the script exits non-zero):
    (no G), compared, and 256 rays of a W = 384 checkpoint in float32 on the
    card against the CPU; last, ``python -m
    nerf_pl_tpu_torch.scripts.kernel_probe`` as a subprocess.
-7. One JSON line of kernel numbers, the card's line, then the result line
+7. The flagship shadow trainer: ``python -m
+   nerf_pl_tpu_torch.train_efficient_sm`` at ``launchers/efficient_sm_64.sh``'s
+   flags (full width, sigma-only, 64+64 samples, batch 1,024,
+   ``--grad_on_light``, Light_N 32, float32) on a synthetic shadow scene this
+   script writes (20 train views of 64x64: 80 steps an epoch; 1 val view)
+   for 2 epochs, then 1 epoch in bf16 and 2 epochs through the no-grad
+   light cache (``--sample_light_depth_every 4`` at lr 5e-4: kernel C, the
+   loss must fall); losses finite, camera rays/s per epoch, launches in each
+   fit and in one step (D 4, E 4, A 2 with ``--grad_on_light``), one step's
+   synchronising calls and profile, and one float32 step's grads on the card
+   against the CPU (``TOL_STEP_GRADS``) on a 16x16 scene.
+8. One JSON line of kernel numbers, the card's line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Peak rates used for the bounds (NVIDIA H100 SXM data sheet, dense): 989
@@ -1054,7 +1065,8 @@ def profile_device(label: str, fn, top: int = 8) -> dict:
     for name, us in sorted(dev_us.items(), key=lambda kv: -kv[1])[:top]:
         log(f"[profile]   {us / 1e3:9.3f} ms {100 * us / 1e3 / busy_ms:5.1f}%"
             f"  {name[:90]}")
-    return dict(wall_ms=wall_ms, busy_ms=busy_ms)
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms,
+                by_kernel={k: us / 1e3 for k, us in dev_us.items()})
 
 
 def profile_batch(service, wh: int) -> None:
@@ -1265,9 +1277,6 @@ def step_syncs(system) -> dict:
     which raises at any call that makes the host wait for the card; then a
     whole step (fetch, render, loss, backward, Adam) under ``"warn"``, whose
     warnings are counted by the call that made them."""
-    import warnings
-    from collections import Counter
-
     from nerf_pl_tpu_torch.training.optim import host_to_device
 
     perm = host_to_device(torch.randperm(
@@ -1288,25 +1297,34 @@ def step_syncs(system) -> dict:
     torch.cuda.synchronize()
     log("[train] the index fetch and Adam.step ran under "
         "set_sync_debug_mode('error'): no synchronising call")
+    calls = sync_calls(lambda: system.train_step(*fetch()))
+    n = sum(calls.values())
+    log(f"[train] one whole step under set_sync_debug_mode('warn'): {n} "
+        f"synchronising calls, by line: {calls}")
+    return dict(count=n, calls=calls)
+
+
+def sync_calls(fn) -> dict:
+    """The synchronising calls ``fn()`` makes, counted by the Python line
+    that made each, from the warnings of ``set_sync_debug_mode("warn")``."""
+    import warnings
+    from collections import Counter
+
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            system.train_step(*fetch())
+            fn()
         finally:
             torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    calls = Counter()  # by the Python line that made the call
+    calls = Counter()
     root = os.path.dirname(os.path.abspath(__file__))
     for w in caught:
         msg = str(w.message)
         if "synchroniz" in msg and "prototype" not in msg:
-            where = os.path.relpath(w.filename, root)
-            calls[f"{where}:{w.lineno}"] += 1
-    n = sum(calls.values())
-    log(f"[train] one whole step under set_sync_debug_mode('warn'): {n} "
-        f"synchronising calls, by line: {dict(calls)}")
-    return dict(count=n, calls=dict(calls))
+            calls[f"{os.path.relpath(w.filename, root)}:{w.lineno}"] += 1
+    return dict(calls)
 
 
 def adam_step_before(opt) -> None:
@@ -2219,6 +2237,197 @@ def run_probe() -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- phase 7
+# The flagship shadow trainer at launchers/efficient_sm_64.sh's flags: the
+# reference NeRF at full width, sigma-only, 64x64 views, 64 + 64 samples,
+# batch 1,024, the light view re-rendered with grad every step with 32 fine
+# samples, float32.  The synthetic shadow scene at 64x64: 20 train views
+# (81,920 rays, 80 steps an epoch) and 1 val view.
+SHADOW_WH, SHADOW_VIEWS, SHADOW_BATCH, SHADOW_LIGHT_N = 64, 20, 1024, 32
+SHADOW_SAMPLES = 64  # --N_samples and --N_importance
+SHADOW_FLAGS = ["--dataset_name", "efficient_sm", "--img_wh", "64", "64",
+                "--N_samples", str(SHADOW_SAMPLES),
+                "--N_importance", str(SHADOW_SAMPLES), "--noise_std",
+                "0", "--batch_size", str(SHADOW_BATCH), "--optimizer", "adam",
+                "--lr", "1e-5", "--Light_N_importance", str(SHADOW_LIGHT_N),
+                "--shadow_method", "shadow_method_2"]
+# one grad_on_light step: camera and light, each a coarse and a fine pass
+# through D and E, and one importance sampling (A) each
+SHADOW_STEP_LAUNCHES = {"A": 2, "B": 0, "C": 0, "D": 4, "E": 4}
+
+
+def shadow_fit(tmp: str, root: str, name: str, extra: list,
+               epochs: int) -> dict:
+    """``python -m nerf_pl_tpu_torch.train_efficient_sm`` on the card with
+    ``SHADOW_FLAGS`` and ``extra``; launches in the fit, the epochs' losses
+    and camera rays/s (batch x steps over the epoch's wall time)."""
+    from nerf_pl_tpu_torch import train_efficient_sm as cli
+
+    argv = ["--root_dir", root, *SHADOW_FLAGS, "--num_epochs", str(epochs),
+            "--exp_name", name, "--log_dir", os.path.join(tmp, "logs"),
+            "--ckpt_dir", os.path.join(tmp, "ckpts"), "--device", "cuda",
+            *extra]
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    system = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    with open(os.path.join(tmp, "logs", name, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    epochs_ = [r for r in recs if "train/loss" in r]
+    losses = [r["train/loss"] for r in epochs_]
+    rates = [r["train/rays_per_s"] for r in epochs_]
+    vals = [r["val/loss"] for r in recs if "val/loss" in r]
+    log(f"[shadow] {name} ({' '.join(extra)}): {system.steps_per_epoch} "
+        f"steps/epoch, loss per epoch {losses}, opacity loss "
+        f"{[r['train/train_opactiy'] for r in epochs_]}, val loss {vals}; "
+        f"camera rays/s per epoch {[round(r, 1) for r in rates]}; fit "
+        f"{wall:.1f} s wall; launches in the fit {counts}")
+    if len(losses) != epochs or not all(np.isfinite(losses + vals)):
+        raise AssertionError(f"shadow fit {name}: losses not finite: "
+                             f"{losses} {vals}")
+    return dict(system=system, counts=counts, losses=losses,
+                rays_per_s=rates, vals=vals, wall_s=wall)
+
+
+def shadow_step_grads_card_vs_cpu(tmp: str) -> float:
+    """One float32 grad_on_light step's grads on the card and on the CPU:
+    the same weights (the seed), batch and injected draws, on a 16x16
+    scene (256 camera rays, 256 light rays) so the CPU's step is short."""
+    from nerf_pl_tpu_torch.config import get_opts
+    from nerf_pl_tpu_torch.data.synthetic import generate_scene
+    from nerf_pl_tpu_torch.training.shadow_systems import EfficientSMSystem
+
+    root = os.path.join(tmp, "shadow_small")
+    generate_scene(root, img_wh=16, n_train=2, n_val=1, n_test=0)
+    n = 256
+    gen = torch.Generator().manual_seed(4)
+    draws = {"cam": (n, SHADOW_SAMPLES), "light": (n, SHADOW_LIGHT_N)}
+    ov = {key: {"perturb_rand": torch.rand((rows, SHADOW_SAMPLES),
+                                           generator=gen),
+                "u": torch.rand((rows, k), generator=gen),
+                "jitter": torch.rand((rows, k), generator=gen)}
+          for key, (rows, k) in draws.items()}
+    grads = {}
+    for device in ("cuda", "cpu"):
+        cfg = get_opts(["--root_dir", root, *SHADOW_FLAGS, "--img_wh", "16",
+                        "16", "--batch_size", str(n), "--grad_on_light",
+                        "--exp_name", f"grads_{device}",
+                        "--log_dir", os.path.join(tmp, "logs"),
+                        "--ckpt_dir", os.path.join(tmp, "ckpts")])
+        system = EfficientSMSystem(cfg, device=device)
+        batch = tuple(t[:n] for t in (system.rays, system.rgbs, system.pixels,
+                                      system.pose_idx))
+        system.train_step(*batch, system.empty_light_cache(), SHADOW_LIGHT_N,
+                          overrides={key: {k: v.to(device) for k, v in d.items()}
+                                     for key, d in ov.items()})
+        grads[device] = {f"{name}/{k}": (p.grad if p.grad is not None else
+                                         torch.zeros_like(p)).cpu()
+                         for name, m in system.models.items()
+                         for k, p in m.named_parameters()}
+        system.logger.close()
+    names = sorted(grads["cpu"])
+    return check_grads("f32 shadow step grads card vs cpu (256 + 256 rays)",
+                       [grads["cuda"][k] for k in names],
+                       [grads["cpu"][k] for k in names], names,
+                       TOL_STEP_GRADS)["max_rel"]
+
+
+def shadow_f32_kernels(prof: dict, system) -> dict:
+    """Kernels D and E in float32 over one grad_on_light step (their 4
+    launches each, sigma-only), device time from the profile beside the
+    bound: D writes a 2,048-value f32 stash a point, E reads it; 2 FLOP a
+    multiply-add forward, 4 backward (dgrad and wgrad)."""
+    S = SHADOW_SAMPLES
+    P = (SHADOW_BATCH * (S + 2 * S)
+         + system.light_rays.shape[0] * (S + S + SHADOW_LIGHT_N))
+    io = P * (8 * 4 + 4 + 2048 * 4)  # x (8, P), out or g (1, P), stash
+    rows = {}
+    for key, names, flop in (
+            ("D", ("fused_nerf_fwd_kernel",), 2),
+            ("E", ("fused_nerf_dgrad_kernel", "fused_nerf_wgrad_kernel",
+                   "reduce_rows_kernel"), 4)):
+        ms = sum(v for k, v in (prof.get("by_kernel") or {}).items()
+                 if any(n in k for n in names))
+        b, by = bound_ms(io, flop * MACS_SIGMA * P, F32_FLOPS)
+        rows[key] = dict(P=P, device_ms=ms, bound_ms=b, bound_by=by)
+        log(f"[shadow] kernel {key} in float32, one step's 4 launches over "
+            f"{P:,} sigma-only points: {ms:.3f} ms of device time, bound "
+            f"{b:.3f} ms ({by})")
+    return rows
+
+
+def shadow_end_to_end(tmp: str) -> dict:
+    """The shadow trainer: a 2-epoch float32 fit at the launcher's flags, a
+    1-epoch bf16 fit, a 2-epoch fit through the no-grad light cache (kernel
+    C; ``--sample_light_depth_every 4`` at lr 5e-4, whose loss must fall
+    from epoch to epoch); one step's launches, synchronising calls and
+    profile; one f32 step's grads on the card against the CPU."""
+    from nerf_pl_tpu_torch.data.synthetic import generate_scene
+
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "shadow_scene")
+    generate_scene(root, img_wh=SHADOW_WH, n_train=SHADOW_VIEWS, n_val=1,
+                   n_test=0)
+    log(f"[shadow] scene: {SHADOW_VIEWS} train views + 1 val of "
+        f"{SHADOW_WH}x{SHADOW_WH}, written in {time.perf_counter() - t0:.1f} s")
+    fit = shadow_fit(tmp, root, "sm_f32", ["--grad_on_light"], 2)
+    system = fit["system"]
+    if system.steps_per_epoch != SHADOW_VIEWS * SHADOW_WH ** 2 // SHADOW_BATCH:
+        raise AssertionError(f"steps per epoch {system.steps_per_epoch}")
+    for k in ("A", "C", "D", "E"):
+        if fit["counts"][k] < 1:
+            raise AssertionError(f"kernel {k} was not launched by the fit")
+
+    batch = tuple(t[:SHADOW_BATCH] for t in (system.rays, system.rgbs,
+                                             system.pixels, system.pose_idx))
+    cache = system.empty_light_cache()
+
+    def step():
+        return system.train_step(*batch, cache, SHADOW_LIGHT_N)
+
+    torch.cuda.synchronize()
+    reset_counts()
+    step()
+    torch.cuda.synchronize()
+    per_step = read_counts()
+    log(f"[shadow] launches in one grad_on_light step: {per_step}")
+    if any(per_step[k] != v for k, v in SHADOW_STEP_LAUNCHES.items()):
+        raise AssertionError(f"one shadow step launched {per_step}, expected "
+                             f"{SHADOW_STEP_LAUNCHES}")
+    calls = sync_calls(step)
+    log(f"[shadow] one step under set_sync_debug_mode('warn'): "
+        f"{sum(calls.values())} synchronising calls, by line: {calls}")
+    prof = profile_device("one shadow step (f32, grad_on_light, 1,024 "
+                          "camera rays + 4,096 light rays)", step, top=12)
+    f32_step = shadow_f32_kernels(prof, system)
+    del system, fit["system"]
+
+    bf16 = shadow_fit(tmp, root, "sm_bf16",
+                      ["--grad_on_light", "--compute_dtype", "bfloat16"], 1)
+    del bf16["system"]
+    cached = shadow_fit(tmp, root, "sm_cache",
+                        ["--sample_light_depth_every", "4", "--lr", "5e-4"], 2)
+    if not cached["losses"][1] < cached["losses"][0]:
+        raise AssertionError(f"cache fit loss did not fall: {cached['losses']}")
+    # a refresh at every 4th step (20 an epoch of 80 steps), a coarse and a
+    # fine pass each; validation adds more
+    passes = 2 * 2 * -(-cached["system"].steps_per_epoch // 4)
+    if cached["counts"]["C"] < passes:
+        raise AssertionError(f"the light cache took C {cached['counts']['C']}"
+                             f" times, expected >= {passes}")
+    del cached["system"]
+    grads_err = shadow_step_grads_card_vs_cpu(tmp)
+    seconds = time.perf_counter() - t0
+    log(f"[shadow] phase 7: {seconds:.1f} s")
+    return dict(counts=fit["counts"], per_step=per_step, syncs=calls,
+                profile=prof, f32_step=f32_step, fit=fit, bf16=bf16,
+                cache=cached,
+                grads_err=grads_err, seconds=seconds)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2270,6 +2479,7 @@ def main() -> int:
         wr = wide_render(tmp)
         probe = run_probe()
         log(f"[wide] phase 6: {time.perf_counter() - t_wide:.1f} s")
+        shadow = shadow_end_to_end(tmp)
 
     fine_row, coarse_row = c["rows"]["rgb"], c["rows"]["sigma-only"]
     kernels = [
@@ -2467,6 +2677,27 @@ def main() -> int:
         f"{gt['ms']:.3f} ms at {gt['P']} points; H {wh['ms']:.3f} ms (F "
         f"{wh['F_ms']:.3f}); I {pure['ms']:.4f} ms ({pure['tflops']:.1f} "
         f"TFLOP/s), cuBLAS chain {wi['library_ms']:.4f} ms")
+    # the shadow trainer's launches (phase 7): the 2-epoch f32 fit, one step,
+    # the bf16 fit and the no-grad light-cache fit
+    for row in kernels:
+        key = {"searchsorted_rank": "A", "fused_nerf_fwd": "C",
+               "fused_nerf_stash_fwd": "D",
+               "fused_nerf_bwd_stash": "E"}.get(row["name"])
+        if key in ("D", "E"):
+            row["shadow_f32_step"] = shadow["f32_step"][key]
+        if key is not None:
+            row["launches_shadow"] = dict(
+                fit=shadow["counts"][key], per_step=shadow["per_step"][key],
+                bf16_fit=shadow["bf16"]["counts"][key],
+                cache_fit=shadow["cache"]["counts"][key])
+    fit, prof = shadow["fit"], shadow["profile"]
+    log(f"[shadow] f32 grad_on_light fit {fit['rays_per_s'][-1]:.1f} camera "
+        f"rays/s (epoch 1), bf16 {shadow['bf16']['rays_per_s'][-1]:.1f}, "
+        f"light cache (f32) {shadow['cache']['rays_per_s'][-1]:.1f}; one step "
+        f"{prof['wall_ms']:.1f} ms wall, {prof['busy_ms'] or 0:.1f} ms device "
+        f"busy; synchronising calls a step {sum(shadow['syncs'].values())}; "
+        f"f32 step grads card vs cpu rel err {shadow['grads_err']:.3e}; "
+        f"phase {shadow['seconds']:.1f} s")
     log(f"[card] {card}")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,5 +1,12 @@
-"""Ray helpers shared by the dataset loaders
-(``nerf_pl_tpu/data/shadow_common.py``), on host numpy arrays.
+"""Helpers shared by the shadow-map loaders (``nerf_pl_tpu/data/shadow_common.py``),
+on host numpy arrays.
+
+  * pixel rows ``[x+0.5, y+0.5, 1]`` flattened row-major;
+  * the light camera: intrinsics from ``light_camera_angle_x``, pose from
+    ``light_camera_transform_matrix``, rays through every light pixel;
+  * targets ``sm_<frame>.png`` beside the RGB frames, read with the port's
+    PNG reader, LANCZOS resize and Gaussian blur (each bit-equal to Pillow's)
+    and ``convert("RGB")``.
 
 ``get_ray_directions`` and ``get_rays`` repeat the numpy branch of
 ``nerf_pl_tpu/ops/ray_utils.py`` (the port's ``ops.ray_utils`` is the torch
@@ -9,7 +16,15 @@ world frame and normalised.
 """
 from __future__ import annotations
 
+import os
+from typing import Optional, Tuple
+
 import numpy as np
+
+from ..models.camera import Camera, intrinsic_matrix, pose_from_blender_matrix
+from .blur import gaussian_blur
+from .png import read_png
+from .resize import resize_lanczos
 
 
 def get_ray_directions(H: int, W: int, focal: float) -> np.ndarray:
@@ -35,3 +50,87 @@ def make_rays(directions, c2w, near: float, far: float) -> np.ndarray:
     return np.concatenate(
         [rays_o, rays_d, near * nf, far * nf], axis=1
     ).astype(np.float32)
+
+
+def pixel_grid(w: int, h: int) -> np.ndarray:
+    """(h*w, 3) rows of [x+0.5, y+0.5, 1], row-major (y outer)."""
+    yy, xx = np.meshgrid(
+        np.arange(h, dtype=np.float32), np.arange(w, dtype=np.float32),
+        indexing="ij",
+    )
+    return np.stack(
+        [xx.reshape(-1) + 0.5, yy.reshape(-1) + 0.5, np.ones(h * w, np.float32)],
+        axis=1,
+    )
+
+
+def posed_ppc(camera_angle_x: float, res: Tuple[int, int], c2w: np.ndarray):
+    """(M, eye) for a Blender frame: hfov in degrees into the PPC intrinsics,
+    then ``M <- c2w[:, :3] @ M``."""
+    hfov = camera_angle_x * 180.0 / np.pi
+    M = intrinsic_matrix(hfov, res)
+    return pose_from_blender_matrix(M, c2w)
+
+
+def _to_rgb(img: np.ndarray, mode: str) -> np.ndarray:
+    """PIL's ``convert("RGB")`` for the modes the PNG reader returns."""
+    if mode == "RGB":
+        return img
+    if mode == "RGBA":
+        return img[..., :3]
+    if mode in ("L", "LA"):
+        gray = img if mode == "L" else img[..., 0]
+        return np.repeat(gray[..., None], 3, axis=-1)
+    raise ValueError(f"cannot convert PNG mode {mode!r} to RGB")
+
+
+def load_sm_image(path: str, img_wh, blur: int = -1) -> np.ndarray:
+    """(h*w, 3) float32 shadow-map target: the PNG resized with LANCZOS,
+    blurred when ``blur != -1``, as RGB in [0, 1]."""
+    img, mode = read_png(path)
+    img = resize_lanczos(img, mode, img_wh)
+    if blur != -1:
+        img = gaussian_blur(img, blur)
+    arr = _to_rgb(img, mode).astype(np.float32) / 255.0
+    return arr.reshape(-1, 3)
+
+
+def sm_path_for(root_dir: str, file_path: str) -> str:
+    name = file_path.split("/")[-1]
+    return os.path.join(root_dir, f"sm_{name}.png")
+
+
+class LightRig:
+    """The light 'camera' shared by every frame of a shadow dataset."""
+
+    def __init__(
+        self,
+        img_wh: Tuple[int, int],
+        light_camera_angle_x: float,
+        l2w: np.ndarray,  # (3,4)
+        near: float,
+        far: float,
+        base_res: int = 800,
+        camera_override: Optional[np.ndarray] = None,
+        eye_override: Optional[np.ndarray] = None,
+    ):
+        w, h = img_wh
+        focal = 0.5 * base_res / np.tan(0.5 * light_camera_angle_x)
+        focal *= w / base_res
+        self.focal = focal
+        self.l2w = np.asarray(l2w, np.float32)
+        directions = get_ray_directions(h, w, focal)
+        self.rays = make_rays(directions, l2w, near, far)  # (h*w, 8)
+        self.pixels = pixel_grid(w, h)  # (h*w, 3)
+        if camera_override is not None:
+            self.camera = np.asarray(camera_override, np.float32)
+            self.eye_pos = np.asarray(eye_override, np.float32)
+        else:
+            self.camera, self.eye_pos = posed_ppc(
+                light_camera_angle_x, (w, h), l2w
+            )
+        self.near, self.far = near, far
+
+    @property
+    def ppc(self) -> Camera:
+        return Camera.from_camera_eyepos(self.eye_pos, self.camera)

@@ -1,0 +1,157 @@
+"""The analytic synthetic shadow scene (``nerf_pl_tpu/data/synthetic.py``).
+
+Ray-traces a lambertian position-coloured sphere over a checkered ground
+disc with a hard point-light shadow, and writes a Blender-format scene:
+RGBA frames, ``sm_*.png`` shadow maps and the light camera in the meta, which
+the ``blender`` and ``efficient_sm`` loaders read.  The PNGs go through the
+port's own writer (``data/png.py``), so the scene needs no PIL; its pixels
+and JSON equal the JAX package's.  The LLFF and PyRedner layouts of the same
+scene are not ported yet (ROADMAP.md).
+"""
+from __future__ import annotations
+
+import json
+import os
+
+import numpy as np
+
+from .png import write_png
+from .shadow_common import get_ray_directions, get_rays
+
+SPHERE_C = np.array([0.0, 0.2, 0.0], np.float32)
+SPHERE_R = 1.0
+GROUND_Y = -1.0
+# a finite ground disc inside the light's frustum: rays that hit ground
+# outside it would gather clamped light depths and get targets the shadow
+# mapping cannot match
+GROUND_R = 3.5
+LIGHT_POS = np.array([4.5, 7.5, 3.0], np.float32)
+
+
+def look_at(eye, target=np.zeros(3, np.float32)):
+    fwd = eye - target
+    fwd = fwd / np.linalg.norm(fwd)
+    right = np.cross([0.0, 1.0, 0.0], fwd)
+    right = right / np.linalg.norm(right)
+    up = np.cross(fwd, right)
+    m = np.eye(4, dtype=np.float32)
+    m[:3, 0], m[:3, 1], m[:3, 2], m[:3, 3] = right, up, fwd, eye
+    return m
+
+
+def ray_sphere(o, d):
+    """t of the first sphere hit, inf if none.  o, d: (N, 3)."""
+    oc = o - SPHERE_C
+    b = np.sum(oc * d, -1)
+    c = np.sum(oc * oc, -1) - SPHERE_R**2
+    disc = b * b - c
+    t = -b - np.sqrt(np.maximum(disc, 0.0))
+    return np.where((disc > 0) & (t > 1e-3), t, np.inf)
+
+
+def ray_ground(o, d):
+    t = (GROUND_Y - o[:, 1]) / d[:, 1]
+    valid = (np.abs(d[:, 1]) > 1e-6) & (t > 1e-3)
+    p = o + np.where(valid, t, 0.0)[:, None] * d
+    valid &= p[:, 0] ** 2 + p[:, 2] ** 2 <= GROUND_R**2
+    return np.where(valid, t, np.inf)
+
+
+def in_shadow(p):
+    """Is the segment from each point to the light blocked by the sphere?"""
+    to_l = LIGHT_POS - p
+    dist = np.linalg.norm(to_l, axis=-1, keepdims=True)
+    d = to_l / dist
+    t = ray_sphere(p + 1e-3 * d, d)
+    return t < dist[:, 0]
+
+
+def shade(o, d):
+    """(rgb (N, 3), alpha (N,)) of each ray; white background."""
+    n = o.shape[0]
+    t_s = ray_sphere(o, d)
+    t_g = ray_ground(o, d)
+    rgb = np.ones((n, 3), np.float32)
+    alpha = np.zeros(n, np.float32)
+
+    hit_s = t_s < t_g
+    if hit_s.any():
+        p = o[hit_s] + t_s[hit_s, None] * d[hit_s]
+        nrm = (p - SPHERE_C) / SPHERE_R
+        light = LIGHT_POS - p
+        light = light / np.linalg.norm(light, axis=-1, keepdims=True)
+        lam = np.clip(np.sum(nrm * light, -1), 0.1, 1.0)
+        rgb[hit_s] = (0.5 + 0.5 * nrm) * lam[:, None]  # position-coloured
+        alpha[hit_s] = 1.0
+
+    hit_g = (t_g < t_s) & np.isfinite(t_g)
+    if hit_g.any():
+        p = o[hit_g] + t_g[hit_g, None] * d[hit_g]
+        checker = ((np.floor(p[:, 0]) + np.floor(p[:, 2])) % 2).astype(
+            np.float32)
+        base = 0.55 + 0.25 * checker[:, None] * np.ones((1, 3), np.float32)
+        base[in_shadow(p)] *= 0.25
+        rgb[hit_g] = base
+        alpha[hit_g] = 1.0
+    return np.clip(rgb, 0, 1), alpha
+
+
+def _view_rays(c2w, wh, focal):
+    o, d = get_rays(get_ray_directions(wh, wh, focal), c2w[:3, :4])
+    return o, d / np.linalg.norm(d, axis=-1, keepdims=True)
+
+
+def render_view(c2w, wh, focal):
+    rgb, alpha = shade(*_view_rays(c2w, wh, focal))
+    return rgb.reshape(wh, wh, 3), alpha.reshape(wh, wh)
+
+
+def shadow_map_view(c2w, wh, focal):
+    """The target shadow map: 1 where the first hit is shadowed, else 0
+    (3 channels)."""
+    o, d = _view_rays(c2w, wh, focal)
+    t = np.minimum(ray_sphere(o, d), ray_ground(o, d))
+    sm = np.zeros(o.shape[0], np.float32)
+    hit = np.isfinite(t)
+    sm[hit] = in_shadow(o[hit] + t[hit, None] * d[hit]).astype(np.float32)
+    return np.stack([sm] * 3, -1).reshape(wh, wh, 3)
+
+
+def generate_scene(out_dir, img_wh=64, n_train=20, n_val=2, n_test=2,
+                   radius=4.5, camera_angle_x=0.8):
+    """Write the whole scene (train, val and test splits); returns out_dir."""
+    os.makedirs(out_dir, exist_ok=True)
+    wh = img_wh
+    focal = 0.5 * 800 / np.tan(0.5 * camera_angle_x) * wh / 800
+    light_c2w = look_at(LIGHT_POS)
+    for split, n, off in [("train", n_train, 0.0), ("val", n_val, 0.33),
+                          ("test", n_test, 0.66)]:
+        frames = []
+        for i in range(n):
+            theta = 2 * np.pi * (i + off) / max(n, 1)
+            height = 1.2 + 0.8 * np.sin(1.7 * theta)
+            eye = np.array(
+                [radius * np.sin(theta), height, radius * np.cos(theta)],
+                np.float32,
+            )
+            c2w = look_at(eye)
+            rgb, alpha = render_view(c2w, wh, focal)
+            rgba = np.concatenate([rgb, alpha[..., None]], -1)
+            name = f"r_{split}_{i}"
+            write_png(os.path.join(out_dir, f"{name}.png"),
+                      (rgba * 255).astype(np.uint8))
+            sm = shadow_map_view(c2w, wh, focal)
+            write_png(os.path.join(out_dir, f"sm_{name}.png"),
+                      (sm * 255).astype(np.uint8))
+            frames.append(
+                {"file_path": f"./{name}", "transform_matrix": c2w.tolist()})
+        meta = {
+            "camera_angle_x": camera_angle_x,
+            "light_camera_angle_x": camera_angle_x,
+            "light_camera_transform_matrix": light_c2w.tolist(),
+            "resolution": 800,
+            "frames": frames,
+        }
+        with open(os.path.join(out_dir, f"transforms_{split}.json"), "w") as f:
+            json.dump(meta, f)
+    return out_dir

@@ -10,6 +10,10 @@
 
 Random draws come from a ``torch.Generator`` or are injected (``u``,
 ``jitter``, ``rand``) so tests can feed both packages the same numbers.
+The [0, 1] steps are ``i * (1 / (n - 1))`` and an exact 1 last, the bits of
+``jnp.linspace`` as XLA:CPU computes it (``torch.linspace`` rounds some steps
+the other way, and at the shadow scenes' far plane of 200 one ulp of depth
+moves the 2^9-frequency encoding by ~5e-3 rad).
 """
 from __future__ import annotations
 
@@ -20,11 +24,20 @@ import torch
 from .searchsorted import searchsorted, searchsorted_interp
 
 
+def unit_steps(n: int, dtype=torch.float32, device=None) -> torch.Tensor:
+    """``n`` steps from 0 to 1 with ``jnp.linspace(0, 1, n)``'s bits."""
+    if n < 2:
+        return torch.zeros(n, dtype=dtype, device=device)
+    # the Python scalar is rounded to ``dtype`` before the product; the
+    # tensors are made on ``device`` (a copy from the host would wait)
+    steps = torch.arange(n - 1, dtype=dtype, device=device) * (1.0 / (n - 1))
+    return torch.cat([steps, torch.ones(1, dtype=dtype, device=device)])
+
+
 def stratified_z_vals(near: torch.Tensor, far: torch.Tensor, N_samples: int,
                       use_disp: bool = False) -> torch.Tensor:
     """(N_rays, N_samples) linearly spaced depths (or disparities)."""
-    z_steps = torch.linspace(0.0, 1.0, N_samples, dtype=near.dtype,
-                             device=near.device)
+    z_steps = unit_steps(N_samples, near.dtype, near.device)
     if not use_disp:
         return near * (1.0 - z_steps) + far * z_steps
     return 1.0 / (1.0 / near * (1.0 - z_steps) + 1.0 / far * z_steps)
@@ -66,7 +79,7 @@ def sample_pdf(
     like = dict(dtype=weights.dtype, device=weights.device)
     if u is None:
         if det:
-            u = torch.linspace(0.0, 1.0, N_importance, **like)
+            u = unit_steps(N_importance, **like)
             u = u.expand(N_rays, N_importance)
         else:
             u = torch.rand((N_rays, N_importance), generator=generator, **like)

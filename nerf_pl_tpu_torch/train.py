@@ -12,25 +12,12 @@ Every flag of ``train.py`` parses as it does there (``config.get_opts``);
 """
 from __future__ import annotations
 
-import argparse
-import os
-import sys
-
-from .config import Config, get_opts
+from .training.launch import launch
 from .training.trainer import NeRFSystem
 
 
 def main(argv=None) -> NeRFSystem:
-    argv = sys.argv[1:] if argv is None else list(argv)
-    pre = argparse.ArgumentParser(add_help=False)
-    pre.add_argument("--device", default="cuda")
-    args, rest = pre.parse_known_args(argv)
-    cfg: Config = get_opts(rest)
-    os.makedirs(os.path.join(cfg.log_dir, cfg.exp_name), exist_ok=True)
-    cfg.save(os.path.join(cfg.log_dir, cfg.exp_name, "config.json"))
-    system = NeRFSystem(cfg, device=args.device)
-    system.fit()
-    return system
+    return launch(NeRFSystem, argv=argv)
 
 
 if __name__ == "__main__":

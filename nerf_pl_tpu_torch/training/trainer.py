@@ -47,19 +47,21 @@ from .optim import (get_optimizer, host_to_device, make_lr_schedule,
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def check_supported(cfg: Config) -> None:
-    """Raise on the flags this trainer cannot honour yet."""
-    unsupported = {
+def common_unsupported(cfg: Config) -> Dict[str, bool]:
+    """The flags no trainer of the port honours yet, each with whether
+    ``cfg`` sets it."""
+    return {
         "--num_devices > 1": (cfg.num_devices or 1) > 1,
         "--multihost": cfg.multihost,
         "--per_host_data": cfg.per_host_data,
         "--data_device_resident false": not cfg.data_device_resident,
         "--global_reshuffle": cfg.global_reshuffle,
-        f"--dataset_name {cfg.dataset_name}": cfg.dataset_name not in dataset_dict,
         f"--compute_dtype {cfg.compute_dtype}": cfg.compute_dtype not in _DTYPES,
-        f"--loss_type {cfg.loss_type}": cfg.loss_type != "mse",
     }
-    bad = [k for k, v in unsupported.items() if v]
+
+
+def raise_unsupported(flags: Dict[str, bool]) -> None:
+    bad = [k for k, v in flags.items() if v]
     if bad:
         raise ValueError(f"not ported yet: {', '.join(bad)} (see ROADMAP.md)")
 
@@ -94,9 +96,21 @@ class NeRFSystem:
     """Vanilla NeRF trainer (reference ``train.py:27-148``)."""
 
     mode = "rgb"
+    datasets = ("blender",)
+    loss_label = "loss"  # the epoch line's name for train/loss
+
+    @classmethod
+    def check_supported(cls, cfg: Config) -> None:
+        """Raise on the flags this trainer cannot honour yet."""
+        raise_unsupported({
+            **common_unsupported(cfg),
+            f"--dataset_name {cfg.dataset_name}":
+                cfg.dataset_name not in cls.datasets,
+            f"--loss_type {cfg.loss_type}": cfg.loss_type != "mse",
+        })
 
     def __init__(self, cfg: Config, device=None):
-        check_supported(cfg)
+        self.check_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.loss_name = cfg.loss_type
@@ -262,26 +276,12 @@ class NeRFSystem:
                                           max_images=cfg.num_sanity_val_steps)
                 print(f"[sanity] {metrics}", flush=True)
             global_step = self.epoch0 * self.steps_per_epoch
-            B = cfg.batch_size
             for epoch in range(self.epoch0, cfg.num_epochs):
                 t0 = time.time()
-                perm = torch.randperm(self.rays.shape[0],
-                                      generator=self.shuffle_gen)
-                # one copy an epoch, queued behind the card's work; each
-                # step's indices are then a slice on the device
-                perm = host_to_device(perm, self.device)
-                losses, psnrs = [], []
-                for i in range(self.steps_per_epoch):
-                    self._preempt_if_asked(epoch, complete=False)
-                    idx = perm[i * B:(i + 1) * B]
-                    loss, psnr = self.train_step(self.rays[idx], self.rgbs[idx])
-                    losses.append(loss)
-                    psnrs.append(psnr)
-                losses = torch.stack(losses).float().cpu().numpy()
-                psnrs = torch.stack(psnrs).float().cpu().numpy()
+                metrics = self.train_epoch(epoch, global_step)
                 self._preempt_if_asked(epoch, complete=True)
                 global_step += self.steps_per_epoch
-                self._finish_epoch(epoch, global_step, losses, psnrs,
+                self._finish_epoch(epoch, global_step, metrics,
                                    time.time() - t0)
         finally:
             signal.signal(signal.SIGTERM, self._prev_handler
@@ -289,17 +289,39 @@ class NeRFSystem:
             self.logger.close()
         return self.models
 
-    def _finish_epoch(self, epoch, global_step, losses, psnrs, dt):
+    def train_epoch(self, epoch: int, global_step: int) -> Dict[str, np.ndarray]:
+        """One epoch's steps over a fresh permutation; the per-step values
+        by their ``metrics.jsonl`` keys."""
+        B = self.cfg.batch_size
+        perm = torch.randperm(self.rays.shape[0], generator=self.shuffle_gen)
+        # one copy an epoch, queued behind the card's work; each step's
+        # indices are then a slice on the device
+        perm = host_to_device(perm, self.device)
+        losses, psnrs = [], []
+        for i in range(self.steps_per_epoch):
+            self._preempt_if_asked(epoch, complete=False)
+            idx = perm[i * B:(i + 1) * B]
+            loss, psnr = self.train_step(self.rays[idx], self.rgbs[idx])
+            losses.append(loss)
+            psnrs.append(psnr)
+        return {"train/loss": torch.stack(losses).float().cpu().numpy(),
+                "train/psnr": torch.stack(psnrs).float().cpu().numpy()}
+
+    def _epoch_note(self, epoch: int) -> str:
+        """Text the epoch line carries before its rate."""
+        return ""
+
+    def _finish_epoch(self, epoch, global_step, metrics, dt):
         cfg = self.cfg
         rays_per_s = self.steps_per_epoch * cfg.batch_size / max(dt, 1e-9)
+        means = {k: float(v.mean()) for k, v in metrics.items()}
         self.logger.scalars(global_step, {
-            "lr": self.schedule(global_step),
-            "train/loss": float(losses.mean()),
-            "train/psnr": float(psnrs.mean()),
+            "lr": self.schedule(global_step), **means,
             "train/rays_per_s": rays_per_s,
         })
-        msg = (f"epoch {epoch}: loss {losses.mean():.5f} "
-               f"psnr {psnrs.mean():.2f} ({rays_per_s:,.0f} rays/s, {dt:.1f}s)")
+        msg = (f"epoch {epoch}: {self.loss_label} {means['train/loss']:.5f} "
+               f"psnr {means['train/psnr']:.2f} ({self._epoch_note(epoch)}"
+               f"{rays_per_s:,.0f} rays/s, {dt:.1f}s)")
         do_val = ((epoch + 1) % cfg.val_every_n_epochs == 0
                   or epoch == cfg.num_epochs - 1)
         if do_val:

@@ -34,6 +34,16 @@ def test_port_modules_import_without_jax_flax_msgpack_pil():
     # slice 4: the probe of the fused MLP kernels, run on the card
     assert {"nerf_pl_tpu_torch.scripts",
             "nerf_pl_tpu_torch.scripts.kernel_probe"} <= set(MODULES)
+    # the shadow trainer, its math, loader, blur and scene writer
+    assert {"nerf_pl_tpu_torch.train_efficient_sm",
+            "nerf_pl_tpu_torch.training.launch",
+            "nerf_pl_tpu_torch.training.shadow_systems",
+            "nerf_pl_tpu_torch.ops.shadow_mapping",
+            "nerf_pl_tpu_torch.models.camera",
+            "nerf_pl_tpu_torch.data.shadow_common",
+            "nerf_pl_tpu_torch.data.blender_efficient_sm",
+            "nerf_pl_tpu_torch.data.blur",
+            "nerf_pl_tpu_torch.data.synthetic"} <= set(MODULES)
     # -I: no PYTHONPATH or user site, so nothing imported by a site hook
     # is counted against the port
     code = (
