@@ -89,7 +89,20 @@ Phases (any failed check raises, so the script exits non-zero):
    fit and in one step (D 4, E 4, A 2 with ``--grad_on_light``), one step's
    synchronising calls and profile, and one float32 step's grads on the card
    against the CPU (``TOL_STEP_GRADS``) on a 16x16 scene.
-8. One JSON line of kernel numbers, the card's line, then the result line
+8. The other shadow trainers on phase 7's scene, at full width, float32
+   unless named: ``train_rgb_sm_juntos`` at ``launchers/recipes.sh``'s
+   ``rgb_sm_sigma_64`` (batch 4,096, ``--grad_on_light``, Light_N 32) for 2
+   epochs and 1 in bf16, and at ``launchers/rgb_sm_joint.sh``'s flags cut
+   to 64x64 for 2 epochs through the light cache (kernel C; the loss must
+   fall); ``train_shadow_mapping`` (one whole image a step),
+   ``train_light_sampler`` and ``train_shadows`` for 2 epochs each;
+   ``train_efficient_sm`` for 1 epoch on a 64x64 ``pyredner2`` scene this
+   script writes.  Losses finite, camera rays/s per epoch, launches in each
+   fit; for one step of each new system its launches (exact:
+   ``TRAINER_STEP_LAUNCHES``), synchronising calls, profile with f32 D and
+   E beside their bounds, and one float32 step's grads on the card against
+   the CPU (``TOL_STEP_GRADS``) on phase 7's 16x16 scene.
+9. One JSON line of kernel numbers, the card's line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Peak rates used for the bounds (NVIDIA H100 SXM data sheet, dense): 989
@@ -2256,21 +2269,22 @@ SHADOW_FLAGS = ["--dataset_name", "efficient_sm", "--img_wh", "64", "64",
 SHADOW_STEP_LAUNCHES = {"A": 2, "B": 0, "C": 0, "D": 4, "E": 4}
 
 
-def shadow_fit(tmp: str, root: str, name: str, extra: list,
-               epochs: int) -> dict:
-    """``python -m nerf_pl_tpu_torch.train_efficient_sm`` on the card with
-    ``SHADOW_FLAGS`` and ``extra``; launches in the fit, the epochs' losses
-    and camera rays/s (batch x steps over the epoch's wall time)."""
-    from nerf_pl_tpu_torch import train_efficient_sm as cli
+def trainer_fit(tmp: str, cli: str, root: str, name: str, flags: list,
+                epochs: int, tag: str) -> dict:
+    """``python -m nerf_pl_tpu_torch.<cli>`` on the card with ``flags``;
+    launches in the fit, the epochs' losses (finite) and other train
+    metrics, and camera rays/s (the camera rays of the epoch's steps over
+    its wall time)."""
+    import importlib
 
-    argv = ["--root_dir", root, *SHADOW_FLAGS, "--num_epochs", str(epochs),
+    module = importlib.import_module(f"nerf_pl_tpu_torch.{cli}")
+    argv = ["--root_dir", root, *flags, "--num_epochs", str(epochs),
             "--exp_name", name, "--log_dir", os.path.join(tmp, "logs"),
-            "--ckpt_dir", os.path.join(tmp, "ckpts"), "--device", "cuda",
-            *extra]
+            "--ckpt_dir", os.path.join(tmp, "ckpts"), "--device", "cuda"]
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
-    system = cli.main(argv)
+    system = module.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
@@ -2280,83 +2294,125 @@ def shadow_fit(tmp: str, root: str, name: str, extra: list,
     losses = [r["train/loss"] for r in epochs_]
     rates = [r["train/rays_per_s"] for r in epochs_]
     vals = [r["val/loss"] for r in recs if "val/loss" in r]
-    log(f"[shadow] {name} ({' '.join(extra)}): {system.steps_per_epoch} "
-        f"steps/epoch, loss per epoch {losses}, opacity loss "
-        f"{[r['train/train_opactiy'] for r in epochs_]}, val loss {vals}; "
+    others = {k: [r[k] for r in epochs_] for k in sorted(epochs_[0])
+              if k.startswith("train/") and k not in
+              ("train/loss", "train/rays_per_s")} if epochs_ else {}
+    log(f"[{tag}] {name} ({' '.join(flags)}): {system.steps_per_epoch} "
+        f"steps/epoch, loss per epoch {losses}, {others}, val loss {vals}; "
         f"camera rays/s per epoch {[round(r, 1) for r in rates]}; fit "
         f"{wall:.1f} s wall; launches in the fit {counts}")
     if len(losses) != epochs or not all(np.isfinite(losses + vals)):
-        raise AssertionError(f"shadow fit {name}: losses not finite: "
+        raise AssertionError(f"{tag} fit {name}: losses not finite: "
                              f"{losses} {vals}")
     return dict(system=system, counts=counts, losses=losses,
                 rays_per_s=rates, vals=vals, wall_s=wall)
 
 
-def shadow_step_grads_card_vs_cpu(tmp: str) -> float:
-    """One float32 grad_on_light step's grads on the card and on the CPU:
-    the same weights (the seed), batch and injected draws, on a 16x16
-    scene (256 camera rays, 256 light rays) so the CPU's step is short."""
+def shadow_fit(tmp: str, root: str, name: str, extra: list,
+               epochs: int) -> dict:
+    """``python -m nerf_pl_tpu_torch.train_efficient_sm`` with
+    ``SHADOW_FLAGS`` and ``extra``."""
+    return trainer_fit(tmp, "train_efficient_sm", root, name,
+                       SHADOW_FLAGS + extra, epochs, "shadow")
+
+
+def step_draws(gen, rows: int, n_importance: int) -> dict:
+    return {"perturb_rand": torch.rand((rows, SHADOW_SAMPLES), generator=gen),
+            "u": torch.rand((rows, n_importance), generator=gen),
+            "jitter": torch.rand((rows, n_importance), generator=gen)}
+
+
+def trainer_grads_card_vs_cpu(tmp: str, tag: str, cls_name: str,
+                              flags: list, draws: dict, run) -> float:
+    """One float32 step's grads on the card and on the CPU: the same
+    weights (the seed), batch and injected draws, on phase 7's 16x16 scene
+    (2 train views, written by ``shadow_step_grads_card_vs_cpu``) so the
+    CPU's step is short.  ``run(system, overrides)``
+    takes the step and may return tensors whose entries that differ between
+    the two devices are counted and logged."""
     from nerf_pl_tpu_torch.config import get_opts
-    from nerf_pl_tpu_torch.data.synthetic import generate_scene
-    from nerf_pl_tpu_torch.training.shadow_systems import EfficientSMSystem
+    from nerf_pl_tpu_torch.training import shadow_systems
 
     root = os.path.join(tmp, "shadow_small")
-    generate_scene(root, img_wh=16, n_train=2, n_val=1, n_test=0)
-    n = 256
-    gen = torch.Generator().manual_seed(4)
-    draws = {"cam": (n, SHADOW_SAMPLES), "light": (n, SHADOW_LIGHT_N)}
-    ov = {key: {"perturb_rand": torch.rand((rows, SHADOW_SAMPLES),
-                                           generator=gen),
-                "u": torch.rand((rows, k), generator=gen),
-                "jitter": torch.rand((rows, k), generator=gen)}
-          for key, (rows, k) in draws.items()}
-    grads = {}
+    grads, extra = {}, {}
     for device in ("cuda", "cpu"):
-        cfg = get_opts(["--root_dir", root, *SHADOW_FLAGS, "--img_wh", "16",
-                        "16", "--batch_size", str(n), "--grad_on_light",
-                        "--exp_name", f"grads_{device}",
+        cfg = get_opts(["--root_dir", root, *flags, "--img_wh", "16", "16",
+                        "--exp_name", f"grads_{tag}_{device}",
                         "--log_dir", os.path.join(tmp, "logs"),
                         "--ckpt_dir", os.path.join(tmp, "ckpts")])
-        system = EfficientSMSystem(cfg, device=device)
-        batch = tuple(t[:n] for t in (system.rays, system.rgbs, system.pixels,
-                                      system.pose_idx))
-        system.train_step(*batch, system.empty_light_cache(), SHADOW_LIGHT_N,
-                          overrides={key: {k: v.to(device) for k, v in d.items()}
-                                     for key, d in ov.items()})
+        system = getattr(shadow_systems, cls_name)(cfg, device=device)
+        out = run(system, {key: {k: v.to(device) for k, v in d.items()}
+                           for key, d in draws.items()})
+        extra[device] = out if isinstance(out, dict) else {}
         grads[device] = {f"{name}/{k}": (p.grad if p.grad is not None else
                                          torch.zeros_like(p)).cpu()
                          for name, m in system.models.items()
                          for k, p in m.named_parameters()}
         system.logger.close()
+    for k, v in extra["cpu"].items():
+        differ = int((extra["cuda"][k].cpu() != v).sum())
+        log(f"[{tag}] {k}: {differ} of {v.numel()} differ between the card "
+            "and the CPU")
     names = sorted(grads["cpu"])
-    return check_grads("f32 shadow step grads card vs cpu (256 + 256 rays)",
+    return check_grads(f"f32 {tag} step grads card vs cpu (16x16 scene)",
                        [grads["cuda"][k] for k in names],
                        [grads["cpu"][k] for k in names], names,
                        TOL_STEP_GRADS)["max_rel"]
 
 
-def shadow_f32_kernels(prof: dict, system) -> dict:
-    """Kernels D and E in float32 over one grad_on_light step (their 4
-    launches each, sigma-only), device time from the profile beside the
-    bound: D writes a 2,048-value f32 stash a point, E reads it; 2 FLOP a
-    multiply-add forward, 4 backward (dgrad and wgrad)."""
-    S = SHADOW_SAMPLES
-    P = (SHADOW_BATCH * (S + 2 * S)
-         + system.light_rays.shape[0] * (S + S + SHADOW_LIGHT_N))
-    io = P * (8 * 4 + 4 + 2048 * 4)  # x (8, P), out or g (1, P), stash
+def shadow_step_grads_card_vs_cpu(tmp: str) -> float:
+    """One float32 grad_on_light step's grads on the card and on the CPU, on
+    a 16x16 scene (256 camera rays, 256 light rays) this writes."""
+    from nerf_pl_tpu_torch.data.synthetic import generate_scene
+
+    generate_scene(os.path.join(tmp, "shadow_small"), img_wh=16, n_train=2,
+                   n_val=1, n_test=0)
+    n, L = 256, SHADOW_LIGHT_N
+    gen = torch.Generator().manual_seed(4)
+    return trainer_grads_card_vs_cpu(
+        tmp, "shadow", "EfficientSMSystem",
+        SHADOW_FLAGS + ["--batch_size", str(n), "--grad_on_light"],
+        {"cam": step_draws(gen, n, SHADOW_SAMPLES),
+         "light": step_draws(gen, n, L)},
+        lambda s, ov: s.train_step(*(t[:n] for t in (s.rays, s.rgbs, s.pixels,
+                                                     s.pose_idx)),
+                                   s.empty_light_cache(), L, overrides=ov))
+
+
+def f32_step_kernels(tag: str, prof: dict, passes: list,
+                     bwd_passes: list | None = None) -> dict:
+    """Kernels D and E in float32 over one step's fused-MLP passes
+    (``passes``: (points, rgb) of each forward; ``bwd_passes`` those
+    differentiated, all by default), device time from the profile beside
+    the bound: D writes the stash (2,432 f32 values an rgb point, 2,048
+    sigma-only), E reads it; 2 FLOP a multiply-add forward, 4 backward
+    (dgrad and wgrad)."""
     rows = {}
-    for key, names, flop in (
-            ("D", ("fused_nerf_fwd_kernel",), 2),
+    for key, names, flop, runs in (
+            ("D", ("fused_nerf_fwd_kernel",), 2, passes),
             ("E", ("fused_nerf_dgrad_kernel", "fused_nerf_wgrad_kernel",
-                   "reduce_rows_kernel"), 4)):
+                   "reduce_rows_kernel"), 4, bwd_passes or passes)):
+        P = sum(n for n, _ in runs)
+        io = sum(n * (8 * 4 + (16 if rgb else 4) + (2432 if rgb else 2048) * 4)
+                 for n, rgb in runs)
+        macs = sum(n * (MACS_RGB if rgb else MACS_SIGMA) for n, rgb in runs)
         ms = sum(v for k, v in (prof.get("by_kernel") or {}).items()
                  if any(n in k for n in names))
-        b, by = bound_ms(io, flop * MACS_SIGMA * P, F32_FLOPS)
+        b, by = bound_ms(io, flop * macs, F32_FLOPS)
         rows[key] = dict(P=P, device_ms=ms, bound_ms=b, bound_by=by)
-        log(f"[shadow] kernel {key} in float32, one step's 4 launches over "
-            f"{P:,} sigma-only points: {ms:.3f} ms of device time, bound "
+        log(f"[{tag}] kernel {key} in float32, one step's {len(runs)} "
+            f"launches over {P:,} points: {ms:.3f} ms of device time, bound "
             f"{b:.3f} ms ({by})")
     return rows
+
+
+def shadow_f32_kernels(prof: dict, system) -> dict:
+    """D and E over one grad_on_light step: the camera batch's coarse and
+    fine passes and the whole light view's, all sigma-only."""
+    S, hw = SHADOW_SAMPLES, system.light_rays.shape[0]
+    return f32_step_kernels("shadow", prof, [
+        (SHADOW_BATCH * S, False), (SHADOW_BATCH * 2 * S, False),
+        (hw * S, False), (hw * (S + SHADOW_LIGHT_N), False)])
 
 
 def shadow_end_to_end(tmp: str) -> dict:
@@ -2428,6 +2484,218 @@ def shadow_end_to_end(tmp: str) -> dict:
                 grads_err=grads_err, seconds=seconds)
 
 
+# ---------------------------------------------------------------- phase 8
+# The other four shadow trainers, at full width on phase 7's 64x64 scene (20
+# train views, 1 val view), float32 unless named.  The joint RGB + shadow
+# trainer at launchers/recipes.sh's rgb_sm_sigma_64 as written (batch 4,096:
+# 20 steps an epoch of 786,432 rgb camera points and 655,360 sigma light
+# points), and at launchers/rgb_sm_joint.sh's flags cut to 64x64 (no
+# --grad_on_light: the light cache through kernel C, refreshed every step).
+RGBSM_FLAGS = ["--dataset_name", "rgb_sm", "--N_importance", "64",
+               "--N_samples", "64", "--img_wh", "64", "64", "--noise_std", "0",
+               "--batch_size", "4096", "--optimizer", "adam", "--lr", "1e-5",
+               "--num_sanity_val_steps", "1", "--Light_N_importance", "32",
+               "--shadow_method", "shadow_method_2", "--grad_on_light"]
+RGBSM_CACHE_FLAGS = ["--dataset_name", "rgb_sm", "--img_wh", "64", "64",
+                     "--N_samples", "64", "--N_importance", "64",
+                     "--batch_size", "1024", "--optimizer", "adam",
+                     "--lr", "5e-4", "--rgb_weight", "1.0", "--sm_weight",
+                     "1.0", "--blur", "2"]
+# the image-space trainer at launchers/efficient_sm_64.sh's flags, one whole
+# image a step (4,096 camera + 4,096 light rays, 1,572,864 sigma points)
+SMAP_FLAGS = SHADOW_FLAGS + ["--dataset_name", "shadows", "--batch_size", "1"]
+# the sampled-light trainer at efficient_sm_64.sh's flags: 1,024 camera rays
+# and the 1,024 light rays through their projections a step
+LS_FLAGS = SHADOW_FLAGS
+# the vanilla RGB step on the shadows loader's rays
+SHADOWS_FLAGS = ["--dataset_name", "shadows", "--img_wh", "64", "64",
+                 "--N_samples", "64", "--N_importance", "64",
+                 "--batch_size", "1024", "--lr", "5e-4"]
+# launches in one step of each: a coarse and a fine pass of each
+# differentiated render through D and E, one importance sampling (A) each.
+# The sampled-light step reads only the fine depths of its two renders, and
+# the coarse passes feed only the detached importance sampling: autograd
+# never reaches their backward (the JAX step's coarse grads are 0 too,
+# tests/test_torch_port_light_sampler.py), so E runs twice.
+TRAINER_STEP_LAUNCHES = {
+    "rgb_sm": {"A": 2, "B": 0, "C": 0, "D": 4, "E": 4},
+    "shadow_mapping": {"A": 2, "B": 0, "C": 0, "D": 4, "E": 4},
+    "light_sampler": {"A": 2, "B": 0, "C": 0, "D": 4, "E": 2},
+    "shadows": {"A": 1, "B": 0, "C": 0, "D": 2, "E": 2},
+}
+
+
+def trainer_step(tag: str, step, passes: list, label: str,
+                 bwd_passes: list | None = None) -> dict:
+    """One step's launches (held to ``TRAINER_STEP_LAUNCHES``), its
+    synchronising calls, its profile and f32 D and E beside their bounds."""
+    torch.cuda.synchronize()
+    reset_counts()
+    step()
+    torch.cuda.synchronize()
+    per_step = read_counts()
+    log(f"[{tag}] launches in one step: {per_step}")
+    expected = TRAINER_STEP_LAUNCHES[tag]
+    if any(per_step[k] != v for k, v in expected.items()):
+        raise AssertionError(f"one {tag} step launched {per_step}, expected "
+                             f"{expected}")
+    calls = sync_calls(step)
+    log(f"[{tag}] one step under set_sync_debug_mode('warn'): "
+        f"{sum(calls.values())} synchronising calls, by line: {calls}")
+    prof = profile_device(label, step, top=12)
+    return dict(per_step=per_step, syncs=calls, profile=prof,
+                f32_step=f32_step_kernels(tag, prof, passes, bwd_passes))
+
+
+def trainers_end_to_end(tmp: str) -> dict:
+    """The joint RGB + shadow trainer (2 epochs f32, 1 bf16 at the recipe's
+    flags; 2 through the light cache, whose loss must fall), the
+    image-space, the sampled-light and the RGB-on-shadow-data trainers (2
+    epochs each), and ``EfficientSMSystem`` on a 64x64 ``pyredner2`` scene
+    (1 epoch); for each new system one step's launches, synchronising calls
+    and profile, and one float32 step's grads on the card against the CPU."""
+    from nerf_pl_tpu_torch.data.synthetic import generate_pyredner_scene
+
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "shadow_scene")  # written by phase 7
+    S, L = SHADOW_SAMPLES, SHADOW_LIGHT_N
+    gen = torch.Generator().manual_seed(8)
+    fits, steps, grads = {}, {}, {}
+
+    # the joint RGB + shadow trainer
+    fit = trainer_fit(tmp, "train_rgb_sm_juntos", root, "rgbsm_f32",
+                      RGBSM_FLAGS, 2, "rgb_sm")
+    system = fit["system"]
+    B = 4096
+    batch = tuple(getattr(system, k)[:B] for k in system.train_bufs)
+    cache = system.empty_light_cache()
+    hw = system.light_rays.shape[0]
+    steps["rgb_sm"] = trainer_step(
+        "rgb_sm", lambda: system.train_step(*batch, cache, L),
+        [(B * S, True), (B * 2 * S, True), (hw * S, False),
+         (hw * (S + L), False)],
+        "one rgb_sm step (f32, grad_on_light, 4,096 camera rays in rgb_disp "
+        "+ 4,096 light rays)")
+    fits["rgb_sm"] = fit
+    del system, batch, fit["system"]
+    fits["rgb_sm_bf16"] = trainer_fit(
+        tmp, "train_rgb_sm_juntos", root, "rgbsm_bf16",
+        RGBSM_FLAGS + ["--compute_dtype", "bfloat16"], 1, "rgb_sm")
+    del fits["rgb_sm_bf16"]["system"]
+    cached = trainer_fit(tmp, "train_rgb_sm_juntos", root, "rgbsm_cache",
+                         RGBSM_CACHE_FLAGS, 2, "rgb_sm")
+    if not cached["losses"][1] < cached["losses"][0]:
+        raise AssertionError(f"rgb_sm cache fit loss did not fall: "
+                             f"{cached['losses']}")
+    # a light refresh every step (sample_light_depth_every 1, no fine pass)
+    if cached["counts"]["C"] < cached["system"].steps_per_epoch * 2:
+        raise AssertionError(f"the rgb_sm light cache took C "
+                             f"{cached['counts']['C']} times")
+    del cached["system"]
+    fits["rgb_sm_cache"] = cached
+
+    # the image-space trainer
+    fit = trainer_fit(tmp, "train_shadow_mapping", root, "smap_f32",
+                      SMAP_FLAGS, 2, "shadow_mapping")
+    system = fit["system"]
+    idx = torch.zeros(1, dtype=torch.int64, device=system.device)
+    hw = system.light_rays.shape[0]
+    steps["shadow_mapping"] = trainer_step(
+        "shadow_mapping", lambda: system.train_step(
+            system.rays[idx], system.rgbs[idx], system.cam_ms[idx],
+            system.cam_eyes[idx]),
+        [(hw * S, False), (hw * 2 * S, False)] * 2,
+        "one shadow_mapping step (f32, one 64x64 image + the light view)")
+    fits["shadow_mapping"] = fit
+    del system, fit["system"]
+
+    # the sampled-light trainer
+    fit = trainer_fit(tmp, "train_light_sampler", root, "ls_f32", LS_FLAGS, 2,
+                      "light_sampler")
+    system = fit["system"]
+    B = SHADOW_BATCH
+    batch = tuple(t[:B] for t in (system.rays, system.rgbs, system.pixels,
+                                  system.pose_idx))
+    steps["light_sampler"] = trainer_step(
+        "light_sampler", lambda: system.train_step(*batch),
+        [(B * S, False), (B * 2 * S, False), (B * S, False),
+         (B * (S + L), False)],
+        "one light_sampler step (f32, 1,024 camera + 1,024 light rays)",
+        bwd_passes=[(B * 2 * S, False), (B * (S + L), False)])
+    fits["light_sampler"] = fit
+    del system, batch, fit["system"]
+
+    # the RGB trainer on the shadows loader
+    fit = trainer_fit(tmp, "train_shadows", root, "shadows_f32",
+                      SHADOWS_FLAGS, 2, "shadows")
+    system = fit["system"]
+    rays, rgbs = system.rays[:SHADOW_BATCH], system.rgbs[:SHADOW_BATCH]
+    steps["shadows"] = trainer_step(
+        "shadows", lambda: system.train_step(rays, rgbs),
+        [(SHADOW_BATCH * S, True), (SHADOW_BATCH * 2 * S, True)],
+        "one shadows step (f32, 1,024 rays in rgb)")
+    fits["shadows"] = fit
+    del system, rays, rgbs, fit["system"]
+
+    # EfficientSMSystem on the pyredner2 layout of the same scene
+    proot = os.path.join(tmp, "pyredner_scene")
+    generate_pyredner_scene(proot, img_wh=SHADOW_WH, n_train=SHADOW_VIEWS,
+                            n_val=1, n_test=0)
+    fits["pyredner2"] = trainer_fit(
+        tmp, "train_efficient_sm", proot, "sm_pyredner2",
+        SHADOW_FLAGS + ["--dataset_name", "pyredner2", "--grad_on_light"], 1,
+        "pyredner2")
+    del fits["pyredner2"]["system"]
+
+    # one f32 step of each on the card against the CPU (16x16: 256 rays a
+    # view, 256 light rays)
+    n = 256
+    grads["rgb_sm"] = trainer_grads_card_vs_cpu(
+        tmp, "rgb_sm", "RGBSMSystem", RGBSM_FLAGS + ["--batch_size", str(n)],
+        {"cam": step_draws(gen, n, S), "light": step_draws(gen, n, L)},
+        lambda s, ov: s.train_step(*(getattr(s, k)[:n] for k in s.train_bufs),
+                                   s.empty_light_cache(), L, overrides=ov))
+    grads["shadow_mapping"] = trainer_grads_card_vs_cpu(
+        tmp, "shadow_mapping", "ShadowMappingSystem", SMAP_FLAGS,
+        {"cam": step_draws(gen, n, S), "light": step_draws(gen, n, S)},
+        lambda s, ov: s.train_step(s.rays[:1], s.rgbs[:1], s.cam_ms[:1],
+                                   s.cam_eyes[:1], overrides=ov))
+    def light_sampler_run(s, ov):
+        """The step, after the light pixels its projection picks (a floor:
+        the card's and the CPU's can differ where a projection sits within
+        rounding of a pixel's edge)."""
+        from nerf_pl_tpu_torch.ops.rendering import render_rays
+        from nerf_pl_tpu_torch.training.shadow_systems import ls_project
+
+        pidx = s.pose_idx[:n]
+        with torch.no_grad():
+            cam = render_rays(s.models["coarse"], s.models["fine"],
+                              s.rays[:n], None, overrides=ov["cam"], **s.rkw)
+            _, ul, vl, _ = ls_project(
+                cam, s.pixels[:n], s.cam_ms[pidx], s.cam_eyes[pidx],
+                s.light_m, s.light_eye, *s.light_geom, (16, 16), True)
+        s.train_step(s.rays[:n], s.rgbs[:n], s.pixels[:n], pidx, overrides=ov)
+        return {"light pixels (ul, vl)": torch.stack([ul, vl]).cpu()}
+
+    grads["light_sampler"] = trainer_grads_card_vs_cpu(
+        tmp, "light_sampler", "LightSamplerSystem",
+        LS_FLAGS + ["--batch_size", str(n)],
+        {"cam": step_draws(gen, n, S), "light": step_draws(gen, n, L)},
+        light_sampler_run)
+    # noise 0 here (the fit draws it): a rounding-level difference can put
+    # a point's sigma + noise on either side of the ReLU's 0, where the grad
+    # jumps (tests/test_torch_port_shadows.py measured 3.4e-2 between JAX
+    # and the port on the CPU for one set of draws)
+    grads["shadows"] = trainer_grads_card_vs_cpu(
+        tmp, "shadows", "ShadowsSystem",
+        SHADOWS_FLAGS + ["--batch_size", str(n), "--noise_std", "0"],
+        {"cam": step_draws(gen, n, S)},
+        lambda s, ov: s.train_step(s.rays[:n], s.rgbs[:n], ov["cam"]))
+    seconds = time.perf_counter() - t0
+    log(f"[trainers] phase 8: {seconds:.1f} s")
+    return dict(fits=fits, steps=steps, grads=grads, seconds=seconds)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2480,6 +2748,7 @@ def main() -> int:
         probe = run_probe()
         log(f"[wide] phase 6: {time.perf_counter() - t_wide:.1f} s")
         shadow = shadow_end_to_end(tmp)
+        trainers = trainers_end_to_end(tmp)
 
     fine_row, coarse_row = c["rows"]["rgb"], c["rows"]["sigma-only"]
     kernels = [
@@ -2690,6 +2959,36 @@ def main() -> int:
                 fit=shadow["counts"][key], per_step=shadow["per_step"][key],
                 bf16_fit=shadow["bf16"]["counts"][key],
                 cache_fit=shadow["cache"]["counts"][key])
+    # the other shadow trainers' launches (phase 8): each fit and one step
+    for row in kernels:
+        key = {"searchsorted_rank_interp": "B", "searchsorted_rank": "A",
+               "fused_nerf_fwd": "C", "fused_nerf_stash_fwd": "D",
+               "fused_nerf_bwd_stash": "E"}.get(row["name"])
+        if key is None:
+            continue
+        row["launches_shadow_trainers"] = dict(
+            fits={k: f["counts"][key] for k, f in trainers["fits"].items()},
+            per_step={k: st["per_step"][key]
+                      for k, st in trainers["steps"].items()})
+        if key in ("D", "E"):
+            row["shadow_trainers_f32_step"] = {
+                k: st["f32_step"][key] for k, st in trainers["steps"].items()}
+    for tag, st in trainers["steps"].items():
+        fit, prof = trainers["fits"][tag], st["profile"]
+        log(f"[trainers] {tag}: {fit['rays_per_s'][-1]:.1f} camera rays/s "
+            f"(last epoch); one step {prof['wall_ms']:.1f} ms wall, "
+            f"{prof['busy_ms'] or 0:.1f} ms device busy; D "
+            f"{st['f32_step']['D']['device_ms']:.3f} ms, E "
+            f"{st['f32_step']['E']['device_ms']:.3f} ms (f32); synchronising "
+            f"calls a step {sum(st['syncs'].values())}; f32 step grads card "
+            f"vs cpu rel err {trainers['grads'][tag]:.3e}")
+    log(f"[trainers] rgb_sm bf16 "
+        f"{trainers['fits']['rgb_sm_bf16']['rays_per_s'][-1]:.1f}, light "
+        f"cache {trainers['fits']['rgb_sm_cache']['rays_per_s'][-1]:.1f} "
+        f"(losses {trainers['fits']['rgb_sm_cache']['losses']}); pyredner2 "
+        f"{trainers['fits']['pyredner2']['rays_per_s'][-1]:.1f} camera "
+        f"rays/s; phase {trainers['seconds']:.1f} s; total "
+        f"{time.perf_counter() - t_start:.1f} s")
     fit, prof = shadow["fit"], shadow["profile"]
     log(f"[shadow] f32 grad_on_light fit {fit['rays_per_s'][-1]:.1f} camera "
         f"rays/s (epoch 1), bf16 {shadow['bf16']['rays_per_s'][-1]:.1f}, "

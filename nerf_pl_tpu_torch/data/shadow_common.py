@@ -134,3 +134,8 @@ class LightRig:
     @property
     def ppc(self) -> Camera:
         return Camera.from_camera_eyepos(self.eye_pos, self.camera)
+
+    def items(self) -> dict:
+        """The light's fields of a loader's sample."""
+        return {"light_ppc": {"eye_pos": self.eye_pos, "camera": self.camera},
+                "light_pixels": self.pixels, "light_rays": self.rays}

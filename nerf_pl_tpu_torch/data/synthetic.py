@@ -3,10 +3,11 @@
 Ray-traces a lambertian position-coloured sphere over a checkered ground
 disc with a hard point-light shadow, and writes a Blender-format scene:
 RGBA frames, ``sm_*.png`` shadow maps and the light camera in the meta, which
-the ``blender`` and ``efficient_sm`` loaders read.  The PNGs go through the
-port's own writer (``data/png.py``), so the scene needs no PIL; its pixels
-and JSON equal the JAX package's.  The LLFF and PyRedner layouts of the same
-scene are not ported yet (ROADMAP.md).
+the ``blender``, ``efficient_sm``, ``rgb_sm`` and ``shadows`` loaders read;
+``generate_pyredner_scene`` rewrites its JSON in the ``pyredner2`` layout.
+The PNGs go through the port's own writer (``data/png.py``), so the scene
+needs no PIL; its pixels and JSON equal the JAX package's.  The LLFF layout
+of the same scene is not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ import os
 import numpy as np
 
 from .png import write_png
-from .shadow_common import get_ray_directions, get_rays
+from .shadow_common import get_ray_directions, get_rays, posed_ppc
 
 SPHERE_C = np.array([0.0, 0.2, 0.0], np.float32)
 SPHERE_R = 1.0
@@ -154,4 +155,43 @@ def generate_scene(out_dir, img_wh=64, n_train=20, n_val=2, n_test=2,
         }
         with open(os.path.join(out_dir, f"transforms_{split}.json"), "w") as f:
             json.dump(meta, f)
+    return out_dir
+
+
+def generate_pyredner_scene(out_dir, img_wh=64, n_train=20, n_val=2,
+                            n_test=2, radius=4.5, camera_angle_x=0.8):
+    """The same scene in the ``pyredner2`` layout: each pose stored as an
+    explicit ``{"eye_pos", "camera"}`` PPC, the ray c2w left to the loader's
+    look-at toward ``meta["look_at"]`` (the generator's ``look_at`` is the
+    same math as ``camera.c2w_from_lookat``), and each frame's target in
+    ``sm_file_path``.  Returns out_dir."""
+    generate_scene(out_dir, img_wh, n_train, n_val, n_test, radius,
+                   camera_angle_x)
+    wh = (img_wh, img_wh)
+    for split in ("train", "val", "test"):
+        path = os.path.join(out_dir, f"transforms_{split}.json")
+        with open(path) as f:
+            meta = json.load(f)
+        frames = []
+        for fr in meta["frames"]:
+            c2w = np.asarray(fr["transform_matrix"], np.float32)[:3, :4]
+            cam, eye = posed_ppc(meta["camera_angle_x"], wh, c2w)
+            name = fr["file_path"].split("/")[-1]
+            frames.append({
+                "transform_matrix": {"eye_pos": eye.tolist(),
+                                     "camera": cam.tolist()},
+                "sm_file_path": f"sm_{name}.png",
+            })
+        l2w = np.asarray(meta["light_camera_transform_matrix"], np.float32)[:3, :4]
+        lcam, leye = posed_ppc(meta["light_camera_angle_x"], wh, l2w)
+        with open(path, "w") as f:
+            json.dump({
+                "camera_angle_x": meta["camera_angle_x"],
+                "light_camera_angle_x": meta["light_camera_angle_x"],
+                "light_camera_transform_matrix": {
+                    "eye_pos": leye.tolist(), "camera": lcam.tolist(),
+                },
+                "look_at": [0.0, 0.0, 0.0],
+                "frames": frames,
+            }, f)
     return out_dir

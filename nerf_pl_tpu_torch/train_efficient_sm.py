@@ -9,8 +9,7 @@ of ``train_efficient_sm.py``).
 
 Every flag of ``train_efficient_sm.py`` parses as it does there; ``--device``
 (default ``cuda``) is the port's own.  ``--dataset_name`` takes
-``efficient_sm``; ``pyredner2``, which the JAX script also takes, is not
-ported yet.
+``efficient_sm`` and ``pyredner2``, as the JAX script does.
 """
 from __future__ import annotations
 
@@ -19,8 +18,6 @@ from .training.shadow_systems import EfficientSMSystem
 
 
 def main(argv=None) -> EfficientSMSystem:
-    # pyredner2 passes here, as in the JAX script, and the system refuses it
-    # as not ported yet
     return launch(EfficientSMSystem, allowed_datasets=("efficient_sm", "pyredner2"),
                   argv=argv)
 

@@ -1,13 +1,23 @@
-"""The flagship shadow trainer, ``EfficientSMSystem``
-(``nerf_pl_tpu/training/shadow_systems.py``; reference
-``train_efficient_sm.py``), on one device.
+"""The shadow-mapping trainers (``nerf_pl_tpu/training/shadow_systems.py``),
+on one device.  Each mirrors a reference ``train_*.py``:
 
-A step: a sigma-only coarse + fine render of the camera batch, the whole
-light view's depth (re-rendered with gradients every step under
-``--grad_on_light``, else a no-grad cache), ``efficient_sm`` compositing of
-the shadow maps, MSE against the targets, backward, Adam.  The reference
-computes an opacity loss but optimises the shadow maps only; the port logs
-it, as the JAX package does.
+  * ``EfficientSMSystem`` (``train_efficient_sm.py``): a sigma-only coarse +
+    fine render of the camera batch, the whole light view's depth
+    (re-rendered with gradients every step under ``--grad_on_light``, else a
+    no-grad cache), ``efficient_sm`` compositing of the shadow maps, MSE
+    against the targets, backward, Adam.  The reference computes an opacity
+    loss but optimises the shadow maps only; the port logs it, as the JAX
+    package does.
+  * ``RGBSMSystem`` (``train_rgb_sm_juntos.py``): the same step with the
+    camera rendered in ``rgb_disp`` mode and the shadow maps written to
+    ``sm_*``; loss ``rgb_weight * mse(rgb) + sm_weight * mse(sm)``.
+  * ``LightSamplerSystem`` (``train_light_sampler.py``): each camera ray is
+    projected into the light view and only those light pixels are rendered
+    (their rays detached, the render differentiated).
+  * ``ShadowMappingSystem`` (``train_shadow_mapping.py``): whole images of
+    the camera and of the light view each step, composited per image.
+  * ``ShadowsSystem`` (``train_shadows.py``): the vanilla RGB step on the
+    shadow loaders' rays.
 
 Kept from the JAX package:
   * ``--grad_on_light`` sets ``sample_light_depth_every = 1``; otherwise the
@@ -16,19 +26,25 @@ Kept from the JAX package:
     epoch's first step;
   * ``Light_N_importance = -1`` draws the light's importance samples per
     epoch from ``np.random.RandomState(seed + epoch)`` over {0, 8, 16, 32};
-  * batches are contiguous slices of the buffers in dataset order (the
-    reference's ``shuffle=False``);
+  * the per-ray systems take contiguous slices of the buffers in dataset
+    order (the reference's ``shuffle=False``); the image-space system steps
+    images ``(s * B + k) % n``;
   * the logged opacity loss scores the first ``min(batch, H*W)`` light
     opacities, and its fine term only when the light has a fine pass;
   * validation renders the light view once for all frames, with the
-    train-time perturb and noise.
+    train-time perturb and noise (``RGBSMSystem`` with ``N_importance``
+    fine samples, not ``Light_N_importance``); ``LightSamplerSystem``
+    scores ``rgb_coarse`` only and projects from the fine depths when there
+    are some;
+  * ``ShadowMappingSystem`` writes ``epoch=N.ckpt`` every epoch, never
+    pruned.
 
 ``--max_steps_per_dispatch`` bounded the length of one compiled TPU program;
 the port launches each step on its own, so the flag is accepted and the
 trajectory is the same with any value.  A SIGTERM saves at the next step
 boundary, labelled e-1 in the middle of epoch e (the base trainer's
-handler).  The other shadow trainers, their loaders and ``--per_host_data``
-are not ported yet (ROADMAP.md).
+handler).  ``--per_host_data`` is not ported yet (ROADMAP.md) where the JAX
+package supports it, and rejected as there by the two whole-image systems.
 """
 from __future__ import annotations
 
@@ -42,11 +58,14 @@ from ..config import Config
 from ..data import dataset_dict
 from ..data.png import write_png
 from ..ops.rendering import render_rays
-from ..ops.shadow_mapping import efficient_sm, normalize_min_max
+from ..ops.shadow_mapping import (efficient_sm, generate_shadow_map,
+                                  get_normed_w, get_projections,
+                                  normalize_min_max, shadow_mapping_images)
 from ..tools.render import render_image
 from ..utils.visualization import visualize_depth
-from .losses import mse_loss, opacity_loss
+from .losses import mse_loss, opacity_loss, sm_loss
 from .metrics import psnr as psnr_metric
+from .optim import host_to_device
 from .trainer import _DTYPES, NeRFSystem, common_unsupported, raise_unsupported
 
 LIGHT_N_CHOICES = (0, 8, 16, 32)
@@ -82,6 +101,50 @@ def light_cache_render(models, light_rays, generator, rkw, overrides=None):
     }
 
 
+def light_rays_from_uv(ul, vl, wh, l2w, light_focal, light_near, light_far):
+    """(N, 8) light rays through the integer light pixels ``(ul, vl)``
+    (reference ``train_light_sampler.py:168-181``).  ``light_focal`` is a
+    0-dim tensor on the rays' device, so the divide is one in float32 there
+    (a host scalar would be turned into a multiply by its inverse on a card)."""
+    w, h = wh
+    dirs = torch.stack([(ul - w / 2) / light_focal,
+                        -(vl - h / 2) / light_focal,
+                        -torch.ones_like(ul)], dim=-1)
+    rays_d = dirs @ l2w[:, :3].T
+    rays_d = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+    rays_o = l2w[:, 3].expand_as(rays_d)
+    nf = torch.ones_like(rays_o[:, :1])
+    return torch.cat([rays_o, rays_d, light_near * nf, light_far * nf], dim=-1)
+
+
+def ls_project(cam_res, pixels, cam_m, cam_eye, light_m, light_eye, l2w,
+               light_focal, light_near, light_far, wh, fine):
+    """Project camera pixels at their rendered depth (fine when ``fine``)
+    into the light view; the light pixels ``(ul, vl)`` are the projections
+    clamped to the view and floored.  Returns ``K (N, 3)``, ``ul``, ``vl``
+    and the light rays through those pixels (no gradient through them)."""
+    w, h = wh
+    depth = cam_res["depth_fine"] if fine else cam_res["depth_coarse"]
+    K = get_projections(cam_m, cam_eye, light_m, light_eye,
+                        torch.cat([pixels, depth[:, None]], dim=1))
+    with torch.no_grad():
+        ul = torch.floor(torch.clamp(K[:, 0], 0.0, w - 1.0))
+        vl = torch.floor(torch.clamp(K[:, 1], 0.0, h - 1.0))
+        lrays = light_rays_from_uv(ul, vl, wh, l2w, light_focal, light_near,
+                                   light_far)
+    return K, ul, vl, lrays
+
+
+def ls_composite(K, ul, vl, light_depth, light_m, mode):
+    """The sampled light's shadow map: each camera pixel's light-space depth
+    against the rendered depth of its light pixel (reference
+    ``train_light_sampler.py:255-280``), min-max over the whole batch under
+    ``shadow_method_2``."""
+    lpix = torch.stack([ul + 0.5, vl + 0.5, torch.ones_like(ul)], dim=1)
+    w_light = get_normed_w(light_m, torch.cat([lpix, light_depth[:, None]], dim=1))
+    return generate_shadow_map(K[:, 2], w_light[:, 3], mode=mode)
+
+
 def dump_val_images(logger, cfg, step: int, epoch: int, out, rgbs, typ: str):
     """The epoch's gt/rgb/depth/disp PNGs under ``<run>/imgs`` and the
     TensorBoard grid (reference ``train_efficient_sm.py:241-263``)."""
@@ -107,57 +170,103 @@ def dump_val_images(logger, cfg, step: int, epoch: int, out, rgbs, typ: str):
         [gt.transpose(2, 0, 1), rgb.transpose(2, 0, 1), depth]))
 
 
-class EfficientSMSystem(NeRFSystem):
-    """Flagship shadow trainer (reference ``train_efficient_sm.py``)."""
+def _reject_per_host_data(cfg: Config, trainer_name: str) -> None:
+    """The whole-image systems load their dataset whole on every host in the
+    JAX package too: the flag would be ignored there, so it raises."""
+    if cfg.per_host_data:
+        raise ValueError(
+            f"--per_host_data is not supported by {trainer_name}; its "
+            "whole-image dataset loads fully on every host")
 
-    datasets = ("efficient_sm",)
-    loss_label = "sm_loss"
+
+def _reject_global_reshuffle(cfg: Config, trainer_name: str) -> None:
+    """The reference trains the shadow pipelines with ``shuffle=False``:
+    the contiguous batch order is a parity property."""
+    if cfg.global_reshuffle:
+        raise ValueError(
+            f"--global_reshuffle is not supported by {trainer_name}: the "
+            "reference trains this pipeline with shuffle=False (contiguous "
+            "pose segments are a parity property)")
+
+
+def _put(a, device, dtype=None) -> torch.Tensor:
+    """A host array on ``device``."""
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device, dtype)
+
+
+def _on(device, sample, keys):
+    return {k: _put(sample[k], device) for k in keys}
+
+
+class _ShadowSystemBase(NeRFSystem):
+    """The per-ray shadow systems' loaders and buffers."""
+
+    datasets = ("efficient_sm", "rgb_sm", "pyredner2")
 
     @classmethod
     def check_supported(cls, cfg: Config) -> None:
         """The common flags and the dataset; ``--loss_type`` is not read (the
-        shadow loss is fixed, as in the JAX package)."""
-        if cfg.global_reshuffle:
-            raise ValueError(
-                "--global_reshuffle is not supported by EfficientSMSystem: "
-                "the reference trains this pipeline with shuffle=False "
-                "(contiguous pose segments are a parity property)")
+        shadow losses are fixed, as in the JAX package)."""
+        _reject_global_reshuffle(cfg, cls.__name__)
         raise_unsupported({
             **common_unsupported(cfg),
             f"--dataset_name {cfg.dataset_name}":
                 cfg.dataset_name not in cls.datasets,
         })
 
-    def __init__(self, cfg: Config, device=None):
-        if cfg.grad_on_light:
-            cfg.sample_light_depth_every = 1
-        super().__init__(cfg, device)
-        self.rkw = sigma_render_kwargs(cfg, cfg.N_importance)
-        self._light_n = None
+    def _dataset_kwargs(self) -> dict:
+        cfg = self.cfg
+        kw = dict(root_dir=cfg.root_dir, img_wh=tuple(cfg.img_wh))
+        if cfg.dataset_name == "efficient_sm":
+            kw.update(white_pix=cfg.white_pix, blur=cfg.blur)
+        elif cfg.dataset_name == "rgb_sm":
+            kw.update(max_images=cfg.max_images, blur=cfg.blur, seed=cfg.seed)
+        elif cfg.dataset_name == "pyredner2":
+            kw.update(coords_trans=cfg.coords_trans,
+                      coords_trans2=cfg.coords_trans2, blur=cfg.blur)
+        return kw
 
-    # -- data ---------------------------------------------------------------
     def _prepare_data(self):
         cfg = self.cfg
         ds_cls = dataset_dict[cfg.dataset_name]
-        kw = dict(root_dir=cfg.root_dir, img_wh=tuple(cfg.img_wh),
-                  white_pix=cfg.white_pix, blur=cfg.blur)
+        kw = self._dataset_kwargs()
         self.train_dataset = ds_cls(split="train", **kw)
         self.val_dataset = ds_cls(split="val", **kw)
         self.white_back = self.train_dataset.white_back
         ds, dev = self.train_dataset, self.device
-
-        def put(a, dtype=None):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
-
-        self.rays, self.rgbs = put(ds.all_rays), put(ds.all_rgbs)
-        self.pixels = put(ds.all_pixels)
-        self.pose_idx = put(ds.pose_idx, torch.int64)
-        self.cam_ms, self.cam_eyes = put(ds.cam_ms), put(ds.cam_eyes)
+        # by name; sms only where the loader has shadow targets beside rgbs
+        bufs = {"rays": ds.all_rays, "rgbs": ds.all_rgbs,
+                "pixels": ds.all_pixels, "pose_idx": ds.pose_idx}
+        if hasattr(ds, "all_sm"):
+            bufs["sms"] = ds.all_sm
+        for name, arr in bufs.items():
+            setattr(self, name, _put(arr, dev, torch.int64 if name == "pose_idx"
+                                     else None))
+        self.cam_ms, self.cam_eyes = _put(ds.cam_ms, dev), _put(ds.cam_eyes, dev)
         self.num_poses = int(ds.cam_ms.shape[0])
-        self.light_rays = put(ds.light.rays)
-        self.light_pixels = put(ds.light.pixels)
-        self.light_m = put(ds.light.camera)
-        self.light_eye = put(ds.light.eye_pos)
+        self.light_rays = _put(ds.light.rays, dev)
+        self.light_pixels = _put(ds.light.pixels, dev)
+        self.light_m = _put(ds.light.camera, dev)
+        self.light_eye = _put(ds.light.eye_pos, dev)
+
+
+class EfficientSMSystem(_ShadowSystemBase):
+    """Flagship shadow trainer (reference ``train_efficient_sm.py``)."""
+
+    loss_label = "sm_loss"
+    # the buffers a step slices, in train_step's order, and its outputs
+    train_bufs = ("rays", "rgbs", "pixels", "pose_idx")
+    metric_keys = ("train/loss", "train/psnr", "train/train_opactiy")
+
+    def __init__(self, cfg: Config, device=None):
+        if cfg.grad_on_light:
+            cfg.sample_light_depth_every = 1
+        super().__init__(cfg, device)
+        self.rkw = self._camera_rkw()
+        self._light_n = None
+
+    def _camera_rkw(self) -> dict:
+        return sigma_render_kwargs(self.cfg, self.cfg.N_importance)
 
     # -- the light ------------------------------------------------------------
     def resolve_light_n(self, epoch: int) -> int:
@@ -178,13 +287,11 @@ class EfficientSMSystem(NeRFSystem):
                 ("depth_coarse", "depth_fine", "opacity_coarse", "opacity_fine")}
 
     # -- one step -------------------------------------------------------------
-    def train_step(self, rays, rgbs, pixels, pose_idx, light_cache,
-                   light_n: int, overrides: Optional[dict] = None):
-        """render -> efficient_sm -> MSE -> backward -> Adam on one batch.
-        With ``grad_on_light`` the light view is rendered here, with
-        gradients; else ``light_cache`` is used as it is.  ``overrides``:
-        ``{"cam": {...}, "light": {...}}``, each the ``render_rays``
-        overrides of that render.  Returns (loss, psnr, opacity loss)."""
+    def _shadow_out(self, rays, pixels, pose_idx, light_cache, light_n: int,
+                    overrides: Optional[dict], out_prefix: str = "rgb"):
+        """The camera render and the shadow maps composited into
+        ``{out_prefix}_*``; with ``grad_on_light`` the light view rendered
+        here, with gradients.  Returns (outputs, the light cache used)."""
         cfg = self.cfg
         ov = overrides or {}
         cam_res = render_rays(self.models["coarse"], self.models.get("fine"),
@@ -192,25 +299,35 @@ class EfficientSMSystem(NeRFSystem):
                               **self.rkw)
         if cfg.grad_on_light:
             light_cache = self.light_render(light_n, ov.get("light"))
-        fine = cfg.N_importance > 0
         out = efficient_sm(
             pixels, self.light_pixels, cam_res, light_cache,
             self.cam_ms[pose_idx], self.cam_eyes[pose_idx], self.light_m,
-            self.light_eye, tuple(cfg.img_wh), fine_sampling=fine,
-            light_has_fine=light_n > 0, shadow_method=cfg.shadow_method,
-            pose_idx=pose_idx, num_poses=self.num_poses)
+            self.light_eye, tuple(cfg.img_wh),
+            fine_sampling=cfg.N_importance > 0, light_has_fine=light_n > 0,
+            shadow_method=cfg.shadow_method, pose_idx=pose_idx,
+            num_poses=self.num_poses, out_prefix=out_prefix)
+        return out, light_cache
+
+    def train_step(self, rays, rgbs, pixels, pose_idx, light_cache,
+                   light_n: int, overrides: Optional[dict] = None):
+        """render -> efficient_sm -> MSE -> backward -> Adam on one batch.
+        With ``grad_on_light`` the light view is rendered here, with
+        gradients; else ``light_cache`` is used as it is.  ``overrides``:
+        ``{"cam": {...}, "light": {...}}``, each the ``render_rays``
+        overrides of that render.  Returns (loss, psnr, opacity loss)."""
+        out, light_cache = self._shadow_out(rays, pixels, pose_idx,
+                                            light_cache, light_n, overrides)
         loss = mse_loss(out, rgbs)
         with torch.no_grad():
-            psnr = psnr_metric(out[f"rgb_{'fine' if fine else 'coarse'}"], rgbs)
+            typ = "fine" if self.cfg.N_importance > 0 else "coarse"
+            psnr = psnr_metric(out[f"rgb_{typ}"], rgbs)
             # logged only; batch > H*W would index past the light view
             b = min(rgbs.shape[0], light_cache["opacity_coarse"].shape[0])
             op_in = {"opacity_coarse": light_cache["opacity_coarse"][:b]}
             if light_n > 0:
                 op_in["opacity_fine"] = light_cache["opacity_fine"][:b]
             op_loss = opacity_loss(op_in, rgbs[:b])
-        self.optimizer.zero_grad()
-        loss.backward()
-        self.optimizer.step()
+        self._optimize(loss)
         return loss.detach(), psnr, op_loss
 
     def train_epoch(self, epoch: int, global_step: int) -> Dict[str, np.ndarray]:
@@ -219,67 +336,405 @@ class EfficientSMSystem(NeRFSystem):
         k = max(1, cfg.sample_light_depth_every)
         light_n = self._light_n = self.resolve_light_n(epoch)
         cache = self.empty_light_cache()
-        losses, psnrs, op_losses = [], [], []
+        values = [[] for _ in self.metric_keys]
         for ei in range(self.steps_per_epoch):
             self._preempt_if_asked(epoch, complete=False)
             if not cfg.grad_on_light and ((global_step + ei) % k == 0 or ei == 0):
                 with torch.no_grad():
                     cache = self.light_render(light_n)
             sl = slice(ei * B, (ei + 1) * B)
-            loss, psnr, op = self.train_step(
-                self.rays[sl], self.rgbs[sl], self.pixels[sl],
-                self.pose_idx[sl], cache, light_n)
-            losses.append(loss)
-            psnrs.append(psnr)
-            op_losses.append(op)
-        stack = lambda xs: torch.stack(xs).float().cpu().numpy()  # noqa: E731
-        return {"train/loss": stack(losses), "train/psnr": stack(psnrs),
-                "train/train_opactiy": stack(op_losses)}
+            step = self.train_step(*(getattr(self, name)[sl]
+                                     for name in self.train_bufs),
+                                   cache, light_n)
+            for acc, v in zip(values, step):
+                acc.append(v)
+        return {key: torch.stack(v).float().cpu().numpy()
+                for key, v in zip(self.metric_keys, values)}
 
-    def _epoch_note(self, epoch: int) -> str:
+    def _epoch_note(self, epoch: int, means: Dict[str, float]) -> str:
         return f"Light_N={self._light_n}, "
 
     # -- validation -----------------------------------------------------------
+    def _val_frame(self, sample, rkw_cam: dict, rkw_light: dict, light_depths,
+                   out_prefix: str = "rgb"):
+        """One val frame rendered whole and composited; the light view is
+        rendered once (``light_depths`` None) and reused.  Returns the
+        outputs, the light depths and the frame's tensors."""
+        cfg = self.cfg
+        t = _on(self.device, sample, ("rays", "pixels", "rgbs", "light_rays",
+                                      "light_pixels"))
+        cam_res = render_image(self.models, t["rays"], self.render_gen,
+                               chunk=cfg.chunk, **rkw_cam)
+        if light_depths is None:
+            light_res = render_image(self.models, t["light_rays"],
+                                     self.render_gen, chunk=cfg.chunk,
+                                     **rkw_light)
+            light_depths = {
+                "depth_coarse": light_res["depth_coarse"],
+                "depth_fine": light_res.get("depth_fine",
+                                            light_res["depth_coarse"])}
+        fine = cfg.N_importance > 0
+        cam, light = (_on(self.device, sample[k], ("camera", "eye_pos"))
+                      for k in ("ppc", "light_ppc"))
+        with torch.no_grad():
+            out = efficient_sm(
+                t["pixels"], t["light_pixels"], cam_res, light_depths,
+                cam["camera"], cam["eye_pos"], light["camera"],
+                light["eye_pos"], tuple(cfg.img_wh), fine_sampling=fine,
+                light_has_fine=fine, shadow_method=cfg.shadow_method,
+                out_prefix=out_prefix)
+        return out, light_depths, t
+
     def validation(self, epoch: int,
                    max_images: Optional[int] = None) -> Dict[str, float]:
         """Every val frame rendered whole, the light view once, composited
         per frame."""
         cfg = self.cfg
         rkw = sigma_render_kwargs(cfg, cfg.N_importance, train=False)
-        fine = cfg.N_importance > 0
+        typ = "fine" if cfg.N_importance > 0 else "coarse"
         n_img = len(self.val_dataset)
         if max_images is not None:
             n_img = min(n_img, max_images)
-        dev = self.device
         losses, psnrs, light_depths = [], [], None
         for i in range(n_img):
-            sample = self.val_dataset[i]
-            t = {k: torch.from_numpy(np.asarray(sample[k])).to(dev)
-                 for k in ("rays", "pixels", "rgbs", "light_rays",
-                           "light_pixels")}
-            cam_res = render_image(self.models, t["rays"], self.render_gen,
-                                   chunk=cfg.chunk, **rkw)
-            if light_depths is None:
-                light_res = render_image(self.models, t["light_rays"],
-                                         self.render_gen, chunk=cfg.chunk, **rkw)
-                light_depths = {
-                    "depth_coarse": light_res["depth_coarse"],
-                    "depth_fine": light_res.get("depth_fine",
-                                                light_res["depth_coarse"])}
-            with torch.no_grad():
-                out = efficient_sm(
-                    t["pixels"], t["light_pixels"], cam_res, light_depths,
-                    torch.from_numpy(sample["ppc"]["camera"]).to(dev),
-                    torch.from_numpy(sample["ppc"]["eye_pos"]).to(dev),
-                    torch.from_numpy(sample["light_ppc"]["camera"]).to(dev),
-                    torch.from_numpy(sample["light_ppc"]["eye_pos"]).to(dev),
-                    tuple(cfg.img_wh), fine_sampling=fine, light_has_fine=fine,
-                    shadow_method=cfg.shadow_method)
-                typ = "fine" if fine else "coarse"
-                losses.append(float(mse_loss(out, t["rgbs"])))
-                psnrs.append(float(psnr_metric(out[f"rgb_{typ}"], t["rgbs"])))
+            out, light_depths, t = self._val_frame(
+                self.val_dataset[i], rkw, rkw, light_depths)
+            losses.append(float(mse_loss(out, t["rgbs"])))
+            psnrs.append(float(psnr_metric(out[f"rgb_{typ}"], t["rgbs"])))
             if i == 0:
                 dump_val_images(self.logger, cfg, epoch * self.steps_per_epoch,
                                 epoch, out, t["rgbs"], typ)
         return {"val/loss": float(np.mean(losses)),
                 "val/psnr": float(np.mean(psnrs))}
+
+
+class RGBSMSystem(EfficientSMSystem):
+    """Joint RGB + shadow trainer (reference ``train_rgb_sm_juntos.py``):
+    the camera keeps its RGB (``rgb_disp``), the shadow maps go to ``sm_*``
+    and the loss is ``rgb_weight * mse(rgb) + sm_weight * mse(sm)``."""
+
+    loss_label = "loss"
+    train_bufs = ("rays", "rgbs", "sms", "pixels", "pose_idx")
+    metric_keys = ("train/loss", "train/psnr", "train/sm_psnr")
+
+    def _prepare_data(self):
+        super()._prepare_data()
+        if not hasattr(self, "sms"):
+            raise KeyError(
+                f"dataset {type(self.train_dataset).__name__} exposes no "
+                "all_sm buffer: rgb_sm training needs shadow-map targets")
+
+    def _camera_rkw(self) -> dict:
+        # the JAX system's camera render takes no --remat_fine
+        return dict(sigma_render_kwargs(self.cfg, self.cfg.N_importance),
+                    mode="rgb_disp", white_back=self.white_back,
+                    remat_fine=False)
+
+    def _loss(self, out, rgbs, sms):
+        typ = "fine" if self.cfg.N_importance > 0 else "coarse"
+        loss = (self.cfg.rgb_weight * mse_loss(out, rgbs)
+                + self.cfg.sm_weight * sm_loss(out, sms))
+        with torch.no_grad():
+            return (loss, psnr_metric(out[f"rgb_{typ}"], rgbs),
+                    psnr_metric(out[f"sm_{typ}"], sms))
+
+    def train_step(self, rays, rgbs, sms, pixels, pose_idx, light_cache,
+                   light_n: int, overrides: Optional[dict] = None):
+        """render (rgb_disp) -> efficient_sm into ``sm_*`` -> the weighted
+        loss -> backward -> Adam.  Returns (loss, psnr, sm_psnr)."""
+        out, _ = self._shadow_out(rays, pixels, pose_idx, light_cache,
+                                  light_n, overrides, out_prefix="sm")
+        loss, psnr, sm_psnr = self._loss(out, rgbs, sms)
+        self._optimize(loss)
+        return loss.detach(), psnr, sm_psnr
+
+    def _epoch_note(self, epoch: int, means: Dict[str, float]) -> str:
+        return (f"sm_psnr {means['train/sm_psnr']:.2f}, "
+                f"{super()._epoch_note(epoch, means)}")
+
+    def validation(self, epoch: int,
+                   max_images: Optional[int] = None) -> Dict[str, float]:
+        """As ``EfficientSMSystem``'s, the camera in ``rgb_disp`` and the
+        light view with ``N_importance`` fine samples."""
+        cfg = self.cfg
+        rkw_light = sigma_render_kwargs(cfg, cfg.N_importance, train=False)
+        typ = "fine" if cfg.N_importance > 0 else "coarse"
+        n_img = len(self.val_dataset)
+        if max_images is not None:
+            n_img = min(n_img, max_images)
+        rows, light_depths = [], None
+        for i in range(n_img):
+            sample = self.val_dataset[i]
+            out, light_depths, t = self._val_frame(
+                sample, self.rkw, rkw_light, light_depths, out_prefix="sm")
+            sms = _put(sample["sm"], self.device)
+            rows.append([float(v) for v in self._loss(out, t["rgbs"], sms)])
+            if i == 0:
+                dump_val_images(self.logger, cfg, epoch * self.steps_per_epoch,
+                                epoch, out, t["rgbs"], typ)
+        loss, psnr, sm_psnr = np.mean(np.asarray(rows), axis=0)
+        return {"val/loss": float(loss), "val/psnr": float(psnr),
+                "val/sm_psnr": float(sm_psnr)}
+
+
+class LightSamplerSystem(_ShadowSystemBase):
+    """Sampled-light shadow trainer (reference ``train_light_sampler.py``):
+    each step projects the camera batch into the light view and renders
+    only those B light rays.  The shadow map is min-max normalised over the
+    whole batch (no per-pose segments), and written to ``rgb_coarse`` only:
+    the reference keeps the fine map under a key its loss never reads."""
+
+    def __init__(self, cfg: Config, device=None):
+        super().__init__(cfg, device)
+        self.rkw = sigma_render_kwargs(cfg, cfg.N_importance)
+        self.light_n = max(cfg.Light_N_importance, 0)
+        self.rkw_light = sigma_render_kwargs(cfg, self.light_n)
+        light = self.train_dataset.light
+        self.light_geom = (
+            _put(light.l2w, self.device),
+            torch.tensor(light.focal, dtype=torch.float32, device=self.device),
+            float(np.float32(light.near)), float(np.float32(light.far)))
+
+    def train_step(self, rays, rgbs, pixels, pose_idx,
+                   overrides: Optional[dict] = None):
+        """camera render -> projection into the light -> the B light rays'
+        render -> shadow map -> MSE -> backward -> Adam.  ``overrides`` as
+        ``EfficientSMSystem.train_step``'s.  Returns (loss, psnr)."""
+        cfg = self.cfg
+        ov = overrides or {}
+        models = (self.models["coarse"], self.models.get("fine"))
+        cam_res = render_rays(*models, rays, self.render_gen,
+                              overrides=ov.get("cam"), **self.rkw)
+        K, ul, vl, lrays = ls_project(
+            cam_res, pixels, self.cam_ms[pose_idx], self.cam_eyes[pose_idx],
+            self.light_m, self.light_eye, *self.light_geom,
+            tuple(cfg.img_wh), cfg.N_importance > 0)
+        # the rays are detached; the light render is differentiated
+        light_res = render_rays(*models, lrays, self.render_gen,
+                                overrides=ov.get("light"), **self.rkw_light)
+        depth = light_res["depth_fine" if self.light_n > 0 else "depth_coarse"]
+        sm = ls_composite(K, ul, vl, depth, self.light_m, cfg.shadow_method)
+        loss = torch.mean((sm - rgbs) ** 2)
+        psnr = psnr_metric(sm.detach(), rgbs)
+        self._optimize(loss)
+        return loss.detach(), psnr
+
+    def train_epoch(self, epoch: int, global_step: int) -> Dict[str, np.ndarray]:
+        B = self.cfg.batch_size
+        losses, psnrs = [], []
+        for i in range(self.steps_per_epoch):
+            self._preempt_if_asked(epoch, complete=False)
+            sl = slice(i * B, (i + 1) * B)
+            loss, psnr = self.train_step(self.rays[sl], self.rgbs[sl],
+                                         self.pixels[sl], self.pose_idx[sl])
+            losses.append(loss)
+            psnrs.append(psnr)
+        return {"train/loss": torch.stack(losses).float().cpu().numpy(),
+                "train/psnr": torch.stack(psnrs).float().cpu().numpy()}
+
+    def validation(self, epoch: int,
+                   max_images: Optional[int] = None) -> Dict[str, float]:
+        """Each val frame: the camera image rendered whole, every pixel
+        projected into the light view, the light rays through those pixels
+        rendered, and the shadow map scored as ``rgb_coarse``."""
+        cfg = self.cfg
+        n_img = len(self.val_dataset)
+        if max_images is not None:
+            n_img = min(n_img, max_images)
+        losses, psnrs = [], []
+        for i in range(n_img):
+            sample = self.val_dataset[i]
+            t = _on(self.device, sample, ("rays", "pixels", "rgbs"))
+            cam_res = render_image(self.models, t["rays"], self.render_gen,
+                                   chunk=cfg.chunk, **self.rkw)
+            with torch.no_grad():
+                K, ul, vl, lrays = ls_project(
+                    cam_res, t["pixels"],
+                    _put(sample["ppc"]["camera"], self.device),
+                    _put(sample["ppc"]["eye_pos"], self.device),
+                    self.light_m, self.light_eye, *self.light_geom,
+                    tuple(cfg.img_wh), cfg.N_importance > 0)
+            light_res = render_image(self.models, lrays, self.render_gen,
+                                     chunk=cfg.chunk, **self.rkw_light)
+            depth = light_res["depth_fine" if self.light_n > 0
+                              else "depth_coarse"]
+            out = dict(cam_res)
+            out["rgb_coarse"] = ls_composite(K, ul, vl, depth, self.light_m,
+                                             cfg.shadow_method)
+            losses.append(float(mse_loss(out, t["rgbs"])))
+            psnrs.append(float(psnr_metric(out["rgb_coarse"], t["rgbs"])))
+            if i == 0:
+                dump_val_images(self.logger, cfg, epoch * self.steps_per_epoch,
+                                epoch, out, t["rgbs"], "coarse")
+        return {"val/loss": float(np.mean(losses)),
+                "val/psnr": float(np.mean(psnrs))}
+
+
+class ShadowMappingSystem(NeRFSystem):
+    """Image-space shadow trainer (reference ``train_shadow_mapping.py``):
+    each step renders ``batch_size`` whole camera images and the whole
+    light view, and composites them per image (``shadow_mapping_images``,
+    min-max over each image).  ``--batch_size`` counts images; step ``s``
+    takes images ``(s * B + k) % n``.  ``epoch=N.ckpt`` is written every
+    epoch and never pruned."""
+
+    datasets = ("shadows",)
+
+    @classmethod
+    def check_supported(cls, cfg: Config) -> None:
+        _reject_per_host_data(cfg, cls.__name__)
+        _reject_global_reshuffle(cfg, cls.__name__)
+        raise_unsupported({
+            **common_unsupported(cfg),
+            f"--dataset_name {cfg.dataset_name}":
+                cfg.dataset_name not in cls.datasets,
+        })
+
+    def __init__(self, cfg: Config, device=None):
+        super().__init__(cfg, device)
+        self.rkw = sigma_render_kwargs(cfg, cfg.N_importance)
+
+    def _prepare_data(self):
+        cfg = self.cfg
+        ds_cls = dataset_dict[cfg.dataset_name]
+        kw = dict(root_dir=cfg.root_dir, img_wh=tuple(cfg.img_wh))
+        self.train_dataset = ds_cls(split="train", **kw)
+        self.val_dataset = ds_cls(split="val", **kw)
+        self.white_back = self.train_dataset.white_back
+        items = [self.train_dataset[i] for i in range(len(self.train_dataset))]
+
+        def stack(get):
+            return _put(np.stack([get(it) for it in items]), self.device)
+
+        self.rays = stack(lambda it: it["rays"])  # (n, HW, 8)
+        self.rgbs = stack(lambda it: it["rgbs"])
+        self.cam_ms = stack(lambda it: it["ppc"]["camera"])
+        self.cam_eyes = stack(lambda it: it["ppc"]["eye_pos"])
+        light = self.train_dataset.light
+        self.light_rays = _put(light.rays, self.device)
+        self.light_m = _put(light.camera, self.device)
+        self.light_eye = _put(light.eye_pos, self.device)
+
+    def _count_steps(self) -> int:
+        return max(1, self.rays.shape[0] // max(1, self.cfg.batch_size))
+
+    @property
+    def rays_per_step(self) -> int:
+        w, h = self.cfg.img_wh
+        return max(1, self.cfg.batch_size) * w * h
+
+    def train_step(self, rays, rgbs, cam_ms, cam_eyes,
+                   overrides: Optional[dict] = None):
+        """``rays (B, HW, 8)`` and the light view rendered whole, the light
+        depths tiled over the B images, composited, MSE against ``rgbs (B,
+        HW, 3)``, backward, Adam.  ``overrides`` as
+        ``EfficientSMSystem.train_step``'s.  Returns (loss, psnr)."""
+        cfg = self.cfg
+        ov = overrides or {}
+        Bi = cam_ms.shape[0]
+        models = (self.models["coarse"], self.models.get("fine"))
+        cam_res = render_rays(*models, rays.reshape(-1, 8), self.render_gen,
+                              overrides=ov.get("cam"), **self.rkw)
+        light_res = render_rays(*models, self.light_rays, self.render_gen,
+                                overrides=ov.get("light"), **self.rkw)
+        light_tiled = {k: v.repeat(Bi) for k, v in light_res.items()
+                       if k.startswith("depth")}
+        fine = cfg.N_importance > 0
+        out = shadow_mapping_images(
+            {k: v for k, v in cam_res.items() if k.startswith("depth")},
+            light_tiled, cam_ms, cam_eyes, self.light_m, self.light_eye,
+            tuple(cfg.img_wh), Bi, fine_sampling=fine,
+            shadow_method=cfg.shadow_method)
+        targets = rgbs.reshape(-1, 3)
+        loss = mse_loss(out, targets)
+        psnr = psnr_metric(out["rgb_fine" if fine else "rgb_coarse"].detach(),
+                           targets)
+        self._optimize(loss)
+        return loss.detach(), psnr
+
+    def train_epoch(self, epoch: int, global_step: int) -> Dict[str, np.ndarray]:
+        n, Bi = self.rays.shape[0], max(1, self.cfg.batch_size)
+        # every step's image indices, moved to the device once an epoch
+        idx = torch.arange(self.steps_per_epoch * Bi) % n
+        idx = host_to_device(idx.reshape(-1, Bi), self.device)
+        losses, psnrs = [], []
+        for s in range(self.steps_per_epoch):
+            self._preempt_if_asked(epoch, complete=False)
+            i = idx[s]
+            loss, psnr = self.train_step(self.rays[i], self.rgbs[i],
+                                         self.cam_ms[i], self.cam_eyes[i])
+            losses.append(loss)
+            psnrs.append(psnr)
+        return {"train/loss": torch.stack(losses).float().cpu().numpy(),
+                "train/psnr": torch.stack(psnrs).float().cpu().numpy()}
+
+    def _save_epoch(self, epoch: int, val_loss: Optional[float]) -> None:
+        self.save_ckpt(epoch, None)
+
+    def validation(self, epoch: int,
+                   max_images: Optional[int] = None) -> Dict[str, float]:
+        """Each val image and the light view (once) rendered whole and
+        composited one image at a time."""
+        cfg = self.cfg
+        rkw = sigma_render_kwargs(cfg, cfg.N_importance, train=False)
+        fine = cfg.N_importance > 0
+        typ = "fine" if fine else "coarse"
+        n_img = len(self.val_dataset)
+        if max_images is not None:
+            n_img = min(n_img, max_images)
+        losses, psnrs, light_depths = [], [], None
+        for i in range(n_img):
+            sample = self.val_dataset[i]
+            t = _on(self.device, sample, ("rays", "rgbs"))
+            cam_res = render_image(self.models, t["rays"], self.render_gen,
+                                   chunk=cfg.chunk, **rkw)
+            if light_depths is None:
+                light_res = render_image(self.models, self.light_rays,
+                                         self.render_gen, chunk=cfg.chunk, **rkw)
+                light_depths = {k: v for k, v in light_res.items()
+                                if k.startswith("depth")}
+            with torch.no_grad():
+                out = shadow_mapping_images(
+                    cam_res, light_depths,
+                    _put(sample["ppc"]["camera"], self.device)[None],
+                    _put(sample["ppc"]["eye_pos"], self.device)[None],
+                    self.light_m, self.light_eye, tuple(cfg.img_wh), 1,
+                    fine_sampling=fine, shadow_method=cfg.shadow_method)
+            losses.append(float(mse_loss(out, t["rgbs"])))
+            psnrs.append(float(psnr_metric(out[f"rgb_{typ}"], t["rgbs"])))
+            if i == 0:
+                dump_val_images(self.logger, cfg, epoch * self.steps_per_epoch,
+                                epoch, out, t["rgbs"], typ)
+        return {"val/loss": float(np.mean(losses)),
+                "val/psnr": float(np.mean(psnrs))}
+
+
+class ShadowsSystem(NeRFSystem):
+    """RGB NeRF training on shadow data (reference ``train_shadows.py``): the
+    vanilla step on a shadow loader's rays, near and far the loader's own.
+    A per-image dataset is flattened into one ray buffer.  The reference's
+    Lightning ``auto_scale_batch_size`` is not reproduced (as in the JAX
+    package)."""
+
+    datasets = tuple(dataset_dict)
+
+    @classmethod
+    def check_supported(cls, cfg: Config) -> None:
+        _reject_per_host_data(cfg, cls.__name__)
+        super().check_supported(cfg)
+
+    def _prepare_data(self):
+        cfg = self.cfg
+        ds_cls = dataset_dict[cfg.dataset_name]
+        kw = dict(root_dir=cfg.root_dir, img_wh=tuple(cfg.img_wh))
+        self.train_dataset = ds_cls(split="train", **kw)
+        self.val_dataset = ds_cls(split="val", **kw)
+        self.white_back = self.train_dataset.white_back
+        ds = self.train_dataset
+        if hasattr(ds, "all_rays"):
+            rays, rgbs = ds.all_rays, ds.all_rgbs
+        else:
+            items = [ds[i] for i in range(len(ds))]
+            rays = np.concatenate([it["rays"] for it in items], 0)
+            rgbs = np.concatenate([it["rgbs"] for it in items], 0)
+        self.rays, self.rgbs = _put(rays, self.device), _put(rgbs, self.device)

@@ -142,12 +142,7 @@ class NeRFSystem:
     # -- state --------------------------------------------------------------
     def _build_state(self):
         cfg = self.cfg
-        n = self.rays.shape[0]
-        self.steps_per_epoch = n // cfg.batch_size
-        if self.steps_per_epoch < 1:
-            raise ValueError(
-                f"batch_size {cfg.batch_size} exceeds the {n} training rays; "
-                "the epoch would run zero steps")
+        self.steps_per_epoch = self._count_steps()
         self.schedule = make_lr_schedule(
             cfg.lr, cfg.lr_scheduler, self.steps_per_epoch, cfg.num_epochs,
             cfg.decay_step, cfg.decay_gamma, cfg.poly_exp,
@@ -176,18 +171,39 @@ class NeRFSystem:
                       "(weights-only artifact): params restored, optimizer "
                       "fresh, starting at epoch 0", flush=True)
 
+    def _count_steps(self) -> int:
+        n = self.rays.shape[0]
+        steps = n // self.cfg.batch_size
+        if steps < 1:
+            raise ValueError(
+                f"batch_size {self.cfg.batch_size} exceeds the {n} training "
+                "rays; the epoch would run zero steps")
+        return steps
+
+    @property
+    def rays_per_step(self) -> int:
+        """Camera rays trained a step (``train/rays_per_s`` counts these)."""
+        return self.cfg.batch_size
+
     # -- one step -----------------------------------------------------------
-    def train_step(self, rays: torch.Tensor, rgbs: torch.Tensor):
-        """render -> loss -> backward -> Adam; returns (loss, psnr) tensors."""
+    def train_step(self, rays: torch.Tensor, rgbs: torch.Tensor,
+                   overrides: Optional[dict] = None):
+        """render -> loss -> backward -> Adam; returns (loss, psnr) tensors.
+        ``overrides``: the ``render_rays`` overrides of the random draws."""
         results = render_rays(self.models["coarse"], self.models.get("fine"),
-                              rays, self.render_gen, mode=self.mode, **self.rkw)
+                              rays, self.render_gen, mode=self.mode,
+                              overrides=overrides, **self.rkw)
         loss = loss_dict[self.loss_name](results, rgbs)
         typ = "fine" if "rgb_fine" in results else "coarse"
         psnr = psnr_metric(results[f"rgb_{typ}"].detach(), rgbs)
+        self._optimize(loss)
+        return loss.detach(), psnr
+
+    def _optimize(self, loss: torch.Tensor) -> None:
+        """backward, then one optimizer step."""
         self.optimizer.zero_grad()
         loss.backward()
         self.optimizer.step()
-        return loss.detach(), psnr
 
     # -- validation ---------------------------------------------------------
     def validation(self, epoch: int,
@@ -307,20 +323,28 @@ class NeRFSystem:
         return {"train/loss": torch.stack(losses).float().cpu().numpy(),
                 "train/psnr": torch.stack(psnrs).float().cpu().numpy()}
 
-    def _epoch_note(self, epoch: int) -> str:
+    def _epoch_note(self, epoch: int, means: Dict[str, float]) -> str:
         """Text the epoch line carries before its rate."""
         return ""
 
+    def _save_epoch(self, epoch: int, val_loss: Optional[float]) -> None:
+        """The end of an epoch's checkpoint: top 5 by val loss, else
+        ``last.ckpt`` (resumability must not depend on the val cadence)."""
+        if val_loss is None:
+            self.save_ckpt(epoch, None, filename="last.ckpt")
+        else:
+            self.save_ckpt(epoch, val_loss)
+
     def _finish_epoch(self, epoch, global_step, metrics, dt):
         cfg = self.cfg
-        rays_per_s = self.steps_per_epoch * cfg.batch_size / max(dt, 1e-9)
+        rays_per_s = self.steps_per_epoch * self.rays_per_step / max(dt, 1e-9)
         means = {k: float(v.mean()) for k, v in metrics.items()}
         self.logger.scalars(global_step, {
             "lr": self.schedule(global_step), **means,
             "train/rays_per_s": rays_per_s,
         })
         msg = (f"epoch {epoch}: {self.loss_label} {means['train/loss']:.5f} "
-               f"psnr {means['train/psnr']:.2f} ({self._epoch_note(epoch)}"
+               f"psnr {means['train/psnr']:.2f} ({self._epoch_note(epoch, means)}"
                f"{rays_per_s:,.0f} rays/s, {dt:.1f}s)")
         do_val = ((epoch + 1) % cfg.val_every_n_epochs == 0
                   or epoch == cfg.num_epochs - 1)
@@ -330,8 +354,7 @@ class NeRFSystem:
             self.logger.scalars(global_step, val_metrics)
             msg += (f" | val loss {val_metrics['val/loss']:.5f} "
                     f"psnr {val_metrics['val/psnr']:.2f}")
-            self.save_ckpt(epoch, val_metrics["val/loss"])
+            self._save_epoch(epoch, val_metrics["val/loss"])
         else:
-            # resumability must not depend on the validation cadence
-            self.save_ckpt(epoch, None, filename="last.ckpt")
+            self._save_epoch(epoch, None)
         print(msg, flush=True)

@@ -44,6 +44,14 @@ def test_port_modules_import_without_jax_flax_msgpack_pil():
             "nerf_pl_tpu_torch.data.blender_efficient_sm",
             "nerf_pl_tpu_torch.data.blur",
             "nerf_pl_tpu_torch.data.synthetic"} <= set(MODULES)
+    # the other shadow trainers and their loaders
+    assert {"nerf_pl_tpu_torch.train_rgb_sm_juntos",
+            "nerf_pl_tpu_torch.train_shadows",
+            "nerf_pl_tpu_torch.train_light_sampler",
+            "nerf_pl_tpu_torch.train_shadow_mapping",
+            "nerf_pl_tpu_torch.data.blender_rgb_shadows",
+            "nerf_pl_tpu_torch.data.blender_shadows",
+            "nerf_pl_tpu_torch.data.pyredner2"} <= set(MODULES)
     # -I: no PYTHONPATH or user site, so nothing imported by a site hook
     # is counted against the port
     code = (
