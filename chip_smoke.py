@@ -102,7 +102,26 @@ Phases (any failed check raises, so the script exits non-zero):
    ``TRAINER_STEP_LAUNCHES``), synchronising calls, profile with f32 D and
    E beside their bounds, and one float32 step's grads on the card against
    the CPU (``TOL_STEP_GRADS``) on phase 7's 16x16 scene.
-9. One JSON line of kernel numbers, the card's line, then the result line
+9. LLFF: ``python -m nerf_pl_tpu_torch.train --dataset_name llff`` at
+   ``launchers/llff_fern.sh``'s flags (full width, f32, 64 + 64 samples,
+   batch 1,024, adam, steplr 10 20 x 0.5) for 1 epoch (558 steps) on a
+   forward-facing synthetic scene this script writes at the recipe's
+   504x378 (3 train views and the closest-to-centre val): NDC rays, losses
+   finite, train rays/s, launches in the fit and in one step (exact: D 2,
+   E 2, A 1), the batch fetch and the optimizer step under
+   ``set_sync_debug_mode("error")``, one step profiled with f32 D and E
+   beside their bounds; ``python -m nerf_pl_tpu_torch.eval --dataset_name
+   llff`` on its checkpoint, ``--split test_train`` at 504x378 (PSNR of the
+   written PNGs against the scene's images) and ``--split test`` at
+   168x126 (the 120-pose spiral, a 120-frame GIF), through C and B; one
+   f32 step's grads card vs CPU; a 2-epoch ``--spheric_poses`` fit on a
+   ring scene with ranger, poly and ``--profile`` (its trace must name D
+   and E), then ``--debug_nans`` stopping a NaN fit; sgd, adamw, radam,
+   ranger, and cosine and poly behind a warm-up, on the card against the
+   same steps on the CPU, each card step under the sync debug mode; an
+   embedded JPEG decoded to Pillow's hash and loaded as an LLFF val image;
+   the PNG reader's host time on an 800x800 RGBA image.
+10. One JSON line of kernel numbers, the card's line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Peak rates used for the bounds (NVIDIA H100 SXM data sheet, dense): 989
@@ -1283,13 +1302,14 @@ def train_end_to_end(tmp: str) -> dict:
                 rays_per_s=rate, profile=prof, syncs=syncs)
 
 
-def step_syncs(system) -> dict:
+def step_syncs(system, batch: int = TRAIN_BATCH,
+               tag: str = "train") -> dict:
     """The training step's synchronising calls.  The step's index fetch (a
     slice of the epoch's permutation on the card, then the ray and colour
     gathers) and ``Adam.step`` run under ``set_sync_debug_mode("error")``,
     which raises at any call that makes the host wait for the card; then a
     whole step (fetch, render, loss, backward, Adam) under ``"warn"``, whose
-    warnings are counted by the call that made them."""
+    warnings are counted by the call that made them.  ``batch`` rays a step."""
     from nerf_pl_tpu_torch.training.optim import host_to_device
 
     perm = host_to_device(torch.randperm(
@@ -1298,7 +1318,7 @@ def step_syncs(system) -> dict:
     torch.cuda.synchronize()
 
     def fetch():
-        idx = perm[:TRAIN_BATCH]
+        idx = perm[:batch]
         return system.rays[idx], system.rgbs[idx]
 
     torch.cuda.set_sync_debug_mode("error")
@@ -1308,11 +1328,11 @@ def step_syncs(system) -> dict:
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    log("[train] the index fetch and Adam.step ran under "
+    log(f"[{tag}] the index fetch and Adam.step ran under "
         "set_sync_debug_mode('error'): no synchronising call")
     calls = sync_calls(lambda: system.train_step(*fetch()))
     n = sum(calls.values())
-    log(f"[train] one whole step under set_sync_debug_mode('warn'): {n} "
+    log(f"[{tag}] one whole step under set_sync_debug_mode('warn'): {n} "
         f"synchronising calls, by line: {calls}")
     return dict(count=n, calls=calls)
 
@@ -2696,6 +2716,475 @@ def trainers_end_to_end(tmp: str) -> dict:
     return dict(fits=fits, steps=steps, grads=grads, seconds=seconds)
 
 
+# ---------------------------------------------------------------- phase 9
+# LLFF forward-facing training and evaluation at launchers/llff_fern.sh's
+# flags (full-width NeRF, f32, 64 + 64 samples, batch 1,024, adam, steplr
+# 10 20 x 0.5) on a forward-facing synthetic scene at the recipe's
+# --img_wh 504 378: 4 views, 3 train and the closest-to-centre val (cut from
+# fern's 20 views and 30 epochs to 1 epoch: 558 steps).
+LLFF_WH, LLFF_VIEWS, LLFF_BATCH, LLFF_SAMPLES = (504, 378), 4, 1024, 64
+LLFF_FLAGS = ["--dataset_name", "llff", "--img_wh", "504", "378",
+              "--N_samples", "64", "--N_importance", "64",
+              "--batch_size", "1024", "--optimizer", "adam", "--lr", "5e-4",
+              "--lr_scheduler", "steplr", "--decay_step", "10", "20",
+              "--decay_gamma", "0.5"]
+# the eval of the spiral at a third of the size (the same 4:3 aspect)
+LLFF_TEST_WH = (168, 126)
+# one step: a coarse and a fine pass through D and E, one importance
+# sampling (A)
+LLFF_STEP_LAUNCHES = {"A": 1, "B": 0, "C": 0, "D": 2, "E": 2}
+# the ring scene of the spheric fit: 4 views of 84x63 (3 train: 15 steps)
+LLFF_RING_WH = (84, 63)
+# The optimisers and schedules on the card against the same steps on the
+# CPU, per parameter relative to the rate: float32 products, sums,
+# divisions and square roots round the same on both (each torch op apart,
+# no contraction across them), so the trajectories may be bit-equal; the
+# limit is the one the CPU tests hold the port to against optax
+# (tests/test_torch_port_optim.py), in case a card kernel orders a sum
+# otherwise.
+TOL_OPTIM_CARD = 5e-5
+# A small baseline JPEG written by Pillow (61x45, 4:2:0, quality 90, a
+# restart interval of 4 MCUs), and the sha256 of Pillow's
+# Image.open(p).convert("RGB") bytes of it: the card's machine has no PIL.
+LLFF_JPEG_SHA256 = \
+    "cb1ba2fd5a59674516a0a3bd7cb48e12f96d09a4d892a0ddcaf689663678c483"
+LLFF_JPEG_B64 = (
+    "/9j/4AAQSkZJRgABAQAAAQABAAD/2wBDAAMCAgMCAgMDAwMEAwMEBQgFBQQEBQoHBwYIDAoM"
+    "DAsKCwsNDhIQDQ4RDgsLEBYQERMUFRUVDA8XGBYUGBIUFRT/2wBDAQMEBAUEBQkFBQkUDQsN"
+    "FBQUFBQUFBQUFBQUFBQUFBQUFBQUFBQUFBQUFBQUFBQUFBQUFBQUFBQUFBQUFBQUFBT/wAAR"
+    "CAAtAD0DASIAAhEBAxEB/8QAHwAAAQUBAQEBAQEAAAAAAAAAAAECAwQFBgcICQoL/8QAtRAA"
+    "AgEDAwIEAwUFBAQAAAF9AQIDAAQRBRIhMUEGE1FhByJxFDKBkaEII0KxwRVS0fAkM2JyggkK"
+    "FhcYGRolJicoKSo0NTY3ODk6Q0RFRkdISUpTVFVWV1hZWmNkZWZnaGlqc3R1dnd4eXqDhIWG"
+    "h4iJipKTlJWWl5iZmqKjpKWmp6ipqrKztLW2t7i5usLDxMXGx8jJytLT1NXW19jZ2uHi4+Tl"
+    "5ufo6erx8vP09fb3+Pn6/8QAHwEAAwEBAQEBAQEBAQAAAAAAAAECAwQFBgcICQoL/8QAtREA"
+    "AgECBAQDBAcFBAQAAQJ3AAECAxEEBSExBhJBUQdhcRMiMoEIFEKRobHBCSMzUvAVYnLRChYk"
+    "NOEl8RcYGRomJygpKjU2Nzg5OkNERUZHSElKU1RVVldYWVpjZGVmZ2hpanN0dXZ3eHl6goOE"
+    "hYaHiImKkpOUlZaXmJmaoqOkpaanqKmqsrO0tba3uLm6wsPExcbHyMnK0tPU1dbX2Nna4uPk"
+    "5ebn6Onq8vP09fb3+Pn6/90ABAAE/9oADAMBAAIRAxEAPwD3rw38VrCVUaadTGwJYR/eVuQO"
+    "Oo/DuceldFqPxRtpLVwZFJbncJM4OAO49R1Oa+JPDWuanCInEk5MQI2sep6EYPBwD0+taWqe"
+    "INSaMgTlZHG0bXYFhwR2x1I68/Nznqfq8TwrhMFKylax+rZZwRQngU+Y998UfFix8wedtDKx"
+    "xmXAZfXb9Qenf9fMLn4s2Zu2ZpI1xlSxfDE8dOPxxkk+leB+L/EOqBdy+bJ2/eIW3Z+bOT2G"
+    "fTuOleX3HiDUob+RGaa4IyTuXiQHqcZ6Yz+A56V4GKyynVi1Geh/PvEvA1D607S3f9f1+R94"
+    "aD8VrWOUhCp2j7q8ll3cE54z7fz4r03Q/ixbm2KO48yOILsJ2kgjoME5x0Iz3r88/C+uX9ze"
+    "BZGkZFdeNzc9wQM8HHrg8/Q163o2o6oEjCozl1CMQhB2gkYyevGM9+Off8+rcEU8XVV5Xufr"
+    "3BXBVCNJRvqfXer/ABJhuotkdwsb7mGJSpZuOnTr3x6EetcHqPxIsLibEiibZwPLyccDryOe"
+    "3fpXguoapqsULHJAjYRqkbkDA5JGRn1HHv6ivPdX1/VGlwp+zlXdfk6EZ45/z1r9g4e8P6GH"
+    "p8yfkePxrwTQ5lZn/9Dv9G+CYS3O6JAQmCydcgEggdsHPU8d+9WtR+DYlilBgG3G8gooHGSS"
+    "Mnnj8SBXaaT4+sYoZQfKcZwVj44xz0zkdvqa09U8f2PktMSVkOQcjg8AdSTk8+3avy/PeKcz"
+    "qVnGN/8Agn1mVZnnCy9N3vY+bPEXwRSWNcworIThsYc9c9AMcHP4+2a4A/BUMSFRI1O08Y2n"
+    "6Z4xk/r9Cfo7xH4/s7iVEaVt4y4ckdh6ZIHTtz17iuKPjHTIpxKCPMRyMbQm8A7gCScZ6np2"
+    "+td2TVs4xtpTTP514rznNli7RT/r+tDA8K/AuATIqQku2Tl1BU9CATzjk54BOQc8cV6xofwO"
+    "jhgJ8o71wRwN6r1I9cAA/Tn8JPCvjfToJkk3oV+WQuMBfp6HgAcDr+FeraT48sUskUuu5lKs"
+    "HG3ooC59x6ccj0r9BSzDDR5pdP8AgH6NwTnOcShFWZ5LrvwOEMJSRI5fLB+b+LgAbe3qcnPT"
+    "vyK821f4KQi5zJCshI4JHzAds474I/yK+lNe+IVjINs00G1s/KCuB1zkjoTwfbg8da8l8T/E"
+    "bTLm8V3jUvzuRECMpz3GOh7fjTXE2ZUI8qf+QuLMzzadSMZRf9fcvxP/0fLfD3j+9kiVY2dw"
+    "6qVBIbcMdhjIPOc+vHStm98aX7L+488yrwcDJA28bTjuB3Hp0xXVeHvA2n3KRArt/dsxwOCP"
+    "vYIzg9xn6enPRXHw702OygcqrBgoVdn3c4Pr/te3618jTq4SvilKcN2f0bgM0y1YD+H0/Q+f"
+    "fEPjfUEd2jWfLr87Zbch54wOcHOSPQ9B348+O9SJiCidnz8jM+WXjvzjOOoz6Gve9T8B6ddg"
+    "zFdm523oq4BIIGeMemecmuNn8B2f22KMyucyYLBFBO4Z9PU/5wMf0nw5Ry6hRUvZ6rX7j+Yu"
+    "Lszy94x/u+vb+vwMjw94+vWdt8iRiTKjsCAPbpn5fTgc16Tpfjy+WEL5oXecqF7fMO47c+n8"
+    "P4VS0XwJY+d95jujMgyo+UAfd/l+Vd5Y+A9PEW8ZDSKXbCgDgjAA/H+XpXg8T55gcLBxULei"
+    "6n6twNjculTX7v8Ar+up514n+Id9duQ0hDAjLBwwbGR0xwcnocZ+leWa98RNRS/eNmndgcl1"
+    "UPnOPUnA9PX2GBX0TrPgDT7sujgbFcgALz9evpj8vy8w1z4ZaezwAuHUKSDJCrNyfWvyOlm+"
+    "GrVLuNkvI6eNcfl6slST12t6H//Z"
+)
+
+
+def llff_jpeg(tmp: str) -> dict:
+    """The embedded JPEG through ``data/jpeg.py`` (its bytes' hash against
+    Pillow's), then through ``LLFFDataset(split="val")`` as a one-image
+    scene with a ``poses_bounds.npy`` written here; the host time of one
+    decode."""
+    import base64
+    import hashlib
+
+    from nerf_pl_tpu_torch.data.jpeg import read_jpeg
+    from nerf_pl_tpu_torch.data.llff import LLFFDataset
+
+    root = os.path.join(tmp, "jpeg_scene")
+    os.makedirs(os.path.join(root, "images"))
+    path = os.path.join(root, "images", "000.jpg")
+    with open(path, "wb") as f:
+        f.write(base64.b64decode(LLFF_JPEG_B64))
+    t0 = time.perf_counter()
+    img, mode = read_jpeg(path)
+    ms = 1e3 * (time.perf_counter() - t0)
+    digest = hashlib.sha256(img.tobytes()).hexdigest()
+    h, w = img.shape[:2]
+    pose = np.concatenate([np.eye(3)[:, [1, 0, 2]] * [-1, 1, 1],
+                           [[0.0], [0.0], [4.0]], [[h], [w], [50.0]]], 1)
+    np.save(os.path.join(root, "poses_bounds.npy"),
+            np.concatenate([pose.reshape(-1), [2.0, 6.0]])[None])
+    val = LLFFDataset(root, split="val", img_wh=(w, h))[0]
+    same = np.array_equal(np.round(val["rgbs"] * 255).astype(np.uint8),
+                          img.reshape(-1, 3))
+    log(f"[llff] JPEG {w}x{h} {mode} (4:2:0, restart interval): sha256 "
+        f"{digest}, Pillow's {LLFF_JPEG_SHA256}: "
+        f"{'equal' if digest == LLFF_JPEG_SHA256 else 'DIFFERENT'}; decode "
+        f"{ms:.1f} ms on the host; the LLFF val loader's colours "
+        f"{'equal' if same else 'DIFFER'}")
+    if digest != LLFF_JPEG_SHA256 or mode != "RGB" or not same:
+        raise AssertionError("the JPEG reader departs from Pillow's decode")
+    return dict(ms=ms, digest=digest)
+
+
+def png_unfilter_before(raw: bytes, h: int, w: int, bpp: int) -> np.ndarray:
+    """The PNG reader's unfiltering as it was before the wavefront (a Python
+    loop over each byte of the Average and Paeth rows): the frozen
+    reference of its time and bits."""
+    stride = w * bpp
+    rows = np.frombuffer(raw, np.uint8).reshape(h, stride + 1)
+    out = np.zeros((h, stride), np.uint8)
+    prev = np.zeros(stride, np.int32)
+    for y in range(h):
+        ftype, line = rows[y, 0], rows[y, 1:].astype(np.int32)
+        if ftype == 0:
+            cur = line
+        elif ftype == 1:
+            cur = line.copy()
+            for x in range(bpp, stride, bpp):
+                cur[x:x + bpp] = (cur[x:x + bpp] + cur[x - bpp:x]) & 0xFF
+        elif ftype == 2:
+            cur = (line + prev) & 0xFF
+        else:
+            cur_l, up = line.tolist(), prev.tolist()
+            for x in range(stride):
+                a = cur_l[x - bpp] if x >= bpp else 0
+                b = up[x]
+                if ftype == 3:
+                    pred = (a + b) >> 1
+                else:
+                    c = up[x - bpp] if x >= bpp else 0
+                    p = a + b - c
+                    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+                    pred = a if (pa <= pb and pa <= pc) else (
+                        b if pb <= pc else c)
+                cur_l[x] = (cur_l[x] + pred) & 0xFF
+            cur = np.asarray(cur_l, np.int32)
+        out[y] = cur
+        prev = cur
+    return out
+
+
+def png_reader_ms(tmp: str) -> dict:
+    """The PNG reader on an 800x800 RGBA image written with rows of every
+    filter type: the host time of one read (the wavefront unfiltering), and
+    of the same file's unfiltering as it was before, in turns (before,
+    now, now, before); both give the image's bits."""
+    import struct
+    import zlib
+
+    from nerf_pl_tpu_torch.data import png
+
+    rng = np.random.RandomState(12)
+    h = w = 800
+    img = rng.randint(0, 256, (h, w, 4)).astype(np.int32)
+    rows = []
+    for y in range(h):
+        ft = y % 5
+        up = img[y - 1].reshape(-1) if y else np.zeros(w * 4, np.int32)
+        cur = img[y].reshape(-1)
+        left = np.concatenate([np.zeros(4, np.int32), cur[:-4]])
+        ul = np.concatenate([np.zeros(4, np.int32), up[:-4]])
+        p = left + up - ul
+        pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - ul)
+        paeth = np.where((pa <= pb) & (pa <= pc), left,
+                         np.where(pb <= pc, up, ul))
+        pred = [0 * left, left, up, (left + up) >> 1, paeth][ft]
+        rows.append(bytes([ft]) + ((cur - pred) & 255).astype(np.uint8)
+                    .tobytes())
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    path = os.path.join(tmp, "filters_800.png")
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 6, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(b"".join(rows)))
+                + chunk(b"IEND", b""))
+    times = {"now": [], "before": []}
+    ok = True
+    wavefront = png._unfilter
+    for turn in ("before", "now", "now", "before"):
+        # the same reader, with its unfiltering as it is or as it was
+        png._unfilter = wavefront if turn == "now" else png_unfilter_before
+        try:
+            t0 = time.perf_counter()
+            out, mode = png.read_png(path)
+            times[turn].append(1e3 * (time.perf_counter() - t0))
+        finally:
+            png._unfilter = wavefront
+        ok &= mode == "RGBA" and np.array_equal(out, img.astype(np.uint8))
+    ms = {k: sum(v) / len(v) for k, v in times.items()}
+    log(f"[llff] PNG reader, 800x800 RGBA, every filter type, on the host: "
+        f"{ms['now']:.1f} ms now (wavefront), {ms['before']:.1f} ms as "
+        f"before (a loop over each byte), in turns; pixels "
+        f"{'equal' if ok else 'DIFFER'}")
+    if not ok:
+        raise AssertionError("the PNG reader misread its own filters")
+    return dict(ms=ms["now"], before_ms=ms["before"])
+
+
+def llff_eval(tmp: str, root: str, ckpt: str, split: str, wh) -> dict:
+    """``python -m nerf_pl_tpu_torch.eval --dataset_name llff`` on the card:
+    launches, files, wall time; for ``test_train`` the PSNR of the written
+    PNGs against the scene's images (the tool prints none: its loader gives
+    those poses no ground truth)."""
+    from nerf_pl_tpu_torch import eval as eval_cli
+    from nerf_pl_tpu_torch.data.png import read_png
+
+    out = os.path.join(tmp, f"llff_eval_{split}")
+    argv = ["--root_dir", root, "--dataset_name", "llff", "--ckpt_path", ckpt,
+            "--img_wh", str(wh[0]), str(wh[1]), "--N_samples", "64",
+            "--N_importance", "64", "--split", split, "--save_depth",
+            "--scene_name", split, "--out_dir", out, "--device", "cuda"]
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    psnr = eval_cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    d = os.path.join(out, "llff", split)
+    n = 120 if split == "test" else LLFF_VIEWS
+    frames, delays, _ = gif_frames(os.path.join(d, f"{split}.gif"))
+    pngs = sorted(x for x in os.listdir(d) if x.endswith(".png"))
+    pfms = sorted(x for x in os.listdir(d) if x.endswith(".pfm"))
+    if psnr is not None or frames != n or len(pngs) != n or len(pfms) != n:
+        raise AssertionError(f"llff eval {split}: psnr {psnr}, {frames} GIF "
+                             f"frames, {len(pngs)} PNGs, {len(pfms)} PFMs")
+    if counts["C"] < 1 or counts["B"] < 1 or counts["D"] or counts["A"]:
+        raise AssertionError(f"llff eval {split} did not take C and B: "
+                             f"{counts}")
+    psnrs = []
+    if split == "test_train":
+        for i, name in enumerate(pngs):
+            img, _ = read_png(os.path.join(d, name))
+            gt, _ = read_png(os.path.join(root, "images", f"{i:03d}.png"))
+            mse = np.mean((img / 255.0 - gt / 255.0) ** 2)
+            psnrs.append(float(-10 * np.log10(max(mse, 1e-12))))
+    rays = n * wh[0] * wh[1]
+    log(f"[llff eval {split}] {n} views at {wh[0]}x{wh[1]}, 64+64 samples, "
+        f"f32: {wall:.2f} s wall, {wall / n:.3f} s per view, "
+        f"{rays / wall:.1f} rays/s; GIF {frames} frames; launches {counts}"
+        + (f"; PSNR of the PNGs against the scene's images {psnrs}"
+           if psnrs else ""))
+    return dict(wall_s=wall, s_per_view=wall / n, rays_per_s=rays / wall,
+                counts=counts, psnrs=psnrs)
+
+
+def optimizers_card_vs_cpu() -> dict:
+    """sgd, adamw, radam and ranger for 13 steps (and adam with cosine and
+    sgd with poly, each behind a one-epoch warm-up, for 3 epochs of 5
+    steps) on the reference NeRF's coarse and fine parameters on the card,
+    each step under ``set_sync_debug_mode("error")``, against the same steps
+    on the CPU with the same grads (weight decay 1e-2 where the optimiser
+    takes it)."""
+    from nerf_pl_tpu_torch.models.nerf import init_nerf
+    from nerf_pl_tpu_torch.training import optim
+
+    cases = [("sgd", "steplr", 0, 13), ("adamw", "steplr", 0, 13),
+             ("radam", "steplr", 0, 13), ("ranger", "steplr", 0, 13),
+             ("adam", "cosine", 1, 15), ("sgd", "poly", 1, 15)]
+    out = {}
+    lr = 5e-4
+    for name, sched_kind, warmup, steps in cases:
+        opts = {}
+        for device in ("cuda", "cpu"):
+            gen = torch.Generator().manual_seed(13)
+            models = {k: init_nerf(gen, device=device)
+                      for k in ("coarse", "fine")}
+            sched = optim.make_lr_schedule(
+                lr, sched_kind, 5, 3, decay_step=(1,), decay_gamma=0.5,
+                warmup_epochs=warmup, warmup_multiplier=2.0, optimizer=name)
+            opts[device] = optim.get_optimizer(
+                name, sched, optim.named_params(models), weight_decay=1e-2)
+        gen = torch.Generator().manual_seed(14)
+        for _ in range(steps):
+            for k, p in opts["cpu"].params.items():
+                g = torch.randn(p.shape, generator=gen) * 0.1
+                p.grad = g
+                opts["cuda"].params[k].grad = g.cuda()
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                opts["cuda"].step()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            opts["cpu"].step()
+        torch.cuda.synchronize()
+        worst, differ, total = 0.0, 0, 0
+        for k, p in opts["cpu"].params.items():
+            q = opts["cuda"].params[k].detach().cpu()
+            worst = max(worst, float((q - p.detach()).abs().max()) / lr)
+            differ += int((q != p.detach()).sum())
+            total += p.numel()
+        tag = f"{name} {sched_kind}" + (" + warm-up" if warmup else "")
+        log(f"[optim] {tag}, {steps} steps (weight decay 1e-2), each card "
+            f"step under set_sync_debug_mode('error'): params card vs cpu "
+            f"max |diff| / lr {worst:.3e} (tol {TOL_OPTIM_CARD:.0e}), "
+            f"{differ} of {total} values differ")
+        if not worst <= TOL_OPTIM_CARD:
+            raise AssertionError(f"{tag}: the card's steps depart from the "
+                                 f"CPU's by {worst:.3e} of the rate")
+        out[tag] = dict(max_rel_lr=worst, differ=differ)
+    return out
+
+
+def llff_grads_card_vs_cpu(tmp: str) -> float:
+    """One float32 LLFF step's grads (NDC rays, 64 + 64 samples, full
+    width) on the card and on the CPU: the same weights (the seed), batch of
+    256 rays and injected draws, noise 0 (a rounding-level difference can
+    put a point's sigma + noise on either side of the ReLU's 0), on a 16x12
+    scene written here."""
+    from nerf_pl_tpu_torch.config import get_opts
+    from nerf_pl_tpu_torch.data.synthetic import generate_llff_scene
+    from nerf_pl_tpu_torch.training.trainer import NeRFSystem
+
+    root = generate_llff_scene(os.path.join(tmp, "llff_small"),
+                               img_wh=(16, 12), n_views=3)
+    n, S = 256, LLFF_SAMPLES
+    gen = torch.Generator().manual_seed(15)
+    draws = step_draws(gen, n, S)
+    grads = {}
+    for device in ("cuda", "cpu"):
+        cfg = get_opts(["--root_dir", root, *LLFF_FLAGS, "--img_wh", "16",
+                        "12", "--batch_size", str(n), "--noise_std", "0",
+                        "--exp_name", f"llff_grads_{device}",
+                        "--log_dir", os.path.join(tmp, "logs"),
+                        "--ckpt_dir", os.path.join(tmp, "ckpts")])
+        system = NeRFSystem(cfg, device=device)
+        system.train_step(system.rays[:n], system.rgbs[:n],
+                          {k: v.to(device) for k, v in draws.items()})
+        grads[device] = {f"{name}/{k}": p.grad.cpu()
+                         for name, m in system.models.items()
+                         for k, p in m.named_parameters()}
+        system.logger.close()
+    names = sorted(grads["cpu"])
+    return check_grads("f32 llff step grads card vs cpu (16x12 scene)",
+                       [grads["cuda"][k] for k in names],
+                       [grads["cpu"][k] for k in names], names,
+                       TOL_STEP_GRADS)["max_rel"]
+
+
+def llff_profile_and_nans(tmp: str, root: str) -> dict:
+    """The ring scene's fit with ``--profile`` (a trace of its first epoch,
+    whose CUDA events must name kernels D and E), then ``--debug_nans`` on
+    the card: a NaN weight stops the fit at its first step."""
+    from nerf_pl_tpu_torch.config import get_opts
+    from nerf_pl_tpu_torch.training.trainer import NeRFSystem
+
+    traces = sorted(os.listdir(os.path.join(tmp, "logs", "llff_ring",
+                                            "trace")))
+    if len(traces) != 1 or not traces[0].endswith(".pt.trace.json"):
+        raise AssertionError(f"--profile wrote {traces}")
+    path = os.path.join(tmp, "logs", "llff_ring", "trace", traces[0])
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    names = {"D": "fused_nerf_fwd_kernel", "E": "fused_nerf_dgrad_kernel"}
+    seen = {k: sum(v in e.get("name", "") for e in kernels)
+            for k, v in names.items()}
+    log(f"[llff] --profile trace {traces[0]}: {os.path.getsize(path):,} "
+        f"bytes, {len(events):,} events, {len(kernels):,} CUDA kernel events; "
+        f"kernel events of D {seen['D']}, E {seen['E']}")
+    if not (seen["D"] and seen["E"]):
+        raise AssertionError("the --profile trace names no D or E kernel")
+    cfg = get_opts(["--root_dir", root, *LLFF_FLAGS, "--spheric_poses",
+                    "--img_wh", str(LLFF_RING_WH[0]), str(LLFF_RING_WH[1]),
+                    "--num_epochs", "1", "--debug_nans",
+                    "--num_sanity_val_steps", "0", "--exp_name", "llff_nans",
+                    "--log_dir", os.path.join(tmp, "logs"),
+                    "--ckpt_dir", os.path.join(tmp, "ckpts")])
+    system = NeRFSystem(cfg, device="cuda")
+    with torch.no_grad():
+        system.models["coarse"].xyz_layers[0].w[0, 0] = float("nan")
+    try:
+        system.fit()
+    except FloatingPointError as e:
+        log(f"[llff] --debug_nans on the card: {e}")
+        return dict(trace_kernel_events=seen, nan_error=str(e))
+    raise AssertionError("--debug_nans let a NaN weight train")
+
+
+def llff_end_to_end(tmp: str) -> dict:
+    """Phase 9: the LLFF fit at the recipe's flags, one step's launches,
+    synchronising calls and profile, the eval of the training poses and of
+    the spiral, one f32 step's grads card vs CPU, a spheric fit with
+    ``--profile`` and ``--debug_nans``, the optimisers and schedules against
+    the CPU, the JPEG and PNG readers."""
+    from nerf_pl_tpu_torch.data.synthetic import generate_llff_scene
+
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "llff_scene")
+    generate_llff_scene(root, img_wh=LLFF_WH, n_views=LLFF_VIEWS)
+    log(f"[llff] forward-facing scene: {LLFF_VIEWS} views of "
+        f"{LLFF_WH[0]}x{LLFF_WH[1]}, written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    fit = trainer_fit(tmp, "train", root, "llff", LLFF_FLAGS, 1, "llff")
+    system = fit["system"]
+    want = (LLFF_VIEWS - 1) * LLFF_WH[0] * LLFF_WH[1] // LLFF_BATCH
+    if system.steps_per_epoch != want:
+        raise AssertionError(f"llff steps per epoch {system.steps_per_epoch}"
+                             f", expected {want}")
+    for k in ("A", "C", "D", "E"):
+        if fit["counts"][k] < 1:
+            raise AssertionError(f"kernel {k} was not launched by the fit")
+    if not (system.rays[:, 6] == 0).all() or not (system.rays[:, 7] == 1).all():
+        raise AssertionError("the forward-facing rays are not NDC (0, 1)")
+    rays, rgbs = system.rays[:LLFF_BATCH], system.rgbs[:LLFF_BATCH]
+
+    def step():
+        return system.train_step(rays, rgbs)
+
+    torch.cuda.synchronize()
+    reset_counts()
+    step()
+    torch.cuda.synchronize()
+    per_step = read_counts()
+    log(f"[llff] launches in one step: {per_step}")
+    if any(per_step[k] != v for k, v in LLFF_STEP_LAUNCHES.items()):
+        raise AssertionError(f"one llff step launched {per_step}, expected "
+                             f"{LLFF_STEP_LAUNCHES}")
+    syncs = step_syncs(system, LLFF_BATCH, "llff")
+    prof = profile_device("one llff step (f32, 1,024 rays, 64 + 64 samples)",
+                          step, top=12)
+    S = LLFF_SAMPLES
+    f32_step = f32_step_kernels("llff", prof, [(LLFF_BATCH * S, True),
+                                               (LLFF_BATCH * 2 * S, True)])
+    del system, rays, rgbs, fit["system"]
+    ckpt = os.path.join(tmp, "ckpts", "llff", "epoch=0.ckpt")
+    ev_train = llff_eval(tmp, root, ckpt, "test_train", LLFF_WH)
+    ev_test = llff_eval(tmp, root, ckpt, "test", LLFF_TEST_WH)
+    grads_err = llff_grads_card_vs_cpu(tmp)
+
+    ring = os.path.join(tmp, "llff_ring_scene")
+    generate_llff_scene(ring, img_wh=LLFF_RING_WH, n_views=LLFF_VIEWS,
+                        spheric=True)
+    spheric = trainer_fit(tmp, "train", ring, "llff_ring", LLFF_FLAGS + [
+        "--spheric_poses", "--img_wh", str(LLFF_RING_WH[0]),
+        str(LLFF_RING_WH[1]), "--optimizer", "ranger", "--lr_scheduler",
+        "poly", "--profile"], 2, "llff")
+    near_far = spheric["system"].rays[0, 6:].tolist()
+    log(f"[llff] spheric rays near/far {near_far}")
+    if near_far[0] <= 0 or not near_far[1] > near_far[0]:
+        raise AssertionError(f"spheric near/far {near_far}")
+    del spheric["system"]
+    nans = llff_profile_and_nans(tmp, ring)
+    optims = optimizers_card_vs_cpu()
+    jpg = llff_jpeg(tmp)
+    pngr = png_reader_ms(tmp)
+    seconds = time.perf_counter() - t0
+    log(f"[llff] phase 9: {seconds:.1f} s")
+    return dict(fit=fit, steps=want, per_step=per_step, syncs=syncs,
+                profile=prof, f32_step=f32_step, eval_test_train=ev_train,
+                eval_test=ev_test, grads_err=grads_err, spheric=spheric,
+                nans=nans, optims=optims, jpeg=jpg, png=pngr,
+                seconds=seconds)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2749,6 +3238,7 @@ def main() -> int:
         log(f"[wide] phase 6: {time.perf_counter() - t_wide:.1f} s")
         shadow = shadow_end_to_end(tmp)
         trainers = trainers_end_to_end(tmp)
+        llff = llff_end_to_end(tmp)
 
     fine_row, coarse_row = c["rows"]["rgb"], c["rows"]["sigma-only"]
     kernels = [
@@ -2997,6 +3487,35 @@ def main() -> int:
         f"busy; synchronising calls a step {sum(shadow['syncs'].values())}; "
         f"f32 step grads card vs cpu rel err {shadow['grads_err']:.3e}; "
         f"phase {shadow['seconds']:.1f} s")
+    # the LLFF path's launches (phase 9): the fit, one step, the two evals
+    # and the spheric fit
+    for row in kernels:
+        key = {"searchsorted_rank_interp": "B", "searchsorted_rank": "A",
+               "fused_nerf_fwd": "C", "fused_nerf_stash_fwd": "D",
+               "fused_nerf_bwd_stash": "E"}.get(row["name"])
+        if key is None:
+            continue
+        row["launches_llff"] = dict(
+            fit=llff["fit"]["counts"][key], per_step=llff["per_step"][key],
+            eval_test_train=llff["eval_test_train"]["counts"][key],
+            eval_test=llff["eval_test"]["counts"][key],
+            spheric_fit=llff["spheric"]["counts"][key])
+        if key in ("D", "E"):
+            row["llff_f32_step"] = llff["f32_step"][key]
+    fit, prof = llff["fit"], llff["profile"]
+    log(f"[llff] fit {fit['rays_per_s'][-1]:.1f} train rays/s (epoch 0, "
+        f"{llff['steps']} steps); "
+        f"one step {prof['wall_ms']:.1f} ms wall, {prof['busy_ms'] or 0:.1f} "
+        f"ms device busy; D {llff['f32_step']['D']['device_ms']:.3f} ms, E "
+        f"{llff['f32_step']['E']['device_ms']:.3f} ms (f32); synchronising "
+        f"calls a step {llff['syncs']['count']}; f32 step grads card vs cpu "
+        f"rel err {llff['grads_err']:.3e}; eval test_train "
+        f"{llff['eval_test_train']['s_per_view']:.3f} s a 504x378 view, "
+        f"test {llff['eval_test']['s_per_view']:.3f} s a 168x126 view; "
+        f"spheric fit {llff['spheric']['rays_per_s'][-1]:.1f} rays/s; JPEG "
+        f"{llff['jpeg']['ms']:.1f} ms, PNG 800^2 {llff['png']['ms']:.1f} ms "
+        f"on the host; phase {llff['seconds']:.1f} s; total "
+        f"{time.perf_counter() - t_start:.1f} s")
     log(f"[card] {card}")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -251,12 +251,21 @@ def _add_reference_flags(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--fused_channel_io",
                         type=lambda s: s.lower() == "true",
                         default=d.fused_channel_io)
-    parser.add_argument("--profile", action="store_true")
-    parser.add_argument("--debug_nans", action="store_true")
+    parser.add_argument("--profile", action="store_true",
+                        help="torch.profiler trace of the first epoch into "
+                        "<log_dir>/<exp_name>/trace (the vanilla and "
+                        "train_shadows trainers, as in the JAX package)")
+    parser.add_argument("--debug_nans", action="store_true",
+                        help="raise FloatingPointError at the first step "
+                        "whose loss, a parameter or its grad is not finite "
+                        "(one synchronising call a step)")
     parser.add_argument("--val_every_n_epochs", type=int,
                         default=d.val_every_n_epochs)
     parser.add_argument("--compilation_cache", type=lambda s: s.lower() == "true",
-                        default=d.compilation_cache)
+                        default=d.compilation_cache,
+                        help="accepted and ignored: the JAX package's "
+                        "persistent XLA compilation cache; the port has "
+                        "none")
 
 
 def get_opts(argv: Optional[List[str]] = None) -> Config:

@@ -35,42 +35,47 @@ def _chunks(data: bytes):
 
 
 def _unfilter(raw: bytes, h: int, w: int, bpp: int) -> np.ndarray:
+    """Undo the scanline filters.  Each reconstructed byte needs its left,
+    upper and upper-left neighbours (``bpp`` bytes apart: one pixel), so the
+    image is rebuilt in anti-diagonal wavefronts of pixels, ``x + y = d``,
+    each pixel with its own row's filter: ``h + w - 1`` vector steps.  The
+    image sits in a zero-padded ``(h + 1, w + 1)`` grid, flattened, where a
+    wavefront is the strided slice ``[s : e : w]`` and its left, upper and
+    upper-left neighbours are that slice moved by 1, ``w + 1`` and ``w + 2``
+    rows of the flat grid."""
     stride = w * bpp
     if len(raw) != h * (stride + 1):
         raise ValueError("PNG image data has the wrong size")
     rows = np.frombuffer(raw, np.uint8).reshape(h, stride + 1)
-    out = np.zeros((h, stride), np.uint8)
-    prev = np.zeros(stride, np.int32)
-    for y in range(h):
-        ftype, line = rows[y, 0], rows[y, 1:].astype(np.int32)
-        if ftype == 0:
-            cur = line
-        elif ftype == 1:  # Sub
-            cur = line.copy()
-            for x in range(bpp, stride, bpp):  # bpp lanes at a time
-                cur[x:x + bpp] = (cur[x:x + bpp] + cur[x - bpp:x]) & 0xFF
-        elif ftype == 2:  # Up
-            cur = (line + prev) & 0xFF
-        elif ftype in (3, 4):  # Average, Paeth: each byte needs its left one
-            cur_l, up = line.tolist(), prev.tolist()
-            for x in range(stride):
-                a = cur_l[x - bpp] if x >= bpp else 0
-                b = up[x]
-                if ftype == 3:
-                    pred = (a + b) >> 1
-                else:
-                    c = up[x - bpp] if x >= bpp else 0
-                    p = a + b - c
-                    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
-                    pred = a if (pa <= pb and pa <= pc) else (
-                        b if pb <= pc else c)
-                cur_l[x] = (cur_l[x] + pred) & 0xFF
-            cur = np.asarray(cur_l, np.int32)
+    ftype = rows[:, 0]
+    if ftype.max(initial=0) > 4:
+        raise ValueError(f"unknown PNG filter type {int(ftype.max())}")
+    W1 = w + 1
+    grid = np.zeros(((h + 1) * W1, bpp), np.int16)
+    filt = np.zeros((h + 1) * W1, np.uint8)
+    line = np.zeros(((h + 1) * W1, bpp), np.int16)
+    line.reshape(h + 1, W1, bpp)[1:, 1:] = rows[:, 1:].reshape(h, w, bpp)
+    filt.reshape(h + 1, W1)[1:, 1:] = ftype[:, None]
+    paeth_rows = bool((ftype == 4).any())
+    for d in range(h + w - 1):
+        y0, y1 = max(0, d - w + 1), min(h, d + 1)  # rows on this wavefront
+        start = (y0 + 1) * W1 + (d - y0) + 1
+        stop = start + (y1 - y0 - 1) * w + 1
+        a = grid[start - 1:stop - 1:w]
+        b = grid[start - W1:stop - W1:w]
+        c = grid[start - W1 - 1:stop - W1 - 1:w]
+        if paeth_rows:
+            # the neighbour nearest a + b - c, ties to a, then b
+            pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+            paeth = np.where((pa <= pb) & (pa <= pc), a,
+                             np.where(pb <= pc, b, c))
         else:
-            raise ValueError(f"unknown PNG filter type {ftype}")
-        out[y] = cur
-        prev = cur
-    return out
+            paeth = c
+        pred = np.choose(filt[start:stop:w, None],
+                         (np.zeros_like(a), a, b, (a + b) >> 1, paeth))
+        grid[start:stop:w] = (line[start:stop:w] + pred) & 0xFF
+    return grid.reshape(h + 1, W1, bpp)[1:, 1:].astype(np.uint8).reshape(
+        h, stride)
 
 
 def read_png(path: str):

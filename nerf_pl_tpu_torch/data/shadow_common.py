@@ -8,11 +8,12 @@ on host numpy arrays.
     PNG reader, LANCZOS resize and Gaussian blur (each bit-equal to Pillow's)
     and ``convert("RGB")``.
 
-``get_ray_directions`` and ``get_rays`` repeat the numpy branch of
-``nerf_pl_tpu/ops/ray_utils.py`` (the port's ``ops.ray_utils`` is the torch
-version for the renderer): pinhole directions ``((i - W/2)/f,
--(j - H/2)/f, -1)`` without a +0.5 pixel-centre offset, rotated into the
-world frame and normalised.
+``get_ray_directions``, ``get_rays`` and ``get_ndc_rays`` repeat the numpy
+branch of ``nerf_pl_tpu/ops/ray_utils.py`` (the port's ``ops.ray_utils`` is
+the torch version): pinhole directions ``((i - W/2)/f, -(j - H/2)/f, -1)``
+without a +0.5 pixel-centre offset, rotated into the world frame and
+normalised; the NDC warp of forward-facing scenes in the same float ops, in
+the same order, so the loaders' rays keep the JAX package's bits.
 """
 from __future__ import annotations
 
@@ -41,6 +42,24 @@ def get_rays(directions: np.ndarray, c2w: np.ndarray):
     rays_d = rays_d / np.linalg.norm(rays_d, axis=-1, keepdims=True)
     rays_o = np.broadcast_to(c2w[:, 3], rays_d.shape)
     return rays_o.reshape(-1, 3), rays_d.reshape(-1, 3)
+
+
+def get_ndc_rays(H: int, W: int, focal: float, near, rays_o, rays_d):
+    """Rays moved to the near plane ``z = -near``, then warped into NDC."""
+    t = -(near + rays_o[..., 2]) / rays_d[..., 2]
+    rays_o = rays_o + t[..., None] * rays_d
+
+    ox_oz = rays_o[..., 0] / rays_o[..., 2]
+    oy_oz = rays_o[..., 1] / rays_o[..., 2]
+
+    o0 = -1.0 / (W / (2.0 * focal)) * ox_oz
+    o1 = -1.0 / (H / (2.0 * focal)) * oy_oz
+    o2 = 1.0 + 2.0 * near / rays_o[..., 2]
+
+    d0 = -1.0 / (W / (2.0 * focal)) * (rays_d[..., 0] / rays_d[..., 2] - ox_oz)
+    d1 = -1.0 / (H / (2.0 * focal)) * (rays_d[..., 1] / rays_d[..., 2] - oy_oz)
+    d2 = 1.0 - o2
+    return np.stack([o0, o1, o2], axis=-1), np.stack([d0, d1, d2], axis=-1)
 
 
 def make_rays(directions, c2w, near: float, far: float) -> np.ndarray:

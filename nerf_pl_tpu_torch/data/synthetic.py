@@ -5,9 +5,10 @@ disc with a hard point-light shadow, and writes a Blender-format scene:
 RGBA frames, ``sm_*.png`` shadow maps and the light camera in the meta, which
 the ``blender``, ``efficient_sm``, ``rgb_sm`` and ``shadows`` loaders read;
 ``generate_pyredner_scene`` rewrites its JSON in the ``pyredner2`` layout.
-The PNGs go through the port's own writer (``data/png.py``), so the scene
-needs no PIL; its pixels and JSON equal the JAX package's.  The LLFF layout
-of the same scene is not ported yet (ROADMAP.md).
+``generate_llff_scene`` writes the same scene in the LLFF layout
+(``images/*.png`` and ``poses_bounds.npy``).  The PNGs go through the port's
+own writer (``data/png.py``), so the scenes need no PIL; their pixels, JSON
+and poses equal the JAX package's.
 """
 from __future__ import annotations
 
@@ -194,4 +195,51 @@ def generate_pyredner_scene(out_dir, img_wh=64, n_train=20, n_val=2,
                 "look_at": [0.0, 0.0, 0.0],
                 "frames": frames,
             }, f)
+    return out_dir
+
+
+def generate_llff_scene(out_dir, img_wh=(64, 48), n_views=20, distance=4.5,
+                        camera_angle_x=0.8, spheric: bool = False):
+    """The same scene in the LLFF layout (``images/NNN.png`` and
+    ``poses_bounds.npy``): a forward-facing fan of cameras looking at the
+    sphere from one side, or with ``spheric=True`` an inward-facing ring
+    (train with ``--spheric_poses``).  Poses are stored in COLMAP's "down
+    right back" columns with an ``[H, W, focal]`` column; each view's depth
+    bounds come from the analytic tracer (0.9 x the nearest hit, 1.1 x the
+    farthest).  Returns out_dir."""
+    os.makedirs(os.path.join(out_dir, "images"), exist_ok=True)
+    w, h = img_wh
+    focal = 0.5 * w / np.tan(0.5 * camera_angle_x)
+    rows = []
+    for i in range(n_views):
+        if spheric:
+            theta = 2 * np.pi * i / max(n_views, 1)
+            eye = np.array([distance * np.sin(theta),
+                            1.0 + 0.5 * np.sin(2 * theta),
+                            distance * np.cos(theta)], np.float32)
+        else:
+            # a lateral fan with a little height jitter, all looking at the
+            # origin (forward-facing: the NDC warp holds)
+            t = (i / max(n_views - 1, 1)) - 0.5
+            eye = np.array([2.4 * t, 0.4 + 0.5 * np.sin(4 * np.pi * t),
+                            distance], np.float32)
+        c2w = look_at(eye)
+        o, d = get_rays(get_ray_directions(h, w, focal), c2w[:3, :4])
+        d = d / np.linalg.norm(d, axis=-1, keepdims=True)
+        rgb, _ = shade(o, d)
+        write_png(os.path.join(out_dir, "images", f"{i:03d}.png"),
+                  (rgb.reshape(h, w, 3) * 255).astype(np.uint8))
+        t = np.minimum(ray_sphere(o, d), ray_ground(o, d))
+        t = t[np.isfinite(t)]
+        if len(t):
+            near, far = 0.9 * float(t.min()), 1.1 * float(t.max())
+        else:
+            near, far = 1.0, 2.0 * float(np.linalg.norm(eye))
+        down, right, back = -c2w[:3, 1], c2w[:3, 0], c2w[:3, 2]
+        pose = np.stack([down, right, back, eye], 1)
+        hwf = np.array([[h], [w], [focal]], np.float32)
+        rows.append(np.concatenate(
+            [np.concatenate([pose, hwf], 1).reshape(-1), [near, far]]))
+    np.save(os.path.join(out_dir, "poses_bounds.npy"),
+            np.stack(rows).astype(np.float64))
     return out_dir

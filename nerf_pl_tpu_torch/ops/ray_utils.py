@@ -6,6 +6,10 @@
     no +0.5 pixel-centre offset.
   * ``get_rays(directions, c2w)``: rotate into the world frame, normalise
     the direction, broadcast the camera origin.
+  * ``get_ndc_rays``: move each origin to the near plane ``z = -near``, then
+    the projective NDC warp of forward-facing scenes (the loaders use the
+    numpy copy in ``data/shadow_common.py``, which keeps the JAX package's
+    bits).
 """
 from __future__ import annotations
 
@@ -44,3 +48,22 @@ def get_rays(directions: torch.Tensor, c2w: torch.Tensor):
     rays_d = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
     rays_o = c2w[:, 3].expand(rays_d.shape)
     return rays_o, rays_d
+
+
+def get_ndc_rays(H: int, W: int, focal: float, near, rays_o: torch.Tensor,
+                 rays_d: torch.Tensor):
+    """World-frame rays (..., 3) warped into NDC."""
+    t = -(near + rays_o[..., 2]) / rays_d[..., 2]
+    rays_o = rays_o + t[..., None] * rays_d
+
+    ox_oz = rays_o[..., 0] / rays_o[..., 2]
+    oy_oz = rays_o[..., 1] / rays_o[..., 2]
+
+    o0 = -1.0 / (W / (2.0 * focal)) * ox_oz
+    o1 = -1.0 / (H / (2.0 * focal)) * oy_oz
+    o2 = 1.0 + 2.0 * near / rays_o[..., 2]
+
+    d0 = -1.0 / (W / (2.0 * focal)) * (rays_d[..., 0] / rays_d[..., 2] - ox_oz)
+    d1 = -1.0 / (H / (2.0 * focal)) * (rays_d[..., 1] / rays_d[..., 2] - oy_oz)
+    d2 = 1.0 - o2
+    return torch.stack([o0, o1, o2], dim=-1), torch.stack([d0, d1, d2], dim=-1)

@@ -101,3 +101,39 @@ def sample_pdf(
         offset = torch.rand((N_rays, N_importance), generator=generator, **like)
     z_steps = (inds + offset) / N_samples_
     return near * (1.0 - z_steps) + far * z_steps
+
+
+def sample_pdf_bins(
+    bins: torch.Tensor,  # (N_rays, N_samples_ + 1) bin edges (z midpoints)
+    weights: torch.Tensor,  # (N_rays, N_samples_)
+    N_importance: int,
+    det: bool = False,
+    eps: float = 1e-5,
+    generator: Optional[torch.Generator] = None,
+    u: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """(N_rays, N_importance) depths by the inverse CDF over ``bins``."""
+    N_rays, N_samples_ = weights.shape
+    weights = weights + eps
+    pdf = weights / torch.sum(weights, dim=-1, keepdim=True)
+    cdf = torch.cumsum(pdf, dim=-1)
+    cdf = torch.cat([torch.zeros_like(cdf[:, :1]), cdf], dim=-1)
+    if u is None:
+        like = dict(dtype=weights.dtype, device=weights.device)
+        if det:
+            u = unit_steps(N_importance, **like).expand(N_rays, N_importance)
+        else:
+            if generator is None:
+                raise ValueError("sample_pdf_bins needs a generator when u "
+                                 "is not given")
+            u = torch.rand((N_rays, N_importance), generator=generator, **like)
+    inds = searchsorted(cdf, u, side="right").long()
+    below = torch.clamp(inds - 1, min=0)
+    above = torch.clamp(inds, max=N_samples_)
+    cdf_g0 = torch.gather(cdf, 1, below)
+    cdf_g1 = torch.gather(cdf, 1, above)
+    bins_g0 = torch.gather(bins, 1, below)
+    bins_g1 = torch.gather(bins, 1, above)
+    denom = cdf_g1 - cdf_g0
+    denom = torch.where(denom < eps, torch.ones_like(denom), denom)
+    return bins_g0 + (u - cdf_g0) / denom * (bins_g1 - bins_g0)

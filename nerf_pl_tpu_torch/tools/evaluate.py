@@ -4,7 +4,10 @@ depth PFM or raw bytes), write a GIF, report the mean PSNR
 
 As the JAX tool: ``test_time=True`` rendering with perturb and noise off, in
 float32; depth ``nan_to_num`` before saving; the GIF at 30 fps; PSNR only
-for splits with ground truth; ``--chunk`` honoured.  The fused MLP runs on
+for splits with ground truth; ``--chunk`` honoured.  ``--dataset_name llff``
+renders ``test`` (the 120-pose spiral, or the circle with
+``--spheric_poses``) or ``test_train`` (the training poses); neither has
+ground truth in the loader, so neither prints a PSNR, as in JAX.  The fused MLP runs on
 the card (kernels C or, with ``--fused_channel_io false``, C'), as the JAX
 tool runs it on the TPU; on the CPU the renderer takes ``posenc`` + NeRF,
 as JAX does off the TPU.  PNGs, PFMs and the GIF are written with the
@@ -99,13 +102,14 @@ def run(args) -> Optional[float]:
     ground truth."""
     device = resolve_device(args.device)
     w, h = args.img_wh
-    if args.dataset_name not in dataset_dict:
-        raise ValueError(f"--dataset_name {args.dataset_name} is not ported "
-                         "yet (see ROADMAP.md)")
-    dataset = dataset_dict[args.dataset_name](
-        root_dir=args.root_dir, split=args.split, img_wh=tuple(args.img_wh),
-        near=args.blender_near, far=args.blender_far,
-        white_back=args.white_back)
+    kwargs = dict(root_dir=args.root_dir, split=args.split,
+                  img_wh=tuple(args.img_wh))
+    if args.dataset_name == "llff":
+        kwargs["spheric_poses"] = args.spheric_poses
+    else:
+        kwargs.update(near=args.blender_near, far=args.blender_far,
+                      white_back=args.white_back)
+    dataset = dataset_dict[args.dataset_name](**kwargs)
 
     models = load_models(args.ckpt_path, device)
     if "fine" not in models and args.N_importance > 0:

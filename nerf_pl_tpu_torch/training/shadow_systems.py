@@ -37,7 +37,10 @@ Kept from the JAX package:
     scores ``rgb_coarse`` only and projects from the fine depths when there
     are some;
   * ``ShadowMappingSystem`` writes ``epoch=N.ckpt`` every epoch, never
-    pruned.
+    pruned;
+  * ``--debug_nans`` stops every system at its first non-finite step;
+    ``--profile`` traces the first epoch of ``ShadowsSystem`` only (the
+    vanilla trainer's fit; the other JAX systems do not read it).
 
 ``--max_steps_per_dispatch`` bounded the length of one compiled TPU program;
 the port launches each step on its own, so the flag is accepted and the
@@ -202,6 +205,7 @@ class _ShadowSystemBase(NeRFSystem):
     """The per-ray shadow systems' loaders and buffers."""
 
     datasets = ("efficient_sm", "rgb_sm", "pyredner2")
+    traces_first_epoch = False  # the JAX systems do not read --profile
 
     @classmethod
     def check_supported(cls, cfg: Config) -> None:
@@ -579,6 +583,7 @@ class ShadowMappingSystem(NeRFSystem):
     epoch and never pruned."""
 
     datasets = ("shadows",)
+    traces_first_epoch = False  # the JAX system does not read --profile
 
     @classmethod
     def check_supported(cls, cfg: Config) -> None:

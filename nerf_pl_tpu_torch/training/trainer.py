@@ -14,6 +14,11 @@ reference ``train.py`` NeRFSystem), on one device.
     files.  SIGTERM saves ``preempt.ckpt`` at the next step boundary, labelled
     e-1 when epoch e is incomplete, then lets the signal take its course.
   * The per-epoch print and the ``metrics.jsonl`` keys are the JAX trainer's.
+  * ``--profile`` traces the first epoch with ``torch.profiler`` into
+    ``<log_dir>/<exp_name>/trace`` (this trainer and ``ShadowsSystem``, as in
+    JAX; the other shadow systems accept the flag and ignore it, as JAX's
+    do); ``--debug_nans`` raises ``FloatingPointError`` at the first step
+    whose loss, a parameter or its grad is not finite (every system).
 
 Checkpoints are written synchronously; the JAX trainer's asynchronous writer,
 one-dispatch val program and epoch pipeline hid a remote-TPU latency that a
@@ -22,6 +27,7 @@ local card does not have.  Flags the port cannot honour yet raise
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import signal
 import time
@@ -36,6 +42,7 @@ from ..data import dataset_dict
 from ..models.nerf import init_nerf
 from ..ops.rendering import render_rays
 from ..tools.render import render_image
+from ..utils.profiling import profile_trace, raise_if_not_finite
 from ..utils.visualization import visualize_depth
 from . import checkpoints
 from .logging import RunLogger
@@ -96,17 +103,26 @@ class NeRFSystem:
     """Vanilla NeRF trainer (reference ``train.py:27-148``)."""
 
     mode = "rgb"
-    datasets = ("blender",)
+    datasets = ("blender", "llff")
     loss_label = "loss"  # the epoch line's name for train/loss
+    traces_first_epoch = True  # --profile (the JAX NeRFSystem's fit)
 
     @classmethod
     def check_supported(cls, cfg: Config) -> None:
         """Raise on the flags this trainer cannot honour yet."""
+        if cfg.loss_type not in loss_dict:
+            raise ValueError(f"--loss_type {cfg.loss_type!r} not recognized "
+                             f"(one of {sorted(loss_dict)})")
+        if cfg.loss_type == "sm":
+            raise ValueError(
+                "--loss_type sm scores the sm_coarse / sm_fine outputs of a "
+                "shadow-mapping render, which this trainer's rgb render does "
+                "not make (the JAX trainer stops at its first step with "
+                "KeyError 'sm_coarse'; see ROADMAP.md, Queue 3)")
         raise_unsupported({
             **common_unsupported(cfg),
             f"--dataset_name {cfg.dataset_name}":
                 cfg.dataset_name not in cls.datasets,
-            f"--loss_type {cfg.loss_type}": cfg.loss_type != "mse",
         })
 
     def __init__(self, cfg: Config, device=None):
@@ -124,15 +140,21 @@ class NeRFSystem:
         self.ckpt_root = os.path.join(cfg.ckpt_dir, cfg.exp_name)
         self._topk: list = []  # (val_loss, path)
         self._preempted = False
+        self._epoch, self._step = self.epoch0, 0  # where the fit is
 
     # -- data ---------------------------------------------------------------
     def _prepare_data(self):
         cfg = self.cfg
         ds_cls = dataset_dict[cfg.dataset_name]
-        kwargs = dict(root_dir=cfg.root_dir, img_wh=tuple(cfg.img_wh),
-                      near=cfg.blender_near, far=cfg.blender_far,
-                      white_back=cfg.white_back,
-                      black_and_white=cfg.black_and_white_test)
+        kwargs = dict(root_dir=cfg.root_dir, img_wh=tuple(cfg.img_wh))
+        if cfg.dataset_name == "llff":
+            # one val image: one device (the JAX trainer passes its chip
+            # count, reference train.py:79)
+            kwargs.update(spheric_poses=cfg.spheric_poses, val_num=1)
+        else:
+            kwargs.update(near=cfg.blender_near, far=cfg.blender_far,
+                          white_back=cfg.white_back,
+                          black_and_white=cfg.black_and_white_test)
         self.train_dataset = ds_cls(split="train", **kwargs)
         self.val_dataset = ds_cls(split="val", **kwargs)
         self.white_back = self.train_dataset.white_back
@@ -200,9 +222,15 @@ class NeRFSystem:
         return loss.detach(), psnr
 
     def _optimize(self, loss: torch.Tensor) -> None:
-        """backward, then one optimizer step."""
+        """backward, then one optimizer step; under ``--debug_nans`` the
+        step first checks its loss, parameters and grads (one synchronising
+        call)."""
         self.optimizer.zero_grad()
         loss.backward()
+        if self.cfg.debug_nans:
+            raise_if_not_finite(loss, self.optimizer.params.values(),
+                                self._epoch, self._step)
+        self._step += 1
         self.optimizer.step()
 
     # -- validation ---------------------------------------------------------
@@ -293,8 +321,10 @@ class NeRFSystem:
                 print(f"[sanity] {metrics}", flush=True)
             global_step = self.epoch0 * self.steps_per_epoch
             for epoch in range(self.epoch0, cfg.num_epochs):
+                self._epoch, self._step = epoch, 0
                 t0 = time.time()
-                metrics = self.train_epoch(epoch, global_step)
+                with self._epoch_trace(epoch):
+                    metrics = self.train_epoch(epoch, global_step)
                 self._preempt_if_asked(epoch, complete=True)
                 global_step += self.steps_per_epoch
                 self._finish_epoch(epoch, global_step, metrics,
@@ -304,6 +334,14 @@ class NeRFSystem:
                           if self._prev_handler is not None else signal.SIG_DFL)
             self.logger.close()
         return self.models
+
+    def _epoch_trace(self, epoch: int):
+        """``--profile``: a ``torch.profiler`` trace of the first epoch."""
+        if (self.cfg.profile and self.traces_first_epoch
+                and epoch == self.epoch0):
+            return profile_trace(os.path.join(self.logger.dir, "trace"),
+                                 self.device)
+        return contextlib.nullcontext()
 
     def train_epoch(self, epoch: int, global_step: int) -> Dict[str, np.ndarray]:
         """One epoch's steps over a fresh permutation; the per-step values

@@ -279,14 +279,21 @@ def test_fit_takes_the_batches_in_the_same_order(blender_root, tmp_path):
 
 def test_trainer_refuses_flags_it_cannot_honour(blender_root, tmp_path):
     for extra in (["--num_devices", "2"], ["--multihost"], ["--per_host_data"],
-                  ["--data_device_resident", "false"], ["--global_reshuffle"],
-                  ["--optimizer", "radam"], ["--lr_scheduler", "cosine"]):
+                  ["--data_device_resident", "false"], ["--global_reshuffle"]):
         cfg = get_opts(_argv(blender_root, tmp_path) + extra)
         with pytest.raises(ValueError, match="ROADMAP"):
             NeRFSystem(cfg, device="cpu")
-    cfg = get_opts(_argv(blender_root, tmp_path) + ["--dataset_name", "llff"])
-    with pytest.raises(ValueError, match="ROADMAP"):
-        NeRFSystem(cfg, device="cpu")
+    # ported since: the other optimisers and schedules (and the llff loader,
+    # tests/test_torch_port_llff.py) build where they were refused
+    for extra, kind in ((["--optimizer", "radam"], "RAdam"),
+                        (["--lr_scheduler", "cosine"], "Adam"),
+                        (["--optimizer", "ranger", "--lr_scheduler", "poly"],
+                         "Ranger")):
+        system = NeRFSystem(get_opts(_argv(blender_root, tmp_path) + extra),
+                            device="cpu")
+        assert type(system.optimizer).__name__ == kind
+        assert system.schedule(system.steps_per_epoch) < 5e-3
+        system.logger.close()
 
 
 def test_cli_defaults_to_cuda(blender_root, tmp_path, monkeypatch):

@@ -207,11 +207,26 @@ def test_eval_matches_jax(blender_root, tmp_path, capsys, fine):
     assert len(got) == len(ref) == 2 and delays == ref_delays
 
 
-def test_eval_refuses_unported_datasets_and_defaults_to_cuda(blender_root, monkeypatch):
-    args = evaluate.get_opts(["--root_dir", blender_root, "--ckpt_path", "x",
-                              "--dataset_name", "llff", "--device", "cpu"])
-    with pytest.raises(ValueError, match="ROADMAP"):
-        evaluate.run(args)
+def test_eval_refuses_unported_datasets_and_defaults_to_cuda(tmp_path, monkeypatch):
+    """``--dataset_name llff``, once refused, renders (the spiral and the
+    training poses are held against the JAX tool in
+    tests/test_torch_port_llff.py); without a card the tool still refuses
+    the default ``cuda``."""
+    from nerf_pl_tpu_torch.data.synthetic import generate_llff_scene
+
+    root = generate_llff_scene(str(tmp_path / "llff"), img_wh=(8, 6),
+                               n_views=3)
+    ckpt = str(tmp_path / "epoch=0.ckpt")
+    jckpt.save_checkpoint(ckpt, {"params": {"coarse": np_nerf(72)},
+                                 "opt_state": [], "epoch": 0})
+    args = evaluate.get_opts(["--root_dir", root, "--ckpt_path", ckpt,
+                              "--dataset_name", "llff", "--img_wh", "8", "6",
+                              "--N_samples", "4", "--split", "test_train",
+                              "--out_dir", str(tmp_path / "out"),
+                              "--device", "cpu"])
+    assert evaluate.run(args) is None  # no ground truth, no PSNR
+    out = sorted(os.listdir(tmp_path / "out" / "llff" / "test"))
+    assert out == ["000.png", "001.png", "002.png", "test.gif"]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         evaluate.run(argparse.Namespace(**{**vars(args), "device": "cuda"}))

@@ -52,6 +52,10 @@ def test_port_modules_import_without_jax_flax_msgpack_pil():
             "nerf_pl_tpu_torch.data.blender_rgb_shadows",
             "nerf_pl_tpu_torch.data.blender_shadows",
             "nerf_pl_tpu_torch.data.pyredner2"} <= set(MODULES)
+    # the LLFF loader with its JPEG reader (the card's machine has no PIL),
+    # and the profiling aids
+    assert {"nerf_pl_tpu_torch.data.llff", "nerf_pl_tpu_torch.data.jpeg",
+            "nerf_pl_tpu_torch.utils.profiling"} <= set(MODULES)
     # -I: no PYTHONPATH or user site, so nothing imported by a site hook
     # is counted against the port
     code = (
