@@ -121,7 +121,30 @@ Phases (any failed check raises, so the script exits non-zero):
    same steps on the CPU, each card step under the sync debug mode; an
    embedded JPEG decoded to Pillow's hash and loaded as an LLFF val image;
    the PNG reader's host time on an 800x800 RGBA image.
-10. One JSON line of kernel numbers, the card's line, then the result line
+10. The tools: ``python -m nerf_pl_tpu_torch.extract_color_mesh`` (its
+   ``main``, in this process, so the launch counters can be read) at its
+   defaults on phase 4's full-width fit, cut to a smooth scene whose 256^3
+   surface keeps at least 10^5 vertices (``dense_checkpoint``), and phase
+   4's scene: a 256^3 grid (exactly ceil(256^3 / 32768) = 512 C' launches,
+   float32 sigma-only) and the colour fusion over the 8 views (C' once a
+   view per chunk of vertices, B never), wall seconds by stage, grid
+   points/s; ``keep_largest_cluster`` timed on the host at ~10^6 vertices;
+   then ``--use_vertex_normal --N_importance 64`` at 128^3 (C' and B a
+   chunk) and ``--vol_path --vol_only``; the tool on the card against the CPU at
+   48^3 on 2 views (sigma grids, values crossing the threshold, triangles,
+   vertices, colours); a Lightning checkpoint of the reference's layout
+   through ``python -m nerf_pl_tpu_torch.import_torch_ckpt --full_state``,
+   a 1-epoch resume of ``python -m nerf_pl_tpu_torch.train`` from it and
+   ``--export --full_state`` loaded into a fresh ``torch.optim.Adam`` (the
+   moments bit for bit).  The ReLU repair: C, C', D (stash too), G and I
+   with a NaN bias or NaN points, and E, F and H with an Inf cotangent,
+   against their plain versions (NaN and Inf positions equal).  adamw's
+   update replayed op by op on the card and the CPU (the first op that
+   gives other bits).  Every fit of phases 4 and 7-10 leaves each
+   checkpoint it lists on disk and loading when ``fit`` returns (the
+   trainers' background writer); D's bf16 stash is held to 0 differing
+   values (phase 4).
+11. One JSON line of kernel numbers, the card's line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Peak rates used for the bounds (NVIDIA H100 SXM data sheet, dense): 989
@@ -189,6 +212,14 @@ TOL_TRAIN = {torch.bfloat16: (1e-2, 2e-5), torch.float32: (1e-4, 1e-5)}
 # against the remat backward (tests/test_fused_mlp.py:209) allows rtol 1e-5
 # and atol 1e-6, which is kept here relative to each tensor.
 TOL_E_VS_F = 1e-5
+# Kernel D's stash against the plain version's, bf16 and float32: the bf16
+# tile's tie repair recomputes every output near a rounding tie in the plain
+# version's order, and in float32 the scalar loop's FMA order is the plain
+# version's, so the two are bit-equal (an H100 80GB HBM3 at 700 W read 0
+# differing values in both); the count of values that differ is
+# held to 0, and every forward control's stash (FORWARD_CONTROLS and the
+# plain forward in float32) must exceed it.
+TOL_STASH_DIFF = 0
 # The eval's float32 renders through C' and through C.  The kernels are held
 # bit-equal above, but the renderer reads their outputs as views of another
 # memory order ((8, P) rows permuted, or (P, 8) rows strided), and PyTorch's
@@ -498,6 +529,13 @@ def rel_errs(out, ref, rows: int = 1 << 16) -> tuple:
     return mx / scale, tot / max(out.numel(), 1) / scale
 
 
+def stash_differ(a: torch.Tensor, b: torch.Tensor, rows: int = 1 << 16) -> int:
+    """How many values of two stashes differ (bit for bit but +-0 equal),
+    counted in blocks of ``rows`` rows."""
+    return sum(int((x != y).sum()) for x, y in zip(a.split(rows),
+                                                   b.split(rows)))
+
+
 def grad_names(model) -> list:
     from nerf_pl_tpu_torch.ops import fused_mlp as fm
 
@@ -620,13 +658,19 @@ def check_forward_control(label: str, model, x, sigma_only, out, stash,
             o_c, s_c = fm.fused_nerf_stash_fwd_plain(faulty, x, sigma_only,
                                                      torch.bfloat16)
         r = (max_abs(out, o_c), *rel_errs(stash, s_c))  # TOL_C's readings
+        n_diff = stash_differ(stash, s_c)
         del o_c, s_c
         caught = not (r[0] <= tol and r[1] <= tol and r[2] <= TOL_C_MEAN)
         log(f"[forward control {label}: {name}] out max_abs_err {r[0]:.3e}, "
             f"stash rel max {r[1]:.3e} mean {r[2]:.3e} (TOL_C {tol:.0e}, "
             f"{TOL_C_MEAN:.0e}): "
             + ("caught" if caught else "not caught")
-            + (" (must be caught)" if must_fail else " (printed only)"))
+            + (" (must be caught)" if must_fail else " (printed only)")
+            + f"; {n_diff} stash values differ (the count's limit "
+            f"{TOL_STASH_DIFF} must fail it)")
+        if n_diff <= TOL_STASH_DIFF:
+            raise AssertionError(f"forward control {label} '{name}': its "
+                                 "stash passes the stash count's limit")
         if must_fail and not caught:
             raise AssertionError(f"forward control {label} '{name}' passes "
                                  "TOL_C, so the limits cannot fail a wrong "
@@ -686,13 +730,18 @@ def hold_train(label: str, model, x, g, dtype, sigma_only: bool) -> dict:
                                ("D'", out_r, stash_r, out_p.T)):
         e_out = max_abs(o, o_p)
         s_max, s_mean = rel_errs(st, stash_p)
+        n_diff = stash_differ(st, stash_p)
         log(f"[{kernel} {label}] out max_abs_err={e_out:.3e} (tol "
             f"{TOL_C[dtype]:.0e}); stash {tuple(st.shape)} rel max "
             f"{s_max:.3e} mean {s_mean:.3e} (tol {TOL_C[dtype]:.0e}, "
-            f"{TOL_C_MEAN:.0e}); bit-equal {torch.equal(st, stash_p)}")
+            f"{TOL_C_MEAN:.0e}); {n_diff} of {st.numel()} stash values "
+            f"differ from the plain version's (limit {TOL_STASH_DIFF})")
         if not (torch.isfinite(o).all() and e_out <= TOL_C[dtype]
                 and s_max <= TOL_C[dtype] and s_mean <= TOL_C_MEAN):
             raise AssertionError(f"kernel {kernel} {label} disagrees")
+        if n_diff > TOL_STASH_DIFF:
+            raise AssertionError(f"kernel {kernel} {label}: {n_diff} stash "
+                                 "values differ from the plain version's")
         errs[kernel] = e_out
     require_twins(f"D' vs D {label}", [out_r, stash_r], [out.T, stash])
     if dtype == torch.bfloat16:
@@ -1271,6 +1320,7 @@ def train_end_to_end(tmp: str) -> dict:
     ckpts = sorted(os.listdir(os.path.join(tmp, "ckpts", "smoke")))
     if ckpts != ["epoch=0.ckpt", "epoch=1.ckpt"]:
         raise AssertionError(f"checkpoints: {ckpts}")
+    require_checkpoints(os.path.join(tmp, "ckpts", "smoke"), "train")
 
     rays, rgbs = system.rays[:TRAIN_BATCH], system.rgbs[:TRAIN_BATCH]
     torch.cuda.synchronize()
@@ -2324,8 +2374,11 @@ def trainer_fit(tmp: str, cli: str, root: str, name: str, flags: list,
     if len(losses) != epochs or not all(np.isfinite(losses + vals)):
         raise AssertionError(f"{tag} fit {name}: losses not finite: "
                              f"{losses} {vals}")
+    n_ckpt = require_checkpoints(os.path.join(tmp, "ckpts", name), tag)
+    log(f"[{tag}] {name}: {n_ckpt} checkpoint(s) on disk and loading when "
+        "fit returned (written by the background writer)")
     return dict(system=system, counts=counts, losses=losses,
-                rays_per_s=rates, vals=vals, wall_s=wall)
+                rays_per_s=rates, vals=vals, wall_s=wall, checkpoints=n_ckpt)
 
 
 def shadow_fit(tmp: str, root: str, name: str, extra: list,
@@ -2343,7 +2396,8 @@ def step_draws(gen, rows: int, n_importance: int) -> dict:
 
 
 def trainer_grads_card_vs_cpu(tmp: str, tag: str, cls_name: str,
-                              flags: list, draws: dict, run) -> float:
+                              flags: list, draws: dict, run,
+                              tol: tuple = TOL_STEP_GRADS) -> float:
     """One float32 step's grads on the card and on the CPU: the same
     weights (the seed), batch and injected draws, on phase 7's 16x16 scene
     (2 train views, written by ``shadow_step_grads_card_vs_cpu``) so the
@@ -2370,14 +2424,17 @@ def trainer_grads_card_vs_cpu(tmp: str, tag: str, cls_name: str,
                          for k, p in m.named_parameters()}
         system.logger.close()
     for k, v in extra["cpu"].items():
-        differ = int((extra["cuda"][k].cpu() != v).sum())
+        a = extra["cuda"][k].cpu()
+        differ = int((a != v).sum())
+        gap = (f", max |diff| {float((a - v).abs().max()):.3e}"
+               if v.is_floating_point() else "")
         log(f"[{tag}] {k}: {differ} of {v.numel()} differ between the card "
-            "and the CPU")
+            f"and the CPU{gap}")
     names = sorted(grads["cpu"])
     return check_grads(f"f32 {tag} step grads card vs cpu (16x16 scene)",
                        [grads["cuda"][k] for k in names],
                        [grads["cpu"][k] for k in names], names,
-                       TOL_STEP_GRADS)["max_rel"]
+                       tol)["max_rel"]
 
 
 def shadow_step_grads_card_vs_cpu(tmp: str) -> float:
@@ -3185,6 +3242,755 @@ def llff_end_to_end(tmp: str) -> dict:
                 seconds=seconds)
 
 
+# ---------------------------------------------------------------- phase 10
+# The tools on the card.  The mesh tool at its defaults (--N_grid 256,
+# --chunk 32768, --N_samples 64) on phase 4's full-width fit and scene: the
+# sigma grid is ceil(256^3 / 32768) = 512 launches of C' (float32,
+# sigma-only), the fusion one C' launch a view per chunk of vertices (the
+# occlusion render, coarse-only rgb, float32); B only on the
+# --use_vertex_normal path (each chunk: C' sigma-only, B, C' rgb).
+MESH_N_GRID, MESH_CHUNK, MESH_SAMPLES = 256, 32 * 1024, 64
+MESH_NORMAL_N_GRID, MESH_NORMAL_IMPORTANCE = 128, 64
+# The 256^3 surface at the size a scene meshes to (10^5-10^6 vertices).
+# Phase 4's 2-epoch fit is near its random start: its sigma's 2^9 octave
+# varies at the 256^3 grid's spacing, so a surface of it breaks into
+# fragments (on the CPU, a 64^3 grid of such a model at its 90th percentile
+# gave 243,438 vertices of which the largest cluster kept 123,176, and the
+# count grows with the grid's volume, not its area), where a scene's surface
+# is smooth at that spacing.  So the two layers that read the encoded xyz
+# (layer 0 and the skip layer) keep only the columns of the
+# MESH_OCTAVES lowest octaves (x and frequencies 1, 2, 4): a smooth scene at
+# full width, through the same kernels.  Each model's sigma bias is then
+# lowered by a quantile of its raw sigma over the 256^3 grid, the highest of
+# MESH_QUANTILES whose largest cluster (the host stages run on the grid
+# first) holds MESH_MIN_VERTICES with a fifth to spare, as the tool's own
+# grid, through the lowered bias, may round other values; the threshold is
+# MESH_DENSE_THR of the lowered grid's largest sigma.  A surface estimated
+# above MESH_MAX_VERTICES (3 vertices an axis crossing, as marching
+# tetrahedra gave on smooth random fields) is not tried: host memory and
+# time.
+MESH_OCTAVES = 3
+MESH_QUANTILES = (0.99, 0.98, 0.95, 0.9, 0.8, 0.7, 0.6, 0.5)
+MESH_MIN_VERTICES, MESH_MAX_VERTICES = 100_000, 4_000_000
+MESH_DENSE_THR = 1e-2
+# The clustering on the host at 10^6 vertices: the iso-surface of a smooth
+# random field (white noise on a 128^3 grid, low-passed by a Gaussian of
+# 0.05 cycles a sample) at its median, one large cluster, and at its 90th
+# percentile, many small ones.
+CLUSTER_N_GRID, CLUSTER_CUTOFF, CLUSTER_QUANTILES = 128, 0.05, (0.5, 0.9)
+# The card against the CPU at a size the CPU renders in seconds: a 48^3
+# grid, 2 training views, 16 samples a ray.
+MESH_CMP_N_GRID, MESH_CMP_VIEWS, MESH_CMP_SAMPLES = 48, 2, 16
+# The sigma grids: C' in float32 against posenc + NeRF on the CPU, on the
+# same input bits; only the order of the f32 sums and sinf/cosf within an
+# ulp differ, so TOL_C's float32 limit (1e-4 on outputs of order 1) holds
+# relative to the grid's largest sigma.
+TOL_MESH_SIGMA = TOL_C[torch.float32]
+# With no grid value on opposite sides of the threshold on the two devices,
+# the surfaces cross the same edges: the triangles are equal and each vertex
+# moves along its edge by (sigma difference) / (sigma step across the edge)
+# of the edge.  The grids agree to ~1e-6 of their largest sigma, so 1e-2 of
+# the grid spacing allows edges whose sigma step is 1e-4 of the largest
+# sigma (nearly flat across the surface) and fails a vertex on the wrong
+# edge or a wrong interpolation.
+TOL_MESH_VERTEX = 1e-2  # of the grid spacing
+# Colours: each a weighted mean of bilinear samples truncated to uint8: a
+# value on a level's edge moves by one level.
+TOL_MESH_COLOR = 1  # level
+# Import -> resume -> export: the reference's Adam moments come back from
+# the port's state bit for bit (a transpose and a copy each way).
+TOOLS_REF_STEPS, TOOLS_REF_EPOCH = 3, 4
+
+
+def mesh_argv(root: str, ckpt: str, out: str, n_grid: int, thr: float,
+              extra=(), device: str = "cuda") -> list:
+    return ["--root_dir", root, "--dataset_name", "blender",
+            "--img_wh", str(TRAIN_WH), str(TRAIN_WH), "--ckpt_path", ckpt,
+            "--N_grid", str(n_grid), "--chunk", str(MESH_CHUNK),
+            "--sigma_threshold", repr(thr), "--out_path", out,
+            "--blender_near", "2", "--blender_far", "6", "--device", device,
+            *extra]
+
+
+def run_mesh_tool(argv: list, tag: str) -> dict:
+    """``python -m nerf_pl_tpu_torch.extract_color_mesh`` in this process
+    (its ``main``, so the launch counters can be read): the counts zeroed
+    just before and read just after, its wall time, and the stage times and
+    counts of its ``[mesh]`` line."""
+    import contextlib
+
+    from nerf_pl_tpu_torch import extract_color_mesh
+
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = extract_color_mesh.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    line = [ln for ln in buf.getvalue().splitlines()
+            if ln.startswith("[mesh] ")]
+    if not line:
+        raise AssertionError(f"{tag}: the mesh tool printed no [mesh] line")
+    info = json.loads(line[-1][len("[mesh] "):])
+    stages = ", ".join(f"{k[:-2]} {v:.3f} s" for k, v in info.items()
+                       if k.endswith("_s"))
+    launched = {k: v for k, v in counts.items() if v}
+    log(f"[tools] {tag}: {wall:.2f} s wall; stages {stages}; "
+        f"{info.get('vertices', '-')} vertices, {info.get('faces', '-')} "
+        f"faces; launches {launched}")
+    return dict(out=out, wall_s=wall, counts=counts, info=info)
+
+
+def density_checkpoint(src: str, out: str, n_grid: int = 64) -> str:
+    """Phase 4's fit with each model's sigma bias lowered by its 99th
+    percentile of raw sigma over the tool's default cube (a 64^3 grid), so
+    about 1% of the cube holds density: a 2-epoch fit has no positive
+    density there (the same lift tests/test_tools.py gives its model's
+    sigma bias).  The weights stay the fit's, at full width."""
+    from nerf_pl_tpu_torch.tools.evaluate import load_models
+    from nerf_pl_tpu_torch.tools.extract_mesh import query_sigma_grid
+    from nerf_pl_tpu_torch.training.checkpoints import (load_checkpoint,
+                                                        save_checkpoint)
+
+    state = load_checkpoint(src)
+    g = np.linspace(-1, 1, n_grid).astype(np.float32)
+    xyz = np.stack(np.meshgrid(g, g, g), -1).reshape(-1, 3)
+    for name, model in load_models(src, "cuda").items():
+        q = float(np.quantile(query_sigma_grid(model, xyz, MESH_CHUNK), 0.99))
+        head = state["params"][name]["sigma"]
+        head["b"] = np.asarray(head["b"], np.float32) - np.float32(q)
+        log(f"[tools] {name} model: sigma bias lowered by its 99th "
+            f"percentile of raw sigma over the cube, {q:.4g}")
+    save_checkpoint(out, state)
+    return out
+
+
+def surface_threshold(fine, n_grid: int = 64) -> float:
+    """Half the largest sigma on a coarse grid of the tool's default ranges
+    (as tests/test_tools.py sets its threshold): voxels on both sides."""
+    from nerf_pl_tpu_torch.tools.extract_mesh import query_sigma_grid
+
+    g = np.linspace(-1, 1, n_grid).astype(np.float32)
+    xyz = np.stack(np.meshgrid(g, g, g), -1).reshape(-1, 3)
+    sigma = np.maximum(query_sigma_grid(fine, xyz, MESH_CHUNK), 0)
+    if not sigma.max() > 0:
+        raise AssertionError("the fit's model has no positive density")
+    return 0.5 * float(sigma.max())
+
+
+def tool_grid(n_grid: int) -> np.ndarray:
+    """The mesh tool's (n_grid^3, 3) points over its default cube."""
+    g = np.linspace(-1, 1, n_grid)
+    return np.stack(np.meshgrid(g, g, g), -1).reshape(-1, 3).astype(np.float32)
+
+
+def dense_checkpoint(src: str, out: str) -> tuple:
+    """Phase 4's fit cut to the ``MESH_OCTAVES`` lowest octaves of its
+    encoded xyz, with each model's sigma bias lowered by the quantile of
+    its raw sigma over the 256^3 grid that ``MESH_QUANTILES`` picks (see
+    there), and the threshold: (path, threshold, the ladder tried)."""
+    from nerf_pl_tpu_torch.tools.evaluate import load_models
+    from nerf_pl_tpu_torch.tools.extract_mesh import query_sigma_grid
+    from nerf_pl_tpu_torch.tools.mesh_utils import (keep_largest_cluster,
+                                                     marching_tetrahedra)
+    from nerf_pl_tpu_torch.training.checkpoints import (load_checkpoint,
+                                                        save_checkpoint)
+
+    state = load_checkpoint(src)
+    keep = 3 + 6 * MESH_OCTAVES  # posenc columns: x, then sin and cos a band
+    for model in state["params"].values():
+        # the layers that read the encoded xyz (the skip layer's in front)
+        for layer in ("0", "4"):
+            w = np.array(model["xyz_layers"][layer]["w"], np.float32)
+            w[keep:63] = 0
+            model["xyz_layers"][layer]["w"] = w
+    save_checkpoint(out, state)
+    n = MESH_N_GRID
+    xyz = tool_grid(n)
+    raw = {k: query_sigma_grid(m, xyz, MESH_CHUNK)
+           for k, m in load_models(out, "cuda").items()}
+    del xyz
+    ladder, chosen = [], None
+    for p in MESH_QUANTILES:
+        q = np.float32(np.quantile(raw["fine"], p))
+        lowered = np.maximum(raw["fine"] - q, 0).reshape(n, n, n)
+        thr = MESH_DENSE_THR * float(lowered.max())
+        inside = lowered > thr
+        est = 3 * sum(int((inside.swapaxes(0, a)[1:] !=
+                           inside.swapaxes(0, a)[:-1]).sum()) for a in range(3))
+        row = dict(quantile=p, threshold=thr, estimate=est)
+        ladder.append(row)
+        if est > MESH_MAX_VERTICES:
+            break
+        if est < MESH_MIN_VERTICES:
+            continue
+        t0 = time.perf_counter()
+        v, t = marching_tetrahedra(lowered, thr)
+        kept = len(keep_largest_cluster(v, t)[0])
+        row.update(surface=len(v), kept=kept,
+                   host_s=time.perf_counter() - t0)
+        if kept >= 1.2 * MESH_MIN_VERTICES:
+            chosen = row
+            break
+    log(f"[tools] the dense surface's quantile ladder: {ladder}")
+    if chosen is None:
+        raise AssertionError("no quantile of MESH_QUANTILES gives a 256^3 "
+                             f"surface of {MESH_MIN_VERTICES} vertices")
+    for name, sigma in raw.items():
+        q = float(np.quantile(sigma, chosen["quantile"]))
+        head = state["params"][name]["sigma"]
+        head["b"] = np.asarray(head["b"], np.float32) - np.float32(q)
+        log(f"[tools] {name} model: sigma bias lowered by its "
+            f"{chosen['quantile']:.0%} quantile of raw sigma over the "
+            f"{n}^3 grid, {q:.4g}")
+    save_checkpoint(out, state)
+    return out, chosen["threshold"], ladder
+
+
+def cluster_host_seconds() -> dict:
+    """``keep_largest_cluster`` on the host at about 10^6 vertices (see
+    ``CLUSTER_N_GRID``): seconds of the best of 3 calls, against the
+    iso-surface's own seconds."""
+    from nerf_pl_tpu_torch.tools.mesh_utils import (keep_largest_cluster,
+                                                     marching_tetrahedra)
+
+    n = CLUSTER_N_GRID
+    rng = np.random.default_rng(0)
+    k2 = (np.fft.fftfreq(n)[:, None, None] ** 2
+          + np.fft.fftfreq(n)[None, :, None] ** 2
+          + np.fft.rfftfreq(n)[None, None, :] ** 2)
+    field = np.fft.irfftn(
+        np.fft.rfftn(rng.standard_normal((n, n, n)))
+        * np.exp(-k2 / (2 * CLUSTER_CUTOFF ** 2)), s=(n, n, n),
+        axes=(0, 1, 2)).astype(np.float32)
+    res = {}
+    for p in CLUSTER_QUANTILES:
+        t0 = time.perf_counter()
+        v, t = marching_tetrahedra(
+            np.maximum(field - np.float32(np.quantile(field, p)), 0), 1e-6)
+        surface_s = time.perf_counter() - t0
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            kv, kt = keep_largest_cluster(v, t)
+            times.append(time.perf_counter() - t0)
+        if not (0 < len(kv) <= len(v) and kt.max() < len(kv)):
+            raise AssertionError(f"keep_largest_cluster kept {len(kv)} of "
+                                 f"{len(v)} vertices")
+        res[p] = dict(vertices=len(v), faces=len(t), kept=len(kv),
+                      seconds=min(times), surface_s=surface_s)
+        log(f"[tools] keep_largest_cluster on the host, the {n}^3 field at "
+            f"its {p:.0%} quantile: {len(v):,} vertices, {len(t):,} faces, "
+            f"kept {len(kv):,}; {min(times):.3f} s (best of 3; "
+            f"{[round(x, 3) for x in times]}), the iso-surface {surface_s:.3f} s")
+    return res
+
+
+def mesh_full_width(tmp: str, root: str, ckpt: str, dense: str,
+                    dense_thr: float) -> dict:
+    """The mesh tool at its defaults on phase 4's fit lowered to a dense
+    surface (``dense_checkpoint``): the 256^3 grid (512 C' launches
+    exactly), the fusion over the 8 training views of at least
+    ``MESH_MIN_VERTICES`` vertices; then --use_vertex_normal at 128^3 (B
+    launched) on ``ckpt``, then --vol_path."""
+    from nerf_pl_tpu_torch.tools.evaluate import load_models
+    from nerf_pl_tpu_torch.tools.mesh_utils import read_ply, read_vol
+
+    thr = surface_threshold(load_models(ckpt, "cuda")["fine"])
+    res = {"threshold": thr, "dense_threshold": dense_thr}
+    grid_launches = -(-MESH_N_GRID ** 3 // MESH_CHUNK)
+    m = run_mesh_tool(mesh_argv(root, dense, os.path.join(tmp, "mesh.ply"),
+                                MESH_N_GRID, dense_thr,
+                                ["--N_samples", str(MESH_SAMPLES)]),
+                      f"mesh {MESH_N_GRID}^3 (fusion)")
+    n_vert = m["info"]["vertices"]
+    if not n_vert >= MESH_MIN_VERTICES:
+        raise AssertionError(f"the {MESH_N_GRID}^3 mesh kept {n_vert} "
+                             f"vertices, fewer than {MESH_MIN_VERTICES}")
+    fusion = TRAIN_VIEWS * -(-n_vert // MESH_CHUNK)
+    verts, tris, colors = read_ply(m["out"])
+    if not (len(tris) > 0 and colors is not None and len(verts) == n_vert
+            and np.isfinite(verts).all() and (np.abs(verts) <= 1 + 1e-5).all()):
+        raise AssertionError("the mesh is empty, uncoloured or out of range")
+    cp = m["counts"]["C'"]
+    log(f"[tools] mesh: C' launches {cp} = {grid_launches} (grid) + "
+        f"{fusion} (fusion: {TRAIN_VIEWS} views x ceil({n_vert} / "
+        f"{MESH_CHUNK})); B {m['counts']['B']}; "
+        f"{MESH_N_GRID ** 3 / m['info']['grid_s']:.4g} grid points/s")
+    others = {k: v for k, v in m["counts"].items() if v and k != "C'"}
+    if cp != grid_launches + fusion or others:
+        raise AssertionError(f"mesh tool launches {m['counts']}: expected C' "
+                             f"{grid_launches} + {fusion} and nothing else")
+    res["fusion"] = dict(m, grid_launches=grid_launches,
+                         points_per_s=MESH_N_GRID ** 3 / m["info"]["grid_s"])
+    # where the grid stage's time goes: the same query under the profiler
+    from nerf_pl_tpu_torch.tools.extract_mesh import query_sigma_grid
+
+    xyz = tool_grid(MESH_N_GRID)
+    fine = load_models(dense, "cuda")["fine"]
+    res["grid_profile"] = profile_device(
+        f"the {MESH_N_GRID}^3 sigma grid (query_sigma_grid, C' f32)",
+        lambda: query_sigma_grid(fine, xyz, MESH_CHUNK), top=4)
+    del fine, xyz
+    n = run_mesh_tool(mesh_argv(
+        root, ckpt, os.path.join(tmp, "mesh_normal.ply"), MESH_NORMAL_N_GRID,
+        thr, ["--N_samples", str(MESH_SAMPLES), "--use_vertex_normal",
+              "--N_importance", str(MESH_NORMAL_IMPORTANCE)]),
+        f"mesh {MESH_NORMAL_N_GRID}^3 --use_vertex_normal")
+    chunks = -(-n["info"]["vertices"] // MESH_CHUNK)
+    g2 = -(-MESH_NORMAL_N_GRID ** 3 // MESH_CHUNK)
+    if (n["counts"]["C'"] != g2 + 2 * chunks or n["counts"]["B"] != chunks
+            or read_ply(n["out"])[2] is None):
+        raise AssertionError(f"vertex-normal launches {n['counts']}: "
+                             f"expected C' {g2} + 2 x {chunks}, B {chunks}")
+    res["normal"] = n
+    vol = os.path.join(tmp, "scene.vol")
+    v = run_mesh_tool(mesh_argv(root, dense, os.path.join(tmp, "unused.ply"),
+                                MESH_N_GRID, dense_thr,
+                                ["--vol_path", vol, "--vol_only"]),
+                      f"mesh {MESH_N_GRID}^3 --vol_path --vol_only")
+    grid, ranges = read_vol(vol)
+    if (grid.shape != (MESH_N_GRID,) * 3 or not grid.max() > 0
+            or v["counts"]["C'"] != grid_launches
+            or os.path.exists(os.path.join(tmp, "unused.ply"))):
+        raise AssertionError(f".vol export: shape {grid.shape}, max "
+                             f"{grid.max()}, launches {v['counts']}")
+    log(f"[tools] .vol: {os.path.getsize(vol):,} bytes, sigma_max "
+        f"{grid.max():.4g}, ranges {[list(map(float, r)) for r in ranges]}")
+    res["vol"] = v
+    return res
+
+
+def mesh_card_vs_cpu(tmp: str, ckpt: str) -> dict:
+    """The mesh tool on the card and on the CPU with the same flags and
+    checkpoint on a 2-view copy of phase 4's scene at a 48^3 grid: the sigma
+    grids, the grid values on opposite sides of the threshold, and the
+    meshes."""
+    from nerf_pl_tpu_torch.tools.evaluate import load_models
+    from nerf_pl_tpu_torch.tools.extract_mesh import query_sigma_grid
+    from nerf_pl_tpu_torch.tools.mesh_utils import read_ply
+
+    root = os.path.join(tmp, "mesh_cmp_scene")
+    write_scene(root, n_train=MESH_CMP_VIEWS, n_test=0)
+    N = MESH_CMP_N_GRID
+    g = np.linspace(-1, 1, N)
+    xyz = np.stack(np.meshgrid(g, g, g), -1).reshape(-1, 3).astype(np.float32)
+    grids = {d: np.maximum(query_sigma_grid(load_models(ckpt, d)["fine"],
+                                            xyz, MESH_CHUNK), 0)
+             for d in ("cuda", "cpu")}
+    scale = float(grids["cpu"].max())
+    if not scale > 0:
+        raise AssertionError("the checkpoint has no positive density")
+    thr = 0.5 * scale
+    err = float(np.abs(grids["cuda"] - grids["cpu"]).max()) / scale
+    crossing = int(((grids["cuda"] > thr) != (grids["cpu"] > thr)).sum())
+    log(f"[tools] sigma grid {N}^3 card (C' f32) vs cpu (posenc + NeRF): "
+        f"max |diff| / max sigma {err:.3e} (tol {TOL_MESH_SIGMA:.0e}); "
+        f"{crossing} of {N ** 3} values on opposite sides of the threshold "
+        f"{thr:.4g}")
+    if not err <= TOL_MESH_SIGMA:
+        raise AssertionError("the card's sigma grid departs from the CPU's")
+    meshes = {}
+    for d in ("cuda", "cpu"):
+        r = run_mesh_tool(mesh_argv(
+            root, ckpt, os.path.join(tmp, f"cmp_{d}.ply"), N, thr,
+            ["--N_samples", str(MESH_CMP_SAMPLES)], device=d),
+            f"mesh {N}^3 on the {d}")
+        meshes[d] = read_ply(r["out"]) + (r,)
+    vc, tc, cc, _ = meshes["cuda"]
+    vp, tp, cp, _ = meshes["cpu"]
+    res = dict(sigma_rel=err, crossing=crossing, vertices=len(vp),
+               faces=len(tp))
+    if crossing:
+        log(f"[tools] {crossing} grid values cross the threshold between the "
+            f"devices: the surfaces may differ ({len(vc)} / {len(vp)} "
+            "vertices); the mesh comparison is printed only")
+        return res
+    spacing = 2.0 / N  # world units a grid index (grid_vertices_to_world)
+    dv = np.abs(vc - vp).max(axis=1) / spacing if len(vc) == len(vp) else None
+    same_tris = len(tc) == len(tp) and np.array_equal(tc, tp)
+    diff = (np.abs(cc.astype(int) - cp.astype(int))
+            if same_tris and cc.shape == cp.shape else None)
+    log(f"[tools] mesh card vs cpu: triangles equal {same_tris} ({len(tp)}); "
+        + ("" if dv is None else
+           f"vertices max |diff| {dv.max():.3e}, 99.9% {np.quantile(dv, 0.999):.3e} "
+           f"of the spacing (tol {TOL_MESH_VERTEX:.0e}); ")
+        + ("" if diff is None else
+           f"colours max diff {diff.max()} level(s) (tol {TOL_MESH_COLOR}), "
+           f"{int((diff > 0).sum())} of {diff.size} values differ"))
+    if not same_tris or dv is None or not dv.max() <= TOL_MESH_VERTEX:
+        raise AssertionError("the card's mesh departs from the CPU's")
+    if not diff.max() <= TOL_MESH_COLOR:
+        raise AssertionError("the card's mesh colours depart from the CPU's")
+    res.update(vertex_max=float(dv.max()), color_max=int(diff.max()),
+               color_differ=int((diff > 0).sum()))
+    return res
+
+
+class RefNeRF(torch.nn.Module):
+    """The reference NeRF's attribute names and definition order
+    (``xyz_encoding_{1..8}.0``, ``xyz_encoding_final``, ``dir_encoding.0``,
+    ``sigma``, ``rgb.0``), at full width."""
+
+    def __init__(self, D=8, W=256, in_xyz=63, in_dir=27, skips=(4,)):
+        super().__init__()
+        nn = torch.nn
+        for i in range(D):
+            fan_in = in_xyz if i == 0 else (W + in_xyz if i in skips else W)
+            setattr(self, f"xyz_encoding_{i + 1}",
+                    nn.Sequential(nn.Linear(fan_in, W), nn.ReLU(True)))
+        self.xyz_encoding_final = nn.Linear(W, W)
+        self.dir_encoding = nn.Sequential(nn.Linear(W + in_dir, W // 2),
+                                          nn.ReLU(True))
+        self.sigma = nn.Linear(W, 1)
+        self.rgb = nn.Sequential(nn.Linear(W // 2, 3), nn.Sigmoid())
+
+
+def port_key(model: str, torch_name: str) -> tuple:
+    """A reference parameter name -> (the port's path, transposed)."""
+    mod, leaf = torch_name.rsplit(".", 1)
+    leaf = {"weight": "w", "bias": "b"}[leaf]
+    if mod.startswith("xyz_encoding_") and mod != "xyz_encoding_final":
+        i = int(mod.split("_")[2].split(".")[0]) - 1
+        path = ("xyz_layers", str(i), leaf)
+    else:
+        path = ({"xyz_encoding_final": "xyz_final", "dir_encoding.0":
+                 "dir_layer", "sigma": "sigma", "rgb.0": "rgb"}[mod], leaf)
+    return (model,) + path, leaf == "w"
+
+
+def import_resume_export(tmp: str, root: str) -> dict:
+    """A Lightning checkpoint of the reference's layout (3 torch.optim.Adam
+    steps on the card) through ``python -m nerf_pl_tpu_torch.import_torch_ckpt
+    --full_state``, a 1-epoch resume of ``python -m nerf_pl_tpu_torch.train``
+    on the card from it, and ``--export --full_state`` of the resumed
+    checkpoint loaded into a fresh ``torch.optim.Adam``: its moments equal
+    the port state's bit for bit."""
+    from nerf_pl_tpu_torch.training.checkpoints import load_checkpoint
+
+    torch.manual_seed(31)
+    models = [RefNeRF().cuda(), RefNeRF().cuda()]
+    params = [p for m in models for p in m.parameters()]
+    opt = torch.optim.Adam(params, lr=5e-4)
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    for _ in range(TOOLS_REF_STEPS):
+        for p in params:
+            p.grad = torch.randn(p.shape, generator=gen, device="cuda") * 0.01
+        opt.step()
+    sd = {f"{name}.{k}": v for name, m in zip(("nerf_coarse", "nerf_fine"),
+                                               models)
+          for k, v in m.state_dict().items()}
+    ref = os.path.join(tmp, "reference.ckpt")
+    torch.save({"state_dict": sd, "optimizer_states": [opt.state_dict()],
+                "lr_schedulers": [], "epoch": TOOLS_REF_EPOCH,
+                "global_step": TOOLS_REF_STEPS + 1}, ref)
+    imported = os.path.join(tmp, "imported.ckpt")
+
+    def cli(module, *args):
+        r = subprocess.run([sys.executable, "-m", f"nerf_pl_tpu_torch.{module}",
+                            *args], capture_output=True, text=True,
+                           timeout=300)
+        log(f"[tools] python -m nerf_pl_tpu_torch.{module} {' '.join(args[-2:])}"
+            f": rc {r.returncode}; {r.stdout.strip().splitlines()[-2:]}")
+        if r.returncode:
+            raise AssertionError(r.stderr[-2000:])
+
+    cli("import_torch_ckpt", "--ckpt_path", ref, "--out_path", imported,
+        "--full_state")
+    raw = load_checkpoint(imported)
+    if (int(raw["epoch"]) != TOOLS_REF_EPOCH - 1
+            or int(raw["opt_state"]["0"]["count"]) != TOOLS_REF_STEPS):
+        raise AssertionError("the imported epoch or Adam count is wrong")
+    flags = ["--dataset_name", "blender", "--img_wh", str(TRAIN_WH),
+             str(TRAIN_WH), "--N_samples", str(N_SAMPLES), "--N_importance",
+             str(N_IMPORTANCE), "--batch_size", str(TRAIN_BATCH), "--lr",
+             "5e-4", "--white_back", "true", "--compute_dtype", "bfloat16",
+             "--ckpt_path", imported]
+    from nerf_pl_tpu_torch import train as train_cli
+
+    argv = ["--root_dir", root, *flags, "--num_epochs",
+            str(TOOLS_REF_EPOCH + 1), "--exp_name", "resumed", "--log_dir",
+            os.path.join(tmp, "logs"), "--ckpt_dir", os.path.join(tmp, "ckpts"),
+            "--device", "cuda"]
+    torch.cuda.synchronize()
+    reset_counts()
+    system = train_cli.main(argv)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    steps = system.steps_per_epoch
+    del system
+    with open(os.path.join(tmp, "logs", "resumed", "metrics.jsonl")) as f:
+        losses = [r["train/loss"] for r in map(json.loads, f)
+                  if "train/loss" in r]
+    ckpt_dir = os.path.join(tmp, "ckpts", "resumed")
+    ckpts = sorted(os.listdir(ckpt_dir))
+    require_checkpoints(ckpt_dir, "tools resume")
+    if (len(losses) != 1 or not np.isfinite(losses[0])
+            or ckpts != [f"epoch={TOOLS_REF_EPOCH}.ckpt"]):
+        raise AssertionError(f"the resume did not run epoch "
+                             f"{TOOLS_REF_EPOCH} alone with a finite loss: "
+                             f"{losses} {ckpts}")
+    resumed = os.path.join(tmp, "ckpts", "resumed", ckpts[0])
+    state = load_checkpoint(resumed)
+    adam = state["opt_state"]["0"]
+    if int(adam["count"]) != TOOLS_REF_STEPS + steps:
+        raise AssertionError(f"the Adam count went {int(adam['count'])}, not "
+                             f"{TOOLS_REF_STEPS} + {steps}")
+    exported = os.path.join(tmp, "exported.ckpt")
+    cli("import_torch_ckpt", "--ckpt_path", resumed, "--out_path", exported,
+        "--export", "--full_state")
+    back = torch.load(exported, map_location="cpu", weights_only=True)
+    fresh_models = [RefNeRF(), RefNeRF()]
+    fresh = [p for m in fresh_models for p in m.parameters()]
+    adam_t = torch.optim.Adam(fresh, lr=5e-4)
+    adam_t.load_state_dict(back["optimizer_states"][0])
+    differ = total = 0
+    names = [(mn, k) for mn, m in zip(("coarse", "fine"), fresh_models)
+             for k, _ in m.named_parameters()]
+    for p, (mn, k) in zip(fresh, names):
+        path, transposed = port_key(mn, k)
+        for slot, moment in (("exp_avg", "mu"), ("exp_avg_sq", "nu")):
+            node = adam[moment]
+            for part in path:
+                node = node[part]
+            want = torch.from_numpy(np.asarray(node, np.float32))
+            want = want.T if transposed else want
+            got = adam_t.state[p][slot]
+            differ += int((got != want).sum())
+            total += want.numel()
+        if int(adam_t.state[p]["step"]) != TOOLS_REF_STEPS + steps:
+            raise AssertionError("the exported step count is wrong")
+    log(f"[tools] import -> resume (epoch {TOOLS_REF_EPOCH}, {steps} steps, "
+        f"loss {losses[0]:.5f}, launches {counts}) -> export: {differ} of {total} Adam "
+        f"moment values differ from the port state's (tol 0); epoch "
+        f"{back['epoch']}, global_step {back['global_step']}")
+    if differ or back["epoch"] != TOOLS_REF_EPOCH + 1:
+        raise AssertionError("the exported state departs from the port's")
+    return dict(loss=losses[0], steps=steps, differ=differ, values=total,
+                counts=counts)
+
+
+def require_checkpoints(ckpt_dir: str, tag: str) -> int:
+    """Every checkpoint a fit left (written by the trainers' background
+    writer, which ``fit`` drains) is on disk and loads."""
+    from nerf_pl_tpu_torch.training.checkpoints import load_checkpoint
+
+    names = sorted(n for n in os.listdir(ckpt_dir) if n.endswith(".ckpt"))
+    for n in names:
+        state = load_checkpoint(os.path.join(ckpt_dir, n))
+        if "params" not in state or "opt_state" not in state:
+            raise AssertionError(f"{tag}: {n} lacks params or opt_state")
+    if not names or any(n.endswith(".tmp") for n in os.listdir(ckpt_dir)):
+        raise AssertionError(f"{tag}: checkpoints {os.listdir(ckpt_dir)}")
+    return len(names)
+
+
+# ---------------------------------------------------------------- the NaN hold
+def nonfinite_hold(label: str, got: torch.Tensor, want: torch.Tensor,
+                   tol: float, mean_tol: float | None = None) -> float:
+    """``got`` against ``want``: NaN, +Inf and -Inf at the same positions;
+    the finite values within ``tol`` absolute with a mean within
+    ``mean_tol`` (TOL_C's form), or, without ``mean_tol``, within ``tol`` of
+    the largest finite |want| (TOL_TRAIN's form).  Returns the reading."""
+    g, w = got.double(), want.double()
+    for what, f in (("NaN", torch.isnan), ("+Inf", torch.isposinf),
+                    ("-Inf", torch.isneginf)):
+        n = int((f(g) != f(w)).sum())
+        if n:
+            raise AssertionError(f"{label}: {n} {what} positions differ from "
+                                 "the plain version's")
+    fin = torch.isfinite(w)
+    d = (g[fin] - w[fin]).abs()
+    err = float(d.max()) if d.numel() else 0.0
+    if mean_tol is None:  # relative to the tensor's largest finite value
+        scale = float(w[fin].abs().max()) if d.numel() else 1.0
+        err /= max(scale, 1e-30)
+        ok = err <= tol
+    else:
+        ok = err <= tol and (float(d.mean()) if d.numel() else 0.0) <= mean_tol
+    if not ok:
+        raise AssertionError(f"{label}: finite values off by {err:.3e}")
+    return err
+
+
+def nan_holds(fine, dev) -> dict:
+    """The ReLU repair on the card: each kernel against its plain version
+    on inputs that carry a NaN or an Inf, the NaN and Inf positions equal
+    and the finite values within the usual limits.  Forward C, C', D (its
+    stash too), G and I with a NaN bias of the dir head (rgb NaN, sigma
+    finite) and with NaN xyz at three points (those points NaN); backward
+    E, F and H with an Inf cotangent at two points (a zero ReLU mask selects
+    0, as JAX's compiled backward does)."""
+    import copy
+
+    from nerf_pl_tpu_torch.models.embedding import posenc
+    from nerf_pl_tpu_torch.ops import fused_mlp as fm
+    from nerf_pl_tpu_torch.scripts import kernel_probe as kp
+
+    gen = torch.Generator().manual_seed(41)
+    P = (1 << 16) + 77
+    x = random_raw_t(gen, P, dev)
+    poisoned = copy.deepcopy(fine)
+    with torch.no_grad():
+        poisoned.dir_layer.b[5] = float("nan")
+    xn = x.clone()
+    xn[0, [5, 4000, P - 1]] = float("nan")
+    cases = (("NaN dir bias", poisoned, x), ("NaN points", fine, xn))
+    readings = {}
+    with torch.no_grad():
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = str(dtype).replace("torch.", "")
+            tol = TOL_C[dtype]
+            for name, m, xx in cases:
+                xr = xx.T.contiguous()
+                emb = torch.cat([posenc(xr[:, :3], 10), posenc(xr[:, 3:6], 4)],
+                                -1).contiguous()
+                c = fm.fused_nerf_apply_raw_t_cuda(m, xx, False, dtype)
+                ref = fm.fused_nerf_apply_raw_t_plain(m, xx, False, dtype)
+                if name == "NaN dir bias" and not (
+                        torch.isnan(ref[:3]).all() and torch.isfinite(ref[3]).all()):
+                    raise AssertionError("the NaN case does not poison rgb alone")
+                readings[f"C {dn} {name}"] = nonfinite_hold(
+                    f"C {dn} {name}", c, ref, tol, TOL_C_MEAN)
+                cr = fm.fused_nerf_apply_raw_cuda(m, xr, False, dtype)
+                readings[f"C' {dn} {name}"] = nonfinite_hold(
+                    f"C' {dn} {name}", cr, ref.T, tol, TOL_C_MEAN)
+                o, st = fm.fused_nerf_stash_fwd_cuda(m, xx, False, dtype)
+                o_p, st_p = fm.fused_nerf_stash_fwd_plain(m, xx, False, dtype)
+                readings[f"D {dn} {name}"] = nonfinite_hold(
+                    f"D {dn} {name}", o, o_p, tol, TOL_C_MEAN)
+                nonfinite_hold(f"D stash {dn} {name}", st.float(),
+                               st_p.float(), tol, TOL_C_MEAN)
+                del st, st_p
+                gk = fm.fused_nerf_apply_cuda(m, emb, False, dtype)
+                gp = fm.fused_nerf_apply_plain(m, emb, False, dtype)
+                readings[f"G {dn} {name}"] = nonfinite_hold(
+                    f"G {dn} {name}", gk, gp, tol, TOL_C_MEAN)
+        xi, w0, w = kp.probe_inputs(P, dev, seed=5)
+        xi[[3, 4000, P - 1], 7] = float("nan")
+        ik = kp.chain_cuda(xi, w0, w, True)
+        ip = kp.chain_plain(xi, w0, w, True)
+        readings["I fancy"] = nonfinite_hold("I fancy", ik, ip, TOL_CHAIN[0])
+        if not torch.isnan(ik[[3, 4000, P - 1]]).all():
+            raise AssertionError("kernel I does not keep the NaN rows")
+        # the backward: an Inf cotangent at two points
+        bf = torch.bfloat16
+        g = torch.randn((8, P), generator=gen).to(dev)
+        g[1, 7], g[3, 60] = float("inf"), float("-inf")
+        names = grad_names(fine)
+
+        def hold(label, mine, ref):
+            worst = 0.0
+            for a, b, n in zip(fm.unpack_grads(fine, *mine, bf),
+                               fm.unpack_grads(fine, *ref, bf), names):
+                worst = max(worst, nonfinite_hold(f"{label} {n}", a, b,
+                                                  TOL_TRAIN[bf][0]))
+            return worst
+
+        _, st = fm.fused_nerf_stash_fwd_cuda(fine, x, False, bf)
+        readings["E"] = hold("E Inf g", fm.fused_nerf_bwd_stash_cuda(
+            fine, x, g, st, False, bf), fm.fused_nerf_bwd_plain(
+            fine, x, g, False, bf, stash=st))
+        del st
+        readings["F"] = hold("F Inf g", fm.fused_nerf_bwd_remat_cuda(
+            fine, x, g, False, bf), fm.fused_nerf_bwd_plain(fine, x, g, False,
+                                                            bf))
+        xr = x.T.contiguous()
+        emb = torch.cat([posenc(xr[:, :3], 10), posenc(xr[:, 3:6], 4)],
+                        -1).contiguous()
+        gh = g.T.contiguous()
+        gh[:, 4:] = 0.0
+        dx, dw, db = fm.fused_nerf_bwd_dx_cuda(fine, emb, gh, False, bf)
+        rdx, rw, rb = fm.fused_nerf_bwd_dx_plain(fine, emb, gh, False, bf)
+        readings["H"] = max(hold("H Inf g", (dw, db), (rw, rb)),
+                            nonfinite_hold("H Inf g dx", dx, rdx,
+                                           TOL_TRAIN[bf][0]))
+        torch.cuda.synchronize()
+    log("[nan] every kernel keeps the plain version's NaN and Inf positions; "
+        "finite readings: " + ", ".join(f"{k} {v:.2e}"
+                                        for k, v in readings.items()))
+    return readings
+
+
+# --------------------------------------------------- the optimisers' first op
+def optimizer_first_difference() -> dict:
+    """adamw's update (the port's ``Adam`` with decoupled weight decay)
+    replayed op by op on the card and on the CPU over the 13 steps of
+    ``optimizers_card_vs_cpu``: each op is run on both devices from the
+    CPU's inputs, so a difference is the op's own; the count of values each
+    op gives otherwise, held to 0 for every op but float32 ``torch.sqrt``,
+    the one op whose card and CPU versions round otherwise (PERF.md §7)."""
+    from nerf_pl_tpu_torch.models.nerf import init_nerf
+    from nerf_pl_tpu_torch.training import optim
+
+    gen = torch.Generator().manual_seed(13)
+    models = {k: init_nerf(gen, device="cpu") for k in ("coarse", "fine")}
+    opt = optim.get_optimizer(
+        "adamw", optim.make_lr_schedule(5e-4, "steplr", 5, 3,
+                                        decay_step=(1,), decay_gamma=0.5),
+        optim.named_params(models), weight_decay=1e-2)
+    b1, b2, eps, wd = opt.b1, opt.b2, opt.eps, opt.weight_decay
+    ops = ("(1-b1)*g", "b1*mu", "mu'", "g*g", "(1-b2)*g2", "b2*nu", "nu'",
+           "mu'/c1", "nu'/c2", "sqrt", "+eps", "mu_hat/den",
+           "wd*p", "u+wd*p", "lr*u", "p+upd")
+    differ = dict.fromkeys(ops, 0)
+    first = None
+    gen_g = torch.Generator().manual_seed(14)
+    total = 0
+    for step in range(13):
+        lr = torch.tensor(-opt.schedule(opt.sched_count), dtype=torch.float32)
+        host = torch.stack(opt._scalars() + [lr])
+        card = host.cuda()
+        for k, p in opt.params.items():
+            g = torch.randn(p.shape, generator=gen_g) * 0.1
+            p.grad = g
+            mu, nu = opt.mu[k], opt.nu[k]
+            total += p.numel()
+            chain = [
+                ("(1-b1)*g", lambda a, s: (1 - b1) * a["g"]),
+                ("b1*mu", lambda a, s: b1 * a["mu"]),
+                ("mu'", lambda a, s: a["(1-b1)*g"] + a["b1*mu"]),
+                ("g*g", lambda a, s: a["g"] * a["g"]),
+                ("(1-b2)*g2", lambda a, s: (1 - b2) * a["g*g"]),
+                ("b2*nu", lambda a, s: b2 * a["nu"]),
+                ("nu'", lambda a, s: a["(1-b2)*g2"] + a["b2*nu"]),
+                ("mu'/c1", lambda a, s: a["mu'"] / s[0]),
+                ("nu'/c2", lambda a, s: a["nu'"] / s[1]),
+                ("sqrt", lambda a, s: torch.sqrt(a["nu'/c2"])),
+                ("+eps", lambda a, s: a["sqrt"] + eps),
+                ("mu_hat/den", lambda a, s: a["mu'/c1"] / a["+eps"]),
+                ("wd*p", lambda a, s: wd * a["p"]),
+                ("u+wd*p", lambda a, s: a["mu_hat/den"] + a["wd*p"]),
+                ("lr*u", lambda a, s: s[-1] * a["u+wd*p"]),
+                ("p+upd", lambda a, s: a["p"] + a["lr*u"]),
+            ]
+            a = {"g": g, "mu": mu.clone(), "nu": nu.clone(),
+                 "p": p.detach().clone()}
+            for name, fn in chain:
+                on_cpu = fn(a, host)
+                on_card = fn({k2: v.cuda() for k2, v in a.items()}, card).cpu()
+                n = int((on_card != on_cpu).sum())
+                differ[name] += n
+                if n and first is None:
+                    first = (step, k, name, n)
+                a[name] = on_cpu
+        opt.step()
+    log(f"[optim first op] adamw replayed op by op on the card and the CPU "
+        f"from the CPU's inputs, 13 steps, {total:,} values an op: values "
+        f"each op gives otherwise on the card: {differ}; first: "
+        + ("none" if first is None else
+           f"step {first[0]}, {first[1]}, op {first[2]} ({first[3]} values)"))
+    # every op but the square root gives the same bits on both devices
+    off = {k: v for k, v in differ.items() if v and k != "sqrt"}
+    if off:
+        raise AssertionError(f"the optimiser's ops give other bits on the "
+                             f"card: {off}")
+    return dict(differ=differ, first=first)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3239,6 +4045,25 @@ def main() -> int:
         shadow = shadow_end_to_end(tmp)
         trainers = trainers_end_to_end(tmp)
         llff = llff_end_to_end(tmp)
+        t_tools = time.perf_counter()
+        smoke_fit = density_checkpoint(
+            os.path.join(tmp, "ckpts", "smoke", "epoch=1.ckpt"),
+            os.path.join(tmp, "mesh_fit.ckpt"))
+        scene = os.path.join(tmp, "scene")
+        dense, dense_thr, _ = dense_checkpoint(
+            os.path.join(tmp, "ckpts", "smoke", "epoch=1.ckpt"),
+            os.path.join(tmp, "mesh_dense.ckpt"))
+        tools = dict(mesh=mesh_full_width(tmp, scene, smoke_fit, dense,
+                                          dense_thr),
+                     cluster=cluster_host_seconds(),
+                     mesh_cmp=mesh_card_vs_cpu(tmp, smoke_fit),
+                     ckpt=import_resume_export(tmp, scene))
+        fine = load_models(ckpt, dev)["fine"]
+        nan = nan_holds(fine, dev)
+        del fine
+        optim_ops = optimizer_first_difference()
+        tools_s = time.perf_counter() - t_tools
+        log(f"[tools] phase 10: {tools_s:.1f} s")
 
     fine_row, coarse_row = c["rows"]["rgb"], c["rows"]["sigma-only"]
     kernels = [
@@ -3516,6 +4341,42 @@ def main() -> int:
         f"{llff['jpeg']['ms']:.1f} ms, PNG 800^2 {llff['png']['ms']:.1f} ms "
         f"on the host; phase {llff['seconds']:.1f} s; total "
         f"{time.perf_counter() - t_start:.1f} s")
+    # the tools (phase 10): the mesh tool's launches, and every kernel's
+    # reading in the NaN hold
+    mesh = tools["mesh"]
+    letters = {"fused_nerf_fwd": "C", "fused_nerf_fwd_row_major": "C'",
+               "fused_nerf_stash_fwd": "D", "fused_nerf_bwd_stash": "E",
+               "fused_nerf_bwd_remat": "F", "fused_nerf_wide_fwd": "G",
+               "fused_nerf_bwd_dx": "H", "chain_probe": "I",
+               "searchsorted_rank_interp": "B"}
+    for row in kernels:
+        key = letters.get(row["name"])
+        if key in ("C'", "B"):
+            row["launches_tools"] = dict(
+                mesh_fusion=mesh["fusion"]["counts"][key],
+                mesh_vertex_normal=mesh["normal"]["counts"][key],
+                vol=mesh["vol"]["counts"][key])
+        hold = {k: v for k, v in nan.items() if k.split()[0] == key}
+        if hold:
+            row["nan_hold"] = hold
+    m = mesh["fusion"]
+    cp = m["counts"]["C'"]
+    log(f"[tools] mesh {MESH_N_GRID}^3: {m['wall_s']:.2f} s wall (grid "
+        f"{m['info']['grid_s']:.3f}, surface {m['info']['surface_s']:.3f}, "
+        f"clustering {m['info']['cluster_s']:.3f}, fusion "
+        f"{m['info']['fusion_s']:.3f} s), {m['points_per_s']:.4g} grid "
+        f"points/s, {m['info']['surface_vertices']} vertices on the surface, "
+        f"{m['info']['vertices']} kept, {m['info']['faces']} faces, C' {cp} "
+        f"launches; clustering on the host at ~10^6 vertices "
+        + ", ".join(f"{r['vertices']:,} in {r['seconds']:.3f} s"
+                    for r in tools["cluster"].values())
+        + f"; vertex normal {mesh['normal']['wall_s']:.2f} s (B "
+        f"{mesh['normal']['counts']['B']}); card vs cpu at "
+        f"{MESH_CMP_N_GRID}^3 sigma {tools['mesh_cmp']['sigma_rel']:.3e}, "
+        f"{tools['mesh_cmp']['crossing']} crossing; import -> resume -> "
+        f"export {tools['ckpt']['differ']} of {tools['ckpt']['values']} "
+        f"moments differ; optimiser first op {optim_ops['first']}; phase "
+        f"{tools_s:.1f} s; total {time.perf_counter() - t_start:.1f} s")
     log(f"[card] {card}")
     print(json.dumps({"kernels": kernels}))
     print(card)

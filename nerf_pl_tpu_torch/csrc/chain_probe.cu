@@ -225,9 +225,11 @@ chain_kernel(const __grid_constant__ CUtensorMap map_w0,
 #pragma unroll
             for (int r = 0; r < 4; ++r) {
               float v0 = acc[8 * k + 2 * r], v1 = acc[8 * k + 2 * r + 1];
-              if (FANCY) {
-                v0 = fmaxf(v0 + bias, 0.0f);
-                v1 = fmaxf(v1 + bias, 0.0f);
+              if (FANCY) {  // ReLU keeping NaN, as jnp.maximum does
+                v0 += bias;
+                v1 += bias;
+                v0 = v0 < 0.0f ? 0.0f : v0;
+                v1 = v1 < 0.0f ? 0.0f : v1;
               }
               a[4 * k + r] = pack_bf16(v0, v1);
             }
@@ -240,8 +242,10 @@ chain_kernel(const __grid_constant__ CUtensorMap map_w0,
             for (int h = 0; h < 2; ++h) {
               float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
               if (FANCY) {
-                v0 = fmaxf(v0 + bias, 0.0f);
-                v1 = fmaxf(v1 + bias, 0.0f);
+                v0 += bias;
+                v1 += bias;
+                v0 = v0 < 0.0f ? 0.0f : v0;
+                v1 = v1 < 0.0f ? 0.0f : v1;
               } else {  // h is bf16 in pure mode
                 v0 = __bfloat162float(__float2bfloat16_rn(v0));
                 v1 = __bfloat162float(__float2bfloat16_rn(v1));

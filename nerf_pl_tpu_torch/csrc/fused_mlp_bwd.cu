@@ -200,6 +200,8 @@ __device__ __forceinline__ void bwd_epilogue(
       for (int j = 0; j < 4; ++j) {
         float x = acc[i][g * 4 + j];
         if (wsig != nullptr) x += gs * wsn[j];
+        // the ReLU mask is a select, as XLA compiles JAX's g * (h > 0) and
+        // as torch's relu backward: a NaN or Inf g under a zero mask is 0
         x = (valid && m[j] > 0.0f) ? x : 0.0f;
         bsum[g * 4 + j] += x;
         const T r = from_f<T>(x);

@@ -143,6 +143,16 @@ __host__ __device__ constexpr size_t smem_bytes() {
 constexpr int S_FIN = D * W, S_D = S_FIN + W;
 constexpr int SC_RGB = S_D + WH, SC_SIGMA = D * W;  // 2432, 2048
 
+// ReLU as jnp.maximum(v, 0) computes it: a NaN stays NaN (fmaxf would
+// return 0 and hide a NaN weight or input from the caller).  max.NaN is one
+// instruction, as fmaxf is; a compare and select instead made ptxas spill
+// in the float32 stash kernels (D: 60 B stores, 172 B loads a thread).
+__device__ __forceinline__ float relu_keep_nan(float v) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(v), "f"(0.0f));
+  return r;
+}
+
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
   return __bfloat162float(v);
@@ -294,7 +304,7 @@ __device__ __forceinline__ void dense(const T* __restrict__ w,
 #pragma unroll
       for (int i = 0; i < PPW; ++i) {
         float v = acc[i][g * CPL + j] + bn;
-        if (relu) v = fmaxf(v, 0.0f);
+        if (relu) v = relu_keep_nan(v);
         orow[i] = from_f<T>(v);
       }
     }
@@ -588,7 +598,7 @@ __device__ __forceinline__ void mma_dense(const bf16* __restrict__ w,
         const bool mark = relu && x < 0.0f ? -x < floor : near_tie(x, floor);
         const int e = (mi * NT + nt) * 4 + q;
         if (mark) ties[e / 64] |= 1ull << (e % 64);
-        v[q] = relu ? fmaxf(x, 0.0f) : x;
+        v[q] = relu ? relu_keep_nan(x) : x;
       }
       out[mi][nt][0] = __floats2bfloat162_rn(v[0], v[1]);
       out[mi][nt][1] = __floats2bfloat162_rn(v[2], v[3]);
@@ -613,7 +623,7 @@ __device__ __forceinline__ void mma_dense(const bf16* __restrict__ w,
     }
     for (; k < K; ++k) s = fmaf(to_f(a[k * LDA]), to_f(wn[1LL * k * N]), s);
     float v = s + bias[n];
-    if (relu) v = fmaxf(v, 0.0f);
+    if (relu) v = relu_keep_nan(v);
     fix_val[i] = v;
   }
   __syncthreads();  // every read of the input rows is done

@@ -149,12 +149,22 @@ def nerf_from_numpy(tree: dict, device=None) -> NeRF:
     return model.to(device)
 
 
-def nerf_to_numpy(model: NeRF) -> dict:
-    """``NeRF`` -> the JAX param tree layout with float32 numpy leaves."""
+def nerf_param_tree(model: NeRF) -> dict:
+    """``NeRF`` -> the JAX param tree layout with the parameters themselves
+    (detached, on their device) as leaves."""
     def leaf(m):
-        return {"w": m.w.detach().float().cpu().numpy(),
-                "b": m.b.detach().float().cpu().numpy()}
+        return {"w": m.w.detach(), "b": m.b.detach()}
 
     tree = {"xyz_layers": [leaf(m) for m in model.xyz_layers]}
     tree.update({h: leaf(getattr(model, h)) for h in _HEADS})
+    return tree
+
+
+def nerf_to_numpy(model: NeRF) -> dict:
+    """``NeRF`` -> the JAX param tree layout with float32 numpy leaves."""
+    tree = nerf_param_tree(model)
+    tree["xyz_layers"] = [{k: v.float().cpu().numpy() for k, v in layer.items()}
+                          for layer in tree["xyz_layers"]]
+    for h in _HEADS:
+        tree[h] = {k: v.float().cpu().numpy() for k, v in tree[h].items()}
     return tree

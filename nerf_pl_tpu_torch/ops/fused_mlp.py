@@ -347,6 +347,15 @@ def fused_nerf_bwd_dx_plain(model: NeRF, x: torch.Tensor, g: torch.Tensor,
         return dx, dw, db
 
 
+def _relu_mask(g: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """``g`` where the ReLU output ``h`` is positive, else 0: a select, as
+    XLA compiles ``_bwd_core``'s ``g * (h > 0)`` (it rewrites a product by
+    a converted predicate into a select) and as the kernels form it, so a
+    NaN or Inf ``g`` under a zero mask gives 0, not NaN."""
+    return torch.where(h > 0, g, torch.zeros((), dtype=g.dtype,
+                                             device=g.device))
+
+
 def _bwd_plain(model, xe, de, g, sigma_only, cdt, stash, want_dx=False,
                gbuf=None):
     """``_bwd_core`` on the embedded input and the cotangent ``g (8, P)``:
@@ -393,7 +402,7 @@ def _bwd_plain(model, xe, de, g, sigma_only, cdt, stash, want_dx=False,
         g_sigma = g[3][:, None]
         g_rgbpre = g[:3].T * rgb * (1.0 - rgb)
         gw[D + 3], gb[D + 3] = wgrad(d, g_rgbpre), g_rgbpre.sum(0)
-        g_dpre = (r(g_rgbpre) @ r(rgb_l.w).T) * (d > 0)
+        g_dpre = _relu_mask(r(g_rgbpre) @ r(rgb_l.w).T, d)
         din = torch.cat([fin, f["de"]], dim=1)
         gw[D + 2], gb[D + 2] = wgrad(din, g_dpre), g_dpre.sum(0)
         g_din = r(g_dpre) @ r(dir_l.w).T
@@ -406,7 +415,7 @@ def _bwd_plain(model, xe, de, g, sigma_only, cdt, stash, want_dx=False,
     keep(G_SIG, g_sigma)
     gw[D], gb[D] = wgrad(h8, g_sigma), g_sigma.sum(0)
     for i in range(D - 1, -1, -1):
-        g_pre = g_h * (act(i + 1) > 0)
+        g_pre = _relu_mask(g_h, act(i + 1))
         keep(i * W, g_pre)
         a_in = torch.cat([xe, act(i)], dim=1) if i == SKIP else act(i)
         gw[i], gb[i] = wgrad(a_in, g_pre), g_pre.sum(0)

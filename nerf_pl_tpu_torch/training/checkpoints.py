@@ -85,7 +85,7 @@ def _array_payload(arr) -> bytes:
             return packb((tuple(t.shape), "bfloat16",
                           t.view(torch.int16).numpy().tobytes()))
         arr = t.numpy()
-    arr = np.ascontiguousarray(arr)
+    arr = np.asarray(arr)  # not ascontiguousarray: it makes a 0-d array 1-d
     if arr.dtype.hasobject:
         raise ValueError("object arrays cannot be serialized")
     return packb((arr.shape, arr.dtype.name, arr.tobytes("C")))

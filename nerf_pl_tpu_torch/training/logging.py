@@ -24,7 +24,8 @@ class RunLogger:
         self._tb = None
         self._images = True
         # scalar writes come from the main loop while image dumps arrive
-        # from the caller's threads — serialize the streams
+        # from the trainers' background writer (utils/io_async.py) —
+        # serialize the streams
         self._lock = threading.Lock()
         os.makedirs(self.dir, exist_ok=True)
         self._jsonl = open(os.path.join(self.dir, "metrics.jsonl"), "a")

@@ -106,14 +106,17 @@ def host_to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
 
 
 def _tree(d: Dict[str, torch.Tensor]) -> dict:
-    """``{"coarse/xyz_layers/0/w": t}`` -> the nested flax state dict."""
+    """``{"coarse/xyz_layers/0/w": t}`` -> the nested flax state dict.  The
+    leaves are the optimiser's own tensors (detached, on their device), which
+    the next step updates in place: a writer snapshots them first
+    (``utils/io_async.py::snapshot``)."""
     out: dict = {}
     for k, v in d.items():
         node = out
         *path, leaf = k.split("/")
         for part in path:
             node = node.setdefault(part, {})
-        node[leaf] = v.detach().cpu()
+        node[leaf] = v.detach()
     return out
 
 
@@ -200,7 +203,8 @@ class Optimizer:
         return {"count": _count(self.sched_count)}
 
     def state_tree(self) -> dict:
-        """The optax state as a flax state dict."""
+        """The optax state as a flax state dict, its tensors shared with the
+        optimiser (see ``_tree``)."""
         return {str(i): e for i, e in enumerate(self._slots())}
 
     def load_state_tree(self, state: dict) -> None:

@@ -65,6 +65,7 @@ from ..ops.shadow_mapping import (efficient_sm, generate_shadow_map,
                                   get_normed_w, get_projections,
                                   normalize_min_max, shadow_mapping_images)
 from ..tools.render import render_image
+from ..utils.io_async import snapshot
 from ..utils.visualization import visualize_depth
 from .losses import mse_loss, opacity_loss, sm_loss
 from .metrics import psnr as psnr_metric
@@ -171,6 +172,21 @@ def dump_val_images(logger, cfg, step: int, epoch: int, out, rgbs, typ: str):
         write_png(os.path.join(d, f"disp_{epoch:03d}.png"), to8b(disp))
     logger.images(step, "val/GT_pred_depth", np.stack(
         [gt.transpose(2, 0, 1), rgb.transpose(2, 0, 1), depth]))
+
+
+def submit_val_images(system, epoch: int, out, rgbs, typ: str) -> None:
+    """``dump_val_images`` on the system's writer thread, from a snapshot
+    of the render (the JAX systems' ``_dump_val_images``); ``fit`` drains
+    the writer before it returns."""
+    snap = snapshot((out, rgbs))
+    step = epoch * system.steps_per_epoch
+
+    def dump():
+        host_out, host_rgbs = snap.fetch()
+        dump_val_images(system.logger, system.cfg, step, epoch, host_out,
+                        host_rgbs, typ)
+
+    system._writer.submit(dump)
 
 
 def _reject_per_host_data(cfg: Config, trainer_name: str) -> None:
@@ -406,8 +422,7 @@ class EfficientSMSystem(_ShadowSystemBase):
             losses.append(float(mse_loss(out, t["rgbs"])))
             psnrs.append(float(psnr_metric(out[f"rgb_{typ}"], t["rgbs"])))
             if i == 0:
-                dump_val_images(self.logger, cfg, epoch * self.steps_per_epoch,
-                                epoch, out, t["rgbs"], typ)
+                submit_val_images(self, epoch, out, t["rgbs"], typ)
         return {"val/loss": float(np.mean(losses)),
                 "val/psnr": float(np.mean(psnrs))}
 
@@ -474,8 +489,7 @@ class RGBSMSystem(EfficientSMSystem):
             sms = _put(sample["sm"], self.device)
             rows.append([float(v) for v in self._loss(out, t["rgbs"], sms)])
             if i == 0:
-                dump_val_images(self.logger, cfg, epoch * self.steps_per_epoch,
-                                epoch, out, t["rgbs"], typ)
+                submit_val_images(self, epoch, out, t["rgbs"], typ)
         loss, psnr, sm_psnr = np.mean(np.asarray(rows), axis=0)
         return {"val/loss": float(loss), "val/psnr": float(psnr),
                 "val/sm_psnr": float(sm_psnr)}
@@ -568,8 +582,7 @@ class LightSamplerSystem(_ShadowSystemBase):
             losses.append(float(mse_loss(out, t["rgbs"])))
             psnrs.append(float(psnr_metric(out["rgb_coarse"], t["rgbs"])))
             if i == 0:
-                dump_val_images(self.logger, cfg, epoch * self.steps_per_epoch,
-                                epoch, out, t["rgbs"], "coarse")
+                submit_val_images(self, epoch, out, t["rgbs"], "coarse")
         return {"val/loss": float(np.mean(losses)),
                 "val/psnr": float(np.mean(psnrs))}
 
@@ -674,7 +687,7 @@ class ShadowMappingSystem(NeRFSystem):
                 "train/psnr": torch.stack(psnrs).float().cpu().numpy()}
 
     def _save_epoch(self, epoch: int, val_loss: Optional[float]) -> None:
-        self.save_ckpt(epoch, None)
+        self.save_ckpt(epoch, None, background=True)
 
     def validation(self, epoch: int,
                    max_images: Optional[int] = None) -> Dict[str, float]:
@@ -708,8 +721,7 @@ class ShadowMappingSystem(NeRFSystem):
             losses.append(float(mse_loss(out, t["rgbs"])))
             psnrs.append(float(psnr_metric(out[f"rgb_{typ}"], t["rgbs"])))
             if i == 0:
-                dump_val_images(self.logger, cfg, epoch * self.steps_per_epoch,
-                                epoch, out, t["rgbs"], typ)
+                submit_val_images(self, epoch, out, t["rgbs"], typ)
         return {"val/loss": float(np.mean(losses)),
                 "val/psnr": float(np.mean(psnrs))}
 

@@ -20,10 +20,15 @@ reference ``train.py`` NeRFSystem), on one device.
     do); ``--debug_nans`` raises ``FloatingPointError`` at the first step
     whose loss, a parameter or its grad is not finite (every system).
 
-Checkpoints are written synchronously; the JAX trainer's asynchronous writer,
-one-dispatch val program and epoch pipeline hid a remote-TPU latency that a
-local card does not have.  Flags the port cannot honour yet raise
-``ValueError`` (ROADMAP.md, Queue 1).
+Checkpoints, validation images and TensorBoard images are written by one
+ordered background thread (``utils/io_async.py::AsyncWriter``), as the JAX
+trainer writes them: the loop snapshots the weights and the optimiser state
+on the device (both are updated in place by the next step) and the worker
+copies the snapshot to the host and serialises it while the next steps run;
+``fit`` drains the writer before it returns, so every checkpoint it lists is
+on disk.  The JAX trainer's one-dispatch val program and epoch pipeline hid
+a remote-TPU latency that a local card does not have.  Flags the port cannot
+honour yet raise ``ValueError`` (ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
@@ -39,9 +44,10 @@ import torch
 from .. import resolve_device
 from ..config import Config
 from ..data import dataset_dict
-from ..models.nerf import init_nerf
+from ..models.nerf import init_nerf, nerf_param_tree
 from ..ops.rendering import render_rays
 from ..tools.render import render_image
+from ..utils.io_async import AsyncWriter, snapshot
 from ..utils.profiling import profile_trace, raise_if_not_finite
 from ..utils.visualization import visualize_depth
 from . import checkpoints
@@ -131,6 +137,7 @@ class NeRFSystem:
         self.device = resolve_device(device)
         self.loss_name = cfg.loss_type
         self.logger = RunLogger(cfg.log_dir, cfg.exp_name)
+        self._writer = AsyncWriter()
         self.shuffle_gen = torch.Generator().manual_seed(cfg.seed)
         self.render_gen = torch.Generator(device=self.device).manual_seed(
             cfg.seed + 1)
@@ -251,37 +258,65 @@ class NeRFSystem:
             losses.append(float(loss_dict[self.loss_name](results, rgbs)))
             psnrs.append(float(psnr_metric(results[f"rgb_{typ}"], rgbs)))
             if i == 0:
-                W, H = cfg.img_wh
-                img = results[f"rgb_{typ}"].float().cpu().numpy()
-                depth = results[f"depth_{typ}"].float().cpu().numpy()
-                stack = np.stack([
-                    sample["rgbs"].reshape(H, W, 3).transpose(2, 0, 1),
-                    img.reshape(H, W, 3).transpose(2, 0, 1),
-                    visualize_depth(depth.reshape(H, W))])
-                self.logger.images(epoch * self.steps_per_epoch,
-                                   "val/GT_pred_depth", stack)
+                self._dump_val_image(epoch, sample["rgbs"],
+                                     results[f"rgb_{typ}"],
+                                     results[f"depth_{typ}"])
         return {"val/loss": float(np.mean(losses)),
                 "val/psnr": float(np.mean(psnrs))}
 
+    def _dump_val_image(self, epoch: int, gt: np.ndarray, rgb, depth) -> None:
+        """The first val image's GT / prediction / depth grid to TensorBoard,
+        assembled on the writer thread from a snapshot of the render."""
+        W, H = self.cfg.img_wh
+        snap = snapshot((rgb, depth))
+        step = epoch * self.steps_per_epoch
+
+        def dump():
+            img, dep = (t.float().numpy() for t in snap.fetch())
+            self.logger.images(step, "val/GT_pred_depth", np.stack([
+                gt.reshape(H, W, 3).transpose(2, 0, 1),
+                img.reshape(H, W, 3).transpose(2, 0, 1),
+                visualize_depth(dep.reshape(H, W))]))
+
+        self._writer.submit(dump)
+
     # -- checkpointing ------------------------------------------------------
     def save_ckpt(self, epoch: int, val_loss: Optional[float],
-                  filename: Optional[str] = None) -> str:
+                  filename: Optional[str] = None,
+                  background: bool = False) -> str:
         """Write a resumable checkpoint.  ``val_loss=None`` (last.ckpt, the
-        preemption save) is exempt from top-5 pruning."""
+        preemption save) is exempt from top-5 pruning.
+
+        ``background`` (what the epoch loop asks) snapshots the weights and
+        the optimiser state on the device and hands the host copy, the write
+        and the top-5 pruning to the ordered writer thread, so checkpoints
+        are pruned in the order they were submitted; without it (a direct
+        call, the preemption save) the file is written before the call
+        returns."""
         os.makedirs(self.ckpt_root, exist_ok=True)
         path = os.path.join(self.ckpt_root, filename or f"epoch={epoch}.ckpt")
-        checkpoints.save_checkpoint(path, {
-            "params": self.models,
+        state = {
+            "params": {k: nerf_param_tree(m) for k, m in self.models.items()},
             "opt_state": self.optimizer.state_tree(),
             "epoch": epoch,
-        })
-        if val_loss is not None:
+        }
+        snap = snapshot(state) if background else None
+
+        def write():
+            checkpoints.save_checkpoint(path, snap.fetch() if snap else state)
+            if val_loss is None:
+                return
             self._topk.append((val_loss, path))
             self._topk.sort(key=lambda t: t[0])
             while len(self._topk) > 5:
                 _, worst = self._topk.pop()
                 if os.path.exists(worst):
                     os.remove(worst)
+
+        if background:
+            self._writer.submit(write)
+        else:
+            write()
         return path
 
     # -- preemption ---------------------------------------------------------
@@ -299,6 +334,9 @@ class NeRFSystem:
         if not self._preempted:
             return
         self._preempted = False
+        # the writes already queued land first (in order); bounded, so a
+        # write that cannot finish does not keep the state from being saved
+        self._writer.drain(timeout=5.0)
         self.save_ckpt(epoch - (0 if complete else 1), None,
                        filename="preempt.ckpt")
         self.logger.close()
@@ -329,6 +367,7 @@ class NeRFSystem:
                 global_step += self.steps_per_epoch
                 self._finish_epoch(epoch, global_step, metrics,
                                    time.time() - t0)
+            self._writer.drain()  # every checkpoint on disk before returning
         finally:
             signal.signal(signal.SIGTERM, self._prev_handler
                           if self._prev_handler is not None else signal.SIG_DFL)
@@ -369,9 +408,9 @@ class NeRFSystem:
         """The end of an epoch's checkpoint: top 5 by val loss, else
         ``last.ckpt`` (resumability must not depend on the val cadence)."""
         if val_loss is None:
-            self.save_ckpt(epoch, None, filename="last.ckpt")
+            self.save_ckpt(epoch, None, filename="last.ckpt", background=True)
         else:
-            self.save_ckpt(epoch, val_loss)
+            self.save_ckpt(epoch, val_loss, background=True)
 
     def _finish_epoch(self, epoch, global_step, metrics, dt):
         cfg = self.cfg

@@ -1,5 +1,5 @@
 """The port stands alone: it imports torch, numpy and the standard library,
-never JAX, flax, msgpack, PIL, imageio or the JAX package."""
+never JAX, flax, msgpack, PIL, imageio, scipy or the JAX package."""
 import pathlib
 import re
 import subprocess
@@ -12,7 +12,8 @@ MODULES = sorted(
     ".".join(("nerf_pl_tpu_torch",) + p.relative_to(PKG).with_suffix("").parts)
     .removesuffix(".__init__")
     for p in PKG.rglob("*.py"))
-FORBIDDEN = ("jax", "jaxlib", "flax", "msgpack", "PIL", "imageio", "nerf_pl_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "msgpack", "PIL", "imageio", "scipy",
+             "nerf_pl_tpu")
 
 
 def test_port_modules_import_without_jax_flax_msgpack_pil():
@@ -56,6 +57,16 @@ def test_port_modules_import_without_jax_flax_msgpack_pil():
     # and the profiling aids
     assert {"nerf_pl_tpu_torch.data.llff", "nerf_pl_tpu_torch.data.jpeg",
             "nerf_pl_tpu_torch.utils.profiling"} <= set(MODULES)
+    # the tools: mesh extraction (its connected components in numpy, not
+    # scipy), checkpoint import and export, the weights-only strip, and the
+    # trainers' background writer
+    assert {"nerf_pl_tpu_torch.extract_color_mesh",
+            "nerf_pl_tpu_torch.import_torch_ckpt",
+            "nerf_pl_tpu_torch.save_weights_only",
+            "nerf_pl_tpu_torch.tools.extract_mesh",
+            "nerf_pl_tpu_torch.tools.mesh_utils",
+            "nerf_pl_tpu_torch.tools.import_torch_ckpt",
+            "nerf_pl_tpu_torch.utils.io_async"} <= set(MODULES)
     # -I: no PYTHONPATH or user site, so nothing imported by a site hook
     # is counted against the port
     code = (
@@ -74,7 +85,8 @@ def test_port_modules_import_without_jax_flax_msgpack_pil():
 def test_port_sources_never_import_the_jax_package():
     # import statements and module-name strings (importlib, __import__)
     pattern = re.compile(
-        r"^\s*(from|import)\s+(nerf_pl_tpu(?!_torch)|jax|flax|msgpack|PIL|imageio)\b"
+        r"^\s*(from|import)\s+(nerf_pl_tpu(?!_torch)|jax|flax|msgpack|PIL|imageio"
+        r"|scipy)\b"
         r"|[\"']nerf_pl_tpu(?!_torch)[\w.]*[\"']", re.M)
     sources = list(PKG.rglob("*.py")) + [PKG.parent / "chip_smoke.py"]
     hits = [f"{p}: {m.group(0).strip()}" for p in sources
