@@ -3991,6 +3991,469 @@ def optimizer_first_difference() -> dict:
     return dict(differ=differ, first=first)
 
 
+# ---------------------------------------------------------------- phase 11
+# Distribution and streaming.  The card machine has one GPU, so the
+# collectives run three ways: one rank of an NCCL group of one (the
+# gradient all-reduce and every collective issued, on the card); two gloo
+# ranks sharing the one card with CUDA tensors (the mean of two ranks'
+# grads and the gathered light cache); and the streamed fit in this
+# process.  No two-card run is possible here.
+# The sampled-light cancellation (Queue 3): the grads' sums over points
+# compared with the sums of their terms' magnitudes (scripts/
+# light_sampler_census.py) at chip_smoke's LightSampler step.
+# RGBSM's f32 grads, two ranks against one process's mean loss (max and
+# mean of |diff| over each tensor's largest): the light's sums run over
+# halves and the cotangents meet in another order, so rounding only; an
+# H100 80GB HBM3 at 700 W read 3.175e-6 and 7.053e-7, and the CPU test of
+# the same comparison (test_torch_port_distributed.py) holds the vanilla
+# step's 1e-5 and 1e-6
+DIST_RGBSM_TOL = (1e-5, 1e-6)
+# epochs timed in turns (A B B A, this many rounds) where phase 11 sets two
+# ways of training the same rows side by side
+TURN_ROUNDS = 2
+
+
+def train_argv(tmp: str, name: str, extra=()) -> list:
+    """Phase 4's training flags (``train_end_to_end``) under ``name``."""
+    return ["--root_dir", os.path.join(tmp, "scene"), "--dataset_name",
+            "blender", "--img_wh", str(TRAIN_WH), str(TRAIN_WH),
+            "--N_samples", str(N_SAMPLES), "--N_importance", str(N_IMPORTANCE),
+            "--batch_size", str(TRAIN_BATCH), "--num_epochs", "2",
+            "--lr", "5e-4", "--white_back", "true",
+            "--compute_dtype", "bfloat16", "--exp_name", name,
+            "--log_dir", os.path.join(tmp, "logs"),
+            "--ckpt_dir", os.path.join(tmp, "ckpts"), *extra]
+
+
+def fit_rates(tmp: str, name: str) -> tuple:
+    with open(os.path.join(tmp, "logs", name, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    epochs = [r for r in recs if "train/loss" in r]
+    return ([r["train/loss"] for r in epochs],
+            [r["train/rays_per_s"] for r in epochs])
+
+
+def vanilla_draws(seed: int, rows: int, device) -> dict:
+    """The vanilla step's random draws (perturb, noise, importance) from a
+    seed, for a step that two processes must repeat exactly."""
+    g = torch.Generator().manual_seed(seed)
+    n = N_SAMPLES + N_IMPORTANCE
+    return {k: v.to(device) for k, v in {
+        "perturb_rand": torch.rand((rows, N_SAMPLES), generator=g),
+        "noise_coarse": torch.randn((rows, N_SAMPLES), generator=g),
+        "u": torch.rand((rows, N_IMPORTANCE), generator=g),
+        "jitter": torch.rand((rows, N_IMPORTANCE), generator=g),
+        "noise_fine": torch.randn((rows, n), generator=g)}.items()}
+
+
+def role_nccl1(spec: dict) -> None:
+    """One rank of an NCCL group of one (the environment ``torchrun`` sets):
+    phase 4's fit through the trainer, then one step's launches, collectives
+    and synchronising calls."""
+    import torch.distributed as dist
+
+    from nerf_pl_tpu_torch.config import get_opts
+    from nerf_pl_tpu_torch.parallel import mesh as pm
+    from nerf_pl_tpu_torch.training.trainer import NeRFSystem
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_opts(spec["argv"])
+    torch.cuda.synchronize()
+    reset_counts()
+    pm.reset_counts()
+    t0 = time.perf_counter()
+    system = NeRFSystem(cfg, device="cuda")
+    if not (system.mesh.distributed and system.mesh.size == 1
+            and dist.get_backend() == "nccl"):
+        raise AssertionError(f"not an NCCL group of one: {system.mesh}")
+    system.fit()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fit_counts, fit_coll = read_counts(), dict(pm.COUNTS)
+    rays, rgbs = system.rays[:TRAIN_BATCH], system.rgbs[:TRAIN_BATCH]
+    torch.cuda.synchronize()
+    reset_counts()
+    pm.reset_counts()
+    system.train_step(rays, rgbs)
+    torch.cuda.synchronize()
+    per_step, step_coll = read_counts(), dict(pm.COUNTS)
+    syncs = step_syncs(system, tag="dist nccl1")
+    prof = profile_device("one step, NCCL group of one",
+                          lambda: system.train_step(rays, rgbs), top=6)
+    # the same system's epochs with and without its all-reduce, in turns
+    reducer = system._reducer
+    turns = {"group": [], "none": []}
+    for t in ("group", "none", "none", "group") * TURN_ROUNDS:
+        system._reducer = reducer if t == "group" else None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        system.train_epoch(2, 0)
+        torch.cuda.synchronize()
+        turns[t].append(system.steps_per_epoch * TRAIN_BATCH
+                        / (time.perf_counter() - t0))
+    system._reducer = reducer
+    with open(spec["out"], "w") as f:
+        json.dump(dict(fit_counts=fit_counts, fit_collectives=fit_coll,
+                       per_step=per_step, step_collectives=step_coll,
+                       syncs=syncs, profile=prof, wall_s=wall, turns=turns,
+                       steps_per_epoch=system.steps_per_epoch), f)
+    dist.destroy_process_group()
+
+
+def role_gloo2(spec: dict) -> None:
+    """One of two gloo ranks sharing ``cuda:0``: one vanilla step and one
+    ``RGBSMSystem --grad_on_light`` step on this rank's rows with seeded
+    draws; rank 0 also forms the same steps' mean in one process; then a
+    1-epoch vanilla fit, and the ranks' parameters compared."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from nerf_pl_tpu_torch.config import get_opts
+    from nerf_pl_tpu_torch.ops.rendering import render_rays
+    from nerf_pl_tpu_torch.parallel import mesh as pm
+    from nerf_pl_tpu_torch.training.losses import loss_dict
+    from nerf_pl_tpu_torch.training.shadow_systems import RGBSMSystem
+    from nerf_pl_tpu_torch.training.trainer import NeRFSystem, init_models
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    r = int(os.environ["RANK"])
+    dev = torch.device(spec.get("device", "cuda:0"))  # both ranks: one card
+    pm.initialize_distributed(dev, backend="gloo")
+    out = dict(rank=r)
+
+    def grads_of(models):
+        return {f"{k}/{n}": (torch.zeros_like(p) if p.grad is None
+                             else p.grad.detach().clone())
+                for k, m in models.items() for n, p in m.named_parameters()}
+
+    # the vanilla step
+    cfg = get_opts(spec["vanilla_argv"])
+    system = NeRFSystem(cfg, device=dev)
+    B = spec.get("batch", TRAIN_BATCH)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sync()
+    reset_counts()
+    pm.reset_counts()
+    system.train_step(system.rays[:B], system.rgbs[:B],
+                      overrides=vanilla_draws(100 + r, B, dev))
+    sync()
+    out["vanilla_step"] = dict(launches=read_counts(),
+                               collectives=dict(pm.COUNTS))
+    mine = grads_of(system.models)
+    if r == 0:
+        models = init_models(cfg, dev)  # the weights the step started from
+        halves = []
+        for h in range(2):
+            ds = system.train_dataset
+            rows = pm.shard_rays(ds.all_rays, pm.Mesh(2, h))[:B]
+            cols = pm.shard_rays(ds.all_rgbs, pm.Mesh(2, h))[:B]
+            res = render_rays(models["coarse"], models.get("fine"),
+                              torch.from_numpy(rows).to(dev), None,
+                              mode=system.mode,
+                              overrides=vanilla_draws(100 + h, B, dev),
+                              **system.rkw)
+            for m in models.values():
+                m.zero_grad(set_to_none=True)
+            loss_dict[system.loss_name](res, torch.from_numpy(cols).to(dev)
+                                        ).backward()
+            halves.append(grads_of(models))
+        differ = sum(int((mine[k] != (halves[0][k] + halves[1][k]) / 2).sum())
+                     for k in mine)
+        out["vanilla_differ"] = differ
+        out["vanilla_values"] = sum(v.numel() for v in mine.values())
+
+    # the joint RGB + shadow step through the gathered light cache
+    sm = RGBSMSystem(get_opts(spec["rgb_sm_argv"]), device=dev)
+    if not sm.shard_light:
+        raise AssertionError("the light view is not split over the ranks")
+    Bs = sm.cfg.batch_size
+    gen = torch.Generator().manual_seed(200 + r)
+    lgen = torch.Generator().manual_seed(300)  # the whole view, both ranks
+    cam_ov = {k: v.to(dev) for k, v in step_draws(gen, Bs, 64).items()}
+    light_ov = {k: v.to(dev) for k, v in step_draws(
+        lgen, sm.light_rays.shape[0], 32).items()}
+    batch = [getattr(sm, k)[:Bs] for k in sm.train_bufs]
+    sync()
+    reset_counts()
+    pm.reset_counts()
+    sm.train_step(*batch, None, 32,
+                  overrides={"cam": cam_ov, "light": light_ov})
+    sync()
+    out["rgb_sm_step"] = dict(launches=read_counts(),
+                              collectives=dict(pm.COUNTS))
+    mine_sm = grads_of(sm.models)
+    # rank 0 needs rank 1's batch and draws for the one-process mean
+    allb = [pm.all_gather_rows(t.contiguous(), sm.mesh) for t in batch]
+    if r == 0:
+        models = init_models(sm.cfg, dev)
+        sm.models, sm.shard_light = models, False
+        saved_mesh, sm.mesh = sm.mesh, pm.Mesh(1, 0, dev)
+        for m in models.values():
+            m.zero_grad(set_to_none=True)
+        for h in range(2):  # the mean loss's grad, one half's graph a time
+            hb = [t[h * Bs:(h + 1) * Bs] for t in allb]
+            rays, rgbs, sms, pixels, pidx = hb
+            o, _ = sm._shadow_out(
+                rays, pixels, pidx, None, 32,
+                {"cam": {k: v.to(dev) for k, v in step_draws(
+                    torch.Generator().manual_seed(200 + h), Bs, 64).items()},
+                 "light": light_ov}, out_prefix="sm")
+            (sm._loss(o, rgbs, sms)[0] / 2).backward()
+            del o
+        ref = grads_of(models)
+        rows = grad_readings([mine_sm[k] for k in sorted(mine_sm)],
+                             [ref[k] for k in sorted(ref)], sorted(ref))
+        out["rgb_sm_readings"] = summarize(rows)
+        sm.mesh = saved_mesh
+
+    # a short fit: the ranks' parameters after it
+    system.fit()
+    h = hashlib.sha256()
+    for k, m in sorted(system.models.items()):
+        for n, p in m.named_parameters():
+            h.update(p.detach().cpu().numpy().tobytes())
+    digests = pm.process_allgather(np.frombuffer(h.digest(), np.uint8),
+                                   system.mesh)
+    out["fit_params_equal"] = bool((digests == digests[0]).all())
+    out["fit_steps"] = system.steps_per_epoch
+    with open(spec["out"].format(rank=r), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def run_role(role: str, spec: dict, env: dict, timeout: int = 600) -> None:
+    path = spec["spec_path"]
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    return subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             "--role", role, path], env=env, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+
+
+def wait_roles(procs: list, tag: str, timeout: int = 600) -> None:
+    outs, bad = [], False
+    for p in procs:
+        try:
+            o, _ = p.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            o, _ = p.communicate()
+            bad = True
+        outs.append(o)
+        bad |= p.returncode != 0
+    for i, o in enumerate(outs):
+        for line in o.splitlines():
+            if line.startswith("[") and "Warning" not in line:
+                log(f"[{tag} rank {i}] {line}")
+    if bad:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        raise AssertionError(f"{tag}: a rank failed:\n" + "\n\n".join(
+            f"rc={p.returncode}\n{o[-6000:]}" for p, o in zip(procs, outs)))
+
+
+def rank_env(rank: int, world: int, port: int) -> dict:
+    env = dict(os.environ)
+    env.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(world),
+               MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    return env
+
+
+def params_of(path: str) -> dict:
+    from nerf_pl_tpu_torch.training.checkpoints import load_checkpoint
+
+    flat = {}
+
+    def walk(node, prefix):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{prefix}/{k}")
+        else:
+            flat[prefix] = np.asarray(node)
+
+    walk(load_checkpoint(path)["params"], "")
+    return flat
+
+
+def dist_end_to_end(tmp: str, trained: dict) -> dict:
+    """Phase 11: an NCCL group of one, two gloo ranks on the one card, and
+    the streamed fit."""
+    from nerf_pl_tpu_torch import train as train_cli
+    from nerf_pl_tpu_torch.training.launch import free_port
+    from nerf_pl_tpu_torch.training.trainer import NeRFSystem
+    from nerf_pl_tpu_torch.config import get_opts
+
+    import gc
+
+    t_phase = time.perf_counter()
+    # the ranks below are processes of their own on this card: hand them
+    # the memory this process's allocator keeps cached from earlier phases
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[dist] this process holds {torch.cuda.memory_allocated() / 2**30:.2f}"
+        f" GiB on the card ({torch.cuda.memory_reserved() / 2**30:.2f} GiB "
+        "reserved) as the ranks start")
+    # (1) one rank of an NCCL group of one, in a process of its own
+    spec = dict(argv=train_argv(tmp, "smoke_nccl"),
+                out=os.path.join(tmp, "nccl1.json"),
+                spec_path=os.path.join(tmp, "nccl1_spec.json"))
+    wait_roles([run_role("nccl1", spec, rank_env(0, 1, free_port()))],
+               "dist nccl1")
+    with open(spec["out"]) as f:
+        nccl = json.load(f)
+    steps = nccl["steps_per_epoch"]
+    for k in ("A", "D", "E"):
+        if nccl["per_step"][k] != trained["per_step"][k]:
+            raise AssertionError(
+                f"NCCL group of one: {k} {nccl['per_step'][k]} a step, the "
+                f"train phase's {trained['per_step'][k]}")
+    if nccl["step_collectives"]["allreduce_grads"] != 1:
+        raise AssertionError(f"grad all-reduces in one step: "
+                             f"{nccl['step_collectives']}")
+    if nccl["fit_collectives"]["allreduce_grads"] != 2 * steps:
+        raise AssertionError(f"grad all-reduces in the fit: "
+                             f"{nccl['fit_collectives']} ({steps} steps/epoch)")
+    if nccl["syncs"]["count"] > trained["syncs"]["count"]:
+        raise AssertionError(f"synchronising calls a step: "
+                             f"{nccl['syncs']} > {trained['syncs']['count']}")
+    a = params_of(os.path.join(tmp, "ckpts", "smoke", "epoch=1.ckpt"))
+    b = params_of(os.path.join(tmp, "ckpts", "smoke_nccl", "epoch=1.ckpt"))
+    differ = sum(int((a[k] != b[k]).sum()) for k in a)
+    if sorted(a) != sorted(b) or differ:
+        raise AssertionError(f"NCCL group of one vs no group: {differ} "
+                             "parameter values differ after the fit")
+    losses, rates = fit_rates(tmp, "smoke_nccl")
+    nccl["turn_medians"] = {k: float(np.median(v))
+                            for k, v in nccl["turns"].items()}
+    log(f"[dist] NCCL group of one: {rates[-1]:.1f} train rays/s (epoch 1) "
+        f"beside the fit without a group's {trained['rays_per_s']:.1f}; "
+        f"in turns over {len(nccl['turns']['group'])} epochs each (G N N G, "
+        f"one process): with the all-reduce {nccl['turns']['group']}, "
+        f"without {nccl['turns']['none']}, medians "
+        f"{nccl['turn_medians']}; "
+        f"launches a step {nccl['per_step']}; collectives a step "
+        f"{nccl['step_collectives']}, in the fit {nccl['fit_collectives']}; "
+        f"{nccl['syncs']['count']} synchronising calls a step; parameters "
+        f"after the fit bit-equal to the fit without a group (0 of "
+        f"{sum(v.size for v in a.values())} differ)")
+
+    # (2) two gloo ranks sharing the card, with CUDA tensors
+    port = free_port()
+    spec = dict(vanilla_argv=train_argv(tmp, "smoke_gloo",
+                                        ["--num_epochs", "1"]),
+                rgb_sm_argv=["--root_dir", os.path.join(tmp, "shadow_scene"),
+                             *RGBSM_FLAGS, "--num_epochs", "1",
+                             "--exp_name", "gloo_rgb_sm",
+                             "--log_dir", os.path.join(tmp, "logs"),
+                             "--ckpt_dir", os.path.join(tmp, "ckpts")],
+                out=os.path.join(tmp, "gloo2_{rank}.json"),
+                spec_path=os.path.join(tmp, "gloo2_spec.json"))
+    wait_roles([run_role("gloo2", spec, rank_env(r, 2, port))
+                for r in range(2)], "dist gloo2")
+    gloo = []
+    for r in range(2):
+        with open(spec["out"].format(rank=r)) as f:
+            gloo.append(json.load(f))
+    g0 = gloo[0]
+    if g0["vanilla_differ"]:
+        raise AssertionError(f"two ranks' mean grads vs (g0 + g1) / 2 in one "
+                             f"process: {g0['vanilla_differ']} of "
+                             f"{g0['vanilla_values']} values differ")
+    rd = g0["rgb_sm_readings"]
+    if rd["max_rel"] > DIST_RGBSM_TOL[0] or rd["mean_rel"] > DIST_RGBSM_TOL[1]:
+        raise AssertionError(f"RGBSM two ranks vs one process: {rd} "
+                             f"(limits {DIST_RGBSM_TOL})")
+    for g in gloo:
+        if not g["fit_params_equal"]:
+            raise AssertionError("gloo ranks' parameters differ after the fit")
+        st = g["rgb_sm_step"]
+        for k, n in TRAINER_STEP_LAUNCHES["rgb_sm"].items():
+            if st["launches"][k] != n:
+                raise AssertionError(f"RGBSM rank step launches {st}")
+        if (st["collectives"]["allreduce_grads"] != 1
+                or st["collectives"]["all_gather_tiled"] != 4
+                or g["vanilla_step"]["collectives"]["allreduce_grads"] != 1):
+            raise AssertionError(f"collectives of the rank steps: {g}")
+    log(f"[dist] two gloo ranks on one card (CUDA tensors): vanilla mean "
+        f"grads bit-equal to (g0 + g1) / 2 in one process (0 of "
+        f"{g0['vanilla_values']} differ); RGBSM --grad_on_light through the "
+        f"gathered light cache vs the one-process mean loss: max rel "
+        f"{rd['max_rel']:.3e} ({rd['max_name']}), mean rel "
+        f"{rd['mean_rel']:.3e} ({rd['mean_name']}) (limits "
+        f"{DIST_RGBSM_TOL}); launches a rank step: vanilla "
+        f"{g0['vanilla_step']['launches']}, RGBSM "
+        f"{g0['rgb_sm_step']['launches']}; collectives: vanilla "
+        f"{g0['vanilla_step']['collectives']}, RGBSM "
+        f"{g0['rgb_sm_step']['collectives']}; parameters equal on both ranks "
+        f"after a {g0['fit_steps']}-step epoch")
+
+    # (3) the streamed fit, in this process
+    argv = train_argv(tmp, "smoke_stream", ["--data_device_resident", "false",
+                                            "--stream_slab_steps", "16"])
+    torch.cuda.synchronize()
+    reset_counts()
+    system = train_cli.main(argv + ["--device", "cuda"])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    losses, rates = fit_rates(tmp, "smoke_stream")
+    steps = system.steps_per_epoch
+    slabs = -(-steps // 16)
+    if system.slab_copies != 2 * slabs or not all(np.isfinite(losses)) \
+            or not losses[1] < losses[0]:
+        raise AssertionError(f"streamed fit: {system.slab_copies} slab copies "
+                             f"(want {2 * slabs}), losses {losses}")
+    torch.cuda.synchronize()
+    reset_counts()
+    copies0 = system.slab_copies
+    prof_s = profile_device(f"one streamed epoch ({steps} steps, {slabs} "
+                            "slabs)", lambda: system.train_epoch(2, 0), top=6)
+    torch.cuda.synchronize()
+    epoch_counts = read_counts()
+    copies = system.slab_copies - copies0
+    per_step = {k: epoch_counts[k] / steps for k in ("A", "D", "E")}
+    if copies != slabs or per_step != {k: trained["per_step"][k]
+                                       for k in ("A", "D", "E")}:
+        raise AssertionError(f"streamed epoch: {copies} copies, launches "
+                             f"{epoch_counts}")
+    resident = NeRFSystem(get_opts(train_argv(tmp, "smoke_resident")),
+                          device="cuda")
+    resident.train_epoch(0, 0)  # warm
+    prof_r = profile_device(f"one resident epoch ({steps} steps)",
+                            lambda: resident.train_epoch(1, 0), top=6)
+    turns = {"resident": [], "stream": []}
+    for t in ("resident", "stream", "stream", "resident") * TURN_ROUNDS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (resident if t == "resident" else system).train_epoch(3, 0)
+        torch.cuda.synchronize()
+        turns[t].append(steps * TRAIN_BATCH / (time.perf_counter() - t0))
+    turn_medians = {k: float(np.median(v)) for k, v in turns.items()}
+    resident.logger.close()
+    idle = {k: (None if p["busy_ms"] is None else
+                1 - p["busy_ms"] / p["wall_ms"])
+            for k, p in (("stream", prof_s), ("resident", prof_r))}
+    log(f"[dist] streamed fit: {rates[-1]:.1f} train rays/s (epoch 1) beside "
+        f"the resident fit's {trained['rays_per_s']:.1f}; {slabs} slab copies "
+        f"an epoch (one pinned host-to-device copy each, {copies} counted); "
+        f"launches a step {per_step}; device idle share of an epoch: "
+        f"streamed {idle['stream']}, resident {idle['resident']}; train "
+        f"rays/s in turns over {len(turns['stream'])} epochs each (R S S R, "
+        f"one process): streamed {turns['stream']}, resident "
+        f"{turns['resident']}, medians {turn_medians}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return dict(nccl=nccl, gloo=gloo, stream=dict(
+        counts=counts, rays_per_s=rates, per_step=per_step,
+        epoch_counts=epoch_counts, slab_copies=copies, profile=prof_s,
+        resident_profile=prof_r, idle=idle, turns=turns,
+        turn_medians=turn_medians),
+        nccl_rays_per_s=fit_rates(tmp, "smoke_nccl")[1],
+        seconds=time.perf_counter() - t_phase)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4044,6 +4507,7 @@ def main() -> int:
         log(f"[wide] phase 6: {time.perf_counter() - t_wide:.1f} s")
         shadow = shadow_end_to_end(tmp)
         trainers = trainers_end_to_end(tmp)
+        census = light_sampler_cancellation(tmp)
         llff = llff_end_to_end(tmp)
         t_tools = time.perf_counter()
         smoke_fit = density_checkpoint(
@@ -4064,6 +4528,7 @@ def main() -> int:
         optim_ops = optimizer_first_difference()
         tools_s = time.perf_counter() - t_tools
         log(f"[tools] phase 10: {tools_s:.1f} s")
+        dist = dist_end_to_end(tmp, trained)
 
     fine_row, coarse_row = c["rows"]["rgb"], c["rows"]["sigma-only"]
     kernels = [
@@ -4296,7 +4761,13 @@ def main() -> int:
             f"{st['f32_step']['D']['device_ms']:.3f} ms, E "
             f"{st['f32_step']['E']['device_ms']:.3f} ms (f32); synchronising "
             f"calls a step {sum(st['syncs'].values())}; f32 step grads card "
-            f"vs cpu rel err {trainers['grads'][tag]:.3e}")
+            f"vs cpu rel err {trainers['grads'][tag]:.3e}"
+            + ("" if tag != "light_sampler" else
+               f"; carried by {census['entries']} entries of "
+               f"{census['tensor']}: cancellation ratio T/|S| "
+               f"{census['ratio']}, difference over the float32 estimate "
+               f"{census['seen_over_estimate']}, ReLU masks that differ "
+               f"{census['mask_flips']} of {census['masks']}"))
     log(f"[trainers] rgb_sm bf16 "
         f"{trainers['fits']['rgb_sm_bf16']['rays_per_s'][-1]:.1f}, light "
         f"cache {trainers['fits']['rgb_sm_cache']['rays_per_s'][-1]:.1f} "
@@ -4377,6 +4848,25 @@ def main() -> int:
         f"export {tools['ckpt']['differ']} of {tools['ckpt']['values']} "
         f"moments differ; optimiser first op {optim_ops['first']}; phase "
         f"{tools_s:.1f} s; total {time.perf_counter() - t_start:.1f} s")
+    # phase 11: the launches of the NCCL group of one, the two gloo ranks'
+    # steps and the streamed fit
+    for row in kernels:
+        key = {"searchsorted_rank": "A", "fused_nerf_fwd": "C",
+               "fused_nerf_stash_fwd": "D",
+               "fused_nerf_bwd_stash": "E"}.get(row["name"])
+        if key is None:
+            continue
+        row["launches_dist"] = dict(
+            nccl_world1_fit=dist["nccl"]["fit_counts"][key],
+            nccl_world1_per_step=dist["nccl"]["per_step"][key],
+            gloo2_vanilla_step=[g["vanilla_step"]["launches"][key]
+                                for g in dist["gloo"]],
+            gloo2_rgb_sm_step=[g["rgb_sm_step"]["launches"][key]
+                               for g in dist["gloo"]],
+            stream_fit=dist["stream"]["counts"][key],
+            stream_epoch=dist["stream"]["epoch_counts"][key])
+    log(f"[dist] phase 11: {dist['seconds']:.1f} s; total "
+        f"{time.perf_counter() - t_start:.1f} s")
     log(f"[card] {card}")
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -4386,5 +4876,36 @@ def main() -> int:
     return 0
 
 
+def light_sampler_cancellation(tmp: str) -> dict:
+    """Queue 3 item 1: LightSampler's f32 step on the card against the CPU
+    (phase 8's step, flags and draws) with each grad entry's cancellation
+    ratio over its per-point terms (float64, on the CPU), the ReLU masks
+    and the cotangents of every pass
+    (``scripts/light_sampler_census.py``)."""
+    from nerf_pl_tpu_torch.scripts import light_sampler_census as census
+
+    t0 = time.perf_counter()
+    out = census.cancellation_census(tmp, step_draws, LS_FLAGS)
+    log(f"[census] LightSampler f32 step, card vs cpu: reading "
+        f"{out['reading']:.4e} on {out['tensor']} ({out['points']} points); "
+        f"the {out['entries']} entries that carry it: cancellation ratio "
+        f"T/|S| {out['ratio']}, their relative difference {out['seen_rel']}, "
+        f"the float32 estimate eps*sqrt(n)*T/|S| {out['estimate_rel']}, "
+        f"difference over estimate {out['seen_over_estimate']}, within "
+        f"eps*n*T/|S|: {out['within_worst_case']}; ratio over every entry "
+        f"of the tensor {out['ratio_all_entries']}; ReLU masks that differ "
+        f"{out['mask_flips']} of {out['masks']} (by pass and layer "
+        f"{out['mask_flips_by_pass']}); of the carrying entries "
+        f"{out['carry_index']}, {out.get('carry_in_flipped_units')} lie in "
+        f"a unit whose mask differs; cotangents' largest relative "
+        f"difference by pass {out['g_rel_by_pass']}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--role"]:
+        with open(sys.argv[3]) as f:
+            {"nccl1": role_nccl1, "gloo2": role_gloo2}[sys.argv[2]](json.load(f))
+        sys.exit(0)
     sys.exit(main())

@@ -10,7 +10,10 @@ The package imports torch, numpy and the standard library only.
                  compositing, the fused NeRF MLP forward (CUDA kernels C and
                  D) and backward (E and F) behind ``torch.autograd``, the
                  renderer, and the nvcc build of ``csrc/``
-- ``data``     : the Blender loader and a PNG reader on ``zlib``
+- ``data``     : the loaders (Blender, LLFF, shadow), PNG and JPEG readers,
+                 per-host frame shards and the native ray store
+- ``parallel`` : data parallelism over ``torch.distributed`` (one rank a
+                 device: sharded rays, the grads' all-reduce, gathers)
 - ``training`` : the vanilla-NeRF trainer, losses, metrics, Adam, logging,
                  msgpack checkpoints readable and writable by both packages
 - ``tools``    : ``load_models``, ``render_image`` and the HTTP render server

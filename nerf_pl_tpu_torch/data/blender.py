@@ -23,6 +23,7 @@ import numpy as np
 
 from .png import read_png, to_luma, to_rgba
 from .resize import resize_lanczos
+from .sharding import wrap_pad_shard
 from .shadow_common import get_ray_directions, make_rays
 
 
@@ -65,9 +66,6 @@ class BlenderDataset:
     ):
         if img_wh[0] != img_wh[1]:
             raise ValueError("image width must equal image height!")
-        if frame_shard is not None:
-            raise ValueError("per-host frame shards are not ported yet "
-                             "(see ROADMAP.md)")
         self.root_dir = root_dir
         self.split = split
         self.img_wh = tuple(img_wh)
@@ -77,6 +75,8 @@ class BlenderDataset:
         )
         self.black_and_white = black_and_white
         self.val_num = val_num
+        # (offset, step): this host reads frames[offset::step], wrap-padded
+        self.frame_shard = frame_shard
         self._read_meta()
 
     def _read_meta(self):
@@ -90,8 +90,11 @@ class BlenderDataset:
         self.directions = get_ray_directions(h, w, self.focal)  # (h, w, 3)
 
         if self.split == "train":
+            frames = self.meta["frames"]
+            if self.frame_shard is not None:
+                frames = wrap_pad_shard(frames, self.frame_shard)
             rays, rgbs, poses, paths = [], [], [], []
-            for frame in self.meta["frames"]:
+            for frame in frames:
                 pose = np.array(frame["transform_matrix"],
                                 dtype=np.float32)[:3, :4]
                 poses.append(pose)

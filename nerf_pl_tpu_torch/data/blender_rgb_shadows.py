@@ -19,6 +19,7 @@ import os
 import numpy as np
 
 from .blender import _load_image, blend_rgba
+from .sharding import wrap_pad_shard
 from .shadow_common import (LightRig, get_ray_directions, load_sm_image,
                             make_rays, pixel_grid, posed_ppc, sm_path_for)
 
@@ -43,9 +44,6 @@ class BlenderRGBEfficientShadows:
     ):
         if img_wh[0] != img_wh[1]:
             raise ValueError("image width must equal image height!")
-        if frame_shard is not None:
-            raise ValueError("per-host frame shards are not ported yet "
-                             "(see ROADMAP.md)")
         self.root_dir = root_dir
         self.split = split
         self.img_wh = tuple(img_wh)
@@ -54,6 +52,9 @@ class BlenderRGBEfficientShadows:
         self.val_num = val_num
         self.near, self.far = near, far
         self.light_near, self.light_far = light_near, light_far
+        # (offset, step): this host reads kept[offset::step], wrap-padded;
+        # the pose tables stay whole and pose_idx global
+        self.frame_shard = frame_shard
         self.seed = seed
         self._read_meta()
 
@@ -100,7 +101,11 @@ class BlenderRGBEfficientShadows:
         self.cam_ms = np.stack(cam_ms)
         self.cam_eyes = np.stack(cam_eyes)
         rays, rgbs, sms, pose_idx = [], [], [], []
-        for p, frame in enumerate(kept):
+        local = list(range(len(kept)))
+        if self.frame_shard is not None:
+            local = wrap_pad_shard(local, self.frame_shard)
+        for p in local:
+            frame = kept[p]
             rgbs.append(self._photo(frame))
             sms.append(load_sm_image(sm_path_for(self.root_dir, frame["file_path"]),
                                      self.img_wh, self.blur))

@@ -27,6 +27,7 @@ import numpy as np
 
 from . import jpeg, png
 from .resize import resize_lanczos
+from .sharding import wrap_pad_shard
 from .shadow_common import _to_rgb, get_ndc_rays, get_ray_directions, get_rays
 
 
@@ -118,14 +119,12 @@ class LLFFDataset:
     def __init__(self, root_dir: str, split: str = "train", img_wh=(504, 378),
                  spheric_poses: bool = False, val_num: int = 1,
                  frame_shard=None):
-        if frame_shard is not None:
-            raise ValueError("per-host frame shards are not ported yet "
-                             "(see ROADMAP.md, Queue 1 item 7)")
         self.root_dir = root_dir
         self.split = split
         self.img_wh = tuple(img_wh)
         self.spheric_poses = spheric_poses
         self.val_num = max(1, val_num)
+        self.frame_shard = frame_shard
         self._read_meta()
 
     def _rays_for(self, c2w: np.ndarray) -> np.ndarray:
@@ -174,10 +173,13 @@ class LLFFDataset:
                                              self.focal)
 
         if self.split == "train":
+            train_idx = [i for i in range(len(self.image_paths))
+                         if i != val_idx]
+            if self.frame_shard is not None:
+                train_idx = wrap_pad_shard(train_idx, self.frame_shard,
+                                           what="images")
             rays, rgbs = [], []
-            for i in range(len(self.image_paths)):
-                if i == val_idx:
-                    continue
+            for i in train_idx:
                 rgbs.append(_load_rgb(self.image_paths[i], self.img_wh))
                 rays.append(self._rays_for(self.poses[i]))
             self.all_rays = np.concatenate(rays, 0)

@@ -259,7 +259,13 @@ def _unchunk(tree):
 
 def save_checkpoint(path: str, state: Any) -> None:
     """Write ``state`` (nested dicts/lists of arrays, tensors, NeRF modules
-    and python scalars) atomically."""
+    and python scalars) atomically.  In a process group only rank 0 writes:
+    the state is replicated, and N ranks replacing one shared path could
+    publish a torn file."""
+    from .logging import is_primary
+
+    if not is_primary():
+        return
     data = packb(_to_state_dict(state))
     tmp = path + ".tmp"
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)

@@ -4,7 +4,9 @@
 ``RunLogger`` writes scalars/images to TensorBoard when available
 (``torch.utils.tensorboard`` — host-side only, never on the compute path)
 and always appends machine-readable JSONL to ``<log_dir>/<exp>/metrics.jsonl``
-so runs are greppable without TensorBoard.
+so runs are greppable without TensorBoard.  In a process group only rank 0
+writes (``primary``): the ranks share the log directory, and N processes
+appending to one ``metrics.jsonl`` would interleave every record.
 """
 from __future__ import annotations
 
@@ -12,14 +14,23 @@ import json
 import os
 import threading
 import time
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 
 
+def is_primary() -> bool:
+    """True on rank 0, or without a process group."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 class RunLogger:
-    def __init__(self, log_dir: str, exp_name: str, use_tensorboard: bool = True):
+    def __init__(self, log_dir: str, exp_name: str, use_tensorboard: bool = True,
+                 primary: Optional[bool] = None):
         self.dir = os.path.join(log_dir, exp_name)
+        self.primary = is_primary() if primary is None else primary
         self._jsonl = None
         self._tb = None
         self._images = True
@@ -27,6 +38,8 @@ class RunLogger:
         # from the trainers' background writer (utils/io_async.py) —
         # serialize the streams
         self._lock = threading.Lock()
+        if not self.primary:
+            return
         os.makedirs(self.dir, exist_ok=True)
         self._jsonl = open(os.path.join(self.dir, "metrics.jsonl"), "a")
         if use_tensorboard:

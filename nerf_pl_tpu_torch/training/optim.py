@@ -216,6 +216,16 @@ class Optimizer:
                 f"({self.describe()})")
         self._load_slots([state[str(i)] for i in range(n)])
 
+    def state_tensors(self) -> List[torch.Tensor]:
+        """Every tensor of the optimiser's state (the moments, the trace,
+        lookahead's slow weights), for ``parallel.mesh.replicate``."""
+        out = []
+        for name in ("trace", "mu", "nu", "slow"):
+            slot = getattr(self, name, None)
+            if slot:
+                out.extend(slot.values())
+        return out
+
     def describe(self) -> str:
         wd = " with weight decay" if self.weight_decay > 0 else ""
         return f"{self.name}{wd}"

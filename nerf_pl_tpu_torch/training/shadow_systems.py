@@ -1,5 +1,6 @@
 """The shadow-mapping trainers (``nerf_pl_tpu/training/shadow_systems.py``),
-on one device.  Each mirrors a reference ``train_*.py``:
+on one device or one rank per device.  Each mirrors a reference
+``train_*.py``:
 
   * ``EfficientSMSystem`` (``train_efficient_sm.py``): a sigma-only coarse +
     fine render of the camera batch, the whole light view's depth
@@ -46,8 +47,21 @@ Kept from the JAX package:
 the port launches each step on its own, so the flag is accepted and the
 trajectory is the same with any value.  A SIGTERM saves at the next step
 boundary, labelled e-1 in the middle of epoch e (the base trainer's
-handler).  ``--per_host_data`` is not ported yet (ROADMAP.md) where the JAX
-package supports it, and rejected as there by the two whole-image systems.
+handler).
+
+Over a process group (``parallel/mesh.py``), as the JAX systems under their
+mesh: each rank steps through its contiguous block of the per-ray buffers
+and the grads are averaged after the backward; the whole light view is
+rendered a slice a rank and gathered (``all_gather_tiled``, whose backward
+carries ``--grad_on_light``'s gradients) when the rank count divides
+``H*W``, else rendered whole on every rank; ``ShadowMappingSystem`` renders
+a slice of each step's camera and light rays a rank and composites the
+gathered depths on every rank; validation renders each image over every
+rank.  ``--per_host_data`` loads each rank's frames (``efficient_sm`` and
+``rgb_sm``; the rows are wrap-padded to the ranks' largest count) and is
+rejected by the two whole-image systems, as in JAX.  ``--global_reshuffle``
+is rejected but by ``ShadowsSystem``, and ``--data_device_resident false``
+by all five (the JAX systems have no streaming path).
 """
 from __future__ import annotations
 
@@ -60,6 +74,8 @@ import torch
 from ..config import Config
 from ..data import dataset_dict
 from ..data.png import write_png
+from ..data.sharding import equalize_rows
+from ..parallel import mesh as pmesh
 from ..ops.rendering import render_rays
 from ..ops.shadow_mapping import (efficient_sm, generate_shadow_map,
                                   get_normed_w, get_projections,
@@ -177,7 +193,9 @@ def dump_val_images(logger, cfg, step: int, epoch: int, out, rgbs, typ: str):
 def submit_val_images(system, epoch: int, out, rgbs, typ: str) -> None:
     """``dump_val_images`` on the system's writer thread, from a snapshot
     of the render (the JAX systems' ``_dump_val_images``); ``fit`` drains
-    the writer before it returns."""
+    the writer before it returns.  Rank 0 only."""
+    if not system.logger.primary:
+        return
     snap = snapshot((out, rgbs))
     step = epoch * system.steps_per_epoch
 
@@ -208,6 +226,16 @@ def _reject_global_reshuffle(cfg: Config, trainer_name: str) -> None:
             "pose segments are a parity property)")
 
 
+def _reject_streaming(cfg: Config, trainer_name: str) -> None:
+    """The JAX shadow systems have no host-streaming path (they keep their
+    buffers on the device whatever the flag says): refused here."""
+    if not cfg.data_device_resident:
+        raise ValueError(
+            f"--data_device_resident false is not supported by "
+            f"{trainer_name}: the shadow trainers keep their buffers on the "
+            "device (see ROADMAP.md)")
+
+
 def _put(a, device, dtype=None) -> torch.Tensor:
     """A host array on ``device``."""
     return torch.from_numpy(np.ascontiguousarray(a)).to(device, dtype)
@@ -228,6 +256,11 @@ class _ShadowSystemBase(NeRFSystem):
         """The common flags and the dataset; ``--loss_type`` is not read (the
         shadow losses are fixed, as in the JAX package)."""
         _reject_global_reshuffle(cfg, cls.__name__)
+        _reject_streaming(cfg, cls.__name__)
+        if cfg.per_host_data and cfg.dataset_name not in ("efficient_sm",
+                                                          "rgb_sm"):
+            raise ValueError("--per_host_data supports the efficient_sm and "
+                             f"rgb_sm shadow loaders (got {cfg.dataset_name})")
         raise_unsupported({
             **common_unsupported(cfg),
             f"--dataset_name {cfg.dataset_name}":
@@ -250,7 +283,12 @@ class _ShadowSystemBase(NeRFSystem):
         cfg = self.cfg
         ds_cls = dataset_dict[cfg.dataset_name]
         kw = self._dataset_kwargs()
-        self.train_dataset = ds_cls(split="train", **kw)
+        mesh = self.mesh
+        # each rank loads kept-frames[rank::size]; the pose tables stay
+        # whole and pose_idx global
+        train_kw = (dict(kw, frame_shard=(mesh.rank, mesh.size))
+                    if self.per_host else kw)
+        self.train_dataset = ds_cls(split="train", **train_kw)
         self.val_dataset = ds_cls(split="val", **kw)
         self.white_back = self.train_dataset.white_back
         ds, dev = self.train_dataset, self.device
@@ -259,8 +297,19 @@ class _ShadowSystemBase(NeRFSystem):
                 "pixels": ds.all_pixels, "pose_idx": ds.pose_idx}
         if hasattr(ds, "all_sm"):
             bufs["sms"] = ds.all_sm
+        if self.per_host:
+            # a content filter (white_pix) leaves the ranks different row
+            # counts: wrap-pad each to the largest, so shard_rays' global
+            # minimum drops nothing
+            n_local = int(ds.all_rays.shape[0])
+            target = int(pmesh.process_allgather(
+                np.asarray([n_local], np.int64), mesh).max())
+            bufs = dict(zip(bufs, equalize_rows(list(bufs.values()),
+                                                n_local, target)))
         for name, arr in bufs.items():
-            setattr(self, name, _put(arr, dev, torch.int64 if name == "pose_idx"
+            setattr(self, name, _put(pmesh.shard_rays(arr, mesh,
+                                                      local=self.per_host),
+                                     dev, torch.int64 if name == "pose_idx"
                                      else None))
         self.cam_ms, self.cam_eyes = _put(ds.cam_ms, dev), _put(ds.cam_eyes, dev)
         self.num_poses = int(ds.cam_ms.shape[0])
@@ -268,6 +317,11 @@ class _ShadowSystemBase(NeRFSystem):
         self.light_pixels = _put(ds.light.pixels, dev)
         self.light_m = _put(ds.light.camera, dev)
         self.light_eye = _put(ds.light.eye_pos, dev)
+        # the light view renders a slice a rank when the ranks divide H*W
+        # (shard_rays truncates otherwise, and every light pixel must
+        # render), else whole on every rank
+        self.shard_light = (mesh.size > 1
+                            and self.light_rays.shape[0] % mesh.size == 0)
 
 
 class EfficientSMSystem(_ShadowSystemBase):
@@ -297,9 +351,20 @@ class EfficientSMSystem(_ShadowSystemBase):
         return cfg.Light_N_importance
 
     def light_render(self, light_n: int, overrides=None):
-        return light_cache_render(
-            self.models, self.light_rays, self.render_gen,
-            sigma_render_kwargs(self.cfg, light_n), overrides)
+        """The light cache; over a mesh that divides ``H*W`` each rank
+        renders its slice of the light rays (and of ``overrides``, given
+        for the whole view) and the slices are gathered."""
+        rkw = sigma_render_kwargs(self.cfg, light_n)
+        if not self.shard_light:
+            return light_cache_render(self.models, self.light_rays,
+                                      self.render_gen, rkw, overrides)
+        mine = lambda t: pmesh.shard_rays(t, self.mesh)  # noqa: E731
+        local = light_cache_render(
+            self.models, mine(self.light_rays), self.render_gen, rkw,
+            None if overrides is None else
+            {k: mine(v) for k, v in overrides.items()})
+        return {k: pmesh.all_gather_tiled(v, self.mesh)
+                for k, v in local.items()}
 
     def empty_light_cache(self) -> Dict[str, torch.Tensor]:
         hw = self.light_rays.shape[0]
@@ -368,8 +433,7 @@ class EfficientSMSystem(_ShadowSystemBase):
                                    cache, light_n)
             for acc, v in zip(values, step):
                 acc.append(v)
-        return {key: torch.stack(v).float().cpu().numpy()
-                for key, v in zip(self.metric_keys, values)}
+        return self.epoch_values(dict(zip(self.metric_keys, values)))
 
     def _epoch_note(self, epoch: int, means: Dict[str, float]) -> str:
         return f"Light_N={self._light_n}, "
@@ -384,11 +448,11 @@ class EfficientSMSystem(_ShadowSystemBase):
         t = _on(self.device, sample, ("rays", "pixels", "rgbs", "light_rays",
                                       "light_pixels"))
         cam_res = render_image(self.models, t["rays"], self.render_gen,
-                               chunk=cfg.chunk, **rkw_cam)
+                               chunk=cfg.chunk, mesh=self.mesh, **rkw_cam)
         if light_depths is None:
             light_res = render_image(self.models, t["light_rays"],
                                      self.render_gen, chunk=cfg.chunk,
-                                     **rkw_light)
+                                     mesh=self.mesh, **rkw_light)
             light_depths = {
                 "depth_coarse": light_res["depth_coarse"],
                 "depth_fine": light_res.get("depth_fine",
@@ -547,8 +611,7 @@ class LightSamplerSystem(_ShadowSystemBase):
                                          self.pixels[sl], self.pose_idx[sl])
             losses.append(loss)
             psnrs.append(psnr)
-        return {"train/loss": torch.stack(losses).float().cpu().numpy(),
-                "train/psnr": torch.stack(psnrs).float().cpu().numpy()}
+        return self.epoch_values({"train/loss": losses, "train/psnr": psnrs})
 
     def validation(self, epoch: int,
                    max_images: Optional[int] = None) -> Dict[str, float]:
@@ -564,7 +627,8 @@ class LightSamplerSystem(_ShadowSystemBase):
             sample = self.val_dataset[i]
             t = _on(self.device, sample, ("rays", "pixels", "rgbs"))
             cam_res = render_image(self.models, t["rays"], self.render_gen,
-                                   chunk=cfg.chunk, **self.rkw)
+                                   chunk=cfg.chunk, mesh=self.mesh,
+                                   **self.rkw)
             with torch.no_grad():
                 K, ul, vl, lrays = ls_project(
                     cam_res, t["pixels"],
@@ -573,7 +637,8 @@ class LightSamplerSystem(_ShadowSystemBase):
                     self.light_m, self.light_eye, *self.light_geom,
                     tuple(cfg.img_wh), cfg.N_importance > 0)
             light_res = render_image(self.models, lrays, self.render_gen,
-                                     chunk=cfg.chunk, **self.rkw_light)
+                                     chunk=cfg.chunk, mesh=self.mesh,
+                                     **self.rkw_light)
             depth = light_res["depth_fine" if self.light_n > 0
                               else "depth_coarse"]
             out = dict(cam_res)
@@ -602,6 +667,7 @@ class ShadowMappingSystem(NeRFSystem):
     def check_supported(cls, cfg: Config) -> None:
         _reject_per_host_data(cfg, cls.__name__)
         _reject_global_reshuffle(cfg, cls.__name__)
+        _reject_streaming(cfg, cls.__name__)
         raise_unsupported({
             **common_unsupported(cfg),
             f"--dataset_name {cfg.dataset_name}":
@@ -614,6 +680,17 @@ class ShadowMappingSystem(NeRFSystem):
 
     def _prepare_data(self):
         cfg = self.cfg
+        w, h = cfg.img_wh
+        d = self.mesh.size
+        if (w * h) % d:
+            # JAX shrinks an unset --num_devices to a count that divides
+            # H*W; here the launcher fixes the world, so say which count
+            nd = d
+            while (w * h) % nd:
+                nd -= 1
+            raise ValueError(
+                f"ShadowMappingSystem: {d} ranks do not divide H*W={w * h}; "
+                f"start {nd} (the largest count that divides it)")
         ds_cls = dataset_dict[cfg.dataset_name]
         kw = dict(root_dir=cfg.root_dir, img_wh=tuple(cfg.img_wh))
         self.train_dataset = ds_cls(split="train", **kw)
@@ -646,20 +723,31 @@ class ShadowMappingSystem(NeRFSystem):
         """``rays (B, HW, 8)`` and the light view rendered whole, the light
         depths tiled over the B images, composited, MSE against ``rgbs (B,
         HW, 3)``, backward, Adam.  ``overrides`` as
-        ``EfficientSMSystem.train_step``'s.  Returns (loss, psnr)."""
+        ``EfficientSMSystem.train_step``'s, for every ray.  Over a mesh each
+        rank renders its slice of the camera and light rays, and the
+        gathered depths are composited on every rank (min-max is over whole
+        images): the gather's backward sums every rank's cotangent, and the
+        grads' mean over the ranks is the one-process grad.  Returns
+        (loss, psnr)."""
         cfg = self.cfg
         ov = overrides or {}
         Bi = cam_ms.shape[0]
         models = (self.models["coarse"], self.models.get("fine"))
-        cam_res = render_rays(*models, rays.reshape(-1, 8), self.render_gen,
-                              overrides=ov.get("cam"), **self.rkw)
-        light_res = render_rays(*models, self.light_rays, self.render_gen,
-                                overrides=ov.get("light"), **self.rkw)
-        light_tiled = {k: v.repeat(Bi) for k, v in light_res.items()
+        mine = lambda t: pmesh.shard_rays(t, self.mesh)  # noqa: E731
+        mine_ov = lambda o: None if o is None else {  # noqa: E731
+            k: mine(v) for k, v in o.items()}
+        gather = lambda t: pmesh.all_gather_tiled(t, self.mesh)  # noqa: E731
+        cam_res = render_rays(*models, mine(rays.reshape(-1, 8)),
+                              self.render_gen, overrides=mine_ov(ov.get("cam")),
+                              **self.rkw)
+        light_res = render_rays(*models, mine(self.light_rays),
+                                self.render_gen,
+                                overrides=mine_ov(ov.get("light")), **self.rkw)
+        light_tiled = {k: gather(v).repeat(Bi) for k, v in light_res.items()
                        if k.startswith("depth")}
         fine = cfg.N_importance > 0
         out = shadow_mapping_images(
-            {k: v for k, v in cam_res.items() if k.startswith("depth")},
+            {k: gather(v) for k, v in cam_res.items() if k.startswith("depth")},
             light_tiled, cam_ms, cam_eyes, self.light_m, self.light_eye,
             tuple(cfg.img_wh), Bi, fine_sampling=fine,
             shadow_method=cfg.shadow_method)
@@ -683,8 +771,7 @@ class ShadowMappingSystem(NeRFSystem):
                                          self.cam_ms[i], self.cam_eyes[i])
             losses.append(loss)
             psnrs.append(psnr)
-        return {"train/loss": torch.stack(losses).float().cpu().numpy(),
-                "train/psnr": torch.stack(psnrs).float().cpu().numpy()}
+        return self.epoch_values({"train/loss": losses, "train/psnr": psnrs})
 
     def _save_epoch(self, epoch: int, val_loss: Optional[float]) -> None:
         self.save_ckpt(epoch, None, background=True)
@@ -705,10 +792,11 @@ class ShadowMappingSystem(NeRFSystem):
             sample = self.val_dataset[i]
             t = _on(self.device, sample, ("rays", "rgbs"))
             cam_res = render_image(self.models, t["rays"], self.render_gen,
-                                   chunk=cfg.chunk, **rkw)
+                                   chunk=cfg.chunk, mesh=self.mesh, **rkw)
             if light_depths is None:
                 light_res = render_image(self.models, self.light_rays,
-                                         self.render_gen, chunk=cfg.chunk, **rkw)
+                                         self.render_gen, chunk=cfg.chunk,
+                                         mesh=self.mesh, **rkw)
                 light_depths = {k: v for k, v in light_res.items()
                                 if k.startswith("depth")}
             with torch.no_grad():
@@ -738,6 +826,7 @@ class ShadowsSystem(NeRFSystem):
     @classmethod
     def check_supported(cls, cfg: Config) -> None:
         _reject_per_host_data(cfg, cls.__name__)
+        _reject_streaming(cfg, cls.__name__)
         super().check_supported(cfg)
 
     def _prepare_data(self):
@@ -754,4 +843,4 @@ class ShadowsSystem(NeRFSystem):
             items = [ds[i] for i in range(len(ds))]
             rays = np.concatenate([it["rays"] for it in items], 0)
             rgbs = np.concatenate([it["rgbs"] for it in items], 0)
-        self.rays, self.rgbs = _put(rays, self.device), _put(rgbs, self.device)
+        self._set_train_buffers(rays, rgbs)

@@ -1,11 +1,26 @@
 """The vanilla-NeRF training system (``nerf_pl_tpu/training/trainer.py``;
-reference ``train.py`` NeRFSystem), on one device.
+reference ``train.py`` NeRFSystem), on one device or one rank per device.
 
   * The ray and colour buffers are moved to the device once; each epoch
     draws a permutation from a ``torch.Generator`` seeded by ``cfg.seed``
     and takes ``n // batch_size`` steps of render -> loss -> backward ->
     Adam.  The renderer's random draws come from a second generator on the
     device, seeded from ``cfg.seed`` too.
+  * Data parallelism (``parallel/mesh.py``): over a process group each rank
+    holds its contiguous block of the rays (``shard_rays``; with
+    ``--per_host_data`` it loads only its frames), shuffles and trains its
+    own ``batch_size`` rows a step, and the grads are averaged by one
+    all-reduce after the backward, before ``--grad_clip`` and the update
+    (JAX's ``pmean``).  Rank 0 draws what a single process draws; the other
+    ranks draw from seeds of their own.  The epoch's losses and PSNRs are
+    averaged over the ranks once an epoch.  ``--global_reshuffle``
+    re-shards a fresh global permutation every epoch, the JAX trainer's.
+    Validation renders each image over every rank (``tools.render``).
+  * ``--data_device_resident false`` streams the rays from the native ray
+    store (``data/native.py``): slabs of ``--stream_slab_steps`` global
+    batches, one pinned copy to the device a slab, laid out over the ranks
+    as JAX's ``P('rays')`` lays them; a worker thread fills the next slab
+    while the card trains on the current one.
   * ``validation`` renders every val image whole (``tools.render``) with the
     train-time perturb and noise, as the reference's ``validation_step``.
   * Checkpoints in the JAX package's file format: ``epoch=N.ckpt`` for the
@@ -28,7 +43,8 @@ copies the snapshot to the host and serialises it while the next steps run;
 ``fit`` drains the writer before it returns, so every checkpoint it lists is
 on disk.  The JAX trainer's one-dispatch val program and epoch pipeline hid
 a remote-TPU latency that a local card does not have.  Flags the port cannot
-honour yet raise ``ValueError`` (ROADMAP.md, Queue 1).
+honour raise ``ValueError`` (ROADMAP.md).  In a process group only rank 0
+writes logs and checkpoints, and every rank runs every collective.
 """
 from __future__ import annotations
 
@@ -36,6 +52,8 @@ import contextlib
 import os
 import signal
 import time
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Optional
 
 import numpy as np
@@ -46,6 +64,7 @@ from ..config import Config
 from ..data import dataset_dict
 from ..models.nerf import init_nerf, nerf_param_tree
 from ..ops.rendering import render_rays
+from ..parallel import mesh as pmesh
 from ..tools.render import render_image
 from ..utils.io_async import AsyncWriter, snapshot
 from ..utils.profiling import profile_trace, raise_if_not_finite
@@ -60,15 +79,17 @@ from .optim import (get_optimizer, host_to_device, make_lr_schedule,
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
+# host streaming: optimizer steps a slab when --stream_slab_steps is 0
+STREAM_SLAB_STEPS = 16
+# steps between the all-reduce that carries a rank's SIGTERM flag and the
+# step boundary at which every rank reads it (no host wait on a card)
+PREEMPT_LAG = 2
+
+
 def common_unsupported(cfg: Config) -> Dict[str, bool]:
-    """The flags no trainer of the port honours yet, each with whether
-    ``cfg`` sets it."""
+    """The flags no trainer of the port honours, each with whether ``cfg``
+    sets it."""
     return {
-        "--num_devices > 1": (cfg.num_devices or 1) > 1,
-        "--multihost": cfg.multihost,
-        "--per_host_data": cfg.per_host_data,
-        "--data_device_resident false": not cfg.data_device_resident,
-        "--global_reshuffle": cfg.global_reshuffle,
         f"--compute_dtype {cfg.compute_dtype}": cfg.compute_dtype not in _DTYPES,
     }
 
@@ -76,7 +97,7 @@ def common_unsupported(cfg: Config) -> Dict[str, bool]:
 def raise_unsupported(flags: Dict[str, bool]) -> None:
     bad = [k for k, v in flags.items() if v]
     if bad:
-        raise ValueError(f"not ported yet: {', '.join(bad)} (see ROADMAP.md)")
+        raise ValueError(f"not supported: {', '.join(bad)} (see ROADMAP.md)")
 
 
 def init_models(cfg: Config, device) -> Dict[str, torch.nn.Module]:
@@ -134,13 +155,32 @@ class NeRFSystem:
     def __init__(self, cfg: Config, device=None):
         self.check_supported(cfg)
         self.cfg = cfg
-        self.device = resolve_device(device)
+        device = resolve_device(device)
+        if cfg.multihost or pmesh.launched_by_torchrun():
+            # one process per device; the group spans them all (the
+            # reference's Lightning DDP, train.py:174)
+            pmesh.initialize_distributed(device)
+        self.mesh = pmesh.make_mesh(device, cfg.num_devices)
+        self.device = self.mesh.device
+        if self.device.type == "cuda":
+            if self.device.index is not None:  # a rank's own card
+                torch.cuda.set_device(self.device)
+        elif self.mesh.size > 1 and "OMP_NUM_THREADS" not in os.environ:
+            # ranks sharing the host's cores: spinning thread pools of the
+            # full width each would oversubscribe them many times over
+            torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                                      // self.mesh.size))
         self.loss_name = cfg.loss_type
-        self.logger = RunLogger(cfg.log_dir, cfg.exp_name)
+        self.logger = RunLogger(cfg.log_dir, cfg.exp_name,
+                                primary=self.mesh.primary)
         self._writer = AsyncWriter()
-        self.shuffle_gen = torch.Generator().manual_seed(cfg.seed)
+        rank = self.mesh.rank
+        self.shuffle_gen = torch.Generator().manual_seed(
+            pmesh.rank_seed(cfg.seed, 0, rank))
         self.render_gen = torch.Generator(device=self.device).manual_seed(
-            cfg.seed + 1)
+            pmesh.rank_seed(cfg.seed, 1, rank))
+        self.ray_store = None  # set by _prepare_data when streaming
+        self.slab_copies = 0  # host-to-device copies of streamed slabs
         self._prepare_data()
         self.rkw = render_kwargs_from_cfg(cfg, self.white_back, train=True)
         self._build_state()
@@ -150,23 +190,66 @@ class NeRFSystem:
         self._epoch, self._step = self.epoch0, 0  # where the fit is
 
     # -- data ---------------------------------------------------------------
+    @property
+    def per_host(self) -> bool:
+        """Each rank loads only its own frames (``--per_host_data``)."""
+        return self.cfg.per_host_data and self.mesh.size > 1
+
     def _prepare_data(self):
         cfg = self.cfg
         ds_cls = dataset_dict[cfg.dataset_name]
         kwargs = dict(root_dir=cfg.root_dir, img_wh=tuple(cfg.img_wh))
         if cfg.dataset_name == "llff":
-            # one val image: one device (the JAX trainer passes its chip
-            # count, reference train.py:79)
-            kwargs.update(spheric_poses=cfg.spheric_poses, val_num=1)
+            # val_num = the rank count, as the JAX trainer passes its chip
+            # count (reference train.py:79 passes val_num=num_gpus)
+            kwargs.update(spheric_poses=cfg.spheric_poses,
+                          val_num=self.mesh.size)
         else:
             kwargs.update(near=cfg.blender_near, far=cfg.blender_far,
                           white_back=cfg.white_back,
                           black_and_white=cfg.black_and_white_test)
-        self.train_dataset = ds_cls(split="train", **kwargs)
+        train_kwargs = kwargs
+        if self.per_host:
+            if not cfg.data_device_resident:
+                raise ValueError(
+                    "--per_host_data requires device-resident buffers "
+                    "(host-streaming is per-process already)")
+            train_kwargs = dict(kwargs, frame_shard=(self.mesh.rank,
+                                                     self.mesh.size))
+        self.train_dataset = ds_cls(split="train", **train_kwargs)
         self.val_dataset = ds_cls(split="val", **kwargs)
         self.white_back = self.train_dataset.white_back
-        self.rays = torch.from_numpy(self.train_dataset.all_rays).to(self.device)
-        self.rgbs = torch.from_numpy(self.train_dataset.all_rgbs).to(self.device)
+        ds = self.train_dataset
+        if cfg.data_device_resident:
+            self._set_train_buffers(ds.all_rays, ds.all_rgbs)
+        else:
+            from ..data.native import RayStore
+
+            self.ray_store = RayStore([ds.all_rays, ds.all_rgbs], seed=cfg.seed)
+
+    def _set_train_buffers(self, rays: np.ndarray, rgbs: np.ndarray) -> None:
+        """This rank's rows of the training rays and colours on the device;
+        the host buffers are kept only for ``--global_reshuffle`` (a
+        per-image loader's are a fresh concatenation)."""
+        if self.cfg.global_reshuffle:
+            self._host_rays, self._host_rgbs = rays, rgbs
+        self.rays, self.rgbs = (
+            torch.from_numpy(np.ascontiguousarray(
+                pmesh.shard_rays(a, self.mesh, local=self.per_host))
+            ).to(self.device) for a in (rays, rgbs))
+
+    def _reshuffle_buffers(self, epoch: int) -> None:
+        """``--global_reshuffle``: re-shard a fresh global permutation of the
+        rays (DistributedSampler semantics), drawn from ``(seed, epoch)`` so
+        every rank draws the same one (the JAX trainer's
+        ``_reshuffle_buffers``).  Under ``--per_host_data`` each rank
+        permutes its own frames."""
+        rng = np.random.RandomState(
+            (self.cfg.seed * 1_000_003 + epoch + 1) % (2**32))
+        rays, rgbs = self._host_rays, self._host_rgbs
+        perm = rng.permutation(rays.shape[0])
+        self._set_train_buffers(rays[perm], rgbs[perm])
+        self._host_rays, self._host_rgbs = rays, rgbs
 
     # -- state --------------------------------------------------------------
     def _build_state(self):
@@ -185,6 +268,14 @@ class NeRFSystem:
         self.optimizer = get_optimizer(
             cfg.optimizer, self.schedule, named_params(self.models),
             cfg.momentum, cfg.weight_decay, grad_clip=cfg.grad_clip)
+        if self.ray_store is not None:
+            slab = int(cfg.stream_slab_steps or 0)
+            if slab < 0:
+                # a negative slab would make every streaming epoch a silent
+                # zero-step no-op
+                raise ValueError(
+                    f"--stream_slab_steps must be positive (got {slab})")
+            self.stream_slab_steps = slab or STREAM_SLAB_STEPS
         self.epoch0 = 0
         if cfg.ckpt_path and cfg.ckpt_path.endswith(".ckpt"):
             # full-state resume when given a trainer checkpoint; weights-only
@@ -199,20 +290,33 @@ class NeRFSystem:
                 print(f"[resume] {cfg.ckpt_path} has no trainer state "
                       "(weights-only artifact): params restored, optimizer "
                       "fresh, starting at epoch 0", flush=True)
+        # every rank starts from rank 0's state, and averages its grads
+        # with the others' every step (one all-reduce; its last slot
+        # carries the SIGTERM flag)
+        pmesh.replicate(list(self.optimizer.params.values())
+                        + self.optimizer.state_tensors(), self.mesh)
+        self._reducer = (pmesh.GradAllReduce(self.optimizer.params,
+                                             self.mesh, n_extra=1)
+                         if self.mesh.distributed else None)
+        self._flags: deque = deque()  # (host flag, event) a reduced step
 
     def _count_steps(self) -> int:
-        n = self.rays.shape[0]
-        steps = n // self.cfg.batch_size
+        d = self.mesh.size
+        n = (self.ray_store.n_rows if self.ray_store is not None
+             else self.rays.shape[0] * d)
+        steps = (n // d) // self.cfg.batch_size
         if steps < 1:
             raise ValueError(
-                f"batch_size {self.cfg.batch_size} exceeds the {n} training "
-                "rays; the epoch would run zero steps")
+                f"batch_size {self.cfg.batch_size} exceeds the {n // d} rays "
+                f"per device ({n} rays over {d} devices) — the epoch would "
+                "run zero steps; reduce --batch_size or --num_devices")
         return steps
 
     @property
     def rays_per_step(self) -> int:
-        """Camera rays trained a step (``train/rays_per_s`` counts these)."""
-        return self.cfg.batch_size
+        """Camera rays trained a step over every rank (``train/rays_per_s``
+        counts these)."""
+        return self.cfg.batch_size * self.mesh.size
 
     # -- one step -----------------------------------------------------------
     def train_step(self, rays: torch.Tensor, rgbs: torch.Tensor,
@@ -229,11 +333,18 @@ class NeRFSystem:
         return loss.detach(), psnr
 
     def _optimize(self, loss: torch.Tensor) -> None:
-        """backward, then one optimizer step; under ``--debug_nans`` the
-        step first checks its loss, parameters and grads (one synchronising
-        call)."""
-        self.optimizer.zero_grad()
+        """backward, the grads' mean over the ranks, then one optimizer
+        step; under ``--debug_nans`` the step first checks its loss,
+        parameters and grads (one synchronising call)."""
+        if self._reducer is not None:
+            self._reducer.zero_grad()
+        else:
+            self.optimizer.zero_grad()
         loss.backward()
+        if self._reducer is not None:
+            summed = self._reducer([1.0 if self._preempted else 0.0])
+            if self.mesh.size > 1:
+                self._queue_flag(summed)
         if self.cfg.debug_nans:
             raise_if_not_finite(loss, self.optimizer.params.values(),
                                 self._epoch, self._step)
@@ -253,7 +364,8 @@ class NeRFSystem:
             rays = torch.from_numpy(sample["rays"]).to(self.device)
             rgbs = torch.from_numpy(sample["rgbs"]).to(self.device)
             results = render_image(self.models, rays, self.render_gen,
-                                   chunk=cfg.chunk, mode=self.mode, **self.rkw)
+                                   chunk=cfg.chunk, mesh=self.mesh,
+                                   mode=self.mode, **self.rkw)
             typ = "fine" if "rgb_fine" in results else "coarse"
             losses.append(float(loss_dict[self.loss_name](results, rgbs)))
             psnrs.append(float(psnr_metric(results[f"rgb_{typ}"], rgbs)))
@@ -267,6 +379,8 @@ class NeRFSystem:
     def _dump_val_image(self, epoch: int, gt: np.ndarray, rgb, depth) -> None:
         """The first val image's GT / prediction / depth grid to TensorBoard,
         assembled on the writer thread from a snapshot of the render."""
+        if not self.logger.primary:
+            return
         W, H = self.cfg.img_wh
         snap = snapshot((rgb, depth))
         step = epoch * self.steps_per_epoch
@@ -292,9 +406,11 @@ class NeRFSystem:
         and the top-5 pruning to the ordered writer thread, so checkpoints
         are pruned in the order they were submitted; without it (a direct
         call, the preemption save) the file is written before the call
-        returns."""
-        os.makedirs(self.ckpt_root, exist_ok=True)
+        returns.  Only rank 0 writes."""
         path = os.path.join(self.ckpt_root, filename or f"epoch={epoch}.ckpt")
+        if not self.mesh.primary:
+            return path
+        os.makedirs(self.ckpt_root, exist_ok=True)
         state = {
             "params": {k: nerf_param_tree(m) for k, m in self.models.items()},
             "opt_state": self.optimizer.state_tree(),
@@ -330,8 +446,40 @@ class NeRFSystem:
 
         signal.signal(signal.SIGTERM, handler)
 
+    def _queue_flag(self, summed: torch.Tensor) -> None:
+        """Keep this step's all-reduced SIGTERM flag: copied to the host
+        behind the step's work, read ``PREEMPT_LAG`` steps later."""
+        if summed.device.type == "cuda":
+            host = torch.empty(1, pin_memory=True)
+            host.copy_(summed[:1], non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+        else:
+            host, event = summed[:1].clone(), None
+        self._flags.append((host, event))
+
+    def _group_preempted(self, boundary: bool) -> bool:
+        """Whether the run stops here.  The ranks must stop at the same
+        step, or the first to stop leaves the others blocked in an
+        all-reduce: at a step boundary every rank reads the flags summed by
+        the all-reduce ``PREEMPT_LAG`` steps back; at the end of an epoch
+        (``boundary`` False) every rank reads them all and all-reduces its
+        flag once more."""
+        if self.mesh.size == 1:
+            return self._preempted
+        stop = False
+        while len(self._flags) >= (PREEMPT_LAG if boundary else 1):
+            host, event = self._flags.popleft()
+            if event is not None:
+                event.synchronize()
+            stop |= float(host[0]) > 0
+        if not boundary:
+            stop |= pmesh.allreduce_int(int(self._preempted), self.mesh,
+                                         pmesh.dist.ReduceOp.MAX) > 0
+        return stop
+
     def _preempt_if_asked(self, epoch: int, complete: bool) -> None:
-        if not self._preempted:
+        if not self._group_preempted(boundary=not complete):
             return
         self._preempted = False
         # the writes already queued land first (in order); bounded, so a
@@ -356,7 +504,7 @@ class NeRFSystem:
             if cfg.num_sanity_val_steps > 0:
                 metrics = self.validation(self.epoch0,
                                           max_images=cfg.num_sanity_val_steps)
-                print(f"[sanity] {metrics}", flush=True)
+                self._print(f"[sanity] {metrics}")
             global_step = self.epoch0 * self.steps_per_epoch
             for epoch in range(self.epoch0, cfg.num_epochs):
                 self._epoch, self._step = epoch, 0
@@ -382,9 +530,30 @@ class NeRFSystem:
                                  self.device)
         return contextlib.nullcontext()
 
+    def _print(self, msg: str) -> None:
+        if self.mesh.primary:
+            print(msg, flush=True)
+
+    def epoch_values(self, values: Dict[str, list]) -> Dict[str, np.ndarray]:
+        """Each key's per-step values, averaged over the ranks (one
+        all-reduce an epoch: the mean of JAX's per-step ``pmean``)."""
+        keys = list(values)
+        stacked = torch.stack([torch.stack(values[k]).float() for k in keys])
+        if self.mesh.size > 1:
+            pmesh.dist.all_reduce(stacked)
+            stacked = stacked / self.mesh.size
+        host = stacked.cpu().numpy()
+        return {k: host[i] for i, k in enumerate(keys)}
+
     def train_epoch(self, epoch: int, global_step: int) -> Dict[str, np.ndarray]:
-        """One epoch's steps over a fresh permutation; the per-step values
-        by their ``metrics.jsonl`` keys."""
+        """One epoch's steps over a fresh permutation of this rank's rows;
+        the per-step values by their ``metrics.jsonl`` keys."""
+        if self.ray_store is not None:
+            # the store draws a fresh global permutation every epoch:
+            # --global_reshuffle is inherent there
+            return self._train_epoch_streaming(epoch)
+        if self.cfg.global_reshuffle:
+            self._reshuffle_buffers(epoch)
         B = self.cfg.batch_size
         perm = torch.randperm(self.rays.shape[0], generator=self.shuffle_gen)
         # one copy an epoch, queued behind the card's work; each step's
@@ -397,8 +566,81 @@ class NeRFSystem:
             loss, psnr = self.train_step(self.rays[idx], self.rgbs[idx])
             losses.append(loss)
             psnrs.append(psnr)
-        return {"train/loss": torch.stack(losses).float().cpu().numpy(),
-                "train/psnr": torch.stack(psnrs).float().cpu().numpy()}
+        return self.epoch_values({"train/loss": losses, "train/psnr": psnrs})
+
+    def _slab_span(self, k: int) -> tuple:
+        """The global batches ``[j0, j1)`` of a slab of ``k`` that hold this
+        rank's rows, and those rows' offsets ``[lo, hi)`` in them: JAX's
+        ``P('rays')`` splits the slab's ``k B d`` rows into d contiguous
+        blocks of ``k B`` and rank r takes block r (so with d > 1 a rank's
+        steps come from whole global batches)."""
+        B, d, r = self.cfg.batch_size, self.mesh.size, self.mesh.rank
+        gb = B * d
+        lo, hi = r * k * B, (r + 1) * k * B
+        j0, j1 = lo // gb, -(-hi // gb)
+        return j0, j1, lo - j0 * gb, hi - j0 * gb
+
+    def _fill_slab(self, epoch: int, step: int, k: int,
+                   buf: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of the slab of ``k`` global batches from
+        ``step`` (the store's ``fill_batch(epoch, step + j, B d)``), written
+        into the host buffer ``buf``; returns them as a view of it."""
+        gb = self.cfg.batch_size * self.mesh.size
+        j0, j1, lo, hi = self._slab_span(k)
+        out = buf.numpy()
+        for j in range(j0, j1):
+            rows = self.ray_store.fill_batch(
+                epoch, step + j, gb, out=out[(j - j0) * gb:(j - j0 + 1) * gb])
+            if len(rows) < gb:  # steps_per_epoch * B * d <= the store's rows
+                raise RuntimeError(f"ray store: batch {step + j} of epoch "
+                                   f"{epoch} is short ({len(rows)} < {gb})")
+        return buf[lo:hi]
+
+    def _train_epoch_streaming(self, epoch: int) -> Dict[str, np.ndarray]:
+        """Host streaming (the JAX trainer's ``_run_streaming_epoch``): each
+        slab of up to ``stream_slab_steps`` steps reaches the device in one
+        non-blocking copy from pinned memory; every row of the store's epoch
+        permutation is trained once.  Two host buffers take turns: a worker
+        thread fills the next slab (the store's fill releases the GIL) while
+        the card trains on this one, as JAX's async dispatch overlapped them;
+        a buffer is refilled only after its copy to the device has ended."""
+        B, K = self.cfg.batch_size, self.stream_slab_steps
+        n_rays = self.ray_store.widths[0]
+        on_card = self.device.type == "cuda"
+        j0, j1, _, _ = self._slab_span(K)
+        rows = (j1 - j0 + 1) * B * self.mesh.size  # any k <= K fits
+        bufs = [torch.empty((rows, self.ray_store.row_width),
+                            dtype=torch.float32, pin_memory=on_card)
+                for _ in range(2)]
+        copied = [None, None]  # the event after each buffer's last copy
+        starts = list(range(0, self.steps_per_epoch, K))
+
+        def fill(i: int) -> torch.Tensor:
+            if copied[i % 2] is not None:
+                copied[i % 2].synchronize()
+            k = min(K, self.steps_per_epoch - starts[i])
+            return self._fill_slab(epoch, starts[i], k, bufs[i % 2])
+
+        losses, psnrs = [], []
+        with ThreadPoolExecutor(max_workers=1) as pool:
+            pending = pool.submit(fill, 0)
+            for i, step in enumerate(starts):
+                slab = pending.result().to(self.device, non_blocking=True)
+                self.slab_copies += 1
+                if on_card:
+                    copied[i % 2] = torch.cuda.Event()
+                    copied[i % 2].record()
+                if i + 1 < len(starts):
+                    pending = pool.submit(fill, i + 1)
+                rays = slab[:, :n_rays].contiguous()
+                rgbs = slab[:, n_rays:].contiguous()
+                for j in range(slab.shape[0] // B):
+                    self._preempt_if_asked(epoch, complete=False)
+                    loss, psnr = self.train_step(rays[j * B:(j + 1) * B],
+                                                 rgbs[j * B:(j + 1) * B])
+                    losses.append(loss)
+                    psnrs.append(psnr)
+        return self.epoch_values({"train/loss": losses, "train/psnr": psnrs})
 
     def _epoch_note(self, epoch: int, means: Dict[str, float]) -> str:
         """Text the epoch line carries before its rate."""
@@ -434,4 +676,4 @@ class NeRFSystem:
             self._save_epoch(epoch, val_metrics["val/loss"])
         else:
             self._save_epoch(epoch, None)
-        print(msg, flush=True)
+        self._print(msg)

@@ -278,11 +278,25 @@ def test_fit_takes_the_batches_in_the_same_order(blender_root, tmp_path):
 
 
 def test_trainer_refuses_flags_it_cannot_honour(blender_root, tmp_path):
-    for extra in (["--num_devices", "2"], ["--multihost"], ["--per_host_data"],
+    # a world of several ranks is made by the launcher (or torchrun), not by
+    # one process; a negative slab would make a streaming epoch empty
+    with pytest.raises(ValueError, match="one process per device"):
+        NeRFSystem(get_opts(_argv(blender_root, tmp_path)
+                            + ["--num_devices", "2"]), device="cpu")
+    with pytest.raises(ValueError, match="must be positive"):
+        NeRFSystem(get_opts(_argv(blender_root, tmp_path) + [
+            "--data_device_resident", "false", "--stream_slab_steps", "-1"]),
+            device="cpu")
+    # ported since: distribution and streaming (tests/test_torch_port_
+    # distributed.py, _sharding.py, _raystore.py); in one process
+    # --multihost without a group and --per_host_data are no-ops, as in JAX
+    for extra in (["--multihost"], ["--per_host_data"],
                   ["--data_device_resident", "false"], ["--global_reshuffle"]):
-        cfg = get_opts(_argv(blender_root, tmp_path) + extra)
-        with pytest.raises(ValueError, match="ROADMAP"):
-            NeRFSystem(cfg, device="cpu")
+        system = NeRFSystem(get_opts(_argv(blender_root, tmp_path) + extra),
+                            device="cpu")
+        assert system.mesh.size == 1 and not system.mesh.distributed
+        assert (system.ray_store is not None) == ("false" in extra)
+        system.logger.close()
     # ported since: the other optimisers and schedules (and the llff loader,
     # tests/test_torch_port_llff.py) build where they were refused
     for extra, kind in ((["--optimizer", "radam"], "RAdam"),

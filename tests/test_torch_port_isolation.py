@@ -67,6 +67,11 @@ def test_port_modules_import_without_jax_flax_msgpack_pil():
             "nerf_pl_tpu_torch.tools.mesh_utils",
             "nerf_pl_tpu_torch.tools.import_torch_ckpt",
             "nerf_pl_tpu_torch.utils.io_async"} <= set(MODULES)
+    # distribution and host streaming: torch.distributed, the frame shards
+    # and the native ray store (its own copies of the JAX modules)
+    assert {"nerf_pl_tpu_torch.parallel", "nerf_pl_tpu_torch.parallel.mesh",
+            "nerf_pl_tpu_torch.data.sharding",
+            "nerf_pl_tpu_torch.data.native"} <= set(MODULES)
     # -I: no PYTHONPATH or user site, so nothing imported by a site hook
     # is counted against the port
     code = (

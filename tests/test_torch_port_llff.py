@@ -181,8 +181,14 @@ def test_loader_refuses_what_it_cannot_read(scenes, tmp_path):
             root / "images" / f"{i:03d}.bmp")
     with pytest.raises(ValueError, match=r"000\.bmp: neither a PNG nor a JPEG"):
         LLFFDataset(str(root), split="train", img_wh=WH)
-    with pytest.raises(ValueError, match="ROADMAP.md, Queue 1 item 7"):
-        LLFFDataset(src, split="train", img_wh=WH, frame_shard=(0, 2))
+    # per-host frame shards: the images of this host, as the JAX loader's
+    for shard in ((0, 2), (1, 2)):
+        mine = LLFFDataset(src, split="train", img_wh=WH, frame_shard=shard)
+        ref = JLLFF(src, split="train", img_wh=WH, frame_shard=shard)
+        assert np.array_equal(mine.all_rays, ref.all_rays)
+        assert np.array_equal(mine.all_rgbs, ref.all_rgbs)
+    with pytest.raises(ValueError, match="gets no images"):
+        LLFFDataset(src, split="train", img_wh=WH, frame_shard=(9, 10))
     for cls in (JLLFF, LLFFDataset):
         with pytest.raises(AssertionError, match="same aspect ratio"):
             cls(src, split="train", img_wh=(24, 24))

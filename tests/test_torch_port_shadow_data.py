@@ -146,8 +146,14 @@ def test_efficient_sm_loader_matches_jax(sm_scene, white_pix, blur):
 
 
 def test_efficient_sm_loader_rejects_what_is_not_ported(sm_scene):
-    with pytest.raises(ValueError, match="ROADMAP"):
-        BlenderEfficientShadows(sm_scene, "train", img_wh=(8, 8),
-                                frame_shard=(0, 2))
+    # per-host frame shards (ported): this host's frames, the pose tables
+    # whole and pose_idx global, as the JAX loader's
+    for shard in ((0, 2), (1, 2)):
+        mine = BlenderEfficientShadows(sm_scene, "train", img_wh=(8, 8),
+                                       frame_shard=shard)
+        ref = JShadows(sm_scene, "train", img_wh=(8, 8), frame_shard=shard)
+        for key in ("all_rays", "all_rgbs", "all_pixels", "pose_idx",
+                    "cam_ms", "cam_eyes"):
+            assert np.array_equal(getattr(mine, key), getattr(ref, key)), key
     with pytest.raises(ValueError, match="width must equal"):
         BlenderEfficientShadows(sm_scene, "train", img_wh=(8, 6))

@@ -179,9 +179,18 @@ def test_pyredner2_flips_and_blur_change_the_data(pyredner_scene, tmp_path):
 
 
 def test_loaders_reject_what_is_not_ported(blender_scene):
-    with pytest.raises(ValueError, match="ROADMAP"):
-        BlenderRGBEfficientShadows(blender_scene, "train", img_wh=WH,
-                                   frame_shard=(0, 2))
+    # per-host frame shards (ported): this host's frames, as the JAX
+    # loader's
+    from nerf_pl_tpu.data.blender_rgb_shadows import \
+        BlenderRGBEfficientShadows as JRGB
+
+    for shard in ((0, 2), (1, 2)):
+        mine = BlenderRGBEfficientShadows(blender_scene, "train", img_wh=WH,
+                                          frame_shard=shard)
+        ref = JRGB(blender_scene, "train", img_wh=WH, frame_shard=shard)
+        for key in ("all_rays", "all_rgbs", "all_sm", "all_pixels",
+                    "pose_idx", "cam_ms"):
+            assert np.array_equal(getattr(mine, key), getattr(ref, key)), key
     for cls in (BlenderRGBEfficientShadows, BlenderDatasetShadows):
         with pytest.raises(ValueError, match="width must equal"):
             cls(blender_scene, "train", img_wh=(8, 6))

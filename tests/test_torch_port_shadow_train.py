@@ -393,8 +393,14 @@ def test_cli_rejects_other_datasets(scene, tmp_path):
     with pytest.raises(ValueError, match="not supported by this trainer"):
         sm_main(_argv(scene, tmp_path, "--dataset_name", "rgb_sm",
                       "--device", "cpu"))
+    # --per_host_data takes the efficient_sm and rgb_sm loaders, as in JAX
+    # (a no-op at one rank); the shadow systems have no streaming path
+    with pytest.raises(ValueError, match="supports the efficient_sm and rgb_sm"):
+        sm_main(_argv(scene, tmp_path, "--per_host_data", "--dataset_name",
+                      "pyredner2", "--device", "cpu"))
     with pytest.raises(ValueError, match="ROADMAP"):
-        sm_main(_argv(scene, tmp_path, "--per_host_data", "--device", "cpu"))
+        sm_main(_argv(scene, tmp_path, "--data_device_resident", "false",
+                      "--device", "cpu"))
     with pytest.raises(ValueError, match="shuffle=False"):
         sm_main(_argv(scene, tmp_path, "--global_reshuffle", "--device", "cpu"))
     # the vanilla trainer does not take the shadow loader

@@ -137,8 +137,16 @@ def test_cli_rejects_and_defaults_to_cuda(scene, tmp_path, monkeypatch):
     with pytest.raises(ValueError, match="not supported by ShadowsSystem"):
         shadows_main(_argv(scene, tmp_path, "--per_host_data", "--device", "cpu"))
     with pytest.raises(ValueError, match="ROADMAP"):
-        shadows_main(_argv(scene, tmp_path, "--global_reshuffle",
+        shadows_main(_argv(scene, tmp_path, "--data_device_resident", "false",
                            "--device", "cpu"))
+    # --global_reshuffle re-shards a fresh permutation of the rays, as in JAX
+    system = ShadowsSystem(tconfig.get_opts(_argv(scene, tmp_path,
+                                          "--global_reshuffle")), device="cpu")
+    before = system.rays.clone()
+    system._reshuffle_buffers(0)
+    assert not torch.equal(system.rays, before)
+    assert torch.equal(system.rays.sort(0).values, before.sort(0).values)
+    system.logger.close()
     with pytest.raises(ValueError, match="ROADMAP"):
         shadows_main(_argv(scene, tmp_path, "--loss_type", "sm",
                            "--device", "cpu"))
