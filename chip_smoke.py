@@ -144,7 +144,21 @@ Phases (any failed check raises, so the script exits non-zero):
    checkpoint it lists on disk and loading when ``fit`` returns (the
    trainers' background writer); D's bf16 stash is held to 0 differing
    values (phase 4).
-11. One JSON line of kernel numbers, the card's line, then the result line
+11. Distribution and streaming (see its block comment).
+12. The image readers: phase 9's LLFF scene as progressive JPEGs (view 1
+   arithmetic-coded) and as baseline JPEGs of the same coefficients, phase
+   4's Blender scene as 16-bit RGBA PNGs with one palette + tRNS Adam7
+   view, phase 7's shadow scene with palette shadow maps, each written with
+   ``tests/image_writers.py`` (this machine has no PIL) and its loads held
+   bit for bit against the baseline files'; then ``python -m
+   nerf_pl_tpu_torch.train`` at phase 9's flags for 1 epoch and the
+   ``test_train`` eval, at phase 4's flags for 1 epoch, and ``python -m
+   nerf_pl_tpu_torch.train_efficient_sm --grad_on_light`` for 1 epoch on
+   them, with the launches of each fit and of one step (exact: D 2 / E 2 /
+   A 1 for LLFF and Blender, D 4 / E 4 / A 2 for efficient_sm); last, a
+   4032x3024 q95 4:2:0 baseline and progressive JPEG decoded on the host
+   (the whole decode, its stages, the plain Python entropy loop).
+13. One JSON line of kernel numbers, the card's line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Peak rates used for the bounds (NVIDIA H100 SXM data sheet, dense): 989
@@ -2855,6 +2869,7 @@ def llff_jpeg(tmp: str) -> dict:
     import base64
     import hashlib
 
+    from nerf_pl_tpu_torch.data import jpeg
     from nerf_pl_tpu_torch.data.jpeg import read_jpeg
     from nerf_pl_tpu_torch.data.llff import LLFFDataset
 
@@ -2863,6 +2878,9 @@ def llff_jpeg(tmp: str) -> dict:
     path = os.path.join(root, "images", "000.jpg")
     with open(path, "wb") as f:
         f.write(base64.b64decode(LLFF_JPEG_B64))
+    t0 = time.perf_counter()
+    jpeg._native()  # the C++ stages' g++ build, timed apart from the decode
+    build_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     img, mode = read_jpeg(path)
     ms = 1e3 * (time.perf_counter() - t0)
@@ -2878,7 +2896,8 @@ def llff_jpeg(tmp: str) -> dict:
     log(f"[llff] JPEG {w}x{h} {mode} (4:2:0, restart interval): sha256 "
         f"{digest}, Pillow's {LLFF_JPEG_SHA256}: "
         f"{'equal' if digest == LLFF_JPEG_SHA256 else 'DIFFERENT'}; decode "
-        f"{ms:.1f} ms on the host; the LLFF val loader's colours "
+        f"{ms:.1f} ms on the host (the C++ stages built first, in "
+        f"{build_s:.2f} s); the LLFF val loader's colours "
         f"{'equal' if same else 'DIFFER'}")
     if digest != LLFF_JPEG_SHA256 or mode != "RGB" or not same:
         raise AssertionError("the JPEG reader departs from Pillow's decode")
@@ -2984,15 +3003,19 @@ def png_reader_ms(tmp: str) -> dict:
     return dict(ms=ms["now"], before_ms=ms["before"])
 
 
-def llff_eval(tmp: str, root: str, ckpt: str, split: str, wh) -> dict:
+def llff_eval(tmp: str, root: str, ckpt: str, split: str, wh,
+              tag: str = "") -> dict:
     """``python -m nerf_pl_tpu_torch.eval --dataset_name llff`` on the card:
     launches, files, wall time; for ``test_train`` the PSNR of the written
     PNGs against the scene's images (the tool prints none: its loader gives
     those poses no ground truth)."""
+    import glob
+
     from nerf_pl_tpu_torch import eval as eval_cli
+    from nerf_pl_tpu_torch.data.llff import read_image
     from nerf_pl_tpu_torch.data.png import read_png
 
-    out = os.path.join(tmp, f"llff_eval_{split}")
+    out = os.path.join(tmp, f"llff_eval_{split}{tag}")
     argv = ["--root_dir", root, "--dataset_name", "llff", "--ckpt_path", ckpt,
             "--img_wh", str(wh[0]), str(wh[1]), "--N_samples", "64",
             "--N_importance", "64", "--split", split, "--save_depth",
@@ -3017,9 +3040,10 @@ def llff_eval(tmp: str, root: str, ckpt: str, split: str, wh) -> dict:
                              f"{counts}")
     psnrs = []
     if split == "test_train":
-        for i, name in enumerate(pngs):
+        views = sorted(glob.glob(os.path.join(root, "images", "*")))
+        for name, view in zip(pngs, views):
             img, _ = read_png(os.path.join(d, name))
-            gt, _ = read_png(os.path.join(root, "images", f"{i:03d}.png"))
+            gt = read_image(view)
             mse = np.mean((img / 255.0 - gt / 255.0) ** 2)
             psnrs.append(float(-10 * np.log10(max(mse, 1e-12))))
     rays = n * wh[0] * wh[1]
@@ -4454,6 +4478,252 @@ def dist_end_to_end(tmp: str, trained: dict) -> dict:
         seconds=time.perf_counter() - t_phase)
 
 
+# ---------------------------------------------------------------- phase 12
+# The image readers.  The card's machine has no PIL and no encoder: the
+# files are written with the tests' numpy writer (tests/image_writers.py),
+# from the same 8-bit images as baseline files, and each load is held bit
+# for bit against the baseline's (the same JPEG coefficients, the PNGs' high
+# bytes).  The fern-size decode: one MCU row of 4032x16 at quality 95, 4:2:0,
+# stacked 189 times as 189 restart intervals (a 4032x3024 file whose every
+# entropy-coded byte the decoder reads).
+FERN_W, FERN_STRIP, FERN_ROWS = 4032, 16, 189
+# one vanilla Blender step: a coarse and a fine pass through D and E, one
+# importance sampling (A), as an LLFF step
+VANILLA_STEP_LAUNCHES = LLFF_STEP_LAUNCHES
+
+
+def image_writers():
+    """``tests/image_writers.py`` of this checkout (test support)."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    import image_writers as writers
+
+    return writers
+
+
+def one_step_launches(tag: str, step, want: dict) -> dict:
+    torch.cuda.synchronize()
+    reset_counts()
+    step()
+    torch.cuda.synchronize()
+    got = read_counts()
+    log(f"[readers] {tag}: launches in one step {got}")
+    if any(got[k] != v for k, v in want.items()):
+        raise AssertionError(f"one {tag} step launched {got}, expected {want}")
+    return got
+
+
+def same_rgbs(tag: str, a: np.ndarray, b: np.ndarray) -> None:
+    if a.dtype != b.dtype or a.shape != b.shape or not np.array_equal(a, b):
+        raise AssertionError(f"{tag}: the loads differ from the baseline "
+                             "files'")
+
+
+def readers_llff(tmp: str, W) -> dict:
+    """Phase 9's scene as baseline JPEGs and as progressive ones of the same
+    coefficients (view 1 arithmetic-coded): the loads bit-equal, then the
+    LLFF fit and the ``test_train`` eval on the progressive scene."""
+    import glob
+    import shutil
+
+    from nerf_pl_tpu_torch.data.image import convert, read_picture
+    from nerf_pl_tpu_torch.data.llff import LLFFDataset
+
+    src = os.path.join(tmp, "llff_scene")
+    roots = {k: os.path.join(tmp, f"llff_{k}") for k in ("baseline", "prog")}
+    t0 = time.perf_counter()
+    sizes = {}
+    for root in roots.values():
+        os.makedirs(os.path.join(root, "images"))
+        shutil.copy(os.path.join(src, "poses_bounds.npy"), root)
+    views = sorted(glob.glob(os.path.join(src, "images", "*.png")))
+    for i, view in enumerate(views):
+        rgb = convert(read_picture(view), "RGB").astype(np.float64)
+        frame = W.frame_from_planes(W.rgb_to_ycc(rgb), [(2, 2), (1, 1), (1, 1)],
+                                    95)
+        files = {"baseline": W.jpeg_bytes(frame),
+                 "prog": W.jpeg_bytes(frame, progressive=True,
+                                      coding="arith" if i == 1 else "huffman")}
+        for k, data in files.items():
+            with open(os.path.join(roots[k], "images", f"{i:03d}.jpg"),
+                      "wb") as f:
+                f.write(data)
+            sizes.setdefault(k, []).append(len(data))
+    write_s = time.perf_counter() - t0
+    for split in ("train", "val"):
+        a, b = (LLFFDataset(r, split=split, img_wh=LLFF_WH)
+                for r in (roots["baseline"], roots["prog"]))
+        if split == "train":
+            same_rgbs("llff train", a.all_rgbs, b.all_rgbs)
+        else:
+            same_rgbs("llff val", a[0]["rgbs"], b[0]["rgbs"])
+    log(f"[readers] llff: {len(views)} views of {LLFF_WH[0]}x{LLFF_WH[1]} "
+        f"as baseline JPEGs {sizes['baseline']} bytes and progressive ones "
+        f"(view 1 arithmetic-coded) {sizes['prog']} bytes, written in "
+        f"{write_s:.1f} s; train and val loads bit-equal")
+    fit = trainer_fit(tmp, "train", roots["prog"], "llff_prog", LLFF_FLAGS, 1,
+                      "readers")
+    system = fit["system"]
+    rays, rgbs = system.rays[:LLFF_BATCH], system.rgbs[:LLFF_BATCH]
+    per_step = one_step_launches(
+        "llff (progressive JPEGs)", lambda: system.train_step(rays, rgbs),
+        LLFF_STEP_LAUNCHES)
+    del system, rays, rgbs, fit["system"]
+    ckpt = os.path.join(tmp, "ckpts", "llff_prog", "epoch=0.ckpt")
+    ev = llff_eval(tmp, roots["prog"], ckpt, "test_train", LLFF_WH, "_prog")
+    return dict(fit=fit, per_step=per_step, eval=ev, bytes=sizes)
+
+
+def readers_blender(tmp: str, W) -> dict:
+    """Phase 4's scene with every train and val frame as a 16-bit RGBA PNG
+    and train view 0 (its colours first cut to 4 levels a channel, in both
+    copies) as a palette + tRNS Adam7 PNG: the loads bit-equal to the 8-bit
+    copy's, then a 1-epoch fit at phase 4's flags."""
+    import shutil
+
+    from nerf_pl_tpu_torch.data.blender import BlenderDataset
+    from nerf_pl_tpu_torch.data.png import read_png, write_png
+
+    base, wide = (os.path.join(tmp, n) for n in ("scene_8bit", "scene_16bit"))
+    shutil.copytree(os.path.join(tmp, "scene"), base)
+    shutil.copytree(os.path.join(tmp, "scene"), wide)
+    first = os.path.join("train", "r_0.png")
+    img, _ = read_png(os.path.join(base, first))
+    write_png(os.path.join(base, first), (img // 64) * 85)
+    modes = {}
+    for split, n in (("train", TRAIN_VIEWS), ("val", 1)):
+        for i in range(n):
+            name = os.path.join(split, f"r_{i}.png")
+            img, _ = read_png(os.path.join(base, name))
+            layout = "palette-adam7" if name == first else "rgba16"
+            with open(os.path.join(wide, name), "wb") as f:
+                f.write(W.layout_bytes(img, layout, seed=i))
+            modes[layout] = modes.get(layout, 0) + 1
+    kw = dict(img_wh=(TRAIN_WH, TRAIN_WH), near=2.0, far=6.0)
+    for split in ("train", "val"):
+        a, b = (BlenderDataset(r, split, **kw) for r in (base, wide))
+        if split == "train":
+            same_rgbs("blender train", a.all_rgbs, b.all_rgbs)
+        else:
+            same_rgbs("blender val", a[0]["rgbs"], b[0]["rgbs"])
+    log(f"[readers] blender: frames rewritten as {modes}; train and val "
+        "loads bit-equal to the 8-bit copy's")
+    flags = ["--dataset_name", "blender", "--img_wh", str(TRAIN_WH),
+             str(TRAIN_WH), "--N_samples", str(N_SAMPLES), "--N_importance",
+             str(N_IMPORTANCE), "--batch_size", str(TRAIN_BATCH), "--lr",
+             "5e-4", "--white_back", "true", "--compute_dtype", "bfloat16"]
+    fit = trainer_fit(tmp, "train", wide, "blender16", flags, 1, "readers")
+    system = fit["system"]
+    rays, rgbs = system.rays[:TRAIN_BATCH], system.rgbs[:TRAIN_BATCH]
+    per_step = one_step_launches(
+        "blender (16-bit and palette PNGs)",
+        lambda: system.train_step(rays, rgbs), VANILLA_STEP_LAUNCHES)
+    del system, rays, rgbs, fit["system"]
+    return dict(fit=fit, per_step=per_step, layouts=modes)
+
+
+def readers_shadow(tmp: str, W) -> dict:
+    """Phase 7's shadow scene with its shadow maps as palette PNGs: the
+    loads bit-equal, then a 1-epoch ``--grad_on_light`` fit."""
+    import glob
+    import shutil
+
+    from nerf_pl_tpu_torch.data.blender_efficient_sm import \
+        BlenderEfficientShadows
+    from nerf_pl_tpu_torch.data.png import read_png
+
+    src = os.path.join(tmp, "shadow_scene")
+    pal = os.path.join(tmp, "shadow_palette")
+    shutil.copytree(src, pal)
+    maps = sorted(glob.glob(os.path.join(pal, "sm_*.png")))
+    for path in maps:
+        img, _ = read_png(path)
+        with open(path, "wb") as f:
+            f.write(W.layout_bytes(img, "palette"))
+    for split in ("train", "val"):
+        a, b = (BlenderEfficientShadows(r, split, img_wh=(SHADOW_WH, SHADOW_WH))
+                for r in (src, pal))
+        if split == "train":
+            same_rgbs("efficient_sm train", a.all_rgbs, b.all_rgbs)
+        else:
+            same_rgbs("efficient_sm val", a[0]["rgbs"], b[0]["rgbs"])
+    log(f"[readers] efficient_sm: {len(maps)} shadow maps as palette PNGs; "
+        "train and val loads bit-equal")
+    fit = shadow_fit(tmp, pal, "sm_palette", ["--grad_on_light"], 1)
+    system = fit["system"]
+    batch = tuple(t[:SHADOW_BATCH] for t in (system.rays, system.rgbs,
+                                             system.pixels, system.pose_idx))
+    cache = system.empty_light_cache()
+    per_step = one_step_launches(
+        "efficient_sm (palette shadow maps)",
+        lambda: system.train_step(*batch, cache, SHADOW_LIGHT_N),
+        SHADOW_STEP_LAUNCHES)
+    del system, batch, fit["system"]
+    return dict(fit=fit, per_step=per_step)
+
+
+def fern_size_decodes(W) -> dict:
+    """A 4032x3024 q95 4:2:0 JPEG as a baseline and as a progressive file of
+    the same coefficients, decoded on this machine's host: the whole decode
+    and its stages, and for the baseline file the plain Python entropy loop
+    (its coefficients equal the C++ stage's); the two decodes bit-equal."""
+    from nerf_pl_tpu_torch.data import jpeg
+
+    x = np.arange(FERN_W, dtype=np.float64)[None, :]
+    y = np.arange(FERN_STRIP, dtype=np.float64)[:, None]
+    rgb = np.stack([128 + 100 * np.sin(x / 37) + 0 * y,
+                    128 + 100 * np.cos(y / 5) + 0 * x,
+                    128 + 60 * np.sin((x + y) / 51)], -1)
+    rgb += np.random.RandomState(0).normal(0, 6, rgb.shape)
+    frame = W.frame_from_planes(W.rgb_to_ycc(np.clip(rgb, 0, 255)),
+                                [(2, 2), (1, 1), (1, 1)], 95)
+    jpeg._native()  # built before the clock starts
+    out, pixels = {}, {}
+    for kind, kw in (("baseline", {}), ("progressive", dict(progressive=True))):
+        data = W.jpeg_bytes(frame, repeat=FERN_ROWS, **kw)
+        stages = {}
+        t0 = time.perf_counter()
+        pixels[kind], mode = jpeg.decode(data, seconds=stages)
+        whole = time.perf_counter() - t0
+        if pixels[kind].shape != (FERN_STRIP * FERN_ROWS, FERN_W, 3):
+            raise AssertionError(f"fern-size decode shape {pixels[kind].shape}")
+        out[kind] = dict(bytes=len(data), s=whole, stages=stages)
+        if kind == "baseline":
+            native_frame = jpeg._decode(data)[0]
+            t0 = time.perf_counter()
+            plain_frame = jpeg._decode(data, plain=True)[0]
+            out[kind]["plain_entropy_s"] = time.perf_counter() - t0
+            if not all(np.array_equal(a, b) for a, b in
+                       zip(native_frame.coef, plain_frame.coef)):
+                raise AssertionError("the C++ entropy stage's coefficients "
+                                     "differ from the plain loop's")
+    if not np.array_equal(pixels["baseline"], pixels["progressive"]):
+        raise AssertionError("the progressive file decodes otherwise than "
+                             "the baseline file of its coefficients")
+    b, p = out["baseline"], out["progressive"]
+    log(f"[readers] {FERN_W}x{FERN_STRIP * FERN_ROWS} q95 4:2:0 JPEG on the "
+        f"host ({gpu_line()}): baseline {b['bytes']:,} bytes, decode "
+        f"{b['s']:.3f} s (" + ", ".join(f"{k} {v:.3f}" for k, v in
+                                        b["stages"].items())
+        + f"), the plain Python entropy loop {b['plain_entropy_s']:.2f} s "
+        f"(coefficients equal); progressive {p['bytes']:,} bytes, decode "
+        f"{p['s']:.3f} s (" + ", ".join(f"{k} {v:.3f}" for k, v in
+                                        p["stages"].items())
+        + "), pixels equal to the baseline file's")
+    return out
+
+
+def readers_end_to_end(tmp: str) -> dict:
+    """Phase 12: the fits on the new layouts and the fern-size decodes."""
+    t0 = time.perf_counter()
+    W = image_writers()
+    out = dict(llff=readers_llff(tmp, W), blender=readers_blender(tmp, W),
+               shadow=readers_shadow(tmp, W), fern=fern_size_decodes(W))
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[readers] phase 12: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4529,6 +4799,7 @@ def main() -> int:
         tools_s = time.perf_counter() - t_tools
         log(f"[tools] phase 10: {tools_s:.1f} s")
         dist = dist_end_to_end(tmp, trained)
+        readers = readers_end_to_end(tmp)
 
     fine_row, coarse_row = c["rows"]["rgb"], c["rows"]["sigma-only"]
     kernels = [
@@ -4866,6 +5137,27 @@ def main() -> int:
             stream_fit=dist["stream"]["counts"][key],
             stream_epoch=dist["stream"]["epoch_counts"][key])
     log(f"[dist] phase 11: {dist['seconds']:.1f} s; total "
+        f"{time.perf_counter() - t_start:.1f} s")
+    # phase 12: the fits on the readers' new layouts and one step of each
+    for row in kernels:
+        key = {"searchsorted_rank_interp": "B", "searchsorted_rank": "A",
+               "fused_nerf_fwd": "C", "fused_nerf_stash_fwd": "D",
+               "fused_nerf_bwd_stash": "E"}.get(row["name"])
+        if key is None:
+            continue
+        row["launches_readers"] = dict(
+            llff_progressive_fit=readers["llff"]["fit"]["counts"][key],
+            llff_progressive_per_step=readers["llff"]["per_step"][key],
+            llff_progressive_eval=readers["llff"]["eval"]["counts"][key],
+            blender_16bit_fit=readers["blender"]["fit"]["counts"][key],
+            blender_16bit_per_step=readers["blender"]["per_step"][key],
+            efficient_sm_palette_fit=readers["shadow"]["fit"]["counts"][key],
+            efficient_sm_palette_per_step=readers["shadow"]["per_step"][key])
+    fern = readers["fern"]
+    log(f"[readers] phase 12: {readers['seconds']:.1f} s; fern-size decode "
+        f"{fern['baseline']['s']:.3f} s baseline, "
+        f"{fern['progressive']['s']:.3f} s progressive, plain entropy loop "
+        f"{fern['baseline']['plain_entropy_s']:.2f} s; total "
         f"{time.perf_counter() - t_start:.1f} s")
     log(f"[card] {card}")
     print(json.dumps({"kernels": kernels}))

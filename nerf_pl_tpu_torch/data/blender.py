@@ -9,9 +9,9 @@
     channels, with no alpha blend (as the reference).
   * near/far and ``white_back`` are arguments (upstream 2/6 by default).
 
-Images are read with the port's own PNG reader (``data/png.py``) and
-resized to ``img_wh`` with PIL's LANCZOS, repeated in numpy
-(``data/resize.py``).
+Images are opened by their content (PNG or JPEG, in Pillow's mode) and
+resized to ``img_wh`` with PIL's LANCZOS in that mode, then converted, all
+as Pillow does (``data/image.py``).
 """
 from __future__ import annotations
 
@@ -21,25 +21,23 @@ from typing import Optional
 
 import numpy as np
 
-from .png import read_png, to_luma, to_rgba
-from .resize import resize_lanczos
+from .image import convert, read_picture, resize
 from .sharding import wrap_pad_shard
 from .shadow_common import get_ray_directions, make_rays
 
 
 def _load_image(path, img_wh, black_and_white=False):
     """Returns (h*w, 4) float32 RGBA in [0, 1] (grayscale replicated if bw)."""
-    img, mode = read_png(path)
-    img = resize_lanczos(img, mode, img_wh)
+    pic = resize(read_picture(path), img_wh)
     if black_and_white:
         alpha = None
-        if mode == "RGBA":
-            alpha = img[..., 3].astype(np.float32) / 255.0
-        g = to_luma(img, mode).astype(np.float32) / 255.0
+        if pic.mode == "RGBA":
+            alpha = pic.pixels[..., 3].astype(np.float32) / 255.0
+        g = convert(pic, "L").astype(np.float32) / 255.0
         rgb = np.stack([g, g, g], axis=-1)
         a = alpha if alpha is not None else np.ones_like(g)
         return np.concatenate([rgb, a[..., None]], -1).reshape(-1, 4)
-    return (to_rgba(img, mode).astype(np.float32) / 255.0).reshape(-1, 4)
+    return (convert(pic, "RGBA").astype(np.float32) / 255.0).reshape(-1, 4)
 
 
 def blend_rgba(img: np.ndarray) -> np.ndarray:

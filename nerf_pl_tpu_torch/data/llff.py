@@ -13,10 +13,10 @@ reference ``datasets/llff.py``), on host numpy arrays.
   * Test paths: a 120-pose spiral (forward-facing) or circle (spheric);
     ``split="test_train"`` renders the training poses.  Only ``val`` has
     ground truth.
-  * ``images/*`` are PNG (``data/png.py``) or baseline JPEG
-    (``data/jpeg.py``), told apart by their first bytes, converted to RGB and
-    resized to ``img_wh`` with PIL's LANCZOS (``data/resize.py``), each
-    bit-equal to Pillow's; any other format raises naming the file.
+  * ``images/*`` are any PNG or JPEG Pillow reads, told apart by their
+    first bytes (``data/image.py``), converted to RGB and resized to
+    ``img_wh`` with PIL's LANCZOS (``data/resize.py``), each bit-equal to
+    Pillow's; any other format raises naming the file.
 """
 from __future__ import annotations
 
@@ -25,10 +25,10 @@ import os
 
 import numpy as np
 
-from . import jpeg, png
+from .image import convert, read_picture
 from .resize import resize_lanczos
 from .sharding import wrap_pad_shard
-from .shadow_common import _to_rgb, get_ndc_rays, get_ray_directions, get_rays
+from .shadow_common import get_ndc_rays, get_ray_directions, get_rays
 
 
 def normalize(v):
@@ -93,15 +93,8 @@ def create_spheric_poses(radius, n_poses: int = 120) -> np.ndarray:
 
 
 def read_image(path: str) -> np.ndarray:
-    """(H, W, 3) uint8: PIL's ``Image.open(path).convert("RGB")`` for the
-    PNGs ``data/png.py`` reads and the JPEGs ``data/jpeg.py`` reads."""
-    with open(path, "rb") as f:
-        magic = f.read(8)
-    if magic == b"\x89PNG\r\n\x1a\n":
-        return _to_rgb(*png.read_png(path))
-    if magic[:2] == b"\xff\xd8":
-        return _to_rgb(*jpeg.read_jpeg(path))
-    raise ValueError(f"{path}: neither a PNG nor a JPEG file")
+    """(H, W, 3) uint8: PIL's ``Image.open(path).convert("RGB")``."""
+    return convert(read_picture(path), "RGB")
 
 
 def _load_rgb(path, img_wh):

@@ -6,13 +6,17 @@ DataLoader worker pool, ``train.py:89-94``, as one native library).
 The library is built at first use from the checkout's ``native/raystore.cpp``
 with ``g++ -O3 -std=c++17 -fPIC -Wall -pthread -shared`` into
 ``build/nerf_pl_tpu_torch/`` under a name that carries a hash of the source
-and flags, so an edited source rebuilds.  A build or load failure raises;
-the numpy store (``force_fallback=True``, the JAX package's fallback and
-epoch permutation) is used only when asked for.
+and flags, so an edited source rebuilds; processes that start together
+(pytest-xdist workers) build it once, behind a file lock.  A build or load
+failure raises, naming the source; the numpy store (``force_fallback=True``,
+the JAX package's fallback and epoch permutation) is used only when asked
+for.  ``build(source)`` builds the port's other host library, the JPEG
+reader's ``csrc/jpeg_entropy.cpp``, the same way.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -31,29 +35,31 @@ _lock = threading.Lock()
 _lib = None
 
 
-def library_path() -> Path:
+def library_path(source: Path = SOURCE) -> Path:
     h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    h.update(SOURCE.read_bytes())
-    return BUILD_DIR / f"libraystore-{h.hexdigest()[:16]}.so"
+    h.update(source.read_bytes())
+    return BUILD_DIR / f"lib{source.stem}-{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the store if its library is missing; returns its path."""
-    out = library_path()
+def build(source: Path = SOURCE) -> Path:
+    """Compile ``source`` if its library is missing; returns its path."""
+    out = library_path(source)
     if out.exists():
         return out
     cxx = os.environ.get("CXX") or shutil.which("g++")
     if not cxx:
-        raise RuntimeError("g++ not found: the native ray store cannot be "
-                           "built (pass force_fallback=True for the numpy "
-                           "store)")
+        raise RuntimeError(f"g++ not found: {source} cannot be built")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True, timeout=300)
-    if proc.returncode != 0:
-        raise RuntimeError(f"building {SOURCE.name} failed:\n{proc.stderr}")
-    os.replace(tmp, out)
+    with open(out.with_suffix(".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if out.exists():  # another process built it while this one waited
+            return out
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(source)],
+                              capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            raise RuntimeError(f"building {source} failed:\n{proc.stderr}")
+        os.replace(tmp, out)
     return out
 
 

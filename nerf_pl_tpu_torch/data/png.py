@@ -1,8 +1,12 @@
-"""A PNG reader and writer on ``zlib`` alone, and PIL's ``convert("L")``.
+"""A PNG reader and writer on ``zlib`` alone.
 
-Reads 8-bit, non-interlaced PNGs of colour types 0 (gray), 2 (RGB),
-4 (gray + alpha) and 6 (RGBA), with the five scanline filters; anything else
-raises ``ValueError``.  Writes the same four types, filter 0.
+Reads every layout Pillow's ``PngImagePlugin`` reads (its ``_MODES``): 1-,
+2-, 4-, 8- and 16-bit gray, 8- and 16-bit RGB, gray + alpha and RGBA, and
+1-, 2-, 4- and 8-bit palette, with or without Adam7 interlacing, with the
+five scanline filters, and the ``tRNS`` chunk as Pillow keeps it; each in
+Pillow's mode and values (``decode_png``).  Anything else raises
+``ValueError`` naming the file.  Writes 8-bit gray, gray + alpha, RGB and
+RGBA, filter 0.
 """
 from __future__ import annotations
 
@@ -18,20 +22,28 @@ _CHANNELS = {c: t for t, (_, c) in _TYPES.items()}
 
 
 def _chunks(data: bytes):
+    """The chunks up to IEND or the end of the file.  As Pillow does, only
+    the CRCs of the chunks before the first IDAT are checked
+    (``PngImageFile._open``; ``load_read`` and ``load_end`` skip the later
+    ones), and a file that ends after its image data without IEND is
+    read."""
     pos = len(_SIGNATURE)
+    before_idat = True
     while pos + 8 <= len(data):
         n, kind = struct.unpack(">I4s", data[pos:pos + 8])
         body = data[pos + 8:pos + 8 + n]
-        if len(body) != n or pos + 12 + n > len(data):
+        before_idat &= kind != b"IDAT"
+        if len(body) != n or (before_idat and pos + 12 + n > len(data)):
             raise ValueError("truncated PNG chunk")
-        crc = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])[0]
-        if zlib.crc32(kind + body) != crc:
+        if before_idat and zlib.crc32(kind + body) != struct.unpack(
+                ">I", data[pos + 8 + n:pos + 12 + n])[0]:
             raise ValueError(f"PNG chunk {kind!r} fails its CRC")
         yield kind, body
         pos += 12 + n
         if kind == b"IEND":
             return
-    raise ValueError("PNG without IEND")
+    if before_idat:
+        raise ValueError("PNG without image data")
 
 
 def _unfilter(raw: bytes, h: int, w: int, bpp: int) -> np.ndarray:
@@ -78,32 +90,123 @@ def _unfilter(raw: bytes, h: int, w: int, bpp: int) -> np.ndarray:
         h, stride)
 
 
-def read_png(path: str):
-    """``(array (H, W[, C]) uint8, mode)`` with mode ``L``, ``LA``, ``RGB``
-    or ``RGBA`` (the array has no channel axis for ``L``)."""
-    with open(path, "rb") as f:
-        data = f.read()
+# (bit depth, colour type) -> Pillow's mode (``PngImagePlugin._MODES``)
+_MODES = {(1, 0): "1", (2, 0): "L", (4, 0): "L", (8, 0): "L",
+          (16, 0): "I;16", (8, 2): "RGB", (16, 2): "RGB", (1, 3): "P",
+          (2, 3): "P", (4, 3): "P", (8, 3): "P", (8, 4): "LA",
+          (16, 4): "RGBA", (8, 6): "RGBA", (16, 6): "RGBA"}
+# Adam7: (x0, y0, dx, dy) of each pass
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def _samples(raw: bytes, h: int, w: int, depth: int, ch: int):
+    """One (sub-)image's filtered rows -> ((h, w, ch) samples, bytes used)."""
+    row = -(-w * ch * depth // 8)
+    n = h * (row + 1)
+    if len(raw) < n:
+        raise ValueError("PNG image data is too short")
+    if depth >= 8:
+        rows = _unfilter(raw[:n], h, w, ch * depth // 8)
+    else:
+        rows = _unfilter(raw[:n], h, row, 1)
+    if depth == 16:
+        return rows.view(">u2").reshape(h, w, ch).astype(np.uint16), n
+    if depth == 8:
+        return rows.reshape(h, w, ch), n
+    bits = np.unpackbits(rows, axis=1).reshape(h, row * 8 // depth, depth)
+    vals = np.zeros(bits.shape[:2], np.uint8)
+    for i in range(depth):
+        vals = (vals << 1) | bits[..., i]
+    return vals[:, :w * ch].reshape(h, w, ch), n
+
+
+def decode_png(data: bytes, name: str = "PNG"):
+    """``(pixels, mode, palette, transparency)`` as Pillow opens the file:
+    ``mode`` one of ``1 L I;16 RGB P LA RGBA``; pixels uint8 (H, W[, C])
+    (``1``: 0 or 255; 2- and 4-bit gray scaled to 8 bits; 16-bit RGB and
+    RGBA their high bytes; 16-bit gray + alpha as RGBA), uint16 for
+    ``I;16``, palette indices for ``P``; ``palette`` (n, 3) uint8 for
+    ``P``; ``transparency`` Pillow's ``info["transparency"]`` (an int, a
+    tuple or bytes) or None."""
+    try:
+        return _decode_png(data, name)
+    except (zlib.error, struct.error, IndexError, ValueError) as e:
+        if isinstance(e, ValueError) and str(e).startswith(f"{name}: "):
+            raise
+        raise ValueError(f"{name}: a corrupt PNG ({e})") from None
+
+
+def _decode_png(data: bytes, name: str):
     if data[:8] != _SIGNATURE:
-        raise ValueError(f"{path}: not a PNG file")
-    header, idat = None, []
+        raise ValueError(f"{name}: not a PNG file")
+    header, idat, plte, trns = None, [], None, None
     for kind, body in _chunks(data):
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
         elif kind == b"IDAT":
             idat.append(body)
+        elif kind == b"PLTE":
+            plte = body
+        elif kind == b"tRNS":
+            trns = body
     if header is None:
-        raise ValueError(f"{path}: PNG without IHDR")
+        raise ValueError(f"{name}: PNG without IHDR")
     w, h, depth, ctype, comp, filt, interlace = header
-    if depth != 8 or ctype not in _TYPES or comp != 0 or filt != 0:
-        raise ValueError(f"{path}: unsupported PNG (bit depth {depth}, colour "
-                         f"type {ctype}); only 8-bit gray, gray+alpha, RGB "
-                         f"and RGBA are read")
-    if interlace != 0:
-        raise ValueError(f"{path}: interlaced PNGs are not supported")
-    mode, ch = _TYPES[ctype]
-    pix = _unfilter(zlib.decompress(b"".join(idat)), h, w, ch)
-    pix = pix.reshape(h, w, ch)
-    return (pix[..., 0] if ch == 1 else pix), mode
+    if (depth, ctype) not in _MODES or comp != 0 or filt != 0 or interlace > 1:
+        raise ValueError(f"{name}: unsupported PNG (bit depth {depth}, colour "
+                         f"type {ctype}, interlace {interlace})")
+    mode = _MODES[(depth, ctype)]
+    ch = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[ctype]
+    raw = zlib.decompress(b"".join(idat))
+    if interlace:
+        pix = np.zeros((h, w, ch), np.uint16 if depth == 16 else np.uint8)
+        pos = 0
+        for x0, y0, dx, dy in _ADAM7:
+            sw, sh = -(-(w - x0) // dx), -(-(h - y0) // dy)
+            if sw <= 0 or sh <= 0:
+                continue
+            sub, n = _samples(raw[pos:], sh, sw, depth, ch)
+            pix[y0::dy, x0::dx] = sub
+            pos += n
+    else:
+        pix, _ = _samples(raw, h, w, depth, ch)
+    palette, transparency = None, None
+    if ctype == 3:
+        if plte is None:
+            raise ValueError(f"{name}: a palette PNG without PLTE")
+        palette = np.frombuffer(plte, np.uint8)[:len(plte) // 3 * 3].reshape(-1, 3)
+    if trns is not None:  # PngStream.chunk_tRNS
+        if ctype == 3:
+            zero = trns.find(b"\0")
+            simple = zero >= 0 and trns.count(b"\0") == 1 and all(
+                b in (0, 255) for b in trns)
+            transparency = zero if simple else trns
+        elif ctype == 0 and len(trns) >= 2:
+            key = int.from_bytes(trns[:2], "big")
+            transparency = (255 if key else 0) if mode == "1" else key
+        elif ctype == 2 and len(trns) >= 6:
+            transparency = tuple(int.from_bytes(trns[i:i + 2], "big")
+                                 for i in (0, 2, 4))
+    if depth == 16:
+        if mode == "I;16":
+            return pix[..., 0], mode, palette, transparency
+        pix = (pix >> 8).astype(np.uint8)
+        if ctype == 4:  # "LA;16B" unpacked into RGBA
+            pix = pix[..., [0, 0, 0, 1]]
+    elif depth < 8 and ctype == 0:
+        pix = pix * np.uint8(255 // ((1 << depth) - 1))
+    pix = np.ascontiguousarray(pix)
+    return (pix[..., 0] if pix.shape[2] == 1 else pix), mode, palette, transparency
+
+
+def read_png(path: str):
+    """``(pixels, mode)`` of a PNG as Pillow opens it (``decode_png``; the
+    palette and transparency are in ``read_picture``'s result)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    pix, mode, _, _ = decode_png(data, path)
+    return pix, mode
 
 
 def write_png(path: str, img: np.ndarray) -> None:
@@ -126,30 +229,3 @@ def write_png(path: str, img: np.ndarray) -> None:
     with open(path, "wb") as f:
         f.write(_SIGNATURE + chunk(b"IHDR", ihdr)
                 + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
-
-
-def to_luma(img: np.ndarray, mode: str) -> np.ndarray:
-    """PIL's ``convert("L")``: gray as is; RGB(A) in PIL's fixed point,
-    ``(19595 R + 38470 G + 7471 B + 0x8000) >> 16``."""
-    if mode == "L":
-        return img
-    if mode == "LA":
-        return img[..., 0]
-    rgb = img[..., :3].astype(np.uint32)
-    return ((rgb[..., 0] * 19595 + rgb[..., 1] * 38470 + rgb[..., 2] * 7471
-             + 0x8000) >> 16).astype(np.uint8)
-
-
-def to_rgba(img: np.ndarray, mode: str) -> np.ndarray:
-    """PIL's ``convert("RGBA")`` for the four modes."""
-    if mode == "RGBA":
-        return img
-    h, w = img.shape[:2]
-    out = np.empty((h, w, 4), np.uint8)
-    if mode == "RGB":
-        out[..., :3], out[..., 3] = img, 255
-    elif mode == "L":
-        out[..., :3], out[..., 3] = img[..., None], 255
-    else:  # LA
-        out[..., :3], out[..., 3] = img[..., :1], img[..., 1]
-    return out

@@ -4,9 +4,9 @@ on host numpy arrays.
   * pixel rows ``[x+0.5, y+0.5, 1]`` flattened row-major;
   * the light camera: intrinsics from ``light_camera_angle_x``, pose from
     ``light_camera_transform_matrix``, rays through every light pixel;
-  * targets ``sm_<frame>.png`` beside the RGB frames, read with the port's
-    PNG reader, LANCZOS resize and Gaussian blur (each bit-equal to Pillow's)
-    and ``convert("RGB")``.
+  * targets ``sm_<frame>.png`` beside the RGB frames, opened by their
+    content, LANCZOS-resized and Gaussian-blurred in the file's mode and
+    converted to RGB, each as Pillow does (``data/image.py``).
 
 ``get_ray_directions``, ``get_rays`` and ``get_ndc_rays`` repeat the numpy
 branch of ``nerf_pl_tpu/ops/ray_utils.py`` (the port's ``ops.ray_utils`` is
@@ -23,9 +23,7 @@ from typing import Optional, Tuple
 import numpy as np
 
 from ..models.camera import Camera, intrinsic_matrix, pose_from_blender_matrix
-from .blur import gaussian_blur
-from .png import read_png
-from .resize import resize_lanczos
+from .image import convert, gaussian_blur, read_picture, resize
 
 
 def get_ray_directions(H: int, W: int, focal: float) -> np.ndarray:
@@ -91,26 +89,16 @@ def posed_ppc(camera_angle_x: float, res: Tuple[int, int], c2w: np.ndarray):
     return pose_from_blender_matrix(M, c2w)
 
 
-def _to_rgb(img: np.ndarray, mode: str) -> np.ndarray:
-    """PIL's ``convert("RGB")`` for the modes the PNG reader returns."""
-    if mode == "RGB":
-        return img
-    if mode == "RGBA":
-        return img[..., :3]
-    if mode in ("L", "LA"):
-        gray = img if mode == "L" else img[..., 0]
-        return np.repeat(gray[..., None], 3, axis=-1)
-    raise ValueError(f"cannot convert PNG mode {mode!r} to RGB")
-
-
 def load_sm_image(path: str, img_wh, blur: int = -1) -> np.ndarray:
-    """(h*w, 3) float32 shadow-map target: the PNG resized with LANCZOS,
+    """(h*w, 3) float32 shadow-map target: the image resized with LANCZOS,
     blurred when ``blur != -1``, as RGB in [0, 1]."""
-    img, mode = read_png(path)
-    img = resize_lanczos(img, mode, img_wh)
+    pic = resize(read_picture(path), img_wh)
     if blur != -1:
-        img = gaussian_blur(img, blur)
-    arr = _to_rgb(img, mode).astype(np.float32) / 255.0
+        try:
+            pic = gaussian_blur(pic, blur)
+        except ValueError as e:
+            raise ValueError(f"{path}: {e}") from None
+    arr = convert(pic, "RGB").astype(np.float32) / 255.0
     return arr.reshape(-1, 3)
 
 

@@ -20,6 +20,7 @@ from nerf_pl_tpu.training import checkpoints as jckpt
 from nerf_pl_tpu.training import optim as joptim
 from nerf_pl_tpu_torch.config import get_opts
 from nerf_pl_tpu_torch.data import png
+from nerf_pl_tpu_torch.data.image import Picture, convert
 from nerf_pl_tpu_torch.data.blender import BlenderDataset
 from nerf_pl_tpu_torch.models.nerf import nerf_to_numpy
 from nerf_pl_tpu_torch.train import main as train_main
@@ -98,9 +99,10 @@ def test_png_reads_the_conftest_scene_as_pil(blender_root):
             ref = Image.open(path)
             assert mode == ref.mode
             np.testing.assert_array_equal(arr, np.asarray(ref))
-            np.testing.assert_array_equal(png.to_luma(arr, mode),
+            pic = Picture(arr, mode)
+            np.testing.assert_array_equal(convert(pic, "L"),
                                           np.asarray(ref.convert("L")))
-            np.testing.assert_array_equal(png.to_rgba(arr, mode),
+            np.testing.assert_array_equal(convert(pic, "RGBA"),
                                           np.asarray(ref.convert("RGBA")))
 
 
@@ -110,22 +112,37 @@ def test_luma_and_rgba_match_pil(mode):
     img = (np.random.RandomState(10 + c).rand(32, 32, c) * 256).astype(np.uint8)
     img = img[..., 0] if c == 1 else img
     pil = Image.fromarray(img, mode)
-    np.testing.assert_array_equal(png.to_luma(img, mode), np.asarray(pil.convert("L")))
-    np.testing.assert_array_equal(png.to_rgba(img, mode),
+    np.testing.assert_array_equal(convert(Picture(img, mode), "L"),
+                                  np.asarray(pil.convert("L")))
+    np.testing.assert_array_equal(convert(Picture(img, mode), "RGBA"),
                                   np.asarray(pil.convert("RGBA")))
 
 
 def test_png_refuses_what_it_cannot_read(tmp_path):
-    Image.fromarray(np.zeros((4, 4), np.uint16), "I;16").save(tmp_path / "d16.png")
-    Image.fromarray(np.zeros((4, 4), np.uint8), "L").convert("P").save(tmp_path / "p.png")
-    interlaced = bytearray(_encode(np.zeros((2, 2, 1), np.uint8), 0, 0))
-    interlaced[28] = 1  # IHDR's interlace byte
-    crc = zlib.crc32(bytes(interlaced[12:29]))
-    interlaced[29:33] = struct.pack(">I", crc)
-    (tmp_path / "i.png").write_bytes(bytes(interlaced))
+    """16-bit, palette and interlaced PNGs are read now, as Pillow reads
+    them; what Pillow cannot open (a bit depth its ``_MODES`` lacks, or
+    other content) still raises, naming the file."""
+    import image_writers
+
+    Image.fromarray(np.arange(16, dtype=np.uint16).reshape(4, 4) * 4000,
+                    "I;16").save(tmp_path / "d16.png")
+    Image.fromarray(np.arange(16, dtype=np.uint8).reshape(4, 4),
+                    "L").convert("P").save(tmp_path / "p.png")
+    (tmp_path / "i.png").write_bytes(image_writers.png_bytes(
+        np.arange(12, dtype=np.uint8).reshape(2, 2, 3) * 20, 8, 2,
+        interlace=True))
+    for name, mode in (("d16", "I;16"), ("p", "P"), ("i", "RGB")):
+        arr, got_mode = png.read_png(str(tmp_path / f"{name}.png"))
+        pil = Image.open(tmp_path / f"{name}.png")
+        assert got_mode == pil.mode == mode
+        np.testing.assert_array_equal(arr, np.asarray(pil))
+    deep = bytearray(_encode(np.zeros((2, 2, 3), np.uint8), 0, 2))
+    deep[24] = 4  # IHDR's bit depth: 4-bit RGB is no PNG layout
+    deep[29:33] = struct.pack(">I", zlib.crc32(bytes(deep[12:29])))
+    (tmp_path / "deep.png").write_bytes(bytes(deep))
     (tmp_path / "x.png").write_bytes(b"not a png")
-    for name, match in (("d16", "bit depth"), ("p", "colour type"),
-                        ("i", "interlaced"), ("x", "not a PNG")):
+    for name, match in (("deep", r"deep\.png: unsupported PNG \(bit depth 4"),
+                        ("x", r"x\.png: not a PNG")):
         with pytest.raises(ValueError, match=match):
             png.read_png(str(tmp_path / f"{name}.png"))
 

@@ -16,6 +16,7 @@ from nerf_pl_tpu.data import depth_utils as jdepth
 from nerf_pl_tpu.tools import evaluate as jeval
 from nerf_pl_tpu.training import checkpoints as jckpt
 from nerf_pl_tpu_torch.data import depth_utils, png
+from nerf_pl_tpu_torch.data.image import Picture, convert
 from nerf_pl_tpu_torch.data.resize import resize_lanczos
 from nerf_pl_tpu_torch.eval import main as eval_main
 from nerf_pl_tpu_torch.ops import fused_mlp
@@ -62,7 +63,7 @@ def test_lanczos_black_and_white_path_matches_pil():
     img = _image(5, 100, "RGBA")
     pil = Image.fromarray(img, "RGBA").resize((37, 37), Image.LANCZOS)
     out = resize_lanczos(img, "RGBA", (37, 37))
-    assert np.abs(png.to_luma(out, "RGBA").astype(int)
+    assert np.abs(convert(Picture(out, "RGBA"), "L").astype(int)
                   - np.asarray(pil.convert("L")).astype(int)).max() <= 1
     assert np.abs(out[..., 3].astype(int) - np.asarray(pil)[..., 3]).max() <= 1
     # non-square, and the same size (PIL copies without resampling)
