@@ -158,8 +158,21 @@ Phases (any failed check raises, so the script exits non-zero):
    A 1 for LLFF and Blender, D 4 / E 4 / A 2 for efficient_sm); last, a
    4032x3024 q95 4:2:0 baseline and progressive JPEG decoded on the host
    (the whole decode, its stages, the plain Python entropy loop).
-13. One JSON line of kernel numbers, the card's line, then the result line
-   ``{"ok": true, "device": {...}}`` last.
+13. The other containers: phase 9's LLFF scene as lossy WebP views (the
+   fixtures of ``tests/data/webp/``, encoded by Pillow from the same
+   synthetic scene, each decode held to the SHA-256 of Pillow's decode
+   recorded beside them), phase 4's Blender scene as 16-bit RGBA TIFFs
+   (LZW + predictor 2, train view 0 tiled; each value ``v * 257``), phase
+   7's shadow scene with its maps as BMP, PPM and GIF under their
+   ``sm_*.png`` names; the lossless loads held bit for bit against the
+   PNG scenes'; the same three fits as phase 12, each with one step's
+   exact launches, the LLFF ``test_train`` eval, and the ``efficient_sm``
+   epoch-0 loss equal to phase 7's; last, a 4032x3024 lossless WebP and an
+   LZW TIFF decoded on the host by stage, and the lossy VP8 decode rate.
+14. One JSON line of kernel numbers (E's and F's rows carry the SHA-256 of
+   their f32 grads at a fixed seeded input, run twice, ``f32_sha256``), the
+   card's line, then the result line ``{"ok": true, "device": {...}}``
+   last.
 
 Peak rates used for the bounds (NVIDIA H100 SXM data sheet, dense): 989
 TFLOP/s bf16 tensor, 67 TFLOP/s float32 outside the tensor cores,
@@ -872,6 +885,50 @@ def check_train_kernels(model, gen, dev) -> list:
             holds.append(hold_train(f"{dname} {mode} P={P}", model, x, g,
                                     dtype, sigma_only))
     return holds
+
+
+# The f32 backward's bits, pinned on the card: kernels E and F in f32 at a
+# fixed seeded input (the smoke checkpoint's weights, F32_DIGEST_P points
+# spanning two of the backward's chunks, the second ragged), each run twice;
+# the SHA-256 of their grads' bytes is printed and recorded in PERF.md, so a
+# later change to the f32 path can be compared against it.
+F32_DIGEST_P, F32_DIGEST_SEED = (1 << 18) + (1 << 12) + 77, 20240614
+
+
+def f32_backward_digests(model, dev) -> dict:
+    """E and F in f32 (rgb) twice each on the same seeded input: their
+    grads' SHA-256, which must repeat; E against F bit for bit is logged."""
+    import hashlib
+
+    from nerf_pl_tpu_torch.ops import fused_mlp as fm
+
+    gen = torch.Generator().manual_seed(F32_DIGEST_SEED)
+    x = random_raw_t(gen, F32_DIGEST_P, dev)
+    g = torch.randn((8, F32_DIGEST_P), generator=gen).to(dev)
+    _, stash = fm.fused_nerf_stash_fwd_cuda(model, x, False, torch.float32)
+
+    def digest(raw) -> str:
+        h = hashlib.sha256()
+        for t in raw[:2]:  # dw, db: the kernels' f32 outputs
+            h.update(t.detach().contiguous().cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    runs = {"E": [], "F": []}
+    for _ in range(2):
+        runs["E"].append(digest(fm.fused_nerf_bwd_stash_cuda(
+            model, x, g, stash, False, torch.float32)))
+        runs["F"].append(digest(fm.fused_nerf_bwd_remat_cuda(
+            model, x, g, False, torch.float32)))
+    torch.cuda.synchronize()
+    for k, (a, b) in runs.items():
+        log(f"[f32 digest] {k} (rgb, P={F32_DIGEST_P}, seed "
+            f"{F32_DIGEST_SEED}): sha256 {a}, again {b}")
+        if a != b:
+            raise AssertionError(f"f32 kernel {k} differs from run to run")
+    log(f"[f32 digest] E and F bit-equal: {runs['E'][0] == runs['F'][0]}")
+    del stash
+    torch.cuda.empty_cache()
+    return {k: v[0] for k, v in runs.items()}
 
 
 def matmul_chain_ms(model, P: int, dev, backward: bool = True) -> tuple:
@@ -4724,6 +4781,240 @@ def readers_end_to_end(tmp: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 13
+# The other containers.  The lossy WebP views are committed fixtures (this
+# machine has no encoder): Pillow encoded them from the synthetic LLFF scene
+# of phase 9 (tests/data/webp/make_webp_fixtures.py), and digests.json holds
+# the SHA-256 of Pillow's decode of each.  The lossless layouts are written
+# here by the tests' numpy writer from the PNG scenes' 8-bit images, so each
+# load is held bit for bit against the PNG scene's.  The fern-size decodes:
+# a 4032x3024 image (the 16-row strip of phase 12 tiled 189 times) as a
+# lossless WebP (subtract-green, literals) and as an 8-bit RGB TIFF of
+# 16-row LZW + predictor 2 strips.
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "data", "webp")
+LOSSY_DECODE_REPEATS = 5
+
+
+def fixture_digests() -> dict:
+    with open(os.path.join(FIXTURES, "digests.json")) as f:
+        return json.load(f)
+
+
+def sha256_of(a: np.ndarray) -> str:
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def formats_llff(tmp: str) -> dict:
+    """Phase 9's scene with its views as the lossy WebP fixtures (each
+    decode held to Pillow's recorded digest, and the VP8 decode rate), then
+    the LLFF fit and its ``test_train`` eval."""
+    import shutil
+
+    from nerf_pl_tpu_torch.data import webp
+    from nerf_pl_tpu_torch.data.image import read_picture
+
+    digests = fixture_digests()
+    root = os.path.join(tmp, "llff_webp")
+    os.makedirs(os.path.join(root, "images"))
+    shutil.copy(os.path.join(tmp, "llff_scene", "poses_bounds.npy"), root)
+    webp._native()  # built before the clock starts
+    pixels, seconds = 0, 0.0
+    for name in sorted(k for k in digests if k.endswith(".webp")):
+        path = os.path.join(FIXTURES, name)
+        pic = read_picture(path)
+        rec = digests[name]
+        if (pic.mode != rec["mode"] or list(pic.pixels.shape) != rec["shape"]
+                or sha256_of(pic.pixels) != rec["sha256"]):
+            raise AssertionError(f"{name}: the decode differs from Pillow's "
+                                 "recorded digest")
+        if name.startswith("llff_"):
+            shutil.copy(path, os.path.join(root, "images", name))
+            with open(path, "rb") as f:
+                data = f.read()
+            t0 = time.perf_counter()
+            for _ in range(LOSSY_DECODE_REPEATS):
+                webp.decode(data)
+            seconds += time.perf_counter() - t0
+            pixels += LOSSY_DECODE_REPEATS * pic.pixels.shape[0] * \
+                pic.pixels.shape[1]
+    rate = pixels / seconds / 1e6
+    log(f"[formats] {len(digests) - 1} WebP fixtures decoded to Pillow's "
+        f"recorded digests; lossy VP8 on the host ({gpu_line()}): "
+        f"{rate:.2f} megapixels/s over the 504x378 views")
+    fit = trainer_fit(tmp, "train", root, "llff_webp", LLFF_FLAGS, 1,
+                      "formats")
+    system = fit["system"]
+    rays, rgbs = system.rays[:LLFF_BATCH], system.rgbs[:LLFF_BATCH]
+    per_step = one_step_launches(
+        "llff (lossy WebP)", lambda: system.train_step(rays, rgbs),
+        LLFF_STEP_LAUNCHES)
+    del system, rays, rgbs, fit["system"]
+    ckpt = os.path.join(tmp, "ckpts", "llff_webp", "epoch=0.ckpt")
+    ev = llff_eval(tmp, root, ckpt, "test_train", LLFF_WH, "_webp")
+    return dict(fit=fit, per_step=per_step, eval=ev, vp8_mpix_s=rate)
+
+
+def formats_blender(tmp: str, W) -> dict:
+    """Phase 4's scene with every train and val frame as a 16-bit RGBA TIFF
+    (LZW + predictor 2 in 16-row strips; train view 0 in 32x32 tiles) under
+    its ``.png`` name: the loads bit-equal to the PNG scene's, then a
+    1-epoch fit at phase 4's flags."""
+    import shutil
+
+    from nerf_pl_tpu_torch.data.blender import BlenderDataset
+    from nerf_pl_tpu_torch.data.png import read_png
+
+    base = os.path.join(tmp, "scene")
+    wide = os.path.join(tmp, "scene_tiff")
+    shutil.copytree(base, wide)
+    for split, n in (("train", TRAIN_VIEWS), ("val", 1)):
+        for i in range(n):
+            name = os.path.join(split, f"r_{i}.png")
+            img, _ = read_png(os.path.join(base, name))
+            tile = (32, 32) if (split, i) == ("train", 0) else None
+            with open(os.path.join(wide, name), "wb") as f:
+                f.write(W.tiff_bytes(img.astype(np.uint16) * 257, 2, 16,
+                                     extra=(2,), compression=5, predictor=2,
+                                     tile=tile, rows_per_strip=None if tile
+                                     else 16))
+    kw = dict(img_wh=(TRAIN_WH, TRAIN_WH), near=2.0, far=6.0)
+    for split in ("train", "val"):
+        a, b = (BlenderDataset(r, split, **kw) for r in (base, wide))
+        if split == "train":
+            same_rgbs("blender tiff train", a.all_rgbs, b.all_rgbs)
+        else:
+            same_rgbs("blender tiff val", a[0]["rgbs"], b[0]["rgbs"])
+    log("[formats] blender: every frame a 16-bit RGBA LZW TIFF (view 0 "
+        "tiled); train and val loads bit-equal to the PNG scene's")
+    flags = ["--dataset_name", "blender", "--img_wh", str(TRAIN_WH),
+             str(TRAIN_WH), "--N_samples", str(N_SAMPLES), "--N_importance",
+             str(N_IMPORTANCE), "--batch_size", str(TRAIN_BATCH), "--lr",
+             "5e-4", "--white_back", "true", "--compute_dtype", "bfloat16"]
+    fit = trainer_fit(tmp, "train", wide, "blender_tiff", flags, 1, "formats")
+    system = fit["system"]
+    rays, rgbs = system.rays[:TRAIN_BATCH], system.rgbs[:TRAIN_BATCH]
+    per_step = one_step_launches(
+        "blender (16-bit TIFFs)", lambda: system.train_step(rays, rgbs),
+        VANILLA_STEP_LAUNCHES)
+    del system, rays, rgbs, fit["system"]
+    return dict(fit=fit, per_step=per_step)
+
+
+def formats_shadow(tmp: str, W, phase7_loss: float) -> dict:
+    """Phase 7's shadow scene with its maps as BMP, PPM and GIF (in turn)
+    under their ``sm_*.png`` names: the loads bit-equal, then a 1-epoch
+    ``--grad_on_light`` fit whose epoch-0 loss must equal phase 7's."""
+    import glob
+    import shutil
+
+    from nerf_pl_tpu_torch.data.blender_efficient_sm import \
+        BlenderEfficientShadows
+    from nerf_pl_tpu_torch.data.png import read_png
+
+    src = os.path.join(tmp, "shadow_scene")
+    root = os.path.join(tmp, "shadow_formats")
+    shutil.copytree(src, root)
+    kinds = {}
+    for k, path in enumerate(sorted(glob.glob(os.path.join(root, "sm_*.png")))):
+        img, _ = read_png(path)
+        kind = ("bmp", "ppm", "gif")[k % 3]
+        if kind == "bmp":
+            data = W.bmp_bytes(img, 24)
+        elif kind == "ppm":
+            data = W.ppm_bytes(img, b"P6")
+        else:
+            idx, pal, _ = W.palette_of(img)
+            data = W.gif_bytes(idx, pal)
+        with open(path, "wb") as f:
+            f.write(data)
+        kinds[kind] = kinds.get(kind, 0) + 1
+    for split in ("train", "val"):
+        a, b = (BlenderEfficientShadows(r, split, img_wh=(SHADOW_WH, SHADOW_WH))
+                for r in (src, root))
+        if split == "train":
+            same_rgbs("efficient_sm formats train", a.all_rgbs, b.all_rgbs)
+        else:
+            same_rgbs("efficient_sm formats val", a[0]["rgbs"], b[0]["rgbs"])
+    log(f"[formats] efficient_sm: shadow maps as {kinds}; train and val "
+        "loads bit-equal")
+    fit = shadow_fit(tmp, root, "sm_formats", ["--grad_on_light"], 1)
+    if fit["losses"][0] != phase7_loss:
+        raise AssertionError(f"efficient_sm on BMP/PPM/GIF maps: epoch-0 loss "
+                             f"{fit['losses'][0]!r}, phase 7's {phase7_loss!r}")
+    log(f"[formats] efficient_sm epoch-0 loss {fit['losses'][0]!r}, equal to "
+        "phase 7's on the PNG maps")
+    system = fit["system"]
+    batch = tuple(t[:SHADOW_BATCH] for t in (system.rays, system.rgbs,
+                                             system.pixels, system.pose_idx))
+    cache = system.empty_light_cache()
+    per_step = one_step_launches(
+        "efficient_sm (BMP, PPM, GIF maps)",
+        lambda: system.train_step(*batch, cache, SHADOW_LIGHT_N),
+        SHADOW_STEP_LAUNCHES)
+    del system, batch, fit["system"]
+    return dict(fit=fit, per_step=per_step, maps=kinds)
+
+
+def fern_size_formats(W) -> dict:
+    """A 4032x3024 image as a lossless WebP and as an LZW TIFF, each
+    written here and decoded on this machine's host by stage; both decodes
+    equal to the image."""
+    from nerf_pl_tpu_torch.data import tiff, webp
+
+    x = np.arange(FERN_W, dtype=np.float64)[None, :]
+    y = np.arange(FERN_STRIP, dtype=np.float64)[:, None]
+    rgb = np.stack([128 + 100 * np.sin(x / 37) + 0 * y,
+                    128 + 100 * np.cos(y / 5) + 0 * x,
+                    128 + 60 * np.sin((x + y) / 51)], -1)
+    rgb += np.random.RandomState(0).normal(0, 6, rgb.shape)
+    img = np.tile(np.clip(rgb, 0, 255).astype(np.uint8), (FERN_ROWS, 1, 1))
+    webp._native()
+    tiff._native()
+    out = {}
+    t0 = time.perf_counter()
+    rgba = np.concatenate([img, np.full(img.shape[:2] + (1,), 255, np.uint8)],
+                          -1)
+    files = {"webp": W.webp_container(W.vp8l_bytes(
+                 rgba, ("subtract_green",), alpha_hint=False), b"VP8L"),
+             "tiff": W.tiff_bytes(img, 2, 8, compression=5, predictor=2,
+                                  rows_per_strip=FERN_STRIP)}
+    write_s = time.perf_counter() - t0
+    for kind, data in files.items():
+        stages = {}
+        t0 = time.perf_counter()
+        if kind == "webp":
+            px, _ = webp.decode(data, seconds=stages)
+        else:
+            px = tiff.decode(data, seconds=stages)[0]
+        whole = time.perf_counter() - t0
+        if not np.array_equal(px, img):
+            raise AssertionError(f"the fern-size {kind} decodes otherwise than "
+                                 "its image")
+        out[kind] = dict(bytes=len(data), s=whole, stages=stages)
+        log(f"[formats] {FERN_W}x{FERN_STRIP * FERN_ROWS} {kind} on the host "
+            f"({gpu_line()}): {len(data):,} bytes, decode {whole:.3f} s ("
+            + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+            + "), pixels equal")
+    out["write_s"] = write_s
+    return out
+
+
+def formats_end_to_end(tmp: str, phase7_loss: float) -> dict:
+    """Phase 13: the fits on the other containers and the fern-size
+    decodes."""
+    t0 = time.perf_counter()
+    W = image_writers()
+    out = dict(llff=formats_llff(tmp), blender=formats_blender(tmp, W),
+               shadow=formats_shadow(tmp, W, phase7_loss),
+               fern=fern_size_formats(W))
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[formats] phase 13: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4752,6 +5043,7 @@ def main() -> int:
         sampler_counts = random_sampler_path(ckpt)
         f32_err = f32_card_vs_cpu(ckpt)
         with torch.no_grad():
+            f32_digests = f32_backward_digests(fine, dev)
             holds = check_train_kernels(fine, gen, dev)
             tt, train_holds = time_train_kernels(fine, gen, dev)
             tk = merge_holds(holds + train_holds)
@@ -4800,6 +5092,7 @@ def main() -> int:
         log(f"[tools] phase 10: {tools_s:.1f} s")
         dist = dist_end_to_end(tmp, trained)
         readers = readers_end_to_end(tmp)
+        formats = formats_end_to_end(tmp, shadow["fit"]["losses"][0])
 
     fine_row, coarse_row = c["rows"]["rgb"], c["rows"]["sigma-only"]
     kernels = [
@@ -4874,6 +5167,9 @@ def main() -> int:
     kernels[-2]["max_rel_err"] = tk["E_rel"]
     kernels[-1]["max_rel_err"] = tk["F_rel"]
     kernels[-1]["e_vs_f_rel_err"] = tk["E_vs_F"]
+    # the f32 backward's pinned bits (rgb, F32_DIGEST_P points, seeded)
+    kernels[-2]["f32_sha256"] = f32_digests["E"]
+    kernels[-1]["f32_sha256"] = f32_digests["F"]
     for row, key in ((kernels[-2], "E"), (kernels[-1], "F")):
         row["mean_rel_err"] = tk["means"][key]
         row["control_rel_err"] = dict(max=tk["control_max_rel"],
@@ -5153,6 +5449,30 @@ def main() -> int:
             blender_16bit_per_step=readers["blender"]["per_step"][key],
             efficient_sm_palette_fit=readers["shadow"]["fit"]["counts"][key],
             efficient_sm_palette_per_step=readers["shadow"]["per_step"][key])
+    # phase 13: the fits on the other containers and one step of each
+    for row in kernels:
+        key = {"searchsorted_rank_interp": "B", "searchsorted_rank": "A",
+               "fused_nerf_fwd": "C", "fused_nerf_stash_fwd": "D",
+               "fused_nerf_bwd_stash": "E"}.get(row["name"])
+        if key is None:
+            continue
+        row["launches_formats"] = dict(
+            llff_webp_fit=formats["llff"]["fit"]["counts"][key],
+            llff_webp_per_step=formats["llff"]["per_step"][key],
+            llff_webp_eval=formats["llff"]["eval"]["counts"][key],
+            blender_tiff_fit=formats["blender"]["fit"]["counts"][key],
+            blender_tiff_per_step=formats["blender"]["per_step"][key],
+            efficient_sm_maps_fit=formats["shadow"]["fit"]["counts"][key],
+            efficient_sm_maps_per_step=formats["shadow"]["per_step"][key])
+    ffern = formats["fern"]
+    log(f"[formats] phase 13: {formats['seconds']:.1f} s; LLFF on lossy WebP "
+        f"{formats['llff']['fit']['rays_per_s'][-1]:.1f} train rays/s, "
+        f"Blender on 16-bit TIFFs "
+        f"{formats['blender']['fit']['rays_per_s'][-1]:.1f}, efficient_sm on "
+        f"BMP/PPM/GIF maps {formats['shadow']['fit']['rays_per_s'][-1]:.1f} "
+        f"camera rays/s; fern-size lossless WebP {ffern['webp']['s']:.3f} s, "
+        f"LZW TIFF {ffern['tiff']['s']:.3f} s; lossy VP8 "
+        f"{formats['llff']['vp8_mpix_s']:.2f} megapixels/s ({card})")
     fern = readers["fern"]
     log(f"[readers] phase 12: {readers['seconds']:.1f} s; fern-size decode "
         f"{fern['baseline']['s']:.3f} s baseline, "

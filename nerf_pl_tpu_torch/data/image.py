@@ -1,29 +1,35 @@
 """Pillow's image semantics on the port's own readers, for every loader.
 
 The JAX loaders read each image through Pillow: ``Image.open`` (which tells
-a PNG from a JPEG by its first bytes, whatever the file's name), then
+the container by its first bytes, whatever the file's name), then
 ``resize(..., LANCZOS)``, ``filter(GaussianBlur(r))`` and ``convert(mode)``
 in the file's own mode.  ``read_picture`` opens a file by its content
-(``data/png.py`` or ``data/jpeg.py``) into a ``Picture`` that carries
-Pillow's mode and what its ``info`` keeps (a palette, the ``tRNS``
-transparency); ``resize``, ``gaussian_blur`` and ``convert`` then do what
-Pillow does in that mode:
+(PNG ``data/png.py``, JPEG ``data/jpeg.py``, WebP ``data/webp.py``, TIFF
+``data/tiff.py``, PPM/PGM/PBM/PFM ``data/ppm.py``, BMP ``data/bmp.py``,
+GIF ``data/gif.py``) into a ``Picture`` that carries Pillow's mode and
+what its ``info`` keeps (a palette, the transparency); ``resize``,
+``gaussian_blur`` and ``convert`` then do what Pillow does in that mode:
 
   * ``resize``: NEAREST for ``1`` and ``P`` (``ImagingScaleAffine``: the
     source column of output ``x`` is ``int(x0)`` for ``x0`` stepped by the
     scale in doubles from half a step); LANCZOS in 8 bits for ``L``,
-    ``RGB`` and ``CMYK``, premultiplied for ``LA`` and ``RGBA``
-    and in 16 bits for ``I;16`` (``data/resize.py``); the transparency is
-    kept, as ``Image._new`` keeps ``info``;
+    ``RGB``, ``CMYK``, ``PA`` and ``LAB``, premultiplied for ``LA`` and
+    ``RGBA``, in 16 bits for ``I;16`` and ``I;16B`` (the latter's bytes
+    swapped, as Pillow reads them) and in doubles for ``I`` and ``F``
+    (``data/resize.py``); the transparency is kept, as ``Image._new``
+    keeps ``info``, but a resampled ``PA`` image loses its palette (its
+    new core image has an empty one: black);
   * ``gaussian_blur``: ``data/blur.py`` on ``L``, ``LA``, ``RGB``,
     ``RGBA`` and ``CMYK``; any other mode raises as Pillow's
     ``image has wrong mode``;
   * ``convert`` to ``L``, ``RGB`` or ``RGBA`` from every mode the readers
-    give: ``I;16`` clipped at 255, ``P`` through its palette (entries past
-    the file's black) with the ``tRNS`` alphas, a key colour (``1``, ``L``,
-    ``I;16`` clipped first, ``RGB``) made transparent in ``RGBA``, ``CMYK``
-    as ``cmyk2rgb`` (``255 - k - (c (255 - k) / 255)``, rounded as
-    ``MULDIV255``), luma in PIL's fixed point.
+    give: ``I;16``, ``I;16B`` and ``I`` clipped to 0-255, ``F`` clipped and
+    truncated, ``P`` and ``PA`` through the palette (entries past the
+    file's black) with the ``tRNS`` alphas or the ``A`` band, a key colour
+    (``1``, ``L``, ``I;16`` clipped first, ``RGB``) made transparent in
+    ``RGBA``, ``CMYK`` as ``cmyk2rgb`` (``255 - k - (c (255 - k) / 255)``,
+    rounded as ``MULDIV255``), luma in PIL's fixed point.  ``LAB`` raises:
+    Pillow converts it through LittleCMS, which the port does not carry.
 """
 from __future__ import annotations
 
@@ -31,30 +37,42 @@ from typing import Optional
 
 import numpy as np
 
-from . import jpeg, png
+from . import bmp, gif, jpeg, png, ppm, tiff, webp
 from .blur import gaussian_blur as _blur
-from .resize import resize_lanczos, resize_lanczos_16
+from .resize import resize_lanczos, resize_lanczos_16, resize_lanczos_32
 
 _PNG = b"\x89PNG\r\n\x1a\n"
+_TIFF = (b"MM\x00\x2a", b"II\x2a\x00", b"MM\x2a\x00", b"II\x00\x2a",
+         b"MM\x00\x2b", b"II\x2b\x00")  # TiffImagePlugin.PREFIXES
 
 
 class Picture:
-    """An image as Pillow holds it: ``pixels`` (H, W[, C]) (uint16 for
-    ``I;16``, palette indices for ``P``), ``mode``, and the ``palette``
-    ((n, 3) uint8) and ``transparency`` (an int, a tuple or bytes) of its
+    """An image as Pillow holds it: ``pixels`` (H, W[, C]) (uint16 values
+    for ``I;16`` and ``I;16B``, int32 for ``I``, float32 for ``F``, palette
+    indices for ``P`` and ``PA``), ``mode``, and the ``palette`` ((n, 3)
+    uint8) and ``transparency`` (an int, a tuple or bytes) of its
     ``info``."""
 
     def __init__(self, pixels: np.ndarray, mode: str,
-                 palette: Optional[np.ndarray] = None, transparency=None):
+                 palette: Optional[np.ndarray] = None, transparency=None,
+                 name: str = "image"):
         self.pixels, self.mode = pixels, mode
         self.palette, self.transparency = palette, transparency
+        self.name = name  # the file it was read from, for errors
 
     def _with(self, pixels: np.ndarray) -> "Picture":
-        return Picture(pixels, self.mode, self.palette, self.transparency)
+        return Picture(pixels, self.mode, self.palette, self.transparency,
+                       self.name)
 
 
 def read_picture(path: str) -> Picture:
     """Open ``path`` by its content, as ``Image.open`` does."""
+    pic = _read(path)
+    pic.name = path
+    return pic
+
+
+def _read(path: str) -> Picture:
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] == _PNG:
@@ -64,8 +82,18 @@ def read_picture(path: str) -> Picture:
             return Picture(*jpeg.decode(data))
         except jpeg._Unsupported as e:
             raise ValueError(f"{path}: unsupported JPEG: {e}") from None
-    raise ValueError(f"{path}: neither a PNG nor a JPEG file (it starts "
-                     f"{data[:8]!r})")
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        return Picture(*webp.decode(data, path))
+    if data[:4] in _TIFF:
+        return Picture(*tiff.decode(data, path))
+    if data[:1] == b"P" and data[1:2] and data[1] in b"0123456fy":
+        return Picture(*ppm.decode(data, path))
+    if data[:2] == b"BM":
+        return Picture(*bmp.decode(data, path))
+    if data[:6] in (b"GIF87a", b"GIF89a"):
+        return Picture(*gif.decode(data, path))
+    raise ValueError(f"{path}: not a PNG, JPEG, WebP, TIFF, PPM, BMP or GIF "
+                     f"file (it starts {data[:8]!r})")
 
 
 # ------------------------------------------------------------- resize
@@ -91,9 +119,14 @@ def resize(pic: Picture, size) -> Picture:
         rows = _nearest_index(px.shape[0], h)
         cols = _nearest_index(px.shape[1], w)
         return pic._with(px[rows][:, cols])
-    if pic.mode == "I;16":
-        return pic._with(resize_lanczos_16(px, (w, h)))
-    return pic._with(resize_lanczos(px, pic.mode, (w, h)))
+    if pic.mode in ("I;16", "I;16B"):
+        return pic._with(resize_lanczos_16(px, (w, h), pic.mode == "I;16B"))
+    if pic.mode in ("I", "F"):
+        return pic._with(resize_lanczos_32(px, pic.mode, (w, h)))
+    out = pic._with(resize_lanczos(px, pic.mode, (w, h)))
+    if pic.mode == "PA":  # the resampled core image has an empty palette
+        out.palette = np.zeros((0, 3), np.uint8)
+    return out
 
 
 def gaussian_blur(pic: Picture, radius: float) -> Picture:
@@ -152,6 +185,11 @@ def _rgb(pic: Picture) -> np.ndarray:
         return px[..., :3]
     if mode == "P":
         return _palette(pic)[px]
+    if mode == "PA":
+        return _palette(pic)[px[..., 0]]
+    if mode == "LAB":
+        raise ValueError(f"{pic.name}: LAB images are converted through "
+                         "LittleCMS in Pillow, which the port does not carry")
     if mode == "CMYK":
         return _cmyk_to_rgb(px)
     return np.repeat(_gray(pic)[..., None], 3, -1)
@@ -161,8 +199,12 @@ def _gray(pic: Picture) -> np.ndarray:
     px, mode = pic.pixels, pic.mode
     if mode in ("L", "1"):
         return px
-    if mode == "I;16":
-        return np.minimum(px, 255).astype(np.uint8)
+    if mode in ("I;16", "I;16B", "I"):
+        return np.clip(px, 0, 255).astype(np.uint8)
+    if mode == "F":  # f2l: clipped, then truncated (NaN as C's cast: 0)
+        with np.errstate(invalid="ignore"):
+            return np.where(px >= 255.0, 255, np.where(
+                px > 0.0, np.nan_to_num(px), 0)).astype(np.uint8)
     if mode == "LA":
         return px[..., 0]
     return _luma(_rgb(pic))
@@ -181,7 +223,7 @@ def convert(pic: Picture, mode: str) -> np.ndarray:
     if src == "RGBA":
         return pic.pixels
     rgb = _rgb(pic)
-    if src == "LA":
+    if src in ("LA", "PA"):
         alpha = pic.pixels[..., 1]
     elif src == "P":
         alpha = np.full(256, 255, np.uint8)
@@ -196,6 +238,6 @@ def convert(pic: Picture, mode: str) -> np.ndarray:
         alpha = _key_alpha(pic, pic.pixels)
     elif src in ("1", "L", "I;16"):  # the key against the 8-bit values
         alpha = _key_alpha(pic, _gray(pic))
-    else:  # CMYK
+    else:  # CMYK, I;16B, I, F
         alpha = np.full(rgb.shape[:2], 255, np.uint8)
     return np.concatenate([rgb, alpha[..., None]], -1)

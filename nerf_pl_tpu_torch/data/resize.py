@@ -19,7 +19,13 @@ algorithm step for step (``libImaging/Resample.c``):
   * ``I;16`` images take ``Resample.c``'s ``_16bpc`` passes instead: the
     normalised double weights summed in doubles in tap order, ``ROUND_UP``
     (half away from zero), then each byte of the result clipped on its own
-    (``CLIP8(v % 256)``, ``CLIP8(v >> 8)``, C's remainder).
+    (``CLIP8(v % 256)``, ``CLIP8(v >> 8)``, C's remainder).  Pillow reads
+    and writes an ``I;16B`` image's two bytes in the little-endian order
+    there (``Resample.c`` takes big-endian order only for ``I;16N`` on a
+    big-endian host), so its samples are resized byte-swapped;
+  * ``I`` and ``F`` images take the ``_32bpc`` passes: the same double
+    sums, an ``I`` result rounded by ``ROUND_UP`` into an int32, an ``F``
+    result stored as float32.
 """
 from __future__ import annotations
 
@@ -140,8 +146,8 @@ def resize_lanczos(img: np.ndarray, mode: str, size) -> np.ndarray:
     return out[..., 0] if gray else out
 
 
-def _pass_16(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
-    """One ``ImagingResample*_16bpc`` pass along ``axis`` of (H, W) uint16."""
+def _sums(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
+    """A pass's double sums along ``axis``, in the C loop's tap order."""
     src = np.moveaxis(img.astype(np.float64), axis, 0)
     coeffs = _coeffs_double(src.shape[0], out_size)
     ksize = max(len(k) for _, k in coeffs)
@@ -150,20 +156,49 @@ def _pass_16(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
         idx = np.array([xmin + min(j, len(k) - 1) for xmin, k in coeffs])
         w = np.array([k[j] if j < len(k) else 0.0 for _, k in coeffs])
         acc += src[idx] * w.reshape((-1,) + (1,) * (src.ndim - 1))
-    ss = np.where(acc >= 0.0, np.floor(acc + 0.5), -np.floor(np.abs(acc) + 0.5))
-    ss = ss.astype(np.int64)
+    return np.moveaxis(acc, 0, axis)
+
+
+def _round_up(acc: np.ndarray) -> np.ndarray:
+    """``ROUND_UP``: half away from zero, then C's truncation."""
+    return np.where(acc >= 0.0, np.floor(acc + 0.5),
+                    -np.floor(np.abs(acc) + 0.5)).astype(np.int64)
+
+
+def _pass_16(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
+    """One ``ImagingResample*_16bpc`` pass along ``axis`` of (H, W) uint16."""
+    ss = _round_up(_sums(img, out_size, axis))
     lo = np.clip(np.fmod(ss, 256), 0, 255)
     hi = np.clip(ss >> 8, 0, 255)
-    return np.moveaxis((hi * 256 + lo).astype(np.uint16), 0, axis)
+    return (hi * 256 + lo).astype(np.uint16)
 
 
-def resize_lanczos_16(img: np.ndarray, size) -> np.ndarray:
-    """A (H, W) ``I;16`` image (uint16) resized to ``size = (w, h)`` as PIL's
-    ``LANCZOS`` does in that mode."""
+def resize_lanczos_16(img: np.ndarray, size, big_endian: bool = False
+                      ) -> np.ndarray:
+    """A (H, W) ``I;16`` (or ``I;16B``) image of uint16 values resized to
+    ``size = (w, h)`` as PIL's ``LANCZOS`` does in that mode."""
     w, h = (int(v) for v in size)
-    out = img
+    out = img.byteswap() if big_endian else img
     if out.shape[1] != w:
         out = _pass_16(out, w, 1)
     if out.shape[0] != h:
         out = _pass_16(out, h, 0)
+    return out.byteswap() if big_endian else out
+
+
+def resize_lanczos_32(img: np.ndarray, mode: str, size) -> np.ndarray:
+    """A (H, W) ``I`` (int32) or ``F`` (float32) image resized to
+    ``size = (w, h)`` as PIL's ``LANCZOS`` does in that mode."""
+    w, h = (int(v) for v in size)
+    out = img
+    for n, axis in ((w, 1), (h, 0)):
+        if out.shape[axis] == n:
+            continue
+        acc = _sums(out, n, axis)
+        if mode == "I":  # C's cast of a double past int32: INT_MIN on x86
+            r = _round_up(acc)
+            out = np.where((r > 2 ** 31 - 1) | (r < -2 ** 31), -2 ** 31,
+                           r).astype(np.int32)
+        else:
+            out = acc.astype(np.float32)
     return out

@@ -1,0 +1,497 @@
+"""A TIFF reader: the first image of a file, as Pillow's ``TiffImagePlugin``
+opens it.
+
+It reads the first IFD of a classic or BigTIFF file in either byte order,
+from strips or tiles (edge tiles cropped), with PlanarConfiguration 1 or 2,
+and finds Pillow's mode and raw mode by the plugin's own key (byte order,
+photometric, sample format, fill order, bits per sample, extra samples;
+``_OPEN_INFO``, a copy of ``TiffImagePlugin.OPEN_INFO``).  Compression 1
+(none), 5 (LZW, with libtiff's old-style codes), 8 and 32946 (Deflate,
+``zlib``), 32773 (PackBits), 34925 (LZMA, ``lzma``) and 7 (JPEG, through
+``data/jpeg.py`` with the ``JPEGTables`` spliced in; Pillow has libtiff
+return RGB); predictors 2 (8/16/32-bit, in the file's byte order) and 3
+(floating point).  LZW and PackBits are C++ stages (``csrc/tiff_decode.cpp``,
+built with g++ at first use through ``data/native.py``).
+
+The samples become the mode's pixels as Pillow's unpackers make them:
+min-is-white inverted, 2- and 4-bit gray scaled to 8 bits, 16-bit RGB(A)
+and CMYK read as their high bytes, associated alpha unpremultiplied
+(``unpackRGBa``: ``c * 255 / a`` truncated, all zero where ``a`` is 0),
+palettes from ``ColorMap`` (each entry's high byte), ``I;16``/``I;16B``
+as uint16 values, ``I`` and ``F`` as int32 and float32.  Where libtiff
+decodes a compressed file it returns native-order samples, and Pillow
+reads ``I;16BS``, ``I;32BS`` and ``F;32BF`` from them as big-endian: so
+does this reader.  Anything else raises, naming the file.
+"""
+from __future__ import annotations
+
+import ctypes
+import lzma
+import struct
+import threading
+import time
+import zlib
+from pathlib import Path
+from typing import Optional
+
+import numpy as np
+
+from . import jpeg, native
+
+SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "tiff_decode.cpp"
+
+# (photometric, sample format, bits, extra samples) -> (mode, raw mode), in
+# both byte orders and fill order 1 unless listed under _ONE_ORDER
+_OPEN_INFO = {
+    (0, (1,), (1,), ()): ("1", "1;I"),
+    (1, (1,), (1,), ()): ("1", "1"),
+    (0, (1,), (2,), ()): ("L", "L;2I"),
+    (1, (1,), (2,), ()): ("L", "L;2"),
+    (0, (1,), (4,), ()): ("L", "L;4I"),
+    (1, (1,), (4,), ()): ("L", "L;4"),
+    (0, (1,), (8,), ()): ("L", "L;I"),
+    (1, (1,), (8,), ()): ("L", "L"),
+    (1, (2,), (8,), ()): ("L", "L"),
+    (1, (1,), (8, 8), (2,)): ("LA", "LA"),
+    (2, (1,), (8, 8, 8), ()): ("RGB", "RGB"),
+    (2, (1,), (8, 8, 8, 8), ()): ("RGBA", "RGBA"),
+    (2, (1,), (8, 8, 8, 8), (0,)): ("RGB", "RGBX"),
+    (2, (1,), (8, 8, 8, 8, 8), (0, 0)): ("RGB", "RGBXX"),
+    (2, (1,), (8, 8, 8, 8, 8, 8), (0, 0, 0)): ("RGB", "RGBXXX"),
+    (2, (1,), (8, 8, 8, 8), (1,)): ("RGBA", "RGBa"),
+    (2, (1,), (8, 8, 8, 8, 8), (1, 0)): ("RGBA", "RGBaX"),
+    (2, (1,), (8, 8, 8, 8, 8, 8), (1, 0, 0)): ("RGBA", "RGBaXX"),
+    (2, (1,), (8, 8, 8, 8), (2,)): ("RGBA", "RGBA"),
+    (2, (1,), (8, 8, 8, 8, 8), (2, 0)): ("RGBA", "RGBAX"),
+    (2, (1,), (8, 8, 8, 8, 8, 8), (2, 0, 0)): ("RGBA", "RGBAXX"),
+    (2, (1,), (8, 8, 8, 8), (999,)): ("RGBA", "RGBA"),
+    (2, (1,), (16, 16, 16), ()): ("RGB", "RGB;16"),
+    (2, (1,), (16, 16, 16, 16), ()): ("RGBA", "RGBA;16"),
+    (2, (1,), (16, 16, 16, 16), (0,)): ("RGB", "RGBX;16"),
+    (2, (1,), (16, 16, 16, 16), (1,)): ("RGBA", "RGBa;16"),
+    (2, (1,), (16, 16, 16, 16), (2,)): ("RGBA", "RGBA;16"),
+    (3, (1,), (1,), ()): ("P", "P;1"),
+    (3, (1,), (2,), ()): ("P", "P;2"),
+    (3, (1,), (4,), ()): ("P", "P;4"),
+    (3, (1,), (8,), ()): ("P", "P"),
+    (3, (1,), (8, 8), (0,)): ("P", "PX"),
+    (3, (1,), (8, 8), (2,)): ("PA", "PA"),
+    (5, (1,), (8, 8, 8, 8), ()): ("CMYK", "CMYK"),
+    (5, (1,), (8, 8, 8, 8, 8), (0,)): ("CMYK", "CMYKX"),
+    (5, (1,), (8, 8, 8, 8, 8, 8), (0, 0)): ("CMYK", "CMYKXX"),
+    (5, (1,), (16, 16, 16, 16), ()): ("CMYK", "CMYK;16"),
+    (6, (1,), (8,), ()): ("L", "L"),
+    (6, (1,), (8, 8, 8), ()): ("RGB", "RGBX"),
+    (8, (1,), (8, 8, 8), ()): ("LAB", "LAB"),
+}
+# keys of one byte order: (order, photometric, format, bits) -> mode, raw
+_ONE_ORDER = {
+    ("II", 1, (1,), (12,)): ("I;16", "I;12"),
+    ("II", 0, (1,), (16,)): ("I;16", "I;16"),
+    ("II", 1, (1,), (16,)): ("I;16", "I;16"),
+    ("MM", 1, (1,), (16,)): ("I;16B", "I;16B"),
+    ("II", 1, (2,), (16,)): ("I", "I;16S"),
+    ("MM", 1, (2,), (16,)): ("I", "I;16BS"),
+    ("II", 0, (3,), (32,)): ("F", "F;32F"),
+    ("MM", 0, (3,), (32,)): ("F", "F;32BF"),
+    ("II", 1, (1,), (32,)): ("I", "I;32N"),
+    ("II", 1, (2,), (32,)): ("I", "I;32S"),
+    ("MM", 1, (2,), (32,)): ("I", "I;32BS"),
+    ("II", 1, (3,), (32,)): ("F", "F;32F"),
+    ("MM", 1, (3,), (32,)): ("F", "F;32BF"),
+}
+# fill order 2 has a key for these (photometric, bits) only
+_FILL2 = {(0, (1,)), (1, (1,)), (0, (2,)), (1, (2,)), (0, (4,)), (1, (4,)),
+          (0, (8,)), (1, (8,)), (2, (8, 8, 8)), (3, (1,)), (3, (2,)),
+          (3, (4,)), (3, (8,))}
+_FILL2_ONE = {("II", 1, (16,))}
+_MAX_SPP = 6
+# none, LZW, JPEG, Deflate, Adobe Deflate, PackBits, LZMA
+_COMPRESSIONS = frozenset((1, 5, 7, 8, 32946, 32773, 34925))
+_TYPES = {1: "B", 2: "B", 3: "H", 4: "I", 5: "II", 6: "b", 7: "B", 8: "h",
+          9: "i", 10: "ii", 11: "f", 12: "d", 16: "Q", 17: "q", 18: "Q"}
+_REVERSED = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint8)
+
+_lock = threading.Lock()
+_lib = None
+
+
+def _native():
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(native.build(SOURCE)))
+            for fn in (lib.tiff_lzw, lib.tiff_packbits):
+                fn.restype = ctypes.c_int64
+                fn.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p,
+                               ctypes.c_int64, ctypes.c_char_p, ctypes.c_int]
+            _lib = lib
+        return _lib
+
+
+class _Unsupported(ValueError):
+    pass
+
+
+def _ifd(data: bytes, order: str, big: bool):
+    """The first IFD's tags: ``{tag: tuple of values}`` (bytes for
+    UNDEFINED and ASCII)."""
+    e = "<" if order == "II" else ">"
+    if big:
+        off = struct.unpack(e + "Q", data[8:16])[0]
+        n = struct.unpack(e + "Q", data[off:off + 8])[0]
+        pos, size, inline = off + 8, 20, 8
+    else:
+        off = struct.unpack(e + "I", data[4:8])[0]
+        n = struct.unpack(e + "H", data[off:off + 2])[0]
+        pos, size, inline = off + 2, 12, 4
+    tags = {}
+    for i in range(n):
+        ent = data[pos + i * size:pos + (i + 1) * size]
+        if len(ent) < size:
+            raise ValueError("truncated IFD")
+        tag, typ = struct.unpack(e + "HH", ent[:4])
+        count = struct.unpack(e + ("Q" if big else "I"), ent[4:4 + inline])[0]
+        if typ not in _TYPES:
+            continue
+        fmt = _TYPES[typ]
+        nbytes = struct.calcsize(e + fmt) * count
+        if nbytes <= inline:
+            raw = ent[4 + inline:4 + inline + nbytes]
+        else:
+            at = struct.unpack(e + ("Q" if big else "I"),
+                               ent[4 + inline:4 + 2 * inline])[0]
+            raw = data[at:at + nbytes]
+            if len(raw) < nbytes:
+                raise ValueError(f"tag {tag} points past the end of the file")
+        if typ in (2, 7):
+            tags[tag] = bytes(raw)
+        else:
+            vals = struct.unpack(e + fmt * count, raw)
+            if typ in (5, 10):
+                vals = tuple(vals[k] / vals[k + 1] if vals[k + 1] else 0.0
+                             for k in range(0, len(vals), 2))
+            tags[tag] = vals
+    return tags
+
+
+def _key(order: str, tags: dict, compression: int):
+    """Pillow's ``(mode, rawmode)`` for the IFD (``TiffImageFile._setup``)."""
+    photo = tags.get(262, (0,))[0]
+    if compression == 6:
+        photo = 6
+    fill = tags.get(266, (1,))[0]
+    fmt = tuple(tags.get(339, (1,)))
+    if len(fmt) > 1 and max(fmt) == min(fmt) == 1:
+        fmt = (1,)
+    bps = tuple(tags.get(258, (1,)))
+    extra = tuple(tags.get(338, ()))
+    spp = tags.get(277, (3 if compression == 6 and photo in (2, 6) else 1,))[0]
+    if spp > _MAX_SPP:
+        raise _Unsupported("more samples per pixel than Pillow decodes")
+    if spp < len(bps):
+        bps = bps[:spp]
+    elif spp > len(bps) and len(bps) == 1:
+        bps = bps * spp
+    if len(bps) != spp:
+        raise _Unsupported("unknown data organization")
+    # fill order 2: each stored byte's bits reversed, before the codec (as
+    # libtiff does; Pillow's raw decoder reverses them in the raw mode)
+    if fill == 2 and compression == 1 and not (
+            (photo, bps) in _FILL2 or (order, photo, bps) in _FILL2_ONE):
+        raise _Unsupported("unknown pixel mode")
+    if fill not in (1, 2):
+        raise _Unsupported("unknown pixel mode")
+    if (order, photo, fmt, bps) in _ONE_ORDER and not extra:
+        mode, raw = _ONE_ORDER[(order, photo, fmt, bps)]
+    elif (photo, fmt, bps, extra) in _OPEN_INFO:
+        mode, raw = _OPEN_INFO[(photo, fmt, bps, extra)]
+    else:
+        raise _Unsupported(f"unknown pixel mode (photometric {photo}, sample "
+                           f"format {fmt}, bits {bps}, extra samples {extra})")
+    return mode, raw, photo, fill, bps, spp
+
+
+def _inflate(chunk: bytes, compression: int, expected: int) -> bytes:
+    if compression == 1:
+        return chunk
+    if compression in (5, 32773):
+        lib = _native()
+        out = np.zeros(expected, np.uint8)
+        err = ctypes.create_string_buffer(256)
+        fn = lib.tiff_lzw if compression == 5 else lib.tiff_packbits
+        n = fn(chunk, len(chunk), out.ctypes.data, expected, err, len(err))
+        if n < 0:
+            raise ValueError(err.value.decode(errors="replace"))
+        return out.tobytes()
+    if compression in (8, 32946):
+        return zlib.decompressobj().decompress(chunk, expected)
+    if compression == 34925:
+        return lzma.LZMADecompressor().decompress(chunk, expected)
+    raise _Unsupported(f"compression {compression}")
+
+
+def _jpeg_chunk(chunk: bytes, tables: Optional[bytes], photo: int
+                ) -> np.ndarray:
+    """One strip or tile of JPEG-in-TIFF (compression 7), its abbreviated
+    stream completed with the ``JPEGTables`` before its frame, in the
+    colour space libtiff sets: YCbCr converted to RGB for photometric 6,
+    the components as they are for RGB (2) and gray (1)."""
+    if tables and len(tables) > 4 and chunk[:2] == b"\xff\xd8":
+        chunk = chunk[:2] + tables[2:-2] + chunk[2:]
+    space = {1: "L", 2: "RGB", 6: "YCbCr"}[photo]
+    try:
+        frame, jt, _ = jpeg._decode(chunk, False)
+        if photo == 2 and (frame.hmax, frame.vmax) != (1, 1):
+            raise _Unsupported("subsampled RGB JPEG-in-TIFF")
+        px, _ = jpeg._pixels(frame, jt, space, False, {})
+    except jpeg._Unsupported as e:
+        raise _Unsupported(f"JPEG-in-TIFF: {e}") from None
+    return px
+
+
+def _bits_per_row(width: int, spp: int, bits: int) -> int:
+    return (width * spp * bits + 7) // 8
+
+
+def _unpredict(buf: np.ndarray, predictor: int, rows: int, width: int,
+               spp: int, bits: int, order: str) -> np.ndarray:
+    """Undo predictor 2 or 3 on a chunk's bytes (rows of ``width`` pixels
+    of ``spp`` samples)."""
+    if predictor == 1:
+        return buf
+    row_bytes = _bits_per_row(width, spp, bits)
+    b = buf[:rows * row_bytes].reshape(rows, row_bytes)
+    if predictor == 2:
+        if bits not in (8, 16, 32):
+            raise _Unsupported(f"predictor 2 with {bits}-bit samples")
+        dt = np.dtype(f"{'<' if order == 'II' else '>'}u{bits // 8}")
+        v = b.copy().view(dt).reshape(rows, width, spp)
+        v = np.cumsum(v, axis=1, dtype=dt.newbyteorder("="))
+        out = v.astype(dt).view(np.uint8).reshape(rows, row_bytes)
+    elif predictor == 3:
+        if bits not in (16, 32, 64):
+            raise _Unsupported(f"predictor 3 with {bits}-bit samples")
+        nb = bits // 8
+        acc = b.reshape(rows, width * nb, spp)
+        acc = np.cumsum(acc, axis=1, dtype=np.uint8).reshape(rows, row_bytes)
+        # byte planes, most significant first -> native (little-endian)
+        planes = acc.reshape(rows, nb, width * spp)
+        out = planes[:, ::-1, :].transpose(0, 2, 1).reshape(rows, row_bytes)
+        if order == "MM":  # the samples in the file's order for what follows
+            out = out.reshape(rows, width * spp, nb)[..., ::-1].reshape(
+                rows, row_bytes)
+    else:
+        raise _Unsupported(f"predictor {predictor}")
+    return np.concatenate([out.reshape(-1), buf[rows * row_bytes:]])
+
+
+def _samples(buf: np.ndarray, rows: int, width: int, spp: int, bits: int,
+             order: str, fmt) -> np.ndarray:
+    """(rows, width, spp) samples of a chunk's bytes: uint8 for 1/2/4/8
+    bits, uint16 for 12/16, and uint32, int32 or float32 for 32."""
+    row_bytes = _bits_per_row(width, spp, bits)
+    need = rows * row_bytes
+    if len(buf) < need:
+        buf = np.concatenate([buf, np.zeros(need - len(buf), np.uint8)])
+    b = buf[:need].reshape(rows, row_bytes)
+    if bits in (1, 2, 4):
+        bitsarr = np.unpackbits(b, axis=1)[:, :width * spp * bits]
+        v = bitsarr.reshape(rows, width * spp, bits)
+        weights = (1 << np.arange(bits - 1, -1, -1)).astype(np.uint8)
+        return (v * weights).sum(-1).astype(np.uint8).reshape(rows, width, spp)
+    if bits == 8:
+        return b.reshape(rows, width, spp)
+    if bits == 12:
+        n = width * spp
+        pairs = np.zeros((rows, (n + 1) // 2 * 3), np.uint16)
+        pairs[:, :row_bytes] = b
+        t = pairs.reshape(rows, -1, 3)
+        v = np.stack([(t[..., 0] << 4) | (t[..., 1] >> 4),
+                      ((t[..., 1] & 15) << 8) | t[..., 2]], -1)
+        return v.reshape(rows, -1)[:, :n].reshape(rows, width, spp)
+    e = "<" if order == "II" else ">"
+    if bits == 16:
+        return b.view(e + "u2").astype(np.uint16).reshape(rows, width, spp)
+    if bits == 32:
+        kind = {1: "u4", 2: "i4", 3: "f4"}.get(fmt[0])
+        if kind is None:
+            raise _Unsupported(f"sample format {fmt}")
+        return b.view(e + kind).astype(np.dtype(kind)).reshape(rows, width,
+                                                                 spp)
+    raise _Unsupported(f"{bits}-bit samples")
+
+
+def _read(data: bytes, order: str, tags: dict, spp: int, bits: int, fmt,
+          compression: int, fill: int, photo: int, seconds: dict):
+    """(H, W, spp) samples of the image, from its strips or tiles; each
+    stage's seconds added to ``seconds``."""
+    clock = time.perf_counter
+
+    def spent(key, t0):
+        seconds[key] = seconds.get(key, 0.0) + clock() - t0
+    w, h = tags[256][0], tags[257][0]
+    planar = tags.get(284, (1,))[0]
+    # libtiff's predictor module serves LZW, Deflate and LZMA; Pillow's own
+    # raw decoder and libtiff's PackBits and JPEG codecs ignore the tag
+    predictor = (tags.get(317, (1,))[0] if compression in (5, 8, 32946,
+                                                           34925) else 1)
+    tables = tags.get(347)
+    planes = spp if planar == 2 else 1
+    per = 1 if planar == 2 else spp
+    if 322 in tags:
+        tw, th = tags[322][0], tags[323][0]
+        offsets, counts = tags[324], tags[325]
+        across, down = -(-w // tw), -(-h // th)
+        boxes = [(x * tw, y * th, tw, th) for y in range(down)
+                 for x in range(across)]
+    else:
+        rps = min(tags.get(278, (2 ** 32 - 1,))[0], h)
+        offsets, counts = tags[273], tags.get(279)
+        down = -(-h // rps)
+        boxes = [(0, y * rps, w, min(rps, h - y * rps)) for y in range(down)]
+        if counts is None:
+            counts = (len(data),) * len(offsets)
+    if len(offsets) < len(boxes) * planes:
+        raise ValueError("fewer strips or tiles than the image needs")
+    dtype = {1: np.uint8, 2: np.uint8, 4: np.uint8, 8: np.uint8,
+             12: np.uint16, 16: np.uint16}.get(bits)
+    if dtype is None:
+        dtype = {1: np.uint32, 2: np.int32, 3: np.float32}.get(fmt[0],
+                                                               np.uint32)
+    out = np.zeros((h, w, spp), dtype)
+    for p in range(planes):
+        for i, (x0, y0, cw, chh) in enumerate(boxes):
+            k = p * len(boxes) + i
+            chunk = data[offsets[k]:offsets[k] + counts[k]]
+            if fill == 2:
+                chunk = _REVERSED[np.frombuffer(chunk, np.uint8)].tobytes()
+            rows = chh
+            t0 = clock()
+            if compression == 7:
+                px = _jpeg_chunk(chunk, tables, photo)
+                s = px.reshape(px.shape[0], px.shape[1], -1)[:rows, :cw]
+                if s.shape[2] != per:
+                    raise _Unsupported("a JPEG strip of other components")
+                spent("jpeg", t0)
+            else:
+                need = rows * _bits_per_row(cw, per, bits)
+                raw = np.frombuffer(_inflate(chunk, compression, need),
+                                    np.uint8)
+                spent("inflate", t0)
+                t0 = clock()
+                raw = _unpredict(raw, predictor, min(rows, len(raw) // max(
+                    1, _bits_per_row(cw, per, bits))), cw, per, bits, order)
+                spent("predictor", t0)
+                t0 = clock()
+                s = _samples(raw, rows, cw, per, bits, order, fmt)
+                spent("samples", t0)
+            ww, hh = min(cw, w - x0), min(rows, h - y0)
+            out[y0:y0 + hh, x0:x0 + ww, p:p + per] = s[:hh, :ww]
+    return out
+
+
+def _unpremultiply(rgba: np.ndarray) -> np.ndarray:
+    """``unpackRGBa``: ``CLIP8(c * 255 / a)``, all zero where ``a`` is 0."""
+    a = rgba[..., 3:].astype(np.int64)
+    c = rgba[..., :3].astype(np.int64)
+    rgb = np.where(a == 255, c, np.minimum(c * 255 // np.maximum(a, 1), 255))
+    rgb = np.where(a == 0, 0, rgb)
+    return np.concatenate([rgb, a], -1).astype(np.uint8)
+
+
+def _pixels(s: np.ndarray, mode: str, raw: str, order: str, compressed: bool):
+    """The mode's pixels from (H, W, spp) samples, as the raw mode's
+    unpacker makes them."""
+    if raw.startswith("1"):
+        v = s[..., 0] if raw == "1" else 1 - s[..., 0]
+        return (v * 255).astype(np.uint8)
+    if raw.startswith("L;2") or raw.startswith("L;4"):
+        top = 3 if raw.startswith("L;2") else 15
+        v = s[..., 0].astype(np.int32)
+        if raw.endswith("I"):
+            v = top - v
+        return (v * (255 // top)).astype(np.uint8)
+    if raw == "L;I":
+        return 255 - s[..., 0]
+    if raw in ("L", "P", "PX", "I;12", "I;16", "I;16B"):
+        return s[..., 0]
+    if raw in ("LA", "PA"):
+        return s[..., :2]
+    if raw in ("I;16S", "I;16BS", "I;32N", "I;32S", "I;32BS", "F;32F",
+               "F;32BF"):
+        v = s[..., 0]
+        if raw in ("I;16S", "I;16BS"):
+            v = v.astype(np.int16)
+        if compressed and raw in ("I;16BS", "I;32BS", "F;32BF"):
+            v = v.byteswap()  # native samples read as big-endian
+        return v.astype(np.float32 if mode == "F" else np.int32)
+    if raw.startswith("P;"):
+        return s[..., 0]
+    if raw.endswith(";16"):
+        s = (s >> 8).astype(np.uint8)
+        raw = raw[:-3]
+    n = {"RGB": 3, "RGBX": 3, "RGBXX": 3, "RGBXXX": 3, "RGBA": 4,
+         "RGBAX": 4, "RGBAXX": 4, "RGBa": 4, "RGBaX": 4, "RGBaXX": 4,
+         "CMYK": 4, "CMYKX": 4, "CMYKXX": 4, "LAB": 3}[raw]
+    px = np.ascontiguousarray(s[..., :n])
+    if raw.startswith("RGBa"):
+        px = _unpremultiply(px)
+    return px
+
+
+def decode(data: bytes, name: str = "TIFF", seconds: Optional[dict] = None):
+    """``(pixels, mode, palette, transparency)``: a TIFF file's first image
+    as Pillow opens it.  ``seconds``, where given, receives the time of
+    each stage (``inflate``, ``predictor``, ``samples``, ``jpeg``,
+    ``pixels``)."""
+    try:
+        return _decode(data, name, {} if seconds is None else seconds)
+    except _Unsupported as e:
+        raise ValueError(f"{name}: unsupported TIFF: {e}") from None
+    except (struct.error, zlib.error, lzma.LZMAError, KeyError, IndexError,
+            ValueError) as e:
+        if isinstance(e, ValueError) and str(e).startswith(f"{name}: "):
+            raise
+        raise ValueError(f"{name}: a corrupt TIFF ({e!r})") from None
+
+
+def _decode(data: bytes, name: str, seconds: dict):
+    order = data[:2].decode()
+    # as TiffImagePlugin: only a third byte of 43 marks BigTIFF, so a
+    # big-endian BigTIFF header is read as a classic one (and fails)
+    big = data[2] == 43
+    tags = _ifd(data, order, big)
+    if 0xBC01 in tags:
+        raise _Unsupported("Windows Media Photo")
+    compression = tags.get(259, (1,))[0]
+    if compression not in _COMPRESSIONS:
+        raise _Unsupported(f"compression {compression}")
+    if tags.get(274, (1,))[0] in (5, 6, 7, 8):
+        raise _Unsupported("a transposing orientation")
+    mode, raw, photo, fill, bps, spp = _key(order, tags, compression)
+    if tags.get(284, (1,))[0] == 2 and spp > 1 and bps[0] != 8:
+        raise _Unsupported(f"separate planes of {bps[0]}-bit samples (Pillow "
+                           "unpacks them as 8-bit bands)")
+    fmt = tuple(tags.get(339, (1,)))
+    if compression == 7:
+        if tags.get(284, (1,))[0] != 1 or photo not in (1, 2, 6):
+            raise _Unsupported("JPEG compression other than YCbCr, RGB or "
+                               "gray, contiguous")
+        if photo == 6:
+            raw = "RGB"
+    elif photo == 6 and spp == 3:
+        raise _Unsupported("uncompressed YCbCr")
+    elif photo == 6 and compression != 1:
+        raise _Unsupported("YCbCr of one sample (libtiff refuses it)")
+    s = _read(data, order, tags, spp, bps[0], fmt, compression, fill, photo,
+              seconds)
+    t0 = time.perf_counter()
+    px = _pixels(s, mode, raw, order, compression != 1)
+    seconds["pixels"] = time.perf_counter() - t0
+    palette = None
+    if mode in ("P", "PA"):
+        cmap = np.array(tags[320], np.uint16)
+        n = len(cmap) // 3
+        palette = (cmap.reshape(3, n).T >> 8).astype(np.uint8)
+    return px, mode, palette, None

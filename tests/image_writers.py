@@ -1,8 +1,13 @@
-"""PNG and JPEG writers on numpy and zlib alone, for the image readers' tests
+"""Image writers on numpy, zlib and lzma alone, for the image readers' tests
 and ``chip_smoke.py`` (whose machine has no PIL and no encoder).
 
-They write the layouts Pillow cannot write: PNG at every bit depth and
-colour type (1/2/4/8/16-bit gray, 8/16-bit RGB, gray + alpha and RGBA,
+TIFF (every layout, LZW in both styles, PackBits, predictors, strips,
+tiles, planes, BigTIFF, fill order 2), WebP (VP8L literals after any
+transform, ``ALPH``, a VP8 frame of random modes and small coefficients
+through a boolean encoder, the RIFF container with ``VP8X``/``ANMF``),
+PPM, BMP (RLE too) and GIF (LZW) are written below the PNG and JPEG
+writers.  Those write the layouts Pillow cannot write: PNG at every bit
+depth and colour type (1/2/4/8/16-bit gray, 8/16-bit RGB, gray + alpha and RGBA,
 1/2/4/8-bit palette), with ``tRNS`` and Adam7 interlacing; JPEG from given
 quantised coefficients as sequential or progressive Huffman (any scan
 script), sequential or progressive arithmetic coding (T.81 Annex D's QM
@@ -983,3 +988,1142 @@ def png_as(path: str, out: str, layout: str, seed: int = 0) -> None:
     data = layout_bytes(np.asarray(Image.open(path)), layout, seed)
     with open(out, "wb") as f:
         f.write(data)
+
+
+# ================================================================= TIFF
+_TIFF_TYPES = {"B": 1, "A": 2, "H": 3, "I": 4, "U": 7, "Q": 16}
+
+
+def _reverse_bits(data: bytes) -> bytes:
+    table = bytes(int(f"{i:08b}"[::-1], 2) for i in range(256))
+    return data.translate(table)
+
+
+def lzw_tiff(data: bytes, old_style: bool = False) -> bytes:
+    """TIFF LZW (libtiff's tif_lzw.c encoder): Clear first, codes 9-12 bits
+    first bit first, widening one code early, Clear when the table fills,
+    EOI last.  ``old_style``: the pre-5.0 variant (lowest bit first,
+    widening at 512/1024/2048) libtiff still decodes."""
+    acc, nacc, out = 0, 0, bytearray()
+
+    def put(code, width):
+        nonlocal acc, nacc
+        if old_style:
+            acc |= code << nacc
+            nacc += width
+            while nacc >= 8:
+                out.append(acc & 0xFF)
+                acc >>= 8
+                nacc -= 8
+        else:
+            acc = (acc << width) | code
+            nacc += width
+            while nacc >= 8:
+                nacc -= 8
+                out.append((acc >> nacc) & 0xFF)
+            acc &= (1 << nacc) - 1
+
+    def grow(nxt, width):
+        limit = (1 << width) + (1 if old_style else 0)
+        return width + 1 if nxt >= limit and width < 12 else width
+
+    width, nxt, table, w = 9, 258, {}, b""
+    put(256, width)
+    for c in data:
+        wc = w + bytes([c])
+        if not w or wc in table:
+            w = wc
+            continue
+        put(table[w] if len(w) > 1 else w[0], width)
+        table[wc] = nxt
+        nxt += 1
+        width = grow(nxt, width)
+        if nxt >= 4093:
+            put(256, width)
+            width, nxt, table = 9, 258, {}
+        w = bytes([c])
+    if w:
+        put(table[w] if len(w) > 1 else w[0], width)
+        nxt += 1
+        width = grow(nxt, width)
+    put(257, width)
+    if nacc:
+        put(0, 8 - nacc)
+    return bytes(out)
+
+
+def packbits(data: bytes) -> bytes:
+    """PackBits runs: repeats of 2-128 bytes and literals of 1-128."""
+    out, i, n = bytearray(), 0, len(data)
+    while i < n:
+        j = i
+        while j + 1 < n and data[j + 1] == data[i] and j - i < 127:
+            j += 1
+        if j > i:
+            out += bytes([257 - (j - i + 1), data[i]])
+            i = j + 1
+            continue
+        j = i
+        while j < n and j - i < 128 and not (j + 1 < n and data[j + 1] == data[j]):
+            j += 1
+        j = max(j, i + 1)
+        out += bytes([j - i - 1]) + data[i:j]
+        i = j
+    return bytes(out)
+
+
+def _tiff_rows(s: np.ndarray, bits: int, order: str, fmt: int) -> np.ndarray:
+    """(rows, width, spp) samples -> (rows, row bytes) in the file's order."""
+    rows, width, spp = s.shape
+    e = "<" if order == "II" else ">"
+    if bits in (1, 2, 4):
+        flat = s.reshape(rows, width * spp).astype(np.uint8)
+        bitsarr = ((flat[..., None] >> np.arange(bits - 1, -1, -1)) & 1)
+        return np.packbits(bitsarr.reshape(rows, -1).astype(np.uint8), axis=1)
+    if bits == 8:
+        return s.astype(np.uint8).reshape(rows, width * spp)
+    if bits == 12:
+        flat = s.reshape(rows, width * spp).astype(np.uint16)
+        if flat.shape[1] % 2:
+            flat = np.concatenate([flat, np.zeros((rows, 1), np.uint16)], 1)
+        a, b = flat[:, 0::2], flat[:, 1::2]
+        out = np.stack([a >> 4, ((a & 15) << 4) | (b >> 8), b & 255], -1)
+        out = out.reshape(rows, -1).astype(np.uint8)
+        return out[:, :(width * spp * 12 + 7) // 8]
+    kind = {16: {1: "u2", 2: "i2"}, 32: {1: "u4", 2: "i4", 3: "f4"}}[bits][fmt]
+    return s.astype(e + kind).view(np.uint8).reshape(rows, -1)
+
+
+def _tiff_predict(rows: np.ndarray, predictor: int, width: int, spp: int,
+                  bits: int, order: str) -> np.ndarray:
+    if predictor == 1:
+        return rows
+    n = rows.shape[0]
+    if predictor == 2:
+        dt = np.dtype(f"{'<' if order == 'II' else '>'}u{bits // 8}")
+        v = rows.copy().view(dt).reshape(n, width, spp).astype(np.int64)
+        d = np.concatenate([v[:, :1], np.diff(v, axis=1)], 1) % (1 << bits)
+        return d.astype(dt).view(np.uint8).reshape(n, -1)
+    nb = bits // 8  # predictor 3: byte planes, most significant first
+    be = rows.reshape(n, width * spp, nb)
+    if order == "II":
+        be = be[..., ::-1]
+    planes = be.transpose(0, 2, 1).reshape(n, nb * width, spp).astype(np.int16)
+    d = np.concatenate([planes[:, :1], np.diff(planes, axis=1)], 1) % 256
+    return d.astype(np.uint8).reshape(n, -1)
+
+
+def tiff_bytes(samples: np.ndarray, photometric: int, bits: int = 8,
+               order: str = "II", bigtiff: bool = False, compression: int = 1,
+               predictor: int = 1, planar: int = 1, tile=None,
+               rows_per_strip: Optional[int] = None, extra=(),
+               sample_format: Optional[int] = None, fill: int = 1,
+               colormap: Optional[np.ndarray] = None, lzw_old: bool = False,
+               jpeg_chunks: Optional[Sequence[bytes]] = None,
+               jpeg_tables: Optional[bytes] = None, tags=None) -> bytes:
+    """A TIFF of one image: ``samples`` (H, W[, spp]) in ``bits`` per
+    sample (1, 2, 4, 8, 12, 16 or 32; ``sample_format`` 1 unsigned, 2
+    signed, 3 float), strips of ``rows_per_strip`` or ``tile = (w, h)``
+    tiles (edge tiles padded), planar 1 or 2; compression 1, 5 (LZW,
+    ``lzw_old`` for the old style), 8/32946 (zlib), 32773 (PackBits),
+    34925 (LZMA) or 7 (``jpeg_chunks``: one JPEG per strip or tile, with
+    ``jpeg_tables`` for the tag); predictor 2 or 3; fill order 2 reverses
+    each stored byte's bits.  ``colormap``: (2^bits, 3) uint16.  ``tags``:
+    more (tag, type letter, values) entries, replacing any of the same
+    tag.  Strips of the same bytes are compressed once."""
+    s = samples if samples.ndim == 3 else samples[..., None]
+    h, w, spp = s.shape
+    fmt = sample_format or (3 if s.dtype.kind == "f" else 1)
+    planes = [s[..., k:k + 1] for k in range(spp)] if planar == 2 else [s]
+    per = 1 if planar == 2 else spp
+    if tile:
+        tw, th = tile
+        boxes = [(x, y, tw, th) for y in range(0, h, th) for x in range(0, w, tw)]
+    else:
+        rps = rows_per_strip or h
+        boxes = [(0, y, w, min(rps, h - y)) for y in range(0, h, rps)]
+    chunks = []
+    for p in planes:
+        for x, y, cw, ch in boxes:
+            block = np.zeros((ch, cw, per), s.dtype)
+            part = p[y:y + ch, x:x + cw]
+            block[:part.shape[0], :part.shape[1]] = part
+            raw = _tiff_predict(_tiff_rows(block, bits, order, fmt), predictor,
+                                cw, per, bits, order).tobytes()
+            chunks.append(raw)
+    if compression == 7:
+        chunks = list(jpeg_chunks)
+    else:
+        codec = {1: lambda b: b, 5: lambda b: lzw_tiff(b, lzw_old),
+                 8: zlib.compress, 32946: zlib.compress, 32773: packbits,
+                 34925: lambda b: __import__("lzma").compress(b)}[compression]
+        done: Dict[bytes, bytes] = {}
+        for c in chunks:
+            if c not in done:
+                done[c] = codec(c)
+        chunks = [done[c] for c in chunks]
+    if fill == 2:
+        chunks = [_reverse_bits(c) for c in chunks]
+    e = "<" if order == "II" else ">"
+    head = 16 if bigtiff else 8
+    data = bytearray(head)
+    offsets = []
+    for c in chunks:
+        offsets.append(len(data))
+        data += c
+        if len(data) % 2:
+            data += b"\0"
+    entries = [(256, "I", [w]), (257, "I", [h]), (258, "H", [bits] * spp),
+               (259, "H", [compression]), (262, "H", [photometric]),
+               (277, "H", [spp]), (284, "H", [planar])]
+    if fill != 1:
+        entries.append((266, "H", [fill]))
+    if predictor != 1:
+        entries.append((317, "H", [predictor]))
+    if extra:
+        entries.append((338, "H", list(extra)))
+    if sample_format:
+        entries.append((339, "H", [sample_format] * spp))
+    if colormap is not None:
+        entries.append((320, "H", colormap.T.reshape(-1).tolist()))
+    if jpeg_tables is not None:
+        entries.append((347, "U", jpeg_tables))
+    big_ofs = "Q" if bigtiff else "I"
+    if tile:
+        entries += [(322, "I", [tile[0]]), (323, "I", [tile[1]]),
+                    (324, big_ofs, offsets), (325, big_ofs,
+                                              [len(c) for c in chunks])]
+    else:
+        entries += [(273, big_ofs, offsets), (278, "I", [rows_per_strip or h]),
+                    (279, big_ofs, [len(c) for c in chunks])]
+    entries = sorted({t[0]: t for t in entries + list(tags or [])}.values(),
+                     key=lambda t: t[0])  # ``tags`` replace written ones
+    inline = 8 if bigtiff else 4
+    ifd_at = len(data)
+    n = len(entries)
+    ifd_size = (8 + 20 * n + 8) if bigtiff else (2 + 12 * n + 4)
+    extra_data = bytearray()
+    body = bytearray(struct.pack(e + ("Q" if bigtiff else "H"), n))
+    for tag, kind, vals in entries:
+        if kind == "U":
+            raw = bytes(vals)
+            count = len(raw)
+        else:
+            raw = struct.pack(e + kind * len(vals), *vals)
+            count = len(vals)
+        body += struct.pack(e + "HH", tag, _TIFF_TYPES[kind])
+        body += struct.pack(e + ("Q" if bigtiff else "I"), count)
+        if len(raw) <= inline:
+            body += raw + b"\0" * (inline - len(raw))
+        else:
+            at = ifd_at + ifd_size + len(extra_data)
+            body += struct.pack(e + ("Q" if bigtiff else "I"), at)
+            extra_data += raw + (b"\0" if len(raw) % 2 else b"")
+    body += b"\0" * inline
+    data += body + extra_data
+    if bigtiff:
+        data[:16] = (order.encode() + struct.pack(e + "HHHQ", 43, 8, 0, ifd_at)[:14])
+    else:
+        data[:8] = order.encode() + struct.pack(e + "HI", 42, ifd_at)
+    return bytes(data)
+
+
+# ================================================================= WebP
+def _riff(chunks) -> bytes:
+    body = b"WEBP"
+    for kind, payload in chunks:
+        body += kind + struct.pack("<I", len(payload)) + payload
+        if len(payload) % 2:
+            body += b"\0"
+    return b"RIFF" + struct.pack("<I", len(body)) + body
+
+
+def webp_container(frame: bytes, kind: bytes, alph: Optional[bytes] = None,
+                   canvas=None, anim_offset=None, alpha_flag=None,
+                   icc: bool = False) -> bytes:
+    """A WebP file of one ``VP8 `` or ``VP8L`` bitstream: simple when no
+    option is given, else extended (``VP8X``) with ``ALPH``, an ICC chunk,
+    or an animation of this one frame at ``anim_offset`` (even x, y) on a
+    ``canvas`` of (w, h)."""
+    if alph is None and canvas is None and not icc and alpha_flag is None:
+        return _riff([(kind, frame)])
+    if kind == b"VP8 ":
+        w, h = (v & 0x3FFF for v in struct.unpack("<HH", frame[6:10]))
+    else:
+        bits = int.from_bytes(frame[1:5], "little")
+        w, h = (bits & 0x3FFF) + 1, ((bits >> 14) & 0x3FFF) + 1
+    cw, ch = canvas or (w, h)
+    has_alpha = alph is not None or kind == b"VP8L"
+    flags = (0x10 if (has_alpha if alpha_flag is None else alpha_flag) else 0)
+    flags |= (0x20 if icc else 0) | (0x02 if anim_offset is not None else 0)
+    vp8x = bytes([flags, 0, 0, 0]) + (cw - 1).to_bytes(3, "little") + \
+        (ch - 1).to_bytes(3, "little")
+    chunks = [(b"VP8X", vp8x)]
+    if icc:
+        chunks.append((b"ICCP", b"\0" * 20))
+    frame_chunks = ([(b"ALPH", alph)] if alph is not None else []) + [(kind, frame)]
+    if anim_offset is None:
+        chunks += frame_chunks
+    else:
+        x, y = anim_offset
+        chunks.append((b"ANIM", struct.pack("<IH", 0xFF336699, 0)))
+        anmf = ((x // 2).to_bytes(3, "little") + (y // 2).to_bytes(3, "little")
+                + (w - 1).to_bytes(3, "little") + (h - 1).to_bytes(3, "little")
+                + (100).to_bytes(3, "little") + b"\0")
+        for k, p in frame_chunks:
+            anmf += k + struct.pack("<I", len(p)) + p + (b"\0" if len(p) % 2 else b"")
+        chunks.append((b"ANMF", anmf))
+    chunks.append((b"EXIF", b"Exif\0\0"))
+    return _riff(chunks)
+
+
+class _LsbWriter:
+    """Bits lowest first, as VP8L reads them."""
+
+    def __init__(self):
+        self.acc, self.n, self.out = 0, 0, bytearray()
+
+    def put(self, value: int, nbits: int):
+        self.acc |= (value & ((1 << nbits) - 1)) << self.n
+        self.n += nbits
+        while self.n >= 8:
+            self.out.append(self.acc & 0xFF)
+            self.acc >>= 8
+            self.n -= 8
+
+    def data(self) -> bytes:
+        return bytes(self.out) + (bytes([self.acc]) if self.n else b"")
+
+    def put_many(self, values: np.ndarray, nbits: np.ndarray):
+        """``put`` of each (value, nbits) pair in turn (nbits <= 16), in
+        numpy: each value's bits land in at most three bytes, and as no two
+        overlap their byte sums are their ORs."""
+        values = np.asarray(values, np.int64)
+        nbits = np.asarray(nbits, np.int64)
+        pos = self.n + np.cumsum(nbits) - nbits
+        total = int(self.n + nbits.sum())
+        nbytes = (total + 7) // 8
+        v = values << (pos & 7)
+        idx = pos >> 3
+        acc = np.zeros(nbytes + 3, np.float64)
+        for k in range(3):
+            acc += np.bincount(idx + k, weights=(v >> (8 * k)) & 255,
+                               minlength=nbytes + 3)
+        block = acc[:nbytes].astype(np.uint8)
+        if nbytes:
+            block[0] |= self.acc
+        full = total // 8
+        self.out += block[:full].tobytes()
+        self.n = total % 8
+        self.acc = int(block[full]) if self.n else 0
+
+
+def _huffman_lengths(freq: np.ndarray, limit: int) -> np.ndarray:
+    """Prefix code lengths (at most ``limit``) for the counts ``freq``."""
+    import heapq
+
+    f = np.asarray(freq, np.int64).copy()
+    while True:
+        used = np.flatnonzero(f)
+        lens = np.zeros(len(f), np.int64)
+        if len(used) == 1:
+            lens[used[0]] = 1
+            return lens
+        heap = [(int(f[i]), i, [i]) for i in used]
+        heapq.heapify(heap)
+        tie = len(f)
+        while len(heap) > 1:
+            a, _, la = heapq.heappop(heap)
+            b, _, lb = heapq.heappop(heap)
+            for i in la + lb:
+                lens[i] += 1
+            heapq.heappush(heap, (a + b, tie, la + lb))
+            tie += 1
+        if lens.max() <= limit:
+            return lens
+        f = np.where(f > 0, (f >> 1) | 1, 0)
+
+
+def _canonical(lens: np.ndarray):
+    """{symbol: (code, length)} of a canonical prefix code."""
+    codes, code = {}, 0
+    for length in range(1, 16):
+        for sym in np.flatnonzero(lens == length):
+            codes[int(sym)] = (code, length)
+            code += 1
+        code <<= 1
+    return codes
+
+
+def _put_code(bw: _LsbWriter, code, length):
+    for k in range(length - 1, -1, -1):  # first bit first
+        bw.put((code >> k) & 1, 1)
+
+
+def _reversed_code(code: int, length: int) -> int:
+    return int(f"{code:0{length}b}"[::-1], 2) if length else 0
+
+
+def _put_literals(bw: _LsbWriter, flat: np.ndarray, codes) -> None:
+    """Every pixel of ``flat`` (n, 4: a r g b) as green, red, blue and alpha
+    literals of the four codes, in numpy."""
+    vals, lens = [], []
+    for code, ch in zip(codes, (2, 1, 3, 0)):
+        size = max(code) + 1
+        rev = np.zeros(size, np.int64)
+        ln = np.zeros(size, np.int64)
+        for sym, (c, n) in code.items():
+            rev[sym], ln[sym] = _reversed_code(c, n), n
+        vals.append(rev[flat[:, ch]])
+        lens.append(ln[flat[:, ch]])
+    bw.put_many(np.stack(vals, 1).reshape(-1), np.stack(lens, 1).reshape(-1))
+
+
+_CL_ORDER = [17, 18, 0, 1, 2, 3, 4, 5, 16, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15]
+
+
+def _vp8l_code(bw: _LsbWriter, freq: np.ndarray):
+    """Write one prefix code for the counts ``freq``; its {symbol: code}."""
+    used = np.flatnonzero(freq)
+    if len(used) == 0:
+        used = np.array([0])
+    if len(used) <= 2 and used.max() < 256:
+        bw.put(1, 1)
+        bw.put(len(used) - 1, 1)
+        first = int(used[0])
+        if first < 2:
+            bw.put(0, 1)
+            bw.put(first, 1)
+        else:
+            bw.put(1, 1)
+            bw.put(first, 8)
+        if len(used) == 2:
+            bw.put(int(used[1]), 8)
+        if len(used) == 1:
+            return {first: (0, 0)}
+        return {first: (0, 1), int(used[1]): (1, 1)}
+    lens = _huffman_lengths(freq, 15)
+    cl_freq = np.bincount(lens, minlength=16)
+    cl_lens = _huffman_lengths(np.concatenate([cl_freq, [0, 0, 0]]), 7)
+    bw.put(0, 1)
+    bw.put(19 - 4, 4)
+    for sym in _CL_ORDER:
+        bw.put(int(cl_lens[sym]), 3)
+    bw.put(0, 1)  # every symbol's length is written
+    cl_codes = _canonical(cl_lens)
+    if len(cl_codes) == 1:  # a code of one symbol is read with no bits
+        cl_codes = {k: (0, 0) for k in cl_codes}
+    for length in lens:
+        code = cl_codes.get(int(length))
+        if code is not None:
+            _put_code(bw, *code)
+    codes = _canonical(lens)
+    return {k: (0, 0) for k in codes} if len(codes) == 1 else codes
+
+
+def _add_px(a, b):
+    return ((a.astype(np.int64) + b) % 256).astype(np.uint8)
+
+
+def _vp8l_predict(px: np.ndarray, mode: int, x: int, y: int) -> np.ndarray:
+    """The predictor ``mode``'s value for (x, y) of an (H, W, 4) ARGB-order
+    int image (channels a, r, g, b) whose earlier pixels are final."""
+    w = px.shape[1]
+    L = px[y, x - 1]
+    T = px[y - 1, x]
+    TL = px[y - 1, x - 1]
+    TR = px[y - 1, x + 1] if x + 1 < w else px[y, 0]
+    avg = lambda a, b: (a + b) // 2  # noqa: E731
+    if mode == 0 or mode >= 14:
+        return np.array([255, 0, 0, 0])
+    if mode == 11:
+        pa = np.abs(L - TL).sum() - np.abs(T - TL).sum()
+        return T if pa <= 0 else L
+    if mode == 12:
+        return np.clip(L + T - TL, 0, 255)
+    if mode == 13:
+        a = avg(L, T)
+        return np.clip(a + np.trunc((a - TL) / 2).astype(np.int64), 0, 255)
+    return {1: L, 2: T, 3: TR, 4: TL, 5: avg(avg(L, TR), T), 6: avg(L, TL),
+            7: avg(L, T), 8: avg(TL, T), 9: avg(T, TR),
+            10: avg(avg(L, TL), avg(T, TR))}[mode]
+
+
+def _vp8l_image(bw: _LsbWriter, argb: np.ndarray):
+    """An entropy-coded image of (H, W, 4) a, r, g, b bytes: no colour
+    cache, one group, literals only."""
+    bw.put(0, 1)  # no colour cache
+    flat = argb.reshape(-1, 4).astype(np.int64)
+    codes = []
+    for ch, size in ((2, 280), (1, 256), (3, 256), (0, 256)):
+        codes.append(_vp8l_code(bw, np.bincount(flat[:, ch], minlength=size)))
+    _vp8l_code(bw, np.zeros(40, np.int64))
+    _put_literals(bw, flat, codes)
+
+
+def _vp8l_stream(bw: _LsbWriter, rgba: np.ndarray, transforms, tile_bits: int,
+                 seed: int):
+    """The level-0 image stream of ``rgba`` (H, W, 4) after ``transforms``
+    (a sequence of ``subtract_green``, ``predictor``, ``cross_color``,
+    ``palette``), with a meta-code bit of 0."""
+    rng = np.random.RandomState(seed)
+    px = rgba[..., [3, 0, 1, 2]].astype(np.int64)  # a r g b
+    h, w, _ = px.shape
+    sub = lambda n: -(-n // (1 << tile_bits))  # noqa: E731
+    for t in transforms:
+        bw.put(1, 1)
+        if t == "subtract_green":
+            bw.put(2, 2)
+            px = px.copy()
+            px[..., 1] = (px[..., 1] - px[..., 2]) % 256
+            px[..., 3] = (px[..., 3] - px[..., 2]) % 256
+        elif t == "cross_color":
+            bw.put(1, 2)
+            bw.put(tile_bits - 2, 3)
+            mult = rng.randint(0, 256, (sub(h), sub(w), 3))
+            sub_img = np.zeros((sub(h), sub(w), 4), np.int64)
+            sub_img[..., 0] = 255
+            sub_img[..., 3], sub_img[..., 2], sub_img[..., 1] = (
+                mult[..., 0], mult[..., 1], mult[..., 2])
+            _vp8l_image(bw, sub_img)
+            s8 = lambda v: ((v + 128) % 256) - 128  # noqa: E731
+            m = mult[np.arange(h)[:, None] >> tile_bits,
+                     np.arange(w)[None, :] >> tile_bits]
+            g, r, b = s8(px[..., 2]), px[..., 1], px[..., 3]
+            nr = (r - ((s8(m[..., 0]) * g) >> 5)) % 256
+            nb = (b - ((s8(m[..., 1]) * g) >> 5) - ((s8(m[..., 2]) * s8(r)) >> 5)) % 256
+            px = px.copy()
+            px[..., 1], px[..., 3] = nr, nb
+        elif t == "predictor":
+            bw.put(0, 2)
+            bw.put(tile_bits - 2, 3)
+            modes = rng.randint(0, 16, (sub(h), sub(w)))
+            sub_img = np.zeros((sub(h), sub(w), 4), np.int64)
+            sub_img[..., 0] = 255
+            sub_img[..., 2] = modes
+            _vp8l_image(bw, sub_img)
+            res = np.zeros_like(px)
+            for y in range(h):
+                for x in range(w):
+                    if y == 0 and x == 0:
+                        pred = np.array([255, 0, 0, 0])
+                    elif y == 0:
+                        pred = px[0, x - 1]
+                    elif x == 0:
+                        pred = px[y - 1, 0]
+                    else:
+                        pred = _vp8l_predict(px, modes[y >> tile_bits,
+                                                       x >> tile_bits], x, y)
+                    res[y, x] = (px[y, x] - pred) % 256
+            px = res
+        elif t == "palette":
+            bw.put(3, 2)
+            colours, idx = np.unique(px.reshape(-1, 4), axis=0,
+                                     return_inverse=True)
+            n = len(colours)
+            bw.put(n - 1, 8)
+            delta = np.concatenate([colours[:1], np.diff(colours, axis=0) % 256])
+            _vp8l_image(bw, delta.reshape(1, n, 4))
+            bits = 0 if n > 16 else 1 if n > 4 else 2 if n > 2 else 3
+            per, bpp = 1 << bits, 8 >> bits
+            idx = idx.reshape(h, w)
+            pw = -(-w // per)
+            packed = np.zeros((h, pw), np.int64)
+            for k in range(per):
+                cols = idx[:, k::per]
+                packed[:, :cols.shape[1]] |= cols << (k * bpp)
+            px = np.zeros((h, pw, 4), np.int64)
+            px[..., 0] = 255
+            px[..., 2] = packed
+            w = pw
+    bw.put(0, 1)  # no more transforms
+    bw.put(0, 1)  # no colour cache
+    bw.put(0, 1)  # no meta prefix codes
+    flat = px.reshape(-1, 4)
+    codes = []
+    for ch, size in ((2, 280), (1, 256), (3, 256), (0, 256)):
+        codes.append(_vp8l_code(bw, np.bincount(flat[:, ch], minlength=size)))
+    _vp8l_code(bw, np.zeros(40, np.int64))
+    _put_literals(bw, flat, codes)
+
+
+def vp8l_bytes(rgba: np.ndarray, transforms=(), tile_bits: int = 2,
+               alpha_hint: bool = True, seed: int = 0) -> bytes:
+    """A VP8L bitstream (``VP8L`` chunk payload) of an (H, W, 4) uint8
+    image: literals only, one prefix-code group, after ``transforms``."""
+    h, w, _ = rgba.shape
+    bw = _LsbWriter()
+    bw.put(0x2F, 8)
+    bw.put(w - 1, 14)
+    bw.put(h - 1, 14)
+    bw.put(int(alpha_hint), 1)
+    bw.put(0, 3)
+    _vp8l_stream(bw, rgba, transforms, tile_bits, seed)
+    return bw.data()
+
+
+def alph_bytes(alpha: np.ndarray, method: int = 0, filt: int = 0) -> bytes:
+    """An ``ALPH`` chunk payload: ``method`` 0 raw or 1 VP8L-coded (the
+    values in green), ``filt`` 0 none, 1 horizontal, 2 vertical, 3
+    gradient."""
+    a = alpha.astype(np.int64)
+    h, w = a.shape
+    pred = np.zeros_like(a)
+    if filt:
+        pred[0, 1:] = a[0, :-1]
+        pred[1:, 0] = a[:-1, 0]
+        if filt == 1:
+            pred[1:, 1:] = a[1:, :-1]
+        elif filt == 2:
+            pred[1:, 1:] = a[:-1, 1:]
+        else:
+            pred[1:, 1:] = np.clip(a[1:, :-1] + a[:-1, 1:] - a[:-1, :-1], 0, 255)
+    res = ((a - pred) % 256).astype(np.uint8)
+    head = bytes([method | (filt << 2)])
+    if method == 0:
+        return head + res.tobytes()
+    bw = _LsbWriter()
+    img = np.zeros((h, w, 4), np.uint8)
+    img[..., 1] = res
+    _vp8l_stream(bw, img, (), 2, 0)
+    return head + bw.data()
+
+
+def _webp_tables():
+    """kCoeffsProba0 and kBModesProba from the port's decoder source."""
+    import os
+    import re
+
+    src = open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                            "nerf_pl_tpu_torch", "csrc", "webp_decode.cpp")).read()
+
+    def table(name):
+        body = re.search(name + r"\[\d+\] = \{(.*?)\};", src, re.S).group(1)
+        return [int(v) for v in re.findall(r"\d+", body)]
+
+    return (np.array(table("kCoeffsProba0")).reshape(4, 8, 3, 11),
+            np.array(table("kBModesProba")).reshape(10, 10, 9))
+
+
+class _BoolWriter:
+    """RFC 6386's boolean entropy encoder (section 7.3)."""
+
+    def __init__(self):
+        self.out = bytearray()
+        self.range, self.bottom, self.bit_count = 255, 0, 24
+
+    def _carry(self):
+        i = len(self.out) - 1
+        while i >= 0 and self.out[i] == 255:
+            self.out[i] = 0
+            i -= 1
+        self.out[i] += 1
+
+    def put(self, bit: int, prob: int = 128):
+        split = 1 + (((self.range - 1) * prob) >> 8)
+        if bit:
+            self.bottom += split
+            self.range -= split
+        else:
+            self.range = split
+        while self.range < 128:
+            self.range <<= 1
+            if self.bottom & (1 << 31):
+                self._carry()
+            self.bottom = (self.bottom << 1) & 0xFFFFFFFF
+            self.bit_count -= 1
+            if not self.bit_count:
+                self.out.append((self.bottom >> 24) & 0xFF)
+                self.bottom &= (1 << 24) - 1
+                self.bit_count = 8
+
+    def lit(self, v: int, n: int):
+        for k in range(n - 1, -1, -1):
+            self.put((v >> k) & 1)
+
+    def signed(self, v: int, n: int):
+        self.lit(abs(v), n)
+        self.put(int(v < 0))
+
+    def flush(self) -> bytes:
+        c, v = self.bit_count, self.bottom
+        if v & (1 << (32 - c)):
+            self._carry()
+        v = (v << (c & 7)) & 0xFFFFFFFF
+        for _ in range(c >> 3):
+            v = (v << 8) & 0xFFFFFFFF
+        for _ in range(4):
+            self.out.append((v >> 24) & 0xFF)
+            v = (v << 8) & 0xFFFFFFFF
+        return bytes(self.out) + b"\0" * 8
+
+
+_ZIGZAG_BANDS = [0, 1, 2, 3, 6, 4, 5, 6, 6, 6, 6, 6, 6, 6, 6, 7, 0]
+
+
+def _vp8_tokens(bw: _BoolWriter, proba, typ: int, ctx: int, first: int,
+                vals: Dict[int, int]) -> int:
+    """One block's coefficient tokens (``vals``: scan position -> nonzero
+    value, at most 18 in magnitude); returns the decoder's ``nz``."""
+    n = first
+    p = proba[typ][_ZIGZAG_BANDS[n]][ctx]
+    last = max(vals) if vals else -1
+    while n < 16:
+        if n > last:
+            bw.put(0, p[0])
+            return n
+        bw.put(1, p[0])
+        while vals.get(n, 0) == 0:
+            bw.put(0, p[1])
+            n += 1
+            p = proba[typ][_ZIGZAG_BANDS[n]][0]
+        bw.put(1, p[1])
+        v = abs(vals[n])
+        if v == 1:
+            bw.put(0, p[2])
+            nctx = 1
+        else:
+            bw.put(1, p[2])
+            nctx = 2
+            if v <= 4:
+                bw.put(0, p[3])
+                if v == 2:
+                    bw.put(0, p[4])
+                else:
+                    bw.put(1, p[4])
+                    bw.put(v - 3, p[5])
+            elif v <= 10:
+                bw.put(1, p[3])
+                bw.put(0, p[6])
+                if v <= 6:
+                    bw.put(0, p[7])
+                    bw.put(v - 5, 159)
+                else:
+                    bw.put(1, p[7])
+                    bw.put((v - 7) >> 1, 165)
+                    bw.put((v - 7) & 1, 145)
+            else:  # category 3: 11-18
+                bw.put(1, p[3])
+                bw.put(1, p[6])
+                bw.put(0, p[8])
+                bw.put(0, p[9])
+                for k, prob in zip((2, 1, 0), (173, 148, 140)):
+                    bw.put(((v - 11) >> k) & 1, prob)
+        bw.put(int(vals[n] < 0))
+        n += 1
+        p = proba[typ][_ZIGZAG_BANDS[n]][nctx]
+    return 16
+
+
+def vp8_bytes(w: int, h: int, seed: int = 0, simple: bool = False,
+              level: int = 20, sharpness: int = 0, partitions: int = 0,
+              segments: bool = False, absolute: bool = False,
+              lf_delta: bool = False, skip_proba: Optional[int] = None,
+              base_q: int = 40, i4_share: float = 0.5,
+              proba_updates: int = 0) -> bytes:
+    """A VP8 key frame (``VP8 `` chunk payload) of random intra modes and
+    small random coefficients (DC and the first AC of each block): what
+    Pillow's encoder never writes (the simple filter, 2/4/8 token
+    partitions, absolute segment values, loop-filter deltas, sharpness)."""
+    rng = np.random.RandomState(seed)
+    coeffs0, bmodes = _webp_tables()
+    proba = coeffs0.copy()
+    mbw, mbh = -(-w // 16), -(-h // 16)
+    first = _BoolWriter()
+    first.put(0)  # colour space
+    first.put(0)  # clamping
+    first.put(int(segments))
+    seg_proba = [100, 150, 200]
+    if segments:
+        first.put(1)  # update map
+        first.put(1)  # update data
+        first.put(int(absolute))
+        for s in range(4):
+            q = rng.randint(5, 100) if absolute else rng.randint(-20, 21)
+            first.put(1)
+            first.signed(q, 7)
+        for s in range(4):
+            first.put(1)
+            first.signed(rng.randint(0, 40) if absolute else rng.randint(-10, 11), 6)
+        for p in seg_proba:
+            first.put(1)
+            first.lit(p, 8)
+    first.put(int(simple))
+    first.lit(level, 6)
+    first.lit(sharpness, 3)
+    first.put(int(lf_delta))
+    if lf_delta:
+        first.put(1)
+        for d in (rng.randint(-15, 16), 0, 0, 0):
+            first.put(1)
+            first.signed(d, 6)
+        for d in (rng.randint(-15, 16), 0, 0, 0):
+            first.put(1)
+            first.signed(d, 6)
+    first.lit(partitions, 2)
+    first.lit(base_q, 7)
+    for _ in range(5):
+        d = rng.randint(-8, 9)
+        first.put(1)
+        first.signed(d, 4)
+    first.put(0)  # refresh entropy probs
+    from_update = np.zeros(proba.size, bool)
+    from_update[rng.choice(proba.size, proba_updates, replace=False)] = True
+    upd = _webp_update_proba()
+    for i in range(proba.size):
+        if from_update[i]:
+            first.put(1, int(upd[i]))
+            v = int(rng.randint(1, 256))
+            first.lit(v, 8)
+            proba.reshape(-1)[i] = v
+        else:
+            first.put(0, int(upd[i]))
+    first.put(int(skip_proba is not None))
+    if skip_proba is not None:
+        first.lit(skip_proba, 8)
+    nparts = 1 << partitions
+    parts = [_BoolWriter() for _ in range(nparts)]
+    intra_t = np.zeros(4 * mbw, np.int64)
+    nz_top = [0] * mbw
+    nz_dc_top = [0] * mbw
+    for my in range(mbh):
+        intra_l = [0, 0, 0, 0]
+        nz_left = nz_dc_left = 0
+        tb = parts[my & (nparts - 1)]
+        for mx in range(mbw):
+            if segments:
+                seg = rng.randint(0, 4)
+                if seg < 2:
+                    first.put(0, seg_proba[0])
+                    first.put(seg, seg_proba[1])
+                else:
+                    first.put(1, seg_proba[0])
+                    first.put(seg - 2, seg_proba[2])
+            skip = 0
+            if skip_proba is not None:
+                skip = int(rng.rand() < 0.3)
+                first.put(skip, skip_proba)
+            is_i4 = int(rng.rand() < i4_share)
+            first.put(1 - is_i4, 145)
+            top = intra_t[4 * mx:4 * mx + 4]
+            if not is_i4:
+                ym = rng.randint(0, 4)  # DC TM VE HE
+                bits = {0: (0, 0), 2: (0, 1), 3: (1, 0), 1: (1, 1)}[ym]
+                first.put(bits[0], 156)
+                first.put(bits[1], 163 if bits[0] == 0 else 128)
+                top[:] = ym
+                intra_l = [ym] * 4
+            else:
+                for y in range(4):
+                    left = intra_l[y]
+                    for x in range(4):
+                        m = rng.randint(0, 10)
+                        pr = bmodes[top[x], left]
+                        path = {0: [(0, 0)], 1: [(1, 0), (0, 1)],
+                                2: [(1, 0), (1, 1), (0, 2)],
+                                3: [(1, 0), (1, 1), (1, 2), (0, 3), (0, 4)],
+                                4: [(1, 0), (1, 1), (1, 2), (0, 3), (1, 4), (0, 5)],
+                                5: [(1, 0), (1, 1), (1, 2), (0, 3), (1, 4), (1, 5)],
+                                6: [(1, 0), (1, 1), (1, 2), (1, 3), (0, 6)],
+                                7: [(1, 0), (1, 1), (1, 2), (1, 3), (1, 6), (0, 7)],
+                                8: [(1, 0), (1, 1), (1, 2), (1, 3), (1, 6), (1, 7),
+                                    (0, 8)],
+                                9: [(1, 0), (1, 1), (1, 2), (1, 3), (1, 6), (1, 7),
+                                    (1, 8)]}[m]
+                        for bit, k in path:
+                            first.put(bit, int(pr[k]))
+                        top[x] = m
+                        left = m
+                    intra_l[y] = left
+            uvm = rng.randint(0, 4)
+            uv_path = {0: [(0, 142)], 2: [(1, 142), (0, 114)],
+                       3: [(1, 142), (1, 114), (0, 183)],
+                       1: [(1, 142), (1, 114), (1, 183)]}[uvm]
+            for bit, prob in uv_path:
+                first.put(bit, prob)
+            if skip:
+                nz_top[mx] = nz_left = 0
+                if not is_i4:
+                    nz_dc_top[mx] = nz_dc_left = 0
+                continue
+
+            def rand_block(pos0):
+                vals = {}
+                if rng.rand() < 0.7:
+                    vals[pos0] = int(rng.choice([-1, 1]) * rng.randint(1, 19))
+                if rng.rand() < 0.4:
+                    vals[pos0 + 1 + rng.randint(0, 3)] = int(
+                        rng.choice([-1, 1]) * rng.randint(1, 5))
+                return vals
+
+            if not is_i4:
+                ctx = nz_dc_top[mx] + nz_dc_left
+                nz = _vp8_tokens(tb, proba, 1, ctx, 0, rand_block(0))
+                nz_dc_top[mx] = nz_dc_left = int(nz > 0)
+                first_pos, ac_type = 1, 0
+            else:
+                first_pos, ac_type = 0, 3
+            tnz, lnz = nz_top[mx] & 0x0F, nz_left & 0x0F
+            for y in range(4):
+                l = lnz & 1
+                for x in range(4):
+                    ctx = l + (tnz & 1)
+                    vals = rand_block(first_pos) if rng.rand() < 0.6 else {}
+                    nz = _vp8_tokens(tb, proba, ac_type, ctx, first_pos, vals)
+                    l = int(nz > first_pos)
+                    tnz = (tnz >> 1) | (l << 7)
+                tnz >>= 4
+                lnz = (lnz >> 1) | (l << 7)
+            out_t, out_l = tnz, lnz >> 4
+            for ch in (0, 2):
+                tnz = nz_top[mx] >> (4 + ch)
+                lnz = nz_left >> (4 + ch)
+                for y in range(2):
+                    l = lnz & 1
+                    for x in range(2):
+                        ctx = l + (tnz & 1)
+                        vals = rand_block(0) if rng.rand() < 0.6 else {}
+                        nz = _vp8_tokens(tb, proba, 2, ctx, 0, vals)
+                        l = int(nz > 0)
+                        tnz = (tnz >> 1) | (l << 3)
+                    tnz >>= 2
+                    lnz = (lnz >> 1) | (l << 5)
+                out_t |= (tnz << 4) << ch
+                out_l |= (lnz & 0xF0) << ch
+            nz_top[mx] = out_t & 0xFF
+            nz_left = out_l & 0xFF
+    part0 = first.flush()
+    tokens = [p.flush() for p in parts]
+    tag = (len(part0) << 5) | (1 << 4)
+    head = struct.pack("<I", tag)[:3] + b"\x9d\x01\x2a" + struct.pack(
+        "<HH", w, h)
+    sizes = b"".join(struct.pack("<I", len(t))[:3] for t in tokens[:-1])
+    return head + part0 + sizes + b"".join(tokens)
+
+
+def _webp_update_proba():
+    """The VP8 coefficient update probabilities from the decoder source."""
+    import os
+    import re
+
+    src = open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                            "nerf_pl_tpu_torch", "csrc", "webp_decode.cpp")).read()
+    body = re.search(r"kCoeffsUpdateProba\[\d+\] = \{(.*?)\};", src, re.S).group(1)
+    return np.array([int(v) for v in re.findall(r"\d+", body)])
+
+
+# ============================================================ PPM, BMP, GIF
+def ppm_bytes(img: np.ndarray, magic: bytes, maxval: int = 255,
+              comment: bool = False) -> bytes:
+    """A Netpbm file: ``P1``-``P6`` (``img`` (H, W) or (H, W, 3) of values
+    up to ``maxval``; for P1/P4 nonzero is black) or ``Pf`` (float32 (H, W),
+    little-endian)."""
+    h, w = img.shape[:2]
+    head = magic + (b"\n# written by the tests\n" if comment else b"\n")
+    head += b"%d %d\n" % (w, h)
+    if magic == b"Pf":
+        return head + b"-1.0\n" + img[::-1].astype("<f4").tobytes()
+    if magic in (b"P1", b"P4"):
+        bits = (img != 0).astype(np.uint8)
+        if magic == b"P1":
+            return head + b"\n".join(b" ".join(b"%d" % v for v in row)
+                                     for row in bits) + b"\n"
+        return head + np.packbits(bits, axis=1).tobytes()
+    head += b"%d\n" % maxval
+    if magic in (b"P2", b"P3"):
+        return head + b"\n".join(b" ".join(b"%d" % v for v in row.reshape(-1))
+                                 for row in img) + b"\n"
+    dt = ">u2" if maxval > 255 else np.uint8
+    return head + img.astype(dt).tobytes()
+
+
+def _rle_row(row: np.ndarray, rle4: bool) -> bytes:
+    """One row of BMP RLE8/RLE4: repeats as (count, value), runs of more
+    than two differing values as absolute runs (word-aligned)."""
+    out, i, n = bytearray(), 0, len(row)
+    while i < n:
+        j = i
+        while j + 1 < n and row[j + 1] == row[i] and j - i < 254:
+            j += 1
+        if j > i or n - i < 3:
+            k = j - i + 1
+            v = int(row[i])
+            out += bytes([k, (v << 4) | v if rle4 else v])
+            i = j + 1
+            continue
+        j = i
+        while j < n and j - i < 254 and not (j + 1 < n and row[j + 1] == row[j]):
+            j += 1
+        k = j - i
+        if k < 3:
+            for v in row[i:j]:
+                out += bytes([1, (int(v) << 4) if rle4 else int(v)])
+            i = j
+            continue
+        vals = row[i:j].astype(np.uint8)
+        if rle4:
+            if k % 2:
+                vals = np.append(vals, 0)
+            data = ((vals[0::2] << 4) | vals[1::2]).astype(np.uint8).tobytes()
+        else:
+            data = vals.tobytes()
+        out += bytes([0, k]) + data + (b"\0" if len(data) % 2 else b"")
+        i = j
+    return bytes(out)
+
+
+def bmp_bytes(img: np.ndarray, bits: int, palette: Optional[np.ndarray] = None,
+              header: int = 40, top_down: bool = False, rle: bool = False,
+              masks: Optional[Sequence[int]] = None) -> bytes:
+    """A BMP: ``img`` (H, W) indices for 1/4/8 bits with ``palette`` (n, 3)
+    RGB, or (H, W, 3|4) RGB(A) for 16 (5-5-5 or the ``masks``), 24 and 32
+    bits (``masks`` for BI_BITFIELDS, 4 of them with alpha); ``header`` 12,
+    40, 108 or 124 bytes; RLE8/RLE4 for 8- and 4-bit indices."""
+    h, w = img.shape[:2]
+    comp = (1 if bits == 8 else 2) if rle else (3 if masks else 0)
+    rows = []
+    for y in range(h):
+        row = img[y]
+        if rle:
+            rows.append(_rle_row(row, bits == 4) + b"\0\0")
+            continue
+        if bits in (1, 4, 8):
+            v = row.astype(np.uint8)
+            if bits < 8:
+                bitsarr = (v[:, None] >> np.arange(bits - 1, -1, -1)) & 1
+                data = np.packbits(bitsarr.reshape(-1).astype(np.uint8)).tobytes()
+            else:
+                data = v.tobytes()
+        elif bits == 16:
+            m = masks or (0x7C00, 0x3E0, 0x1F)
+            px = np.zeros(w, np.uint32)
+            for c in range(3):
+                shift = int(m[c]).bit_length() - bin(m[c]).count("1")
+                top = m[c] >> shift
+                px |= ((row[:, c].astype(np.uint32) * top // 255) << shift).astype(np.uint32)
+            data = px.astype("<u2").tobytes()
+        elif masks:
+            px = np.zeros(w, np.uint64)
+            for c, m in enumerate(masks):
+                if m and c < row.shape[1]:
+                    shift = int(m).bit_length() - 8
+                    px |= row[:, c].astype(np.uint64) << np.uint64(shift)
+            data = px.astype(f"<u{bits // 8}").tobytes() if bits == 32 else \
+                b"".join(int(v).to_bytes(3, "little") for v in px)
+        else:
+            bgr = row[:, [2, 1, 0]].astype(np.uint8)
+            if bits == 32:
+                bgr = np.concatenate([bgr, np.zeros((w, 1), np.uint8)], 1)
+            data = bgr.tobytes()
+        pad = -len(data) % 4
+        rows.append(data + b"\0" * pad)
+    if not top_down:
+        rows = rows[::-1]
+    if rle:
+        rows[-1] = rows[-1][:-2] + b"\0\1"
+    pixels = b"".join(rows)
+    pal = b""
+    if palette is not None:
+        for r, g, b in palette:
+            pal += bytes([b, g, r]) + (b"" if header == 12 else b"\0")
+    if header == 12:
+        info = struct.pack("<IHHHH", 12, w, h, 1, bits)
+    else:
+        info = struct.pack("<IiiHHIIiiII", header, w, -h if top_down else h, 1,
+                           bits, comp, len(pixels), 2835, 2835,
+                           len(palette) if palette is not None else 0, 0)
+        if header >= 52:
+            m = list(masks or (0, 0, 0, 0)) + [0] * 4
+            info += struct.pack("<IIII", *m[:4])
+        info += b"\0" * (header - len(info))
+    extra = b""
+    if header == 40 and masks:
+        extra = struct.pack("<III", *masks[:3])
+    offset = 14 + len(info) + len(extra) + len(pal)
+    head = b"BM" + struct.pack("<IHHI", offset + len(pixels), 0, 0, offset)
+    return head + info + extra + pal + pixels
+
+
+def lzw_gif(indices: np.ndarray, bits: int) -> bytes:
+    """GIF LZW codes (lowest bit first) of ``indices`` at minimum code size
+    ``bits``: Clear first, Clear when the table fills, End last."""
+    clear, end = 1 << bits, (1 << bits) + 1
+    acc, nacc, out = 0, 0, bytearray()
+
+    def put(code, width):
+        nonlocal acc, nacc
+        acc |= code << nacc
+        nacc += width
+        while nacc >= 8:
+            out.append(acc & 0xFF)
+            acc >>= 8
+            nacc -= 8
+
+    width, nxt, table, w = bits + 1, clear + 2, {}, b""
+    put(clear, width)
+    for c in indices.reshape(-1).astype(np.uint8).tobytes():
+        wc = w + bytes([c])
+        if not w or wc in table:
+            w = wc
+            continue
+        put(table[w] if len(w) > 1 else w[0], width)
+        table[wc] = nxt
+        nxt += 1
+        if nxt > (1 << width) and width < 12:
+            width += 1
+        if nxt >= 4096:
+            put(clear, width)
+            width, nxt, table = bits + 1, clear + 2, {}
+        w = bytes([c])
+    if w:
+        put(table[w] if len(w) > 1 else w[0], width)
+        nxt += 1
+        if nxt > (1 << width) and width < 12:
+            width += 1
+    put(end, width)
+    if nacc:
+        put(0, 8 - nacc)
+    return bytes(out)
+
+
+def gif_bytes(indices: np.ndarray, palette: Optional[np.ndarray],
+              local: bool = False, interlace: bool = False,
+              transparency: Optional[int] = None, screen=None, offset=(0, 0),
+              background: int = 0, version: bytes = b"GIF89a") -> bytes:
+    """A GIF of one frame of (h, w) ``indices``: ``palette`` (n, 3) as the
+    global or ``local`` table (None: no table), interlaced or not, a
+    Graphic Control transparency index, on a ``screen`` (w, h) at
+    ``offset``."""
+    h, w = indices.shape
+    sw, sh = screen or (w, h)
+    bits = 1
+    if palette is not None:
+        while (1 << bits) < len(palette):
+            bits += 1
+        table = np.zeros((1 << bits, 3), np.uint8)
+        table[:len(palette)] = palette
+        table = table.tobytes()
+    flags_g = (0x80 | (bits - 1)) if palette is not None and not local else 0
+    out = version + struct.pack("<HHBBB", sw, sh, flags_g, background, 0)
+    if flags_g:
+        out += table
+    if transparency is not None:
+        out += b"!\xf9\x04" + bytes([1]) + b"\0\0" + bytes([transparency]) + b"\0"
+    out += b"!\xfe\x05hello\x00"  # a comment extension
+    flags_l = (0x80 | (bits - 1)) if palette is not None and local else 0
+    flags_l |= 0x40 if interlace else 0
+    out += b"," + struct.pack("<HHHHB", offset[0], offset[1], w, h, flags_l)
+    if flags_l & 0x80:
+        out += table
+    rows = indices
+    if interlace:
+        order = np.concatenate([np.arange(0, h, 8), np.arange(4, h, 8),
+                                np.arange(2, h, 4), np.arange(1, h, 2)])
+        rows = indices[order]
+    code_size = max(2, int(indices.max()).bit_length())
+    data = lzw_gif(rows, code_size)
+    out += bytes([code_size])
+    for i in range(0, len(data), 255):
+        block = data[i:i + 255]
+        out += bytes([len(block)]) + block
+    return out + b"\0;"

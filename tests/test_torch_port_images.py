@@ -166,11 +166,12 @@ def test_loaders_open_files_by_content(tmp_path):
     for path in (jpeg_as_png, png_as_jpg):
         hold_loaders(path)
     other = tmp_path / "junk.png"
-    other.write_bytes(b"GIF89a\x01\x00junk")
+    other.write_bytes(b"\x00\x00\x02\x00junk")  # a TGA's first bytes
     for load in (lambda p: _load_image(p, WH), lambda p: _load_rgb(p, WH),
                  lambda p: load_sm_image(p, WH), lambda p: _read_rgb(p, WH)):
-        with pytest.raises(ValueError, match=r"junk\.png: neither a PNG nor a "
-                                             r"JPEG file \(it starts b'GIF89a"):
+        with pytest.raises(ValueError, match=r"junk\.png: not a PNG, JPEG, "
+                                             r"WebP, TIFF, PPM, BMP or GIF file "
+                                             r"\(it starts b'\\x00\\x00\\x02"):
             load(str(other))
 
 

@@ -122,8 +122,14 @@ def test_jpeg_refuses_what_it_does_not_read(tmp_path):
     Image.fromarray(pic).save(other, "GIF")
     with pytest.raises(ValueError, match="not a JPEG"):
         jpeg.read_jpeg(str(other))
-    with pytest.raises(ValueError, match="neither a PNG nor a JPEG"):
-        read_image(str(other))
+    # a GIF is read as Pillow reads it; a TGA (not ported) raises
+    np.testing.assert_array_equal(
+        read_image(str(other)), np.asarray(Image.open(other).convert("RGB")))
+    tga = tmp_path / "other.tga"
+    Image.fromarray(pic).save(tga, "TGA")
+    with pytest.raises(ValueError, match=r"other\.tga: not a PNG, JPEG, "
+                                         r"WebP, TIFF, PPM, BMP or GIF file"):
+        read_image(str(tga))
 
 
 # ---------------------------------------------------------------- PNG
