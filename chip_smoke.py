@@ -169,7 +169,23 @@ Phases (any failed check raises, so the script exits non-zero):
    exact launches, the LLFF ``test_train`` eval, and the ``efficient_sm``
    epoch-0 loss equal to phase 7's; last, a 4032x3024 lossless WebP and an
    LZW TIFF decoded on the host by stage, and the lossy VP8 decode rate.
-14. One JSON line of kernel numbers (E's and F's rows carry the SHA-256 of
+14. The repo's other entry points, each through its port: the scene CLI
+   (``scripts.make_synthetic_scene``, three formats); ``python -m
+   nerf_pl_tpu_torch.examples.orbit_render`` (its ``main``) on phase 4's
+   fit, 24 rgb poses and 8 sigma poses at 200x200, exactly 4 C and 2 B
+   launches a pose, its PNGs and GIF read back, pose 0 of it and of the
+   serve phase's seeded checkpoint held against the plain versions of C and
+   B on the card; ``scripts.validate_mesh`` on an
+   analytic sphere (PASS, 0) and a scaled one (FAIL, 1);
+   ``examples.inspect_shadow_scene`` on phase 7's scene (consistent);
+   ``scripts.profile_step`` (10 traced bench steps; its table must name D,
+   E and A); ``scripts.width_bench`` at W = 256 and 512 (5 steps each, no
+   error row); ``scripts.bench_searchsorted`` (four rank sets equal, then
+   timed); ``scripts.sustained_rate`` on phase 4's ``metrics.jsonl``; the
+   ``efficient_sm_64.sh`` launcher and ``recipes.sh rgb_sm_sigma_64`` for 1
+   epoch on phase 7's scene; ``scripts/acceptance_real_data.sh`` with
+   ``SMOKE=1``.
+15. One JSON line of kernel numbers (E's and F's rows carry the SHA-256 of
    their f32 grads at a fixed seeded input, run twice, ``f32_sha256``), the
    card's line, then the result line ``{"ok": true, "device": {...}}``
    last.
@@ -5015,6 +5031,348 @@ def formats_end_to_end(tmp: str, phase7_loss: float) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 14
+# The repo's other entry points, on the port.  The orbit render of phase 4's
+# full-width fit at 200x200 (the script's defaults otherwise: radius 4,
+# height 0.5, 64 + 64 samples, near 2, far 6, float32): 40,000 rays a pose
+# in two chunks of at most 32,768, each a coarse and a fine pass through C
+# (channel-major) and one importance sampling through B.
+ORBIT_WH, ORBIT_POSES, ORBIT_SIGMA_POSES = 200, 24, 8
+ORBIT_CHUNKS = -(-ORBIT_WH ** 2 // EVAL_CHUNK)
+ORBIT_POSE_LAUNCHES = {"A": 0, "B": ORBIT_CHUNKS, "C": 2 * ORBIT_CHUNKS,
+                       "C'": 0, "D": 0, "E": 0}
+# One pose through the kernels against the same call with the plain
+# versions of C and B on the card, held as phase 3 holds the card's float32
+# render against the CPU's (TOL_F32_RENDER, TOL_F32_RENDER_MEAN), not to
+# the eval layouts' 1e-5: those compare two kernels that give the same bits,
+# while C sums its float32 products in another order than the plain
+# version's matmul.  On the partly opaque seeded checkpoint the coarse pass
+# then agrees to ~1e-7, and the fine samples, placed by the coarse weights,
+# carry that through the 2^9-frequency encoding to ~2e-3 in depth and ~6e-4
+# in opacity (an H100 80GB HBM3 at 700 W).  The 8-bit frames may then differ
+# by as many levels as the limit spans.
+ORBIT_PNG_LEVELS = int(np.ceil(255 * TOL_F32_RENDER))
+# the launchers' fits, cut to one epoch on phase 7's 64x64 shadow scene
+LAUNCHER_EPOCHS = "1"
+ENTRY_TIMEOUT_S = 300
+
+
+class plain_on_card:
+    """Inside the block, a CUDA tensor takes the plain versions of kernels C
+    and B (the renderer's routes on the card), for a hold against them."""
+
+    def __enter__(self):
+        from nerf_pl_tpu_torch.ops import fused_mlp as fm
+        from nerf_pl_tpu_torch.ops import searchsorted as ss
+
+        self.saved = [(fm, "fused_nerf_apply_raw_t_cuda",
+                       fm.fused_nerf_apply_raw_t_cuda),
+                      (ss, "searchsorted_interp_cuda",
+                       ss.searchsorted_interp_cuda)]
+        fm.fused_nerf_apply_raw_t_cuda = fm.fused_nerf_apply_raw_t_plain
+        ss.searchsorted_interp_cuda = ss.searchsorted_interp_plain
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, fn in self.saved:
+            setattr(module, name, fn)
+        return False
+
+
+def python_on_path(tmp: str) -> dict:
+    """The environment of a launcher's subprocess: ``python`` is this
+    interpreter (the machine may name it ``python3`` only) and the checkout
+    is importable."""
+    bin_dir = os.path.join(tmp, "bin")
+    os.makedirs(bin_dir, exist_ok=True)
+    shim = os.path.join(bin_dir, "python")
+    if not os.path.exists(shim):
+        # a script, not a symlink: a virtual environment is found from the
+        # interpreter's own path
+        with open(shim, "w") as f:
+            f.write(f'#!/bin/sh\nexec "{sys.executable}" "$@"\n')
+        os.chmod(shim, 0o755)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    return {**os.environ, "PATH": f"{bin_dir}:{os.environ.get('PATH', '')}",
+            "PYTHONPATH": repo + (os.pathsep + os.environ["PYTHONPATH"]
+                                  if os.environ.get("PYTHONPATH") else "")}
+
+
+def run_shell(tmp: str, tag: str, script: str, args: list,
+              env: dict | None = None) -> subprocess.CompletedProcess:
+    """``bash <script> args`` from the checkout's root; its output logged,
+    a failure raised."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    res = subprocess.run(["bash", os.path.join(repo, script), *args],
+                         capture_output=True, text=True, cwd=repo,
+                         timeout=ENTRY_TIMEOUT_S,
+                         env={**python_on_path(tmp), **(env or {})})
+    for line in res.stdout.splitlines()[-12:]:
+        log(f"[{tag}] {line}")
+    log(f"[{tag}] {script} {' '.join(args[:2])}: exit {res.returncode} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if res.returncode != 0:
+        raise AssertionError(f"{script} failed ({res.returncode}): "
+                             f"{res.stderr[-2000:]}")
+    return res
+
+
+def epoch_records(path: str) -> list:
+    with open(path) as f:
+        return [r for r in map(json.loads, f) if "train/loss" in r]
+
+
+def entry_scenes(tmp: str) -> str:
+    """``make_synthetic_scene`` in its three formats; the Blender scene's
+    root (16x16, for the acceptance chain)."""
+    from nerf_pl_tpu_torch.scripts import make_synthetic_scene
+
+    root = os.path.join(tmp, "entry_scene")
+    for fmt, extra in (("blender", []), ("llff", ["--spheric"]),
+                       ("pyredner", [])):
+        out = root if fmt == "blender" else f"{root}_{fmt}"
+        make_synthetic_scene.main(["--out", out, "--img_wh", "16",
+                                   "--n_train", "3", "--n_val", "1",
+                                   "--n_test", "1", "--format", fmt, *extra,
+                                   "--device", "cuda"])
+        want = ("poses_bounds.npy" if fmt == "llff"
+                else "transforms_train.json")
+        if not os.path.exists(os.path.join(out, want)):
+            raise AssertionError(f"the {fmt} scene has no {want}")
+    return root
+
+
+def orbit_end_to_end(tmp: str, ckpt: str, seeded: str) -> dict:
+    """``python -m nerf_pl_tpu_torch.examples.orbit_render`` (its ``main``,
+    in this process, so the launch counters can be read) on phase 4's fit:
+    24 rgb poses and 8 sigma poses at 200x200; the files read back.  Pose 0
+    held against the plain versions on the card, of that fit and of
+    ``seeded`` (the serve phase's partly opaque seeded checkpoint: two
+    epochs leave phase 4's fit all but transparent along the orbit, a white
+    rgb image, and phase 10's dense cut of it too, so the hold needs a scene
+    with content)."""
+    from nerf_pl_tpu_torch.data.png import read_png
+    from nerf_pl_tpu_torch.examples import orbit_render
+
+    runs = {}
+    for mode, poses in (("rgb", ORBIT_POSES), ("sigma", ORBIT_SIGMA_POSES)):
+        out_dir = os.path.join(tmp, f"orbit_{mode}")
+        argv = ["--ckpt_path", ckpt, "--img_wh", str(ORBIT_WH), str(ORBIT_WH),
+                "--n_poses", str(poses), "--mode", mode, "--out_dir", out_dir,
+                "--device", "cuda"]
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        frames = orbit_render.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        want = {k: v * poses for k, v in ORBIT_POSE_LAUNCHES.items()}
+        if any(counts[k] != v for k, v in want.items()):
+            raise AssertionError(f"the {mode} orbit launched {counts}, "
+                                 f"expected {want}")
+        for i, frame in enumerate(frames):
+            img, pmode = read_png(os.path.join(out_dir, f"orbit_{i:03d}.png"))
+            if pmode != "RGB" or not np.array_equal(img, frame):
+                raise AssertionError(f"{mode} orbit PNG {i} reads back wrong")
+        n, delays, _ = gif_frames(os.path.join(out_dir, "orbit.gif"))
+        if n != poses or delays != [int(1000 / orbit_render.GIF_FPS / 10)] * n:
+            raise AssertionError(f"{mode} orbit GIF: {n} frames, {delays}")
+        spread = float(np.std(np.stack(frames).astype(np.float32)))
+        log(f"[entry] orbit {mode}: {poses} poses at {ORBIT_WH}x{ORBIT_WH}, "
+            f"{wall:.3f} s wall, {wall / poses:.4f} s a pose (PNG writes "
+            f"included), {poses * ORBIT_WH ** 2 / wall:.1f} rays/s; launches "
+            f"{counts}; frames' std {spread:.2f} levels")
+        runs[mode] = dict(wall_s=wall, s_per_pose=wall / poses,
+                          counts=counts, poses=poses)
+
+    holds = {}
+    for tag, path in (("phase 4 fit", ckpt), ("seeded", seeded)):
+        holds[tag] = orbit_plain_hold(tag, path)
+    if holds["seeded"]["std"] < 1.0:
+        raise AssertionError("the seeded scene's orbit pose is blank")
+    return dict(runs=runs, holds=holds)
+
+
+def orbit_plain_hold(tag: str, ckpt: str) -> dict:
+    """Pose 0 of the rgb orbit through the kernels and through the plain
+    versions of C and B on the card: the readings, held."""
+    from nerf_pl_tpu_torch.examples import orbit_render
+    from nerf_pl_tpu_torch.ops.ray_utils import get_ray_directions
+    from nerf_pl_tpu_torch.tools.evaluate import load_models
+
+    args = orbit_render.get_opts(["--ckpt_path", ckpt, "--img_wh",
+                                  str(ORBIT_WH), str(ORBIT_WH)])
+    models = load_models(ckpt, "cuda")
+    focal = 0.5 * 800 / np.tan(0.5 * args.camera_angle_x) * ORBIT_WH / 800
+    rays = orbit_render.orbit_rays(args, 0, get_ray_directions(
+        ORBIT_WH, ORBIT_WH, focal, device="cuda"))
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    fused = orbit_render.render_pose(models, rays, args, use_fused=True)
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    counts = read_counts()
+    with plain_on_card():
+        reset_counts()
+        plain = orbit_render.render_pose(models, rays, args, use_fused=True)
+        torch.cuda.synchronize()
+        if any(read_counts().values()):
+            raise AssertionError("the plain render launched a kernel")
+    errs = {k: max_abs(fused[k], plain[k]) for k in fused}
+    means = {k: float((fused[k] - plain[k]).abs().mean()) for k in fused}
+    frame = orbit_render.frame_of(fused, args)
+    levels = int(np.abs(frame.astype(int) - orbit_render.frame_of(
+        plain, args).astype(int)).max())
+    spread = float(frame.astype(np.float32).std())
+    log(f"[entry] orbit pose 0 of the {tag} checkpoint through C and B "
+        f"against their plain versions on the card: max_abs_err {errs} (tol "
+        f"{TOL_F32_RENDER:.0e}), mean_abs_err {means} (tol "
+        f"{TOL_F32_RENDER_MEAN:.0e}); PNG levels apart {levels} (at most "
+        f"{ORBIT_PNG_LEVELS}); frame std {spread:.2f} levels, opacity mean "
+        f"{float(fused['opacity_fine'].mean()):.4f}; rendered in "
+        f"{render_s:.4f} s, launches {counts}")
+    if not (max(errs.values()) <= TOL_F32_RENDER
+            and max(means.values()) <= TOL_F32_RENDER_MEAN
+            and levels <= ORBIT_PNG_LEVELS):
+        raise AssertionError(f"the orbit's pose of the {tag} checkpoint "
+                             f"disagrees with the plain versions: {errs}, "
+                             f"{means}, {levels} levels")
+    return dict(errs=errs, means=means, png_levels=levels, std=spread,
+                render_s=render_s)
+
+
+def mesh_checks(tmp: str) -> dict:
+    """``validate_mesh`` on an analytic sphere PLY (PASS, exit 0) and on one
+    scaled by 1.2 (FAIL, exit 1)."""
+    from nerf_pl_tpu_torch.data.synthetic import SPHERE_C
+    from nerf_pl_tpu_torch.scripts import validate_mesh
+    from nerf_pl_tpu_torch.tools.mesh_utils import write_ply
+
+    n = 48
+    th, ph = np.meshgrid(np.linspace(0.05, np.pi - 0.05, n),
+                         np.linspace(0, 2 * np.pi, 2 * n, endpoint=False),
+                         indexing="ij")
+    nrm = np.stack([np.sin(th) * np.cos(ph), np.cos(th),
+                    np.sin(th) * np.sin(ph)], -1).reshape(-1, 3)
+    idx = np.arange(2 * n * n).reshape(n, 2 * n)
+    nxt = np.roll(idx, -1, axis=1)
+    tris = np.concatenate([
+        np.stack([idx[:-1], nxt[:-1], idx[1:]], -1).reshape(-1, 3),
+        np.stack([nxt[:-1], nxt[1:], idx[1:]], -1).reshape(-1, 3)])
+    colors = (np.clip(0.5 + 0.5 * nrm, 0, 1) * 255).astype(np.uint8)
+    codes = {}
+    for tag, radius in (("sphere", 1.0), ("perturbed", 1.2)):
+        path = os.path.join(tmp, f"{tag}.ply")
+        write_ply(path, (SPHERE_C + radius * nrm).astype(np.float32), tris,
+                  colors)
+        codes[tag] = validate_mesh.main([path, "--device", "cuda"])
+    log(f"[entry] validate_mesh exit codes {codes}")
+    if codes != {"sphere": 0, "perturbed": 1}:
+        raise AssertionError(f"validate_mesh: {codes}")
+    return codes
+
+
+def entry_points_end_to_end(tmp: str, ckpt: str, seeded: str) -> dict:
+    """Phase 14: the scene CLI, the orbit render, the mesh check, the shadow
+    inspection, the step profile, the width bench, the searchsorted bench,
+    the sustained rate, two launchers and the acceptance chain."""
+    from nerf_pl_tpu_torch.examples import inspect_shadow_scene
+    from nerf_pl_tpu_torch.scripts import (bench_searchsorted, profile_step,
+                                           sustained_rate, width_bench)
+
+    t0 = time.perf_counter()
+    scene = entry_scenes(tmp)
+    out = dict(orbit=orbit_end_to_end(tmp, ckpt, seeded),
+               mesh=mesh_checks(tmp))
+    shadow_root = os.path.join(tmp, "shadow_scene")
+    if inspect_shadow_scene.main(["--root_dir", shadow_root, "--img_wh",
+                                  str(SHADOW_WH), str(SHADOW_WH),
+                                  "--device", "cuda"]) is not True:
+        raise AssertionError("the shadow scene's projection is inconsistent")
+
+    torch.cuda.synchronize()
+    reset_counts()
+    prof = profile_step.main(["--iters", "10", "--trace_dir",
+                              os.path.join(tmp, "profile_step"), "--out",
+                              os.path.join(tmp, "profile_step.json"),
+                              "--device", "cuda"])
+    torch.cuda.synchronize()
+    prof["launches"] = read_counts()
+    named = prof["by_kernel_us_per_step"]
+    for row in prof["top_ops"][:12]:
+        log(f"[entry] profile_step {row['us_per_step']:10.1f} us/step "
+            f"{row['pct']:5.1f}% x{row['count']:<4d} {row['kernel'] or '':6s} "
+            f"{row['op'][:80]}")
+    log(f"[entry] profile_step: {prof['step_ms_from_module_span']} ms a step "
+        f"(the traced span), kernels {prof['op_lane_total_us_per_step']} us "
+        f"a step, buckets {prof['buckets_us_per_step']}, by kernel {named}; "
+        f"launches over the 11 steps {prof['launches']}")
+    if not {"D", "E", "A"} <= set(named):
+        raise AssertionError(f"the step's profile does not name D, E and A: "
+                             f"{named}")
+
+    widths = {}
+    for w in (256, 512):
+        torch.cuda.synchronize()
+        reset_counts()
+        (row,) = width_bench.main(["--widths", str(w), "--iters", "5",
+                                   "--device", "cuda"])
+        torch.cuda.synchronize()
+        row["launches"] = read_counts()
+        if "error" in row:
+            raise AssertionError(f"width_bench at W = {w}: {row['error']}")
+        log(f"[entry] width_bench W = {w}: {row['rays_per_s']} rays/s, "
+            f"{row['model_tflops_fwd_bwd']} model TFLOP/s, launches over 6 "
+            f"steps {row['launches']}")
+        widths[w] = row
+    if not (widths[256]["launches"]["D"] and widths[256]["launches"]["E"]
+            and not widths[512]["launches"]["D"]):
+        raise AssertionError("the width bench took the wrong routes")
+
+    torch.cuda.synchronize()
+    reset_counts()
+    ranks = bench_searchsorted.main(["--device", "cuda"])
+    ranks["launches"] = read_counts()
+    rate = sustained_rate.main([os.path.join(tmp, "logs", "smoke",
+                                             "metrics.jsonl"),
+                                "--device", "cuda"])
+    if rate["epochs"] != 2 or not rate["mean_rays_per_s"] > 0:
+        raise AssertionError(f"sustained_rate: {rate}")
+
+    logs, ckpts = os.path.join(tmp, "logs"), os.path.join(tmp, "ckpts")
+    fits = {}
+    for tag, script, args in (
+            ("efficient_sm_64", "nerf_pl_tpu_torch/launchers/efficient_sm_64.sh",
+             []),
+            ("rgb_sm_sigma_64", "nerf_pl_tpu_torch/launchers/recipes.sh",
+             ["rgb_sm_sigma_64"])):
+        run_shell(tmp, "entry", script,
+                  [*args, "--num_epochs", LAUNCHER_EPOCHS, "--exp_name",
+                   f"launch_{tag}", "--log_dir", logs, "--ckpt_dir", ckpts],
+                  env={"DATA_DIR": shadow_root})
+        recs = epoch_records(os.path.join(logs, f"launch_{tag}",
+                                          "metrics.jsonl"))
+        losses = [r["train/loss"] for r in recs]
+        if len(losses) != 1 or not np.isfinite(losses).all():
+            raise AssertionError(f"{tag}: losses {losses}")
+        fits[tag] = dict(loss=losses[0], rays_per_s=recs[0]["train/rays_per_s"])
+        log(f"[entry] {tag}: epoch-0 loss {losses[0]}, "
+            f"{recs[0]['train/rays_per_s']:.1f} camera rays/s")
+    res = run_shell(tmp, "entry", "nerf_pl_tpu_torch/scripts/"
+                    "acceptance_real_data.sh",
+                    [scene, os.path.join(tmp, "acceptance")],
+                    env={"SMOKE": "1"})
+    if "PASS" not in res.stdout or "Mean PSNR : " not in res.stdout:
+        raise AssertionError("the acceptance chain printed no PSNR or PASS")
+    out.update(profile=prof, widths=widths, ranks=ranks, rate=rate,
+               fits=fits, seconds=time.perf_counter() - t0)
+    log(f"[entry] phase 14: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -5093,6 +5451,8 @@ def main() -> int:
         dist = dist_end_to_end(tmp, trained)
         readers = readers_end_to_end(tmp)
         formats = formats_end_to_end(tmp, shadow["fit"]["losses"][0])
+        entries = entry_points_end_to_end(
+            tmp, os.path.join(tmp, "ckpts", "smoke", "epoch=1.ckpt"), ckpt)
 
     fine_row, coarse_row = c["rows"]["rgb"], c["rows"]["sigma-only"]
     kernels = [
@@ -5473,6 +5833,35 @@ def main() -> int:
         f"camera rays/s; fern-size lossless WebP {ffern['webp']['s']:.3f} s, "
         f"LZW TIFF {ffern['tiff']['s']:.3f} s; lossy VP8 "
         f"{formats['llff']['vp8_mpix_s']:.2f} megapixels/s ({card})")
+    # phase 14: the orbit render's launches (rgb and sigma), the traced
+    # bench step's and the width bench's
+    orbit = entries["orbit"]["runs"]
+    for row in kernels:
+        key = {"searchsorted_rank_interp": "B", "searchsorted_rank": "A",
+               "fused_nerf_fwd": "C", "fused_nerf_stash_fwd": "D",
+               "fused_nerf_bwd_stash": "E"}.get(row["name"])
+        if key is None:
+            continue
+        row["launches_entry_points"] = dict(
+            orbit_rgb=orbit["rgb"]["counts"][key],
+            orbit_sigma=orbit["sigma"]["counts"][key],
+            profile_step=entries["profile"]["launches"][key],
+            width_bench={w: r["launches"][key]
+                         for w, r in entries["widths"].items()},
+            bench_searchsorted=entries["ranks"]["launches"][key])
+    ranks = entries["ranks"]
+    log(f"[entry] phase 14: {entries['seconds']:.1f} s; orbit "
+        f"{orbit['rgb']['s_per_pose']:.4f} s a 200x200 rgb pose (C "
+        f"{orbit['rgb']['counts']['C']}, B {orbit['rgb']['counts']['B']} over "
+        f"{orbit['rgb']['poses']} poses), sigma "
+        f"{orbit['sigma']['s_per_pose']:.4f} s; profile_step buckets "
+        f"{entries['profile']['buckets_us_per_step']} us a step; width_bench "
+        + ", ".join(f"W = {w} {r['rays_per_s']} rays/s "
+                    f"{r['model_tflops_fwd_bwd']} TFLOP/s"
+                    for w, r in entries["widths"].items())
+        + f"; A {ranks['kernel A (searchsorted_cuda)']:.1f} us against "
+        f"torch.searchsorted {ranks['torch.searchsorted (library)']:.1f} us "
+        f"({card})")
     fern = readers["fern"]
     log(f"[readers] phase 12: {readers['seconds']:.1f} s; fern-size decode "
         f"{fern['baseline']['s']:.3f} s baseline, "

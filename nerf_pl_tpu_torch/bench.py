@@ -30,11 +30,16 @@ BASELINE_RAYS_PER_S = 1024 / 0.12  # reference 2080 Ti anchor (BASELINE.md)
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
-def bench(batch: int = 4096, iters: int = 20,
-          compute_dtype=torch.bfloat16) -> float:
-    """Rays per second of ``iters`` training steps."""
-    device = resolve_device("cuda")
-    models = flagship_models(0, device)
+def make_step(batch: int = 4096, compute_dtype=torch.bfloat16, device=None,
+              width: int = 256, remat_fine: bool = False):
+    """One training step of the workload on ``device`` (default ``cuda``):
+    a closure that renders, backpropagates, steps Adam and returns the
+    loss, still on the device.  ``width`` other than the reference's 256
+    (``--arch_width``) renders through posenc + NeRF, as the renderer does
+    at every width the fused MLP does not take; ``remat_fine`` recomputes
+    the fine pass in the backward."""
+    device = resolve_device(device)
+    models = flagship_models(0, device, width)
     opt = Adam(named_params(models), lambda step: 5e-4, eps=1e-8)
     gen = torch.Generator().manual_seed(1)
     rays = make_rays(gen, batch, device=device)
@@ -46,13 +51,20 @@ def bench(batch: int = 4096, iters: int = 20,
                           N_samples=64, N_importance=128, perturb=1.0,
                           noise_std=1.0, white_back=True,
                           compute_dtype=compute_dtype, use_fused=True,
-                          fused_channel_io=True)
+                          fused_channel_io=True, remat_fine=remat_fine)
         loss = mse_loss(out, rgbs)
         opt.zero_grad()
         loss.backward()
         opt.step()
         return loss.detach()
 
+    return step
+
+
+def bench(batch: int = 4096, iters: int = 20,
+          compute_dtype=torch.bfloat16) -> float:
+    """Rays per second of ``iters`` training steps."""
+    step = make_step(batch, compute_dtype, "cuda")
     float(step())  # warm-up: the kernels build and load here
     torch.cuda.synchronize()
     t0 = time.perf_counter()

@@ -1,17 +1,18 @@
-"""ctypes bindings for the native C++ ray store (``native/raystore.cpp``;
+"""ctypes bindings for the native C++ ray store (``csrc/raystore.cpp``, the
+port's own copy of the JAX package's ``native/raystore.cpp``;
 ``nerf_pl_tpu/data/native.py``) — the host data engine behind the trainer's
 streaming mode (``--data_device_resident false``; the reference's
 DataLoader worker pool, ``train.py:89-94``, as one native library).
 
-The library is built at first use from the checkout's ``native/raystore.cpp``
+The library is built at first use from the package's ``csrc/raystore.cpp``
 with ``g++ -O3 -std=c++17 -fPIC -Wall -pthread -shared`` into
 ``build/nerf_pl_tpu_torch/`` under a name that carries a hash of the source
 and flags, so an edited source rebuilds; processes that start together
 (pytest-xdist workers) build it once, behind a file lock.  A build or load
 failure raises, naming the source; the numpy store (``force_fallback=True``,
 the JAX package's fallback and epoch permutation) is used only when asked
-for.  ``build(source)`` builds the port's other host library, the JPEG
-reader's ``csrc/jpeg_entropy.cpp``, the same way.
+for.  ``build(source)`` builds the port's other host libraries, the image
+readers' ``csrc/*.cpp``, the same way.
 """
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
-SOURCE = Path(__file__).resolve().parents[2] / "native" / "raystore.cpp"
+SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "raystore.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "nerf_pl_tpu_torch"
 CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-Wall", "-pthread", "-shared")
 

@@ -15,9 +15,10 @@ from .models.nerf import init_nerf
 from .ops.rendering import render_rays
 
 
-def flagship_models(seed: int = 0, device=None) -> dict:
+def flagship_models(seed: int = 0, device=None, width: int = 256) -> dict:
     gen = torch.Generator().manual_seed(seed)
-    return {name: init_nerf(gen, device=device) for name in ("coarse", "fine")}
+    return {name: init_nerf(gen, W=width, device=device)
+            for name in ("coarse", "fine")}
 
 
 def make_rays(gen: torch.Generator, n: int, near: float = 2.0,

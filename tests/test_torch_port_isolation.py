@@ -1,5 +1,8 @@
 """The port stands alone: it imports torch, numpy and the standard library,
-never JAX, flax, msgpack, PIL, imageio, scipy or the JAX package."""
+never JAX, flax, msgpack, PIL, imageio, scipy or the JAX package; its code
+and launchers read no file of the JAX package or ``native/`` and run none
+of the root scripts."""
+import ast
 import pathlib
 import re
 import subprocess
@@ -72,6 +75,17 @@ def test_port_modules_import_without_jax_flax_msgpack_pil():
     assert {"nerf_pl_tpu_torch.parallel", "nerf_pl_tpu_torch.parallel.mesh",
             "nerf_pl_tpu_torch.data.sharding",
             "nerf_pl_tpu_torch.data.native"} <= set(MODULES)
+    # the repo's other entry points: the scene, mesh-check, rate, profile,
+    # width and searchsorted scripts, and the examples
+    assert {"nerf_pl_tpu_torch.scripts.make_synthetic_scene",
+            "nerf_pl_tpu_torch.scripts.validate_mesh",
+            "nerf_pl_tpu_torch.scripts.sustained_rate",
+            "nerf_pl_tpu_torch.scripts.profile_step",
+            "nerf_pl_tpu_torch.scripts.width_bench",
+            "nerf_pl_tpu_torch.scripts.bench_searchsorted",
+            "nerf_pl_tpu_torch.examples",
+            "nerf_pl_tpu_torch.examples.orbit_render",
+            "nerf_pl_tpu_torch.examples.inspect_shadow_scene"} <= set(MODULES)
     # -I: no PYTHONPATH or user site, so nothing imported by a site hook
     # is counted against the port
     code = (
@@ -97,3 +111,58 @@ def test_port_sources_never_import_the_jax_package():
     hits = [f"{p}: {m.group(0).strip()}" for p in sources
             for m in pattern.finditer(p.read_text())]
     assert not hits, hits
+
+
+# a path under the JAX package or native/, or a run of a root script
+JAX_PATH = re.compile(r"(?<![\w.])(native|nerf_pl_tpu)(/|$)")
+ROOT_SCRIPT = re.compile(
+    r"(?<![\w/.])(train\w*|eval|extract_color_mesh)\.py\b")
+
+
+def _code_strings(path):
+    """The string constants of a module's code: docstrings left out."""
+    tree = ast.parse(path.read_text())
+    docs = {id(node.body[0].value) for node in ast.walk(tree)
+            if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                                 ast.AsyncFunctionDef))
+            and node.body and isinstance(node.body[0], ast.Expr)
+            and isinstance(node.body[0].value, ast.Constant)}
+    return [n.value for n in ast.walk(tree)
+            if isinstance(n, ast.Constant) and isinstance(n.value, str)
+            and id(n) not in docs]
+
+
+def _shell_code(path):
+    """A shell script's lines without their comments."""
+    lines = []
+    for line in path.read_text().splitlines():
+        line = re.sub(r"(^|\s)#.*$", "", line)
+        if line.strip():
+            lines.append(line)
+    return lines
+
+
+def test_port_reads_no_jax_file_and_runs_no_root_script():
+    hits = [f"{p}: {v!r}" for p in PKG.rglob("*.py") for v in _code_strings(p)
+            if JAX_PATH.search(v) or ROOT_SCRIPT.search(v)]
+    shells = sorted(PKG.rglob("*.sh"))
+    assert {p.name for p in shells} >= {
+        "lego_baseline.sh", "llff_fern.sh", "efficient_sm_64.sh",
+        "rgb_sm_joint.sh", "pod_lego_800.sh", "recipes.sh",
+        "acceptance_real_data.sh", "stream_slab_sweep.sh"}
+    for p in shells:
+        for line in _shell_code(p):
+            if (JAX_PATH.search(line) or ROOT_SCRIPT.search(line)
+                    or re.search(r"python\s+(?!-m\s+nerf_pl_tpu_torch\.|-\s)",
+                                 line)):
+                hits.append(f"{p}: {line.strip()}")
+    assert not hits, hits
+
+
+def test_ray_store_builds_the_ports_own_source():
+    from nerf_pl_tpu_torch.data import native
+
+    src = PKG / "csrc" / "raystore.cpp"
+    assert src.is_file()
+    assert native.SOURCE == src
+    assert native.library_path().name.startswith("libraystore-")
