@@ -179,13 +179,29 @@ Phases (any failed check raises, so the script exits non-zero):
    analytic sphere (PASS, 0) and a scaled one (FAIL, 1);
    ``examples.inspect_shadow_scene`` on phase 7's scene (consistent);
    ``scripts.profile_step`` (10 traced bench steps; its table must name D,
-   E and A); ``scripts.width_bench`` at W = 256 and 512 (5 steps each, no
+   E and A, and it raises unless the trace's launches of every kernel equal
+   the launch counters); ``scripts.width_bench`` at W = 256 and 512 (5 steps each, no
    error row); ``scripts.bench_searchsorted`` (four rank sets equal, then
    timed); ``scripts.sustained_rate`` on phase 4's ``metrics.jsonl``; the
    ``efficient_sm_64.sh`` launcher and ``recipes.sh rgb_sm_sigma_64`` for 1
    epoch on phase 7's scene; ``scripts/acceptance_real_data.sh`` with
    ``SMOKE=1``.
-15. One JSON line of kernel numbers (E's and F's rows carry the SHA-256 of
+15. ``--compute_dtype float16``: kernels C, C', D, D', E, E', F and F' in
+   fp16 against their plain versions at phase 2's training shapes (786,432
+   and 262,144 rgb points) and at a P over two backward chunks (rgb and
+   sigma-only): the stashes of D and D' 0 values apart, outputs under
+   ``TOL_C[float16]``, every grad under ``TOL_TRAIN[float16]``, with
+   controls that must fail (the backward rounded at bf16, the forward
+   faults of phase 2, the plain forward in bf16); G at W = 128, 512 and 640
+   and H at W = 256 the same way; each kernel's fp16 time beside its bf16
+   time in turns, with its plain version and the fp16 matmul chain; the
+   share of outputs the fp16 tie rule marks beside bf16's; ``python -m
+   nerf_pl_tpu_torch.train --compute_dtype float16`` for 1 epoch on phase
+   4's scene (exactly D 2, E 2, A 1 a step; C in validation), ``python -m
+   nerf_pl_tpu_torch.train_efficient_sm --compute_dtype float16
+   --grad_on_light`` for 1 epoch on phase 7's scene (D 4, E 4, A 2 a step)
+   and one fp16 step's grads on the card against the CPU.
+16. One JSON line of kernel numbers (E's and F's rows carry the SHA-256 of
    their f32 grads at a fixed seeded input, run twice, ``f32_sha256``), the
    card's line, then the result line ``{"ok": true, "device": {...}}``
    last.
@@ -227,7 +243,9 @@ TRAIN_BATCH = 4096
 # an output by up to ~4e-3 (seen on the CPU against a float64 sum); the
 # tolerance allows a few such flips on one point, the mean catches a
 # systematic fault.
-TOL_C = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# float16: the same flips at fp16's 8x finer step (2^-11 relative, not
+# 2^-8), so bf16's limit over 8.
+TOL_C = {torch.bfloat16: 2e-2, torch.float16: 2.5e-3, torch.float32: 1e-4}
 TOL_C_MEAN = 1e-3
 # The float32 render on the card against the CPU: the rays are built on
 # each device, so they differ in the last bit, and the 2^9-frequency
@@ -248,8 +266,20 @@ TOL_F32_RENDER_MEAN = 1e-3
 # here.  The control (``check_control``: the backward in f32 where bf16 is
 # stated, as a kernel that skipped the bf16 rounding would compute) read a
 # worst mean of 1.6e-3 to 2.2e-3 and failed the limits in 17 to 22 of the
-# 24 tensors; the mean limit sits 20x above the sound reading.
-TOL_TRAIN = {torch.bfloat16: (1e-2, 2e-5), torch.float32: (1e-4, 1e-5)}
+# 24 tensors; the mean limit sits 20x above the sound reading.  float16:
+# the same flips at an 8x finer step (a weight grad's fp16 rounding moves
+# its tensor's largest value by at most 2^-10 = 9.8e-4), so half bf16's
+# max limit; the mean is bf16's, as an H100 read fp16 mean readings of
+# bf16's size (6.4e-6 against 5.2e-6, 65,613 points: both come from
+# rounding the f32 grads to 16 bits, where the kernel's and the plain
+# version's f32 sums fall on either side of a tie).  Its control
+# (``check_control``: the same backward rounded at bf16 where fp16 is
+# stated) read 8.0e-3 to 1.4e-2 max and 1.3e-3 to 1.4e-3 mean there.
+TOL_TRAIN = {torch.bfloat16: (1e-2, 2e-5), torch.float16: (5e-3, 2e-5),
+             torch.float32: (1e-4, 1e-5)}
+# the dtype of each 16-bit hold's backward control: a kernel that skipped
+# the stated rounding for the next wider one would read so
+CONTROL_DTYPE = {torch.bfloat16: torch.float32, torch.float16: torch.bfloat16}
 # E against F: the stash and F's recompute come from the same forward code,
 # so the two should agree to the last bit; JAX's own test of the stash
 # against the remat backward (tests/test_fused_mlp.py:209) allows rtol 1e-5
@@ -346,7 +376,8 @@ def setup():
     t0 = time.perf_counter()
     seconds = native.build()
     log(f"[build] {sorted(seconds)} in {time.perf_counter() - t0:.1f} s "
-        f"(nvcc, one process per source)")
+        f"(nvcc, one process per library, each done at "
+        f"{ {k: round(v, 1) for k, v in sorted(seconds.items())} } s)")
     for name in seconds:
         report = native.library_path(name).with_suffix(".so.log")
         if not report.exists():
@@ -400,7 +431,7 @@ def check_fused_mlp(model, gen, dev) -> dict:
                 mean = float((got - want).abs().mean())
                 log(f"[{kernel} {name} {mode}] P={P} max_abs_err={err:.3e} "
                     f"rel={rel:.3e} mean_abs_err={mean:.3e} "
-                    f"tol={TOL_C[dtype]:.0e} (mean tol {TOL_C_MEAN:.0e})")
+                    f"tol={TOL_C[dtype]:.2g} (mean tol {TOL_C_MEAN:.0e})")
                 if (not torch.isfinite(got).all() or not err <= TOL_C[dtype]
                         or not mean <= TOL_C_MEAN):
                     raise AssertionError(f"kernel {kernel} {name} {mode} "
@@ -606,45 +637,72 @@ def summarize(rows: list) -> dict:
                 mean_name=wmean[0], max_abs=max(r[3] for r in rows))
 
 
-def check_grads(label: str, mine: list, ref: list, names: list, tol) -> dict:
-    """Every parameter grad within ``tol = (max, mean)`` of its reference;
-    the worst readings over the tensors."""
+# fp16's smallest normal value: below it the grid is absolute (2^-24)
+F16_MIN_NORMAL = 2.0 ** -14
+
+
+def grads_outside(rows: list, ref: list, tol, atol: float = 0.0) -> list:
+    """The rows of ``grad_readings`` outside ``tol = (max, mean)``.  With
+    ``atol``, the max also passes where the reference tensor's largest
+    magnitude lies in fp16's subnormal range (below ``F16_MIN_NORMAL``) and
+    the tensor's largest |error| is at most ``atol``."""
+    out = []
+    for (name, mx, mean, mx_abs), b in zip(rows, ref):
+        sub = atol and float(b.abs().max()) < F16_MIN_NORMAL
+        if not ((mx <= tol[0] or (sub and mx_abs <= atol))
+                and mean <= tol[1]):
+            out.append((name, mx, mean, mx_abs))
+    return out
+
+
+def check_grads(label: str, mine: list, ref: list, names: list, tol,
+                atol: float = 0.0) -> dict:
+    """Every parameter grad within ``tol = (max, mean)`` of its reference
+    (``atol``: as ``grads_outside``); the worst readings over the
+    tensors."""
     rows = grad_readings(mine, ref, names)
     s = summarize(rows)
     log(f"[{label}] {len(rows)} grads: worst rel max {s['max_rel']:.3e} "
         f"({s['max_name']}), worst rel mean {s['mean_rel']:.3e} "
-        f"({s['mean_name']}); tol {tol[0]:.0e} max, {tol[1]:.0e} mean; "
+        f"({s['mean_name']}); tol {tol[0]:.0e} max, {tol[1]:.0e} mean"
+        + (f" (or {atol:.3e} abs where the reference's largest is below "
+           f"{F16_MIN_NORMAL:.3e})" if atol else "") + "; "
         f"largest abs err {s['max_abs']:.3e}")
-    for name, mx, mean, _ in rows:
-        if not (mx <= tol[0] and mean <= tol[1]):
-            raise AssertionError(f"{label}: {name} grad off by {mx:.3e} "
-                                 f"(mean {mean:.3e}), tol {tol}")
+    bad = grads_outside(rows, ref, tol, atol)
+    if bad:
+        name, mx, mean, _ = bad[0]
+        raise AssertionError(f"{label}: {name} grad off by {mx:.3e} "
+                             f"(mean {mean:.3e}), tol {tol}")
     return s
 
 
 def check_control(label: str, model, x, g, stash, sigma_only, ref: list,
-                  names: list) -> dict:
-    """The control of the bf16 limits: the plain backward computed in f32
-    where bf16 is stated (g_pre, the dgrad and wgrad operands and the
-    weights left unrounded), reading the same bf16 stash, its weight grads
-    then rounded to bf16 as the wrapper rounds them.  A kernel that skipped
-    the bf16 rounding would read so; the limits must fail it."""
+                  names: list, dtype=torch.bfloat16) -> dict:
+    """The control of a 16-bit dtype's limits: the plain backward computed
+    in ``CONTROL_DTYPE[dtype]`` where ``dtype`` is stated (bf16: f32, g_pre,
+    the dgrad and wgrad operands and the weights left unrounded; fp16:
+    bf16), reading the same stash, its weight grads then rounded as the
+    wrapper would round them in that dtype.  A kernel that took that route
+    would read so; the limits must fail it."""
     from nerf_pl_tpu_torch.ops import fused_mlp as fm
 
-    bf = torch.bfloat16
+    cdt = CONTROL_DTYPE[dtype]
     ctl = fm.unpack_grads(model, *fm.fused_nerf_bwd_plain(
-        model, x, g, sigma_only, torch.float32, stash=stash), bf)
+        model, x, g, sigma_only, cdt, stash=stash),
+        dtype if cdt == torch.float32 else cdt)
     rows = grad_readings(ctl, ref, names)
     s = summarize(rows)
-    tol = TOL_TRAIN[bf]
+    tol = TOL_TRAIN[dtype]
+    name, cname = (str(t).replace("torch.", "") for t in (dtype, cdt))
     caught = [r[0] for r in rows if not (r[1] <= tol[0] and r[2] <= tol[1])]
-    log(f"[control {label}] f32 backward on the bf16 stash against the bf16 "
-        f"plain: worst rel max {s['max_rel']:.3e} ({s['max_name']}), worst "
-        f"rel mean {s['mean_rel']:.3e} ({s['mean_name']}); {len(caught)} of "
-        f"{len(rows)} tensors outside the bf16 limits {tol}")
+    log(f"[control {label}] {cname} backward on the {name} stash against the "
+        f"{name} plain: worst rel max {s['max_rel']:.3e} ({s['max_name']}), "
+        f"worst rel mean {s['mean_rel']:.3e} ({s['mean_name']}); "
+        f"{len(caught)} of {len(rows)} tensors outside the {name} limits "
+        f"{tol}")
     if not caught:
-        raise AssertionError(f"control {label}: the bf16 limits do not catch "
-                             "a backward that skips the bf16 rounding")
+        raise AssertionError(f"control {label}: the {name} limits do not "
+                             f"catch a backward that rounds at {cname}")
     return s
 
 
@@ -667,7 +725,9 @@ def require_twins(label: str, row_major: list, channel_major: list) -> None:
 # of two faults TOL_C is too wide to fail reliably (a forward that skips
 # every bf16 rounding, and one that loses the skip layer's ragged step: on
 # an H100 they read out max_abs_err of about 9e-3 and 2e-2 against the
-# 2e-2 limit) are printed beside them.
+# 2e-2 limit) are printed beside them.  In float16 the plain forward rounded
+# at bf16 must be caught too (an H100 read 8.5e-3 against TOL_C[float16]'s
+# 2.5e-3): an fp16 tile that took the bf16 route would read so.
 FORWARD_CONTROLS = (
     ("layer 0's ragged last step dropped", True,
      lambda m: m.xyz_layers[0].w[48:].zero_()),
@@ -678,34 +738,38 @@ FORWARD_CONTROLS = (
 
 
 def check_forward_control(label: str, model, x, sigma_only, out, stash,
-                          tol) -> dict:
+                          tol, dtype=torch.bfloat16) -> dict:
     """Kernel D's outputs and stash against the plain forward with each of
-    FORWARD_CONTROLS' faults, and against the plain forward in float32
-    where bf16 is stated; TOL_C (``tol``) must fail every fault marked so.
-    Returns the least readings of the faults that must fail."""
+    FORWARD_CONTROLS' faults, and against the plain forward in
+    ``CONTROL_DTYPE[dtype]`` where ``dtype`` is stated; TOL_C (``tol``)
+    must fail every fault marked so, and the plain forward in bf16 where
+    ``dtype`` is float16.  Returns the least readings of the faults that
+    must fail."""
     import copy
 
     from nerf_pl_tpu_torch.ops import fused_mlp as fm
 
     least = None
+    cdt = CONTROL_DTYPE[dtype]
     cases = [(name, must, fault) for name, must, fault in FORWARD_CONTROLS]
-    cases.append(("plain in float32", False, None))
+    cases.append((f"plain in {str(cdt).replace('torch.', '')}",
+                  dtype == torch.float16, None))
     for name, must_fail, fault in cases:
         if fault is None:
             o_c, s_c = fm.fused_nerf_stash_fwd_plain(model, x, sigma_only,
-                                                     torch.float32)
+                                                     cdt)
         else:
             faulty = copy.deepcopy(model)
             with torch.no_grad():
                 fault(faulty)
             o_c, s_c = fm.fused_nerf_stash_fwd_plain(faulty, x, sigma_only,
-                                                     torch.bfloat16)
+                                                     dtype)
         r = (max_abs(out, o_c), *rel_errs(stash, s_c))  # TOL_C's readings
         n_diff = stash_differ(stash, s_c)
         del o_c, s_c
         caught = not (r[0] <= tol and r[1] <= tol and r[2] <= TOL_C_MEAN)
         log(f"[forward control {label}: {name}] out max_abs_err {r[0]:.3e}, "
-            f"stash rel max {r[1]:.3e} mean {r[2]:.3e} (TOL_C {tol:.0e}, "
+            f"stash rel max {r[1]:.3e} mean {r[2]:.3e} (TOL_C {tol:.2g}, "
             f"{TOL_C_MEAN:.0e}): "
             + ("caught" if caught else "not caught")
             + (" (must be caught)" if must_fail else " (printed only)")
@@ -775,8 +839,8 @@ def hold_train(label: str, model, x, g, dtype, sigma_only: bool) -> dict:
         s_max, s_mean = rel_errs(st, stash_p)
         n_diff = stash_differ(st, stash_p)
         log(f"[{kernel} {label}] out max_abs_err={e_out:.3e} (tol "
-            f"{TOL_C[dtype]:.0e}); stash {tuple(st.shape)} rel max "
-            f"{s_max:.3e} mean {s_mean:.3e} (tol {TOL_C[dtype]:.0e}, "
+            f"{TOL_C[dtype]:.2g}); stash {tuple(st.shape)} rel max "
+            f"{s_max:.3e} mean {s_mean:.3e} (tol {TOL_C[dtype]:.2g}, "
             f"{TOL_C_MEAN:.0e}); {n_diff} of {st.numel()} stash values "
             f"differ from the plain version's (limit {TOL_STASH_DIFF})")
         if not (torch.isfinite(o).all() and e_out <= TOL_C[dtype]
@@ -787,9 +851,10 @@ def hold_train(label: str, model, x, g, dtype, sigma_only: bool) -> dict:
                                  "values differ from the plain version's")
         errs[kernel] = e_out
     require_twins(f"D' vs D {label}", [out_r, stash_r], [out.T, stash])
-    if dtype == torch.bfloat16:
+    if dtype in CONTROL_DTYPE:
         errs["control"] = check_forward_control(label, model, x, sigma_only,
-                                                out, stash, TOL_C[dtype])
+                                                out, stash, TOL_C[dtype],
+                                                dtype)
     del out, out_p, out_r
 
     def grads(dw_db):
@@ -824,11 +889,20 @@ def hold_train(label: str, model, x, g, dtype, sigma_only: bool) -> dict:
              "F plain": f_p_raw[0]},
             {"E": stash, "E plain": stash, "F": stash, "F plain": stash_p})
     del stash_p, e_raw, e_p_raw, f_raw, f_p_raw
-    # the same point chunks, so the same order of the f32 sums
-    ef = check_grads(f"E vs F {label}", e_k, f_k, names,
-                     (TOL_E_VS_F, TOL_E_VS_F))
-    log(f"[E vs F {label}] bitwise equal: "
-        f"{all(torch.equal(a, b) for a, b in zip(e_k, f_k))}")
+    if dtype == torch.float16:
+        # not held: in fp16 the two routes differ as JAX's do (E's ReLU
+        # masks read D's rounded stash, F's the f32 recompute, and a
+        # positive activation below 2^-25 rounds to 0); each is held to its
+        # own plain version above
+        ef = summarize(grad_readings(e_k, f_k, names))
+        log(f"[E vs F {label}] printed only (the routes' masks differ where "
+            f"an activation rounds to 0): worst rel max {ef['max_rel']:.3e}")
+    else:
+        # the same point chunks, so the same order of the f32 sums
+        ef = check_grads(f"E vs F {label}", e_k, f_k, names,
+                         (TOL_E_VS_F, TOL_E_VS_F))
+        log(f"[E vs F {label}] bitwise equal: "
+            f"{all(torch.equal(a, b) for a, b in zip(e_k, f_k))}")
     e_r = grads(fm.fused_nerf_raw_bwd_stash_cuda(model, xr, gr, stash_r,
                                                  sigma_only, dtype))
     f_r = grads(fm.fused_nerf_raw_bwd_remat_cuda(model, xr, gr, sigma_only,
@@ -841,9 +915,9 @@ def hold_train(label: str, model, x, g, dtype, sigma_only: bool) -> dict:
         "F'": check_grads(f"F' {label}", f_r, f_p, names, tol)})
     require_twins(f"E' vs E {label}", e_r, e_k)
     require_twins(f"F' vs F {label}", f_r, f_k)
-    if dtype == torch.bfloat16:
+    if dtype in CONTROL_DTYPE:
         res["control"] = check_control(label, model, x, g, stash, sigma_only,
-                                       e_p, names)
+                                       e_p, names, dtype)
     del stash, stash_r
     torch.cuda.empty_cache()
     return res
@@ -947,12 +1021,13 @@ def f32_backward_digests(model, dev) -> dict:
     return {k: v[0] for k, v in runs.items()}
 
 
-def matmul_chain_ms(model, P: int, dev, backward: bool = True) -> tuple:
-    """A yardstick, not a port: the same MLP as a chain of bf16
-    ``torch.matmul`` calls (cuBLAS), forward, and the backward's dgrad and
-    wgrad products (None unless ``backward``), at P points with random
-    embedded inputs."""
-    bf = torch.bfloat16
+def matmul_chain_ms(model, P: int, dev, backward: bool = True,
+                    dtype=torch.bfloat16) -> tuple:
+    """A yardstick, not a port: the same MLP as a chain of ``dtype`` (bf16
+    or fp16) ``torch.matmul`` calls (cuBLAS), forward, and the backward's
+    dgrad and wgrad products (None unless ``backward``), at P points with
+    random embedded inputs."""
+    bf = dtype
     ws = [m.w.detach().to(bf) for m in model.xyz_layers]
     wsig, wfin, wdir, wrgb = (m.w.detach().to(bf) for m in (
         model.sigma, model.xyz_final, model.dir_layer, model.rgb))
@@ -1318,6 +1393,20 @@ EVAL_CHUNK = 32 * 1024
 # ulp at the encoding's 2^9-scaled arguments (which moves the float32 render
 # by up to 5e-4, PERF.md), so the grads agree to rounding, not to the bit.
 TOL_STEP_GRADS = (2e-2, 2e-3)
+# One float16 step's grads on the card against the CPU: as TOL_STEP_GRADS,
+# where a parameter's grad whose largest reference value lies in fp16's
+# subnormal range (below 2^-14) may also part by 8 of that range's steps
+# (2^-24).  At float16 the trunk's grads come from cotangents rounded to
+# fp16, most of which underflow into that range or to 0 (JAX does the
+# same), so there one operand's rounding flip moves a grad by a whole step
+# of 2^-24, which can be a large share of its largest value.  On an H100
+# (two runs, the same readings) 22 of the 48 tensors lay in that range;
+# fine/xyz_layers.3.w parted by 1 step, 4.0e-2 of its largest (1.49e-6),
+# and the most any of them parted was 7 steps (fine/xyz_layers.4.w, inside
+# the relative limit on its own).  A tensor in fp16's normal range keeps
+# the relative limits alone, and the same step rounded at bf16 on the card
+# must fail these limits (29 of the 48 tensors did).
+ATOL_F16_STEP_GRADS = 8 * 2.0 ** -24
 
 
 def write_scene(root: str, n_train: int = TRAIN_VIEWS, n_val: int = 1,
@@ -1824,9 +1913,11 @@ def train_row_major(tmp: str, base_losses: list) -> dict:
                 loss_rel_diff=rel, rays_per_s=epochs[0]["train/rays_per_s"])
 
 
-def step_grads_card_vs_cpu() -> float:
-    """One float32 training step's grads (render -> MSE -> backward through
-    the fused MLP) on the card and on the CPU, at 256 rays."""
+def step_grads_card_vs_cpu(dtype=torch.float32) -> float:
+    """One training step's grads (render -> MSE -> backward through the
+    fused MLP) on the card and on the CPU, at 256 rays, in ``dtype``; in
+    float16 also the card's step in bf16, which the float16 limits must
+    fail."""
     from nerf_pl_tpu_torch.graft_entry import flagship_models, make_rays
     from nerf_pl_tpu_torch.ops.rendering import render_rays
     from nerf_pl_tpu_torch.training.losses import mse_loss
@@ -1841,24 +1932,52 @@ def step_grads_card_vs_cpu() -> float:
           "jitter": torch.rand((n, N_IMPORTANCE), generator=gen),
           "noise_fine": torch.randn((n, N_SAMPLES + N_IMPORTANCE),
                                     generator=gen)}
+    runs = [("cuda", dtype), ("cpu", dtype)]
+    if dtype == torch.float16:
+        runs.append(("cuda", torch.bfloat16))
     grads = {}
-    for device in ("cuda", "cpu"):
+    for device, cdt in runs:
         models = flagship_models(0, device)
         out = render_rays(models["coarse"], models["fine"], rays.to(device),
                           None, N_samples=N_SAMPLES, N_importance=N_IMPORTANCE,
                           perturb=1.0, noise_std=1.0, white_back=True,
-                          compute_dtype=torch.float32, use_fused=True,
+                          compute_dtype=cdt, use_fused=True,
                           fused_channel_io=True,
                           overrides={k: v.to(device) for k, v in ov.items()})
         mse_loss(out, rgbs.to(device)).backward()
-        grads[device] = {f"{name}/{k}": p.grad.cpu()
-                         for name, m in models.items()
-                         for k, p in m.named_parameters()}
-    names = sorted(grads["cpu"])
-    return check_grads("f32 step grads card vs cpu (256 rays)",
-                       [grads["cuda"][k] for k in names],
-                       [grads["cpu"][k] for k in names], names,
-                       TOL_STEP_GRADS)["max_rel"]
+        grads[device, cdt] = {f"{name}/{k}": p.grad.cpu()
+                              for name, m in models.items()
+                              for k, p in m.named_parameters()}
+    names = sorted(grads["cpu", dtype])
+    ref = [grads["cpu", dtype][k] for k in names]
+    dname = {torch.float32: "f32"}.get(dtype, str(dtype)[6:])
+    atol = ATOL_F16_STEP_GRADS if dtype == torch.float16 else 0.0
+    s = check_grads(f"{dname} step grads card vs cpu (256 rays)",
+                    [grads["cuda", dtype][k] for k in names], ref, names,
+                    TOL_STEP_GRADS, atol)
+    if dtype == torch.float16:
+        rows = grad_readings([grads["cuda", dtype][k] for k in names], ref,
+                             names)
+        sub = [(r[0], r[3], float(b.abs().max())) for r, b in zip(rows, ref)
+               if float(b.abs().max()) < F16_MIN_NORMAL]
+        log(f"[float16 step grads] {len(sub)} of {len(names)} tensors with "
+            f"their largest reference grad in fp16's subnormal range; their "
+            f"largest abs err in steps of 2^-24: "
+            + ", ".join(f"{n} {e / 2.0 ** -24:.2f} (of {m:.3e})"
+                        for n, e, m in sub))
+        ctl = grad_readings([grads["cuda", torch.bfloat16][k]
+                             for k in names], ref, names)
+        caught = grads_outside(ctl, ref, TOL_STEP_GRADS, atol)
+        cs = summarize(ctl)
+        log(f"[control float16 step grads] the card's bf16 step against the "
+            f"CPU's float16 step: worst rel max {cs['max_rel']:.3e} "
+            f"({cs['max_name']}), worst rel mean {cs['mean_rel']:.3e}; "
+            f"{len(caught)} of {len(names)} tensors outside the float16 "
+            f"limits")
+        if not caught:
+            raise AssertionError("the float16 step limits do not catch a step "
+                                 "that rounds at bf16")
+    return s["max_rel"]
 
 
 def bench_number() -> dict:
@@ -5300,6 +5419,8 @@ def entry_points_end_to_end(tmp: str, ckpt: str, seeded: str) -> dict:
                               os.path.join(tmp, "profile_step.json"),
                               "--device", "cuda"])
     torch.cuda.synchronize()
+    # the traced steps' launches, which profile_step held its trace to
+    prof["traced_launches"] = prof["launches"]
     prof["launches"] = read_counts()
     named = prof["by_kernel_us_per_step"]
     for row in prof["top_ops"][:12]:
@@ -5309,7 +5430,10 @@ def entry_points_end_to_end(tmp: str, ckpt: str, seeded: str) -> dict:
     log(f"[entry] profile_step: {prof['step_ms_from_module_span']} ms a step "
         f"(the traced span), kernels {prof['op_lane_total_us_per_step']} us "
         f"a step, buckets {prof['buckets_us_per_step']}, by kernel {named}; "
-        f"launches over the 11 steps {prof['launches']}")
+        f"launches over the 11 steps {prof['launches']}; the traced steps' "
+        f"kernel launches, each equal to the trace's count "
+        f"{prof['traced_launches']}; the trace's launch records "
+        f"{prof['launch_records']}")
     if not {"D", "E", "A"} <= set(named):
         raise AssertionError(f"the step's profile does not name D, E and A: "
                              f"{named}")
@@ -5371,6 +5495,457 @@ def entry_points_end_to_end(tmp: str, ckpt: str, seeded: str) -> dict:
                fits=fits, seconds=time.perf_counter() - t0)
     log(f"[entry] phase 14: {out['seconds']:.1f} s")
     return out
+
+
+# ---------------------------------------------------------------- phase 15
+# --compute_dtype float16: the fp16 instantiation of every fused
+# kernel.  C-F' in fp16 against their plain versions at phase 2's training
+# shapes (786,432 and 262,144 rgb points) and, rgb and sigma-only, at a P
+# over two backward chunks, the second ragged (D's stash 0 values apart,
+# the grads under TOL_TRAIN[float16], the control rounded at bf16 failing
+# them); G (W = 128, 512, 640) and H (W = 256) the same way; each kernel's
+# fp16 time beside its bf16 time at the same shape, in turns; the share of
+# outputs the fp16 and bf16 tie rules mark; a 1-epoch fp16 fit of phase 4's
+# scene (exactly D 2, E 2, A 1 a step; C in validation) and of phase 7's
+# shadow scene (D 4, E 4, A 2 a step); one fp16 step's grads card vs CPU.
+F16, BF16 = torch.float16, torch.bfloat16
+F16_WIDTHS = (128, 512, 640)  # G: the smallest ring, a 32-point tile, 2 stages
+# the fp16 and bf16 tie rules (csrc/fused_mlp_common.cuh near_tie_f16 and
+# near_tie): TIE_ULPS f32 ulps, TIE_FLOOR of the warp's largest |output|,
+# and the lists' sizes, FIXW_F16 and FIXW
+TIE_ULPS, TIE_FLOOR, FIXW = 256, 2.0 ** -20, {F16: 320, BF16: 64}
+# kernel G in fp16 against its plain version, as TOL_G: bf16's limits over 4
+# (fp16's step is 8x finer)
+TOL_G[F16] = (5e-2, 5e-4)
+# one fp16 vanilla step: a coarse and a fine pass through D and E, one
+# importance sampling (A)
+F16_STEP_LAUNCHES = {"A": 1, "B": 0, "C": 0, "D": 2, "E": 2}
+
+
+def f16_kernel_times(model, x, g, dtype) -> dict:
+    """C, C', D, D', E, E', F and F' in ``dtype`` at x's points (rgb): mean
+    ms by CUDA events."""
+    from nerf_pl_tpu_torch.ops import fused_mlp as fm
+
+    xr, gr = x.T.contiguous(), g.T.contiguous()
+    _, stash = fm.fused_nerf_stash_fwd_cuda(model, x, False, dtype)
+    ms = {
+        "C": cuda_ms(lambda: fm.fused_nerf_apply_raw_t_cuda(model, x, False,
+                                                            dtype), iters=2),
+        "C'": cuda_ms(lambda: fm.fused_nerf_apply_raw_cuda(model, xr, False,
+                                                           dtype), iters=2),
+        "D": cuda_ms(lambda: fm.fused_nerf_stash_fwd_cuda(model, x, False,
+                                                          dtype), iters=2),
+        "D'": cuda_ms(lambda: fm.fused_nerf_raw_stash_fwd_cuda(
+            model, xr, False, dtype), iters=2),
+        "E": cuda_ms(lambda: fm.fused_nerf_bwd_stash_cuda(
+            model, x, g, stash, False, dtype), iters=2),
+        "E'": cuda_ms(lambda: fm.fused_nerf_raw_bwd_stash_cuda(
+            model, xr, gr, stash, False, dtype), iters=2),
+        "F": cuda_ms(lambda: fm.fused_nerf_bwd_remat_cuda(model, x, g, False,
+                                                          dtype), iters=1),
+        "F'": cuda_ms(lambda: fm.fused_nerf_raw_bwd_remat_cuda(
+            model, xr, gr, False, dtype), iters=1)}
+    del stash, xr, gr
+    torch.cuda.empty_cache()
+    return ms
+
+
+def f16_plain_times(model, x, g) -> dict:
+    """The fp16 plain versions' ms at x's points (rgb)."""
+    from nerf_pl_tpu_torch.ops import fused_mlp as fm
+
+    xr, gr = x.T.contiguous(), g.T.contiguous()
+    _, stash = fm.fused_nerf_stash_fwd_cuda(model, x, False, F16)
+    ms = {
+        "C'": cuda_ms(lambda: fm.fused_nerf_apply_raw_plain(model, xr, False,
+                                                            F16), iters=1),
+        "D": cuda_ms(lambda: fm.fused_nerf_stash_fwd_plain(model, x, False,
+                                                           F16), iters=1),
+        "D'": cuda_ms(lambda: fm.fused_nerf_raw_stash_fwd_plain(
+            model, xr, False, F16), iters=1),
+        "E": cuda_ms(lambda: fm.fused_nerf_bwd_plain(model, x, g, False, F16,
+                                                     stash=stash), iters=1),
+        "E'": cuda_ms(lambda: fm.fused_nerf_raw_bwd_plain(
+            model, xr, gr, False, F16, stash=stash), iters=1),
+        "F": cuda_ms(lambda: fm.fused_nerf_bwd_plain(model, x, g, False, F16),
+                     iters=1),
+        "F'": cuda_ms(lambda: fm.fused_nerf_raw_bwd_plain(model, xr, gr, False,
+                                                          F16), iters=1)}
+    ms["C"] = ms["C'"]
+    del stash, xr, gr
+    torch.cuda.empty_cache()
+    return ms
+
+
+def hold_c(label: str, model, x, dtype, sigma_only: bool) -> float:
+    """Kernels C and C' against the plain forward (TOL_C), C' bit for bit
+    against C."""
+    from nerf_pl_tpu_torch.ops import fused_mlp as fm
+
+    out = fm.fused_nerf_apply_raw_t_cuda(model, x, sigma_only, dtype)
+    out_r = fm.fused_nerf_apply_raw_cuda(model, x.T.contiguous(), sigma_only,
+                                         dtype)
+    ref = fm.fused_nerf_apply_raw_t_plain(model, x, sigma_only, dtype)
+    torch.cuda.synchronize()
+    err = max_abs(out, ref)
+    mean = float((out - ref).abs().mean())
+    log(f"[C {label}] max_abs_err={err:.3e} mean_abs_err={mean:.3e} "
+        f"(tol {TOL_C[dtype]:.2g}, mean {TOL_C_MEAN:.0e})")
+    if (not torch.isfinite(out).all() or not err <= TOL_C[dtype]
+            or not mean <= TOL_C_MEAN):
+        raise AssertionError(f"kernel C {label} disagrees with its plain "
+                             "version")
+    require_twins(f"C' vs C {label}", [out_r], [out.T])
+    return err
+
+
+def tie_marks(model, x, dtype) -> dict:
+    """The share of the tensor-core products' outputs (trunk, fin, dir head)
+    that the tile's tie rule marks in ``dtype``, read from the plain
+    forward's f32 sums (the tensor cores' differ from them in the last
+    bits), with the floor over each warp's block of 32 points and a quarter
+    of the columns; and the most marks one warp's block of a product holds,
+    against the list's size (``FIXW``)."""
+    from nerf_pl_tpu_torch.ops import fused_mlp as fm
+
+    def rule(v, relu):
+        P, N = v.shape
+        a = v.abs()
+        amax = a.reshape(P // 32, 32, 4, N // 4).amax(dim=(1, 3))
+        floor = (amax * TIE_FLOOR).repeat_interleave(32, 0) \
+            .repeat_interleave(N // 4, 1)
+        if dtype == F16:
+            h = a.to(F16)
+            hb = h.view(torch.int16)
+            r = h.float()
+            nxt = (hb + 1).view(F16).float()
+            prv = (hb - 1).clamp(min=0).view(F16).float()
+            hi = torch.where(hb == 0x7BFF, torch.full_like(r, 65520.0),
+                             0.5 * (r + nxt))
+            lo = torch.where(hb == 0, -hi, 0.5 * (r + prv))
+            hi = torch.where(hb >= 0x7C00, torch.full_like(r, float("inf")),
+                             hi)
+            lo = torch.where(hb >= 0x7C00, torch.full_like(r, 65520.0), lo)
+            gap = torch.minimum(hi - a, a - lo)
+            ulps = (a.view(torch.int32) & 0x7F800000).view(torch.float32) \
+                * (TIE_ULPS / 2.0 ** 23)
+            near = gap < torch.maximum(ulps, floor)
+        else:
+            u = v.view(torch.int32)
+            low = u & 0xFFFF
+            tie = ((u & -65536) | 0x8000).view(torch.float32)
+            near = (((low - 0x8000).abs() < TIE_ULPS) | (a < 256 * floor)
+                    | ((v - tie).abs() < floor))
+        if relu:
+            near = torch.where(v < 0, a < floor, near)
+        per_warp = near.reshape(P // 32, 32, 4, N // 4).sum(dim=(1, 3))
+        return int(near.sum()), near.numel(), int(per_warp.max())
+
+    xe, de = fm._raw_embed(x, False)
+    h, marked, total, most = xe, 0, 0, 0
+    for i, layer in enumerate(model.xyz_layers):
+        pre = layer(torch.cat([xe, h], -1) if i == fm.SKIP else h, dtype)
+        m, n, w = rule(pre, True)
+        h = torch.relu(pre)
+        marked, total, most = marked + m, total + n, max(most, w)
+    fin = model.xyz_final(h, dtype)
+    m, n, w = rule(fin, False)
+    marked, total, most = marked + m, total + n, max(most, w)
+    dpre = model.dir_layer(torch.cat([fin, de], -1), dtype)
+    m, n, w = rule(dpre, True)
+    marked, total, most = marked + m, total + n, max(most, w)
+    return dict(share=marked / total, marked=marked, outputs=total,
+                most_per_warp=most, fixw=FIXW[dtype])
+
+
+def float16_kernels(model, gen, dev) -> dict:
+    """Phase 15's kernel holds and times (see its block comment)."""
+    from nerf_pl_tpu_torch.ops import fused_mlp as fm
+
+    holds, rows, c_err = [], {}, 0.0
+    P = fm.BWD_CHUNK + (1 << 16) + 77
+    x = random_raw_t(gen, P, dev)
+    g = torch.randn((8, P), generator=gen).to(dev)
+    for sigma_only in (True, False):
+        mode = "sigma-only" if sigma_only else "rgb"
+        c_err = max(c_err, hold_c(f"float16 {mode} P={P}", model, x, F16,
+                                  sigma_only))
+        holds.append(hold_train(f"float16 {mode} P={P}", model, x, g, F16,
+                                sigma_only))
+    del x, g
+    torch.cuda.empty_cache()
+    marks = {}
+    for name, S in (("fine", N_SAMPLES + N_IMPORTANCE), ("coarse", N_SAMPLES)):
+        P = TRAIN_BATCH * S
+        x = random_raw_t(gen, P, dev)
+        g = torch.randn((8, P), generator=gen).to(dev)
+        turns = [(dt, f16_kernel_times(model, x, g, dt))
+                 for dt in (BF16, F16, F16, BF16)]  # in turns
+        ms = {dt: {k: min(t[k] for d, t in turns if d == dt)
+                   for k in turns[0][1]} for dt in (BF16, F16)}
+        plain = f16_plain_times(model, x, g)
+        chain_fwd, chain_bwd = matmul_chain_ms(model, P, dev, dtype=F16)
+        torch.cuda.empty_cache()
+        stash_b, io_b = P * 2 * 2432, P * 4 * 8
+        bounds = {"C": bound_ms(2 * io_b, 2 * MACS_RGB * P, BF16_TENSOR_FLOPS),
+                  "D": bound_ms(stash_b + 2 * io_b, 2 * MACS_RGB * P,
+                                BF16_TENSOR_FLOPS),
+                  "E": bound_ms(stash_b + 2 * io_b + 4 * 593_408,
+                                4 * MACS_RGB * P, BF16_TENSOR_FLOPS),
+                  "F": bound_ms(2 * io_b + 4 * 593_408, 6 * MACS_RGB * P,
+                                BF16_TENSOR_FLOPS)}
+        rows[name] = dict(P=P, chain_fwd_ms=chain_fwd,
+                          chain_bwd_ms=chain_bwd, **{
+            k: dict(ms=ms[F16][k], bf16_ms=ms[BF16][k],
+                    turns_ms=[t[k] for _, t in turns], plain_ms=plain[k],
+                    bound=bounds[k[0]]) for k in ms[F16]})
+        for k, r in rows[name].items():
+            if not isinstance(r, dict):
+                continue
+            log(f"[{k} time float16 rgb {name}] P={P} kernel {r['ms']:.3f} "
+                f"ms beside bf16 {r['bf16_ms']:.3f} ms (turns bf16 fp16 fp16 "
+                f"bf16: {' '.join(f'{t:.3f}' for t in r['turns_ms'])}), plain "
+                f"{r['plain_ms']:.3f} ms, bound {r['bound'][0]:.3f} ms "
+                f"({r['bound'][1]})")
+        log(f"[matmul chain float16 {name}] P={P} forward {chain_fwd:.3f} ms, "
+            f"backward (dgrad + wgrad) {chain_bwd:.3f} ms (torch.matmul, a "
+            f"yardstick, not one call)")
+        if name == "fine":
+            for dt in (F16, BF16):
+                with torch.no_grad():
+                    marks[dt] = tie_marks(model, x, dt)
+                log(f"[tie marks {str(dt)[6:]} fine] {marks[dt]['marked']} of "
+                    f"{marks[dt]['outputs']} outputs of the forward's "
+                    f"tensor-core products marked ({marks[dt]['share']:.4%});"
+                    f" at most {marks[dt]['most_per_warp']} in one warp's "
+                    f"block of a product (its list holds "
+                    f"{marks[dt]['fixw']})")
+                torch.cuda.empty_cache()
+        c_err = max(c_err, hold_c(f"float16 rgb {name} P={P}", model, x, F16,
+                                  False))
+        holds.append(hold_train(f"float16 rgb {name} P={P}", model, x, g, F16,
+                                False))
+        del x, g
+        torch.cuda.empty_cache()
+    worst = {k: max(h[k]["max_abs"] for h in holds) for k in
+             ("E", "F", "E'", "F'")}
+    worst.update({k: max(h[k] for h in holds) for k in ("D", "D'")})
+    worst["C"] = worst["C'"] = c_err  # C' is held bit-equal to C
+    return dict(rows=rows, holds=holds, worst=worst, marks=marks,
+                control_mean_rel=min(h["control"]["mean_rel"] for h in holds),
+                mean_rel=max(max(h[k]["mean_rel"] for k in ("E", "F", "E'",
+                                                            "F'"))
+                             for h in holds))
+
+
+def float16_wide(model, gen, dev) -> dict:
+    """G in fp16 at F16_WIDTHS (rgb and sigma-only, ragged P, under
+    TOL_G[float16], with controls that must fail: the plain version in bf16
+    and a layer's weights x 1.01) and at W = 512 timed beside bf16; H at W =
+    256 over two backward chunks (dx and every grad under
+    TOL_TRAIN[float16]) and timed beside bf16 at 786,432 points."""
+    import copy
+
+    from nerf_pl_tpu_torch.ops import fused_mlp as fm
+
+    x90 = random_embedded(gen, WIDE_P, dev)
+    x63 = x90[:, :63].contiguous()
+    g_rel = (0.0, 0.0)
+    for width in F16_WIDTHS:
+        wm = spread_model(width, dev)
+        layer5 = copy.deepcopy(wm)
+        layer5.xyz_layers[5].w.mul_(1.01)
+        for sigma_only, x in ((True, x63), (False, x90)):
+            live = 1 if sigma_only else 4
+            out = fm.fused_nerf_apply_cuda(wm, x, sigma_only, F16)
+            ref = fm.fused_nerf_apply_plain(wm, x, sigma_only, F16)
+            torch.cuda.synchronize()
+            rel = rel_err(out, ref[:, :live])
+            mode = "sigma-only" if sigma_only else "rgb"
+            log(f"[G W={width} float16 {mode}] P={WIDE_P} |err|/std max "
+                f"{rel[0]:.3e} mean {rel[1]:.3e} (tol {TOL_G[F16][0]:.0e}, "
+                f"{TOL_G[F16][1]:.0e}); max_abs_err {max_abs(out, ref):.3e}")
+            if (not torch.isfinite(out).all()
+                    or not torch.equal(out[:, live:], ref[:, live:])
+                    or not rel[0] <= TOL_G[F16][0]
+                    or not rel[1] <= TOL_G[F16][1]):
+                raise AssertionError(f"kernel G W={width} float16 {mode} "
+                                     "disagrees with its plain version")
+            for label, c in (("plain in bfloat16", fm.fused_nerf_apply_plain(
+                    wm, x, sigma_only, BF16)), ("layer 5 x 1.01",
+                    fm.fused_nerf_apply_plain(layer5, x, sigma_only, F16))):
+                c_rel = rel_err(out, c[:, :live])
+                log(f"[G W={width} float16 {mode} control: {label}] "
+                    f"|err|/std max {c_rel[0]:.3e} mean {c_rel[1]:.3e}")
+                if c_rel[0] <= TOL_G[F16][0] and c_rel[1] <= TOL_G[F16][1]:
+                    raise AssertionError(f"kernel G W={width} float16: the "
+                                         f"control '{label}' passes the "
+                                         "limits")
+            g_rel = tuple(map(max, g_rel, rel))
+        del wm, layer5
+    del x90, x63
+    wm = wide_model(WIDE_W, dev)
+    Pt = TRAIN_BATCH * (N_SAMPLES + N_IMPORTANCE)
+    xt = random_embedded(gen, Pt, dev)
+    g_ms = {dt: [] for dt in (BF16, F16)}
+    for dt in (BF16, F16, F16, BF16):
+        g_ms[dt].append(cuda_ms(lambda: fm.fused_nerf_apply_cuda(
+            wm, xt, False, dt), iters=3))
+    g_plain = cuda_ms(lambda: fm.fused_nerf_apply_plain(wm, xt, False, F16),
+                      iters=1)
+    g_chain, _ = matmul_chain_ms(wm, Pt, dev, backward=False, dtype=F16)
+    g_bound = bound_ms(Pt * (90 * 4 + 8 * 4), 2 * mlp_macs(WIDE_W) * Pt,
+                       BF16_TENSOR_FLOPS)
+    del wm
+    torch.cuda.empty_cache()
+    log(f"[G time W={WIDE_W} float16 rgb] P={Pt} kernel {min(g_ms[F16]):.3f} "
+        f"ms beside bf16 {min(g_ms[BF16]):.3f} ms, plain {g_plain:.3f} ms, "
+        f"bound {g_bound[0]:.3f} ms ({g_bound[1]}), fp16 matmul chain "
+        f"forward {g_chain:.3f} ms")
+
+    P = fm.BWD_CHUNK + (1 << 16) + 77
+    names = ["dx"] + grad_names(model)
+    x90 = random_embedded(gen, P, dev)
+    g = torch.randn((P, 8), generator=gen).to(dev)
+    h_worst = None
+    for sigma_only, x in ((False, x90), (True, x90[:, :63].contiguous())):
+        gg = g.clone()
+        gg[:, 1 if sigma_only else 4:] = 0.0
+        dx, dw, db = fm.fused_nerf_bwd_dx_cuda(model, x, gg, sigma_only, F16)
+        rdx, rw, rb = fm.fused_nerf_bwd_dx_plain(model, x, gg, sigma_only, F16)
+        torch.cuda.synchronize()
+        mode = "sigma-only" if sigma_only else "rgb"
+        s = check_grads(f"H float16 {mode} P={P} x {tuple(x.shape)}",
+                        [dx] + fm.unpack_grads(model, dw, db, F16),
+                        [rdx] + fm.unpack_grads(model, rw, rb, F16), names,
+                        TOL_TRAIN[F16])
+        h_worst = s if h_worst is None or s["max_rel"] > h_worst["max_rel"] \
+            else h_worst
+        del dx, dw, db, rdx, rw, rb
+    del x90, g
+    torch.cuda.empty_cache()
+    x = random_embedded(gen, Pt, dev)
+    g8 = torch.randn((Pt, 8), generator=gen).to(dev)
+    g8[:, 4:] = 0.0
+    h_ms = {dt: [] for dt in (BF16, F16)}
+    for dt in (BF16, F16, F16, BF16):
+        h_ms[dt].append(cuda_ms(lambda: fm.fused_nerf_bwd_dx_cuda(
+            model, x, g8, False, dt), iters=2))
+    h_plain = cuda_ms(lambda: fm.fused_nerf_bwd_dx_plain(model, x, g8, False,
+                                                         F16), iters=1)
+    flop = 2 * (3 * MACS_RGB + 35_712) * Pt
+    h_bound = bound_ms(Pt * (90 * 4 * 2 + 8 * 4) + 4 * 593_408, flop,
+                       BF16_TENSOR_FLOPS)
+    _, h_chain = matmul_chain_ms(model, Pt, dev, dtype=F16)
+    del x, g8
+    torch.cuda.empty_cache()
+    log(f"[H time float16 rgb] P={Pt} kernel {min(h_ms[F16]):.3f} ms beside "
+        f"bf16 {min(h_ms[BF16]):.3f} ms, plain {h_plain:.3f} ms, bound "
+        f"{h_bound[0]:.3f} ms ({h_bound[1]}), fp16 matmul chain backward "
+        f"{h_chain:.3f} ms")
+    return dict(G=dict(rel=g_rel, ms=min(g_ms[F16]), bf16_ms=min(g_ms[BF16]),
+                       plain_ms=g_plain, chain_ms=g_chain, bound=g_bound,
+                       P=Pt),
+                H=dict(worst=h_worst, ms=min(h_ms[F16]),
+                       bf16_ms=min(h_ms[BF16]), plain_ms=h_plain,
+                       chain_ms=h_chain, bound=h_bound, P=Pt))
+
+
+def float16_fits(tmp: str) -> dict:
+    """``python -m nerf_pl_tpu_torch.train --compute_dtype float16`` for 1
+    epoch on phase 4's scene (launches a step exact, C in validation, the
+    loss finite) and ``train_efficient_sm --compute_dtype float16
+    --grad_on_light`` for 1 epoch on phase 7's scene (launches a step
+    exact), then one fp16 step's grads card vs CPU."""
+    from nerf_pl_tpu_torch import train as train_cli
+
+    argv = ["--root_dir", os.path.join(tmp, "scene"), "--dataset_name",
+            "blender", "--img_wh", str(TRAIN_WH), str(TRAIN_WH),
+            "--N_samples", str(N_SAMPLES), "--N_importance", str(N_IMPORTANCE),
+            "--batch_size", str(TRAIN_BATCH), "--num_epochs", "1",
+            "--lr", "5e-4", "--white_back", "true",
+            "--compute_dtype", "float16", "--exp_name", "f16",
+            "--log_dir", os.path.join(tmp, "logs"),
+            "--ckpt_dir", os.path.join(tmp, "ckpts"), "--device", "cuda"]
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    system = train_cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    with open(os.path.join(tmp, "logs", "f16", "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    losses = [r["train/loss"] for r in recs if "train/loss" in r]
+    vals = [r["val/loss"] for r in recs if "val/loss" in r]
+    rate = [r["train/rays_per_s"] for r in recs if "train/loss" in r][-1]
+    log(f"[float16] vanilla fit, 1 epoch ({system.steps_per_epoch} steps): "
+        f"loss {losses}, val loss {vals}, {rate:.1f} train rays/s, {wall:.1f} "
+        f"s wall; launches in the fit {counts}")
+    if len(losses) != 1 or not all(np.isfinite(losses + vals)):
+        raise AssertionError(f"float16 fit: losses not finite: {losses} "
+                             f"{vals}")
+    if counts["C"] < 1:
+        raise AssertionError("float16 fit: validation did not run C")
+    rays, rgbs = system.rays[:TRAIN_BATCH], system.rgbs[:TRAIN_BATCH]
+    torch.cuda.synchronize()
+    reset_counts()
+    system.train_step(rays, rgbs)
+    torch.cuda.synchronize()
+    per_step = read_counts()
+    log(f"[float16] launches in one vanilla step: {per_step}")
+    if any(per_step[k] != v for k, v in F16_STEP_LAUNCHES.items()):
+        raise AssertionError(f"one float16 step launched {per_step}, "
+                             f"expected {F16_STEP_LAUNCHES}")
+    del system
+    shadow = shadow_fit(tmp, os.path.join(tmp, "shadow_scene"), "sm_f16",
+                        ["--grad_on_light", "--compute_dtype", "float16"], 1)
+    s_sys = shadow["system"]
+    batch = tuple(t[:SHADOW_BATCH] for t in (s_sys.rays, s_sys.rgbs,
+                                             s_sys.pixels, s_sys.pose_idx))
+    torch.cuda.synchronize()
+    reset_counts()
+    s_sys.train_step(*batch, s_sys.empty_light_cache(), SHADOW_LIGHT_N)
+    torch.cuda.synchronize()
+    s_step = read_counts()
+    log(f"[float16] launches in one grad_on_light step: {s_step}")
+    if any(s_step[k] != v for k, v in SHADOW_STEP_LAUNCHES.items()):
+        raise AssertionError(f"one float16 shadow step launched {s_step}, "
+                             f"expected {SHADOW_STEP_LAUNCHES}")
+    del s_sys, shadow["system"]
+    grads_err = step_grads_card_vs_cpu(F16)
+    return dict(counts=counts, per_step=per_step, losses=losses, vals=vals,
+                rays_per_s=rate, shadow=shadow, shadow_step=s_step,
+                grads_err=grads_err)
+
+
+def float16_end_to_end(tmp: str, ckpt: str) -> dict:
+    """Phase 15 (see its block comment)."""
+    from nerf_pl_tpu_torch.tools.evaluate import load_models
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(16)
+    fine = load_models(ckpt, dev)["fine"]
+    with torch.no_grad():
+        kern = float16_kernels(fine, gen, dev)
+        t1 = time.perf_counter()
+        wide = float16_wide(fine, gen, dev)
+    del fine
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    fits = float16_fits(tmp)
+    seconds = time.perf_counter() - t0
+    log(f"[float16] phase 15: {seconds:.1f} s (C-F' {t1 - t0:.1f}, G and H "
+        f"{t2 - t1:.1f}, fits {seconds - (t2 - t0):.1f}); fp16 kernels "
+        f"against their plain versions: worst {kern['worst']}, worst rel mean "
+        f"{kern['mean_rel']:.3e}, the bf16 control's least rel mean "
+        f"{kern['control_mean_rel']:.3e}; fit {fits['rays_per_s']:.1f} train "
+        f"rays/s, efficient_sm "
+        f"{fits['shadow']['rays_per_s'][-1]:.1f} camera rays/s; fp16 step "
+        f"grads card vs cpu rel err {fits['grads_err']:.3e}")
+    return dict(kernels=kern, wide=wide, fits=fits, seconds=seconds)
 
 
 def main() -> int:
@@ -5453,6 +6028,7 @@ def main() -> int:
         formats = formats_end_to_end(tmp, shadow["fit"]["losses"][0])
         entries = entry_points_end_to_end(
             tmp, os.path.join(tmp, "ckpts", "smoke", "epoch=1.ckpt"), ckpt)
+        f16 = float16_end_to_end(tmp, ckpt)
 
     fine_row, coarse_row = c["rows"]["rgb"], c["rows"]["sigma-only"]
     kernels = [
@@ -5862,6 +6438,54 @@ def main() -> int:
         + f"; A {ranks['kernel A (searchsorted_cuda)']:.1f} us against "
         f"torch.searchsorted {ranks['torch.searchsorted (library)']:.1f} us "
         f"({card})")
+    # phase 15: each fused kernel's fp16 instantiation beside its bf16 one
+    fk, fw, ff = f16["kernels"], f16["wide"], f16["fits"]
+    letters = {"fused_nerf_fwd": "C", "fused_nerf_fwd_row_major": "C'",
+               "fused_nerf_stash_fwd": "D",
+               "fused_nerf_stash_fwd_row_major": "D'",
+               "fused_nerf_bwd_stash": "E",
+               "fused_nerf_bwd_stash_row_major": "E'",
+               "fused_nerf_bwd_remat": "F",
+               "fused_nerf_bwd_remat_row_major": "F'"}
+    for row in kernels:
+        key = letters.get(row["name"])
+        if key is not None:
+            fine_r, coarse_r = (fk["rows"][n][key] for n in ("fine", "coarse"))
+            chain = "chain_fwd_ms" if key[0] in "CD" else "chain_bwd_ms"
+            row["float16"] = dict(
+                shape=f"rgb fp16 P={fk['rows']['fine']['P']}",
+                ms=fine_r["ms"], bf16_ms=fine_r["bf16_ms"],
+                plain_ms=fine_r["plain_ms"], bound_ms=fine_r["bound"][0],
+                bound_by=fine_r["bound"][1], max_abs_err=fk["worst"][key],
+                matmul_chain_ms=fk["rows"]["fine"][chain],
+                coarse=dict(P=fk["rows"]["coarse"]["P"], ms=coarse_r["ms"],
+                            bf16_ms=coarse_r["bf16_ms"],
+                            plain_ms=coarse_r["plain_ms"],
+                            bound_ms=coarse_r["bound"][0],
+                            matmul_chain_ms=fk["rows"]["coarse"][chain]),
+                launches=dict(fit=ff["counts"][key],
+                              per_step=ff["per_step"][key],
+                              shadow_fit=ff["shadow"]["counts"][key],
+                              shadow_per_step=ff["shadow_step"][key]))
+        elif row["name"] in ("fused_nerf_wide_fwd", "fused_nerf_bwd_dx"):
+            w = fw["G" if row["name"] == "fused_nerf_wide_fwd" else "H"]
+            row["float16"] = dict(
+                shape=f"rgb fp16 P={w['P']}", ms=w["ms"], bf16_ms=w["bf16_ms"],
+                plain_ms=w["plain_ms"], bound_ms=w["bound"][0],
+                bound_by=w["bound"][1], matmul_chain_ms=w["chain_ms"],
+                **({"rel_err_of_std": w["rel"]} if "rel" in w else
+                   {"max_rel_err": w["worst"]["max_rel"],
+                    "max_abs_err": w["worst"]["max_abs"]}))
+    log(f"[float16] phase 15: {f16['seconds']:.1f} s; fp16 / bf16 ms at "
+        f"{fk['rows']['fine']['P']} points: "
+        + ", ".join(f"{k} {r['ms']:.3f} / {r['bf16_ms']:.3f}"
+                    for k, r in fk["rows"]["fine"].items()
+                    if isinstance(r, dict))
+        + f"; G W={WIDE_W} {fw['G']['ms']:.3f} / {fw['G']['bf16_ms']:.3f}; H "
+        f"{fw['H']['ms']:.3f} / {fw['H']['bf16_ms']:.3f}; tie marks fp16 "
+        f"{fk['marks'][F16]['share']:.4%}, bf16 "
+        f"{fk['marks'][BF16]['share']:.4%}; fp16 fit "
+        f"{ff['rays_per_s']:.1f} train rays/s ({card})")
     fern = readers["fern"]
     log(f"[readers] phase 12: {readers['seconds']:.1f} s; fern-size decode "
         f"{fern['baseline']['s']:.3f} s baseline, "

@@ -30,11 +30,13 @@
 // h1..h8, then fin and d (sigma-only: (P, 2048), h1..h8), each value the
 // same rounded activation that the next layer reads (fused_mlp.py:688-700).
 // Numerics of _fwd_body (fused_mlp.py:155-181): each layer's input is rounded
-// to the weight type T (bf16 or f32) before its product; products and sums in
-// f32; bias, ReLU and sigmoid in f32.  Precise sinf/cosf (no fast math) and
-// exact power-of-two scales; the TPU kernel's sin(t + pi/2) trick and its
-// channel permutation (_raw_perm) are not needed: weights are read in the
-// reference order, W_i as (fan_in, fan_out) row-major.
+// to the weight type T (f32, bf16 or fp16) before its product; products and
+// sums in f32; bias, ReLU and sigmoid in f32.  Each rounding is to nearest
+// even from the f32 sum, as astype rounds (fp16: subnormals kept, inf past
+// 65,504).  Precise sinf/cosf (no fast math) and exact power-of-two scales;
+// the TPU kernel's sin(t + pi/2) trick and its channel permutation (_raw_perm)
+// are not needed: weights are read in the reference order, W_i as (fan_in,
+// fan_out) row-major.
 //
 // Bound on the H100.  C: operations.  593,408 multiply-adds per rgb point
 // (491,264 sigma-only) against 32 bytes of input and output per point; the
@@ -42,29 +44,31 @@
 // (989 TFLOP/s) a 6.1M-point fine chunk needs 7.4 ms; the 84 sinf/cosf per
 // point are ~0.1% of the work.  D: bytes, by its stash write (4,864 B per
 // rgb point in bf16 against 1.19 MFLOP: 1.46 us per 1,000 points at
-// 3.35 TB/s against 1.20 us at the tensor rate).
+// 3.35 TB/s against 1.20 us at the tensor rate).  fp16 has bf16's bytes
+// and its dense tensor rate, so the same bounds.
 // Design (wgmma/TMA come later): one CTA of 256 threads per tile of 64
 // points.  The tile's embedded input and its current activation live in
 // shared memory, stored in T: rows [xyz_emb 63 | h 256 | dir_emb 27],
 // feature-major, so the skip concat [xyz_emb, h] and the dir-head concat
 // [fin, dir_emb] are contiguous row ranges and need no copy.  Each layer's
 // outputs overwrite its inputs only after a barrier.
-//   bf16: every product of the trunk, fin and the dir head runs on the
-//   tensor cores (mma.sync m16n8k16, f32 sums; fused_mlp_common.cuh
+//   bf16 and fp16: every product of the trunk, fin and the dir head runs on
+//   the tensor cores (mma.sync m16n8k16, f32 sums; fused_mlp_common.cuh
 //   mma_dense): the A operand is the activation rows (pitch 72 points, read
 //   by ldmatrix.trans), the B operand W's own row-major layout, streamed
 //   from L2 in 32-row stages through a three-stage cp.async ring (rows
 //   padded to N + 8; ragged K zero-filled); warps as 2 x 4 of 32 points x
 //   64 columns.  Each 16-term sum starts from zero and is added in f32, and
-//   every output near a bf16 rounding tie is recomputed in the scalar
-//   loop's order (TIE_ULPS, TIE_FLOOR), so the rounded activations are
+//   every output near a rounding tie of the type is recomputed in the
+//   scalar loop's order (TIE_ULPS, TIE_FLOOR; near_tie for bf16,
+//   near_tie_f16 for fp16's denser grid), so the rounded activations are
 //   those of a sum in k order.  The sigma (N = 1) and rgb (N = 3) heads and
 //   the sin/cos embedding stay scalar.
 //   f32 (whose limits TF32 would break): weights stream per layer through
 //   a shared staging buffer of KC rows; each warp owns 8 points and each
 //   lane 8 (or 4) output features, scalar FMA with f32 accumulators.
 // D is C with the STASH flag: each layer's rounded outputs also go to the
-// point's stash row (bf16: each thread's column pairs, 4-byte stores; f32:
+// point's stash row (16-bit: each thread's column pairs, 4-byte stores; f32:
 // each thread reads its own outputs back and stores 4 a point).  The ragged
 // tail of P is masked on load and store.  Shared device code:
 // fused_mlp_common.cuh.
@@ -104,26 +108,47 @@ int launch(const void* x, void* out, const void* w, const void* b,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, bool STASH, bool RM>
+int dispatch_mode(const void* x, void* out, const void* w, const void* b,
+                  long long P, int sigma_only, void* stash, cudaStream_t s) {
+  return sigma_only ? launch<T, true, STASH, RM>(x, out, w, b, P, stash, s)
+                    : launch<T, false, STASH, RM>(x, out, w, b, P, stash, s);
+}
+
 template <bool STASH, bool RM>
 int dispatch_io(const void* x, void* out, const void* w, const void* b,
-                long long P, int sigma_only, int bf16, void* stash,
+                long long P, int sigma_only, int dtype, void* stash,
                 cudaStream_t s) {
-  using BF = __nv_bfloat16;
-  if (bf16)
-    return sigma_only ? launch<BF, true, STASH, RM>(x, out, w, b, P, stash, s)
-                      : launch<BF, false, STASH, RM>(x, out, w, b, P, stash, s);
-  return sigma_only ? launch<float, true, STASH, RM>(x, out, w, b, P, stash, s)
-                    : launch<float, false, STASH, RM>(x, out, w, b, P, stash, s);
+  switch (dtype) {
+    case DTYPE_F32:
+      if constexpr (kBuilt<DTYPE_F32>)
+        return dispatch_mode<float, STASH, RM>(x, out, w, b, P, sigma_only,
+                                               stash, s);
+      break;
+    case DTYPE_BF16:
+      if constexpr (kBuilt<DTYPE_BF16>)
+        return dispatch_mode<bf16, STASH, RM>(x, out, w, b, P, sigma_only,
+                                              stash, s);
+      break;
+    case DTYPE_F16:
+      if constexpr (kBuilt<DTYPE_F16>)
+        return dispatch_mode<f16, STASH, RM>(x, out, w, b, P, sigma_only,
+                                             stash, s);
+      break;
+    default:
+      break;
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <bool STASH>
 int dispatch(const void* x, void* out, const void* w, const void* b,
-             long long P, int sigma_only, int bf16, int row_major,
+             long long P, int sigma_only, int dtype, int row_major,
              void* stash, cudaStream_t s) {
   return row_major
-             ? dispatch_io<STASH, true>(x, out, w, b, P, sigma_only, bf16,
+             ? dispatch_io<STASH, true>(x, out, w, b, P, sigma_only, dtype,
                                         stash, s)
-             : dispatch_io<STASH, false>(x, out, w, b, P, sigma_only, bf16,
+             : dispatch_io<STASH, false>(x, out, w, b, P, sigma_only, dtype,
                                          stash, s);
 }
 
@@ -144,21 +169,23 @@ int nerf_fused_stash_cols(int sigma_only) {
 
 // Kernel C (row_major = 0: x and out (8, P)) and C' (row_major = 1: x and
 // out (P, 8), 16-byte aligned).  x f32 -> out f32; w: N_WEIGHTS elements of
-// bf16 (bf16 = 1) or f32, b: N_BIASES f32; all contiguous on the stream's
+// the weight type named by dtype (DTYPE_F32, DTYPE_BF16 or DTYPE_F16, of
+// those NERF_DTYPES builds; any other code is refused), b: N_BIASES f32; all contiguous on the stream's
 // device.
 int nerf_fused_fwd(const void* x, void* out, const void* w, const void* b,
-                   long long P, int sigma_only, int bf16, int row_major,
+                   long long P, int sigma_only, int dtype, int row_major,
                    void* stream) {
-  return dispatch<false>(x, out, w, b, P, sigma_only, bf16, row_major,
+  return dispatch<false>(x, out, w, b, P, sigma_only, dtype, row_major,
                          nullptr, static_cast<cudaStream_t>(stream));
 }
 
 // Kernels D and D'.  As C and C', and stash (P,
 // nerf_fused_stash_cols(sigma_only)) in the weight type.
 int nerf_fused_stash_fwd(const void* x, void* out, const void* w,
-                         const void* b, long long P, int sigma_only, int bf16,
-                         int row_major, void* stash, void* stream) {
-  return dispatch<true>(x, out, w, b, P, sigma_only, bf16, row_major, stash,
+                         const void* b, long long P, int sigma_only,
+                         int dtype, int row_major, void* stash,
+                         void* stream) {
+  return dispatch<true>(x, out, w, b, P, sigma_only, dtype, row_major, stash,
                         static_cast<cudaStream_t>(stream));
 }
 

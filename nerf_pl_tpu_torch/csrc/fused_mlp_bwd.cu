@@ -34,7 +34,16 @@
 // round(g_sigma) * Wsig, two f32 terms added.  The skip layer's wgrad covers
 // [x_emb | h4] and only its h rows carry the gradient on; the dir head's
 // covers [fin | dir_emb].  x_emb and dir_emb are recomputed from the 8 raw
-// rows, as on the TPU.  round() is the weight type T (bf16 or f32).
+// rows, as on the TPU.  round() is the weight type T (f32, bf16 or fp16),
+// to nearest even from the f32 value as astype rounds: in fp16 a small
+// cotangent keeps its subnormal (steps of 2^-24) or becomes 0 below 2^-25,
+// and the product then takes that value, as _bwd_core's g.astype(cdt) does
+// on the CPU (JAX flushes no fp16 subnormal there; the tests read it so).
+// Weight grads are summed and returned in f32 in every type.  The ReLU
+// masks follow JAX's two routes: E reads them from D's rounded stash, F (and
+// H) from the f32 recompute, so in fp16 a positive activation that rounds
+// to 0 masks its g in E and passes it in F; F's fp16 scratch stash keeps
+// that sign as -0 (round_act, act_positive in fused_mlp_common.cuh).
 //
 // Bound on the H100: operations.  E: 4 x 593,408 FLOP per rgb point (dgrad
 // and wgrad) against a 4,864-byte stash read in bf16 (2.4 us per 1,000
@@ -55,8 +64,9 @@
 //      a_in and g_pre.
 //   3. reduce: the split partials, and the tiles' bias partials, are summed
 //      in a fixed order into dW and db, accumulating over the chunks.
-// In bf16 the products of passes 1 and 2 run on the tensor cores
-// (mma.sync m16n8k16, bf16 operands, f32 sums; see mma.cuh):
+// In bf16 and fp16 the products of passes 1 and 2 run on the tensor cores
+// (mma.sync m16n8k16, 16-bit operands, f32 sums; see mma.cuh), the same
+// code for both types:
 //   - the sweep's g tile is feature-major with rows padded to TPG points
 //     (ldmatrix.trans gives the A fragments without bank conflicts), laid
 //     over the forward's activation rows once the embeddings are in the G
@@ -68,7 +78,7 @@
 //     zero and is added in f32.  The epilogue reads the ReLU mask from the
 //     stash in the fragment's column pairs, sums the bias partials with quad
 //     shuffles, then the two point halves in order, and recomputes in the
-//     plain version's order each output that lies near a bf16 rounding tie
+//     plain version's order each output that lies near a rounding tie
 //     (see TIE_MARGIN: without it the rounded g_pre would depart from the
 //     plain version's now and then, and each such step grows down the
 //     layers);
@@ -83,8 +93,8 @@
 // FMA loop: the sweep runs dense_acc against the transposed weights (wt),
 // the wgrad 64 x 64 tiles with 4 x 4 outputs a thread.  The wrapper builds
 // the wgrad job table and marks each job's route.
-// Workspace (from the wrapper): in bf16 at a chunk of 262,144 points the
-// G buffer is 1.33 GB and F's scratch stash 1.28 GB.
+// Workspace (from the wrapper): in a 16-bit type at a chunk of 262,144
+// points the G buffer is 1.33 GB and F's scratch stash 1.28 GB.
 //
 // Kernel H is F (the remat route) whose tile input is the pre-embedded rows
 // (rounded to T, as _fwd_body rounds x) and whose dgrad sweep goes on to
@@ -121,7 +131,7 @@ constexpr int GC = G_DE + 32;        // 2544
 
 // Transposed weights (the f32 sweep's dgrad operands): for i = 1..7 the h
 // rows of W_i, transposed (256 x 256) at (i - 1) * W * W; Wfin^T at WT_FIN;
-// the fin rows of Wdir, transposed (128 x 256), at WT_DIR.  The bf16 sweep
+// the fin rows of Wdir, transposed (128 x 256), at WT_DIR.  The 16-bit sweep
 // reads the packed weights instead.
 constexpr long long WT_FIN = 7LL * W * W, WT_DIR = 8LL * W * W;
 constexpr long long N_WT = WT_DIR + 1LL * WH * W;
@@ -134,7 +144,7 @@ constexpr long long WX_DIR = 0, WX_SKIP = WX_DIR + 1LL * WH * DXC;
 constexpr long long WX_0 = WX_SKIP + 1LL * W * DXC;
 constexpr long long N_WX = WX_0 + 1LL * W * DXC;
 
-// The bf16 sweep: the g tile's row pitch (TP points + 8: ldmatrix's eight
+// The 16-bit sweep: the g tile's row pitch (TP points + 8: ldmatrix's eight
 // row addresses, 144 bytes apart, fall in distinct banks; the forward's
 // activation pitch); the weight stages of its products, DK columns of the
 // 256 fan_in rows of W, rows padded to DKP (80 bytes: again distinct
@@ -143,9 +153,10 @@ constexpr long long N_WX = WX_0 + 1LL * W * DXC;
 constexpr int TPG = Ref::LDA_MMA;
 constexpr int DK = 32, DKP = DK + 8, DSTAGES = 2;
 constexpr int RING = DSTAGES * W * DKP;
-static_assert(W * TPG <= Ref::act_elems<bf16>(),
+static_assert(W * TPG <= Ref::act_elems<bf16>() &&
+                  W * TPG <= Ref::act_elems<f16>(),
               "the g tile fits over the activation rows");
-static_assert(RING <= Ref::ws_elems<bf16>(),
+static_assert(RING <= Ref::ws_elems<bf16>() && RING <= Ref::ws_elems<f16>(),
               "the sweep's ring fits over the forward's");
 
 template <typename T>
@@ -155,8 +166,15 @@ constexpr size_t bwd_smem_bytes() {
   return smem_bytes<T>() + sizeof(float) * (4 * TP + 3 * TP + 8 * W);
 }
 // two CTAs an SM: 228 KB of shared memory, 1 KB of it reserved a CTA
-static_assert(2 * (bwd_smem_bytes<bf16>() + 1024) <= 228 * 1024,
+static_assert(2 * (bwd_smem_bytes<bf16>() + 1024) <= 228 * 1024 &&
+                  2 * (bwd_smem_bytes<f16>() + 1024) <= 228 * 1024,
               "two dgrad CTAs fit an SM");
+// The sweep's list of tie marks (mma_epilogue): bf16's FIXW after the bias
+// partials in red, fp16's longer FIXW_F16 over the idle dgrad ring
+static_assert(2 * FIXW * 8 * sizeof(int) <= 6 * W * sizeof(float),
+              "the bf16 marks fit red");
+static_assert(2 * FIXW_F16 * 8 * sizeof(int) <= RING * sizeof(f16),
+              "the fp16 marks fit the dgrad ring");
 
 // The f32 sweep's epilogue after a dgrad product with 256 outputs:
 //   v = acc (+ round(g_sigma[p]) * wsig[n]);  g_pre = v * (mask > 0)
@@ -223,11 +241,12 @@ __device__ __forceinline__ void bwd_epilogue(
   __syncthreads();
 }
 
-// One stage of a bf16 dgrad product's weight stream: columns [k0, k0 + DK)
-// of the 256 rows of the (256 x ld) row-major block w, to buf (pitch DKP),
-// in 16-byte cp.async vectors; one committed group.
-__device__ __forceinline__ void dgrad_stage(const bf16* __restrict__ w,
-                                            int ld, int k0, bf16* buf) {
+// One stage of a 16-bit dgrad product's weight stream: columns [k0, k0 +
+// DK) of the 256 rows of the (256 x ld) row-major block w, to buf (pitch
+// DKP), in 16-byte cp.async vectors; one committed group.
+template <typename T>
+__device__ __forceinline__ void dgrad_stage(const T* __restrict__ w, int ld,
+                                            int k0, T* buf) {
   for (int i = threadIdx.x; i < W * DK / 8; i += THREADS) {
     const int n = i / (DK / 8), c = (i % (DK / 8)) * 8;
     mma::cp_async16(buf + n * DKP + c, w + 1LL * n * ld + k0 + c);
@@ -235,7 +254,8 @@ __device__ __forceinline__ void dgrad_stage(const bf16* __restrict__ w,
   mma::cp_async_commit();
 }
 
-// The bf16 sweep's product on the tensor cores: acc = g[:, :K] @ w[:, :K]^T
+// The 16-bit sweep's product on the tensor cores (bf16 or fp16 operands):
+// acc = g[:, :K] @ w[:, :K]^T
 // for the tile's TP points, g the g tile (feature-major, element (k, p) at
 // k * TPG + p), w the layer's 256 fan_in rows (row-major, ld apart), whose
 // first K columns are the layer's outputs: for each output n, its k values
@@ -246,8 +266,9 @@ __device__ __forceinline__ void dgrad_stage(const bf16* __restrict__ w,
 // cp.async group (an empty one past the last stage, so that every thread
 // counts its groups alike).  K is a multiple of DK.  Ends with a barrier
 // and the ring idle: every read of g is done.
-__device__ __forceinline__ void mma_dgrad(const bf16* __restrict__ w, int ld,
-                                          int K, const bf16* g, bf16* ring,
+template <typename T>
+__device__ __forceinline__ void mma_dgrad(const T* __restrict__ w, int ld,
+                                          int K, const T* g, T* ring,
                                           float (&acc)[2][8][4]) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int wm = warp >> 2, wn = warp & 3;
@@ -272,7 +293,7 @@ __device__ __forceinline__ void mma_dgrad(const bf16* __restrict__ w, int ld,
     // whose slot the next stage fills
     __syncthreads();
     stage(s + DSTAGES - 1);
-    const bf16* wb = ring + (s % DSTAGES) * W * DKP;
+    const T* wb = ring + (s % DSTAGES) * W * DKP;
 #pragma unroll
     for (int ks = 0; ks < DK; ks += 16) {
       const int k = s * DK + ks;
@@ -298,8 +319,8 @@ __device__ __forceinline__ void mma_dgrad(const bf16* __restrict__ w, int ld,
           // nearest): the tensor cores' own additions stay short
           float t0[4] = {0.0f, 0.0f, 0.0f, 0.0f};
           float t1[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-          mma::mma_bf16(t0, a[mi], b[0], b[1]);
-          mma::mma_bf16(t1, a[mi], b[2], b[3]);
+          mma::mma16<T>(t0, a[mi], b[0], b[1]);
+          mma::mma16<T>(t1, a[mi], b[2], b[3]);
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             acc[mi][2 * np][e] += t0[e];
@@ -314,10 +335,11 @@ __device__ __forceinline__ void mma_dgrad(const bf16* __restrict__ w, int ld,
 
 // Ties: the plain version (and the f32 sweep) sums each dgrad output in
 // f32, one fused multiply-add a term in order of k; mma_epilogue repairs
-// the outputs near a bf16 tie with the shared scheme (TIE_ULPS, near_tie,
-// list_marks and for_marks in fused_mlp_common.cuh).
+// the outputs near a tie of the type with the shared scheme (TIE_ULPS,
+// near_tie and near_tie_f16, list_marks and for_marks in
+// fused_mlp_common.cuh).
 
-// The bf16 sweep's epilogue, bwd_epilogue's arithmetic in mma_dgrad's
+// The 16-bit sweep's epilogue, bwd_epilogue's arithmetic in mma_dgrad's
 // fragment mapping: lane t holds points 32 wm + 16 mi + t / 4 (+ 8) and
 // columns 64 wn + 8 nt + 2 (t % 4) (+ 1), so the mask is read from the
 // stash, and g_pre written to the G buffer, as 4-byte pairs.  Output e =
@@ -330,15 +352,25 @@ __device__ __forceinline__ void mma_dgrad(const bf16* __restrict__ w, int ld,
 // outputs, g (the product's input) still in place, w the product's (256 x
 // ld) fan_in rows and K its depth, and the tile's bias partials are summed
 // over the two point halves in order; (C) g_pre, rounded, to the g tile and
-// the G buffer, then each thread's marked outputs over them from (B).
+// the G buffer, then each thread's marked outputs over them from (B).  The
+// marks are listed after the bias partials in red (bf16) or over the idle
+// ring (fp16, whose list is longer: see FIXW_F16), and then a barrier ends
+// the epilogue, as the next product refills the ring at once.
+template <typename T>
 __device__ __forceinline__ void mma_epilogue(
-    float (&acc)[2][8][4], const bf16* __restrict__ w, int ld, int K,
-    const bf16* st, int sc, int mcol, const float* gsig, const bf16* wsig,
-    bf16* g, bf16* gb, int gcol, float* red, float* bp, long long n_valid) {
+    float (&acc)[2][8][4], const T* __restrict__ w, int ld, int K,
+    const T* st, int sc, int mcol, const float* gsig, const T* wsig, T* g,
+    T* gb, int gcol, float* red, float* bp, T* ring, bool keep_sign,
+    long long n_valid) {
+  constexpr bool F16 = std::is_same<T, f16>::value;
+  constexpr int FIX = kFixW<T>;
+  using Pair = typename Pair16<T>::type;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int wm = warp >> 2, wn = warp & 3;
-  int* fix_pn = reinterpret_cast<int*>(red + 2 * W) + warp * 2 * FIXW;
-  float* fix_val = reinterpret_cast<float*>(fix_pn + FIXW);
+  int* fix_pn = (F16 ? reinterpret_cast<int*>(ring)
+                     : reinterpret_cast<int*>(red + 2 * W)) +
+                warp * 2 * FIX;
+  float* fix_val = reinterpret_cast<float*>(fix_pn + FIX);
   // output e's point and column
   auto point = [&](int e) {
     return wm * 32 + (e >> 5) * 16 + (lane >> 2) + ((e >> 4) & 1) * 8;
@@ -357,7 +389,7 @@ __device__ __forceinline__ void mma_epilogue(
       const int p = point(32 * mi + 16 * h);
       const bool valid = p < n_valid;
       const float gs =
-          wsig != nullptr ? to_f(from_f<bf16>(gsig[p])) : 0.0f;
+          wsig != nullptr ? to_f(from_f<T>(gsig[p])) : 0.0f;
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt) {
         const int n = column(2 * nt);
@@ -373,16 +405,17 @@ __device__ __forceinline__ void mma_epilogue(
         for (int j = 0; j < 2; ++j) {
           float v = acc[mi][nt][2 * h + j];
           if (wsig != nullptr) v += gs * to_f(wsig[n + j]);
-          const float x = (valid && m[j] > 0.0f) ? v : 0.0f;
+          const float x = (valid && act_positive(m[j], keep_sign)) ? v : 0.0f;
           acc[mi][nt][2 * h + j] = x;
           bsum[nt][j] += x;
-          if (near_tie(x)) ties[0] |= 1ull << (32 * mi + 16 * h + 2 * nt + j);
+          if (near_tie_t<T>(x))
+            ties[0] |= 1ull << (32 * mi + 16 * h + 2 * nt + j);
         }
       }
     }
   // the warp's marks: this lane's from slot `first` on, in order of e
   int first;
-  const int marks = list_marks(
+  const int marks = list_marks<FIX>(
       ties, fix_pn, first, [&](int e) { return (point(e) << 16) | column(e); });
 #pragma unroll
   for (int nt = 0; nt < 8; ++nt)
@@ -397,7 +430,7 @@ __device__ __forceinline__ void mma_epilogue(
   __syncthreads();
   for (int e = lane; e < marks; e += 32) {
     const int p = fix_pn[e] >> 16, n = fix_pn[e] & 0xffff;
-    const bf16* wr = w + 1LL * n * ld;
+    const T* wr = w + 1LL * n * ld;
     float s = 0.0f;
     for (int k = 0; k < K; k += 8) {
       float b[8];
@@ -406,7 +439,7 @@ __device__ __forceinline__ void mma_epilogue(
       for (int u = 0; u < 8; ++u)
         s = fmaf(to_f(g[(k + u) * TPG + p]), b[u], s);
     }
-    if (wsig != nullptr) s += to_f(from_f<bf16>(gsig[p])) * to_f(wsig[n]);
+    if (wsig != nullptr) s += to_f(from_f<T>(gsig[p])) * to_f(wsig[n]);
     fix_val[e] = s;
   }
   if (threadIdx.x < W)
@@ -420,33 +453,39 @@ __device__ __forceinline__ void mma_epilogue(
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt) {
         const int n = column(2 * nt);
-        const __nv_bfloat162 r = __floats2bfloat162_rn(
-            acc[mi][nt][2 * h], acc[mi][nt][2 * h + 1]);
+        const Pair r =
+            Pair16<T>::make(acc[mi][nt][2 * h], acc[mi][nt][2 * h + 1]);
         g[n * TPG + p] = r.x;
         g[(n + 1) * TPG + p] = r.y;
         if (p < n_valid)
-          *reinterpret_cast<__nv_bfloat162*>(gb + 1LL * p * GC + gcol + n) = r;
+          *reinterpret_cast<Pair*>(gb + 1LL * p * GC + gcol + n) = r;
       }
     }
-  for_marks(ties, first, [&](int e, int slot) {
+  for_marks<FIX>(ties, first, [&](int e, int slot) {
     const int p = point(e), n = column(e);
-    const bf16 r = from_f<bf16>(fix_val[slot]);
+    const T r = from_f<T>(fix_val[slot]);
     g[n * TPG + p] = r;
     if (p < n_valid) gb[1LL * p * GC + gcol + n] = r;
   });
+  if constexpr (F16) __syncthreads();  // the ring's marks are read
 }
 
 // One layer of the sweep: the dgrad product g_in = round(g_pre) @ W^T
 // over the g tile's first K rows (W's outputs; K = 0: no product, zeros),
-// 256 outputs (W's fan_in rows), and its epilogue.  bf16: on the tensor
+// 256 outputs (W's fan_in rows), and its epilogue.  16-bit: on the tensor
 // cores, from the packed weights wts at off (rows ld apart); f32: the
 // scalar loop, from the transposed weights wt at wt_off.  The overloads
 // follow the accumulator's shape.
+template <typename X>
+struct NoDeduce {  // a parameter that takes the type deduced elsewhere
+  using type = X;
+};
+template <typename T>
 __device__ __forceinline__ void sweep_layer(
-    float (&acc)[2][8][4], const bf16* wts, long long off, int ld,
-    const bf16*, long long, int K, bf16* act, bf16*, bf16* ring,
-    const bf16* st, int sc, int mcol, const float* gsig, const bf16* wsig,
-    bf16* gb, int gcol, float* red, float* bp, long long n_valid) {
+    float (&acc)[2][8][4], const T* wts, long long off, int ld, const T*,
+    long long, int K, T* act, T*, T* ring, const T* st, int sc, int mcol,
+    const float* gsig, typename NoDeduce<const T*>::type wsig, T* gb,
+    int gcol, float* red, float* bp, bool keep_sign, long long n_valid) {
   if (K > 0) {
     mma_dgrad(wts + off, ld, K, act, ring, acc);
   } else {
@@ -458,13 +497,13 @@ __device__ __forceinline__ void sweep_layer(
         for (int e = 0; e < 4; ++e) acc[mi][nt][e] = 0.0f;
   }
   mma_epilogue(acc, wts + off, ld, K, st, sc, mcol, gsig, wsig, act, gb, gcol,
-               red, bp, n_valid);
+               red, bp, ring, keep_sign, n_valid);
 }
 __device__ __forceinline__ void sweep_layer(
     float (&acc)[8][8], const float*, long long, int, const float* wt,
     long long wt_off, int K, float* act, float* ws, float*, const float* st,
     int sc, int mcol, const float* gsig, const float* wsig, float* gb,
-    int gcol, float* red, float* bp, long long n_valid) {
+    int gcol, float* red, float* bp, bool, long long n_valid) {
   if (K > 0) {
     dense_acc<Ref, float, W>(wt + wt_off, K, act, ROW_H, ws, acc);
   } else {
@@ -524,6 +563,10 @@ fused_nerf_dgrad_kernel(const float* __restrict__ x,
   constexpr int SC = SIGMA_ONLY ? SC_SIGMA : SC_RGB;
   constexpr bool DX = IN == IO_EMBEDDED;  // kernel H: dx too
   constexpr bool TC = kTensorCores<T>;
+  // the remat route's masks keep the sign of an activation that rounds to
+  // 0 (round_act): in fp16 only, where a positive activation below 2^-25
+  // does; bf16 keeps f32's range, so its kernels keep the plain code
+  constexpr bool KEEP_SIGN = REMAT && std::is_same<T, f16>::value;
   constexpr int LDA = Ref::lda<T>();  // the forward's activation pitch
   T* act = reinterpret_cast<T*>(smem);
   T* ws = act + Ref::act_elems<T>();
@@ -532,7 +575,8 @@ fused_nerf_dgrad_kernel(const float* __restrict__ x,
   float* red = grgb + 3 * TP;
   T* ring = TC ? ws : nullptr;
   // the gradient rows of the sweep, element (k, p) at gt[k * LDG + p]: in
-  // bf16 the padded g tile over the activation rows, in f32 act's h rows
+  // 16-bit types the padded g tile over the activation rows, in f32 act's h
+  // rows
   T* gt = TC ? act : act + ROW_H * TP;
   constexpr int LDG = TC ? TPG : TP;
   const int tid = threadIdx.x;
@@ -546,8 +590,9 @@ fused_nerf_dgrad_kernel(const float* __restrict__ x,
   if (REMAT) {
     // the stash rows are written and read back by this CTA only; the
     // barrier at the end of forward_tile orders them
-    forward_tile<Ref, T, SIGMA_ONLY, true, IN>(x, nullptr, wts, bias, P, p0,
-                                               smem, st, x_cols);
+    forward_tile<Ref, T, SIGMA_ONLY, true, IN, KEEP_SIGN>(x, nullptr, wts, bias,
+                                                          P, p0, smem, st,
+                                                          x_cols);
   } else {
     tile_input<Ref, T, IN>(x, x_cols, P, p0, act, ws, !SIGMA_ONLY);
   }
@@ -632,7 +677,8 @@ fused_nerf_dgrad_kernel(const float* __restrict__ x,
         for (int c = 0; c < 3; ++c)
           gd = fmaf(to_f(from_f<T>(grgb[c * TP + p])), wr[c], gd);
         const float d = to_f(gt[k * LDG + p]);
-        const float gdp = (p < n_valid && d > 0.0f) ? gd : 0.0f;
+        const float gdp =
+            (p < n_valid && act_positive(d, KEEP_SIGN)) ? gd : 0.0f;
         s += gdp;
         const T r = from_f<T>(gdp);
         gt[k * LDG + p] = r;
@@ -647,13 +693,14 @@ fused_nerf_dgrad_kernel(const float* __restrict__ x,
     }
     // g_fin = round(g_dpre) @ Wdir[:W]^T (no activation on fin)
     sweep_layer(acc, wts, OFF_DIR, WH, wt, WT_DIR, WH, act, ws, ring, st, SC,
-                -1, nullptr, nullptr, gb, G_FIN, red, bp + BOFF_FIN, n_valid);
+                -1, nullptr, nullptr, gb, G_FIN, red, bp + BOFF_FIN, KEEP_SIGN,
+                n_valid);
   }
   // g_pre of layer 7 = (round(g_fin) @ Wfin^T + round(g_sigma) * Wsig) *
   // (h8 > 0); sigma-only: the sigma term alone
   sweep_layer(acc, wts, OFF_FIN, W, wt, WT_FIN, SIGMA_ONLY ? 0 : W, act, ws,
               ring, st, SC, (D - 1) * W, gsig, wts + OFF_SIG, gb, (D - 1) * W,
-              red, bp + (D - 1) * W, n_valid);
+              red, bp + (D - 1) * W, KEEP_SIGN, n_valid);
   for (int i = D - 1; i >= 1; --i) {
     if constexpr (DX) {
       if (i == SKIP) {  // dx's xyz columns, the skip term
@@ -666,7 +713,7 @@ fused_nerf_dgrad_kernel(const float* __restrict__ x,
     sweep_layer(acc, wts, layer_off(i) + (i == SKIP ? 1LL * CX * W : 0), W,
                 wt, 1LL * (i - 1) * W * W, W, act, ws, ring, st, SC,
                 (i - 1) * W, nullptr, nullptr, gb, (i - 1) * W, red,
-                bp + (i - 1) * W, n_valid);
+                bp + (i - 1) * W, KEEP_SIGN, n_valid);
   }
   if constexpr (DX) {  // + layer 0's term, round(g_pre_0) @ W_0^T
     float ax[8][DXC / 32];
@@ -762,7 +809,7 @@ fused_nerf_wgrad_kernel(const T* __restrict__ stash,
   }
 }
 
-// The bf16 wgrad on the tensor cores: a TK x TN output tile a CTA, warp
+// The 16-bit wgrad on the tensor cores: a TK x TN output tile a CTA, warp
 // (wm, wn) = (warp / 4, warp % 4) owning rows [64 wm, 64 wm + 64) and
 // columns [32 wn, 32 wn + 32) (acc[mi][nt]: the m16n8 tile at row 64 wm +
 // 16 mi, column 32 wn + 8 nt).  The point range goes in slabs of TPS
@@ -773,17 +820,18 @@ fused_nerf_wgrad_kernel(const T* __restrict__ stash,
 // and its B operand g_pre, both read by ldmatrix.trans from the slabs.
 constexpr int TK = 128, TN = 128, TPS = 32, TLD = 128 + 8, WSTAGES = 4;
 constexpr size_t WGRAD_SMEM = sizeof(bf16) * WSTAGES * 2 * TPS * TLD;
+static_assert(sizeof(f16) == sizeof(bf16), "one ring for both 16-bit types");
 static_assert(TPS == WP, "the wgrad kernels split the points alike");
 
-template <int SC>
+template <typename T, int SC>
 __global__ void __launch_bounds__(256, 2)
-fused_nerf_wgrad_mma_kernel(const bf16* __restrict__ stash,
-                            const bf16* __restrict__ gbuf,
+fused_nerf_wgrad_mma_kernel(const T* __restrict__ stash,
+                            const T* __restrict__ gbuf,
                             long long n_points, WJobs jobs,
                             float* __restrict__ part) {
   extern __shared__ __align__(16) unsigned char smem[];
   // slab b: As[b] (a_in) then Gs[b] (g_pre), TPS rows of TLD each
-  auto As = reinterpret_cast<bf16(*)[TPS][TLD]>(smem);
+  auto As = reinterpret_cast<T(*)[TPS][TLD]>(smem);
   auto Gs = As + WSTAGES;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp >> 2, wn = warp & 3;
@@ -793,9 +841,9 @@ fused_nerf_wgrad_mma_kernel(const bf16* __restrict__ stash,
       ((n_points + gridDim.y - 1) / gridDim.y + TPS - 1) / TPS * TPS;
   const long long pb = blockIdx.y * per;
   const long long pe = min(n_points, pb + per);
-  const bf16* A = (jb.a_in_g ? gbuf : stash) + jb.a_col + k0;
+  const T* A = (jb.a_in_g ? gbuf : stash) + jb.a_col + k0;
   const long long lda = jb.a_in_g ? GC : SC;
-  const bf16* G = gbuf + jb.g_col + n0;
+  const T* G = gbuf + jb.g_col + n0;
   const int live_k = jb.K - k0, live_n = jb.N - n0;  // columns in the tile
   const int n_slabs = pe > pb ? static_cast<int>((pe - pb + TPS - 1) / TPS) : 0;
 
@@ -814,12 +862,12 @@ fused_nerf_wgrad_mma_kernel(const bf16* __restrict__ stash,
         const int pp = r / (TK / 8), c = (r % (TK / 8)) * 8;
         const long long p = q0 + pp;
         const int live = is_g ? live_n : live_k;
-        const bf16* src = is_g ? G + p * GC + c : A + p * lda + c;
-        bf16* dst = is_g ? &Gs[b][pp][c] : &As[b][pp][c];
+        const T* src = is_g ? G + p * GC + c : A + p * lda + c;
+        T* dst = is_g ? &Gs[b][pp][c] : &As[b][pp][c];
         const int n_live = p < pe ? max(0, min(8, live - c)) : 0;
         // a dead vector reads nothing; its address is any valid one
         mma::cp_async16_zfill(dst, n_live ? src : G,
-                              static_cast<int>(sizeof(bf16)) * n_live);
+                              static_cast<int>(sizeof(T)) * n_live);
       }
     }
     mma::cp_async_commit();
@@ -863,7 +911,7 @@ fused_nerf_wgrad_mma_kernel(const bf16* __restrict__ stash,
                   [wm * 64 + mi * 16 + ((lane >> 3) & 1) * 8]);
 #pragma unroll
         for (int nt = 0; nt < 4; ++nt)
-          mma::mma_bf16(acc[mi][nt], a, bf[nt][0], bf[nt][1]);
+          mma::mma16<T>(acc[mi][nt], a, bf[nt][0], bf[nt][1]);
       }
     }
   }
@@ -880,7 +928,7 @@ fused_nerf_wgrad_mma_kernel(const bf16* __restrict__ stash,
       }
 }
 
-// The bf16 wgrad of the narrow heads (sigma, N = 1; rgb, N = 3), one job a
+// The 16-bit wgrad of the narrow heads (sigma, N = 1; rgb, N = 3), one job a
 // CTA column: warp w sums the w-th eighth of the CTA's point range in order
 // of p, one fused multiply-add a term, lane l owning rows k = 8 l .. 8 l + 7
 // of the job's dW (K <= 256): a point's a_in row is one 16-byte vector a
@@ -889,10 +937,10 @@ fused_nerf_wgrad_mma_kernel(const bf16* __restrict__ stash,
 // the eight warps' sums are added in order of w.
 constexpr int NARROW_N = 4;
 
-template <int SC>
+template <typename T, int SC>
 __global__ void __launch_bounds__(256)
-fused_nerf_wgrad_narrow_kernel(const bf16* __restrict__ stash,
-                               const bf16* __restrict__ gbuf,
+fused_nerf_wgrad_narrow_kernel(const T* __restrict__ stash,
+                               const T* __restrict__ gbuf,
                                long long n_points, WJobs jobs,
                                float* __restrict__ part) {
   __shared__ float sums[8][256 * NARROW_N];
@@ -905,9 +953,9 @@ fused_nerf_wgrad_narrow_kernel(const bf16* __restrict__ stash,
   const long long sub = pe > pb ? (pe - pb + 7) / 8 : 0;
   const long long q0 = pb + warp * sub, q1 = min(pe, q0 + sub);
   const bool live = 8 * lane < jb.K;
-  const bf16* A = (jb.a_in_g ? gbuf : stash) + jb.a_col + 8 * lane;
+  const T* A = (jb.a_in_g ? gbuf : stash) + jb.a_col + 8 * lane;
   const long long lda = jb.a_in_g ? GC : SC;
-  const bf16* G = gbuf + jb.g_col;
+  const T* G = gbuf + jb.g_col;
   float acc[8][NARROW_N];
 #pragma unroll
   for (int c = 0; c < 8; ++c)
@@ -959,8 +1007,8 @@ reduce_rows_kernel(const float* __restrict__ part, int rows, long long n,
 
 // The wrapper's job table, JOB_FIELDS values a job: (a_in_g, a_col, K,
 // g_col, N, out, route), split by route: ROUTE_SCALAR (f32 only: WK x WN
-// tiles), ROUTE_TC (bf16 only: TK x TN tiles on the tensor cores, 16-byte
-// aligned columns) and ROUTE_NARROW (bf16 only: N <= NARROW_N, K <= 256
+// tiles), ROUTE_TC (16-bit only: TK x TN tiles on the tensor cores, 16-byte
+// aligned columns) and ROUTE_NARROW (16-bit only: N <= NARROW_N, K <= 256
 // and a multiple of 8, 16-byte aligned a_in and 8-byte aligned g_pre
 // columns; one CTA column a job).  Each job's columns must lie in its rows
 // and its output block in the packed weights.
@@ -971,7 +1019,7 @@ struct JobLists {
   WJobs by_route[3];
 };
 
-int split_jobs(const long long* table, int n, bool bf16_route, int sc,
+int split_jobs(const long long* table, int n, bool tc_type, int sc,
                JobLists& lists) {
   lists = JobLists{};
   for (int i = 0; i < n; ++i) {
@@ -980,7 +1028,7 @@ int split_jobs(const long long* table, int n, bool bf16_route, int sc,
     const long long a_end = f[1] + f[2], lda = f[0] ? GC : sc;
     const bool bad_route =
         route < ROUTE_SCALAR || route > ROUTE_NARROW ||
-        (route == ROUTE_SCALAR) == bf16_route ||
+        (route == ROUTE_SCALAR) == tc_type ||
         (route == ROUTE_TC && (f[1] % 8 || f[3] % 8)) ||
         (route == ROUTE_NARROW &&
          (f[4] > NARROW_N || f[2] > 256 || f[2] % 8 || f[1] % 8 || f[3] % 4 ||
@@ -1057,7 +1105,7 @@ int run(const BwdArgs& a, cudaStream_t s) {
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   if constexpr (kTensorCores<T>) {
-    err = cudaFuncSetAttribute(fused_nerf_wgrad_mma_kernel<SC>,
+    err = cudaFuncSetAttribute(fused_nerf_wgrad_mma_kernel<T, SC>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(WGRAD_SMEM));
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -1082,14 +1130,14 @@ int run(const BwdArgs& a, cudaStream_t s) {
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
     if constexpr (kTensorCores<T>) {
       if (tc.n) {
-        fused_nerf_wgrad_mma_kernel<SC>
+        fused_nerf_wgrad_mma_kernel<T, SC>
             <<<dim3(tc.tiles, a.split), 256, WGRAD_SMEM, s>>>(st, gbuf, n, tc,
                                                              wpart);
         if ((err = cudaGetLastError()) != cudaSuccess)
           return static_cast<int>(err);
       }
       if (narrow.n) {
-        fused_nerf_wgrad_narrow_kernel<SC>
+        fused_nerf_wgrad_narrow_kernel<T, SC>
             <<<dim3(narrow.n, a.split), 256, 0, s>>>(st, gbuf, n, narrow,
                                                      wpart);
         if ((err = cudaGetLastError()) != cudaSuccess)
@@ -1137,6 +1185,29 @@ int run_io(int io, int sigma_only, int remat, const BwdArgs& a,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// the weight types of MASK (NERF_DTYPES) that this library is built for
+template <int MASK>
+int run_dtype(int dtype, int io, int sigma_only, int remat, const BwdArgs& a,
+              cudaStream_t s) {
+  switch (dtype) {
+    case DTYPE_F32:
+      if constexpr ((MASK >> DTYPE_F32) & 1)
+        return run_io<float>(io, sigma_only, remat, a, s);
+      break;
+    case DTYPE_BF16:
+      if constexpr ((MASK >> DTYPE_BF16) & 1)
+        return run_io<bf16>(io, sigma_only, remat, a, s);
+      break;
+    case DTYPE_F16:
+      if constexpr ((MASK >> DTYPE_F16) & 1)
+        return run_io<f16>(io, sigma_only, remat, a, s);
+      break;
+    default:
+      break;
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 extern "C" {
@@ -1164,8 +1235,10 @@ int nerf_bwd_g_layout(int i) {
 // stash: a (chunk, SC) scratch) with io = 0 (x, g (8, P)); with io = 1, E'
 // and F' (x and g (P, 8), 16-byte aligned); with io = 2 and remat = 1,
 // kernel H (x (P, x_cols) pre-embedded, x_cols 63 or 90; g (P, 8), 16-byte
-// aligned; wx (N_WX) in T; dx (P, x_cols) f32, zeroed).  w (N_WEIGHTS) in T
-// (bf16 = 1) or f32; wt (N_WT) in f32 (null in bf16); b (N_BIASES) f32.
+// aligned; wx (N_WX) in T; dx (P, x_cols) f32, zeroed).  w (N_WEIGHTS) in T,
+// the weight type named by dtype (DTYPE_F32, DTYPE_BF16 or DTYPE_F16, of
+// those NERF_DTYPES builds; any other code is refused); wt (N_WT) in f32
+// (null in the 16-bit types); b (N_BIASES) f32.
 // jobs: n_jobs rows of JOB_FIELDS (host memory), the weight-grad products.
 // Workspace: gbuf (chunk, GC) T, wpart (split, N_WEIGHTS) f32, bpart
 // (ceil(chunk / TP), N_BIASES) f32, btmp (ceil(ceil(chunk / TP) /
@@ -1174,7 +1247,7 @@ int nerf_bwd_g_layout(int i) {
 // partials for the heads past sigma).
 int nerf_fused_bwd(const void* x, const void* g, const void* w,
                    const void* b, const void* wt, long long P, int sigma_only,
-                   int bf16, int remat, int io, void* stash, void* gbuf,
+                   int dtype, int remat, int io, void* stash, void* gbuf,
                    void* wpart, void* bpart, void* btmp, void* dw, void* db,
                    long long chunk, int split, int x_cols, const void* wx,
                    void* dx, const long long* jobs, int n_jobs,
@@ -1182,8 +1255,7 @@ int nerf_fused_bwd(const void* x, const void* g, const void* w,
   auto s = static_cast<cudaStream_t>(stream);
   const BwdArgs a{x, g, w, b, wt, P, stash, gbuf, wpart, bpart, btmp,
                   dw, db, chunk, split, x_cols, wx, dx, jobs, n_jobs};
-  if (bf16) return run_io<__nv_bfloat16>(io, sigma_only, remat, a, s);
-  return run_io<float>(io, sigma_only, remat, a, s);
+  return run_dtype<NERF_DTYPES>(dtype, io, sigma_only, remat, a, s);
 }
 
 }  // extern "C"

@@ -6,6 +6,11 @@
 // products (the forward's and the backward's dgrad sweep).  See
 // fused_mlp.cu for the numerics and the design.
 //
+// The weight type T is float, __nv_bfloat16 or __half.  The two 16-bit
+// types run the same tensor-core code (mma.sync m16n8k16 takes either, with
+// the same fragments); they differ in the instruction's element type, the
+// conversions, and where their rounding ties lie (near_tie below).
+//
 // The network's geometry is a template parameter (struct Net): the trunk
 // width W and the points per warp PPW (a CTA's tile is TP = 8 * PPW points).
 // Kernels C-F and H run the reference geometry Ref = Net<256, 8>; kernel G
@@ -13,6 +18,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -23,10 +29,12 @@
 namespace nerf {
 
 using bf16 = __nv_bfloat16;
-// bf16 products run on the tensor cores (mma.sync); f32 keeps the scalar
+using f16 = __half;
+// 16-bit products run on the tensor cores (mma.sync); f32 keeps the scalar
 // FMA loops, whose limits TF32 would break
 template <typename T>
-constexpr bool kTensorCores = std::is_same<T, bf16>::value;
+constexpr bool kTensorCores =
+    std::is_same<T, bf16>::value || std::is_same<T, f16>::value;
 
 constexpr int CX = 63, CD = 27, D = 8, SKIP = 4;
 constexpr int THREADS = 256;  // 8 warps; warp w owns points [PPW w, PPW w + PPW)
@@ -34,6 +42,7 @@ constexpr int THREADS = 256;  // 8 warps; warp w owns points [PPW w, PPW w + PPW
 template <typename T> struct Cfg;  // KC: weight rows per shared stage
 template <> struct Cfg<float> { static constexpr int KC = 16; };
 template <> struct Cfg<__nv_bfloat16> { static constexpr int KC = 32; };
+template <> struct Cfg<__half> { static constexpr int KC = 32; };
 
 // Weight buffer: W_0..W_7, Wsig, Wfin, Wdir, Wrgb, each (fan_in, fan_out)
 // row-major, concatenated.  Bias buffer (f32): b_0..b_7, bsig, bfin, bdir,
@@ -75,8 +84,8 @@ struct Net {
                     block_off(W_, 1) % 8 == 0 &&
                     block_off(W_, SKIP + 1) % 8 == 0,
                 "16-byte aligned weight blocks");
-  // The bf16 tile on the tensor cores: the activation rows padded to LDA_MMA
-  // points (ldmatrix.trans reads eight rows 16 (TP = 64) or 8 (TP = 32)
+  // The 16-bit tile on the tensor cores: the activation rows padded to
+  // LDA_MMA points (ldmatrix.trans reads eight rows 16 (TP = 64) or 8 (TP = 32)
   // bytes past a multiple of 128 apart: distinct banks), their count to a
   // multiple of 16 (a product's last 16-row step stays inside the rows);
   // the weights stream through a ring of STAGES stages of KC_MMA rows, each
@@ -104,7 +113,7 @@ struct Net {
     return kTensorCores<T> ? STAGES * SLOT : Cfg<T>::KC * W;
   }
   // shared memory: the activation rows, the weight stage (f32: KC rows of
-  // the widest product; bf16: the ring), then 4 f32 rows of TP (sigma, rgb)
+  // the widest product; 16-bit: the ring), then 4 f32 rows of TP (sigma, rgb)
   template <typename T>
   __host__ __device__ static constexpr size_t smem_bytes() {
     return sizeof(T) * (act_elems<T>() + ws_elems<T>()) +
@@ -118,6 +127,18 @@ using Ref = Net<256, 8>;
 // and every product is still accumulated in one pass.
 template <int Width>
 using Wide = Net<Width, (Width <= 256 ? 8 : 4)>;
+
+// The weight type's code at the C interface (ops/fused_mlp.py DTYPE_CODES).
+enum DType : int { DTYPE_F32 = 0, DTYPE_BF16 = 1, DTYPE_F16 = 2 };
+// The weight types a library is built for, a bitmask of 1 << DType: the
+// build (ops/native.py) compiles each fused source into a library of f32
+// and bf16 kernels (3) and one of fp16 kernels (4), in parallel; a code the
+// library is not built for is refused as any unknown code.
+#if !defined(NERF_DTYPES) || (NERF_DTYPES != 3 && NERF_DTYPES != 4)
+#error "NERF_DTYPES must be 3 (f32 and bf16) or 4 (fp16): see ops/native.py"
+#endif
+template <int DT>
+constexpr bool kBuilt = ((NERF_DTYPES) >> DT) & 1;
 
 // The reference geometry's names, used by kernels C-F and H.
 constexpr int W = Ref::W, WH = Ref::WH, TP = Ref::TP;
@@ -157,6 +178,7 @@ __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) {
   return v;
@@ -164,10 +186,70 @@ template <> __device__ __forceinline__ float from_f<float>(float v) {
 template <> __device__ __forceinline__ __nv_bfloat16 from_f(float v) {
   return __float2bfloat16_rn(v);
 }
+// round to nearest even, fp16 subnormals kept and past 65,504 inf, as
+// astype(float16) rounds (nvcc without fast math keeps the subnormals)
+template <> __device__ __forceinline__ __half from_f(float v) {
+  return __float2half_rn(v);
+}
+
+// a pair of 16-bit values (a 4-byte store), and two floats rounded into one
+template <typename T> struct Pair16;
+template <> struct Pair16<__nv_bfloat16> {
+  using type = __nv_bfloat162;
+  __device__ static type make(float a, float b) {
+    return __floats2bfloat162_rn(a, b);
+  }
+};
+template <> struct Pair16<__half> {
+  using type = __half2;
+  __device__ static type make(float a, float b) {
+    return __floats2half2_rn(a, b);
+  }
+};
+
+// The remat route's scratch stash (kernels F, F' and H in fp16) must keep,
+// for the backward's ReLU masks, which activations were positive before
+// rounding: JAX's remat backward reads its masks from the f32 recompute
+// (_acts_accessors), its stash backward from the rounded stash, and in fp16
+// a positive activation below 2^-25 rounds to 0 (bf16 keeps f32's range).
+// With KEEP_SIGN such an activation is stored as -0: an operand of 0 all
+// the same (the wgrad and the next product add nothing for it), and a mask
+// of 1 (act_positive).
+template <typename T, bool KEEP_SIGN>
+__device__ __forceinline__ T round_act(float v) {
+  T r = from_f<T>(v);
+  if constexpr (KEEP_SIGN) {
+    if (v == 0.0f)
+      r = from_f<T>(0.0f);  // a zero of either sign is +0: not positive
+    else if (v > 0.0f && to_f(r) == 0.0f)
+      r = from_f<T>(-0.0f);
+  }
+  return r;
+}
+template <typename T, bool KEEP_SIGN>
+__device__ __forceinline__ typename Pair16<T>::type round_pair(float a,
+                                                              float b) {
+  auto r = Pair16<T>::make(a, b);
+  if constexpr (KEEP_SIGN) {
+    r.x = round_act<T, true>(a);
+    r.y = round_act<T, true>(b);
+  }
+  return r;
+}
+// the backward's ReLU mask of a stashed activation m: m > 0, and with
+// keep_sign (the remat route) also m = -0 (round_act)
+__device__ __forceinline__ bool act_positive(float m, bool keep_sign) {
+  return m > 0.0f || (keep_sign && __float_as_uint(m) == 0x80000000u);
+}
 
 __device__ __forceinline__ void unpack2(uint32_t u, float& lo, float& hi) {
   lo = __uint_as_float(u << 16);
   hi = __uint_as_float(u & 0xffff0000u);
+}
+__device__ __forceinline__ void unpack2h(uint32_t u, float& lo, float& hi) {
+  const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&u));
+  lo = f.x;
+  hi = f.y;
 }
 
 // n consecutive values of T -> f32 (one warp's points, or one lane's
@@ -183,6 +265,11 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&a)[8]) {
   unpack2(u.x, a[0], a[1]); unpack2(u.y, a[2], a[3]);
   unpack2(u.z, a[4], a[5]); unpack2(u.w, a[6], a[7]);
 }
+__device__ __forceinline__ void load8(const __half* p, float (&a)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  unpack2h(u.x, a[0], a[1]); unpack2h(u.y, a[2], a[3]);
+  unpack2h(u.z, a[4], a[5]); unpack2h(u.w, a[6], a[7]);
+}
 __device__ __forceinline__ void load4(const float* p, float (&b)[4]) {
   const float4 u = *reinterpret_cast<const float4*>(p);
   b[0] = u.x; b[1] = u.y; b[2] = u.z; b[3] = u.w;
@@ -191,12 +278,19 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&b)[4]) {
   const uint2 u = *reinterpret_cast<const uint2*>(p);
   unpack2(u.x, b[0], b[1]); unpack2(u.y, b[2], b[3]);
 }
+__device__ __forceinline__ void load4(const __half* p, float (&b)[4]) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  unpack2h(u.x, b[0], b[1]); unpack2h(u.y, b[2], b[3]);
+}
 __device__ __forceinline__ void load2(const float* p, float (&b)[2]) {
   const float2 u = *reinterpret_cast<const float2*>(p);
   b[0] = u.x; b[1] = u.y;
 }
 __device__ __forceinline__ void load2(const __nv_bfloat16* p, float (&b)[2]) {
   unpack2(*reinterpret_cast<const uint32_t*>(p), b[0], b[1]);
+}
+__device__ __forceinline__ void load2(const __half* p, float (&b)[2]) {
+  unpack2h(*reinterpret_cast<const uint32_t*>(p), b[0], b[1]);
 }
 template <typename T>
 __device__ __forceinline__ void loadv(const T* p, float (&a)[8]) { load8(p, a); }
@@ -209,13 +303,20 @@ __device__ __forceinline__ void loadv(const T* p, float (&a)[2]) { load2(p, a); 
 __device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
 }
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+template <typename T16>
+__device__ __forceinline__ void store4_16(T16* p, const float (&v)[4]) {
+  auto lo = Pair16<T16>::make(v[0], v[1]);
+  auto hi = Pair16<T16>::make(v[2], v[3]);
   uint2 u;
   u.x = *reinterpret_cast<uint32_t*>(&lo);
   u.y = *reinterpret_cast<uint32_t*>(&hi);
   *reinterpret_cast<uint2*>(p) = u;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
+  store4_16(p, v);
+}
+__device__ __forceinline__ void store4(__half* p, const float (&v)[4]) {
+  store4_16(p, v);
 }
 
 // How a product's N output columns are spread over a warp's lanes: in
@@ -361,12 +462,78 @@ __device__ __forceinline__ bool near_tie(float v, float floor = 0.0f) {
          fabsf(v) < 256.0f * floor || fabsf(v - tie) < floor;
 }
 
+// The same rule for fp16, whose grid is another: a normal value (|v| >=
+// 2^-14) keeps 10 of f32's 23 mantissa bits, so its step is 2^13 f32 ulps
+// (bf16's 2^16) and its own tie is v's bits with the low 13 set to 0x1000;
+// below 2^-14 the subnormals step by 2^-24 whatever v's exponent; and past
+// 65,504 the next boundary is 65,520, above which astype(float16) gives
+// inf.  So the fp16 rule measures v's distance to both boundaries of its
+// rounding interval: the midpoints between v's rounded value r and r's two
+// fp16 neighbours (exact in f32: two neighbouring fp16 values and their sum
+// carry at most 12 significant bits), 65,520 above 65,504, and the
+// symmetric -2^-25 below r = 0.  An output is marked where the nearer
+// boundary lies within TIE_ULPS f32 ulps of v or within the floor (which
+// also covers bf16's "below 256 floors" clause: that clause stands for the
+// neighbouring interval's tie, which is measured here).  The margins are
+// bf16's, taken in f32 ulps and in the warp's largest |output|: they bound
+// the distance between the two f32 sum orders, which the format does not
+// change.  What changes is how many outputs fall inside them: 2 TIE_ULPS
+// of every 2^13 ulps, 1/16 of the normal outputs against bf16's 1/128, so
+// a warp lists up to FIXW_F16 marks a product (a 256-column product gives a
+// warp 2,048 outputs: 128 marks in the mean; the floor adds the outputs
+// below about 2^-9 of the block's largest, where fp16 steps are finer than
+// twice the floor).  Its marks go to the idle weight ring (the forward) or
+// the idle dgrad ring (the sweep), which hold them at every width.
+constexpr int FIXW_F16 = 320;
+static_assert(2 * TIE_ULPS < (1u << 13) / 8,
+              "the fp16 window is a small part of the fp16 step");
+static_assert(2 * 2048 * (2 * TIE_ULPS) / (1u << 13) <= FIXW_F16,
+              "FIXW_F16 lists twice a 256-column product's mean marks");
+static_assert(2048.0f * TIE_FLOOR == 1.0f / 512.0f,
+              "fp16 steps (2^-10 |v| at most) are finer than twice the floor "
+              "below 2^11 floors, 2^-9 of the block's largest |output|");
+
+__device__ __forceinline__ bool near_tie_f16(float v, float floor) {
+  const float a = fabsf(v);
+  const unsigned short h = __half_as_ushort(__float2half_rn(a));
+  float lo, hi;  // the boundaries of a's rounding interval
+  if (h >= 0x7c00u) {  // inf (a NaN is never marked: its gap is NaN)
+    lo = 65520.0f;
+    hi = __int_as_float(0x7f800000);
+  } else {
+    const float r = __half2float(__ushort_as_half(h));
+    hi = h == 0x7bffu
+             ? 65520.0f
+             : 0.5f * (r + __half2float(__ushort_as_half(
+                               static_cast<unsigned short>(h + 1))));
+    lo = h == 0 ? -hi
+                : 0.5f * (r + __half2float(__ushort_as_half(
+                                  static_cast<unsigned short>(h - 1))));
+  }
+  const float gap = fminf(hi - a, a - lo);
+  // TIE_ULPS f32 ulps of a: 2^(e - 23) each for a in [2^e, 2^(e + 1))
+  const float ulps = __uint_as_float(__float_as_uint(a) & 0x7f800000u) *
+                     (static_cast<float>(TIE_ULPS) / 8388608.0f);
+  return gap < fmaxf(ulps, floor);
+}
+
+// The rule and the list's size for the weight type T (bf16 or fp16).
+template <typename T>
+__device__ __forceinline__ bool near_tie_t(float v, float floor = 0.0f) {
+  if constexpr (std::is_same<T, f16>::value)
+    return near_tie_f16(v, floor);
+  else
+    return near_tie(v, floor);
+}
+template <typename T>
+constexpr int kFixW = std::is_same<T, f16>::value ? FIXW_F16 : FIXW;
+
 // The warp's list of marks.  ties: this lane's marked outputs e (bit e % 64
 // of word e / 64).  The lanes' marks are numbered by a prefix sum over the
 // lanes, lane l's from slot `first` on in order of e, and fix_pn[slot] =
-// pn(e) for every slot below FIXW.  Returns the warp's count of listed
-// marks (at most FIXW).
-template <int MW, class PN>
+// pn(e) for every slot below CAP (kFixW of the weight type).  Returns the
+// warp's count of listed marks (at most CAP).
+template <int CAP, int MW, class PN>
 __device__ __forceinline__ int list_marks(const unsigned long long (&ties)[MW],
                                           int* fix_pn, int& first, PN pn) {
   const int lane = threadIdx.x & 31;
@@ -384,25 +551,25 @@ __device__ __forceinline__ int list_marks(const unsigned long long (&ties)[MW],
 #pragma unroll
   for (int w = 0; w < MW; ++w) {
     unsigned long long rest = ties[w];
-    for (; rest != 0 && slot < FIXW; ++slot) {
+    for (; rest != 0 && slot < CAP; ++slot) {
       const int e = 64 * w + __ffsll(static_cast<long long>(rest)) - 1;
       rest &= rest - 1;
       fix_pn[slot] = pn(e);
     }
   }
-  return min(__shfl_sync(0xffffffffu, upto, 31), FIXW);
+  return min(__shfl_sync(0xffffffffu, upto, 31), CAP);
 }
 
 // f(e, slot) for each of this lane's listed marks, in the order and slots
 // of list_marks.
-template <int MW, class F>
+template <int CAP, int MW, class F>
 __device__ __forceinline__ void for_marks(const unsigned long long (&ties)[MW],
                                           int first, F f) {
   int slot = first;
 #pragma unroll
   for (int w = 0; w < MW; ++w) {
     unsigned long long rest = ties[w];
-    for (; rest != 0 && slot < FIXW; ++slot) {
+    for (; rest != 0 && slot < CAP; ++slot) {
       const int e = 64 * w + __ffsll(static_cast<long long>(rest)) - 1;
       rest &= rest - 1;
       f(e, slot);
@@ -410,14 +577,14 @@ __device__ __forceinline__ void for_marks(const unsigned long long (&ties)[MW],
   }
 }
 
-// The bf16 product of a tile on the tensor cores (mma.sync m16n8k16, bf16
-// operands, f32 sums): the TP x K activation block (rows [in_row, in_row +
-// K) of act, feature-major, pitch LDA_MMA) times w (K x N row-major, the
+// The 16-bit product of a tile on the tensor cores (mma.sync m16n8k16, bf16 or
+// fp16 operands, f32 sums): the TP x K activation block (rows [in_row, in_row
+// + K) of act, feature-major, pitch LDA_MMA) times w (K x N row-major, the
 // packed layout).  Warp (wm, wn) = (warp / 4, warp % 4) owns points [TP / 2
-// wm, TP / 2 (wm + 1)) and columns [N / 4 wn, N / 4 (wn + 1)); acc[mi][nt]
-// is the m16n8 tile at point TP / 2 wm + 16 mi, column N / 4 wn + 8 nt:
-// lane t holds its points t / 4 (acc[..][0], [1]) and t / 4 + 8 ([2],
-// [3]), columns 2 (t % 4) and 2 (t % 4) + 1.
+// wm, TP / 2 (wm + 1)) and columns [N / 4 wn, N / 4 (wn + 1)); acc[mi][nt] is
+// the m16n8 tile at point TP / 2 wm + 16 mi, column N / 4 wn + 8 nt: lane t
+// holds its points t / 4 (acc[..][0], [1]) and t / 4 + 8 ([2], [3]), columns
+// 2 (t % 4) and 2 (t % 4) + 1.
 template <class Geo, int N>
 struct MmaTile {
   static_assert(N % 64 == 0 && Geo::TP % 32 == 0, "whole 16 x 16 pairs");
@@ -444,10 +611,10 @@ struct MmaTile {
 // K are zeroed in registers (the rows there may hold anything).  Each
 // 16-term tensor-core sum starts from zero and is added to acc in f32.
 // Ends with a barrier: every read of the input rows and the ring is done.
-template <class Geo, int N>
+template <class Geo, typename T, int N>
 __device__ __forceinline__ void mma_product(
-    const bf16* __restrict__ w, int K, const bf16* act, int in_row,
-    bf16* ring, float (&acc)[MmaTile<Geo, N>::MI][MmaTile<Geo, N>::NT][4]) {
+    const T* __restrict__ w, int K, const T* act, int in_row, T* ring,
+    float (&acc)[MmaTile<Geo, N>::MI][MmaTile<Geo, N>::NT][4]) {
   using Tile = MmaTile<Geo, N>;
   constexpr int MI = Tile::MI, NT = Tile::NT, NPITCH = Tile::NPITCH;
   constexpr int LDA = Geo::LDA_MMA, KC = Geo::KC_MMA, S = Geo::STAGES;
@@ -462,7 +629,7 @@ __device__ __forceinline__ void mma_product(
   const int n_stages = (K + KC - 1) / KC;
   auto stage = [&](int s) {
     if (s < n_stages) {
-      bf16* buf = ring + (s % S) * Geo::SLOT;
+      T* buf = ring + (s % S) * Geo::SLOT;
       for (int i = threadIdx.x; i < KC * (N / 8); i += THREADS) {
         const int r = i / (N / 8), c = (i - r * (N / 8)) * 8;
         const int k = s * KC + r;
@@ -479,7 +646,7 @@ __device__ __forceinline__ void mma_product(
   // rows k+8..k+15; B (k x n) of two n8 tiles: lanes 0-7 rows k..k+7 at
   // columns +0, 8-15 rows k+8..k+15, 16-31 the same at columns +8; .trans
   // turns both row-major blocks into the fragments
-  const bf16* abase = act + ((lane & 7) + ((lane >> 4) & 1) * 8) * LDA +
+  const T* abase = act + ((lane & 7) + ((lane >> 4) & 1) * 8) * LDA +
                       wm * (Geo::TP / 2) + ((lane >> 3) & 1) * 8;
   const int boff = ((lane & 7) + ((lane >> 3) & 1) * 8) * NPITCH +
                    wn * (N / 4) + (lane >> 4) * 8;
@@ -490,7 +657,7 @@ __device__ __forceinline__ void mma_product(
     // s - 1, whose slot the next stage fills
     __syncthreads();
     stage(s + S - 1);
-    const bf16* wb = ring + (s % S) * Geo::SLOT;
+    const T* wb = ring + (s % S) * Geo::SLOT;
 #pragma unroll
     for (int ks = 0; ks < KC; ks += 16) {
       const int k = s * KC + ks;
@@ -518,8 +685,8 @@ __device__ __forceinline__ void mma_product(
         for (int mi = 0; mi < MI; ++mi) {
           float t0[4] = {0.0f, 0.0f, 0.0f, 0.0f};
           float t1[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-          mma::mma_bf16(t0, a[mi], b[0], b[1]);
-          mma::mma_bf16(t1, a[mi], b[2], b[3]);
+          mma::mma16<T>(t0, a[mi], b[0], b[1]);
+          mma::mma16<T>(t1, a[mi], b[2], b[3]);
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             acc[mi][2 * np][e] += t0[e];
@@ -532,41 +699,43 @@ __device__ __forceinline__ void mma_product(
   __syncthreads();  // every warp is done with the ring and the input rows
 }
 
-// dense's bf16 counterpart on the tensor cores: act rows [out_row, out_row
+// dense's 16-bit counterpart on the tensor cores: act rows [out_row, out_row
 // + N) = act(rows [in_row, in_row + K)) @ w + bias, optional ReLU, rounded
-// to bf16, and with a stash each point's rounded outputs to its stash row
-// at column scol (points past P are not stored).  Three phases around the
-// product: (A) bias and ReLU into acc, and a tie bit for each output near a
-// bf16 tie (the warp's marks listed in the idle ring); (B) each warp
-// recomputes its marked outputs in k order from the input rows, still in
-// place, and w (device memory); a barrier, after which the outputs may
-// overwrite the inputs; (C) the rounded outputs to act and the stash in the
-// fragment's column pairs, then each thread's marked outputs over them from
-// (B).  The tie floor is TIE_FLOOR times the warp's largest |x| (x = acc +
+// to T (bf16 or fp16), and with a stash each point's rounded outputs to its
+// stash row at column scol (points past P are not stored).  Three phases
+// around the product: (A) bias and ReLU into acc, and a tie bit for each
+// output near a tie of T (the warp's marks listed in the idle ring); (B)
+// each warp recomputes its marked outputs in k order from the input rows,
+// still in place, and w (device memory); a barrier, after which the outputs
+// may overwrite the inputs; (C) the rounded outputs to act and the stash in
+// the fragment's column pairs, then each thread's marked outputs over them
+// from (B).  The tie floor is TIE_FLOOR times the warp's largest |x| (x = acc +
 // bias, before the ReLU); under the ReLU a negative x is marked only where
 // |x| is below the floor (where the other order may cross 0).  Ends with a
 // barrier.
-template <class Geo, int N, bool STASH>
-__device__ __forceinline__ void mma_dense(const bf16* __restrict__ w,
+template <class Geo, typename T, int N, bool STASH, bool KEEP_SIGN>
+__device__ __forceinline__ void mma_dense(const T* __restrict__ w,
                                           const float* __restrict__ bias,
-                                          int K, bf16* act, int in_row,
-                                          int out_row, bf16* ring, bool relu,
-                                          bf16* stash, int sc, int scol,
+                                          int K, T* act, int in_row,
+                                          int out_row, T* ring, bool relu,
+                                          T* stash, int sc, int scol,
                                           long long n_valid) {
   using Tile = MmaTile<Geo, N>;
+  using Pair = typename Pair16<T>::type;
   constexpr int MI = Tile::MI, NT = Tile::NT, MW = Tile::MW;
-  constexpr int LDA = Geo::LDA_MMA;
+  constexpr int LDA = Geo::LDA_MMA, FIX = kFixW<T>;
   static_assert(!STASH || Geo::W == W, "the stash is written at the "
                 "reference geometry");
-  static_assert(2 * FIXW * 8 * sizeof(int) <= Geo::SLOT * sizeof(bf16),
+  static_assert(2 * FIX * 8 * sizeof(int) <= Geo::STAGES * Geo::SLOT *
+                                                  sizeof(T),
                 "the marks fit the ring");
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   float acc[MI][NT][4];
-  mma_product<Geo, N>(w, K, act, in_row, ring, acc);
-  int* fix_pn = reinterpret_cast<int*>(ring) + warp * 2 * FIXW;
-  float* fix_val = reinterpret_cast<float*>(fix_pn + FIXW);
+  mma_product<Geo, T, N>(w, K, act, in_row, ring, acc);
+  int* fix_pn = reinterpret_cast<int*>(ring) + warp * 2 * FIX;
+  float* fix_val = reinterpret_cast<float*>(fix_pn + FIX);
 
-  // the outputs are rounded into bf16 pairs as they are marked, so the
+  // the outputs are rounded into 16-bit pairs as they are marked, so the
   // f32 accumulators die during the marking (fewer live registers)
   float amax = 0.0f;
 #pragma unroll
@@ -583,7 +752,7 @@ __device__ __forceinline__ void mma_dense(const bf16* __restrict__ w,
     amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, d));
   const float floor = TIE_FLOOR * amax;
   unsigned long long ties[MW];
-  __nv_bfloat162 out[MI][NT][2];
+  Pair out[MI][NT][2];
 #pragma unroll
   for (int i = 0; i < MW; ++i) ties[i] = 0;
 #pragma unroll
@@ -595,23 +764,24 @@ __device__ __forceinline__ void mma_dense(const bf16* __restrict__ w,
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         const float x = acc[mi][nt][q] + bias[n + (q & 1)];
-        const bool mark = relu && x < 0.0f ? -x < floor : near_tie(x, floor);
+        const bool mark =
+            relu && x < 0.0f ? -x < floor : near_tie_t<T>(x, floor);
         const int e = (mi * NT + nt) * 4 + q;
         if (mark) ties[e / 64] |= 1ull << (e % 64);
         v[q] = relu ? relu_keep_nan(x) : x;
       }
-      out[mi][nt][0] = __floats2bfloat162_rn(v[0], v[1]);
-      out[mi][nt][1] = __floats2bfloat162_rn(v[2], v[3]);
+      out[mi][nt][0] = round_pair<T, KEEP_SIGN>(v[0], v[1]);
+      out[mi][nt][1] = round_pair<T, KEEP_SIGN>(v[2], v[3]);
     }
   int first;
-  const int marks = list_marks(ties, fix_pn, first, [](int e) {
+  const int marks = list_marks<FIX>(ties, fix_pn, first, [](int e) {
     return (Tile::point(e) << 16) | Tile::column(e);
   });
   __syncwarp();
   for (int i = lane; i < marks; i += 32) {
     const int p = fix_pn[i] >> 16, n = fix_pn[i] & 0xffff;
-    const bf16* a = act + in_row * LDA + p;
-    const bf16* wn = w + n;
+    const T* a = act + in_row * LDA + p;
+    const T* wn = w + n;
     float s = 0.0f;
     int k = 0;
     for (; k + 4 <= K; k += 4) {  // 4 weight loads in flight at a time
@@ -635,33 +805,34 @@ __device__ __forceinline__ void mma_dense(const bf16* __restrict__ w,
       for (int nt = 0; nt < NT; ++nt) {
         const int e = (mi * NT + nt) * 4 + 2 * h;
         const int p = Tile::point(e), n = Tile::column(e);
-        const __nv_bfloat162 r = out[mi][nt][h];
+        const Pair r = out[mi][nt][h];
         act[(out_row + n) * LDA + p] = r.x;
         act[(out_row + n + 1) * LDA + p] = r.y;
         if (STASH && p < n_valid)
-          *reinterpret_cast<__nv_bfloat162*>(stash + 1LL * p * sc + scol + n) =
-              r;
+          *reinterpret_cast<Pair*>(stash + 1LL * p * sc + scol + n) = r;
       }
-  for_marks(ties, first, [&](int e, int slot) {
+  for_marks<FIX>(ties, first, [&](int e, int slot) {
     const int p = Tile::point(e), n = Tile::column(e);
-    const bf16 r = from_f<bf16>(fix_val[slot]);
+    const T r = round_act<T, KEEP_SIGN>(fix_val[slot]);
     act[(out_row + n) * LDA + p] = r;
     if (STASH && p < n_valid) stash[1LL * p * sc + scol + n] = r;
   });
   __syncthreads();  // the outputs are in place; the ring is idle again
 }
 
-// One layer of the tile forward: the tensor cores in bf16, the scalar loop
-// in f32.
-template <class Geo, typename T, int N, bool STASH>
+// One layer of the tile forward: the tensor cores in bf16 and fp16, the
+// scalar loop in f32 (where no positive value rounds to 0, so KEEP_SIGN
+// has nothing to keep).
+template <class Geo, typename T, int N, bool STASH, bool KEEP_SIGN>
 __device__ __forceinline__ void layer(const T* __restrict__ w,
                                       const float* __restrict__ bias, int K,
                                       T* act, int in_row, int out_row, T* ws,
                                       bool relu, T* stash, int sc, int scol,
                                       long long n_valid) {
   if constexpr (kTensorCores<T>)
-    mma_dense<Geo, N, STASH>(w, bias, K, act, in_row, out_row, ws, relu,
-                             stash, sc, scol, n_valid);
+    mma_dense<Geo, T, N, STASH, KEEP_SIGN>(w, bias, K, act, in_row, out_row,
+                                           ws, relu, stash, sc, scol,
+                                           n_valid);
   else
     dense<Geo, T, N, STASH>(w, bias, K, act, in_row, out_row, ws, relu, stash,
                             sc, scol, n_valid);
@@ -777,7 +948,8 @@ __device__ __forceinline__ void tile_input(const float* __restrict__ x,
 // tile's first row).  On return act rows [0, CX) and [ROW_DIR, ROW_DIR + CD)
 // still hold the tile's input embedding.  x_cols: the columns of
 // pre-embedded x (IO_EMBEDDED), unused otherwise.
-template <class Geo, typename T, bool SIGMA_ONLY, bool STASH, int IN>
+template <class Geo, typename T, bool SIGMA_ONLY, bool STASH, int IN,
+          bool KEEP_SIGN = false>
 __device__ __forceinline__ void forward_tile(
     const float* __restrict__ x, float* __restrict__ out,
     const T* __restrict__ wts, const float* __restrict__ bias, long long P,
@@ -798,13 +970,12 @@ __device__ __forceinline__ void forward_tile(
   if (kTensorCores<T>) __syncthreads();
   // layer 0 reads xyz_emb; the skip layer reads [xyz_emb | h] (rows
   // 0 .. CX + W); layer i's output h_{i+1} goes to stash column i * W
-  layer<Geo, T, GW_, STASH>(wts, bias, CX, act, 0, RH, ws, true, stash, SC, 0,
-                            n_valid);
+  layer<Geo, T, GW_, STASH, KEEP_SIGN>(wts, bias, CX, act, 0, RH, ws, true,
+                                       stash, SC, 0, n_valid);
   for (int i = 1; i < D; ++i)
-    layer<Geo, T, GW_, STASH>(wts + Geo::layer_off(i), bias + i * GW_,
-                              i == SKIP ? GW_ + CX : GW_, act,
-                              i == SKIP ? 0 : RH, RH, ws, true, stash, SC,
-                              i * GW_, n_valid);
+    layer<Geo, T, GW_, STASH, KEEP_SIGN>(
+        wts + Geo::layer_off(i), bias + i * GW_, i == SKIP ? GW_ + CX : GW_,
+        act, i == SKIP ? 0 : RH, RH, ws, true, stash, SC, i * GW_, n_valid);
 
   if (tid < TPP) {  // sigma head: one thread per point
     float s = 0.0f;
@@ -816,13 +987,14 @@ __device__ __forceinline__ void forward_tile(
   if (!SIGMA_ONLY) {
     // fin overwrites h (after the layer's barrier: the sigma head has read
     // it)
-    layer<Geo, T, GW_, STASH>(wts + Geo::OFF_FIN, bias + Geo::BOFF_FIN, GW_,
-                              act, RH, RH, ws, false, stash, SC, S_FIN,
-                              n_valid);
+    layer<Geo, T, GW_, STASH, KEEP_SIGN>(wts + Geo::OFF_FIN,
+                                         bias + Geo::BOFF_FIN, GW_, act, RH,
+                                         RH, ws, false, stash, SC, S_FIN,
+                                         n_valid);
     // dir head reads [fin | dir_emb] = rows ROW_H .. ROW_H + W + CD
-    layer<Geo, T, Geo::WH, STASH>(wts + Geo::OFF_DIR, bias + Geo::BOFF_DIR,
-                                  GW_ + CD, act, RH, RH, ws, true, stash, SC,
-                                  S_D, n_valid);
+    layer<Geo, T, Geo::WH, STASH, KEEP_SIGN>(
+        wts + Geo::OFF_DIR, bias + Geo::BOFF_DIR, GW_ + CD, act, RH, RH, ws,
+        true, stash, SC, S_D, n_valid);
     if (tid < 3 * TPP) {  // rgb head: one thread per (channel, point)
       const int c = tid / TPP, p = tid - c * TPP;
       float v = 0.0f;

@@ -17,32 +17,31 @@
 //   rgb   = sigmoid(relu([h @ Wfin + bfin, dir_emb] @ Wdir + bdir) @ Wrgb + brgb)
 //   out (P, 8) f32 rows [rgb(3) | sigma | 0 0 0 0]; sigma-only: [sigma | 0 x 7]
 // Numerics of _fwd_body: each layer's input, x included, is rounded to the
-// weight type T (bf16 or f32) before its product; products and sums in f32;
-// bias, ReLU and sigmoid in f32; din = [fin | dir_emb] is rounded before
+// weight type T (f32, bf16 or fp16) before its product; products and sums in
+// f32; bias, ReLU and sigmoid in f32; din = [fin | dir_emb] is rounded before
 // Wdir.  The TPU kernel's padding (x to 128 lanes, the heads to 128 output
-// lanes) multiplies zeros only and is not reproduced: weights are read in
-// the reference order, unpadded, W_i as (fan_in, fan_out) row-major.
+// lanes) multiplies zeros only and is not reproduced: weights are read in the
+// reference order, unpadded, W_i as (fan_in, fan_out) row-major.
 //
 // Bound on the H100: operations.  At W = 512, 2,300,928 multiply-adds per
 // rgb point (1,900,032 sigma-only) against 360 bytes of input and 32 of
 // output; the 4.6 MB bf16 weight set stays in the 50 MB L2.  At the bf16
 // tensor rate (989 TFLOP/s) a 6.1M-point fine chunk needs 28.6 ms.
-// Design: the same tile forward as C (fused_mlp_common.cuh), with the
-// tile's input loaded from x's rows (consecutive threads read consecutive
-// floats; a row of 63 or 90 floats is not 16-byte aligned, so no vector
-// loads) and the width a template parameter.  At W <= 256 a tile is 64
-// points, at W > 256 32 (so that the f32 loop's accumulators stay within
-// 80 floats a thread).  bf16 runs every product on the tensor cores as C
-// does: 2 x 4 warps of TP / 2 points x N / 4 columns (1 or 2 m16 tiles, up
-// to 20 n8 tiles a warp at W = 640), the weights streamed from L2 in
-// stages of 32 rows (W <= 256) or 16 through a ring of three stages (two at
-// W = 640), every output near a bf16 tie recomputed in k order.  Each tile
-// reads the whole weight set from L2 (4.6 MB at W = 512).  f32 keeps the
-// scalar loop: a thread accumulates PPW points x W / 32 features, all of a
-// layer's outputs in one pass (products whose width is not a multiple of
-// 128, the dir heads W / 2 = 64, 192, 320, give each lane 2 features per
-// 64-column group).  Shared memory per CTA stays below 113 KB, so two CTAs
-// share an SM at every width.
+// Design: the same tile forward as C (fused_mlp_common.cuh), with the tile's
+// input loaded from x's rows (consecutive threads read consecutive floats; a
+// row of 63 or 90 floats is not 16-byte aligned, so no vector loads) and the
+// width a template parameter.  At W <= 256 a tile is 64 points, at W > 256 32
+// (so that the f32 loop's accumulators stay within 80 floats a thread).  bf16
+// and fp16 run every product on the tensor cores as C does: 2 x 4 warps of TP
+// / 2 points x N / 4 columns (1 or 2 m16 tiles, up to 20 n8 tiles a warp at W
+// = 640), the weights streamed from L2 in stages of 32 rows (W <= 256) or 16
+// through a ring of three stages (two at W = 640), every output near a tie of
+// the type recomputed in k order.  Each tile reads the whole weight set from
+// L2 (4.6 MB at W = 512).  f32 keeps the scalar loop: a thread accumulates PPW
+// points x W / 32 features, all of a layer's outputs in one pass (products
+// whose width is not a multiple of 128, the dir heads W / 2 = 64, 192, 320,
+// give each lane 2 features per 64-column group).  Shared memory per CTA stays
+// below 113 KB, so two CTAs share an SM at every width.
 #include "fused_mlp_common.cuh"
 
 namespace {
@@ -84,13 +83,39 @@ int launch_mode(const void* x, int x_cols, void* out, const void* w,
 }
 
 // The instantiated (width, type) pairs: every width that
-// supports_fused_wide admits (its TPU weight budget), and 256.
-bool supported(int width, int bf16) {
+// supports_fused_wide admits (its TPU weight budget: the 16-bit types both
+// to W = 640, f32 to 384), and 256.
+bool supported(int width, int dtype) {
+  if (!(dtype == DTYPE_F32 && kBuilt<DTYPE_F32>) &&
+      !(dtype == DTYPE_BF16 && kBuilt<DTYPE_BF16>) &&
+      !(dtype == DTYPE_F16 && kBuilt<DTYPE_F16>))
+    return false;
   switch (width) {
     case 128: case 256: case 384: return true;
-    case 512: case 640: return bf16 != 0;
+    case 512: case 640: return dtype != DTYPE_F32;
     default: return false;
   }
+}
+
+// kernel G at one width in the weight type named by dtype (supported()
+// has checked that this library is built for it)
+template <class Geo>
+int launch_type(const void* x, int x_cols, void* out, const void* w,
+                const void* b, long long P, int sigma_only, int dtype,
+                cudaStream_t s) {
+  if constexpr (Geo::W <= 384 && kBuilt<DTYPE_F32>) {
+    if (dtype == DTYPE_F32)
+      return launch_mode<Geo, float>(x, x_cols, out, w, b, P, sigma_only, s);
+  }
+  if constexpr (kBuilt<DTYPE_F16>) {
+    if (dtype == DTYPE_F16)
+      return launch_mode<Geo, f16>(x, x_cols, out, w, b, P, sigma_only, s);
+  }
+  if constexpr (kBuilt<DTYPE_BF16>) {
+    if (dtype == DTYPE_BF16)
+      return launch_mode<Geo, bf16>(x, x_cols, out, w, b, P, sigma_only, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <class Geo>
@@ -117,9 +142,10 @@ const char* cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// 1 if kernel G is built for this width and weight type, else 0.
-int nerf_wide_supported(int width, int bf16) {
-  return supported(width, bf16) ? 1 : 0;
+// 1 if kernel G is built for this width and weight type (dtype: DTYPE_F32,
+// DTYPE_BF16 or DTYPE_F16), else 0.
+int nerf_wide_supported(int width, int dtype) {
+  return supported(width, dtype) ? 1 : 0;
 }
 // The packed layout at a width: weights and biases (-1 for a width that is
 // not built).
@@ -127,38 +153,31 @@ long long nerf_wide_weight_count(int width) { return count(width, false); }
 long long nerf_wide_bias_count(int width) { return count(width, true); }
 
 // Kernel G.  x (P, x_cols) f32, x_cols 63 or 90; out (P, 8) f32, 16-byte
-// aligned; w: nerf_wide_weight_count(width) elements of bf16 (bf16 = 1) or
-// f32, b: nerf_wide_bias_count(width) f32; all contiguous on the stream's
-// device.
+// aligned; w: nerf_wide_weight_count(width) elements of the weight type
+// named by dtype, b: nerf_wide_bias_count(width) f32; all contiguous on the
+// stream's device.
 int nerf_wide_fwd(const void* x, int x_cols, void* out, const void* w,
                   const void* b, long long P, int width, int sigma_only,
-                  int bf16, void* stream) {
+                  int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  using BF = __nv_bfloat16;
-  if (!supported(width, bf16) || (x_cols != CX && x_cols != CX + CD))
+  if (!supported(width, dtype) || (x_cols != CX && x_cols != CX + CD))
     return static_cast<int>(cudaErrorInvalidValue);
   switch (width) {
     case 128:
-      return bf16 ? launch_mode<Wide<128>, BF>(x, x_cols, out, w, b, P,
-                                               sigma_only, s)
-                  : launch_mode<Wide<128>, float>(x, x_cols, out, w, b, P,
-                                                  sigma_only, s);
+      return launch_type<Wide<128>>(x, x_cols, out, w, b, P, sigma_only,
+                                    dtype, s);
     case 256:
-      return bf16 ? launch_mode<Wide<256>, BF>(x, x_cols, out, w, b, P,
-                                               sigma_only, s)
-                  : launch_mode<Wide<256>, float>(x, x_cols, out, w, b, P,
-                                                  sigma_only, s);
+      return launch_type<Wide<256>>(x, x_cols, out, w, b, P, sigma_only,
+                                    dtype, s);
     case 384:
-      return bf16 ? launch_mode<Wide<384>, BF>(x, x_cols, out, w, b, P,
-                                               sigma_only, s)
-                  : launch_mode<Wide<384>, float>(x, x_cols, out, w, b, P,
-                                                  sigma_only, s);
+      return launch_type<Wide<384>>(x, x_cols, out, w, b, P, sigma_only,
+                                    dtype, s);
     case 512:
-      return launch_mode<Wide<512>, BF>(x, x_cols, out, w, b, P, sigma_only,
-                                        s);
-    default:  // 640, bf16 (supported() above)
-      return launch_mode<Wide<640>, BF>(x, x_cols, out, w, b, P, sigma_only,
-                                        s);
+      return launch_type<Wide<512>>(x, x_cols, out, w, b, P, sigma_only,
+                                    dtype, s);
+    default:  // 640, 16-bit (supported() above)
+      return launch_type<Wide<640>>(x, x_cols, out, w, b, P, sigma_only,
+                                    dtype, s);
   }
 }
 

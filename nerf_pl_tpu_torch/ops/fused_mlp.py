@@ -33,10 +33,11 @@ no gradient (rays are data); ``fused_nerf_apply``'s does, as in JAX.
 
 Dispatch follows the input's device: a CUDA tensor launches the kernels or
 raises, a CPU tensor runs their plain PyTorch versions, which repeat the
-kernels' rounding step by step (``_bwd_core``, fused_mlp.py:209-289).  In
-bf16 the backward's products (E-H) run on the tensor cores, in float32 on
-the scalar path; the weight-grad products are a job table built here
-(``wgrad_jobs``).
+kernels' rounding step by step (``_bwd_core``, fused_mlp.py:209-289).  The
+compute dtype is float32, bfloat16 or float16, as in JAX; in the two 16-bit
+types every product of the forward and backward (C-H) runs on the tensor
+cores, in float32 on the scalar path; the weight-grad products are a job
+table built here (``wgrad_jobs``).
 """
 from __future__ import annotations
 
@@ -77,9 +78,13 @@ G_LAYOUT = (G_FIN, G_DPRE, G_RGB, G_SIG, G_XE, G_DE, G_COLS)
 # layer's rows) = a_in[:, a_col : a_col + K]^T @ G[:, g_col : g_col + N]
 # summed over the points, a_in the stash (a_in_g = 0) or the G buffer (1),
 # by the kernel of its route: the scalar tiles, the tensor cores, or the
-# narrow heads' kernel (bf16 only, N <= 4)
+# narrow heads' kernel (16-bit only, N <= 4)
 WGRAD_JOB_FIELDS = ("a_in_g", "a_col", "K", "g_col", "N", "out", "route")
 ROUTE_SCALAR, ROUTE_TC, ROUTE_NARROW = 0, 1, 2
+# the compute dtypes the kernels take, by their code at the C interface
+# (csrc/fused_mlp_common.cuh DType); the 16-bit ones run the tensor cores
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+TENSOR_CORE_DTYPES = (torch.bfloat16, torch.float16)
 
 
 def supports_fused(model) -> bool:
@@ -120,16 +125,16 @@ def wgrad_jobs(sigma_only: bool, compute_dtype) -> list:
     """The backward's weight-grad products, the job table of the wgrad
     kernels: one tuple of ``WGRAD_JOB_FIELDS`` for each ``wgrad`` call of
     ``_bwd_core`` (the skip layer and the dir head as two jobs each, for
-    their rows from the embedding and from h).  In bf16 every product with
-    128 or more output columns runs on the tensor cores and the sigma and
-    rgb heads (1 and 3 columns) on the narrow kernel; in f32 every product
-    runs the scalar kernel."""
+    their rows from the embedding and from h).  In bf16 and fp16 every
+    product with 128 or more output columns runs on the tensor cores and the
+    sigma and rgb heads (1 and 3 columns) on the narrow kernel; in f32 every
+    product runs the scalar kernel."""
     off = block_offsets()
-    bf16 = compute_dtype == torch.bfloat16
+    tc = compute_dtype in TENSOR_CORE_DTYPES
     jobs = []
 
     def add(a_in_g, a_col, k, g_col, n, out):
-        route = (ROUTE_SCALAR if not bf16 else
+        route = (ROUTE_SCALAR if not tc else
                  ROUTE_TC if n >= 128 else ROUTE_NARROW)
         jobs.append((a_in_g, a_col, k, g_col, n, out, route))
 
@@ -166,9 +171,9 @@ def supports_fused_wide(model, compute_dtype=torch.bfloat16) -> bool:
     """The models that JAX's wide fused forward takes (``supports_fused_wide``,
     fused_mlp.py:455-481): the reference topology at a width W != 256 that is
     a multiple of 128, whose weights packed in ``compute_dtype`` fit the TPU
-    kernel's budget (W <= 640 in bf16, W <= 384 in f32).  The budget is the
-    TPU's VMEM; it is kept so the port takes the wide kernel exactly where
-    JAX does, and kernel G is built for just those widths."""
+    kernel's budget (W <= 640 in bf16 and fp16, W <= 384 in f32).  The
+    budget is the TPU's VMEM; it is kept so the port takes the wide kernel
+    exactly where JAX does, and kernel G is built for just those widths."""
     if not isinstance(model, NeRF):
         return False
     layers = model.xyz_layers
@@ -465,7 +470,7 @@ def pack_weights(model: NeRF, compute_dtype):
 
 def pack_weights_t(model: NeRF, compute_dtype) -> torch.Tensor:
     """The f32 backward's dgrad operands (its scalar sweep streams the
-    transposes; the bf16 sweep reads ``pack_weights`` as it is, the .col B
+    transposes; the 16-bit sweep reads ``pack_weights`` as it is, the .col B
     operand of its tensor-core products) in ``compute_dtype``: the h rows of
     W_1..W_7 transposed (256 x 256 each), Wfin transposed, and the fin rows
     of Wdir transposed (128 x 256).  Cached like ``pack_weights``."""
@@ -513,8 +518,9 @@ def unpack_grads(model: NeRF, dw: torch.Tensor, db: torch.Tensor,
 
 
 # ------------------------------------------------------------ CUDA kernels
-def _lib():
-    lib = native.load("fused_mlp")
+def _lib(compute_dtype):
+    lib = native.load(native.library("fused_mlp",
+                                     compute_dtype == torch.float16))
     if not getattr(lib, "_typed", False):
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.nerf_fused_fwd.argtypes = [p, p, p, p, ll, i, i, i, p]
@@ -529,8 +535,9 @@ def _lib():
     return lib
 
 
-def _bwd_lib():
-    lib = native.load("fused_mlp_bwd")
+def _bwd_lib(compute_dtype):
+    lib = native.load(native.library("fused_mlp_bwd",
+                                     compute_dtype == torch.float16))
     if not getattr(lib, "_typed", False):
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.nerf_fused_bwd.argtypes = [p, p, p, p, p, ll, i, i, i, i, p, p, p,
@@ -554,8 +561,9 @@ def _bwd_lib():
     return lib
 
 
-def _wide_lib():
-    lib = native.load("fused_mlp_wide")
+def _wide_lib(compute_dtype):
+    lib = native.load(native.library("fused_mlp_wide",
+                                     compute_dtype == torch.float16))
     if not getattr(lib, "_typed", False):
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.nerf_wide_fwd.argtypes = [p, i, p, p, p, ll, i, i, i, p]
@@ -600,12 +608,18 @@ def _check_raw(t: torch.Tensor, name: str, row_major: bool) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def _check_dtype(compute_dtype) -> int:
+    """The dtype's code at the kernels' C interface; other dtypes raise."""
+    if compute_dtype not in DTYPE_CODES:
+        raise TypeError(f"compute_dtype must be float32, bfloat16 or "
+                        f"float16, got {compute_dtype}")
+    return DTYPE_CODES[compute_dtype]
+
+
 def _operands(model: NeRF, x: torch.Tensor, compute_dtype, row_major: bool):
     """Checks shared by every kernel's wrapper; the packed weights."""
     _check_raw(x, "x_raw" if row_major else "x_rawT", row_major)
-    if compute_dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"compute_dtype must be bfloat16 or float32, got "
-                        f"{compute_dtype}")
+    _check_dtype(compute_dtype)
     if not supports_fused(model):
         raise ValueError("the fused kernels need the reference architecture")
     wbuf, bbuf = pack_weights(model, compute_dtype)
@@ -624,13 +638,12 @@ def _fwd_cuda(model, x, sigma_only, compute_dtype, row_major, stash):
     """Kernels C/C' (``stash=False``: the output) and D/D' (``(out,
     stash)``) on the card."""
     wbuf, bbuf = _operands(model, x, compute_dtype, row_major)
-    lib = _lib()
+    lib = _lib(compute_dtype)
     _check_counts(lib, wbuf, bbuf, "nerf_fused")
     P, dev = _n_points(x, row_major), x.device
     out = torch.empty(_io_shape(P, row_major), dtype=torch.float32, device=dev)
     args = (x.data_ptr(), out.data_ptr(), wbuf.data_ptr(), bbuf.data_ptr(), P,
-            int(sigma_only), int(compute_dtype == torch.bfloat16),
-            int(row_major))
+            int(sigma_only), DTYPE_CODES[compute_dtype], int(row_major))
     if not stash:
         if P:
             with torch.cuda.device(dev):  # the launch uses the current device
@@ -649,10 +662,17 @@ def _fwd_cuda(model, x, sigma_only, compute_dtype, row_major, stash):
     return out, st
 
 
-def _counted(fn, x, row_major):
-    """Count one launch of ``fn``'s kernel unless there were no points."""
+def _counted(fn, x, row_major, grids: int = 1):
+    """Count one launch of ``fn``'s kernel unless there were no points, and
+    the ``grids`` its body ran as (the backward's dgrad kernel runs once a
+    point chunk: what a trace of the device sees)."""
     if _n_points(x, row_major):
         fn.launches += 1
+        fn.grids += grids
+
+
+def _bwd_grids(x, row_major) -> int:
+    return -(-_n_points(x, row_major) // BWD_CHUNK)
 
 
 def fused_nerf_apply_raw_t_cuda(model: NeRF, x_rawT: torch.Tensor,
@@ -713,7 +733,7 @@ def _bwd_launch(model, x, g, wbuf, bbuf, P, sigma_only, compute_dtype, stash,
     """The backward kernels' workspace and launch: E or F (E', F') on raw
     rays, or H with ``dx`` (P, C) zeros on pre-embedded rows."""
     sc = stash_cols(sigma_only)
-    lib = _bwd_lib()
+    lib = _bwd_lib(compute_dtype)
     _check_counts(lib, wbuf, bbuf, "nerf_bwd")
     wt = None
     if compute_dtype == torch.float32:  # the scalar sweep's operands
@@ -752,7 +772,7 @@ def _bwd_launch(model, x, g, wbuf, bbuf, P, sigma_only, compute_dtype, stash,
         err = lib.nerf_fused_bwd(
             x.data_ptr(), g.data_ptr(), wbuf.data_ptr(), bbuf.data_ptr(),
             None if wt is None else wt.data_ptr(), P, int(sigma_only),
-            int(compute_dtype == torch.bfloat16), remat, io,
+            DTYPE_CODES[compute_dtype], remat, io,
             stash.data_ptr(), gbuf.data_ptr(), wpart.data_ptr(),
             bpart.data_ptr(), btmp.data_ptr(), dw.data_ptr(), db.data_ptr(),
             chunk, BWD_SPLIT, x_cols, None if wx is None else wx.data_ptr(),
@@ -775,7 +795,8 @@ def fused_nerf_bwd_stash_cuda(model: NeRF, x_rawT: torch.Tensor,
     """Kernel E on the card: packed f32 ``(dw, db)`` from D's stash."""
     _need_stash(stash, "E")
     out = _bwd_cuda(model, x_rawT, g, sigma_only, compute_dtype, stash, False)
-    _counted(fused_nerf_bwd_stash_cuda, x_rawT, False)
+    _counted(fused_nerf_bwd_stash_cuda, x_rawT, False,
+             _bwd_grids(x_rawT, False))
     return out
 
 
@@ -787,7 +808,8 @@ def fused_nerf_raw_bwd_stash_cuda(model: NeRF, x_raw: torch.Tensor,
     x and g ``(P, 8)``."""
     _need_stash(stash, "E'")
     out = _bwd_cuda(model, x_raw, g, sigma_only, compute_dtype, stash, True)
-    _counted(fused_nerf_raw_bwd_stash_cuda, x_raw, True)
+    _counted(fused_nerf_raw_bwd_stash_cuda, x_raw, True,
+             _bwd_grids(x_raw, True))
     return out
 
 
@@ -796,7 +818,8 @@ def fused_nerf_bwd_remat_cuda(model: NeRF, x_rawT: torch.Tensor,
                               compute_dtype=torch.bfloat16):
     """Kernel F on the card: packed f32 ``(dw, db)``, forward recomputed."""
     out = _bwd_cuda(model, x_rawT, g, sigma_only, compute_dtype, None, False)
-    _counted(fused_nerf_bwd_remat_cuda, x_rawT, False)
+    _counted(fused_nerf_bwd_remat_cuda, x_rawT, False,
+             _bwd_grids(x_rawT, False))
     return out
 
 
@@ -806,7 +829,8 @@ def fused_nerf_raw_bwd_remat_cuda(model: NeRF, x_raw: torch.Tensor,
     """Kernel F' on the card: packed f32 ``(dw, db)``, forward recomputed,
     x and g ``(P, 8)``."""
     out = _bwd_cuda(model, x_raw, g, sigma_only, compute_dtype, None, True)
-    _counted(fused_nerf_raw_bwd_remat_cuda, x_raw, True)
+    _counted(fused_nerf_raw_bwd_remat_cuda, x_raw, True,
+             _bwd_grids(x_raw, True))
     return out
 
 
@@ -829,9 +853,7 @@ def _embedded_operands(model: NeRF, x: torch.Tensor, compute_dtype):
     _check_embedded(x)
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
-    if compute_dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"compute_dtype must be bfloat16 or float32, got "
-                        f"{compute_dtype}")
+    _check_dtype(compute_dtype)
     if not supports_fused_apply(model, compute_dtype):
         raise ValueError("kernel G takes the reference architecture at W = "
                          "256 or a width that supports_fused_wide admits")
@@ -847,9 +869,9 @@ def fused_nerf_apply_cuda(model: NeRF, x: torch.Tensor,
     """Kernel G on the card: pre-embedded rows ``x (P, 63)`` or ``(P, 90)``
     -> ``(P, 8)`` float32, at the model's width."""
     wbuf, bbuf = _embedded_operands(model, x, compute_dtype)
-    lib = _wide_lib()
-    width, bf = model.width, int(compute_dtype == torch.bfloat16)
-    if not lib.nerf_wide_supported(width, bf):
+    lib = _wide_lib(compute_dtype)
+    width, code = model.width, DTYPE_CODES[compute_dtype]
+    if not lib.nerf_wide_supported(width, code):
         raise ValueError(f"kernel G is not built for W = {width} in "
                          f"{compute_dtype}")
     if (wbuf.numel() != lib.nerf_wide_weight_count(width)
@@ -861,7 +883,7 @@ def fused_nerf_apply_cuda(model: NeRF, x: torch.Tensor,
         with torch.cuda.device(x.device):
             err = lib.nerf_wide_fwd(x.data_ptr(), x.shape[1], out.data_ptr(),
                                     wbuf.data_ptr(), bbuf.data_ptr(), P, width,
-                                    int(sigma_only), bf, native.stream_of(x))
+                                    int(sigma_only), code, native.stream_of(x))
         native.check(lib, err, "nerf_wide_fwd")
     _counted(fused_nerf_apply_cuda, x, True)
     return out
@@ -889,11 +911,13 @@ def fused_nerf_bwd_dx_cuda(model: NeRF, x: torch.Tensor, g: torch.Tensor,
     dx = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
     dw, db = _bwd_launch(model, x, g, wbuf, bbuf, P, sigma_only,
                          compute_dtype, None, IO_EMBEDDED, dx)
-    _counted(fused_nerf_bwd_dx_cuda, x, True)
+    _counted(fused_nerf_bwd_dx_cuda, x, True,
+             _bwd_grids(x, True))
     return dx, dw, db
 
 
 KERNELS = {  # launch counters, by the letters PERF.md gives the kernels
+    # (``launches``: calls that launched; ``grids``: the body's launches)
     "C": fused_nerf_apply_raw_t_cuda, "D": fused_nerf_stash_fwd_cuda,
     "E": fused_nerf_bwd_stash_cuda, "F": fused_nerf_bwd_remat_cuda,
     "C'": fused_nerf_apply_raw_cuda, "D'": fused_nerf_raw_stash_fwd_cuda,
@@ -901,7 +925,7 @@ KERNELS = {  # launch counters, by the letters PERF.md gives the kernels
     "G": fused_nerf_apply_cuda, "H": fused_nerf_bwd_dx_cuda,
 }
 for _fn in KERNELS.values():
-    _fn.launches = 0
+    _fn.launches = _fn.grids = 0
 del _fn
 
 

@@ -1,11 +1,16 @@
 """Build the CUDA sources in ``nerf_pl_tpu_torch/csrc`` and load them.
 
-Each ``csrc/<name>.cu`` is compiled by ``nvcc`` on its own into a shared
-library with a plain C interface, loaded with ``ctypes``.  The library is
-built at first use into ``build/nerf_pl_tpu_torch/`` at the root of the
-checkout, under a name that carries a hash of the source and flags, so an
-edited source rebuilds and an unchanged one loads at once.  ``build`` starts
-one ``nvcc`` per source, all together.
+Each library in ``LIBRARIES`` is one ``csrc/<source>.cu`` compiled by
+``nvcc`` on its own, with the library's defines, into a shared library with
+a plain C interface, loaded with ``ctypes``.  The fused MLP's three sources
+build twice each: their float32 and bfloat16 kernels in one library, their
+float16 kernels in another (``NERF_DTYPES``, a bitmask of the weight types'
+codes, ``csrc/fused_mlp_common.cuh``), so that the three types compile in
+parallel.  The library is built at first use into
+``build/nerf_pl_tpu_torch/`` at the root of the checkout, under a name that
+carries a hash of the source, headers, flags and defines, so an edited
+source rebuilds and an unchanged one loads at once.  ``build`` starts one
+``nvcc`` per library, all together.
 
 A build failure raises; nothing falls back to the plain PyTorch versions.
 No ``--use_fast_math``: it turns ``sinf`` into ``__sinf``, which is wrong at
@@ -26,6 +31,14 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "nerf_pl_tpu_torch"
 SOURCES = ("fused_mlp", "fused_mlp_bwd", "fused_mlp_wide", "searchsorted",
            "chain_probe")
+# library name -> (source, defines); a fused MLP library of float16 kernels
+# is its source's name with F16_SUFFIX (``library``)
+F16_SUFFIX = "_f16"
+FUSED = ("fused_mlp", "fused_mlp_bwd", "fused_mlp_wide")
+LIBRARIES = {name: (name, ("-DNERF_DTYPES=3",) if name in FUSED else ())
+             for name in SOURCES}
+LIBRARIES.update({name + F16_SUFFIX: (name, ("-DNERF_DTYPES=4",))
+                  for name in FUSED})
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -48,15 +61,21 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
+def library(source: str, float16: bool = False) -> str:
+    """The library of ``source``'s kernels: its float16 one if asked."""
+    return source + F16_SUFFIX if float16 else source
+
+
 def library_path(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    h.update((CSRC / f"{name}.cu").read_bytes())
+    source, defines = LIBRARIES[name]
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + defines).encode())
+    h.update((CSRC / f"{source}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):  # shared device code
         h.update(header.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(names=SOURCES) -> dict:
+def build(names=tuple(LIBRARIES)) -> dict:
     """Compile every missing library in ``names`` in parallel.
 
     Returns ``{name: seconds}`` (0.0 for a library already built); the
@@ -70,7 +89,9 @@ def build(names=SOURCES) -> dict:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        source, defines = LIBRARIES[name]
+        cmd = [nvcc_path(), *NVCC_FLAGS, *defines, "-o", str(tmp),
+               str(CSRC / f"{source}.cu")]
         jobs[name] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         ), tmp, out)
@@ -80,7 +101,8 @@ def build(names=SOURCES) -> dict:
         log, _ = proc.communicate()
         seconds[name] = time.perf_counter() - t0
         if proc.returncode != 0:
-            errors.append(f"nvcc failed for {name}.cu:\n{log}")
+            errors.append(f"nvcc failed for {name} "
+                          f"({LIBRARIES[name][0]}.cu):\n{log}")
             continue
         out.with_suffix(".so.log").write_text(log)
         os.replace(tmp, out)
@@ -90,7 +112,7 @@ def build(names=SOURCES) -> dict:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built if needed."""
+    """The loaded library ``name`` (of ``LIBRARIES``), built if needed."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:

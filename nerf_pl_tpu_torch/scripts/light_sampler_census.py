@@ -247,17 +247,20 @@ def recorded_step(system, n: int, ov: dict) -> tuple:
     try:
         for k in names:
             wrapped = (fwd if "fwd" in k else bwd)(real[k])
-            # a kernel's wrapper counts its launches on the name it is
-            # called by
-            wrapped.launches = getattr(real[k], "launches", 0)
+            # a kernel's wrapper counts its launches (and the grids of its
+            # body) on the name it is called by
+            for count in ("launches", "grids"):
+                if hasattr(real[k], count):
+                    setattr(wrapped, count, getattr(real[k], count))
             setattr(fm, k, wrapped)
         s = system
         s.train_step(s.rays[:n], s.rgbs[:n], s.pixels[:n], s.pose_idx[:n],
                      overrides=ov)
     finally:
         for k, fn in real.items():
-            if hasattr(fn, "launches"):
-                fn.launches = getattr(fm, k).launches
+            for count in ("launches", "grids"):
+                if hasattr(fn, count):
+                    setattr(fn, count, getattr(getattr(fm, k), count))
             setattr(fm, k, fn)
     grads = {f"{name}/{k}": (p.grad if p.grad is not None
                              else torch.zeros_like(p)).detach().cpu()

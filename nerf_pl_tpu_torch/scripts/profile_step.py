@@ -3,9 +3,9 @@ kernel (the counterpart of ``scripts/profile_step.py``).
 
 Runs ``bench.py``'s step (batch 4,096, 64 + 128 samples, bf16, the fused
 MLP kernels D and E, kernel A, Adam) for ``--iters`` steps under
-``utils/profiling.py::profile_trace`` after one warm-up step outside the
-trace, then parses the Chrome trace that ``torch.profiler`` exports into the
-JAX script's JSON keys:
+``utils/profiling.py::profile_trace``, after one step that builds the
+kernels outside the trace, then parses the Chrome trace that
+``torch.profiler`` exports into the JAX script's JSON keys:
 
   * ``step_ms_from_module_span``: the wall span of the traced steps (the
     ``profile_step/steps`` annotation, closed by fetching the last loss)
@@ -18,7 +18,13 @@ JAX script's JSON keys:
   * ``top_ops``: the kernels by device time, each with the letter PERF.md
     gives it (C-I, A, B; the wgrad and reduction kernels of the backward
     are ``E/F/H``) where it is one of the port's;
-  * ``by_kernel_us_per_step``: device time by those letters.
+  * ``by_kernel_us_per_step``: device time by those letters;
+  * ``launches``: each letter's kernel launches over the traced steps, read
+    from the wrappers' counters (``grids``: the backward's wrappers launch
+    their dgrad kernel once a point chunk) before and after them.  The
+    trace's count of each letter must equal its counter, or the script
+    raises naming the letter: a launch missing from the trace would make
+    its kernel's time a step read low.
 
     python -m nerf_pl_tpu_torch.scripts.profile_step --iters 10 \
         [--out results/profile_step.json] [--parse_only] [--device cuda|cpu]
@@ -54,14 +60,79 @@ def kernel_names(pattern: str) -> set:
             for m in _GLOBAL.finditer(p.read_text())}
 
 
-def run_traced(iters: int, batch: int, trace_dir: str, device) -> None:
+def launch_counts() -> dict:
+    """Each kernel's launches so far, by letter: the wrappers' ``grids``
+    where they keep one (the fused MLP's), else their ``launches``."""
+    from ..ops import fused_mlp, searchsorted
+
+    fns = {**fused_mlp.KERNELS, "A": searchsorted.searchsorted_cuda,
+           "B": searchsorted.searchsorted_interp_cuda}
+    return {k: getattr(fn, "grids", fn.launches) for k, fn in fns.items()}
+
+
+def run_traced(iters: int, batch: int, trace_dir: str, device) -> dict:
+    """Trace ``iters`` steps; the launches of each kernel over them."""
     step = make_step(batch, torch.bfloat16, device)
     float(step())  # the kernels build and load outside the trace window
     with profile_trace(trace_dir, device):
+        before = launch_counts()
         with torch.profiler.record_function(STEPS_SPAN):
             for _ in range(iters):
                 loss = step()
             float(loss)  # the host fetch keeps every step inside the span
+        after = launch_counts()
+    return {k: after[k] - before[k] for k in after}
+
+
+def check_launches(rows: list, launches: dict, records=None) -> None:
+    """The trace's kernel events of each letter against the launch counters
+    (``launches``, by letter); raises naming every letter that differs,
+    with the trace's ``launch_records`` where given."""
+    seen = {}
+    for r in rows:
+        if r["kernel"]:
+            seen[r["kernel"]] = seen.get(r["kernel"], 0) + r["count"]
+    bad = {k: (seen.get(k, 0), n) for k, n in launches.items()
+           if seen.get(k, 0) != n}
+    if bad:
+        raise RuntimeError(
+            "the trace's kernel events disagree with the launch counters: "
+            + ", ".join(f"{k} {t} traced, {n} launched"
+                        for k, (t, n) in sorted(bad.items()))
+            + (f"; the trace's launch records {records}" if records else ""))
+
+
+def launch_records(events: list) -> dict:
+    """The trace's launch calls (its ``cuda_runtime`` and ``cuda_driver``
+    events named ``*Launch*``) against its kernel events, matched by
+    ``args.correlation``: how many of each; the calls with no kernel event
+    (``untraced_ms``: each at its ms from the traced span's start); the
+    kernel events with no call; the least time from a call to its kernel's
+    start (``least_queue_us``: negative where the device's timestamps read
+    early); and the first kernel event's ms from the span's start."""
+    spans = [e["ts"] for e in events if e.get("ph") == "X"
+             and e.get("cat") == "user_annotation"
+             and e.get("name") == STEPS_SPAN]
+    t0 = min(spans) if spans else 0.0
+    kernels = {e["args"]["correlation"]: e for e in events
+               if is_device_lane(e) and "correlation" in e.get("args", {})}
+    calls = {e["args"]["correlation"]: e for e in events
+             if e.get("ph") == "X"
+             and e.get("cat") in ("cuda_runtime", "cuda_driver")
+             and "Launch" in e.get("name", "")
+             and "correlation" in e.get("args", {})}
+    queue = [kernels[c]["ts"] - e["ts"] for c, e in calls.items()
+             if c in kernels]
+    return {
+        "launch_calls": len(calls),
+        "kernel_events": len(kernels),
+        "untraced_ms": sorted(round((e["ts"] - t0) / 1e3, 3)
+                              for c, e in calls.items() if c not in kernels),
+        "kernels_without_call": sum(c not in calls for c in kernels),
+        "least_queue_us": round(min(queue), 1) if queue else None,
+        "first_kernel_ms": (round((min(e["ts"] for e in kernels.values())
+                                   - t0) / 1e3, 3) if kernels else None),
+    }
 
 
 def load_trace_events(trace_dir: str) -> list:
@@ -209,12 +280,13 @@ def get_opts(argv=None):
 def main(argv=None) -> dict:
     args = get_opts(argv)
     device = resolve_device(args.device)
+    launches = None
     if not args.parse_only:
         os.makedirs(args.trace_dir, exist_ok=True)
-        run_traced(args.iters, args.batch, args.trace_dir, device)
+        launches = run_traced(args.iters, args.batch, args.trace_dir, device)
     iters = args.iters
-    rows, total_us, span_us, lanes = summarize(
-        load_trace_events(args.trace_dir), iters)
+    events = load_trace_events(args.trace_dir)
+    rows, total_us, span_us, lanes = summarize(events, iters)
     by_kernel = {}
     for r in rows:
         if r["kernel"]:
@@ -233,6 +305,8 @@ def main(argv=None) -> dict:
             k: round(v / max(iters, 1), 1) for k, v in bucket(rows).items()
         },
         "by_kernel_us_per_step": by_kernel,
+        "launches": launches,
+        "launch_records": launch_records(events),
         "top_ops": rows[: args.top],
     }
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
@@ -243,6 +317,8 @@ def main(argv=None) -> dict:
                        "op_lane_total_us_per_step", "buckets_us_per_step",
                        "by_kernel_us_per_step")}))
     print(f"wrote {args.out} ({len(rows)} ops)")
+    if launches is not None and device.type == "cuda":
+        check_launches(rows, launches, out["launch_records"])
     return out
 
 

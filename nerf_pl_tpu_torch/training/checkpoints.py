@@ -81,7 +81,8 @@ def _pack_ext(out: bytearray, code: int, data: bytes) -> None:
 def _array_payload(arr) -> bytes:
     if isinstance(arr, torch.Tensor):
         t = arr.detach().cpu().contiguous()
-        if t.dtype == torch.bfloat16:
+        if t.dtype == torch.bfloat16:  # bf16 only: numpy has no bfloat16
+            # (a float16 tensor goes through numpy's own float16 below)
             return packb((tuple(t.shape), "bfloat16",
                           t.view(torch.int16).numpy().tobytes()))
         arr = t.numpy()

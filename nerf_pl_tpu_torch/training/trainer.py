@@ -76,7 +76,10 @@ from .metrics import psnr as psnr_metric
 from .optim import (get_optimizer, host_to_device, make_lr_schedule,
                     named_params)
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# the --compute_dtype names every trainer takes (JAX's jnp.dtype(name) takes
+# any; the fused kernels are built for these three)
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
 
 
 # host streaming: optimizer steps a slab when --stream_slab_steps is 0
@@ -88,7 +91,7 @@ PREEMPT_LAG = 2
 
 def common_unsupported(cfg: Config) -> Dict[str, bool]:
     """The flags no trainer of the port honours, each with whether ``cfg``
-    sets it."""
+    sets it: a ``--compute_dtype`` outside float32, bfloat16 and float16."""
     return {
         f"--compute_dtype {cfg.compute_dtype}": cfg.compute_dtype not in _DTYPES,
     }

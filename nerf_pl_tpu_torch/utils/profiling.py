@@ -2,7 +2,9 @@
 
   * ``profile_trace(log_dir, device)``: a context manager around
     ``torch.profiler`` (CPU activity, and CUDA activity on a card) that
-    writes a Chrome-trace JSON, ``*.pt.trace.json``, into ``log_dir``.  The
+    writes a Chrome-trace JSON, ``*.pt.trace.json``, into ``log_dir``,
+    opened after a warm-up step of throwaway launches that the trace leaves
+    out.  The
     trainers' ``--profile`` wraps their first epoch in it, into
     ``<log_dir>/<exp_name>/trace``.
   * ``raise_if_not_finite``: ``--debug_nans``, the counterpart of
@@ -29,20 +31,38 @@ from typing import Iterable
 import torch
 
 
+# the throwaway launches the tracer collects before a trace opens
+WARMUP_LAUNCHES = 1024
+
+
 @contextlib.contextmanager
 def profile_trace(log_dir: str, device=None):
     """``with profile_trace("logs/exp/trace", "cuda"): step()`` -> a Chrome
     trace ``<host>_<pid>.<ms>.pt.trace.json`` in ``log_dir``; yields the
-    profiler."""
-    from torch.profiler import ProfilerActivity, profile
+    profiler.  The trace opens on a tracer that has already collected
+    ``WARMUP_LAUNCHES`` launches of a throwaway op, synchronised, in
+    ``torch.profiler.schedule``'s warm-up step, which the trace leaves out:
+    on the card, a tracer that had just started collecting lost the kernel
+    events of its first launches (all 47 launches of the first 12 ms of 10
+    traced steps of ``scripts/profile_step.py``, late in a long process),
+    and a warm-up of one such step's ~940 launches absorbed the loss."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     os.makedirs(log_dir, exist_ok=True)
+    cuda = torch.device(device or "cpu").type == "cuda"
     activities = [ProfilerActivity.CPU]
-    if torch.device(device or "cpu").type == "cuda":
+    if cuda:
         activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
+    with profile(activities=activities,
+                 schedule=schedule(wait=0, warmup=1, active=1 << 30)) as prof:
+        scratch = torch.zeros(1, device=device)
+        for _ in range(WARMUP_LAUNCHES):
+            scratch.add_(1)
+        if cuda:
+            torch.cuda.synchronize()
+        prof.step()
         yield prof
-        if torch.device(device or "cpu").type == "cuda":
+        if cuda:
             torch.cuda.synchronize()
     name = f"{socket.gethostname()}_{os.getpid()}.{int(time.time() * 1e3)}"
     prof.export_chrome_trace(os.path.join(log_dir, f"{name}.pt.trace.json"))
