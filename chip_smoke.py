@@ -201,7 +201,18 @@ Phases (any failed check raises, so the script exits non-zero):
    nerf_pl_tpu_torch.train_efficient_sm --compute_dtype float16
    --grad_on_light`` for 1 epoch on phase 7's scene (D 4, E 4, A 2 a step)
    and one fp16 step's grads on the card against the CPU.
-16. One JSON line of kernel numbers (E's and F's rows carry the SHA-256 of
+16. The next containers: the C++ stages (BCn, TGA, PCX, SGI, QOI,
+   PackBits rows) against their plain versions on seeded inputs; phase 9's
+   LLFF scene with its views as run-length TGA, QOI and PackBits PSD, phase
+   4's Blender scene as ICO (32-bit DIB) and BGRA DDS frames with train view
+   0 a BC7 DDS, phase 7's shadow maps as run-length SGI, PCX and CUR, each
+   written with ``tests/image_writers.py`` and its loads held bit for bit
+   against the PNG scene's (view 0 against the plain decode of its BC7
+   blocks); the same three fits as phase 12, each with one step's exact
+   launches, the LLFF ``test_train`` eval and the ``efficient_sm`` epoch-0
+   loss equal to phase 7's; last, 4032x3024 TGA, QOI, PSD and BC7 DDS files
+   decoded on the host through C++, the plain versions timed on one strip.
+17. One JSON line of kernel numbers (E's and F's rows carry the SHA-256 of
    their f32 grads at a fixed seeded input, run twice, ``f32_sha256``), the
    card's line, then the result line ``{"ok": true, "device": {...}}``
    last.
@@ -5497,6 +5508,325 @@ def entry_points_end_to_end(tmp: str, ckpt: str, seeded: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 16
+# The next containers.  The files are written here by the tests' numpy
+# writers (this machine has no PIL) from the PNG scenes' 8-bit images, so
+# each load is held bit for bit against the PNG scene's: phase 9's LLFF
+# views as run-length TGA, QOI and PackBits PSD; phase 4's Blender frames as
+# ICO (one 32-bit DIB) and uncompressed BGRA DDS, train view 0 as a BC7 DDS
+# (lossy: held against a PNG of the plain BC7 decode of its blocks); phase
+# 7's shadow maps as run-length SGI, PCX and CUR.  The fern-size files are a
+# 4032x16 strip tiled 189 times down the rows (the strip's run-length
+# packets, PackBits rows and BC7 blocks repeat as they are; its QOI stream
+# opens with an RGBA op, so it decodes the same after any other).
+CONTAINER_FORMATS = ("tga", "qoi", "psd")
+BGRA_MASKS = (0xFF0000, 0xFF00, 0xFF, 0xFF000000)
+
+
+def container_stages_vs_plain(W) -> dict:
+    """Each C++ stage against its plain version on seeded inputs: BC1-BC7
+    blocks, TGA, PCX, SGI and QOI streams, PSD PackBits rows."""
+    from nerf_pl_tpu_torch.data import dds, pcx, psd, qoi, rle, sgi, tga
+
+    rng = np.random.RandomState(17)
+    held = {}
+    for n, signed in ((1, 0), (2, 0), (3, 0), (4, 0), (5, 0), (5, 1),
+                      (6, 0), (6, 1), (7, 0)):
+        data = rng.randint(0, 256, 16 * 16 * dds._BLOCK_BYTES[n]).astype(
+            np.uint8).tobytes()
+        same_rgbs(f"bcn {n}/{signed}", dds.decode_blocks(data, n, signed, 61,
+                                                         62),
+                  dds.decode_blocks_plain(data, n, signed, 61, 62))
+        held[f"bc{n}{'s' if signed else ''}"] = 256
+    img = rng.randint(0, 4, (37, 29, 3)).astype(np.uint8) * 60
+    body = W.tga_bytes(img, 10, 24)[18:]
+    same_rgbs("tga rle", rle.tga_rle(body, 29, 37, 3),
+              tga.rle_plain(body, 29, 37, 3))
+    body = W.pcx_bytes(np.moveaxis(img, -1, 0), 8)[128:]
+    same_rgbs("pcx rle", rle.pcx_rle(body, 90, 37), pcx.rle_plain(body, 90, 37))
+    body = W.sgi_bytes(img.astype(np.int64) * 257, 2, True)
+    tabs = np.frombuffer(body[512:512 + 8 * 37 * 3], ">u4").astype(np.uint32)
+    same_rgbs("sgi rle", rle.sgi_rle(body, 29, 37, 3, 2, tabs[:111],
+                                     tabs[111:]),
+              sgi.rle_plain(body, 29, 37, 3, 2, tabs[:111], tabs[111:]))
+    body = W.qoi_bytes(img)[14:]
+    same_rgbs("qoi", rle.qoi(body, 29 * 37), qoi.ops_plain(body, 29 * 37))
+    body = b"".join(W.packbits(r.tobytes()) for r in img.reshape(37, -1))
+    same_rgbs("psd packbits", psd.packbits(body, 87, 37),
+              psd.packbits_plain(body, 87, 37))
+    log(f"[containers] the C++ stages equal their plain versions: BCn "
+        f"{held}, TGA, PCX, SGI and QOI streams, PSD PackBits rows")
+    return held
+
+
+def containers_llff(tmp: str, W) -> dict:
+    """Phase 9's scene with its views as run-length TGA, QOI and PackBits
+    PSD: the loads bit-equal, then the LLFF fit and its ``test_train``
+    eval."""
+    import glob
+    import shutil
+
+    from nerf_pl_tpu_torch.data.llff import LLFFDataset
+    from nerf_pl_tpu_torch.data.png import read_png
+
+    src = os.path.join(tmp, "llff_scene")
+    root = os.path.join(tmp, "llff_containers")
+    os.makedirs(os.path.join(root, "images"))
+    shutil.copy(os.path.join(src, "poses_bounds.npy"), root)
+    t0 = time.perf_counter()
+    sizes = {}
+    views = sorted(glob.glob(os.path.join(src, "images", "*.png")))
+    for i, view in enumerate(views):
+        rgb, _ = read_png(view)
+        kind = CONTAINER_FORMATS[i % 3]
+        if kind == "tga":
+            data = W.tga_bytes(rgb[..., ::-1], 10, 24)
+        elif kind == "qoi":
+            data = W.qoi_bytes(rgb)
+        else:
+            data = W.psd_bytes(np.moveaxis(rgb, -1, 0), 3)
+        with open(os.path.join(root, "images", f"{i:03d}.{kind}"), "wb") as f:
+            f.write(data)
+        sizes[f"{i:03d}.{kind}"] = len(data)
+    write_s = time.perf_counter() - t0
+    for split in ("train", "val"):
+        a, b = (LLFFDataset(r, split=split, img_wh=LLFF_WH)
+                for r in (src, root))
+        if split == "train":
+            same_rgbs("llff containers train", a.all_rgbs, b.all_rgbs)
+        else:
+            same_rgbs("llff containers val", a[0]["rgbs"], b[0]["rgbs"])
+    log(f"[containers] llff: {len(views)} views as {sizes} bytes, written in "
+        f"{write_s:.1f} s; train and val loads bit-equal to the PNG scene's")
+    fit = trainer_fit(tmp, "train", root, "llff_containers", LLFF_FLAGS, 1,
+                      "containers")
+    system = fit["system"]
+    rays, rgbs = system.rays[:LLFF_BATCH], system.rgbs[:LLFF_BATCH]
+    per_step = one_step_launches(
+        "llff (TGA, QOI, PSD)", lambda: system.train_step(rays, rgbs),
+        LLFF_STEP_LAUNCHES)
+    del system, rays, rgbs, fit["system"]
+    ckpt = os.path.join(tmp, "ckpts", "llff_containers", "epoch=0.ckpt")
+    ev = llff_eval(tmp, root, ckpt, "test_train", LLFF_WH, "_containers")
+    return dict(fit=fit, per_step=per_step, eval=ev, bytes=sizes)
+
+
+def containers_blender(tmp: str, W) -> dict:
+    """Phase 4's scene with its frames as ICO (a 32-bit DIB) and
+    uncompressed BGRA DDS in turn, train view 0 as a BC7 DDS, under their
+    ``.png`` names: the loads bit-equal to those of the PNG scene with view
+    0 replaced by the plain decode of its BC7 blocks, then a 1-epoch fit at
+    phase 4's flags."""
+    import shutil
+
+    from nerf_pl_tpu_torch.data import dds
+    from nerf_pl_tpu_torch.data.blender import BlenderDataset
+    from nerf_pl_tpu_torch.data.png import read_png, write_png
+
+    base = os.path.join(tmp, "scene_bc7_png")
+    root = os.path.join(tmp, "scene_containers")
+    shutil.copytree(os.path.join(tmp, "scene"), base)
+    shutil.copytree(os.path.join(tmp, "scene"), root)
+    kinds = {}
+    for split, n in (("train", TRAIN_VIEWS), ("val", 1)):
+        for i in range(n):
+            name = os.path.join(split, f"r_{i}.png")
+            img, _ = read_png(os.path.join(base, name))
+            h, w = img.shape[:2]
+            if (split, i) == ("train", 0):
+                kind = "bc7"
+                blocks = W.bc7_mode6_bytes(img)
+                data = W.dds_bytes(w, h, blocks, 0, dxgi=98)
+                write_png(os.path.join(base, name),
+                          dds.decode_blocks_plain(blocks, 7, 0, w, h))
+            elif i % 2:
+                kind = "ico"
+                data = W.icon_dir([W.dib_bytes(img[..., :3], 32,
+                                               alpha=img[..., 3],
+                                               and_mask=False)], [(w, h)])
+            else:
+                kind = "dds"
+                data = W.dds_bytes(w, h, W.dds_masks(img, BGRA_MASKS, 32),
+                                   W.DDS_RGB | W.DDS_ALPHAPIXELS, bitcount=32,
+                                   masks=BGRA_MASKS)
+            with open(os.path.join(root, name), "wb") as f:
+                f.write(data)
+            kinds[kind] = kinds.get(kind, 0) + 1
+    kw = dict(img_wh=(TRAIN_WH, TRAIN_WH), near=2.0, far=6.0)
+    for split in ("train", "val"):
+        a, b = (BlenderDataset(r, split, **kw) for r in (base, root))
+        if split == "train":
+            same_rgbs("blender containers train", a.all_rgbs, b.all_rgbs)
+        else:
+            same_rgbs("blender containers val", a[0]["rgbs"], b[0]["rgbs"])
+    log(f"[containers] blender: frames as {kinds}; train and val loads "
+        "bit-equal (view 0 to the plain BC7 decode of its blocks)")
+    flags = ["--dataset_name", "blender", "--img_wh", str(TRAIN_WH),
+             str(TRAIN_WH), "--N_samples", str(N_SAMPLES), "--N_importance",
+             str(N_IMPORTANCE), "--batch_size", str(TRAIN_BATCH), "--lr",
+             "5e-4", "--white_back", "true", "--compute_dtype", "bfloat16"]
+    fit = trainer_fit(tmp, "train", root, "blender_containers", flags, 1,
+                      "containers")
+    system = fit["system"]
+    rays, rgbs = system.rays[:TRAIN_BATCH], system.rgbs[:TRAIN_BATCH]
+    per_step = one_step_launches(
+        "blender (ICO, DDS)", lambda: system.train_step(rays, rgbs),
+        VANILLA_STEP_LAUNCHES)
+    del system, rays, rgbs, fit["system"]
+    return dict(fit=fit, per_step=per_step, frames=kinds)
+
+
+def containers_shadow(tmp: str, W, phase7_loss: float) -> dict:
+    """Phase 7's shadow scene with its maps as run-length SGI, PCX and CUR
+    (in turn) under their ``sm_*.png`` names: the loads bit-equal, each map
+    also decoded by the plain stages, then a 1-epoch ``--grad_on_light``
+    fit whose epoch-0 loss must equal phase 7's."""
+    import glob
+    import shutil
+
+    from nerf_pl_tpu_torch.data import image, pcx, sgi
+    from nerf_pl_tpu_torch.data.blender_efficient_sm import \
+        BlenderEfficientShadows
+    from nerf_pl_tpu_torch.data.png import read_png
+
+    src = os.path.join(tmp, "shadow_scene")
+    root = os.path.join(tmp, "shadow_containers")
+    shutil.copytree(src, root)
+    kinds = {}
+    for k, path in enumerate(sorted(glob.glob(os.path.join(root, "sm_*.png")))):
+        img, _ = read_png(path)
+        if img.ndim != 3 or img.shape[2] != 3:
+            raise AssertionError(f"{path}: a shadow map of shape {img.shape}")
+        h, w = img.shape[:2]
+        kind = ("sgi", "pcx", "cur")[k % 3]
+        if kind == "sgi":
+            data = W.sgi_bytes(img, 1, True)
+        elif kind == "pcx":
+            data = W.pcx_bytes(np.moveaxis(img, -1, 0), 8)
+        else:
+            data = W.icon_dir([W.dib_bytes(img, 24)], [(w, h)], kind=2)
+        with open(path, "wb") as f:
+            f.write(data)
+        if kind in ("sgi", "pcx"):
+            mod = sgi if kind == "sgi" else pcx
+            head = getattr(mod, f"open_{kind}")(data)
+            load = getattr(mod, f"load_{kind}")
+            same_rgbs(f"{kind} plain", load(data, head)[0],
+                      load(data, head, plain=True)[0])
+        same_rgbs(f"{kind} map", image.read_picture(path).pixels, img)
+        kinds[kind] = kinds.get(kind, 0) + 1
+    for split in ("train", "val"):
+        a, b = (BlenderEfficientShadows(r, split, img_wh=(SHADOW_WH, SHADOW_WH))
+                for r in (src, root))
+        if split == "train":
+            same_rgbs("efficient_sm containers train", a.all_rgbs, b.all_rgbs)
+        else:
+            same_rgbs("efficient_sm containers val", a[0]["rgbs"], b[0]["rgbs"])
+    log(f"[containers] efficient_sm: shadow maps as {kinds}; train and val "
+        "loads bit-equal")
+    fit = shadow_fit(tmp, root, "sm_containers", ["--grad_on_light"], 1)
+    if fit["losses"][0] != phase7_loss:
+        raise AssertionError(f"efficient_sm on SGI/PCX/CUR maps: epoch-0 loss "
+                             f"{fit['losses'][0]!r}, phase 7's {phase7_loss!r}")
+    log(f"[containers] efficient_sm epoch-0 loss {fit['losses'][0]!r}, equal "
+        "to phase 7's on the PNG maps")
+    system = fit["system"]
+    batch = tuple(t[:SHADOW_BATCH] for t in (system.rays, system.rgbs,
+                                             system.pixels, system.pose_idx))
+    cache = system.empty_light_cache()
+    per_step = one_step_launches(
+        "efficient_sm (SGI, PCX, CUR maps)",
+        lambda: system.train_step(*batch, cache, SHADOW_LIGHT_N),
+        SHADOW_STEP_LAUNCHES)
+    del system, batch, fit["system"]
+    return dict(fit=fit, per_step=per_step, maps=kinds)
+
+
+def fern_size_containers(W) -> dict:
+    """A 4032x3024 image as a run-length TGA, a QOI, a PackBits PSD and a
+    BC7 DDS (a 4032x16 strip tiled 189 times), each decoded on this
+    machine's host through the C++ stages and held equal to the tiled
+    decode of its strip; the plain versions timed on the strip alone."""
+    import struct
+
+    from nerf_pl_tpu_torch.data import dds, image, psd, qoi, rle, tga
+
+    x = np.arange(FERN_W, dtype=np.float64)[None, :]
+    y = np.arange(FERN_STRIP, dtype=np.float64)[:, None]
+    rgb = np.stack([128 + 100 * np.sin(x / 37) + 0 * y,
+                    128 + 100 * np.cos(y / 5) + 0 * x,
+                    128 + 60 * np.sin((x + y) / 51)], -1)
+    rgb += np.random.RandomState(0).normal(0, 6, rgb.shape)
+    strip = np.clip(rgb, 0, 255).astype(np.uint8)
+    strip[:, :600] = strip[:, :600] // 32 * 32  # runs for the coders
+    rgba = np.concatenate([strip, np.full(strip.shape[:2] + (1,), 255,
+                                          np.uint8)], -1)
+    full_h = FERN_STRIP * FERN_ROWS
+    t0 = time.perf_counter()
+    files = {}
+    one = W.tga_bytes(strip[..., ::-1], 10, 24)
+    head = bytearray(one[:18])
+    struct.pack_into("<H", head, 14, full_h)
+    files["tga"] = (one, bytes(head) + one[18:] * FERN_ROWS)
+    one = W.qoi_bytes(strip, explicit_first=True)
+    files["qoi"] = (one, one[:8] + struct.pack(">I", full_h) + one[12:14]
+                    + one[14:-8] * FERN_ROWS + one[-8:])
+    rows = [[W.packbits(strip[r, :, c].tobytes()) for r in range(FERN_STRIP)]
+            for c in range(3)]
+    one = W.psd_bytes(np.moveaxis(strip, -1, 0), 3)
+    head = bytearray(one[:26])
+    struct.pack_into(">I", head, 14, full_h)
+    counts = b"".join(np.array([len(r) for r in rc] * FERN_ROWS,
+                               ">u2").tobytes() for rc in rows)
+    body = b"".join(b"".join(rc) * FERN_ROWS for rc in rows)
+    files["psd"] = (one, bytes(head) + struct.pack(">IIIH", 0, 0, 0, 1)
+                    + counts + body)
+    blocks = W.bc7_mode6_bytes(rgba)
+    files["dds"] = (W.dds_bytes(FERN_W, FERN_STRIP, blocks, 0, dxgi=98),
+                    W.dds_bytes(FERN_W, full_h, blocks * FERN_ROWS, 0,
+                                dxgi=98))
+    write_s = time.perf_counter() - t0
+    dds._native(), rle._native()  # built before the clock starts
+    plain_load = {"tga": (tga.open_tga, tga.load_tga),
+                  "qoi": (qoi.open_qoi, qoi.load_qoi),
+                  "psd": (psd.open_psd, psd.load_psd),
+                  "dds": (dds.open_dds, dds.load_dds)}
+    out = dict(write_s=write_s)
+    for kind, (strip_file, data) in files.items():
+        t0 = time.perf_counter()
+        name, load = image.open_format(data, kind)
+        px = load()[0]
+        whole = time.perf_counter() - t0
+        open_fn, load_fn = plain_load[kind]
+        t0 = time.perf_counter()
+        plain = load_fn(strip_file, open_fn(strip_file), plain=True)[0]
+        plain_s = time.perf_counter() - t0
+        same_rgbs(f"fern-size {kind}", px, np.tile(plain, (FERN_ROWS, 1, 1)))
+        if kind != "dds":
+            same_rgbs(f"fern-size {kind} pixels", plain, strip)
+        out[kind] = dict(format=name, bytes=len(data), s=whole,
+                         plain_strip_s=plain_s)
+        log(f"[containers] {FERN_W}x{full_h} {name} on the host "
+            f"({gpu_line()}): {len(data):,} bytes, decode {whole:.3f} s "
+            f"through C++, equal to the tiled plain decode of its strip; the "
+            f"plain version on one {FERN_W}x{FERN_STRIP} strip {plain_s:.3f} s")
+    return out
+
+
+def containers_end_to_end(tmp: str, phase7_loss: float) -> dict:
+    """Phase 16: the fits on the next containers, the C++ stages against
+    their plain versions and the fern-size decodes."""
+    t0 = time.perf_counter()
+    W = image_writers()
+    out = dict(stages=container_stages_vs_plain(W),
+               llff=containers_llff(tmp, W), blender=containers_blender(tmp, W),
+               shadow=containers_shadow(tmp, W, phase7_loss),
+               fern=fern_size_containers(W))
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[containers] phase 16: {out['seconds']:.1f} s")
+    return out
+
+
 # ---------------------------------------------------------------- phase 15
 # --compute_dtype float16: the fp16 instantiation of every fused
 # kernel.  C-F' in fp16 against their plain versions at phase 2's training
@@ -6029,6 +6359,7 @@ def main() -> int:
         entries = entry_points_end_to_end(
             tmp, os.path.join(tmp, "ckpts", "smoke", "epoch=1.ckpt"), ckpt)
         f16 = float16_end_to_end(tmp, ckpt)
+        boxes = containers_end_to_end(tmp, shadow["fit"]["losses"][0])
 
     fine_row, coarse_row = c["rows"]["rgb"], c["rows"]["sigma-only"]
     kernels = [
@@ -6486,6 +6817,30 @@ def main() -> int:
         f"{fk['marks'][F16]['share']:.4%}, bf16 "
         f"{fk['marks'][BF16]['share']:.4%}; fp16 fit "
         f"{ff['rays_per_s']:.1f} train rays/s ({card})")
+    # phase 16: the fits on the next containers and one step of each
+    for row in kernels:
+        key = {"searchsorted_rank_interp": "B", "searchsorted_rank": "A",
+               "fused_nerf_fwd": "C", "fused_nerf_stash_fwd": "D",
+               "fused_nerf_bwd_stash": "E"}.get(row["name"])
+        if key is None:
+            continue
+        row["launches_containers"] = dict(
+            llff_tga_qoi_psd_fit=boxes["llff"]["fit"]["counts"][key],
+            llff_tga_qoi_psd_per_step=boxes["llff"]["per_step"][key],
+            llff_tga_qoi_psd_eval=boxes["llff"]["eval"]["counts"][key],
+            blender_ico_dds_fit=boxes["blender"]["fit"]["counts"][key],
+            blender_ico_dds_per_step=boxes["blender"]["per_step"][key],
+            efficient_sm_sgi_pcx_cur_fit=boxes["shadow"]["fit"]["counts"][key],
+            efficient_sm_sgi_pcx_cur_per_step=boxes["shadow"]["per_step"][key])
+    bf = boxes["fern"]
+    log(f"[containers] phase 16: {boxes['seconds']:.1f} s; LLFF on TGA/QOI/PSD "
+        f"{boxes['llff']['fit']['rays_per_s'][-1]:.1f} train rays/s, Blender "
+        f"on ICO/DDS {boxes['blender']['fit']['rays_per_s'][-1]:.1f}, "
+        f"efficient_sm on SGI/PCX/CUR maps "
+        f"{boxes['shadow']['fit']['rays_per_s'][-1]:.1f} camera rays/s; "
+        f"fern-size decodes on the host " + ", ".join(
+            f"{k} {bf[k]['s']:.3f} s (plain, one strip {bf[k]['plain_strip_s']:.3f} s)"
+            for k in ("tga", "qoi", "psd", "dds")) + f" ({card})")
     fern = readers["fern"]
     log(f"[readers] phase 12: {readers['seconds']:.1f} s; fern-size decode "
         f"{fern['baseline']['s']:.3f} s baseline, "

@@ -7,12 +7,16 @@
 //     with a zero byte and an odd second byte is the old style libtiff
 //     still reads (LZWDecodeCompat: codes lowest bit first, widening at
 //     512, 1024, 2048);
-//   * tiff_packbits: one strip or tile of PackBits runs (tif_packbits.c).
+//   * tiff_packbits: one strip or tile of PackBits runs (tif_packbits.c);
+//   * psd_packbits: a PSD channel's PackBits rows as Pillow's
+//     PackBitsDecode.c reads them (data/psd.py): each row of `row` bytes
+//     takes whole packets, a packet's bytes past its row's end are dropped,
+//     and a packet the data cuts short is an error.
 //
 // Each fills `out` (of `cap` bytes) and returns the bytes written, or a
 // negative code with a message in `err`.  As libtiff, a stream that ends
 // before `cap` bytes leaves the rest as it was (zero), and output past
-// `cap` is dropped.
+// `cap` is dropped; psd_packbits returns -1 where the data ends first.
 
 #include <cstdint>
 #include <cstdio>
@@ -97,29 +101,52 @@ int64_t tiff_lzw(const uint8_t *in, int64_t n, uint8_t *out, int64_t cap,
   return o;
 }
 
-int64_t tiff_packbits(const uint8_t *in, int64_t n, uint8_t *out, int64_t cap,
-                      char *err, int errlen) {
+namespace {
+
+// PackBits into `cap` bytes of `out`.  row == 0: the output runs on and a
+// packet the data cuts short gives what it holds (libtiff).  row > 0: each
+// row of `row` bytes ends its last packet (Pillow), and a packet the data
+// cuts short returns -1.
+int64_t packbits(const uint8_t *in, int64_t n, uint8_t *out, int64_t cap, int64_t row) {
   int64_t pos = 0, o = 0;
-  while (pos < n && o < cap) {
+  while (o < cap) {
+    if (pos >= n) return row ? -1 : o;
     int h = (int8_t)in[pos++];
+    if (h == -128) continue;
+    const int64_t end = row ? (o / row + 1) * row : cap;
     if (h >= 0) {
       int64_t k = h + 1;
-      if (pos + k > n) k = n - pos;
-      if (o + k > cap) k = cap - o;
-      memcpy(out + o, in + pos, k);
-      o += k;
+      if (pos + k > n) {
+        if (row) return -1;
+        k = n - pos;
+      }
+      const int64_t keep = o + k > end ? end - o : k;
+      memcpy(out + o, in + pos, keep);
+      o += keep;
       pos += h + 1;
-    } else if (h != -128) {
-      if (pos >= n) break;
-      int64_t k = 1 - h;
-      if (o + k > cap) k = cap - o;
-      memset(out + o, in[pos++], k);
-      o += k;
+    } else {
+      if (pos >= n) return row ? -1 : o;
+      const int64_t k = 1 - h;
+      const int64_t keep = o + k > end ? end - o : k;
+      memset(out + o, in[pos++], keep);
+      o += keep;
     }
   }
+  return o;
+}
+
+}  // namespace
+
+int64_t tiff_packbits(const uint8_t *in, int64_t n, uint8_t *out, int64_t cap,
+                      char *err, int errlen) {
   (void)err;
   (void)errlen;
-  return o;
+  return packbits(in, n, out, cap, 0);
+}
+
+int64_t psd_packbits(const uint8_t *in, int64_t n, uint8_t *out, int64_t row,
+                     int64_t rows) {
+  return packbits(in, n, out, row * rows, row);
 }
 
 }  // extern "C"

@@ -120,21 +120,40 @@ def _unpack(raw: str, rows: np.ndarray, w: int) -> np.ndarray:
 
 def decode(data: bytes, name: str = "BMP"):
     """``(pixels, mode, palette, transparency)`` as Pillow opens the file."""
+    return _guarded(lambda: _bitmap(data, name, 14, _i32(data, 10))[:4], name)
+
+
+def decode_dib(data: bytes, name: str = "DIB", header: int = 0,
+               halve: bool = False, raw_alpha: bool = False):
+    """A DIB (a BMP without its 14-byte file header, as in ICO and CUR
+    files and Pillow's ``DibImageFile``) whose header starts at ``header``,
+    its pixels right after the header, masks and palette.  ``halve`` keeps
+    the first half of the rows (the XOR image of an icon or cursor), and
+    ``raw_alpha`` reads 32-bit pixels as ``BGRA`` (Pillow's 32-bit ``.cur``
+    at offset 22).  Returns ``(pixels, mode, palette, transparency)`` and
+    the pixel data's offset."""
+    return _guarded(lambda: _bitmap(data, name, header, 0, halve, raw_alpha),
+                    name)
+
+
+def _guarded(fn, name: str):
     try:
-        return _decode(data, name)
+        return fn()
     except (struct.error, IndexError, ValueError) as e:
         if str(e).startswith(f"{name}: "):
             raise
         raise ValueError(f"{name}: a corrupt BMP ({e})") from None
 
 
-def _decode(data: bytes, name: str):
-    offset = _i32(data, 10)
-    hsize = _i32(data, 14)
-    hd = data[18:14 + hsize]
+def _bitmap(data: bytes, name: str, start: int, offset: int,
+            halve: bool = False, raw_alpha: bool = False):
+    """``BmpImageFile._bitmap``: the header at ``start``, the pixels at
+    ``offset`` (0: where the header, masks and palette end)."""
+    hsize = _i32(data, start)
+    hd = data[start + 4:start + hsize]
     if len(hd) < hsize - 4:
         raise ValueError("truncated header")
-    pos = 14 + hsize
+    pos = start + hsize
     direction = -1
     if hsize == 12:
         w, h, bits = _i16(hd, 0), _i16(hd, 2), _i16(hd, 6)
@@ -171,11 +190,14 @@ def _decode(data: bytes, name: str):
         rle = True
     elif comp != 0:
         raise ValueError(f"{name}: unsupported BMP compression ({comp})")
+    elif bits == 32 and raw_alpha:
+        raw, mode = "BGRA", "RGBA"
     palette = None
     if mode == "P":
         if not 0 < colors <= 65536:
             raise ValueError(f"{name}: unsupported BMP palette size ({colors})")
         pal = np.frombuffer(data[pos:pos + pad * colors], np.uint8)
+        pos += len(pal)
         pal = pal[:len(pal) // pad * pad].reshape(-1, pad)[:, :3]
         ramp = [0, 255] if colors == 2 else list(range(colors))
         gray = len(pal) >= len(ramp) and all(
@@ -188,6 +210,9 @@ def _decode(data: bytes, name: str):
             raw = "P;1" if mode == "1" else "L"
         else:
             palette = pal[:, ::-1].copy()
+    offset = offset or min(pos, len(data))
+    if halve:
+        h //= 2
     if rle:
         px = _rle(data, offset, w, h, comp == 2)
     else:
@@ -201,4 +226,4 @@ def _decode(data: bytes, name: str):
     px = np.ascontiguousarray(px)
     if mode == "1":
         px = (px * 255).astype(np.uint8)
-    return px, mode, palette, None
+    return px, mode, palette, None, offset

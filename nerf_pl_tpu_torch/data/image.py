@@ -1,14 +1,25 @@
 """Pillow's image semantics on the port's own readers, for every loader.
 
 The JAX loaders read each image through Pillow: ``Image.open`` (which tells
-the container by its first bytes, whatever the file's name), then
+the container by its content, whatever the file's name), then
 ``resize(..., LANCZOS)``, ``filter(GaussianBlur(r))`` and ``convert(mode)``
-in the file's own mode.  ``read_picture`` opens a file by its content
-(PNG ``data/png.py``, JPEG ``data/jpeg.py``, WebP ``data/webp.py``, TIFF
-``data/tiff.py``, PPM/PGM/PBM/PFM ``data/ppm.py``, BMP ``data/bmp.py``,
-GIF ``data/gif.py``) into a ``Picture`` that carries Pillow's mode and
-what its ``info`` keeps (a palette, the transparency); ``resize``,
-``gaussian_blur`` and ``convert`` then do what Pillow does in that mode:
+in the file's own mode.  ``read_picture`` opens a file as ``Image.open``
+does: it walks Pillow's formats in ``Image.ID``'s order (the pre-init
+plugins, then the rest as ``Image.init`` registers them; ``_FORMATS``),
+asks each whether it accepts the first 16 bytes, then opens it; a
+``SyntaxError``, IndexError, TypeError or ``struct.error`` in the open
+moves on to the next format, anything else raises, as in
+``Image._open_core``.  The port reads PNG (``data/png.py``), JPEG
+(``data/jpeg.py``), WebP (``data/webp.py``), TIFF (``data/tiff.py``),
+PPM/PGM/PBM/PFM (``data/ppm.py``), BMP and DIB (``data/bmp.py``), GIF
+(``data/gif.py``), ICO and CUR (``data/ico.py``), PCX (``data/pcx.py``),
+DDS (``data/dds.py``), PSD (``data/psd.py``), QOI (``data/qoi.py``), SGI
+(``data/sgi.py``) and TGA (``data/tga.py``, which has no magic number and
+comes after most others), each into a ``Picture`` that carries Pillow's
+mode and what its ``info`` keeps (a palette, the transparency).  A file
+that another of Pillow's formats would claim raises, naming that format.
+``resize``, ``gaussian_blur`` and ``convert`` then do what Pillow does in
+that mode:
 
   * ``resize``: NEAREST for ``1`` and ``P`` (``ImagingScaleAffine``: the
     source column of output ``x`` is ``int(x0)`` for ``x0`` stepped by the
@@ -33,11 +44,14 @@ what its ``info`` keeps (a palette, the transparency); ``resize``,
 """
 from __future__ import annotations
 
+import re
+import struct
 from typing import Optional
 
 import numpy as np
 
-from . import bmp, gif, jpeg, png, ppm, tiff, webp
+from . import (bmp, dds, gif, ico, jpeg, pcx, png, ppm, psd, qoi, sgi, tga,
+               tiff, webp)
 from .blur import gaussian_blur as _blur
 from .resize import resize_lanczos, resize_lanczos_16, resize_lanczos_32
 
@@ -50,8 +64,9 @@ class Picture:
     """An image as Pillow holds it: ``pixels`` (H, W[, C]) (uint16 values
     for ``I;16`` and ``I;16B``, int32 for ``I``, float32 for ``F``, palette
     indices for ``P`` and ``PA``), ``mode``, and the ``palette`` ((n, 3)
-    uint8) and ``transparency`` (an int, a tuple or bytes) of its
-    ``info``."""
+    uint8) and ``transparency`` (an int, a tuple or bytes: per-entry alphas
+    of a palette) of its ``info``.  An ``L`` or ``LA`` picture with a
+    palette is a TGA whose core image Pillow made ``P`` or ``PA``."""
 
     def __init__(self, pixels: np.ndarray, mode: str,
                  palette: Optional[np.ndarray] = None, transparency=None,
@@ -72,28 +87,242 @@ def read_picture(path: str) -> Picture:
     return pic
 
 
+# Image.MAX_IMAGE_PIXELS: Image.open raises DecompressionBombError past twice it
+_BOMB_PIXELS = 2 * 178956970
+_NEXT = (SyntaxError, IndexError, TypeError, struct.error)
+
+
+def _now(decode):
+    """An opener without a header stage, for the containers the port read
+    before it walked ``Image.ID``: their faults raise, as before."""
+    return lambda data, path: (None, lambda: decode(data, path))
+
+
+def _jpeg(data, path):
+    try:
+        return jpeg.decode(data)
+    except jpeg._Unsupported as e:
+        raise ValueError(f"{path}: unsupported JPEG: {e}") from None
+
+
+def _opened(open_fn, load_fn):
+    """An opener of a header (``open_fn``, whose faults may move on) and
+    its pixels (``load_fn``, whose faults raise)."""
+    def opener(data, path):
+        head = open_fn(data)
+        return head["size"], lambda: load_fn(data, head)
+    return opener
+
+
+def _dib(data, path):
+    return None, lambda: bmp.decode_dib(data, path)[:4]
+
+
+def _decoded(decode):
+    """A format Pillow decodes in its open (ICO), or whose open reads the
+    whole header (CUR): its faults in the header move on."""
+    def opener(data, path):
+        out = decode(data, path)
+        return (out[0].shape[1], out[0].shape[0]), lambda: out
+    return opener
+
+
+def _i32(prefix: bytes, big: bool = False) -> int:
+    return struct.unpack(">I" if big else "<I", prefix[:4])[0]
+
+
+def _not_read(name: str):
+    def opener(data, path):
+        raise ValueError(f"{path}: Pillow reads this as {name}, a format "
+                         "the port does not read")
+    return opener
+
+
+_IM_LINE = re.compile(rb"^([A-Za-z][^:]*):[ \t]*(.*)[ \t]*$")
+_IM_TAGS = frozenset(("Comment", "Date", "Digitalization equipment",
+                      "File size (no of images)", "Lut", "Name", "Scale (x,y)",
+                      "Image size (x*y)", "Image type"))
+
+
+def _im(data, path):
+    """``ImImageFile._open``'s header walk: a line feed in the first 100
+    bytes, then ``key: value`` lines (none past 100 bytes) up to a 0, 0x1A
+    or the end, one of them a known key."""
+    if b"\n" not in data[:100]:
+        raise SyntaxError("not an IM file")
+    pos, known = 0, 0
+    while pos < len(data):
+        c = data[pos:pos + 1]
+        pos += 1
+        if c == b"\r":
+            continue
+        if c in (b"\0", b"\x1a"):
+            break
+        end = data.find(b"\n", pos)
+        end = len(data) if end < 0 else end + 1
+        line, pos = c + data[pos:end], end
+        if len(line) > 100:
+            raise SyntaxError("not an IM file")
+        line = line[:-2] if line.endswith(b"\r\n") else line.removesuffix(
+            b"\n")
+        m = _IM_LINE.match(line)
+        if not m:
+            raise SyntaxError("not an IM file")
+        known += m.group(1).decode("latin-1") in _IM_TAGS
+    if not known:
+        raise SyntaxError("not an IM file")
+    return _not_read("IM")(data, path)
+
+
+def _imt(data, path):
+    """``ImtImageFile._open`` claims a file with width and height fields."""
+    head = data[:1000]
+    if b"\n" not in data[:100] or not (
+            re.search(rb"(^|\n)width [1-9]", head)
+            and re.search(rb"(^|\n)height [1-9]", head)):
+        raise SyntaxError("not an IM Tools file")
+    return _not_read("IMT")(data, path)
+
+
+def _iptc(data, path):
+    """``IptcImageFile._open``: five zero bytes end its fields and it
+    raises (``KeyError``); a field that is not 0x1C and a known record
+    moves on."""
+    s = data[:5]
+    if s.strip(b"\0") and (s[0] != 0x1C or len(s) < 2 or s[1] not in (
+            1, 2, 3, 4, 5, 6, 7, 8, 9, 240)):
+        raise SyntaxError("invalid IPTC/NAA file")
+    return _not_read("IPTC")(data, path)
+
+
+def _pcd(data, path):
+    if not data[2048:2052] == b"PCD_":
+        raise SyntaxError("not a PCD file")
+    return _not_read("PCD")(data, path)
+
+
+def _spider(data, path):
+    """``SpiderImageFile._open``: 27 floats, big- then little-endian, that
+    hold a Spider header (``isSpiderHeader``)."""
+    def header(t):
+        h = (99,) + t
+        for i in (1, 2, 5, 12, 13, 22, 23):
+            try:
+                if h[i] - int(h[i]) != 0:
+                    return 0
+            except (ValueError, OverflowError):
+                return 0
+        if int(h[5]) not in (1, 3, -11, -12, -21, -22):
+            return 0
+        return int(h[22]) if int(h[22]) == int(h[13]) * int(h[23]) else 0
+    try:
+        if not (header(struct.unpack(">27f", data[:108]))
+                or header(struct.unpack("<27f", data[:108]))):
+            raise SyntaxError("not a valid Spider file")
+    except struct.error:
+        raise SyntaxError("not a valid Spider file") from None
+    return _not_read("SPIDER")(data, path)
+
+
+_AVIF_BRANDS = (b"avif", b"avis", b"mif1", b"msf1")
+_FORMATS = (  # (name, accept, opener) in Image.ID's order
+    ("BMP", lambda p: p[:2] == b"BM", _now(bmp.decode)),
+    ("DIB", lambda p: _i32(p) in (12, 40, 52, 56, 64, 108, 124), _dib),
+    ("GIF", lambda p: p[:6] in (b"GIF87a", b"GIF89a"), _now(gif.decode)),
+    ("JPEG", lambda p: p[:2] == b"\xff\xd8", _now(_jpeg)),
+    ("PPM", lambda p: p[:1] == b"P" and p[1:2] != b"" and p[1] in
+     b"0123456fy", _now(ppm.decode)),
+    ("PNG", lambda p: p[:8] == _PNG, _now(png.decode_png)),
+    ("AVIF", lambda p: p[4:8] == b"ftyp" and p[8:12] in _AVIF_BRANDS,
+     _not_read("AVIF")),
+    ("BLP", lambda p: p[:4] in (b"BLP1", b"BLP2"), _not_read("BLP")),
+    ("BUFR", lambda p: p[:4] in (b"BUFR", b"ZCZC"), _not_read("BUFR")),
+    ("CUR", lambda p: p[:4] == b"\0\0\2\0", _decoded(ico.decode_cur)),
+    ("PCX", pcx._accept, _opened(pcx.open_pcx, pcx.load_pcx)),
+    ("DCX", lambda p: _i32(p) == 0x3ADE68B1, _not_read("DCX")),
+    ("DDS", lambda p: p[:4] == b"DDS ", _opened(dds.open_dds, dds.load_dds)),
+    ("EPS", lambda p: p[:4] == b"%!PS" or _i32(p) == 0xC6D3D0C5,
+     _not_read("EPS")),
+    ("FITS", lambda p: p[:6] == b"SIMPLE", _not_read("FITS")),
+    ("FLI", lambda p: len(p) >= 16 and struct.unpack_from("<H", p, 4)[0] in (
+        0xAF11, 0xAF12) and struct.unpack_from("<H", p, 14)[0] in (0, 3),
+     _not_read("FLI")),
+    ("FTEX", lambda p: p[:4] == b"FTEX", _not_read("FTEX")),
+    ("GBR", lambda p: len(p) >= 8 and _i32(p, True) >= 20 and _i32(
+        p[4:], True) in (1, 2), _not_read("GBR")),
+    ("GRIB", lambda p: len(p) >= 8 and p[:4] == b"GRIB" and p[7] == 1,
+     _not_read("GRIB")),
+    ("HDF5", lambda p: p[:8] == b"\x89HDF\r\n\x1a\n", _not_read("HDF5")),
+    ("JPEG2000", lambda p: p[:4] == b"\xff\x4f\xff\x51" or p[:12] ==
+     b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a", _not_read("JPEG2000")),
+    ("ICNS", lambda p: p[:4] == b"icns", _not_read("ICNS")),
+    ("ICO", lambda p: p[:4] == b"\0\0\1\0", _decoded(ico.decode_ico)),
+    ("IM", None, _im),
+    ("IMT", None, _imt),
+    ("IPTC", None, _iptc),
+    ("MCIDAS", lambda p: p[:8] == b"\0\0\0\0\0\0\0\4", _not_read("MCIDAS")),
+    ("MPEG", lambda p: p[:4] == b"\0\0\1\xb3", _not_read("MPEG")),
+    ("TIFF", lambda p: p[:4] in _TIFF, _now(tiff.decode)),
+    ("MSP", lambda p: p[:4] in (b"DanM", b"LinS"), _not_read("MSP")),
+    ("PCD", None, _pcd),
+    ("PIXAR", lambda p: p[:4] == b"\200\350\000\000", _not_read("PIXAR")),
+    ("PSD", lambda p: p[:4] == b"8BPS", _opened(psd.open_psd, psd.load_psd)),
+    ("QOI", lambda p: p[:4] == b"qoif", _opened(qoi.open_qoi, qoi.load_qoi)),
+    ("SGI", lambda p: len(p) >= 2 and p[0] == 1 and p[1] == 0xDA,
+     _opened(sgi.open_sgi, sgi.load_sgi)),
+    ("SPIDER", None, _spider),
+    ("SUN", lambda p: len(p) >= 4 and _i32(p, True) == 0x59A66A95,
+     _not_read("SUN")),
+    ("TGA", None, _opened(tga.open_tga, tga.load_tga)),
+    ("WEBP", lambda p: p[:4] == b"RIFF" and p[8:12] == b"WEBP",
+     _now(webp.decode)),
+    ("WMF", lambda p: p[:6] == b"\xd7\xcd\xc6\x9a\0\0" or p[:4] ==
+     b"\x01\x00\x00\x00", _not_read("WMF")),
+    ("XBM", lambda p: p.lstrip().startswith(b"#define"), _not_read("XBM")),
+    ("XPM", lambda p: p[:9] == b"/* XPM */", _not_read("XPM")),
+    ("XVTHUMB", lambda p: p[:6] == b"P7 332", _not_read("XVTHUMB")),
+)
+READS = ("PNG", "JPEG", "WebP", "TIFF", "PPM", "BMP", "DIB", "GIF", "ICO",
+         "CUR", "PCX", "DDS", "PSD", "QOI", "SGI", "TGA")
+
+
+def open_format(data: bytes, path: str = "image"):
+    """The name of the format ``Image.open`` would give ``data`` and a
+    loader of its ``(pixels, mode, palette, transparency)``; raises
+    ``ValueError`` where ``Image.open`` raises."""
+    prefix = data[:16]
+    for name, accept, opener in _FORMATS:
+        try:
+            if accept is not None and not accept(prefix):
+                continue
+            size, load = opener(data, path)
+        except _NEXT:
+            continue
+        except ValueError as e:
+            if str(e).startswith(f"{path}: "):
+                raise
+            raise ValueError(f"{path}: {name}: {e}") from None
+        if size is not None:
+            if size[0] <= 0 or size[1] <= 0:
+                continue  # ImageFile refuses a size of 0: the next format
+            if size[0] * size[1] > _BOMB_PIXELS:
+                raise ValueError(f"{path}: {size[0]}x{size[1]} pixels, past "
+                                 "Pillow's decompression bomb limit")
+        return name, load
+    raise ValueError(f"{path}: not a {', '.join(READS[:-1])} or {READS[-1]} "
+                     f"file (it starts {data[:8]!r})")
+
+
 def _read(path: str) -> Picture:
     with open(path, "rb") as f:
         data = f.read()
-    if data[:8] == _PNG:
-        return Picture(*png.decode_png(data, path))
-    if data[:2] == b"\xff\xd8":
-        try:
-            return Picture(*jpeg.decode(data))
-        except jpeg._Unsupported as e:
-            raise ValueError(f"{path}: unsupported JPEG: {e}") from None
-    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
-        return Picture(*webp.decode(data, path))
-    if data[:4] in _TIFF:
-        return Picture(*tiff.decode(data, path))
-    if data[:1] == b"P" and data[1:2] and data[1] in b"0123456fy":
-        return Picture(*ppm.decode(data, path))
-    if data[:2] == b"BM":
-        return Picture(*bmp.decode(data, path))
-    if data[:6] in (b"GIF87a", b"GIF89a"):
-        return Picture(*gif.decode(data, path))
-    raise ValueError(f"{path}: not a PNG, JPEG, WebP, TIFF, PPM, BMP or GIF "
-                     f"file (it starts {data[:8]!r})")
+    name, load = open_format(data, path)
+    try:
+        return Picture(*load())
+    except ValueError as e:
+        if str(e).startswith(path):
+            raise
+        raise ValueError(f"{path}: {name}: {e}") from None
 
 
 # ------------------------------------------------------------- resize
@@ -113,8 +342,15 @@ def resize(pic: Picture, size) -> Picture:
     if w < 1 or h < 1:
         raise ValueError(f"cannot resize to {size}")
     px = pic.pixels
+    mapped = pic.mode in ("L", "LA") and pic.palette is not None
     if (px.shape[1], px.shape[0]) == (w, h):
-        return pic._with(px.copy())
+        out = pic._with(px.copy())
+        if mapped:  # Pillow's copy takes the core image's mode
+            out.mode = "P" if pic.mode == "L" else "PA"
+        return out
+    if mapped:  # a TGA's L or LA with a colour map: its core image is P or PA
+        raise ValueError("image has wrong mode" if pic.mode == "L" else
+                         "conversion from L to La not supported")
     if pic.mode in ("1", "P"):
         rows = _nearest_index(px.shape[0], h)
         cols = _nearest_index(px.shape[1], w)
@@ -131,7 +367,8 @@ def resize(pic: Picture, size) -> Picture:
 
 def gaussian_blur(pic: Picture, radius: float) -> Picture:
     """``Image.filter(ImageFilter.GaussianBlur(radius))``."""
-    if pic.mode not in ("L", "LA", "RGB", "RGBA", "CMYK"):
+    if pic.mode not in ("L", "LA", "RGB", "RGBA", "CMYK") or (
+            pic.palette is not None and pic.mode in ("L", "LA")):
         raise ValueError(f"image has wrong mode ({pic.mode!r}: Pillow's "
                          "GaussianBlur refuses it)")
     return pic._with(_blur(pic.pixels, radius))
@@ -183,9 +420,9 @@ def _rgb(pic: Picture) -> np.ndarray:
         return px
     if mode == "RGBA":
         return px[..., :3]
-    if mode == "P":
+    if mode == "P" or (mode == "L" and pic.palette is not None):
         return _palette(pic)[px]
-    if mode == "PA":
+    if mode == "PA" or (mode == "LA" and pic.palette is not None):
         return _palette(pic)[px[..., 0]]
     if mode == "LAB":
         raise ValueError(f"{pic.name}: LAB images are converted through "
@@ -205,7 +442,7 @@ def _gray(pic: Picture) -> np.ndarray:
         with np.errstate(invalid="ignore"):
             return np.where(px >= 255.0, 255, np.where(
                 px > 0.0, np.nan_to_num(px), 0)).astype(np.uint8)
-    if mode == "LA":
+    if mode == "LA" and pic.palette is None:
         return px[..., 0]
     return _luma(_rgb(pic))
 
@@ -225,7 +462,7 @@ def convert(pic: Picture, mode: str) -> np.ndarray:
     rgb = _rgb(pic)
     if src in ("LA", "PA"):
         alpha = pic.pixels[..., 1]
-    elif src == "P":
+    elif src == "P" or (src == "L" and pic.palette is not None):
         alpha = np.full(256, 255, np.uint8)
         t = pic.transparency
         if isinstance(t, bytes):

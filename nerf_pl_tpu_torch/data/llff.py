@@ -13,10 +13,11 @@ reference ``datasets/llff.py``), on host numpy arrays.
   * Test paths: a 120-pose spiral (forward-facing) or circle (spheric);
     ``split="test_train"`` renders the training poses.  Only ``val`` has
     ground truth.
-  * ``images/*`` are any PNG or JPEG Pillow reads, told apart by their
-    first bytes (``data/image.py``), converted to RGB and resized to
-    ``img_wh`` with PIL's LANCZOS (``data/resize.py``), each bit-equal to
-    Pillow's; any other format raises naming the file.
+  * ``images/*`` are any image Pillow reads in a container the port reads,
+    told apart by their content as ``Image.open`` tells them
+    (``data/image.py``), converted to RGB and resized to ``img_wh`` with
+    PIL's LANCZOS (``data/resize.py``), each bit-equal to Pillow's; any
+    other format raises naming the file.
 """
 from __future__ import annotations
 

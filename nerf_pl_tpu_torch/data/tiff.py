@@ -125,6 +125,10 @@ def _native():
                 fn.restype = ctypes.c_int64
                 fn.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p,
                                ctypes.c_int64, ctypes.c_char_p, ctypes.c_int]
+            lib.psd_packbits.restype = ctypes.c_int64  # data/psd.py's rows
+            lib.psd_packbits.argtypes = [ctypes.c_char_p, ctypes.c_int64,
+                                         ctypes.c_void_p, ctypes.c_int64,
+                                         ctypes.c_int64]
             _lib = lib
         return _lib
 

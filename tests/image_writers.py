@@ -5,8 +5,12 @@ TIFF (every layout, LZW in both styles, PackBits, predictors, strips,
 tiles, planes, BigTIFF, fill order 2), WebP (VP8L literals after any
 transform, ``ALPH``, a VP8 frame of random modes and small coefficients
 through a boolean encoder, the RIFF container with ``VP8X``/``ANMF``),
-PPM, BMP (RLE too) and GIF (LZW) are written below the PNG and JPEG
-writers.  Those write the layouts Pillow cannot write: PNG at every bit
+PPM, BMP (RLE too) and GIF (LZW), then TGA (raw and run-length, colour
+maps, both orientations and right-to-left), SGI (raw and run-length, 1 and
+2 bytes a sample), PCX (every bits x planes layout), QOI (every op), PSD
+(raw and PackBits), ICO and CUR (DIB and PNG payloads, AND masks) and DDS
+(the header, the bitmask layouts, a BC7 mode-6 encoder) are written below
+the PNG and JPEG writers.  Those write the layouts Pillow cannot write: PNG at every bit
 depth and colour type (1/2/4/8/16-bit gray, 8/16-bit RGB, gray + alpha and RGBA,
 1/2/4/8-bit palette), with ``tRNS`` and Adam7 interlacing; JPEG from given
 quantised coefficients as sequential or progressive Huffman (any scan
@@ -2127,3 +2131,381 @@ def gif_bytes(indices: np.ndarray, palette: Optional[np.ndarray],
         block = data[i:i + 255]
         out += bytes([len(block)]) + block
     return out + b"\0;"
+
+
+# ------------------------------------------------------------------ DDS
+DDS_RGB, DDS_ALPHAPIXELS, DDS_FOURCC = 0x40, 0x1, 0x4
+DDS_PAL8, DDS_LUMINANCE = 0x20, 0x20000
+
+
+def dds_bytes(w: int, h: int, body: bytes, pfflags: int,
+              fourcc: bytes = b"\0\0\0\0", bitcount: int = 0,
+              masks: Sequence[int] = (0, 0, 0, 0), dxgi: Optional[int] = None,
+              palette: Optional[bytes] = None) -> bytes:
+    """A DDS file: the 124-byte header (one mip level), a DX10 header where
+    ``dxgi`` is given (FourCC ``DX10``), a 1,024-byte RGBA ``palette``, then
+    ``body``."""
+    if dxgi is not None:
+        fourcc, pfflags = b"DX10", pfflags | DDS_FOURCC
+    head = struct.pack("<4sI6I44x", b"DDS ", 124, 0x1007, h, w, 0, 0, 1)
+    head += struct.pack("<2I4s5I", 32, pfflags, fourcc, bitcount,
+                        *(list(masks) + [0] * 4)[:4])
+    head += struct.pack("<4I4x", 0x1000, 0, 0, 0)
+    if dxgi is not None:
+        head += struct.pack("<5I", dxgi, 3, 0, 1, 0)
+    return head + (palette or b"") + body
+
+
+def dds_masks(img: np.ndarray, masks: Sequence[int], bitcount: int) -> bytes:
+    """Pixels (h, w, c) of 8 bits each packed into ``bitcount``-bit
+    little-endian words under ``masks`` (each value scaled to its mask's
+    width by truncation)."""
+    h, w, c = img.shape
+    word = np.zeros((h, w), np.uint64)
+    for k, m in enumerate(masks[:c]):
+        if not m:
+            continue
+        shift = (m & -m).bit_length() - 1
+        top = m >> shift
+        v = img[..., k].astype(np.uint64) * np.uint64(top) // np.uint64(255)
+        word |= (v << np.uint64(shift)) & np.uint64(m)
+    nbytes = bitcount // 8
+    out = np.zeros((h, w, nbytes), np.uint8)
+    for k in range(nbytes):
+        out[..., k] = (word >> np.uint64(8 * k)) & np.uint64(0xFF)
+    return out.tobytes()
+
+
+def bc7_mode6_bytes(rgba: np.ndarray) -> bytes:
+    """A crude BC7 encoder: every 4x4 block in mode 6 (7-bit RGBA endpoints
+    with a p-bit each, 4-bit indices), its endpoints the block's channel
+    minimum and maximum, each pixel's index its projection onto the line
+    between them.  Edges are padded by repeating the last row and
+    column."""
+    h, w, _ = rgba.shape
+    bh, bw = -(-h // 4), -(-w // 4)
+    img = np.pad(rgba.astype(np.int64), ((0, 4 * bh - h), (0, 4 * bw - w),
+                                         (0, 0)), mode="edge")
+    blocks = img.reshape(bh, 4, bw, 4, 4).transpose(0, 2, 1, 3, 4).reshape(
+        -1, 16, 4)
+    lo, hi = blocks.min(1), blocks.max(1)
+    e = [np.clip(v >> 1, 0, 127) for v in (lo, hi)]  # 7 bits, p-bit 0 / 1
+    e[1] = np.maximum(e[1], e[0])
+    q = [(ee << 1) | p for ee, p in ((e[0], 0), (e[1], 1))]
+    d = (q[1] - q[0]).astype(np.float64)
+    t = ((blocks - q[0][:, None]) * d[:, None]).sum(-1) / np.maximum(
+        (d * d).sum(-1), 1)[:, None]
+    idx = np.clip(np.rint(t * 15), 0, 15).astype(np.int64)
+    # the anchor (pixel 0) must have its top bit clear: swap the endpoints
+    swap = idx[:, 0] >= 8
+    idx = np.where(swap[:, None], 15 - idx, idx)
+    e0 = np.where(swap[:, None], e[1], e[0])
+    e1 = np.where(swap[:, None], e[0], e[1])
+    p0 = np.where(swap, 1, 0)
+    p1 = 1 - p0
+    out = bytearray()
+    for k in range(len(blocks)):
+        v, pos = 1 << 6, 7  # mode 6
+        for c in range(4):
+            v |= int(e0[k, c]) << pos
+            v |= int(e1[k, c]) << (pos + 7)
+            pos += 14
+        v |= int(p0[k]) << pos
+        v |= int(p1[k]) << (pos + 1)
+        pos += 2
+        for i in range(16):
+            n = 3 if i == 0 else 4
+            v |= int(idx[k, i]) << pos
+            pos += n
+        out += v.to_bytes(16, "little")
+    return bytes(out)
+
+
+# ------------------------------------------------------------------ TGA
+def tga_bytes(raw: np.ndarray, itype: int, depth: int, cmap: bytes = b"",
+              cmap_depth: int = 0, cmap_first: int = 0, top_down: bool = False,
+              rtl: bool = False, image_id: bytes = b"", extra: int = 0,
+              width: Optional[int] = None) -> bytes:
+    """A TGA of ``raw`` (h, w, bytes a pixel) stored pixel bytes (BGR(A),
+    gray + alpha, 16-bit words as two bytes, indices), or (h, ceil(w / 8))
+    packed bits at depth 1; types 9-11 as run-length packets (runs inside a
+    row, raw packets running on over rows).  ``cmap`` is the colour map's
+    stored entries; ``extra`` sets the descriptor's other bits; ``width``
+    is the image's where it is not ``raw``'s (1 bit a pixel)."""
+    h, w = raw.shape[0], width or raw.shape[1]
+    flags = (0x20 if top_down else 0) | (0x10 if rtl else 0) | extra
+    rows = raw if top_down else raw[::-1]
+    if rtl:
+        rows = rows[:, ::-1]
+    ncmap = len(cmap) // max(1, cmap_depth // 8) if cmap_depth else 0
+    head = struct.pack("<BBBHHBHHHHBB", len(image_id), 1 if cmap_depth else 0,
+                       itype, cmap_first, ncmap, cmap_depth, 0, 0, w, h, depth,
+                       flags)
+    if itype < 8:
+        return head + image_id + cmap + rows.tobytes()
+    bpp = depth // 8
+    px = rows.reshape(h * w, bpp)
+    out, i, n = bytearray(), 0, h * w
+    while i < n:
+        j = i  # a run: equal pixels in the same row
+        while (j + 1 < n and (j + 1) % w and j - i < 127
+               and (px[j + 1] == px[i]).all()):
+            j += 1
+        if j > i:
+            out += bytes([0x80 | (j - i)]) + px[i].tobytes()
+            i = j + 1
+            continue
+        j = i + 1  # a raw packet, over rows where it must
+        while j < n and j - i < 128 and not (
+                j + 1 < n and (j + 1) % w and (px[j + 1] == px[j]).all()):
+            j += 1
+        out += bytes([j - i - 1]) + px[i:j].tobytes()
+        i = j
+    return head + image_id + cmap + bytes(out)
+
+
+# ------------------------------------------------------------------ SGI
+def _sgi_rle_row(v: np.ndarray, bpc: int) -> bytes:
+    """One channel's row as SGI packets: repeats, literals, a 0 count."""
+    fmt = ">u2" if bpc == 2 else "u1"
+
+    def count(c):
+        return c.to_bytes(bpc, "big")
+    out, i, n = bytearray(), 0, len(v)
+    while i < n:
+        j = i
+        while j + 1 < n and v[j + 1] == v[i] and j - i < 126:
+            j += 1
+        if j > i:
+            out += count(j - i + 1) + np.array([v[i]], fmt).tobytes()
+            i = j + 1
+            continue
+        j = i + 1
+        while j < n and j - i < 127 and not (j + 1 < n and v[j + 1] == v[j]):
+            j += 1
+        out += count(0x80 | (j - i)) + v[i:j].astype(fmt).tobytes()
+        i = j
+    return bytes(out) + count(0)
+
+
+def sgi_bytes(img: np.ndarray, bpc: int = 1, rle: bool = False,
+              dimension: Optional[int] = None) -> bytes:
+    """An SGI file of ``img`` (h, w) or (h, w, z) samples (below 2^(8 bpc)),
+    rows bottom-up, raw planes or run-length rows behind their tables."""
+    if img.ndim == 2:
+        img = img[..., None]
+    h, w, z = img.shape
+    dim = dimension or (3 if z > 1 else 2)
+    head = struct.pack(">HBBHHHHii4x80si", 474, int(rle), bpc, dim, w, h, z,
+                       0, (1 << (8 * bpc)) - 1, b"port", 0).ljust(512, b"\0")
+    fmt = ">u2" if bpc == 2 else "u1"
+    planes = [img[::-1, :, c] for c in range(z)]
+    if not rle:
+        return head + b"".join(p.astype(fmt).tobytes() for p in planes)
+    body, starts, lengths = bytearray(), [], []
+    base = 512 + 8 * h * z
+    for p in planes:
+        for y in range(h):
+            row = _sgi_rle_row(p[y], bpc)
+            starts.append(base + len(body))
+            lengths.append(len(row))
+            body += row
+    tabs = np.array(starts, ">u4").tobytes() + np.array(lengths, ">u4").tobytes()
+    return head + tabs + bytes(body)
+
+
+# ------------------------------------------------------------------ PCX
+def _pcx_rle_row(row: bytes) -> bytes:
+    out, i, n = bytearray(), 0, len(row)
+    while i < n:
+        j = i
+        while j + 1 < n and row[j + 1] == row[i] and j - i < 62:
+            j += 1
+        k, v = j - i + 1, row[i]
+        out += bytes([v]) if k == 1 and v < 0xC0 else bytes([0xC0 | k, v])
+        i = j + 1
+    return bytes(out)
+
+
+def pcx_bytes(planes: np.ndarray, bits: int, version: int = 5,
+              palette16: Optional[np.ndarray] = None,
+              palette256: Optional[np.ndarray] = None,
+              even_stride: bool = True, origin=(0, 0)) -> bytes:
+    """A PCX of ``planes`` (p, h, w) samples of ``bits`` bits (each plane
+    packed MSB first), each row's planes run-length coded together; the
+    header's stride made even when ``even_stride``; a 16-entry header
+    palette and a trailing 256-entry one where given."""
+    p, h, w = planes.shape
+    stride = (w * bits + 7) // 8
+    if even_stride:
+        stride += stride % 2
+    rows = []
+    for y in range(h):
+        row = b""
+        for k in range(p):
+            v = planes[k, y].astype(np.uint8)
+            if bits < 8:
+                b = (v[:, None] >> np.arange(bits - 1, -1, -1)) & 1
+                data = np.packbits(b.reshape(-1).astype(np.uint8)).tobytes()
+            else:
+                data = v.tobytes()
+            row += data.ljust(stride, b"\0")
+        rows.append(_pcx_rle_row(row))
+    pal16 = (np.zeros((16, 3), np.uint8) if palette16 is None
+             else np.asarray(palette16, np.uint8)).tobytes()
+    x0, y0 = origin
+    head = struct.pack("<BBBBHHHHHH", 10, version, 1, bits, x0, y0,
+                       x0 + w - 1, y0 + h - 1, 72, 72) + pal16
+    head += struct.pack("<BBHH", 0, p, stride, 1).ljust(128 - len(head), b"\0")
+    tail = b""
+    if palette256 is not None:
+        tail = b"\x0c" + np.asarray(palette256, np.uint8).tobytes()
+    return head + b"".join(rows) + tail
+
+
+# ------------------------------------------------------------------ QOI
+def qoi_bytes(img: np.ndarray, channels: Optional[int] = None,
+              explicit_first: bool = False) -> bytes:
+    """A QOI of ``img`` (h, w, 3|4), every op where it fits, vectorised:
+    runs (62 at most) of a pixel equal to the one before, an index op where
+    the last pixel of the same hash holds the same value, else a diff, luma,
+    RGB or RGBA op.  ``explicit_first`` writes the first pixel as an RGBA op,
+    so that the op stream decodes the same after any other (it can be
+    repeated to tile the image down the rows)."""
+    h, w, c = img.shape
+    px = img.reshape(-1, c).astype(np.int64)
+    if c == 3:
+        px = np.concatenate([px, np.full((len(px), 1), 255)], 1)
+    n = len(px)
+    prev = np.concatenate([[[0, 0, 0, 255]], px[:-1]])
+    same = (px == prev).all(1)
+    same[0] = False  # the first pixel enters the index, as an op must put it
+    hsh = (px[:, 0] * 3 + px[:, 1] * 5 + px[:, 2] * 7 + px[:, 3] * 11) % 64
+    order = np.lexsort((np.arange(n), hsh))
+    last = np.full(n, -1)
+    m = hsh[order[1:]] == hsh[order[:-1]]
+    last[order[1:][m]] = order[:-1][m]
+    hit = (last >= 0) & (px[np.maximum(last, 0)] == px).all(1)
+    d = (px[:, :3] - prev[:, :3] + 128) % 256 - 128
+    dg = d[:, 1]
+    dr, db = d[:, 0] - dg, d[:, 2] - dg
+    keep_a = px[:, 3] == prev[:, 3]
+    if explicit_first:
+        keep_a[0] = False
+    diff = keep_a & (d >= -2).all(1) & (d <= 1).all(1)
+    luma = keep_a & (dg >= -32) & (dg <= 31) & (np.abs(dr + 0.5) <= 8) & (
+        np.abs(db + 0.5) <= 8)
+    ops = np.zeros((n, 5), np.int64)
+    size = np.zeros(n, np.int64)
+    # runs: the op sits on a run's 62nd pixel and on its last
+    start = same & ~np.concatenate([[False], same[:-1]])
+    gid = np.cumsum(start) - 1
+    first = np.append(np.flatnonzero(start), 0)
+    k = np.arange(n) - first[np.maximum(gid, 0)]
+    end = same & ((k % 62 == 61) | ~np.concatenate([same[1:], [False]]))
+    ops[end, 0] = 0xC0 | (k[end] % 62)
+    size[end] = 1
+    lit = ~same
+    rgba = lit & ~hit & ~keep_a
+    rgb = lit & ~hit & keep_a & ~diff & ~luma
+    lum = lit & ~hit & ~diff & luma
+    dif = lit & ~hit & diff
+    ops[lit & hit, 0] = hsh[lit & hit]
+    ops[dif, 0] = 0x40 | (d[dif, 0] + 2) << 4 | (d[dif, 1] + 2) << 2 | (
+        d[dif, 2] + 2)
+    ops[lum, 0] = 0x80 | (dg[lum] + 32)
+    ops[lum, 1] = (dr[lum] + 8) << 4 | (db[lum] + 8)
+    ops[rgb, 0] = 0xFE
+    ops[rgb, 1:4] = px[rgb, :3]
+    ops[rgba, 0] = 0xFF
+    ops[rgba, 1:5] = px[rgba]
+    size[lit & hit] = size[dif] = 1
+    size[lum] = 2
+    size[rgb] = 4
+    size[rgba] = 5
+    body = ops.astype(np.uint8)[np.arange(5)[None, :] < size[:, None]]
+    head = b"qoif" + struct.pack(">IIBB", w, h, channels or c, 0)
+    return head + body.tobytes() + b"\0" * 7 + b"\1"
+
+
+# ------------------------------------------------------------------ PSD
+def psd_bytes(planes: np.ndarray, psd_mode: int, bits: int = 8,
+              compression: int = 1, color_data: bytes = b"",
+              resources: bytes = b"", layers: bytes = b"",
+              version: int = 1) -> bytes:
+    """A PSD of ``planes`` (c, h, w) stored channel bytes (packed bits at
+    depth 1: (1, h, ceil(w / 8))), its composite raw or PackBits behind the
+    byte counts; the colour-mode data, resources and layer section as
+    given."""
+    c, h, w = planes.shape[0], planes.shape[1], (
+        planes.shape[2] * 8 if bits == 1 else planes.shape[2])
+    out = b"8BPS" + struct.pack(">H6xHIIHH", version, c, h, w, bits, psd_mode)
+    for block in (color_data, resources, layers):
+        out += struct.pack(">I", len(block)) + block
+    out += struct.pack(">H", compression)
+    rows = [planes[k, y].astype(np.uint8).tobytes() for k in range(c)
+            for y in range(h)]
+    if compression == 1:
+        coded = [packbits(r) for r in rows]
+        out += np.array([len(r) for r in coded], ">u2").tobytes()
+        rows = coded
+    return out + b"".join(rows)
+
+
+def psd_resource(rid: int, body: bytes, name: bytes = b"") -> bytes:
+    """One image resource block (``8BIM``, its id, a padded Pascal name and
+    a padded body)."""
+    pname = bytes([len(name)]) + name
+    pname += b"\0" * (len(pname) % 2)
+    return (b"8BIM" + struct.pack(">H", rid) + pname
+            + struct.pack(">I", len(body)) + body + b"\0" * (len(body) % 2))
+
+
+# ------------------------------------------------------------- ICO, CUR
+def dib_bytes(img: np.ndarray, bits: int, palette: Optional[np.ndarray] = None,
+              alpha: Optional[np.ndarray] = None, and_mask: bool = True
+              ) -> bytes:
+    """An icon's DIB: ``bmp_bytes``' info header and palette with the height
+    doubled, its XOR image (32 bits: BGRA, ``alpha`` the fourth byte), then
+    the AND mask (1 where ``alpha`` is 0, rows padded to 32 bits)."""
+    h, w = img.shape[:2]
+    if bits == 32:
+        a = np.zeros((h, w), np.uint8) if alpha is None else alpha
+        body = np.concatenate([img[..., 2::-1], a[..., None]], -1)[::-1]
+        dib = struct.pack("<IiiHHIIiiII", 40, w, 2 * h, 1, 32, 0,
+                          len(body.tobytes()), 0, 0, 0, 0) + body.tobytes()
+    else:
+        full = bmp_bytes(img, bits, palette)
+        dib = bytearray(full[14:])
+        dib[8:12] = struct.pack("<i", 2 * h)
+        dib = bytes(dib)
+    if and_mask:
+        wpad = w + (-w % 32)
+        bits_and = np.zeros((h, wpad), np.uint8)
+        if alpha is not None:
+            bits_and[:, :w] = alpha == 0
+        dib += np.packbits(bits_and[::-1], axis=1).tobytes()
+    return dib
+
+
+def icon_dir(payloads: Sequence[bytes], dims: Sequence[Tuple[int, int]],
+             kind: int = 1, bpps: Optional[Sequence[int]] = None,
+             colors: Optional[Sequence[int]] = None,
+             hotspots: Optional[Sequence[Tuple[int, int]]] = None) -> bytes:
+    """An ICO (``kind`` 1) or CUR (``kind`` 2) file of the payloads (DIBs
+    or PNGs): the directory (a dimension of 256 written as 0; an icon's
+    planes and bit count, a cursor's hotspot) and the payloads after it."""
+    n = len(payloads)
+    out = struct.pack("<HHH", 0, kind, n)
+    offset = 6 + 16 * n
+    for i, body in enumerate(payloads):
+        w, h = dims[i]
+        if kind == 1:
+            a, b = 1, (bpps[i] if bpps else 32)
+        else:
+            a, b = hotspots[i] if hotspots else (0, 0)
+        out += struct.pack("<BBBBHHII", w % 256, h % 256,
+                           colors[i] if colors else 0, 0, a, b, len(body),
+                           offset)
+        offset += len(body)
+    return out + b"".join(payloads)

@@ -86,6 +86,13 @@ def test_port_modules_import_without_jax_flax_msgpack_pil():
             "nerf_pl_tpu_torch.examples",
             "nerf_pl_tpu_torch.examples.orbit_render",
             "nerf_pl_tpu_torch.examples.inspect_shadow_scene"} <= set(MODULES)
+    # the TGA, ICO/CUR, QOI, SGI, PCX, PSD and DDS readers and the
+    # bindings of their C++ stages
+    assert {"nerf_pl_tpu_torch.data.tga", "nerf_pl_tpu_torch.data.ico",
+            "nerf_pl_tpu_torch.data.qoi", "nerf_pl_tpu_torch.data.sgi",
+            "nerf_pl_tpu_torch.data.pcx", "nerf_pl_tpu_torch.data.psd",
+            "nerf_pl_tpu_torch.data.dds",
+            "nerf_pl_tpu_torch.data.rle"} <= set(MODULES)
     # -I: no PYTHONPATH or user site, so nothing imported by a site hook
     # is counted against the port
     code = (

@@ -122,14 +122,19 @@ def test_jpeg_refuses_what_it_does_not_read(tmp_path):
     Image.fromarray(pic).save(other, "GIF")
     with pytest.raises(ValueError, match="not a JPEG"):
         jpeg.read_jpeg(str(other))
-    # a GIF is read as Pillow reads it; a TGA (not ported) raises
+    # a GIF and a TGA are read as Pillow reads them; an IM (not ported)
+    # raises, naming the format Pillow would read it as
     np.testing.assert_array_equal(
         read_image(str(other)), np.asarray(Image.open(other).convert("RGB")))
     tga = tmp_path / "other.tga"
     Image.fromarray(pic).save(tga, "TGA")
-    with pytest.raises(ValueError, match=r"other\.tga: not a PNG, JPEG, "
-                                         r"WebP, TIFF, PPM, BMP or GIF file"):
-        read_image(str(tga))
+    np.testing.assert_array_equal(
+        read_image(str(tga)), np.asarray(Image.open(tga).convert("RGB")))
+    im = tmp_path / "other.im"
+    Image.fromarray(pic).save(im, "IM")
+    with pytest.raises(ValueError, match=r"other\.im: Pillow reads this as IM, "
+                                         r"a format the port does not read"):
+        read_image(str(im))
 
 
 # ---------------------------------------------------------------- PNG

@@ -178,9 +178,9 @@ def test_loader_refuses_what_it_cannot_read(scenes, tmp_path):
         open(os.path.join(src, "poses_bounds.npy"), "rb").read())
     for i in range(VIEWS):
         Image.open(os.path.join(src, "images", f"{i:03d}.png")).save(
-            root / "images" / f"{i:03d}.tga")
-    with pytest.raises(ValueError, match=r"000\.tga: not a PNG, JPEG, WebP, "
-                                         r"TIFF, PPM, BMP or GIF file"):
+            root / "images" / f"{i:03d}.im")
+    with pytest.raises(ValueError, match=r"000\.im: Pillow reads this as IM, "
+                                         r"a format the port does not read"):
         LLFFDataset(str(root), split="train", img_wh=WH)
     # per-host frame shards: the images of this host, as the JAX loader's
     for shard in ((0, 2), (1, 2)):
