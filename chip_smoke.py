@@ -212,7 +212,15 @@ Phases (any failed check raises, so the script exits non-zero):
    launches, the LLFF ``test_train`` eval and the ``efficient_sm`` epoch-0
    loss equal to phase 7's; last, 4032x3024 TGA, QOI, PSD and BC7 DDS files
    decoded on the host through C++, the plain versions timed on one strip.
-17. One JSON line of kernel numbers (E's and F's rows carry the SHA-256 of
+17. JPEG 2000: the committed fixtures (tests/data/jpeg2000/, written by
+   Pillow's OpenJPEG) decoded and held to Pillow's recorded digests, the
+   lossless 64x64 frame bit for bit against the PNG scene's; the C++ stages
+   (tier-2, tier-1, the inverse DWT, the MCT) against their plain versions
+   on that frame; the LLFF fit on phase 9's views as lossy 9/7 JP2 files
+   with its ``test_train`` eval, launches equal to phase 13's; last, a
+   4096x3072 codestream (the 1024x1024 tile fixture repeated) decoded on
+   the host through C++.
+18. One JSON line of kernel numbers (E's and F's rows carry the SHA-256 of
    their f32 grads at a fixed seeded input, run twice, ``f32_sha256``), the
    card's line, then the result line ``{"ok": true, "device": {...}}``
    last.
@@ -5827,6 +5835,165 @@ def containers_end_to_end(tmp: str, phase7_loss: float) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 17
+# JPEG 2000.  The fixtures are committed (this machine has no encoder):
+# Pillow (OpenJPEG 2.5) encoded them from the port's synthetic scenes
+# (tests/data/jpeg2000/make_jpeg2000_fixtures.py), and digests.json holds
+# the SHA-256 of Pillow's decode of each.  Phase 9's LLFF views as lossy
+# 9/7 JP2 files (two quality layers) train the LLFF fit and its
+# ``test_train`` eval, whose launches must equal phase 13's on the lossy
+# WebP views of the same scene.  The fern-size decode: the 1024x1024 tile
+# fixture's tile-part repeated over a 4 x 3 grid (a 4096x3072 codestream;
+# at 1024 each tile's code-blocks and wavelet parities are the first
+# tile's), decoded on the host through the C++ stages.
+J2K_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "tests", "data", "jpeg2000")
+J2K_MOSAIC = (4, 3)
+J2K_STAGE_FIXTURES = ("blender_rgba.j2k", "blender_rgb97.j2k")
+J2K_KEYS = {"searchsorted_rank_interp": "B", "searchsorted_rank": "A",
+            "fused_nerf_fwd": "C", "fused_nerf_stash_fwd": "D",
+            "fused_nerf_bwd_stash": "E", "fused_nerf_bwd_remat": "F",
+            "fused_nerf_fwd_row_major": "C'",
+            "fused_nerf_stash_fwd_row_major": "D'",
+            "fused_nerf_bwd_stash_row_major": "E'",
+            "fused_nerf_bwd_remat_row_major": "F'",
+            "fused_nerf_wide_fwd": "G", "fused_nerf_bwd_dx": "H",
+            "chain_probe": "I"}
+
+
+def j2k_fixtures(tmp: str) -> dict:
+    """Each fixture's decode held to Pillow's recorded digest, and the
+    lossless 64x64 frame bit for bit against the PNG scene's load."""
+    from nerf_pl_tpu_torch.data import jpeg2000, synthetic
+    from nerf_pl_tpu_torch.data.image import read_picture
+
+    with open(os.path.join(J2K_FIXTURES, "digests.json")) as f:
+        digests = json.load(f)
+    jpeg2000._native()  # built before the clock starts
+    t0 = time.perf_counter()
+    for name, rec in digests.items():
+        if name.startswith("_"):
+            continue
+        pic = read_picture(os.path.join(J2K_FIXTURES, name))
+        if (pic.mode != rec["mode"] or list(pic.pixels.shape) != rec["shape"]
+                or sha256_of(pic.pixels) != rec["sha256"]):
+            raise AssertionError(f"{name}: the decode differs from Pillow's "
+                                 "recorded digest")
+    decode_s = time.perf_counter() - t0
+    scene = synthetic.generate_scene(os.path.join(tmp, "j2k_blender"),
+                                     img_wh=64, n_train=1, n_val=0, n_test=0)
+    png = read_picture(os.path.join(scene, "r_train_0.png"))
+    same_rgbs("blender_rgba.j2k", read_picture(os.path.join(
+        J2K_FIXTURES, "blender_rgba.j2k")).pixels, png.pixels)
+    n = len(digests) - 1
+    log(f"[jpeg2000] {n} fixtures decoded to Pillow's recorded digests in "
+        f"{decode_s:.3f} s; the lossless frame equal to the PNG scene's")
+    return dict(fixtures=n, decode_s=decode_s)
+
+
+def j2k_stages_vs_plain() -> dict:
+    """Each C++ stage (tier-2, tier-1, the inverse DWT, the MCT) against its
+    plain version on the two 64x64 fixtures: the reversible RGBA one (5/3,
+    RCT) and the irreversible RGB one (float dequantisation, 9/7, ICT);
+    and each plain decode's seconds."""
+    from nerf_pl_tpu_torch.data import jpeg2000
+
+    out = {}
+    for name in J2K_STAGE_FIXTURES:
+        with open(os.path.join(J2K_FIXTURES, name), "rb") as f:
+            data = f.read()
+        native, plain = [], []
+        jpeg2000.decode_codestream(data, False, keep=native)
+        t0 = time.perf_counter()
+        jpeg2000.decode_codestream(data, True, keep=plain)
+        plain_s = time.perf_counter() - t0
+        if not jpeg2000.same_stages(plain, native):
+            raise AssertionError("a C++ JPEG 2000 stage differs from its "
+                                 f"plain version on {name}")
+        t0 = time.perf_counter()
+        jpeg2000.decode_codestream(data, False)
+        native_s = time.perf_counter() - t0
+        log(f"[jpeg2000] tier-2, tier-1, the inverse DWT and the MCT equal "
+            f"their plain versions on {name}; host ({gpu_line()}): plain "
+            f"{plain_s:.3f} s, C++ {native_s:.4f} s")
+        out[name] = dict(plain_s=plain_s, native_s=native_s)
+    return out
+
+
+def j2k_llff(tmp: str, webp: dict) -> dict:
+    """Phase 9's scene with its views as the lossy JP2 fixtures: the LLFF
+    fit and its ``test_train`` eval, launches equal to phase 13's."""
+    import shutil
+
+    root = os.path.join(tmp, "llff_jp2")
+    os.makedirs(os.path.join(root, "images"))
+    shutil.copy(os.path.join(tmp, "llff_scene", "poses_bounds.npy"), root)
+    for i in range(4):
+        shutil.copy(os.path.join(J2K_FIXTURES, f"llff_{i:03d}.jp2"),
+                    os.path.join(root, "images"))
+    fit = trainer_fit(tmp, "train", root, "llff_jp2", LLFF_FLAGS, 1,
+                      "jpeg2000")
+    system = fit["system"]
+    rays, rgbs = system.rays[:LLFF_BATCH], system.rgbs[:LLFF_BATCH]
+    per_step = one_step_launches(
+        "llff (JPEG 2000)", lambda: system.train_step(rays, rgbs),
+        LLFF_STEP_LAUNCHES)
+    del system, rays, rgbs, fit["system"]
+    ckpt = os.path.join(tmp, "ckpts", "llff_jp2", "epoch=0.ckpt")
+    ev = llff_eval(tmp, root, ckpt, "test_train", LLFF_WH, "_jp2")
+    for key in "ABCDE":
+        for tag, got, want in (("fit", fit["counts"], webp["fit"]["counts"]),
+                               ("step", per_step, webp["per_step"]),
+                               ("eval", ev["counts"], webp["eval"]["counts"])):
+            if got.get(key, 0) != want.get(key, 0):
+                raise AssertionError(
+                    f"the JP2 LLFF {tag} launched {key} {got.get(key, 0)} "
+                    f"times, phase 13's WebP {tag} {want.get(key, 0)}")
+    log(f"[jpeg2000] llff on JP2 views: {fit['rays_per_s'][-1]:.1f} train "
+        f"rays/s (phase 13's WebP views {webp['fit']['rays_per_s'][-1]:.1f}); "
+        f"launches equal to phase 13's")
+    return dict(fit=fit, per_step=per_step, eval=ev)
+
+
+def j2k_fern_size(W) -> dict:
+    """The tile fixture repeated over a 4 x 3 grid, decoded on the host
+    through the C++ stages and held equal to the tiled decode of the
+    tile."""
+    from nerf_pl_tpu_torch.data import image, jpeg2000
+
+    path = os.path.join(J2K_FIXTURES, "fern_tile.j2k")
+    with open(path, "rb") as f:
+        code = f.read()
+    tile = image.read_picture(path).pixels
+    mosaic = W.tile_mosaic(code, *J2K_MOSAIC)
+    stages = {}
+    t0 = time.perf_counter()
+    name, _ = image.open_format(mosaic, "fern")
+    px = jpeg2000.load_jpeg2000(mosaic, jpeg2000.open_jpeg2000(mosaic),
+                                seconds=stages)[0]
+    whole = time.perf_counter() - t0
+    same_rgbs("fern-size JPEG 2000", px, np.tile(
+        tile, (J2K_MOSAIC[1], J2K_MOSAIC[0], 1)))
+    h, w = px.shape[:2]
+    log(f"[jpeg2000] {w}x{h} {name} on the host ({gpu_line()}): "
+        f"{len(mosaic):,} bytes, decode {whole:.3f} s ("
+        + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+        + "), equal to the tiled decode of its tile")
+    return dict(s=whole, stages=stages, bytes=len(mosaic), wh=(w, h))
+
+
+def jpeg2000_end_to_end(tmp: str, webp: dict) -> dict:
+    """Phase 17: the JPEG 2000 fixtures, the C++ stages against their plain
+    versions, the LLFF fit on JP2 views and the fern-size decode."""
+    t0 = time.perf_counter()
+    W = image_writers()
+    out = dict(fixtures=j2k_fixtures(tmp), stages=j2k_stages_vs_plain(),
+               llff=j2k_llff(tmp, webp), fern=j2k_fern_size(W))
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[jpeg2000] phase 17: {out['seconds']:.1f} s")
+    return out
+
+
 # ---------------------------------------------------------------- phase 15
 # --compute_dtype float16: the fp16 instantiation of every fused
 # kernel.  C-F' in fp16 against their plain versions at phase 2's training
@@ -6360,6 +6527,7 @@ def main() -> int:
             tmp, os.path.join(tmp, "ckpts", "smoke", "epoch=1.ckpt"), ckpt)
         f16 = float16_end_to_end(tmp, ckpt)
         boxes = containers_end_to_end(tmp, shadow["fit"]["losses"][0])
+        j2k = jpeg2000_end_to_end(tmp, formats["llff"])
 
     fine_row, coarse_row = c["rows"]["rgb"], c["rows"]["sigma-only"]
     kernels = [
@@ -6841,6 +7009,21 @@ def main() -> int:
         f"fern-size decodes on the host " + ", ".join(
             f"{k} {bf[k]['s']:.3f} s (plain, one strip {bf[k]['plain_strip_s']:.3f} s)"
             for k in ("tga", "qoi", "psd", "dds")) + f" ({card})")
+    # phase 17: the fit on JPEG 2000 views, one step and its eval (every
+    # row: the kernels off this path read 0)
+    for row in kernels:
+        key = J2K_KEYS[row["name"]]
+        row["launches_jpeg2000"] = dict(
+            llff_jp2_fit=j2k["llff"]["fit"]["counts"].get(key, 0),
+            llff_jp2_per_step=j2k["llff"]["per_step"].get(key, 0),
+            llff_jp2_eval=j2k["llff"]["eval"]["counts"].get(key, 0))
+    log(f"[jpeg2000] phase 17: {j2k['seconds']:.1f} s; LLFF on JP2 views "
+        f"{j2k['llff']['fit']['rays_per_s'][-1]:.1f} train rays/s (phase 13's "
+        f"WebP {formats['llff']['fit']['rays_per_s'][-1]:.1f}); fern-size "
+        f"{j2k['fern']['wh'][0]}x{j2k['fern']['wh'][1]} decode "
+        f"{j2k['fern']['s']:.3f} s; plain stages on the 64x64 fixtures "
+        + ", ".join(f"{k} {v['plain_s']:.3f} s"
+                    for k, v in j2k["stages"].items()) + f" ({card})")
     fern = readers["fern"]
     log(f"[readers] phase 12: {readers['seconds']:.1f} s; fern-size decode "
         f"{fern['baseline']['s']:.3f} s baseline, "

@@ -13,8 +13,8 @@ moves on to the next format, anything else raises, as in
 (``data/jpeg.py``), WebP (``data/webp.py``), TIFF (``data/tiff.py``),
 PPM/PGM/PBM/PFM (``data/ppm.py``), BMP and DIB (``data/bmp.py``), GIF
 (``data/gif.py``), ICO and CUR (``data/ico.py``), PCX (``data/pcx.py``),
-DDS (``data/dds.py``), PSD (``data/psd.py``), QOI (``data/qoi.py``), SGI
-(``data/sgi.py``) and TGA (``data/tga.py``, which has no magic number and
+DDS (``data/dds.py``), JPEG 2000 (``data/jpeg2000.py``), PSD
+(``data/psd.py``), QOI (``data/qoi.py``), SGI (``data/sgi.py``) and TGA (``data/tga.py``, which has no magic number and
 comes after most others), each into a ``Picture`` that carries Pillow's
 mode and what its ``info`` keeps (a palette, the transparency).  A file
 that another of Pillow's formats would claim raises, naming that format.
@@ -50,8 +50,8 @@ from typing import Optional
 
 import numpy as np
 
-from . import (bmp, dds, gif, ico, jpeg, pcx, png, ppm, psd, qoi, sgi, tga,
-               tiff, webp)
+from . import (bmp, dds, gif, ico, jpeg, jpeg2000, pcx, png, ppm, psd, qoi,
+               sgi, tga, tiff, webp)
 from .blur import gaussian_blur as _blur
 from .resize import resize_lanczos, resize_lanczos_16, resize_lanczos_32
 
@@ -129,6 +129,17 @@ def _decoded(decode):
 
 def _i32(prefix: bytes, big: bool = False) -> int:
     return struct.unpack(">I" if big else "<I", prefix[:4])[0]
+
+
+def _jpeg2000(data, path):
+    """``Jpeg2KImageFile._open``: its assertion (no ``jp2h``) and short
+    reads raise in ``Image.open``, as here."""
+    try:
+        return _opened(jpeg2000.open_jpeg2000, jpeg2000.load_jpeg2000)(data,
+                                                                      path)
+    except (AssertionError, OSError) as e:
+        raise ValueError(f"{path}: JPEG2000: {str(e) or 'no jp2h box'}"
+                         ) from None
 
 
 def _not_read(name: str):
@@ -253,8 +264,7 @@ _FORMATS = (  # (name, accept, opener) in Image.ID's order
     ("GRIB", lambda p: len(p) >= 8 and p[:4] == b"GRIB" and p[7] == 1,
      _not_read("GRIB")),
     ("HDF5", lambda p: p[:8] == b"\x89HDF\r\n\x1a\n", _not_read("HDF5")),
-    ("JPEG2000", lambda p: p[:4] == b"\xff\x4f\xff\x51" or p[:12] ==
-     b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a", _not_read("JPEG2000")),
+    ("JPEG2000", jpeg2000.accept, _jpeg2000),
     ("ICNS", lambda p: p[:4] == b"icns", _not_read("ICNS")),
     ("ICO", lambda p: p[:4] == b"\0\0\1\0", _decoded(ico.decode_ico)),
     ("IM", None, _im),
@@ -283,7 +293,7 @@ _FORMATS = (  # (name, accept, opener) in Image.ID's order
     ("XVTHUMB", lambda p: p[:6] == b"P7 332", _not_read("XVTHUMB")),
 )
 READS = ("PNG", "JPEG", "WebP", "TIFF", "PPM", "BMP", "DIB", "GIF", "ICO",
-         "CUR", "PCX", "DDS", "PSD", "QOI", "SGI", "TGA")
+         "CUR", "PCX", "DDS", "JPEG2000", "PSD", "QOI", "SGI", "TGA")
 
 
 def open_format(data: bytes, path: str = "image"):

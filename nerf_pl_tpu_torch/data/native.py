@@ -12,7 +12,8 @@ and flags, so an edited source rebuilds; processes that start together
 failure raises, naming the source; the numpy store (``force_fallback=True``,
 the JAX package's fallback and epoch permutation) is used only when asked
 for.  ``build(source)`` builds the port's other host libraries, the image
-readers' ``csrc/*.cpp``, the same way.
+readers' ``csrc/*.cpp``, the same way; ``extra`` flags (the JPEG 2000
+decoder's ``-ffp-contract=off``) join the command and the hash.
 """
 from __future__ import annotations
 
@@ -36,15 +37,15 @@ _lock = threading.Lock()
 _lib = None
 
 
-def library_path(source: Path = SOURCE) -> Path:
-    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+def library_path(source: Path = SOURCE, extra: Sequence[str] = ()) -> Path:
+    h = hashlib.sha256(" ".join(CXX_FLAGS + tuple(extra)).encode())
     h.update(source.read_bytes())
     return BUILD_DIR / f"lib{source.stem}-{h.hexdigest()[:16]}.so"
 
 
-def build(source: Path = SOURCE) -> Path:
+def build(source: Path = SOURCE, extra: Sequence[str] = ()) -> Path:
     """Compile ``source`` if its library is missing; returns its path."""
-    out = library_path(source)
+    out = library_path(source, extra)
     if out.exists():
         return out
     cxx = os.environ.get("CXX") or shutil.which("g++")
@@ -56,7 +57,8 @@ def build(source: Path = SOURCE) -> Path:
         if out.exists():  # another process built it while this one waited
             return out
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(source)],
+        proc = subprocess.run([cxx, *CXX_FLAGS, *extra, "-o", str(tmp),
+                               str(source)],
                               capture_output=True, text=True, timeout=300)
         if proc.returncode != 0:
             raise RuntimeError(f"building {source} failed:\n{proc.stderr}")

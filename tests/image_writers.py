@@ -10,7 +10,9 @@ maps, both orientations and right-to-left), SGI (raw and run-length, 1 and
 2 bytes a sample), PCX (every bits x planes layout), QOI (every op), PSD
 (raw and PackBits), ICO and CUR (DIB and PNG payloads, AND masks) and DDS
 (the header, the bitmask layouts, a BC7 mode-6 encoder) are written below
-the PNG and JPEG writers.  Those write the layouts Pillow cannot write: PNG at every bit
+the PNG and JPEG writers, and last JPEG 2000 rewrites of an encoder's
+files (boxes, SIZ, COD, SOP markers, tile-parts cut at PLT's packet
+lengths, a one-tile codestream repeated over a grid).  Those write the layouts Pillow cannot write: PNG at every bit
 depth and colour type (1/2/4/8/16-bit gray, 8/16-bit RGB, gray + alpha and RGBA,
 1/2/4/8-bit palette), with ``tRNS`` and Adam7 interlacing; JPEG from given
 quantised coefficients as sequential or progressive Huffman (any scan
@@ -2509,3 +2511,179 @@ def icon_dir(payloads: Sequence[bytes], dims: Sequence[Tuple[int, int]],
                            offset)
         offset += len(body)
     return out + b"".join(payloads)
+
+
+# ------------------------------------------------------------- JPEG 2000
+# Rewrites of an encoder's JP2 files and codestreams: boxes, marker
+# segments, tile-parts cut at the packet lengths of PLT segments.
+def box(kind: bytes, body: bytes) -> bytes:
+    return struct.pack(">I", 8 + len(body)) + kind + body
+
+
+def boxes(data: bytes, pos: int = 0, end=None) -> list:
+    end = len(data) if end is None else end
+    out = []
+    while pos < end:
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        n = end - pos if n == 0 else n
+        out.append((kind, data[pos + 8:pos + n]))
+        pos += n
+    return out
+
+
+def jp2_parts(jp2: bytes):
+    """(jp2h sub-boxes, codestream) of a Pillow JP2 file."""
+    top = dict(boxes(jp2))
+    return boxes(top[b"jp2h"]), top[b"jp2c"]
+
+
+def jp2_file(sub: list, code: bytes, jp2c_header: bytes = None) -> bytes:
+    head = (box(b"jP  ", b"\r\n\x87\n") + box(b"ftyp", b"jp2 \0\0\0\0jp2 ")
+            + box(b"jp2h", b"".join(box(k, v) for k, v in sub)))
+    if jp2c_header is None:
+        return head + box(b"jp2c", code)
+    return head + jp2c_header + code
+
+
+def split_codestream(code: bytes):
+    """(main header segments, [(Isot, header segments, data)])."""
+    pos, main = 2, []
+    while True:
+        m, n = struct.unpack(">HH", code[pos:pos + 4])
+        if m == 0xFF90:
+            break
+        main.append((m, code[pos + 4:pos + 2 + n]))
+        pos += 2 + n
+    parts = []
+    while code[pos:pos + 2] == b"\xff\x90":
+        isot, psot = struct.unpack(">HI", code[pos + 4:pos + 10])
+        end = pos + psot
+        q, segs = pos + 12, []
+        while code[q:q + 2] != b"\xff\x93":
+            m, n = struct.unpack(">HH", code[q:q + 4])
+            segs.append((m, code[q + 4:q + 2 + n]))
+            q += 2 + n
+        parts.append((isot, segs, code[q + 2:end]))
+        pos = end
+    return main, parts
+
+
+def seg(m: int, body: bytes) -> bytes:
+    return struct.pack(">HH", m, len(body) + 2) + body
+
+
+def join_codestream(main: list, parts: list) -> bytes:
+    """``parts``: (Isot, TPsot, TNsot, header segments, data)."""
+    out = b"\xff\x4f" + b"".join(seg(m, b) for m, b in main)
+    for isot, tp, tn, segs, data in parts:
+        head = b"".join(seg(m, b) for m, b in segs)
+        out += (b"\xff\x90" + struct.pack(">HHIBB", 10, isot,
+                                          12 + len(head) + 2 + len(data), tp,
+                                          tn) + head + b"\xff\x93" + data)
+    return out + b"\xff\xd9"
+
+
+def packet_lengths(segs: list) -> list:
+    """The Iplt lengths of a tile-part's PLT segments."""
+    out = []
+    for m, b in segs:
+        if m != 0xFF58:
+            continue
+        v = 0
+        for byte in b[1:]:
+            v = (v << 7) | (byte & 0x7F)
+            if not byte & 0x80:
+                out.append(v)
+                v = 0
+    return out
+
+
+def packets(data: bytes, lengths: list) -> list:
+    out, pos = [], 0
+    for n in lengths:
+        out.append(data[pos:pos + n])
+        pos += n
+    assert pos == len(data)
+    return out
+
+
+def with_sop(code: bytes) -> bytes:
+    """A SOP marker before every packet (and Scod's SOP bit)."""
+    main, parts = split_codestream(code)
+    main = [(m, bytes([b[0] | 2]) + b[1:]) if m == 0xFF52 else (m, b)
+            for m, b in main]
+    out = []
+    for isot, segs, data in parts:
+        body = b"".join(b"\xff\x91" + struct.pack(">HH", 4, k & 0xFFFF) + p
+                        for k, p in enumerate(packets(
+                            data, packet_lengths(segs))))
+        out.append((isot, 0, 1, [s for s in segs if s[0] != 0xFF58], body))
+    return join_codestream(main, out)
+
+
+def split_tile_parts(code: bytes, n: int, interleave: bool = False) -> bytes:
+    """Each tile in ``n`` tile-parts cut at packet boundaries; with
+    ``interleave``, the tiles' parts alternate in the stream."""
+    main, parts = split_codestream(code)
+    per_tile = []
+    for isot, segs, data in parts:
+        pk = packets(data, packet_lengths(segs))
+        cuts = np.array_split(np.arange(len(pk)), n)
+        per_tile.append([(isot, i, n, [], b"".join(pk[j] for j in c))
+                         for i, c in enumerate(cuts)])
+    if interleave:
+        out = [p for i in range(n) for t in per_tile for p in t[i:i + 1]]
+    else:
+        out = [p for t in per_tile for p in t]
+    return join_codestream(main, out)
+
+
+def with_precision(code: bytes, prec: int, sgnd: int = 0) -> bytes:
+    main, parts = split_codestream(code)
+    out = []
+    for m, b in main:
+        if m == 0xFF51:
+            csiz = struct.unpack(">H", b[34:36])[0]
+            comps = b"".join(bytes([((prec - 1) | (sgnd << 7)), b[37 + 3 * i],
+                                    b[38 + 3 * i]]) for i in range(csiz))
+            b = b[:36] + comps
+        out.append((m, b))
+    return join_codestream(out, [(i, 0, 1, s, d) for i, s, d in parts])
+
+
+def rewrite_jp2(jp2: bytes, code: bytes = None, colr: int = None,
+                bpc: int = None, nc: int = None, extra: list = ()) -> bytes:
+    sub, old = jp2_parts(jp2)
+    out = []
+    for k, v in sub:
+        if k == b"ihdr":
+            h, w, n, b = struct.unpack(">IIHB", v[:11])
+            v = struct.pack(">IIHB", h, w, nc or n, b if bpc is None else bpc
+                            ) + v[11:]
+        elif k == b"colr" and colr is not None:
+            v = v[:3] + struct.pack(">I", colr)
+        out.append((k, v))
+    return jp2_file(out + list(extra), old if code is None else code)
+
+
+def pclr_box(entries: np.ndarray) -> bytes:
+    ne, npc = entries.shape
+    return (struct.pack(">HB", ne, npc) + bytes([7] * npc)
+            + entries.astype(np.uint8).tobytes())
+
+
+
+
+def tile_mosaic(code: bytes, nx: int, ny: int) -> bytes:
+    """A one-tile codestream's tile-part repeated ``nx`` x ``ny`` times
+    over a grid of its tile size (SIZ rewritten): valid where the tile
+    size keeps every tile's code-blocks and parities the first tile's."""
+    main, parts = split_codestream(code)
+    (isot, segs, data), = parts
+    siz = dict(main)[0xFF51]
+    xt, yt = struct.unpack(">II", siz[18:26])
+    assert struct.unpack(">IIII", siz[2:18]) == (xt, yt, 0, 0)
+    siz = siz[:2] + struct.pack(">IIII", xt * nx, yt * ny, 0, 0) + siz[18:]
+    main = [(m, siz if m == 0xFF51 else b) for m, b in main]
+    return join_codestream(main, [(k, 0, 1, [], data)
+                                  for k in range(nx * ny)])

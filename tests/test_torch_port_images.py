@@ -171,8 +171,8 @@ def test_loaders_open_files_by_content(tmp_path):
                  lambda p: load_sm_image(p, WH), lambda p: _read_rgb(p, WH)):
         with pytest.raises(ValueError, match=r"junk\.png: not a PNG, JPEG, "
                                              r"WebP, TIFF, PPM, BMP, DIB, GIF, "
-                                             r"ICO, CUR, PCX, DDS, PSD, QOI, "
-                                             r"SGI or TGA file "
+                                             r"ICO, CUR, PCX, DDS, JPEG2000, "
+                                             r"PSD, QOI, SGI or TGA file "
                                              r"\(it starts b'\\x00\\x00\\x02"):
             load(str(other))
 

@@ -60,6 +60,10 @@ def test_port_modules_import_without_jax_flax_msgpack_pil():
     # and the profiling aids
     assert {"nerf_pl_tpu_torch.data.llff", "nerf_pl_tpu_torch.data.jpeg",
             "nerf_pl_tpu_torch.utils.profiling"} <= set(MODULES)
+    # the JPEG 2000 reader: its container, codestream and plain stages
+    assert {"nerf_pl_tpu_torch.data.jpeg2000",
+            "nerf_pl_tpu_torch.data.j2k_codestream",
+            "nerf_pl_tpu_torch.data.j2k_plain"} <= set(MODULES)
     # the tools: mesh extraction (its connected components in numpy, not
     # scipy), checkpoint import and export, the weights-only strip, and the
     # trainers' background writer
