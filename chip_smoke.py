@@ -41,7 +41,14 @@ Phases (any failed check raises, so the script exits non-zero):
    checks against the plain versions.  The row-major twins C', D', E' and
    F' (the ``--fused_channel_io false`` path) run beside each of these on
    the same points: against the plain versions, bit for bit against C, D,
-   E and F, and timed; C' and C also at one eval chunk in float32.  Then
+   E and F, and timed; C' and C also at one eval chunk in float32 (beside
+   the f32 matmul chain, TF32 off).  Before these, the SHA-256 of every
+   float32 output of C, C', D, D' (stash too), E, E', F, F', G (W = 384)
+   and H (dx too), rgb and sigma-only, each computed twice and held to its
+   pin (``F32_PINS``); after them, f32 C, C', D, D', E and E' at the f32
+   shadow steps' shapes (851,968 and 1,441,792 sigma-only points) by CUDA
+   events and device time (E split into its sweep, weight-grad and reduce
+   kernels), each beside its bound and the f32 matmul chain.  Then
    ``python -m nerf_pl_tpu_torch.train`` at full width in bf16 for 2 epochs
    on a scene this script writes (8 views of 100x100, batch 4,096, 64+128
    samples): losses finite and falling, launch counts of A, C, D and E in
@@ -225,6 +232,20 @@ Phases (any failed check raises, so the script exits non-zero):
    card's line, then the result line ``{"ok": true, "device": {...}}``
    last.
 
+Another checkout of the port against this one, in turns on one card:
+
+    python3 chip_smoke.py --turns DIR [--order PCCP] [--record] [--fits]
+
+Each letter of ``--order`` is one process: ``P`` runs the package of the
+checkout at ``DIR`` (say the parent commit, unpacked with ``git archive``),
+``C`` this checkout's, both under this script's measurements.  Both
+checkouts' kernels are built first, side by side.  A turn holds every f32
+output's digest to ``F32_PINS`` (``--record`` prints them instead) and
+times phase 4's f32 block; ``--fits`` adds phases 7, 8 and 9 and keeps each
+f32 trainer's rays/s and its step's profile.  The last line is a JSON
+summary with every reading in turn order; the exit code is 1 if the turns'
+digests differ.
+
 Peak rates used for the bounds (NVIDIA H100 SXM data sheet, dense): 989
 TFLOP/s bf16 tensor, 67 TFLOP/s float32 outside the tensor cores,
 3.35 TB/s device memory.
@@ -353,19 +374,73 @@ def device_ms(fn, iters: int) -> float:
     ``torch.profiler`` over ``iters`` runs: the launches' own time, without
     the host's gaps between them (which CUDA events over back-to-back calls
     include when the host is the slower side)."""
-    from torch.profiler import ProfilerActivity, profile
+    return sum(device_ms_by_kernel(fn, iters).values())
+
+
+# The traces a device reading may take before it is given up as not measured
+DEVICE_TRACES = 6
+# A trace's device time over the CUDA events' time of the same calls: at
+# most this (the events bracket every kernel the calls launch; the margin
+# is the two clocks' resolution, in ms a call)
+DEVICE_OVER_EVENTS = (1.02, 0.002)
+
+
+def device_ms_by_kernel(fn, iters: int, min_busy: float = 0.0) -> dict:
+    """Mean device ms of a call of ``fn``, by kernel name, from
+    ``torch.profiler`` over ``iters`` calls after one untraced call.  The
+    trace opens after a warm-up step of throwaway launches that it leaves
+    out, as ``utils/profiling.py``'s, and leaves out the schedule's step
+    spans (``ProfilerStep#n``: a span carries the device time of every
+    kernel inside it, so counting it doubled each reading).  CUDA events
+    bracket the same traced calls, and a trace is taken only if its reading
+    agrees with them: every kernel seen a whole number of times a call
+    (a tracer that loses events loses launches), the total above 0, at most
+    the events' time (``DEVICE_OVER_EVENTS``; more would count a kernel
+    twice or one from outside the calls) and at least ``min_busy`` of it (a
+    call that keeps the card busy, where a lost launch shows as a short
+    total).  A trace that fails is taken again; after ``DEVICE_TRACES`` the
+    call raises, so no reading is printed unmeasured."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from nerf_pl_tpu_torch.utils.profiling import WARMUP_LAUNCHES
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total", 0.0)
-             for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    return us / 1e3 / iters
+    over, slack = DEVICE_OVER_EVENTS
+    seen = []
+    for _ in range(DEVICE_TRACES):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1,
+                                       active=1 << 30)) as prof:
+            scratch = torch.zeros(1, device="cuda")
+            for _ in range(WARMUP_LAUNCHES):
+                scratch.add_(1)
+            torch.cuda.synchronize()
+            prof.step()
+            start.record()
+            for _ in range(iters):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+        events_ms = start.elapsed_time(end) / iters
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.key.startswith("ProfilerStep")]
+        by_kernel = {e.key: getattr(e, "self_device_time_total", 0.0) / 1e3
+                     / iters for e in kernels}
+        total = sum(by_kernel.values())
+        whole = all(e.count % iters == 0 for e in kernels)
+        if whole and 0 < total and (
+                min_busy * events_ms <= total <= over * events_ms + slack):
+            return by_kernel
+        seen.append(f"{total:.4f} ms device against {events_ms:.4f} ms by "
+                    f"events, launches a call "
+                    f"{sorted({e.count / iters for e in kernels})}")
+        log(f"[profile] trace {len(seen)} rejected: {seen[-1]}")
+    raise AssertionError(f"device time not measured in {DEVICE_TRACES} "
+                         f"traces: {seen}")
 
 
 def bound_ms(n_bytes: float, n_ops: float, op_rate: float):
@@ -996,62 +1071,163 @@ def check_train_kernels(model, gen, dev) -> list:
     return holds
 
 
-# The f32 backward's bits, pinned on the card: kernels E and F in f32 at a
-# fixed seeded input (the smoke checkpoint's weights, F32_DIGEST_P points
-# spanning two of the backward's chunks, the second ragged), each run twice;
-# the SHA-256 of their grads' bytes is printed and recorded in PERF.md, so a
-# later change to the f32 path can be compared against it.
+# Every float32 output that the f32 tile and sweep reach, pinned on the card
+# by SHA-256 at fixed seeded inputs (the smoke checkpoint's fine weights;
+# F32_DIGEST_P points, which span two of the backward's chunks, the second
+# ragged against the 64-point tile): kernels C and C' (out), D and D' (out
+# and stash), E, E', F and F' (dw and db), rgb and sigma-only; G at W = 384
+# (the widest f32 width supports_fused_wide takes; (P, 90) and (P, 63)
+# rows), H (dx, dw and db).  Each f32 output is one fmaf chain in a fixed
+# order, which the kernels' tiling, padding and copies do not change, so
+# each digest must equal its constant in F32_PINS (recorded on the card
+# from the tree before the f32 tile's redesign, commit ea1de22, by
+# ``--turns`` with ``--record``), and repeat.
 F32_DIGEST_P, F32_DIGEST_SEED = (1 << 18) + (1 << 12) + 77, 20240614
+F32_DIGEST_WIDE = 384
+F32_PINS = {
+    "C rgb":
+        "80eea677da708438e2561112b41fc7d0dbb602d39d8b432bc538f5c3acb2b376",
+    "C' rgb":
+        "1b6cd4b0b3937d5293b8c77a442acba7dcf067d343a5ef71cffbe09bee8dd1f8",
+    "D rgb":
+        "fe087e42a6a95711ca17e0e991616c96f8b94476ed677d7fc47e7250eda55e1c",
+    "D' rgb":
+        "b32d63679cd4d34c1a6711b10ea843cf1c39a27a6a00038a874f0d27de1985b4",
+    "E rgb":
+        "57d9ffbc8f5f1b24fca63d7167493b73705a6060e651167aafd85ba4ec715608",
+    "E' rgb":
+        "57d9ffbc8f5f1b24fca63d7167493b73705a6060e651167aafd85ba4ec715608",
+    "F rgb":
+        "57d9ffbc8f5f1b24fca63d7167493b73705a6060e651167aafd85ba4ec715608",
+    "F' rgb":
+        "57d9ffbc8f5f1b24fca63d7167493b73705a6060e651167aafd85ba4ec715608",
+    "G384 rgb":
+        "3477ec0f7820870a43efe7754a7fad70ea140462f37fde37cc122e828ec9c2c4",
+    "H rgb":
+        "d6cb03be0456e9f118dad954d544c0521b455f814637413940f4ed0e83b9a867",
+    "C sigma":
+        "13de11d85c12f1b0672ad64f25c25e9c6e208e5763501c731d19775d8ee201f3",
+    "C' sigma":
+        "a0cb264c1f29546e08621288e08d6bf53348f6614fe8fa891f4c5ef783f60d3a",
+    "D sigma":
+        "22a6d2d53d76e7ee57e97319f02a729c73cb9c13f8accca461057e5c2d496bc2",
+    "D' sigma":
+        "56992e859ef7a74ee34d2d18cdac31ca86f9f5cdc87fca675adcdd679508d4fa",
+    "E sigma":
+        "1c3c9373d22536a4b6a99ac4658027a407c50f4d6eb3c9124abca588fc96ab86",
+    "E' sigma":
+        "1c3c9373d22536a4b6a99ac4658027a407c50f4d6eb3c9124abca588fc96ab86",
+    "F sigma":
+        "1c3c9373d22536a4b6a99ac4658027a407c50f4d6eb3c9124abca588fc96ab86",
+    "F' sigma":
+        "1c3c9373d22536a4b6a99ac4658027a407c50f4d6eb3c9124abca588fc96ab86",
+    "G384 sigma":
+        "0cfe5f6a0900f8a5bb5fc851ed77245f837936544a50f767a5e0217aa4d4d0a5",
+    "H sigma":
+        "32dd3e962ae642522bf53c4ecd866eda95802e1162258324ae8341ff6ed12f4c",
+}
 
 
-def f32_backward_digests(model, dev) -> dict:
-    """E and F in f32 (rgb) twice each on the same seeded input: their
-    grads' SHA-256, which must repeat; E against F bit for bit is logged."""
+def f32_digests(model, dev, pins: dict | None = F32_PINS) -> dict:
+    """The SHA-256 of every float32 output named above, each computed twice
+    (the two runs must be bit-equal) and, unless ``pins`` is None, held to
+    its pin.  E's and F's rgb digests keep the inputs and bytes of their
+    first pins (x, then g, from one generator; dw and db)."""
     import hashlib
 
     from nerf_pl_tpu_torch.ops import fused_mlp as fm
 
+    f32, P = torch.float32, F32_DIGEST_P
     gen = torch.Generator().manual_seed(F32_DIGEST_SEED)
-    x = random_raw_t(gen, F32_DIGEST_P, dev)
-    g = torch.randn((8, F32_DIGEST_P), generator=gen).to(dev)
-    _, stash = fm.fused_nerf_stash_fwd_cuda(model, x, False, torch.float32)
+    x = random_raw_t(gen, P, dev)
+    g = torch.randn((8, P), generator=gen).to(dev)
+    xr, gr = x.T.contiguous(), g.T.contiguous()
+    x90 = random_embedded(gen, P, dev)
+    x63 = x90[:, :63].contiguous()
+    g8 = torch.randn((P, 8), generator=gen).to(dev)
+    wide = wide_model(F32_DIGEST_WIDE, dev)
 
-    def digest(raw) -> str:
+    def stash_of(fwd, xx, sigma_only):
+        return fwd(model, xx, sigma_only, f32)[1]
+
+    def cut(sigma_only):  # the cotangent channels fused_nerf_apply keeps
+        gg = g8.clone()
+        gg[:, 1 if sigma_only else 4:] = 0.0
+        return gg
+
+    runs = {}
+    for sigma_only, mode in ((False, "rgb"), (True, "sigma")):
+        st = stash_of(fm.fused_nerf_stash_fwd_cuda, x, sigma_only)
+        runs.update({
+            f"C {mode}": lambda s=sigma_only: [
+                fm.fused_nerf_apply_raw_t_cuda(model, x, s, f32)],
+            f"C' {mode}": lambda s=sigma_only: [
+                fm.fused_nerf_apply_raw_cuda(model, xr, s, f32)],
+            f"D {mode}": lambda s=sigma_only: list(
+                fm.fused_nerf_stash_fwd_cuda(model, x, s, f32)),
+            f"D' {mode}": lambda s=sigma_only: list(
+                fm.fused_nerf_raw_stash_fwd_cuda(model, xr, s, f32)),
+            f"E {mode}": lambda s=sigma_only, st=st: list(
+                fm.fused_nerf_bwd_stash_cuda(model, x, g, st, s, f32)),
+            f"E' {mode}": lambda s=sigma_only, st=st: list(
+                fm.fused_nerf_raw_bwd_stash_cuda(model, xr, gr, st, s, f32)),
+            f"F {mode}": lambda s=sigma_only: list(
+                fm.fused_nerf_bwd_remat_cuda(model, x, g, s, f32)),
+            f"F' {mode}": lambda s=sigma_only: list(
+                fm.fused_nerf_raw_bwd_remat_cuda(model, xr, gr, s, f32)),
+            f"G{F32_DIGEST_WIDE} {mode}": lambda s=sigma_only: [
+                fm.fused_nerf_apply_cuda(wide, x63 if s else x90, s, f32)],
+            f"H {mode}": lambda s=sigma_only: list(
+                fm.fused_nerf_bwd_dx_cuda(model, x63 if s else x90, cut(s),
+                                          s, f32)),
+        })
+    def bits(t):  # the f32 values' bits, NaNs and zeros' signs included
+        return t.detach().contiguous().view(torch.int32)
+
+    digests, failed = {}, []
+    t0 = time.perf_counter()
+    for name, fn in runs.items():
+        first, again = fn(), fn()  # the second held bit for bit on the card
+        repeats = all(torch.equal(bits(a), bits(b))
+                      for a, b in zip(first, again))
         h = hashlib.sha256()
-        for t in raw[:2]:  # dw, db: the kernels' f32 outputs
+        for t in first:
             h.update(t.detach().contiguous().cpu().numpy().tobytes())
-        return h.hexdigest()
-
-    runs = {"E": [], "F": []}
-    for _ in range(2):
-        runs["E"].append(digest(fm.fused_nerf_bwd_stash_cuda(
-            model, x, g, stash, False, torch.float32)))
-        runs["F"].append(digest(fm.fused_nerf_bwd_remat_cuda(
-            model, x, g, False, torch.float32)))
-    torch.cuda.synchronize()
-    for k, (a, b) in runs.items():
-        log(f"[f32 digest] {k} (rgb, P={F32_DIGEST_P}, seed "
-            f"{F32_DIGEST_SEED}): sha256 {a}, again {b}")
-        if a != b:
-            raise AssertionError(f"f32 kernel {k} differs from run to run")
-    log(f"[f32 digest] E and F bit-equal: {runs['E'][0] == runs['F'][0]}")
-    del stash
+        digests[name] = h.hexdigest()
+        want = None if pins is None else pins.get(name)
+        log(f"[f32 digest] {name} (P={P}, seed {F32_DIGEST_SEED}): sha256 "
+            f"{digests[name]}, run twice: bit-equal {repeats}"
+            + ("" if pins is None else f"; pinned {want}"))
+        if not repeats:
+            failed.append(f"{name} differs from run to run")
+        elif pins is not None and digests[name] != want:
+            failed.append(f"{name} departs from its pin")
+        del first, again
+    for a, b in (("E rgb", "F rgb"), ("E rgb", "E' rgb")):
+        log(f"[f32 digest] {a} and {b} bit-equal: {digests[a] == digests[b]}")
+    log(f"[f32 digest] {len(digests)} outputs in "
+        f"{time.perf_counter() - t0:.1f} s")
+    del runs, x, g, xr, gr, x90, x63, g8, wide
     torch.cuda.empty_cache()
-    return {k: v[0] for k, v in runs.items()}
+    if failed:
+        raise AssertionError("f32 digests: " + "; ".join(failed))
+    return digests
 
 
 def matmul_chain_ms(model, P: int, dev, backward: bool = True,
-                    dtype=torch.bfloat16) -> tuple:
-    """A yardstick, not a port: the same MLP as a chain of ``dtype`` (bf16
-    or fp16) ``torch.matmul`` calls (cuBLAS), forward, and the backward's
-    dgrad and wgrad products (None unless ``backward``), at P points with
-    random embedded inputs."""
+                    dtype=torch.bfloat16, sigma_only: bool = False,
+                    iters: int = 3) -> tuple:
+    """A yardstick, not a port: the same MLP as a chain of ``dtype`` (bf16,
+    fp16, or float32 with TF32 off as ``setup`` sets it) ``torch.matmul``
+    calls (cuBLAS), forward, and the backward's dgrad and wgrad products
+    (None unless ``backward``), at P points with random embedded inputs;
+    ``sigma_only`` stops at the sigma head."""
     bf = dtype
     ws = [m.w.detach().to(bf) for m in model.xyz_layers]
     wsig, wfin, wdir, wrgb = (m.w.detach().to(bf) for m in (
         model.sigma, model.xyz_final, model.dir_layer, model.rgb))
     xe = torch.randn((P, 63), device=dev, dtype=bf)
-    de = torch.randn((P, 27), device=dev, dtype=bf)
+    de = None if sigma_only else torch.randn((P, 27), device=dev, dtype=bf)
 
     def fwd():  # keeps each product's input only for the backward
         h, acts = xe, []
@@ -1061,6 +1237,8 @@ def matmul_chain_ms(model, P: int, dev, backward: bool = True,
                 acts.append(a)
             h = torch.relu(torch.matmul(a, w))
         torch.matmul(h, wsig)
+        if sigma_only:
+            return acts + [h]
         fin = torch.matmul(h, wfin)
         din = torch.cat([fin, de], -1)
         d = torch.relu(torch.matmul(din, wdir))
@@ -1068,16 +1246,17 @@ def matmul_chain_ms(model, P: int, dev, backward: bool = True,
         return acts + [h, h, din, d]
 
     if not backward:
-        return cuda_ms(fwd, iters=3), None
+        return cuda_ms(fwd, iters=iters), None
     ins = fwd()
-    outs = [w for w in ws] + [wsig, wfin, wdir, wrgb]
+    outs = [w for w in ws] + [wsig] + ([] if sigma_only else
+                                      [wfin, wdir, wrgb])
     gs = [torch.randn((P, w.shape[1]), device=dev, dtype=bf) for w in outs]
 
     def bwd():
         for a, w, g in zip(ins, outs, gs):
             torch.matmul(a.T, g)  # wgrad
             torch.matmul(g, w.T)  # dgrad
-    return cuda_ms(fwd, iters=3), cuda_ms(bwd, iters=3)
+    return cuda_ms(fwd, iters=iters), cuda_ms(bwd, iters=iters)
 
 
 def time_train_kernels(model, gen, dev) -> tuple:
@@ -1167,6 +1346,88 @@ def time_train_kernels(model, gen, dev) -> tuple:
         del x, g
         torch.cuda.empty_cache()
     return rows, holds
+
+
+# The f32 steps' fused-MLP shapes (PERF.md section 5): the sigma-only points
+# of one EfficientSM step (efficient_sm_64.sh, gol: 1,024 + 4,096 rays) and
+# of one RGBSM step (rgb_sm_sigma_64), each run as one launch here.
+F32_STEP_SHAPES = (("efficient_sm", 851_968), ("rgb_sm", 1_441_792))
+F32_TIMES_SEED = 19
+# Each of these calls keeps the card busy (launches of milliseconds, the
+# host ahead of them): its device time is at least this share of its CUDA
+# events' time, and a trace that lost a launch reads less
+F32_MIN_BUSY = 0.95
+# E's three kernels, by the names profile_step reads
+E_PARTS = {"sweep": "fused_nerf_dgrad_kernel",
+           "wgrad": "fused_nerf_wgrad_kernel", "reduce": "reduce_rows_kernel"}
+
+
+def f32_kernel_times(model, dev) -> dict:
+    """Kernels D, D', E, E', C and C' in float32 at the f32 steps' shapes
+    (sigma-only): ms by CUDA events and device ms from the profiler (E's
+    also split into its sweep, weight-grad and reduce kernels), each beside
+    its bound at the f32 rate (outside the tensor cores) and a chain of f32
+    ``torch.matmul`` calls with TF32 off (``setup``) as the yardstick: its
+    forward beside C and D, its backward's dgrad and wgrad products beside
+    E."""
+    from nerf_pl_tpu_torch.ops import fused_mlp as fm
+
+    f32 = torch.float32
+    gen = torch.Generator().manual_seed(F32_TIMES_SEED)
+    rows = {}
+    for tag, P in F32_STEP_SHAPES:
+        torch.cuda.empty_cache()
+        chain_fwd, chain_bwd = matmul_chain_ms(model, P, dev, dtype=f32,
+                                               sigma_only=True, iters=2)
+        torch.cuda.empty_cache()
+        x = random_raw_t(gen, P, dev)
+        g = torch.randn((8, P), generator=gen).to(dev)
+        xr, gr = x.T.contiguous(), g.T.contiguous()
+        _, st = fm.fused_nerf_stash_fwd_cuda(model, x, True, f32)
+        calls = {
+            "C": lambda: fm.fused_nerf_apply_raw_t_cuda(model, x, True, f32),
+            "C'": lambda: fm.fused_nerf_apply_raw_cuda(model, xr, True, f32),
+            "D": lambda: fm.fused_nerf_stash_fwd_cuda(model, x, True, f32),
+            "D'": lambda: fm.fused_nerf_raw_stash_fwd_cuda(model, xr, True,
+                                                           f32),
+            "E": lambda: fm.fused_nerf_bwd_stash_cuda(model, x, g, st, True,
+                                                      f32),
+            "E'": lambda: fm.fused_nerf_raw_bwd_stash_cuda(model, xr, gr, st,
+                                                           True, f32)}
+        io, stash_b = P * 2 * 32, P * fm.stash_cols(True) * 4
+        # dw and db in f32: one weight a multiply-add of an rgb point
+        grads_b = 4 * (MACS_RGB + fm.D * fm.W + 1 + fm.W + fm.WH + 3)
+        bounds = {"C": bound_ms(io, 2 * MACS_SIGMA * P, F32_FLOPS),
+                  "D": bound_ms(io + stash_b, 2 * MACS_SIGMA * P, F32_FLOPS),
+                  "E": bound_ms(io + stash_b + grads_b, 4 * MACS_SIGMA * P,
+                                F32_FLOPS)}
+        row = dict(P=P, chain_fwd_ms=chain_fwd, chain_bwd_ms=chain_bwd)
+        for k, fn in calls.items():
+            ms = cuda_ms(fn, iters=2)
+            by_kernel = device_ms_by_kernel(fn, 2, F32_MIN_BUSY)
+            b, by = bounds[k[0]]
+            r = dict(ms=ms, device_ms=sum(by_kernel.values()), bound_ms=b,
+                     bound_by=by,
+                     chain_ms=chain_bwd if k[0] == "E" else chain_fwd)
+            if k[0] == "E":
+                r["split_ms"] = {part: sum(v for n, v in by_kernel.items()
+                                           if name in n)
+                                 for part, name in E_PARTS.items()}
+                r["split_ms"]["other"] = (r["device_ms"]
+                                          - sum(r["split_ms"].values()))
+            row[k] = r
+            log(f"[f32 time {tag}] {k} sigma-only P={P}: {ms:.3f} ms "
+                f"(events), {r['device_ms']:.3f} ms device"
+                + (" (" + ", ".join(f"{part} {v:.3f}" for part, v in
+                                    r["split_ms"].items()) + ")"
+                   if "split_ms" in r else "")
+                + f", bound {b:.3f} ms ({by}, f32 rate); f32 matmul chain "
+                f"{'backward' if k[0] == 'E' else 'forward'} "
+                f"{r['chain_ms']:.3f} ms (TF32 off)")
+        rows[tag] = row
+        del calls, x, g, xr, gr, st
+        torch.cuda.empty_cache()
+    return rows
 
 
 # ---------------------------------------------------------------- phase 3
@@ -1708,14 +1969,20 @@ def time_eval_chunk(model, gen, dev) -> dict:
         torch.cuda.empty_cache()
         chain_ms, _ = matmul_chain_ms(model, P, dev, backward=False)
         torch.cuda.empty_cache()
+        chain32_ms, _ = matmul_chain_ms(model, P, dev, backward=False,
+                                        dtype=f32, sigma_only=sigma_only,
+                                        iters=1)
+        torch.cuda.empty_cache()
         b, by = bound_ms(P * 64, 2 * macs * P, F32_FLOPS)
         log(f"[C' time f32 {mode} eval chunk] P={P} kernel {cr_ms:.3f} ms "
             f"(C {c_ms:.3f} ms), plain {plain_ms:.3f} ms, bound {b:.3f} ms "
             f"({by}, {2 * macs * P:.3e} FLOP at the f32 rate); bf16 matmul "
-            f"chain forward {chain_ms:.3f} ms")
+            f"chain forward {chain_ms:.3f} ms (rgb), f32 {chain32_ms:.3f} ms "
+            f"({mode}, TF32 off)")
         rows[mode] = dict(P=P, ms=cr_ms, C_ms=c_ms, plain_ms=plain_ms,
                           bound_ms=b, bound_by=by, err=err,
-                          matmul_chain_fwd_ms=chain_ms)
+                          matmul_chain_fwd_ms=chain_ms,
+                          matmul_chain_f32_fwd_ms=chain32_ms)
     return rows
 
 
@@ -2702,9 +2969,16 @@ def f32_step_kernels(tag: str, prof: dict, passes: list,
                  if any(n in k for n in names))
         b, by = bound_ms(io, flop * macs, F32_FLOPS)
         rows[key] = dict(P=P, device_ms=ms, bound_ms=b, bound_by=by)
+        split = ""
+        if key == "E":  # the sweep, the weight grads and the reduction
+            rows[key]["split_ms"] = {
+                part: sum(v for k, v in (prof.get("by_kernel") or {}).items()
+                          if name in k) for part, name in E_PARTS.items()}
+            split = " (" + ", ".join(f"{k} {v:.3f}" for k, v in
+                                     rows[key]["split_ms"].items()) + ")"
         log(f"[{tag}] kernel {key} in float32, one step's {len(runs)} "
-            f"launches over {P:,} points: {ms:.3f} ms of device time, bound "
-            f"{b:.3f} ms ({by})")
+            f"launches over {P:,} points: {ms:.3f} ms of device time{split}, "
+            f"bound {b:.3f} ms ({by})")
     return rows
 
 
@@ -6473,11 +6747,14 @@ def main() -> int:
         sampler_counts = random_sampler_path(ckpt)
         f32_err = f32_card_vs_cpu(ckpt)
         with torch.no_grad():
-            f32_digests = f32_backward_digests(fine, dev)
+            pins = f32_digests(fine, dev)
             holds = check_train_kernels(fine, gen, dev)
             tt, train_holds = time_train_kernels(fine, gen, dev)
             tk = merge_holds(holds + train_holds)
             te = time_eval_chunk(fine, gen, dev)
+            t_f32 = time.perf_counter()
+            f32t = f32_kernel_times(fine, dev)
+            log(f"[f32 time] {time.perf_counter() - t_f32:.1f} s")
         del fine
         trained = train_end_to_end(tmp)
         evaluated = eval_end_to_end(
@@ -6603,8 +6880,8 @@ def main() -> int:
     kernels[-1]["max_rel_err"] = tk["F_rel"]
     kernels[-1]["e_vs_f_rel_err"] = tk["E_vs_F"]
     # the f32 backward's pinned bits (rgb, F32_DIGEST_P points, seeded)
-    kernels[-2]["f32_sha256"] = f32_digests["E"]
-    kernels[-1]["f32_sha256"] = f32_digests["F"]
+    kernels[-2]["f32_sha256"] = pins["E rgb"]
+    kernels[-1]["f32_sha256"] = pins["F rgb"]
     for row, key in ((kernels[-2], "E"), (kernels[-1], "F")):
         row["mean_rel_err"] = tk["means"][key]
         row["control_rel_err"] = dict(max=tk["control_max_rel"],
@@ -6708,6 +6985,26 @@ def main() -> int:
         matmul_chain_ms=wi["library_ms"], turns_ms=wi["turns"],
         ragged_rel_err=wi["ragged_rel"], sass=wi["sass"],
         launches_by_path=dict(probe=probe["I"])))
+    # the f32 tile's times at the f32 steps' shapes, and every kernel's
+    # pinned f32 digests
+    letters = {"fused_nerf_fwd": "C", "fused_nerf_fwd_row_major": "C'",
+               "fused_nerf_stash_fwd": "D",
+               "fused_nerf_stash_fwd_row_major": "D'",
+               "fused_nerf_bwd_stash": "E",
+               "fused_nerf_bwd_stash_row_major": "E'",
+               "fused_nerf_bwd_remat": "F",
+               "fused_nerf_bwd_remat_row_major": "F'",
+               "fused_nerf_wide_fwd": f"G{F32_DIGEST_WIDE}",
+               "fused_nerf_bwd_dx": "H"}
+    for row in kernels:
+        key = letters.get(row["name"])
+        if key is None:
+            continue
+        row["f32_digests"] = {k: v for k, v in pins.items()
+                              if k.split()[0] == key}
+        if key[0] in "CDE" and len(key) <= 2:
+            row["float32_steps"] = {
+                tag: dict(P=r["P"], **r[key]) for tag, r in f32t.items()}
     log(f"[serve] {served['rays_per_s']:.1f} rays/s, "
         f"{served['ms']:.1f} ms per request; f32 card-vs-cpu err "
         f"{f32_err:.3e}")
@@ -7066,9 +7363,141 @@ def light_sampler_cancellation(tmp: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- turns
+def fit_readings(shadow: dict, trainers: dict, llff: dict) -> dict:
+    """Each f32 trainer's last epoch's rays/s and its one profiled step:
+    wall, device busy, D and E (E split by kernel) from phases 7, 8 and
+    9."""
+    runs = {"efficient_sm": (shadow["fit"], shadow)}
+    for tag in ("rgb_sm", "shadow_mapping", "light_sampler", "shadows"):
+        runs[tag] = (trainers["fits"][tag], trainers["steps"][tag])
+    runs["llff"] = (llff["fit"], llff)
+    return {tag: dict(rays_per_s=fit["rays_per_s"][-1],
+                      wall_ms=step["profile"]["wall_ms"],
+                      busy_ms=step["profile"]["busy_ms"],
+                      D_ms=step["f32_step"]["D"]["device_ms"],
+                      E_ms=step["f32_step"]["E"]["device_ms"],
+                      E_split_ms=step["f32_step"]["E"]["split_ms"])
+            for tag, (fit, step) in runs.items()}
+
+
+def turn(root: str, record: bool, fits: bool, build_only: bool) -> int:
+    """One turn of ``--turns``, in a process of its own: the package of the
+    checkout at ``root`` under this script's measurements.  Prints its
+    readings as one ``[turn]`` JSON line."""
+    sys.path.insert(0, root)
+    import nerf_pl_tpu_torch
+
+    pkg = os.path.dirname(os.path.dirname(os.path.abspath(
+        nerf_pl_tpu_torch.__file__)))
+    if os.path.realpath(pkg) != os.path.realpath(root):
+        raise SystemExit(f"imported the port from {pkg}, not {root}")
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    setup()
+    if build_only:
+        return 0
+    from nerf_pl_tpu_torch.tools.evaluate import load_models
+
+    dev = torch.device("cuda")
+    out = dict(root=root)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "smoke.ckpt")
+        write_checkpoint(ckpt)
+        fine = load_models(ckpt, dev)["fine"]
+        with torch.no_grad():
+            out["digests"] = f32_digests(fine, dev,
+                                         None if record else F32_PINS)
+            out["times"] = f32_kernel_times(fine, dev)
+        del fine
+        if fits:
+            out["fits"] = fit_readings(shadow_end_to_end(tmp),
+                                       trainers_end_to_end(tmp),
+                                       llff_end_to_end(tmp))
+    print("[turn] " + json.dumps(out), flush=True)
+    return 0
+
+
+def turns(other: str, order: str, record: bool, fits: bool) -> int:
+    """``--turns``: this checkout (C) and the one at ``other`` (P) in the
+    order given, one process a turn; then the summary line."""
+    me = os.path.abspath(__file__)
+    roots = {"P": os.path.abspath(other), "C": os.path.dirname(me)}
+    flags = (["--record"] if record else []) + (["--fits"] if fits else [])
+    builds = [subprocess.Popen([sys.executable, me, "--turn", roots[k],
+                                "--build"], cwd=roots[k])
+              for k in sorted(set(order))]
+    if any(proc.wait() != 0 for proc in builds):
+        return 1
+    readings = []
+    for k in order:
+        proc = subprocess.run([sys.executable, me, "--turn", roots[k], *flags],
+                              cwd=roots[k], capture_output=True, text=True)
+        sys.stdout.write(proc.stdout)
+        sys.stdout.flush()
+        if proc.returncode != 0:
+            sys.stderr.write(proc.stderr)
+            return 1
+        line = [x for x in proc.stdout.splitlines() if x.startswith("[turn] ")]
+        readings.append(json.loads(line[-1][len("[turn] "):]))
+    first = readings[0]["digests"]
+    differ = sorted({name for r in readings for name, d in r["digests"].items()
+                     if first.get(name) != d})
+
+    def in_turns(key, pick):
+        return {tag: {k: [pick(r[key][tag][k]) for r in readings]
+                      for k in row if isinstance(row[k], dict)}
+                for tag, row in readings[0][key].items()}
+
+    summary = dict(order=order, digests_equal=not differ, differ=differ,
+                   digests=first,
+                   ms=in_turns("times", lambda r: r["ms"]),
+                   device_ms=in_turns("times", lambda r: r["device_ms"]),
+                   E_split_ms={tag: {k: [r["times"][tag][k]["split_ms"]
+                                         for r in readings]
+                                     for k in ("E", "E'")}
+                               for tag in readings[0]["times"]},
+                   chain_ms={tag: [dict(fwd=r["times"][tag]["chain_fwd_ms"],
+                                        bwd=r["times"][tag]["chain_bwd_ms"])
+                                   for r in readings]
+                             for tag in readings[0]["times"]})
+    if fits:
+        summary["fits"] = {tag: {k: [r["fits"][tag][k] for r in readings]
+                                 for k in row}
+                           for tag, row in readings[0]["fits"].items()}
+    print(json.dumps(summary), flush=True)
+    if differ:
+        print(f"f32 digests differ between the turns: {differ}",
+              file=sys.stderr)
+        return 1
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--role"]:
         with open(sys.argv[3]) as f:
             {"nccl1": role_nccl1, "gloo2": role_gloo2}[sys.argv[2]](json.load(f))
         sys.exit(0)
+    if sys.argv[1:]:
+        import argparse
+
+        ap = argparse.ArgumentParser(description="the port against another "
+                                     "checkout of it, in turns on one card")
+        mode = ap.add_mutually_exclusive_group(required=True)
+        mode.add_argument("--turns", metavar="DIR",
+                          help="the other checkout (P); this one is C")
+        mode.add_argument("--turn", metavar="ROOT", help=argparse.SUPPRESS)
+        ap.add_argument("--order", default="PCCP")
+        ap.add_argument("--record", action="store_true",
+                        help="print the f32 digests, hold none to F32_PINS")
+        ap.add_argument("--fits", action="store_true",
+                        help="also phases 7, 8 and 9")
+        ap.add_argument("--build", action="store_true", help=argparse.SUPPRESS)
+        args = ap.parse_args()
+        if args.turn:
+            sys.exit(turn(args.turn, args.record, args.fits, args.build))
+        if set(args.order) - {"P", "C"}:
+            ap.error("--order takes the letters P and C")
+        sys.exit(turns(args.turns, args.order, args.record, args.fits))
     sys.exit(main())

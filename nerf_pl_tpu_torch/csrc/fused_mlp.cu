@@ -64,14 +64,20 @@
 //   near_tie_f16 for fp16's denser grid), so the rounded activations are
 //   those of a sum in k order.  The sigma (N = 1) and rgb (N = 3) heads and
 //   the sin/cos embedding stay scalar.
-//   f32 (whose limits TF32 would break): weights stream per layer through
-//   a shared staging buffer of KC rows; each warp owns 8 points and each
-//   lane 8 (or 4) output features, scalar FMA with f32 accumulators.
+//   f32 (whose limits TF32 would break): the CUDA cores, each warp owning
+//   8 points and each lane 8 (or 4) output features, f32 accumulators, one
+//   fmaf chain an output in order of k (so the f32 bits are those of the
+//   plain scalar loop; chip_smoke.py pins them by digest).  The weights
+//   stream through a two-stage cp.async ring of 8-row stages (the next
+//   stage's copy overlaps this one's FMAs); the activation rows are padded
+//   to 68 points, and each thread stores its outputs as 16-byte vectors (4
+//   points down a column into the rows, 4 columns of a point into the
+//   stash, straight from the registers); 111,520 bytes of shared memory,
+//   two CTAs an SM.
 // D is C with the STASH flag: each layer's rounded outputs also go to the
 // point's stash row (16-bit: each thread's column pairs, 4-byte stores; f32:
-// each thread reads its own outputs back and stores 4 a point).  The ragged
-// tail of P is masked on load and store.  Shared device code:
-// fused_mlp_common.cuh.
+// each thread's 4 columns of a point, 16-byte stores).  The ragged tail of P
+// is masked on load and store.  Shared device code: fused_mlp_common.cuh.
 #include "fused_mlp_common.cuh"
 
 namespace {

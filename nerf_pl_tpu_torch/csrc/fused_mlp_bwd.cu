@@ -89,10 +89,16 @@
 //     buffer are never written) are zero-filled as they are staged.  The
 //     sigma and rgb jobs (1 and 3 columns) run a narrow kernel, a warp a
 //     slice of the points.
-// In f32 (whose limits TF32 would break) every product keeps the scalar
-// FMA loop: the sweep runs dense_acc against the transposed weights (wt),
-// the wgrad 64 x 64 tiles with 4 x 4 outputs a thread.  The wrapper builds
-// the wgrad job table and marks each job's route.
+// In f32 (whose limits TF32 would break) every product runs on the CUDA
+// cores, each output one fmaf chain in the plain version's order, so the
+// f32 grads keep their bits whatever the tiling (chip_smoke.py pins them by
+// digest): the sweep runs the forward tile's dense_acc (a cp.async ring of
+// weight stages, rows padded to LDA_F32) against the transposed weights
+// (wt), its bias partials' scratch over the idle ring, so that two CTAs fit
+// an SM; the wgrad 128 x 128 tiles with 8 x 8 outputs a thread, its 32-point
+// slabs staged by cp.async in 16-byte vectors through a three-slab ring
+// (zero-filled past the live columns and points).  The wrapper builds the
+// wgrad job table and marks each job's route.
 // Workspace (from the wrapper): in a 16-bit type at a chunk of 262,144
 // points the G buffer is 1.33 GB and F's scratch stash 1.28 GB.
 //
@@ -162,13 +168,20 @@ static_assert(RING <= Ref::ws_elems<bf16>() && RING <= Ref::ws_elems<f16>(),
 template <typename T>
 constexpr size_t bwd_smem_bytes() {
   // the forward's layout, then the cotangent tile (4 rows), g_rgbpre
-  // (3 rows, f32) and the bias-partial scratch (8 warps x 256)
-  return smem_bytes<T>() + sizeof(float) * (4 * TP + 3 * TP + 8 * W);
+  // (3 rows, f32) and, in the 16-bit types, the bias-partial scratch (8
+  // warps x 256; f32 lays it over the weight ring, idle between products)
+  return smem_bytes<T>() +
+         sizeof(float) * (4 * TP + 3 * TP + (kTensorCores<T> ? 8 * W : 0));
 }
 // two CTAs an SM: 228 KB of shared memory, 1 KB of it reserved a CTA
 static_assert(2 * (bwd_smem_bytes<bf16>() + 1024) <= 228 * 1024 &&
-                  2 * (bwd_smem_bytes<f16>() + 1024) <= 228 * 1024,
+                  2 * (bwd_smem_bytes<f16>() + 1024) <= 228 * 1024 &&
+                  2 * (bwd_smem_bytes<float>() + 1024) <= 228 * 1024,
               "two dgrad CTAs fit an SM");
+static_assert(8 * W <= Ref::ws_elems<float>(),
+              "the f32 bias partials fit the weight ring");
+static_assert(2 * (smem_bytes<float>() + 1024) <= 228 * 1024,
+              "two f32 forward CTAs fit an SM");
 // The sweep's list of tie marks (mma_epilogue): bf16's FIXW after the bias
 // partials in red, fp16's longer FIXW_F16 over the idle dgrad ring
 static_assert(2 * FIXW * 8 * sizeof(int) <= 6 * W * sizeof(float),
@@ -180,13 +193,16 @@ static_assert(2 * FIXW_F16 * 8 * sizeof(int) <= RING * sizeof(f16),
 //   v = acc (+ round(g_sigma[p]) * wsig[n]);  g_pre = v * (mask > 0)
 // with the mask read from the stash column mcol (none when mcol < 0).  The
 // rounded g_pre goes to act rows [ROW_H, ROW_H + 256) (the next product's
-// operand) and to the G buffer at gcol; the tile's f32 sum of g_pre goes to
-// bp (256 values).
+// operand, pitch LDA_F32: each column's 8 points as two 16-byte vectors)
+// and to the G buffer at gcol; the tile's f32 sum of g_pre goes to bp (256
+// values): each warp's 8 points in order, then the 8 warps' sums in order
+// (red, 8 x 256, over the idle weight ring).
 template <typename T>
 __device__ __forceinline__ void bwd_epilogue(
-    const float (&acc)[8][8], const T* st, int sc, int mcol,
-    const float* gsig, const T* wsig, T* act, T* gb, int gcol, float* red,
-    float* bp, long long n_valid) {
+    float (&acc)[8][8], const T* st, int sc, int mcol, const float* gsig,
+    const T* wsig, T* act, T* gb, int gcol, float* red, float* bp,
+    long long n_valid) {
+  constexpr int LD = Ref::lda<T>();
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   float bsum[8];
 #pragma unroll
@@ -223,10 +239,20 @@ __device__ __forceinline__ void bwd_epilogue(
         x = (valid && m[j] > 0.0f) ? x : 0.0f;
         bsum[g * 4 + j] += x;
         const T r = from_f<T>(x);
-        act[(ROW_H + n0 + j) * TP + p] = r;
+        acc[i][g * 4 + j] = r;
         v[j] = to_f(r);
       }
       if (valid) store4(gb + 1LL * p * GC + gcol + n0, v);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float* col = act + (ROW_H + n0 + j) * LD + warp * 8;
+      *reinterpret_cast<float4*>(col) =
+          make_float4(acc[0][g * 4 + j], acc[1][g * 4 + j], acc[2][g * 4 + j],
+                      acc[3][g * 4 + j]);
+      *reinterpret_cast<float4*>(col + 4) =
+          make_float4(acc[4][g * 4 + j], acc[5][g * 4 + j], acc[6][g * 4 + j],
+                      acc[7][g * 4 + j]);
     }
   }
 #pragma unroll
@@ -572,13 +598,15 @@ fused_nerf_dgrad_kernel(const float* __restrict__ x,
   T* ws = act + Ref::act_elems<T>();
   float* gout = reinterpret_cast<float*>(smem + smem_bytes<T>());
   float* grgb = gout + 4 * TP;  // g_rgbpre, f32
-  float* red = grgb + 3 * TP;
+  // the bias partials' scratch: after the cotangent rows (16-bit), over the
+  // weight ring (f32, whose sweep epilogue runs between two products)
+  float* red = TC ? grgb + 3 * TP : reinterpret_cast<float*>(ws);
   T* ring = TC ? ws : nullptr;
   // the gradient rows of the sweep, element (k, p) at gt[k * LDG + p]: in
   // 16-bit types the padded g tile over the activation rows, in f32 act's h
-  // rows
-  T* gt = TC ? act : act + ROW_H * TP;
-  constexpr int LDG = TC ? TPG : TP;
+  // rows (the forward's pitch)
+  T* gt = TC ? act : act + ROW_H * LDA;
+  constexpr int LDG = TC ? TPG : LDA;
   const int tid = threadIdx.x;
   const long long lp0 = 1LL * blockIdx.x * TP;  // first point in the chunk
   const long long p0 = p_begin + lp0;
@@ -747,16 +775,35 @@ __device__ __forceinline__ WJob find_job(const WJobs& jobs, int tk, int tn,
   return jb;
 }
 
-constexpr int WK = 64, WN = 64, WP = 32;  // output tile; points per stage
+// The f32 wgrad: a WK x WN output tile a CTA, 8 x 8 outputs a thread (rows
+// 4 tk + u and 64 + 4 tk + u, columns 4 tn + v and 64 + 4 tn + v of the
+// tile, tk = thread / 16, tn = thread % 16: two 16-byte vectors of a_in and
+// two of g_pre a point, the lanes of a quarter-warp on consecutive
+// vectors).  The point range goes in slabs of WP points, a_in's and g_pre's
+// tile columns staged point-major by cp.async in 16-byte vectors through a
+// ring of WSTAGES_F32 slabs, WSTAGES_F32 - 1 in flight while one is
+// consumed: thread t copies the vectors at column 4 (t % 32) of points t /
+// 32 + 8 r (r < 4) of both.  A vector not wholly live (a point past the
+// range, or columns past K or N, which may never have been written) reads
+// only its live elements and is zero-filled: every output sums its range's
+// points in order, one fmaf a point, the range's last slab padded with zero
+// terms.
+constexpr int WK = 128, WN = 128, WP = 32, WSTAGES_F32 = 3;
+constexpr size_t WGRAD_F32_SMEM = sizeof(float) * WSTAGES_F32 * WP * (WK + WN);
+static_assert(2 * (WGRAD_F32_SMEM + 1024) <= 228 * 1024,
+              "two f32 wgrad CTAs fit an SM");
+static_assert(WK == WN && WP * WK / 4 % 256 == 0,
+              "a thread copies whole columns of vectors of both operands");
 
-// The f32 wgrad: a 64 x 64 tile, 4 x 4 outputs a thread.
-template <typename T, int SC>
-__global__ void __launch_bounds__(256)
-fused_nerf_wgrad_kernel(const T* __restrict__ stash,
-                        const T* __restrict__ gbuf, long long n_points,
+template <int SC>
+__global__ void __launch_bounds__(256, 2)
+fused_nerf_wgrad_kernel(const float* __restrict__ stash,
+                        const float* __restrict__ gbuf, long long n_points,
                         WJobs jobs, float* __restrict__ part) {
-  __shared__ __align__(16) float As[WP][WK];
-  __shared__ __align__(16) float Gs[WP][WN];
+  extern __shared__ __align__(16) unsigned char smem[];
+  // slab b: As[b] (a_in) and Gs[b] (g_pre), WP rows of WK and WN
+  auto As = reinterpret_cast<float(*)[WP][WK]>(smem);
+  auto Gs = reinterpret_cast<float(*)[WP][WN]>(As + WSTAGES_F32);
   const int tid = threadIdx.x;
   int k0, n0;
   const WJob jb = find_job(jobs, WK, WN, k0, n0);
@@ -764,46 +811,73 @@ fused_nerf_wgrad_kernel(const T* __restrict__ stash,
       ((n_points + gridDim.y - 1) / gridDim.y + WP - 1) / WP * WP;
   const long long pb = blockIdx.y * per;
   const long long pe = min(n_points, pb + per);
-  const T* A = (jb.a_in_g ? gbuf : stash) + jb.a_col;
+  const float* A = (jb.a_in_g ? gbuf : stash) + jb.a_col + k0;
   const long long lda = jb.a_in_g ? GC : SC;
-  const T* G = gbuf + jb.g_col;
-  const int tk = tid / 16, tn = tid % 16;
-  float acc[4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) acc[a][b] = 0.0f;
+  const float* G = gbuf + jb.g_col + n0;
+  const int live_k = jb.K - k0, live_n = jb.N - n0;  // columns in the tile
+  const int n_slabs = pe > pb ? static_cast<int>((pe - pb + WP - 1) / WP) : 0;
 
-  for (long long q0 = pb; q0 < pe; q0 += WP) {
-    for (int e = tid; e < WP * WK; e += 256) {
-      const int pp = e / WK, c = e - pp * WK;
-      const long long p = q0 + pp;
-      const bool live = p < pe;
-      As[pp][c] = (live && k0 + c < jb.K) ? to_f(A[p * lda + k0 + c]) : 0.0f;
-      Gs[pp][c] = (live && n0 + c < jb.N) ? to_f(G[p * GC + n0 + c]) : 0.0f;
+  // this thread's column of vectors, and its live elements in either
+  // operand; a dead vector reads nothing (its address is any valid one)
+  const int c = (tid % (WK / 4)) * 4, pp0 = tid / (WK / 4);
+  const int live_a = max(0, min(4, live_k - c));
+  const int live_g = max(0, min(4, live_n - c));
+  auto stage = [&](int s) {
+    if (s < n_slabs) {
+      const long long q0 = pb + 1LL * s * WP;
+      const int b = s % WSTAGES_F32;
+#pragma unroll
+      for (int r = 0; r < WP * WK / 4 / 256; ++r) {
+        const int pp = pp0 + r * (256 / (WK / 4));
+        const long long p = q0 + pp;
+        const int na = p < pe ? live_a : 0, ng = p < pe ? live_g : 0;
+        mma::cp_async16_zfill(&As[b][pp][c], na ? A + p * lda + c : G,
+                              static_cast<int>(sizeof(float)) * na);
+        mma::cp_async16_zfill(&Gs[b][pp][c], ng ? G + p * GC + c : G,
+                              static_cast<int>(sizeof(float)) * ng);
+      }
     }
+    mma::cp_async_commit();
+  };
+
+  const int tk = tid / 16, tn = tid % 16;
+  float acc[8][8];
+#pragma unroll
+  for (int u = 0; u < 8; ++u)
+#pragma unroll
+    for (int v = 0; v < 8; ++v) acc[u][v] = 0.0f;
+
+  for (int s = 0; s < WSTAGES_F32 - 1; ++s) stage(s);
+  for (int s = 0; s < n_slabs; ++s) {
+    mma::cp_async_wait<WSTAGES_F32 - 2>();  // this thread's copies of slab s
+    // every thread's copies of slab s have landed, and every warp is done
+    // with slab s - 1, whose slot the next stage fills
     __syncthreads();
-#pragma unroll 8
+    stage(s + WSTAGES_F32 - 1);
+    const int b = s % WSTAGES_F32;
+#pragma unroll 4
     for (int pp = 0; pp < WP; ++pp) {
-      const float4 a = *reinterpret_cast<const float4*>(&As[pp][tk * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&Gs[pp][tn * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
+      float a[2][4], g[2][4];
 #pragma unroll
-      for (int u = 0; u < 4; ++u)
+      for (int h = 0; h < 2; ++h) {
+        load4(&As[b][pp][h * 64 + tk * 4], a[h]);
+        load4(&Gs[b][pp][h * 64 + tn * 4], g[h]);
+      }
 #pragma unroll
-        for (int v = 0; v < 4; ++v) acc[u][v] = fmaf(av[u], bv[v], acc[u][v]);
+      for (int u = 0; u < 8; ++u)
+#pragma unroll
+        for (int v = 0; v < 8; ++v)
+          acc[u][v] = fmaf(a[u / 4][u % 4], g[v / 4][v % 4], acc[u][v]);
     }
-    __syncthreads();
   }
   float* out = part + blockIdx.y * N_WEIGHTS + jb.out;
 #pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    const int k = k0 + tk * 4 + u;
+  for (int u = 0; u < 8; ++u) {
+    const int k = k0 + (u / 4) * 64 + tk * 4 + u % 4;
     if (k >= jb.K) continue;
 #pragma unroll
-    for (int v = 0; v < 4; ++v) {
-      const int n = n0 + tn * 4 + v;
+    for (int v = 0; v < 8; ++v) {
+      const int n = n0 + (v / 4) * 64 + tn * 4 + v % 4;
       if (n < jb.N) out[1LL * k * jb.N + n] = acc[u][v];
     }
   }
@@ -1007,11 +1081,12 @@ reduce_rows_kernel(const float* __restrict__ part, int rows, long long n,
 
 // The wrapper's job table, JOB_FIELDS values a job: (a_in_g, a_col, K,
 // g_col, N, out, route), split by route: ROUTE_SCALAR (f32 only: WK x WN
-// tiles), ROUTE_TC (16-bit only: TK x TN tiles on the tensor cores, 16-byte
-// aligned columns) and ROUTE_NARROW (16-bit only: N <= NARROW_N, K <= 256
-// and a multiple of 8, 16-byte aligned a_in and 8-byte aligned g_pre
-// columns; one CTA column a job).  Each job's columns must lie in its rows
-// and its output block in the packed weights.
+// tiles on the CUDA cores, 16-byte aligned columns), ROUTE_TC (16-bit only:
+// TK x TN tiles on the tensor cores, 16-byte aligned columns) and
+// ROUTE_NARROW (16-bit only: N <= NARROW_N, K <= 256 and a multiple of 8,
+// 16-byte aligned a_in and 8-byte aligned g_pre columns; one CTA column a
+// job).  Each job's columns must lie in its rows and its output block in
+// the packed weights.
 constexpr int JOB_FIELDS = 7;
 enum Route : int { ROUTE_SCALAR = 0, ROUTE_TC = 1, ROUTE_NARROW = 2 };
 
@@ -1030,6 +1105,7 @@ int split_jobs(const long long* table, int n, bool tc_type, int sc,
         route < ROUTE_SCALAR || route > ROUTE_NARROW ||
         (route == ROUTE_SCALAR) == tc_type ||
         (route == ROUTE_TC && (f[1] % 8 || f[3] % 8)) ||
+        (route == ROUTE_SCALAR && (f[1] % 4 || f[3] % 4)) ||
         (route == ROUTE_NARROW &&
          (f[4] > NARROW_N || f[2] > 256 || f[2] % 8 || f[1] % 8 || f[3] % 4 ||
           f[3] + NARROW_N > GC));
@@ -1104,12 +1180,15 @@ int run(const BwdArgs& a, cudaStream_t s) {
       dgrad, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  if constexpr (kTensorCores<T>) {
+  if constexpr (kTensorCores<T>)
     err = cudaFuncSetAttribute(fused_nerf_wgrad_mma_kernel<T, SC>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(WGRAD_SMEM));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  else
+    err = cudaFuncSetAttribute(fused_nerf_wgrad_kernel<SC>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(WGRAD_F32_SMEM));
+  if (err != cudaSuccess) return static_cast<int>(err);
   const WJobs& tc = jobs.by_route[ROUTE_TC];
   const WJobs& narrow = jobs.by_route[ROUTE_NARROW];
   const WJobs& scalar = jobs.by_route[ROUTE_SCALAR];
@@ -1144,9 +1223,9 @@ int run(const BwdArgs& a, cudaStream_t s) {
           return static_cast<int>(err);
       }
     } else if (scalar.n) {
-      fused_nerf_wgrad_kernel<T, SC>
-          <<<dim3(scalar.tiles, a.split), 256, 0, s>>>(st, gbuf, n, scalar,
-                                                       wpart);
+      fused_nerf_wgrad_kernel<SC>
+          <<<dim3(scalar.tiles, a.split), 256, WGRAD_F32_SMEM, s>>>(
+              st, gbuf, n, scalar, wpart);
       if ((err = cudaGetLastError()) != cudaSuccess)
         return static_cast<int>(err);
     }

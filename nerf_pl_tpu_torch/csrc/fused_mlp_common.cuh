@@ -30,8 +30,9 @@ namespace nerf {
 
 using bf16 = __nv_bfloat16;
 using f16 = __half;
-// 16-bit products run on the tensor cores (mma.sync); f32 keeps the scalar
-// FMA loops, whose limits TF32 would break
+// 16-bit products run on the tensor cores (mma.sync); f32 runs on the CUDA
+// cores (one fmaf chain an output, in order of k: TF32 would break its
+// limits and its pinned bits)
 template <typename T>
 constexpr bool kTensorCores =
     std::is_same<T, bf16>::value || std::is_same<T, f16>::value;
@@ -39,8 +40,9 @@ constexpr bool kTensorCores =
 constexpr int CX = 63, CD = 27, D = 8, SKIP = 4;
 constexpr int THREADS = 256;  // 8 warps; warp w owns points [PPW w, PPW w + PPW)
 
-template <typename T> struct Cfg;  // KC: weight rows per shared stage
-template <> struct Cfg<float> { static constexpr int KC = 16; };
+// KC: weight rows per shared stage of the 16-bit scalar loop (H's dx
+// products)
+template <typename T> struct Cfg;
 template <> struct Cfg<__nv_bfloat16> { static constexpr int KC = 32; };
 template <> struct Cfg<__half> { static constexpr int KC = 32; };
 
@@ -99,21 +101,34 @@ struct Net {
   static constexpr int STAGES =
       2 * (ACT_ROWS_MMA * LDA_MMA + 3 * SLOT) + 16 * TP <= 112 * 1024 ? 3
                                                                         : 2;
+  // The f32 tile on the CUDA cores: the activation rows padded to LDA_F32
+  // points (TP + 4: the lanes of a quarter-warp store 4 points of output
+  // columns 4 rows apart, which the pad spreads over two 16-byte bank
+  // groups, not one, and a row stays 16-byte aligned for the vector
+  // loads); the weights stream through a ring of STAGES_F32 stages of
+  // KC_F32 rows of the widest product (W columns), by cp.async, the next
+  // stage's copy in flight while one is consumed.  At W = 256 the tile's
+  // forward and its backward's sweep (which adds 1,792 bytes) fit two CTAs
+  // an SM.
+  static constexpr int LDA_F32 = TP + 4;
+  static constexpr int KC_F32 = W_ <= 256 ? 8 : 4;
+  static constexpr int STAGES_F32 = 2;
+  static constexpr int SLOT_F32 = KC_F32 * W_;
   // the activation rows' pitch, and the elements of T before the f32 rows
   template <typename T>
   __host__ __device__ static constexpr int lda() {
-    return kTensorCores<T> ? LDA_MMA : TP;
+    return kTensorCores<T> ? LDA_MMA : LDA_F32;
   }
   template <typename T>
   __host__ __device__ static constexpr int act_elems() {
-    return kTensorCores<T> ? ACT_ROWS_MMA * LDA_MMA : ROWS * TP;
+    return kTensorCores<T> ? ACT_ROWS_MMA * LDA_MMA : ROWS * LDA_F32;
   }
   template <typename T>
   __host__ __device__ static constexpr int ws_elems() {
-    return kTensorCores<T> ? STAGES * SLOT : Cfg<T>::KC * W;
+    return kTensorCores<T> ? STAGES * SLOT : STAGES_F32 * SLOT_F32;
   }
-  // shared memory: the activation rows, the weight stage (f32: KC rows of
-  // the widest product; 16-bit: the ring), then 4 f32 rows of TP (sigma, rgb)
+  // shared memory: the activation rows, the weight ring, then 4 f32 rows of
+  // TP (sigma, rgb)
   template <typename T>
   __host__ __device__ static constexpr size_t smem_bytes() {
     return sizeof(T) * (act_elems<T>() + ws_elems<T>()) +
@@ -330,68 +345,139 @@ struct Lanes {
   static constexpr int GW = 32 * CPL, NG = N / GW;
 };
 
+// One k of an f32 product: the warp's PPW points of an activation row (a
+// broadcast) times this lane's CPL columns of each group of a weight row.
+template <int N, int PPW>
+__device__ __forceinline__ void fma_row(const float* arow, const float* wrow,
+                                        float (&acc)[PPW][N / 32]) {
+  constexpr int CPL = Lanes<N>::CPL, GW = Lanes<N>::GW, NG = Lanes<N>::NG;
+  float a[PPW];
+  loadv(arow, a);
+#pragma unroll
+  for (int g = 0; g < NG; ++g) {
+    float b[CPL];
+    loadv(wrow + g * GW, b);
+#pragma unroll
+    for (int i = 0; i < PPW; ++i)
+#pragma unroll
+      for (int j = 0; j < CPL; ++j)
+        acc[i][g * CPL + j] = fmaf(a[i], b[j], acc[i][g * CPL + j]);
+  }
+}
+
 // acc[i][g * CPL + j] = sum_k act[in_row + k][PPW * warp + i] * w[k][n],
-// n = g * GW + CPL * lane + j, for k < K; w is (K, N) row-major, streamed
-// through the shared stage ws, KC rows at a time.  Products and sums in
-// f32, in order of k.  act's rows are LDA elements apart (the tile's TP
-// points unless a caller pads them).  Ends with a barrier: every read of
-// the input rows is done when it returns.
-template <class Geo, typename T, int N, int LDA = Geo::TP>
+// n = g * GW + CPL * lane + j, for k < K; w is (K, N) row-major.  Products
+// and sums in f32, one fmaf chain an output from 0 in order of k (the plain
+// version's order).  act's rows are LDA elements apart (the tile's pitch
+// unless a caller passes another).  Ends with a barrier: every read of the
+// input rows and of ws is done when it returns.
+//   f32 (the forward tile of C-D', G and the recompute of F, F', H; the
+//   sweep; H's dx products): w streams through the ring ws, STAGES_F32
+//   slots of KC_F32 rows, each stage a committed cp.async group of 16-byte
+//   vectors (an empty one past the last stage, so that every thread counts
+//   its groups alike); stage s + 1 is copied while stage s is consumed.  A
+//   ragged last stage (K = 63, 283, 319) copies and sums only its live
+//   rows.  The ring's first copies go out before any barrier: a caller
+//   that has just read ws (the row-major input's staging) syncs first.
+//   16-bit (H's dx products in bf16 and fp16): KC rows a stage of a shared
+//   buffer, copied synchronously between two barriers.
+template <class Geo, typename T, int N, int LDA = Geo::template lda<T>()>
 __device__ __forceinline__ void dense_acc(const T* __restrict__ w, int K,
                                           const T* act, int in_row, T* ws,
                                           float (&acc)[Geo::PPW][N / 32]) {
   constexpr int PPW = Geo::PPW, TPP = LDA;
   constexpr int CPL = Lanes<N>::CPL, GW = Lanes<N>::GW, NG = Lanes<N>::NG;
-  constexpr int KC = Cfg<T>::KC;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
   for (int i = 0; i < PPW; ++i)
 #pragma unroll
     for (int j = 0; j < N / 32; ++j) acc[i][j] = 0.0f;
 
-  for (int k0 = 0; k0 < K; k0 += KC) {
-    const int kc = min(KC, K - k0);
-    __syncthreads();  // the previous stage has been consumed
-    const uint4* src = reinterpret_cast<const uint4*>(w + 1LL * k0 * N);
-    uint4* dst = reinterpret_cast<uint4*>(ws);
-    const int nvec = kc * N * static_cast<int>(sizeof(T)) / 16;
-    for (int i = threadIdx.x; i < nvec; i += THREADS) dst[i] = src[i];
-    __syncthreads();
-    const T* arow = act + (in_row + k0) * TPP + warp * PPW;
-    const T* wrow = ws + lane * CPL;
+  if constexpr (std::is_same<T, float>::value) {
+    constexpr int KC = Geo::KC_F32, S = Geo::STAGES_F32;
+    static_assert(N <= Geo::W && S >= 2, "a stage's rows fit its slot");
+    const int n_stages = (K + KC - 1) / KC;
+    auto stage = [&](int s) {
+      if (s < n_stages) {
+        const int k0 = s * KC, nvec = min(KC, K - k0) * (N / 4);
+        const float* src = w + 1LL * k0 * N;
+        float* dst = ws + (s % S) * Geo::SLOT_F32;
+        for (int i = threadIdx.x; i < nvec; i += THREADS)
+          mma::cp_async16(dst + 4 * i, src + 4 * i);
+      }
+      mma::cp_async_commit();
+    };
+    for (int s = 0; s < S - 1; ++s) stage(s);
+    for (int s = 0; s < n_stages; ++s) {
+      mma::cp_async_wait<S - 2>();  // this thread's copies of stage s
+      // every thread's copies of stage s have landed (and, at s = 0, the
+      // input rows' last writes are visible); every warp is done with
+      // stage s - 1, whose slot the next stage fills
+      __syncthreads();
+      stage(s + S - 1);
+      const int k0 = s * KC, kc = min(KC, K - k0);
+      const float* arow = act + (in_row + k0) * TPP + warp * PPW;
+      const float* wrow = ws + (s % S) * Geo::SLOT_F32 + lane * CPL;
+      if (kc == KC) {
+#pragma unroll
+        for (int kk = 0; kk < KC; ++kk)
+          fma_row<N>(arow + kk * TPP, wrow + kk * N, acc);
+      } else {
+        for (int kk = 0; kk < kc; ++kk)
+          fma_row<N>(arow + kk * TPP, wrow + kk * N, acc);
+      }
+    }
+  } else {
+    constexpr int KC = Cfg<T>::KC;
+    for (int k0 = 0; k0 < K; k0 += KC) {
+      const int kc = min(KC, K - k0);
+      __syncthreads();  // the previous stage has been consumed
+      const uint4* src = reinterpret_cast<const uint4*>(w + 1LL * k0 * N);
+      uint4* dst = reinterpret_cast<uint4*>(ws);
+      const int nvec = kc * N * static_cast<int>(sizeof(T)) / 16;
+      for (int i = threadIdx.x; i < nvec; i += THREADS) dst[i] = src[i];
+      __syncthreads();
+      const T* arow = act + (in_row + k0) * TPP + warp * PPW;
+      const T* wrow = ws + lane * CPL;
 #pragma unroll 4
-    for (int kk = 0; kk < kc; ++kk) {
-      float a[PPW];
-      loadv(arow + kk * TPP, a);
+      for (int kk = 0; kk < kc; ++kk) {
+        float a[PPW];
+        loadv(arow + kk * TPP, a);
 #pragma unroll
-      for (int g = 0; g < NG; ++g) {
-        float b[CPL];
-        loadv(wrow + kk * N + g * GW, b);
+        for (int g = 0; g < NG; ++g) {
+          float b[CPL];
+          loadv(wrow + kk * N + g * GW, b);
 #pragma unroll
-        for (int i = 0; i < PPW; ++i)
+          for (int i = 0; i < PPW; ++i)
 #pragma unroll
-          for (int j = 0; j < CPL; ++j)
-            acc[i][g * CPL + j] = fmaf(a[i], b[j], acc[i][g * CPL + j]);
+            for (int j = 0; j < CPL; ++j)
+              acc[i][g * CPL + j] = fmaf(a[i], b[j], acc[i][g * CPL + j]);
+        }
       }
     }
   }
-  __syncthreads();  // every read of the input rows is done
+  __syncthreads();  // every read of the input rows and of ws is done
 }
 
-// act rows [out_row, out_row + N) = act(rows [in_row, in_row + K)) @ w + bias,
-// optional ReLU, rounded to T.  With a stash (reference geometry), each
-// point's rounded outputs also go to its stash row at column scol (points
-// past P are not stored).
+// act rows [out_row, out_row + N) = act(rows [in_row, in_row + K)) @ w +
+// bias, optional ReLU, in f32 (the 16-bit types run mma_dense).  With a
+// stash (reference geometry), each point's outputs also go to its stash row
+// at column scol (points past P are not stored).  The outputs go to the
+// activation rows as 16-byte vectors of the thread's PPW points down each
+// of its columns, and to the stash from the registers as 16-byte vectors of
+// its 4 columns of each point.
 template <class Geo, typename T, int N, bool STASH>
 __device__ __forceinline__ void dense(const T* __restrict__ w,
                                       const float* __restrict__ bias, int K,
                                       T* act, int in_row, int out_row, T* ws,
                                       bool relu, T* stash, int sc, int scol,
                                       long long n_valid) {
-  constexpr int PPW = Geo::PPW, TPP = Geo::TP;
+  static_assert(std::is_same<T, float>::value, "the f32 epilogue");
+  constexpr int PPW = Geo::PPW, LD = Geo::LDA_F32;
   constexpr int CPL = Lanes<N>::CPL, GW = Lanes<N>::GW, NG = Lanes<N>::NG;
   static_assert(!STASH || (Geo::W == W && PPW == 8 && CPL == 4),
                 "the stash is written at the reference geometry");
+  static_assert(PPW % 4 == 0, "whole vectors of points");
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   float acc[PPW][N / 32];
   dense_acc<Geo, T, N>(w, K, act, in_row, ws, acc);
@@ -401,28 +487,31 @@ __device__ __forceinline__ void dense(const T* __restrict__ w,
     for (int j = 0; j < CPL; ++j) {
       const int n = g * GW + lane * CPL + j;
       const float bn = bias[n];
-      T* orow = act + (out_row + n) * TPP + warp * PPW;
+      float* orow = act + (out_row + n) * LD + warp * PPW;
 #pragma unroll
       for (int i = 0; i < PPW; ++i) {
         float v = acc[i][g * CPL + j] + bn;
         if (relu) v = relu_keep_nan(v);
-        orow[i] = from_f<T>(v);
+        acc[i][g * CPL + j] = v;
       }
+#pragma unroll
+      for (int i = 0; i < PPW; i += 4)
+        *reinterpret_cast<float4*>(orow + i) =
+            make_float4(acc[i][g * CPL + j], acc[i + 1][g * CPL + j],
+                        acc[i + 2][g * CPL + j], acc[i + 3][g * CPL + j]);
     }
-  if constexpr (STASH) {  // this thread's own outputs, read back from smem
+  if constexpr (STASH) {  // this thread's 4 columns of each of its points
 #pragma unroll
-    for (int g = 0; g < NG; ++g) {
-      const int n0 = g * GW + lane * 4;
+    for (int g = 0; g < NG; ++g)
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int p = warp * 8 + i;
-        float v[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          v[j] = to_f(act[(out_row + n0 + j) * TPP + p]);
-        if (p < n_valid) store4(stash + 1LL * p * sc + scol + n0, v);
+      for (int i = 0; i < PPW; ++i) {
+        const int p = warp * PPW + i;
+        if (p < n_valid)
+          *reinterpret_cast<float4*>(stash + 1LL * p * sc + scol + g * GW +
+                                     lane * 4) =
+              make_float4(acc[i][g * 4], acc[i][g * 4 + 1], acc[i][g * 4 + 2],
+                          acc[i][g * 4 + 3]);
       }
-    }
   }
   __syncthreads();
 }
@@ -821,7 +910,7 @@ __device__ __forceinline__ void mma_dense(const T* __restrict__ w,
 }
 
 // One layer of the tile forward: the tensor cores in bf16 and fp16, the
-// scalar loop in f32 (where no positive value rounds to 0, so KEEP_SIGN
+// CUDA cores in f32 (where no positive value rounds to 0, so KEEP_SIGN
 // has nothing to keep).
 template <class Geo, typename T, int N, bool STASH, bool KEEP_SIGN>
 __device__ __forceinline__ void layer(const T* __restrict__ w,
@@ -871,9 +960,9 @@ __device__ __forceinline__ void stage_rows(const float* __restrict__ x,
 
 // Raw rays: embed the tile's points into act rows [0, CX) and, unless
 // sigma-only, [ROW_DIR, ROW_DIR + CD).  Points past P embed zeros and are
-// never stored.  Row-major input is first staged in ws (the weight stage,
-// free until the first product, whose opening barrier orders these reads
-// before it).
+// never stored.  Row-major input is first staged in ws (the weight ring,
+// free until the first product; forward_tile syncs before that product's
+// first copies).
 template <class Geo, typename T, bool ROW_MAJOR>
 __device__ __forceinline__ void embed(const float* __restrict__ x,
                                       long long P, long long p0, T* act,
@@ -965,9 +1054,10 @@ __device__ __forceinline__ void forward_tile(
   const long long n_valid = P - p0;
 
   tile_input<Geo, T, IN>(x, x_cols, P, p0, act, ws, !SIGMA_ONLY);
-  // the tensor cores' first weight copies go out before any barrier of the
-  // product: the row-major input staged in ws must be read by then
-  if (kTensorCores<T>) __syncthreads();
+  // the first weight copies of a product go out before any barrier of it
+  // (the tensor cores' ring and the f32 ring alike): the row-major input
+  // staged in ws must be read by then
+  __syncthreads();
   // layer 0 reads xyz_emb; the skip layer reads [xyz_emb | h] (rows
   // 0 .. CX + W); layer i's output h_{i+1} goes to stash column i * W
   layer<Geo, T, GW_, STASH, KEEP_SIGN>(wts, bias, CX, act, 0, RH, ws, true,

@@ -37,11 +37,13 @@
 // = 640), the weights streamed from L2 in stages of 32 rows (W <= 256) or 16
 // through a ring of three stages (two at W = 640), every output near a tie of
 // the type recomputed in k order.  Each tile reads the whole weight set from
-// L2 (4.6 MB at W = 512).  f32 keeps the scalar loop: a thread accumulates PPW
-// points x W / 32 features, all of a layer's outputs in one pass (products
-// whose width is not a multiple of 128, the dir heads W / 2 = 64, 192, 320,
-// give each lane 2 features per 64-column group).  Shared memory per CTA stays
-// below 113 KB, so two CTAs share an SM at every width.
+// L2 (4.6 MB at W = 512).  f32 (W <= 384) runs C's f32 tile on the CUDA
+// cores: a thread accumulates PPW points x W / 32 features, all of a layer's
+// outputs in one pass (products whose width is not a multiple of 128, the dir
+// heads W / 2 = 64, 192, give each lane 2 features per 64-column group), the
+// weights through a two-stage cp.async ring of 8-row (W <= 256) or 4-row
+// stages, the activation rows padded to TP + 4 points.  Shared memory per CTA
+// stays below 113 KB, so two CTAs share an SM at every width.
 #include "fused_mlp_common.cuh"
 
 namespace {
