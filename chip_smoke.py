@@ -227,7 +227,19 @@ Phases (any failed check raises, so the script exits non-zero):
    with its ``test_train`` eval, launches equal to phase 13's; last, a
    4096x3072 codestream (the 1024x1024 tile fixture repeated) decoded on
    the host through C++.
-18. One JSON line of kernel numbers (E's and F's rows carry the SHA-256 of
+18. The rest of Image.ID: the C++ stages (SUN runs, MSP v2 rows, FLI
+   frames, ICNS channels) against their plain versions on seeded streams;
+   phase 9's LLFF scene with its views as run-length SUN, IM and DCX (view
+   0's 128x128 crop also as an ICNS ``it32`` icon with a ``t8mk`` mask: an
+   icon's sizes are fixed), phase 4's Blender scene as GBR v2 brushes,
+   phase 7's shadow maps as FLI (BRUN) and 24-bit SUN, each written with
+   ``tests/image_writers.py`` and its loads held bit for bit against the
+   PNG scene's; the same three fits as phase 16, launches equal to phase
+   16's, the LLFF ``test_train`` eval and the ``efficient_sm`` epoch-0 loss
+   equal to phase 7's; last, 4032x3024 run-length SUN and FLI files and
+   1024x1024 ICNS channels decoded on the host through C++, the plain
+   versions timed on one strip.
+19. One JSON line of kernel numbers (E's and F's rows carry the SHA-256 of
    their f32 grads at a fixed seeded input, run twice, ``f32_sha256``), the
    card's line, then the result line ``{"ok": true, "device": {...}}``
    last.
@@ -6268,6 +6280,342 @@ def jpeg2000_end_to_end(tmp: str, webp: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 18
+# The rest of Image.ID.  The files are written here by the tests' numpy
+# writers from the PNG scenes' 8-bit images, so each load is held bit for
+# bit against the PNG scene's: phase 9's LLFF views as run-length SUN,
+# IM (``RGB image``) and DCX (an RGB PCX) in turn; phase 4's Blender frames
+# as GBR v2 brushes (RGBA); phase 7's shadow maps as FLI (a COLOR chunk and
+# BRUN lines) and raw 24-bit SUN.  An ICNS icon is 16-1024 pixels square
+# (``IcnsFile.SIZES``; its size setter refuses any other), so no view can be
+# one: a 128x128 crop of view 0 as ``it32`` channels with a ``t8mk`` mask
+# is held against that crop.  Each fit's launches must equal phase 16's
+# fit of the same scene.  The fern-size files are a 4032x16 strip tiled
+# 189 times down the rows (SUN's runs and FLI's BRUN lines end with the
+# strip); ICNS's channel stage runs on 1024x1024 channels (a 1024x16 strip's
+# runs repeated 64 times a channel).
+ID_LLFF_FORMATS = ("sun", "im", "dcx")
+
+
+def id_stages_vs_plain(W) -> dict:
+    """Each C++ stage of phase 18 against its plain version on seeded
+    streams: SUN runs, MSP v2 rows, FLI frames (BRUN, COPY, LC, SS2), ICNS
+    channels."""
+    from nerf_pl_tpu_torch.data import fli, icns, msp, rle, sun
+
+    rng = np.random.RandomState(18)
+    img = rng.randint(0, 4, (37, 29, 3)).astype(np.uint8) * 60
+    img[:9] = img[0, 0]
+    gray = img[..., 0]
+    body = W.sun_rle(img.tobytes())
+    same_rgbs("sun rle", rle.sun_rle(body, 87, 37), sun.rle_plain(body, 87, 37))
+    data = W.msp_bytes(np.packbits(gray > 60, axis=1))
+    a, b = rle.msp_rows(data, 29, 37, 37 * 4), msp.rows_plain(data, 29, 37,
+                                                             37 * 4)
+    if a != b:
+        raise AssertionError("msp rows: the C++ stage differs from the plain")
+    chunks = [W.fli_chunk(15, W.fli_brun(gray)),
+              W.fli_chunk(16, gray.tobytes()),
+              W.fli_chunk(12, W.fli_lc(3, [[(2, b"\x07" * 5), (1, b"ab")],
+                                           [(0, bytes(range(20)))]])),
+              W.fli_chunk(7, W.fli_ss2([(0, [(1, b"\x01\x02" * 4)], 9),
+                                        (2, [(3, bytes(range(10)))], None)]))]
+    for k, chunk in enumerate(chunks):
+        buf = W.fli_bytes(29, 37, [chunk])[128:]
+        same_rgbs(f"fli frame {k}", rle.fli_frame(buf, 29, 37),
+                  fli.frame_plain(buf, 29, 37))
+    body = W.icns_channels(img)
+    same_rgbs("icns channels", rle.icns_rgb(body, 29 * 37),
+              icns.rgb_plain(body, 29 * 37))
+    log("[images id] the C++ stages equal their plain versions: SUN runs, "
+        "MSP v2 rows, FLI BRUN/COPY/LC/SS2 frames, ICNS channels")
+    return dict(sun=1, msp=1, fli=len(chunks), icns=1)
+
+
+def id_hold_counts(tag: str, got: dict, want: dict) -> None:
+    for key in "ABCDE":
+        if got.get(key, 0) != want.get(key, 0):
+            raise AssertionError(f"{tag} launched {key} {got.get(key, 0)} "
+                                 f"times, phase 16's {want.get(key, 0)}")
+
+
+def id_llff(tmp: str, W, boxes: dict) -> dict:
+    """Phase 9's scene with its views as run-length SUN, IM and DCX: the
+    loads bit-equal, the ICNS crop, then the LLFF fit and its
+    ``test_train`` eval, launches equal to phase 16's."""
+    import glob
+    import shutil
+
+    from nerf_pl_tpu_torch.data import icns, image
+    from nerf_pl_tpu_torch.data.llff import LLFFDataset
+    from nerf_pl_tpu_torch.data.png import read_png
+
+    src = os.path.join(tmp, "llff_scene")
+    root = os.path.join(tmp, "llff_images_id")
+    os.makedirs(os.path.join(root, "images"))
+    shutil.copy(os.path.join(src, "poses_bounds.npy"), root)
+    sizes = {}
+    views = sorted(glob.glob(os.path.join(src, "images", "*.png")))
+    for i, view in enumerate(views):
+        rgb, _ = read_png(view)
+        h, w = rgb.shape[:2]
+        kind = ID_LLFF_FORMATS[i % 3]
+        if kind == "sun":
+            data = W.sun_bytes(rgb[..., ::-1].reshape(h, -1), w, 24, 2)
+        elif kind == "im":
+            data = W.im_rgb_bytes(rgb)
+        else:
+            data = W.dcx_bytes([W.pcx_bytes(np.moveaxis(rgb, -1, 0), 8)])
+        name = f"{i:03d}.{kind}"
+        with open(os.path.join(root, "images", name), "wb") as f:
+            f.write(data)
+        sizes[name] = len(data)
+        if i == 0:
+            crop = np.ascontiguousarray(rgb[:128, :128])
+            mask = crop[..., 1]
+            icon = W.icns_bytes([(b"it32", W.icns_channels(crop, sig=True)),
+                                 (b"t8mk", mask.tobytes())])
+            path = os.path.join(tmp, "view0_crop.icns")
+            with open(path, "wb") as f:
+                f.write(icon)
+            pic = image.read_picture(path)
+            same_rgbs("icns crop", pic.pixels, np.concatenate(
+                [crop, mask[..., None]], -1))
+            head = icns.open_icns(icon)
+            same_rgbs("icns crop plain", icns.load_icns(icon, head)[0],
+                      icns.load_icns(icon, head, plain=True)[0])
+    for split in ("train", "val"):
+        a, b = (LLFFDataset(r, split=split, img_wh=LLFF_WH)
+                for r in (src, root))
+        if split == "train":
+            same_rgbs("llff images id train", a.all_rgbs, b.all_rgbs)
+        else:
+            same_rgbs("llff images id val", a[0]["rgbs"], b[0]["rgbs"])
+    log(f"[images id] llff: {len(views)} views as {sizes} bytes; train and "
+        "val loads bit-equal to the PNG scene's; view 0's 128x128 crop as an "
+        "ICNS it32 + t8mk icon equal to the crop")
+    fit = trainer_fit(tmp, "train", root, "llff_images_id", LLFF_FLAGS, 1,
+                      "images id")
+    system = fit["system"]
+    rays, rgbs = system.rays[:LLFF_BATCH], system.rgbs[:LLFF_BATCH]
+    per_step = one_step_launches(
+        "llff (SUN, IM, DCX)", lambda: system.train_step(rays, rgbs),
+        LLFF_STEP_LAUNCHES)
+    del system, rays, rgbs, fit["system"]
+    ckpt = os.path.join(tmp, "ckpts", "llff_images_id", "epoch=0.ckpt")
+    ev = llff_eval(tmp, root, ckpt, "test_train", LLFF_WH, "_images_id")
+    want = boxes["llff"]
+    id_hold_counts("the SUN/IM/DCX LLFF fit", fit["counts"],
+                   want["fit"]["counts"])
+    id_hold_counts("its step", per_step, want["per_step"])
+    id_hold_counts("its eval", ev["counts"], want["eval"]["counts"])
+    return dict(fit=fit, per_step=per_step, eval=ev, bytes=sizes)
+
+
+def id_blender(tmp: str, W, boxes: dict) -> dict:
+    """Phase 4's scene with its frames as GBR v2 brushes (RGBA) under their
+    ``.png`` names: the loads bit-equal, then a 1-epoch fit at phase 4's
+    flags, launches equal to phase 16's."""
+    import shutil
+
+    from nerf_pl_tpu_torch.data.blender import BlenderDataset
+    from nerf_pl_tpu_torch.data.png import read_png
+
+    src = os.path.join(tmp, "scene")
+    root = os.path.join(tmp, "scene_images_id")
+    shutil.copytree(src, root)
+    n = 0
+    for split, count in (("train", TRAIN_VIEWS), ("val", 1)):
+        for i in range(count):
+            name = os.path.join(split, f"r_{i}.png")
+            img, _ = read_png(os.path.join(src, name))
+            with open(os.path.join(root, name), "wb") as f:
+                f.write(W.gbr_bytes(img, 2, comment=b"frame"))
+            n += 1
+    kw = dict(img_wh=(TRAIN_WH, TRAIN_WH), near=2.0, far=6.0)
+    for split in ("train", "val"):
+        a, b = (BlenderDataset(r, split, **kw) for r in (src, root))
+        if split == "train":
+            same_rgbs("blender gbr train", a.all_rgbs, b.all_rgbs)
+        else:
+            same_rgbs("blender gbr val", a[0]["rgbs"], b[0]["rgbs"])
+    log(f"[images id] blender: {n} frames as GBR v2 brushes; train and val "
+        "loads bit-equal")
+    flags = ["--dataset_name", "blender", "--img_wh", str(TRAIN_WH),
+             str(TRAIN_WH), "--N_samples", str(N_SAMPLES), "--N_importance",
+             str(N_IMPORTANCE), "--batch_size", str(TRAIN_BATCH), "--lr",
+             "5e-4", "--white_back", "true", "--compute_dtype", "bfloat16"]
+    fit = trainer_fit(tmp, "train", root, "blender_images_id", flags, 1,
+                      "images id")
+    system = fit["system"]
+    rays, rgbs = system.rays[:TRAIN_BATCH], system.rgbs[:TRAIN_BATCH]
+    per_step = one_step_launches(
+        "blender (GBR)", lambda: system.train_step(rays, rgbs),
+        VANILLA_STEP_LAUNCHES)
+    del system, rays, rgbs, fit["system"]
+    id_hold_counts("the GBR Blender fit", fit["counts"],
+                   boxes["blender"]["fit"]["counts"])
+    return dict(fit=fit, per_step=per_step, frames=n)
+
+
+def id_shadow(tmp: str, W, phase7_loss: float, boxes: dict) -> dict:
+    """Phase 7's shadow scene with its maps as FLI (BRUN) and raw 24-bit SUN
+    in turn under their ``sm_*.png`` names: the loads bit-equal, each FLI
+    and SUN map also through the plain stages, then a 1-epoch
+    ``--grad_on_light`` fit whose epoch-0 loss must equal phase 7's."""
+    import glob
+    import shutil
+
+    from nerf_pl_tpu_torch.data import fli, image
+    from nerf_pl_tpu_torch.data.blender_efficient_sm import \
+        BlenderEfficientShadows
+    from nerf_pl_tpu_torch.data.png import read_png
+
+    src = os.path.join(tmp, "shadow_scene")
+    root = os.path.join(tmp, "shadow_images_id")
+    shutil.copytree(src, root)
+    kinds = {}
+    for k, path in enumerate(sorted(glob.glob(os.path.join(root, "sm_*.png")))):
+        img, _ = read_png(path)
+        h, w = img.shape[:2]
+        kind = ("fli", "sun")[k % 2]
+        if kind == "fli":
+            idx, pal, _ = W.palette_of(img)
+            data = W.fli_bytes(w, h, [W.fli_color(pal),
+                                      W.fli_chunk(15, W.fli_brun(idx))])
+            head = fli.open_fli(data)
+            same_rgbs("fli plain", fli.load_fli(data, head)[0],
+                      fli.load_fli(data, head, plain=True)[0])
+        else:
+            data = W.sun_bytes(img[..., ::-1].reshape(h, -1), w, 24)
+        with open(path, "wb") as f:
+            f.write(data)
+        same_rgbs(f"{kind} map", image.convert(image.read_picture(path),
+                                                "RGB"), img)
+        kinds[kind] = kinds.get(kind, 0) + 1
+    for split in ("train", "val"):
+        a, b = (BlenderEfficientShadows(r, split, img_wh=(SHADOW_WH, SHADOW_WH))
+                for r in (src, root))
+        if split == "train":
+            same_rgbs("efficient_sm images id train", a.all_rgbs, b.all_rgbs)
+        else:
+            same_rgbs("efficient_sm images id val", a[0]["rgbs"], b[0]["rgbs"])
+    log(f"[images id] efficient_sm: shadow maps as {kinds}; train and val "
+        "loads bit-equal")
+    fit = shadow_fit(tmp, root, "sm_images_id", ["--grad_on_light"], 1)
+    if fit["losses"][0] != phase7_loss:
+        raise AssertionError(f"efficient_sm on FLI/SUN maps: epoch-0 loss "
+                             f"{fit['losses'][0]!r}, phase 7's {phase7_loss!r}")
+    log(f"[images id] efficient_sm epoch-0 loss {fit['losses'][0]!r}, equal "
+        "to phase 7's on the PNG maps")
+    system = fit["system"]
+    batch = tuple(t[:SHADOW_BATCH] for t in (system.rays, system.rgbs,
+                                             system.pixels, system.pose_idx))
+    cache = system.empty_light_cache()
+    per_step = one_step_launches(
+        "efficient_sm (FLI, SUN maps)",
+        lambda: system.train_step(*batch, cache, SHADOW_LIGHT_N),
+        SHADOW_STEP_LAUNCHES)
+    del system, batch, fit["system"]
+    id_hold_counts("the FLI/SUN efficient_sm fit", fit["counts"],
+                   boxes["shadow"]["fit"]["counts"])
+    return dict(fit=fit, per_step=per_step, maps=kinds)
+
+
+def fern_size_images_id(W) -> dict:
+    """A 4032x3024 run-length SUN (24-bit) and FLI (BRUN), a 4032x16 strip
+    tiled 189 times, decoded on this machine's host through the C++ stages
+    and held equal to the tiled plain decode of the strip; ICNS's channel
+    stage on 1024x1024 channels against the tiled plain decode of a 1024x16
+    strip; each plain version timed on its strip alone."""
+    import struct
+
+    from nerf_pl_tpu_torch.data import fli, icns, image, rle, sun
+
+    x = np.arange(FERN_W, dtype=np.float64)[None, :]
+    y = np.arange(FERN_STRIP, dtype=np.float64)[:, None]
+    rgb = np.stack([128 + 100 * np.sin(x / 37) + 0 * y,
+                    128 + 100 * np.cos(y / 5) + 0 * x,
+                    128 + 60 * np.sin((x + y) / 51)], -1)
+    rgb += np.random.RandomState(1).normal(0, 6, rgb.shape)
+    strip = np.clip(rgb, 0, 255).astype(np.uint8)
+    strip[:, :600] = strip[:, :600] // 32 * 32  # runs for the coders
+    full_h = FERN_STRIP * FERN_ROWS
+    t0 = time.perf_counter()
+    files = {}
+    one = W.sun_bytes(strip[..., ::-1].reshape(FERN_STRIP, -1), FERN_W, 24, 2)
+    body = one[32:]
+    files["sun"] = (one, struct.pack(">8I", 0x59A66A95, FERN_W, full_h, 24,
+                                     len(body) * FERN_ROWS, 2, 0, 0)
+                    + body * FERN_ROWS)
+    idx = strip[..., 1]
+    pal = np.repeat(np.arange(256, dtype=np.uint8)[:, None], 3, 1)
+    pal[:, 0] = 255 - pal[:, 0]
+    colour = W.fli_color(pal)
+    brun = W.fli_brun(idx)
+    files["fli"] = (W.fli_bytes(FERN_W, FERN_STRIP, [
+        colour, W.fli_chunk(15, brun)]), W.fli_bytes(FERN_W, full_h, [
+            colour, W.fli_chunk(15, brun * FERN_ROWS)]))
+    write_s = time.perf_counter() - t0
+    rle._native()  # built before the clock starts
+    plain_load = {"sun": (sun.open_sun, sun.load_sun),
+                  "fli": (fli.open_fli, fli.load_fli)}
+    out = dict(write_s=write_s)
+    for kind, (strip_file, data) in files.items():
+        t0 = time.perf_counter()
+        name, load = image.open_format(data, kind)
+        px = load()[0]
+        whole = time.perf_counter() - t0
+        open_fn, load_fn = plain_load[kind]
+        t0 = time.perf_counter()
+        plain = load_fn(strip_file, open_fn(strip_file), plain=True)[0]
+        plain_s = time.perf_counter() - t0
+        same_rgbs(f"fern-size {kind}", px, np.tile(
+            plain, (FERN_ROWS,) + (1,) * (plain.ndim - 1)))
+        same_rgbs(f"fern-size {kind} pixels", plain,
+                  strip if kind == "sun" else idx)
+        out[kind] = dict(format=name, bytes=len(data), s=whole,
+                         plain_strip_s=plain_s)
+        log(f"[images id] {FERN_W}x{full_h} {name} on the host "
+            f"({gpu_line()}): {len(data):,} bytes, decode {whole:.3f} s "
+            f"through C++, equal to the tiled plain decode of its strip; the "
+            f"plain version on one {FERN_W}x{FERN_STRIP} strip {plain_s:.3f} s")
+    side, rows = 1024, 16
+    icon_strip = np.ascontiguousarray(strip[:rows, :side])
+    chans = [W.icns_runs(icon_strip[..., k].tobytes()) for k in range(3)]
+    body = b"".join(c * (side // rows) for c in chans)
+    t0 = time.perf_counter()
+    planes = rle.icns_rgb(body, side * side)
+    whole = time.perf_counter() - t0
+    strip_body = b"".join(chans)
+    t0 = time.perf_counter()
+    plain = icns.rgb_plain(strip_body, side * rows)
+    plain_s = time.perf_counter() - t0
+    same_rgbs("fern-size icns channels", planes.reshape(3, side, side),
+              np.tile(plain.reshape(3, rows, side), (1, side // rows, 1)))
+    out["icns"] = dict(bytes=len(body), s=whole, plain_strip_s=plain_s,
+                       side=side)
+    log(f"[images id] ICNS channels {side}x{side} on the host "
+        f"({gpu_line()}): {len(body):,} bytes, decode {whole:.4f} s through "
+        f"C++, equal to the tiled plain decode of its strip; the plain "
+        f"version on one {side}x{rows} strip {plain_s:.3f} s")
+    return out
+
+
+def images_id_end_to_end(tmp: str, phase7_loss: float, boxes: dict) -> dict:
+    """Phase 18: the fits on the rest of Image.ID, the C++ stages against
+    their plain versions and the fern-size decodes."""
+    t0 = time.perf_counter()
+    W = image_writers()
+    out = dict(stages=id_stages_vs_plain(W), llff=id_llff(tmp, W, boxes),
+               blender=id_blender(tmp, W, boxes),
+               shadow=id_shadow(tmp, W, phase7_loss, boxes),
+               fern=fern_size_images_id(W))
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[images id] phase 18: {out['seconds']:.1f} s")
+    return out
+
+
 # ---------------------------------------------------------------- phase 15
 # --compute_dtype float16: the fp16 instantiation of every fused
 # kernel.  C-F' in fp16 against their plain versions at phase 2's training
@@ -6805,6 +7153,7 @@ def main() -> int:
         f16 = float16_end_to_end(tmp, ckpt)
         boxes = containers_end_to_end(tmp, shadow["fit"]["losses"][0])
         j2k = jpeg2000_end_to_end(tmp, formats["llff"])
+        ids = images_id_end_to_end(tmp, shadow["fit"]["losses"][0], boxes)
 
     fine_row, coarse_row = c["rows"]["rgb"], c["rows"]["sigma-only"]
     kernels = [
@@ -7321,6 +7670,31 @@ def main() -> int:
         f"{j2k['fern']['s']:.3f} s; plain stages on the 64x64 fixtures "
         + ", ".join(f"{k} {v['plain_s']:.3f} s"
                     for k, v in j2k["stages"].items()) + f" ({card})")
+    # phase 18: the fits on the rest of Image.ID and one step of each
+    for row in kernels:
+        key = J2K_KEYS[row["name"]]
+        if key not in ("A", "B", "C", "D", "E"):
+            continue
+        row["launches_images_id"] = dict(
+            llff_sun_im_dcx_fit=ids["llff"]["fit"]["counts"][key],
+            llff_sun_im_dcx_per_step=ids["llff"]["per_step"][key],
+            llff_sun_im_dcx_eval=ids["llff"]["eval"]["counts"][key],
+            blender_gbr_fit=ids["blender"]["fit"]["counts"][key],
+            blender_gbr_per_step=ids["blender"]["per_step"][key],
+            efficient_sm_fli_sun_fit=ids["shadow"]["fit"]["counts"][key],
+            efficient_sm_fli_sun_per_step=ids["shadow"]["per_step"][key])
+    idf = ids["fern"]
+    log(f"[images id] phase 18: {ids['seconds']:.1f} s; LLFF on SUN/IM/DCX "
+        f"{ids['llff']['fit']['rays_per_s'][-1]:.1f} train rays/s, Blender "
+        f"on GBR {ids['blender']['fit']['rays_per_s'][-1]:.1f}, "
+        f"efficient_sm on FLI/SUN maps "
+        f"{ids['shadow']['fit']['rays_per_s'][-1]:.1f} camera rays/s; "
+        f"fern-size decodes on the host: SUN {idf['sun']['s']:.3f} s (plain, "
+        f"one strip {idf['sun']['plain_strip_s']:.3f} s), FLI "
+        f"{idf['fli']['s']:.3f} s (plain, one strip "
+        f"{idf['fli']['plain_strip_s']:.3f} s), ICNS channels 1024^2 "
+        f"{idf['icns']['s']:.4f} s (plain, one strip "
+        f"{idf['icns']['plain_strip_s']:.3f} s) ({card})")
     fern = readers["fern"]
     log(f"[readers] phase 12: {readers['seconds']:.1f} s; fern-size decode "
         f"{fern['baseline']['s']:.3f} s baseline, "

@@ -1,9 +1,11 @@
-// The byte-stream stages of the port's TGA, PCX, SGI and QOI readers
-// (nerf_pl_tpu_torch/data/{tga,pcx,sgi,qoi}.py, bound in data/rle.py), built
-// with g++ at first use and called through ctypes.  Each decodes as Pillow's
-// decoder of that format does (TgaRleDecode.c, PcxDecode.c, SgiRleDecode.c,
-// QoiImagePlugin.QoiDecoder); each module's *_plain function is the same
-// stage in Python, which the tests hold this file against.
+// The byte-stream stages of the port's TGA, PCX, SGI, QOI, SUN, MSP, FLI and
+// ICNS readers (nerf_pl_tpu_torch/data/{tga,pcx,sgi,qoi,sun,msp,fli,icns}.py,
+// bound in data/rle.py), built with g++ at first use and called through
+// ctypes.  Each decodes as Pillow's decoder of that format does
+// (TgaRleDecode.c, PcxDecode.c, SgiRleDecode.c, QoiImagePlugin.QoiDecoder,
+// SunRleDecode.c, MspImagePlugin.MspDecoder, FliDecode.c,
+// IcnsImagePlugin.read_32); each module's *_plain function is the same stage
+// in Python, which the tests hold this file against.
 //
 //   * tga_rle: packets of `depth`-byte pixels; a raw packet runs on into the
 //     next row, a run packet that reaches past its row is an overrun;
@@ -20,6 +22,28 @@
 //     its 64-entry index of (3r + 5g + 7b + 11a) % 64, from (0, 0, 0, 255),
 //     into RGBA; a run does not enter the index, an index op does, at its
 //     value's own hash (an empty slot reads as 0, 0, 0, 0).
+//
+//   * sun_rle: rows of `row_bytes` (no padding); 0x80 0 is a literal 0x80,
+//     0x80 n v a run of n + 1 bytes v, which goes on into the next rows,
+//     any other byte a literal;
+//   * msp_rows: MSP v2's row map (one little-endian word a row, after the
+//     32-byte header) and its rows: a 0 type byte is a run (count, value),
+//     any other a literal of that many bytes (fewer where the row ends
+//     first); an empty row is a white row of ceil(w / 8) bytes.  The rows'
+//     bytes are joined with nothing between them (Pillow reads them as one
+//     raw stream); the first `cap` go to `out` and the count of all is
+//     returned, or -1 (a short row map), -3 (a short row), -4 (a run past
+//     its row);
+//   * fli_frame: one FLI/FLC frame chunk (0xF1FA) of the bytes Pillow's
+//     decoder holds, its subchunks COLOR (4, 11; skipped), SS2 (7), LC
+//     (12), BLACK (13), BRUN (15), COPY (16) and PSTAMP (18; skipped) on a
+//     zeroed P image; -2 where a chunk reads past the data or its lines,
+//     -3 for another chunk type, -4 for a subchunk of size 0;
+//   * icns_rgb: three channels of `npix` bytes, each a stream of runs (a
+//     byte of 0x80 and up repeats the next byte `b - 125` times, any other
+//     copies the next `b + 1` bytes); -2 where a channel's counts do not
+//     end at `npix` (Pillow's "Error reading channel"), -1 where the bytes
+//     run out inside a run (not enough image data).
 //
 // Each returns 0, -1 where the data ends first (Pillow's "image file is
 // truncated") or -2 for an overrun ("buffer overrun").
@@ -168,6 +192,232 @@ int qoi_decode(const uint8_t *in, int64_t n, int64_t npix, uint8_t *out) {
     memcpy(index[(v[0] * 3 + v[1] * 5 + v[2] * 7 + v[3] * 11) % 64], v, 4);
     memcpy(prev, v, 4);
     memcpy(out + 4 * p++, v, 4);
+  }
+  return 0;
+}
+
+int sun_rle(const uint8_t *in, int64_t n, int64_t row_bytes, int32_t h, uint8_t *out) {
+  const int64_t total = row_bytes * h;
+  int64_t pos = 0, o = 0;
+  while (o < total) {
+    if (pos >= n) return -1;
+    if (in[pos] == 0x80) {
+      if (pos + 2 > n) return -1;
+      if (in[pos + 1] == 0) {
+        out[o++] = 0x80;
+        pos += 2;
+      } else {
+        if (pos + 3 > n) return -1;
+        int64_t k = (int64_t)in[pos + 1] + 1;
+        if (k > total - o) k = total - o;
+        memset(out + o, in[pos + 2], k);
+        o += k;
+        pos += 3;
+      }
+    } else {
+      out[o++] = in[pos++];
+    }
+  }
+  return 0;
+}
+
+int64_t msp_rows(const uint8_t *in, int64_t n, int32_t w, int32_t h, int64_t cap, uint8_t *out) {
+  if (32 + 2 * (int64_t)h > n) return -1;
+  const int64_t blank = (w + 7) / 8;
+  int64_t pos = 32 + 2 * (int64_t)h, o = 0;
+  auto put = [&](const uint8_t *src, int64_t k, int fill) {
+    for (int64_t i = 0; i < k; ++i, ++o)
+      if (o < cap) out[o] = src ? src[i] : (uint8_t)fill;
+  };
+  for (int32_t y = 0; y < h; ++y) {
+    const int64_t rowlen = in[32 + 2 * y] | (in[33 + 2 * y] << 8);
+    if (rowlen == 0) {
+      put(nullptr, blank, 0xFF);
+      continue;
+    }
+    if (pos + rowlen > n) return -3;
+    const uint8_t *row = in + pos;
+    pos += rowlen;
+    int64_t i = 0;
+    while (i < rowlen) {
+      const int type = row[i++];
+      if (type == 0) {
+        if (i + 2 > rowlen) return -4;
+        put(nullptr, row[i], row[i + 1]);
+        i += 2;
+      } else {
+        const int64_t k = i + type <= rowlen ? type : rowlen - i;
+        put(row + i, k, 0);
+        i += type;
+      }
+    }
+  }
+  return o;
+}
+
+static inline int i16le(const uint8_t *p) { return p[0] | (p[1] << 8); }
+static inline int64_t i32le(const uint8_t *p) {
+  return (int64_t)(int32_t)((uint32_t)p[0] | ((uint32_t)p[1] << 8) | ((uint32_t)p[2] << 16) | ((uint32_t)p[3] << 24));
+}
+
+int fli_frame(const uint8_t *buf, int64_t bytes, int32_t w, int32_t h, uint8_t *im) {
+  if (bytes < 8) return -2;
+  if (i16le(buf + 4) != 0xF1FA) return -3;
+  const int chunks = i16le(buf + 6);
+  const uint8_t *ptr = buf + 16;
+  bytes -= 16;
+#define OOB(k) \
+  if (data + (k) > ptr + bytes) return -2;
+  for (int c = 0; c < chunks; ++c) {
+    if (bytes < 10) return -2;
+    const uint8_t *data = ptr + 6;
+    const int type = i16le(ptr + 4);
+    if (type == 4 || type == 11 || type == 18) {
+      // palette (read by the opener) and postage stamp: skipped
+    } else if (type == 7) {  // SS2: word runs
+      const int lines = i16le(data);
+      data += 2;
+      int l = 0, y = 0;
+      for (; l < lines && y < h; ++l, ++y) {
+        uint8_t *row = im + (int64_t)y * w;
+        OOB(2)
+        int packets = i16le(data);
+        data += 2;
+        while (packets & 0x8000) {
+          if (packets & 0x4000) {
+            y += 65536 - packets;
+            if (y >= h) return -2;
+            row = im + (int64_t)y * w;
+          } else {
+            row[w - 1] = (uint8_t)packets;
+          }
+          OOB(2)
+          packets = i16le(data);
+          data += 2;
+        }
+        int p = 0, x = 0;
+        for (; p < packets; ++p) {
+          OOB(2)
+          x += data[0];
+          if (data[1] >= 128) {
+            OOB(4)
+            const int k = 256 - data[1];
+            if (x + k + k > w) break;
+            for (int j = 0; j < k; ++j) {
+              row[x++] = data[2];
+              row[x++] = data[3];
+            }
+            data += 4;
+          } else {
+            const int k = 2 * data[1];
+            if (x + k > w) break;
+            OOB(2 + k)
+            memcpy(row + x, data + 2, k);
+            data += 2 + k;
+            x += k;
+          }
+        }
+        if (p < packets) break;
+      }
+      if (l < lines) return -2;
+    } else if (type == 12) {  // LC: byte runs on a band of lines
+      int y = i16le(data);
+      const int ymax = y + i16le(data + 2);
+      data += 4;
+      for (; y < ymax && y < h; ++y) {
+        uint8_t *row = im + (int64_t)y * w;
+        OOB(1)
+        const int packets = *data++;
+        int p = 0, x = 0, k = 0;
+        for (; p < packets; ++p, x += k) {
+          OOB(2)
+          x += data[0];
+          if (data[1] & 0x80) {
+            k = 256 - data[1];
+            if (x + k > w) break;
+            OOB(3)
+            memset(row + x, data[2], k);
+            data += 3;
+          } else {
+            k = data[1];
+            if (x + k > w) break;
+            OOB(2 + k)
+            memcpy(row + x, data + 2, k);
+            data += k + 2;
+          }
+        }
+        if (p < packets) break;
+      }
+      if (y < ymax) return -2;
+    } else if (type == 13) {  // BLACK
+      memset(im, 0, (size_t)w * h);
+    } else if (type == 15) {  // BRUN: byte runs on every line
+      for (int y = 0; y < h; ++y) {
+        uint8_t *row = im + (int64_t)y * w;
+        data += 1;  // the packet count, ignored
+        int x = 0, k = 0;
+        for (; x < w; x += k) {
+          OOB(2)
+          if (data[0] & 0x80) {
+            k = 256 - data[0];
+            if (x + k > w) break;
+            OOB(k + 1)
+            memcpy(row + x, data + 1, k);
+            data += k + 1;
+          } else {
+            k = data[0];
+            if (x + k > w) break;
+            memset(row + x, data[1], k);
+            data += 2;
+          }
+        }
+        if (x != w) return -2;
+      }
+    } else if (type == 16) {  // COPY
+      if (data + (int64_t)w * h > ptr + bytes) return -1;
+      memcpy(im, data, (size_t)w * h);
+    } else {
+      return -3;
+    }
+    const int64_t advance = i32le(ptr);
+    if (advance == 0) return -4;
+    if (advance < 0 || advance > bytes) return -2;
+    ptr += advance;
+    bytes -= advance;
+  }
+#undef OOB
+  return 0;
+}
+
+int icns_rgb(const uint8_t *in, int64_t n, int64_t npix, uint8_t *out) {
+  int64_t pos = 0;
+  for (int band = 0; band < 3; ++band) {
+    uint8_t *dst = out + band * npix;
+    int64_t left = npix, o = 0;
+    bool short_data = false;
+    while (left > 0) {
+      if (pos >= n) break;
+      const int b = in[pos++];
+      int64_t k;
+      if (b & 0x80) {
+        k = b - 125;
+        if (pos < n) {
+          for (int64_t i = 0; i < k && o < npix; ++i) dst[o++] = in[pos];
+          ++pos;
+        } else {
+          short_data = true;
+        }
+      } else {
+        k = b + 1;
+        const int64_t got = pos + k <= n ? k : n - pos;
+        for (int64_t i = 0; i < got && o < npix; ++i) dst[o++] = in[pos + i];
+        if (got < k) short_data = true;
+        pos += got;
+      }
+      left -= k;
+    }
+    if (left != 0) return -2;
+    if (short_data || o < npix) return -1;
   }
   return 0;
 }

@@ -9,32 +9,41 @@ plugins, then the rest as ``Image.init`` registers them; ``_FORMATS``),
 asks each whether it accepts the first 16 bytes, then opens it; a
 ``SyntaxError``, IndexError, TypeError or ``struct.error`` in the open
 moves on to the next format, anything else raises, as in
-``Image._open_core``.  The port reads PNG (``data/png.py``), JPEG
-(``data/jpeg.py``), WebP (``data/webp.py``), TIFF (``data/tiff.py``),
-PPM/PGM/PBM/PFM (``data/ppm.py``), BMP and DIB (``data/bmp.py``), GIF
-(``data/gif.py``), ICO and CUR (``data/ico.py``), PCX (``data/pcx.py``),
-DDS (``data/dds.py``), JPEG 2000 (``data/jpeg2000.py``), PSD
-(``data/psd.py``), QOI (``data/qoi.py``), SGI (``data/sgi.py``) and TGA (``data/tga.py``, which has no magic number and
-comes after most others), each into a ``Picture`` that carries Pillow's
-mode and what its ``info`` keeps (a palette, the transparency).  A file
-that another of Pillow's formats would claim raises, naming that format.
+``Image._open_core`` (the formats read since the rest of ``Image.ID`` came
+also move on from a ``KeyError``, an ``EOFError`` or no mode, as
+``ImageFile.__init__`` does; ``_plugin``).  The port reads PNG
+(``data/png.py``), JPEG (``data/jpeg.py``), WebP (``data/webp.py``), TIFF
+(``data/tiff.py``), PPM/PGM/PBM/PFM (``data/ppm.py``), BMP and DIB
+(``data/bmp.py``), GIF (``data/gif.py``), ICO and CUR (``data/ico.py``),
+PCX (``data/pcx.py``), DDS (``data/dds.py``), JPEG 2000
+(``data/jpeg2000.py``), PSD (``data/psd.py``), QOI (``data/qoi.py``), SGI
+(``data/sgi.py``), BLP, DCX, FITS, FLI, FTEX, GBR, ICNS, IPTC, MCIDAS,
+MSP, PCD, PIXAR, SPIDER, SUN, XBM, XPM and XVTHUMB (``data/<format>.py``),
+IM and IMT (``data/im.py``) and TGA (``data/tga.py``, which has no magic
+number and comes after most others), each into a ``Picture`` that carries
+Pillow's mode and what its ``info`` keeps (a palette, the transparency).
+A file that another of Pillow's formats would claim (AVIF, BUFR, EPS,
+GRIB, HDF5, MPEG, WMF) raises, naming that format.
 ``resize``, ``gaussian_blur`` and ``convert`` then do what Pillow does in
 that mode:
 
   * ``resize``: NEAREST for ``1`` and ``P`` (``ImagingScaleAffine``: the
     source column of output ``x`` is ``int(x0)`` for ``x0`` stepped by the
     scale in doubles from half a step); LANCZOS in 8 bits for ``L``,
-    ``RGB``, ``CMYK``, ``PA`` and ``LAB``, premultiplied for ``LA`` and
-    ``RGBA``, in 16 bits for ``I;16`` and ``I;16B`` (the latter's bytes
-    swapped, as Pillow reads them) and in doubles for ``I`` and ``F``
-    (``data/resize.py``); the transparency is kept, as ``Image._new``
-    keeps ``info``, but a resampled ``PA`` image loses its palette (its
-    new core image has an empty one: black);
+    ``RGB``, ``CMYK``, ``YCbCr``, ``PA`` and ``LAB``, premultiplied for
+    ``LA`` and ``RGBA``, in 16 bits for ``I;16``, ``I;16L`` and ``I;16B``
+    (the latter's bytes swapped, as Pillow reads them) and in doubles for
+    ``I`` and ``F`` (``data/resize.py``); the transparency is kept, as
+    ``Image._new`` keeps ``info``, but a resampled ``PA`` image loses its
+    palette (its new core image has an empty one: black); an ICNS resizes
+    as Pillow's image was before its load (``Picture.opened``);
   * ``gaussian_blur``: ``data/blur.py`` on ``L``, ``LA``, ``RGB``,
     ``RGBA`` and ``CMYK``; any other mode raises as Pillow's
     ``image has wrong mode``;
   * ``convert`` to ``L``, ``RGB`` or ``RGBA`` from every mode the readers
-    give: ``I;16``, ``I;16B`` and ``I`` clipped to 0-255, ``F`` clipped and
+    give: ``I;16``, ``I;16L``, ``I;16B`` and ``I`` clipped to 0-255,
+    ``YCbCr`` through Pillow's tables (``jpeg2000.ycc_to_rgb``; its ``Y``
+    band to ``L``), ``F`` clipped and
     truncated, ``P`` and ``PA`` through the palette (entries past the
     file's black) with the ``tRNS`` alphas or the ``A`` band, a key colour
     (``1``, ``L``, ``I;16`` clipped first, ``RGB``) made transparent in
@@ -44,14 +53,14 @@ that mode:
 """
 from __future__ import annotations
 
-import re
 import struct
 from typing import Optional
 
 import numpy as np
 
-from . import (bmp, dds, gif, ico, jpeg, jpeg2000, pcx, png, ppm, psd, qoi,
-               sgi, tga, tiff, webp)
+from . import (blp, bmp, dcx, dds, fits, fli, ftex, gbr, gif, icns, ico, im,
+               iptc, jpeg, jpeg2000, mcidas, msp, pcd, pcx, pixar, png, ppm,
+               psd, qoi, sgi, spider, sun, tga, tiff, webp, xbm, xpm, xvthumb)
 from .blur import gaussian_blur as _blur
 from .resize import resize_lanczos, resize_lanczos_16, resize_lanczos_32
 
@@ -66,18 +75,22 @@ class Picture:
     indices for ``P`` and ``PA``), ``mode``, and the ``palette`` ((n, 3)
     uint8) and ``transparency`` (an int, a tuple or bytes: per-entry alphas
     of a palette) of its ``info``.  An ``L`` or ``LA`` picture with a
-    palette is a TGA whose core image Pillow made ``P`` or ``PA``."""
+    palette is a TGA whose core image Pillow made ``P`` or ``PA``.
+    ``opened`` is the (mode, size) Pillow's image has before its load
+    where those differ from the loaded ones' (an ICNS: ``RGBA`` and the
+    icon's size, whatever its payload)."""
 
     def __init__(self, pixels: np.ndarray, mode: str,
                  palette: Optional[np.ndarray] = None, transparency=None,
-                 name: str = "image"):
+                 name: str = "image", opened: Optional[tuple] = None):
         self.pixels, self.mode = pixels, mode
         self.palette, self.transparency = palette, transparency
         self.name = name  # the file it was read from, for errors
+        self.opened = opened
 
     def _with(self, pixels: np.ndarray) -> "Picture":
         return Picture(pixels, self.mode, self.palette, self.transparency,
-                       self.name)
+                       self.name, self.opened)
 
 
 def read_picture(path: str) -> Picture:
@@ -149,90 +162,26 @@ def _not_read(name: str):
     return opener
 
 
-_IM_LINE = re.compile(rb"^([A-Za-z][^:]*):[ \t]*(.*)[ \t]*$")
-_IM_TAGS = frozenset(("Comment", "Date", "Digitalization equipment",
-                      "File size (no of images)", "Lut", "Name", "Scale (x,y)",
-                      "Image size (x*y)", "Image type"))
+# ImageFile.__init__ turns these faults of a plugin's _open into SyntaxError
+_MOVE_ON = (KeyError, EOFError)
 
 
-def _im(data, path):
-    """``ImImageFile._open``'s header walk: a line feed in the first 100
-    bytes, then ``key: value`` lines (none past 100 bytes) up to a 0, 0x1A
-    or the end, one of them a known key."""
-    if b"\n" not in data[:100]:
-        raise SyntaxError("not an IM file")
-    pos, known = 0, 0
-    while pos < len(data):
-        c = data[pos:pos + 1]
-        pos += 1
-        if c == b"\r":
-            continue
-        if c in (b"\0", b"\x1a"):
-            break
-        end = data.find(b"\n", pos)
-        end = len(data) if end < 0 else end + 1
-        line, pos = c + data[pos:end], end
-        if len(line) > 100:
-            raise SyntaxError("not an IM file")
-        line = line[:-2] if line.endswith(b"\r\n") else line.removesuffix(
-            b"\n")
-        m = _IM_LINE.match(line)
-        if not m:
-            raise SyntaxError("not an IM file")
-        known += m.group(1).decode("latin-1") in _IM_TAGS
-    if not known:
-        raise SyntaxError("not an IM file")
-    return _not_read("IM")(data, path)
-
-
-def _imt(data, path):
-    """``ImtImageFile._open`` claims a file with width and height fields."""
-    head = data[:1000]
-    if b"\n" not in data[:100] or not (
-            re.search(rb"(^|\n)width [1-9]", head)
-            and re.search(rb"(^|\n)height [1-9]", head)):
-        raise SyntaxError("not an IM Tools file")
-    return _not_read("IMT")(data, path)
-
-
-def _iptc(data, path):
-    """``IptcImageFile._open``: five zero bytes end its fields and it
-    raises (``KeyError``); a field that is not 0x1C and a known record
-    moves on."""
-    s = data[:5]
-    if s.strip(b"\0") and (s[0] != 0x1C or len(s) < 2 or s[1] not in (
-            1, 2, 3, 4, 5, 6, 7, 8, 9, 240)):
-        raise SyntaxError("invalid IPTC/NAA file")
-    return _not_read("IPTC")(data, path)
-
-
-def _pcd(data, path):
-    if not data[2048:2052] == b"PCD_":
-        raise SyntaxError("not a PCD file")
-    return _not_read("PCD")(data, path)
-
-
-def _spider(data, path):
-    """``SpiderImageFile._open``: 27 floats, big- then little-endian, that
-    hold a Spider header (``isSpiderHeader``)."""
-    def header(t):
-        h = (99,) + t
-        for i in (1, 2, 5, 12, 13, 22, 23):
-            try:
-                if h[i] - int(h[i]) != 0:
-                    return 0
-            except (ValueError, OverflowError):
-                return 0
-        if int(h[5]) not in (1, 3, -11, -12, -21, -22):
-            return 0
-        return int(h[22]) if int(h[22]) == int(h[13]) * int(h[23]) else 0
-    try:
-        if not (header(struct.unpack(">27f", data[:108]))
-                or header(struct.unpack("<27f", data[:108]))):
-            raise SyntaxError("not a valid Spider file")
-    except struct.error:
-        raise SyntaxError("not a valid Spider file") from None
-    return _not_read("SPIDER")(data, path)
+def _plugin(open_fn, load_fn):
+    """An opener of one of the formats that came with ``Image.ID``'s walk:
+    faults of its open move on or raise as in ``ImageFile.__init__`` (no
+    mode moves on, as there); its load raises ``ValueError``."""
+    def opener(data, path):
+        try:
+            head = open_fn(data)
+        except _MOVE_ON as e:
+            raise SyntaxError(str(e)) from None
+        except (OSError, OverflowError) as e:  # FITS' cut header, SPIDER's inf
+            raise ValueError(str(e) or type(e).__name__) from None
+        if not head["mode"]:
+            raise SyntaxError("no mode: not this format")
+        head["path"] = path
+        return head["size"], lambda: load_fn(data, head)
+    return opener
 
 
 _AVIF_BRANDS = (b"avif", b"avis", b"mif1", b"msf1")
@@ -240,60 +189,74 @@ _FORMATS = (  # (name, accept, opener) in Image.ID's order
     ("BMP", lambda p: p[:2] == b"BM", _now(bmp.decode)),
     ("DIB", lambda p: _i32(p) in (12, 40, 52, 56, 64, 108, 124), _dib),
     ("GIF", lambda p: p[:6] in (b"GIF87a", b"GIF89a"), _now(gif.decode)),
-    ("JPEG", lambda p: p[:2] == b"\xff\xd8", _now(_jpeg)),
+    ("JPEG", lambda p: p[:3] == b"\xff\xd8\xff", _now(_jpeg)),
     ("PPM", lambda p: p[:1] == b"P" and p[1:2] != b"" and p[1] in
      b"0123456fy", _now(ppm.decode)),
     ("PNG", lambda p: p[:8] == _PNG, _now(png.decode_png)),
     ("AVIF", lambda p: p[4:8] == b"ftyp" and p[8:12] in _AVIF_BRANDS,
      _not_read("AVIF")),
-    ("BLP", lambda p: p[:4] in (b"BLP1", b"BLP2"), _not_read("BLP")),
+    ("BLP", lambda p: p[:4] in (b"BLP1", b"BLP2"),
+     _plugin(blp.open_blp, blp.load_blp)),
     ("BUFR", lambda p: p[:4] in (b"BUFR", b"ZCZC"), _not_read("BUFR")),
     ("CUR", lambda p: p[:4] == b"\0\0\2\0", _decoded(ico.decode_cur)),
     ("PCX", pcx._accept, _opened(pcx.open_pcx, pcx.load_pcx)),
-    ("DCX", lambda p: _i32(p) == 0x3ADE68B1, _not_read("DCX")),
+    ("DCX", lambda p: len(p) >= 4 and _i32(p) == 0x3ADE68B1,
+     _plugin(dcx.open_dcx, dcx.load_dcx)),
     ("DDS", lambda p: p[:4] == b"DDS ", _opened(dds.open_dds, dds.load_dds)),
     ("EPS", lambda p: p[:4] == b"%!PS" or _i32(p) == 0xC6D3D0C5,
      _not_read("EPS")),
-    ("FITS", lambda p: p[:6] == b"SIMPLE", _not_read("FITS")),
+    ("FITS", lambda p: p[:6] == b"SIMPLE", _plugin(fits.open_fits,
+                                                   fits.load_fits)),
     ("FLI", lambda p: len(p) >= 16 and struct.unpack_from("<H", p, 4)[0] in (
         0xAF11, 0xAF12) and struct.unpack_from("<H", p, 14)[0] in (0, 3),
-     _not_read("FLI")),
-    ("FTEX", lambda p: p[:4] == b"FTEX", _not_read("FTEX")),
+     _plugin(fli.open_fli, fli.load_fli)),
+    ("FTEX", lambda p: p[:4] == b"FTEX", _plugin(ftex.open_ftex,
+                                                 ftex.load_ftex)),
     ("GBR", lambda p: len(p) >= 8 and _i32(p, True) >= 20 and _i32(
-        p[4:], True) in (1, 2), _not_read("GBR")),
+        p[4:], True) in (1, 2), _plugin(gbr.open_gbr, gbr.load_gbr)),
     ("GRIB", lambda p: len(p) >= 8 and p[:4] == b"GRIB" and p[7] == 1,
      _not_read("GRIB")),
     ("HDF5", lambda p: p[:8] == b"\x89HDF\r\n\x1a\n", _not_read("HDF5")),
     ("JPEG2000", jpeg2000.accept, _jpeg2000),
-    ("ICNS", lambda p: p[:4] == b"icns", _not_read("ICNS")),
+    ("ICNS", lambda p: p[:4] == b"icns", _plugin(icns.open_icns,
+                                                 icns.load_icns)),
     ("ICO", lambda p: p[:4] == b"\0\0\1\0", _decoded(ico.decode_ico)),
-    ("IM", None, _im),
-    ("IMT", None, _imt),
-    ("IPTC", None, _iptc),
-    ("MCIDAS", lambda p: p[:8] == b"\0\0\0\0\0\0\0\4", _not_read("MCIDAS")),
+    ("IM", None, _plugin(im.open_im, im.load_im)),
+    ("IMT", None, _plugin(im.open_imt, im.load_imt)),
+    ("IPTC", None, _plugin(iptc.open_iptc, iptc.load_iptc)),
+    ("MCIDAS", lambda p: p[:8] == b"\0\0\0\0\0\0\0\4",
+     _plugin(mcidas.open_mcidas, mcidas.load_mcidas)),
     ("MPEG", lambda p: p[:4] == b"\0\0\1\xb3", _not_read("MPEG")),
     ("TIFF", lambda p: p[:4] in _TIFF, _now(tiff.decode)),
-    ("MSP", lambda p: p[:4] in (b"DanM", b"LinS"), _not_read("MSP")),
-    ("PCD", None, _pcd),
-    ("PIXAR", lambda p: p[:4] == b"\200\350\000\000", _not_read("PIXAR")),
+    ("MSP", lambda p: p[:4] in (b"DanM", b"LinS"),
+     _plugin(msp.open_msp, msp.load_msp)),
+    ("PCD", None, _plugin(pcd.open_pcd, pcd.load_pcd)),
+    ("PIXAR", lambda p: p[:4] == b"\200\350\000\000",
+     _plugin(pixar.open_pixar, pixar.load_pixar)),
     ("PSD", lambda p: p[:4] == b"8BPS", _opened(psd.open_psd, psd.load_psd)),
     ("QOI", lambda p: p[:4] == b"qoif", _opened(qoi.open_qoi, qoi.load_qoi)),
     ("SGI", lambda p: len(p) >= 2 and p[0] == 1 and p[1] == 0xDA,
      _opened(sgi.open_sgi, sgi.load_sgi)),
-    ("SPIDER", None, _spider),
+    ("SPIDER", None, _plugin(spider.open_spider, spider.load_spider)),
     ("SUN", lambda p: len(p) >= 4 and _i32(p, True) == 0x59A66A95,
-     _not_read("SUN")),
+     _plugin(sun.open_sun, sun.load_sun)),
     ("TGA", None, _opened(tga.open_tga, tga.load_tga)),
     ("WEBP", lambda p: p[:4] == b"RIFF" and p[8:12] == b"WEBP",
      _now(webp.decode)),
     ("WMF", lambda p: p[:6] == b"\xd7\xcd\xc6\x9a\0\0" or p[:4] ==
      b"\x01\x00\x00\x00", _not_read("WMF")),
-    ("XBM", lambda p: p.lstrip().startswith(b"#define"), _not_read("XBM")),
-    ("XPM", lambda p: p[:9] == b"/* XPM */", _not_read("XPM")),
-    ("XVTHUMB", lambda p: p[:6] == b"P7 332", _not_read("XVTHUMB")),
+    ("XBM", lambda p: p.lstrip().startswith(b"#define"),
+     _plugin(xbm.open_xbm, xbm.load_xbm)),
+    ("XPM", lambda p: p[:9] == b"/* XPM */", _plugin(xpm.open_xpm,
+                                                     xpm.load_xpm)),
+    ("XVTHUMB", lambda p: p[:6] == b"P7 332",
+     _plugin(xvthumb.open_xvthumb, xvthumb.load_xvthumb)),
 )
 READS = ("PNG", "JPEG", "WebP", "TIFF", "PPM", "BMP", "DIB", "GIF", "ICO",
-         "CUR", "PCX", "DDS", "JPEG2000", "PSD", "QOI", "SGI", "TGA")
+         "CUR", "PCX", "DDS", "JPEG2000", "PSD", "QOI", "SGI", "BLP", "DCX",
+         "FITS", "FLI", "FTEX", "GBR", "ICNS", "IM", "IMT", "IPTC", "MCIDAS",
+         "MSP", "PCD", "PIXAR", "SPIDER", "SUN", "XBM", "XPM", "XVTHUMB",
+         "TGA")
 
 
 def open_format(data: bytes, path: str = "image"):
@@ -328,7 +291,8 @@ def _read(path: str) -> Picture:
         data = f.read()
     name, load = open_format(data, path)
     try:
-        return Picture(*load())
+        out = load()
+        return Picture(*out[:4], opened=out[4] if len(out) > 4 else None)
     except ValueError as e:
         if str(e).startswith(path):
             raise
@@ -352,6 +316,12 @@ def resize(pic: Picture, size) -> Picture:
     if w < 1 or h < 1:
         raise ValueError(f"cannot resize to {size}")
     px = pic.pixels
+    if pic.opened is not None:  # Pillow's resize looks before the load
+        if (w, h) == pic.opened[1]:
+            return pic._with(px.copy())
+        if pic.opened[0] == "RGBA" and pic.mode not in ("RGB", "RGBA"):
+            raise ValueError("conversion not supported" if pic.mode == "P"
+                             else "conversion from L to RGBa not supported")
     mapped = pic.mode in ("L", "LA") and pic.palette is not None
     if (px.shape[1], px.shape[0]) == (w, h):
         out = pic._with(px.copy())
@@ -365,7 +335,7 @@ def resize(pic: Picture, size) -> Picture:
         rows = _nearest_index(px.shape[0], h)
         cols = _nearest_index(px.shape[1], w)
         return pic._with(px[rows][:, cols])
-    if pic.mode in ("I;16", "I;16B"):
+    if pic.mode in ("I;16", "I;16L", "I;16B"):
         return pic._with(resize_lanczos_16(px, (w, h), pic.mode == "I;16B"))
     if pic.mode in ("I", "F"):
         return pic._with(resize_lanczos_32(px, pic.mode, (w, h)))
@@ -439,6 +409,8 @@ def _rgb(pic: Picture) -> np.ndarray:
                          "LittleCMS in Pillow, which the port does not carry")
     if mode == "CMYK":
         return _cmyk_to_rgb(px)
+    if mode == "YCbCr":
+        return jpeg2000.ycc_to_rgb(px)
     return np.repeat(_gray(pic)[..., None], 3, -1)
 
 
@@ -446,7 +418,9 @@ def _gray(pic: Picture) -> np.ndarray:
     px, mode = pic.pixels, pic.mode
     if mode in ("L", "1"):
         return px
-    if mode in ("I;16", "I;16B", "I"):
+    if mode == "YCbCr":  # ycbcr2l: the Y band
+        return px[..., 0]
+    if mode in ("I;16", "I;16L", "I;16B", "I"):
         return np.clip(px, 0, 255).astype(np.uint8)
     if mode == "F":  # f2l: clipped, then truncated (NaN as C's cast: 0)
         with np.errstate(invalid="ignore"):

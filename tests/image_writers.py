@@ -2687,3 +2687,450 @@ def tile_mosaic(code: bytes, nx: int, ny: int) -> bytes:
     main = [(m, siz if m == 0xFF51 else b) for m, b in main]
     return join_codestream(main, [(k, 0, 1, [], data)
                                   for k in range(nx * ny)])
+
+
+# ------------------------------------------------- the rest of Image.ID
+# IM, IMT, SUN (raw and run-length), ICNS (run-length channels, masks,
+# payloads), GBR, FLI (COLOR, BLACK, BRUN, COPY, LC, SS2), FITS (gzip too),
+# MCIDAS, PIXAR, SPIDER, MSP (v2 rows), XBM, XPM, XVTHUMB, PCD, DCX, FTEX,
+# BLP (palette, DXT blocks, JPEG) and IPTC files, for the layouts Pillow
+# cannot write and for ``chip_smoke.py``.
+def im_bytes(body: bytes, image_type: str, size: Tuple[int, int],
+             lut: Optional[bytes] = None, extra: Sequence[str] = ()) -> bytes:
+    """An IM file: header lines (``Image type: {image_type}``), zeros to
+    byte 511, 0x1A, the 768-byte ``lut`` where given, then ``body`` (rows
+    bottom to top, as the caller laid them out)."""
+    lines = [f"Image type: {image_type}", "Name: written.im",
+             f"Image size (x*y): {size[0]}*{size[1]}",
+             "File size (no of images): 1", *extra]
+    if lut is not None:
+        lines.append("Lut: 1")
+    head = "".join(f"{ln}\r\n" for ln in lines).encode("latin-1")
+    head += b"\0" * (511 - len(head)) + b"\x1a"
+    return head + (lut or b"") + body
+
+
+def im_rgb_bytes(rgb: np.ndarray) -> bytes:
+    """An IM ``RGB image`` (rawmode ``RGB;L``: each row's R, G and B planes
+    in turn, rows bottom to top) of (h, w, 3) uint8."""
+    h, w, _ = rgb.shape
+    body = rgb[::-1].transpose(0, 2, 1).astype(np.uint8).tobytes()
+    return im_bytes(body, "RGB image", (w, h))
+
+
+def imt_bytes(gray: np.ndarray, comment: bytes = b"* an IM Tools file") -> bytes:
+    h, w = gray.shape
+    return (comment + b"\nwidth %d\nheight %d\npixel n8\n\x0c" % (w, h)
+            + gray.astype(np.uint8).tobytes())
+
+
+def sun_rle(data: bytes) -> bytes:
+    """SUN's byte runs: 0x80 n v for runs of 3 to 256 (and any 0x80 run),
+    0x80 0 for one 0x80, the byte itself otherwise."""
+    out, i, n = bytearray(), 0, len(data)
+    while i < n:
+        j = i
+        while j + 1 < n and data[j + 1] == data[i] and j - i < 255:
+            j += 1
+        k, v = j - i + 1, data[i]
+        if k >= 3 or v == 0x80:
+            out += bytes([0x80, k - 1, v]) if k > 1 else b"\x80\x00"
+        else:
+            out += bytes([v]) * k
+        i = j + 1
+    return bytes(out)
+
+
+def sun_bytes(rows: np.ndarray, w: int, depth: int, ftype: int = 1,
+              palette: Optional[np.ndarray] = None) -> bytes:
+    """A Sun raster of ``rows`` (h, ceil(w * depth / 8)) stored bytes
+    (BGR for 24/32 bits unless ``ftype`` 3): type 2 run-length codes the
+    rows joined (not padded), the others pad each row to 16 bits; a
+    ``palette`` (n, 3) is stored as three planes."""
+    h = rows.shape[0]
+    pal = b"" if palette is None else np.asarray(
+        palette, np.uint8).T.tobytes()
+    if ftype == 2:
+        body = sun_rle(rows.astype(np.uint8).tobytes())
+    else:
+        stride = ((w * depth + 15) // 16) * 2
+        pad = np.zeros((h, stride - rows.shape[1]), np.uint8)
+        body = np.concatenate([rows.astype(np.uint8), pad], 1).tobytes()
+    return struct.pack(">8I", 0x59A66A95, w, h, depth, len(body), ftype,
+                       1 if len(pal) else 0, len(pal)) + pal + body
+
+
+def icns_runs(data: bytes) -> bytes:
+    """ICNS's channel runs: 0x80 + (k - 3) v for runs of 3 to 130, else
+    literals of up to 128 bytes behind ``k - 1``."""
+    out, i, n = bytearray(), 0, len(data)
+    lit = bytearray()
+
+    def flush():
+        while lit:
+            part = lit[:128]
+            out.extend(bytes([len(part) - 1]) + part)
+            del lit[:128]
+
+    while i < n:
+        j = i
+        while j + 1 < n and data[j + 1] == data[i] and j - i < 129:
+            j += 1
+        k = j - i + 1
+        if k >= 3:
+            flush()
+            out += bytes([0x80 + k - 3, data[i]])
+        else:
+            lit.extend(data[i:j + 1])
+        i = j + 1
+    flush()
+    return bytes(out)
+
+
+def icns_channels(rgb: np.ndarray, sig: bool = False) -> bytes:
+    """The three run-length channels of (h, w, 3) uint8 (``it32``'s four
+    zero bytes first where ``sig``)."""
+    body = b"".join(icns_runs(rgb[..., k].astype(np.uint8).tobytes())
+                    for k in range(3))
+    return (b"\0\0\0\0" if sig else b"") + body
+
+
+def icns_bytes(blocks: Sequence[Tuple[bytes, bytes]]) -> bytes:
+    body = b"".join(t + struct.pack(">I", 8 + len(p)) + p for t, p in blocks)
+    return b"icns" + struct.pack(">I", 8 + len(body)) + body
+
+
+def gbr_bytes(img: np.ndarray, version: int = 2, comment: bytes = b"brush",
+              spacing: int = 25) -> bytes:
+    """A GIMP brush of (h, w) ``L`` or (h, w, 4) ``RGBA`` bytes."""
+    h, w = img.shape[:2]
+    depth = 1 if img.ndim == 2 else 4
+    comment += b"\0"
+    if version == 1:
+        head = struct.pack(">5I", 20 + len(comment), 1, w, h, depth)
+    else:
+        head = struct.pack(">5I", 28 + len(comment), 2, w, h, depth) + \
+            b"GIMP" + struct.pack(">I", spacing)
+    return head + comment + img.astype(np.uint8).tobytes()
+
+
+def fli_brun(img: np.ndarray) -> bytes:
+    """BRUN lines: a packet count byte (ignored), then runs (k, v) of up to
+    127 and literals (256 - k, bytes) of up to 128."""
+    out = bytearray()
+    for row in img.astype(np.uint8):
+        out.append(0)
+        i, n = 0, len(row)
+        while i < n:
+            j = i
+            while j + 1 < n and row[j + 1] == row[i] and j - i < 126:
+                j += 1
+            if j > i:
+                out += bytes([j - i + 1, row[i]])
+                i = j + 1
+                continue
+            j = i + 1
+            while j < n and j - i < 128 and not (j + 1 < n
+                                                 and row[j + 1] == row[j]):
+                j += 1
+            out += bytes([256 - (j - i)]) + row[i:j].tobytes()
+            i = j
+    return bytes(out)
+
+
+def fli_lc(y0: int, rows: Sequence[Sequence[Tuple[int, bytes]]]) -> bytes:
+    """An LC chunk body: from line ``y0``, each line's packets (skip,
+    bytes); a bytes of one repeated value of length >= 3 goes as a run."""
+    out = bytearray(struct.pack("<HH", y0, len(rows)))
+    for packets in rows:
+        out.append(len(packets))
+        for skip, data in packets:
+            if len(data) >= 3 and len(set(data)) == 1:
+                out += bytes([skip, 256 - len(data), data[0]])
+            else:
+                out += bytes([skip, len(data)]) + data
+    return bytes(out)
+
+
+def fli_ss2(lines: Sequence[Tuple[int, Sequence[Tuple[int, bytes]], Optional[int]]]) -> bytes:
+    """An SS2 chunk body: each line (lines to skip first, packets (skip,
+    bytes of whole words; one repeated word goes as a run), the last byte of
+    an odd width or None)."""
+    out = bytearray(struct.pack("<H", len(lines)))
+    for skip_lines, packets, last in lines:
+        if skip_lines:
+            out += struct.pack("<H", 65536 - skip_lines)
+        if last is not None:
+            out += struct.pack("<H", 0x8000 | last)
+        out += struct.pack("<H", len(packets))
+        for skip, data in packets:
+            words = {data[k:k + 2] for k in range(0, len(data), 2)}
+            if len(data) >= 4 and len(words) == 1:
+                out += bytes([skip, 256 - len(data) // 2]) + data[:2]
+            else:
+                out += bytes([skip, len(data) // 2]) + data
+    return bytes(out)
+
+
+def fli_chunk(kind: int, body: bytes) -> bytes:
+    if len(body) % 2:
+        body += b"\0"
+    return struct.pack("<IH", 6 + len(body), kind) + body
+
+
+def fli_color(palette: np.ndarray, kind: int = 4, skip: int = 0) -> bytes:
+    """A COLOR chunk (4: 8-bit, 11: 6-bit values) of one packet."""
+    n = len(palette)
+    return fli_chunk(kind, struct.pack("<HBB", 1, skip, n % 256)
+                     + np.asarray(palette, np.uint8).tobytes())
+
+
+def fli_bytes(w: int, h: int, chunks: Sequence[bytes], magic: int = 0xAF12,
+              frames: int = 1) -> bytes:
+    """An FLI/FLC file of one frame of ``chunks`` (each from
+    ``fli_chunk``)."""
+    frame = b"".join(chunks)
+    frame = struct.pack("<IHH8x", 16 + len(frame), 0xF1FA, len(chunks)) + \
+        frame
+    head = struct.pack("<IHHHHHHI", 128 + len(frame), magic, frames, w, h,
+                       8, 0, 5)
+    head = head.ljust(128, b"\0")
+    return head + frame
+
+
+def fits_bytes(img: np.ndarray, bitpix: int, gzip_words: bool = False,
+               naxis1_only: bool = False) -> bytes:
+    """A FITS primary image (``img`` rows stored as given: Pillow reads
+    them bottom to top) of big-endian ``bitpix`` values; or, with
+    ``gzip_words``, an empty primary unit and a ``BINTABLE`` extension
+    whose gzip stream holds one 4-byte big-endian word a pixel."""
+    def card(k, v):
+        return f"{k:<8}= {v:>20}".ljust(80).encode()
+
+    def unit(cards):
+        s = b"".join(cards) + b"END".ljust(80)
+        return s.ljust(-(-len(s) // 2880) * 2880, b" ")
+
+    h, w = img.shape
+    dt = {8: ">u1", 16: ">i2", 32: ">i4", -32: ">f4", -64: ">f8"}[bitpix]
+    if not gzip_words:
+        axes = [card("NAXIS", 1), card("NAXIS1", h * w)] if naxis1_only \
+            else [card("NAXIS", 2), card("NAXIS1", w), card("NAXIS2", h)]
+        body = img.astype(dt).tobytes()
+        return unit([card("SIMPLE", "T"), card("BITPIX", bitpix)] + axes) \
+            + body.ljust(-(-len(body) // 2880) * 2880, b"\0")
+    import gzip as _gzip
+    words = _gzip.compress(img.astype(">i4").tobytes(), mtime=0)
+    table = bytes(8)
+    return (unit([card("SIMPLE", "T"), card("BITPIX", 8), card("NAXIS", 0)])
+            + unit([card("XTENSION", "'BINTABLE'"), card("BITPIX", 8),
+                    card("NAXIS", 2), card("NAXIS1", 8), card("NAXIS2", 1),
+                    card("ZIMAGE", "T"), card("ZCMPTYPE", "'GZIP_1  '"),
+                    card("ZBITPIX", bitpix), card("ZNAXIS", 2),
+                    card("ZNAXIS1", w), card("ZNAXIS2", h)])
+            + table + words)
+
+
+def mcidas_bytes(img: np.ndarray, nbytes: int, prefix: int = 0) -> bytes:
+    """A McIdas area of (h, w) values of ``nbytes`` big-endian bytes, each
+    row behind ``prefix`` bytes."""
+    h, w = img.shape
+    words = [0] * 64
+    words[1] = 4
+    words[8], words[9], words[10], words[13], words[14] = h, w, nbytes, 1, \
+        prefix
+    words[33] = 256
+    head = struct.pack("!64i", *words)
+    dt = {1: ">u1", 2: ">u2", 4: ">u4"}[nbytes]
+    rows = img.astype(dt).view(np.uint8).reshape(h, w * nbytes)
+    rows = np.concatenate([np.full((h, prefix), 7, np.uint8), rows], 1)
+    return head + rows.tobytes()
+
+
+def pixar_bytes(rgb: np.ndarray) -> bytes:
+    h, w, _ = rgb.shape
+    head = bytearray(1024)
+    head[:4] = b"\200\350\000\000"
+    struct.pack_into("<HH", head, 416, h, w)
+    struct.pack_into("<HH", head, 424, 14, 2)
+    return bytes(head) + rgb.astype(np.uint8).tobytes()
+
+
+def spider_bytes(img: np.ndarray, big: bool = True, stack: bool = False
+                 ) -> bytes:
+    """A SPIDER 2D image (or a stack of one) of (h, w) float32."""
+    h, w = img.shape
+    lenbyt = w * 4
+    labrec = -(-1024 // lenbyt)
+    labbyt = labrec * lenbyt
+    hdr = [0.0] * (labbyt // 4)
+    hdr[0], hdr[1], hdr[2], hdr[4], hdr[11] = 1.0, h, h, 1.0, w
+    hdr[12], hdr[21], hdr[22] = labrec, labbyt, lenbyt
+    if stack:
+        hdr[23], hdr[25] = 2.0, 1.0
+    f = ">f4" if big else "<f4"
+    head = np.array(hdr, f).tobytes()
+    body = img.astype(f).tobytes()
+    if stack:
+        inner = list(hdr)
+        inner[23], inner[26] = 0.0, 1.0
+        return head + np.array(inner, f).tobytes() + body
+    return head + body
+
+
+def msp_bytes(bits: np.ndarray, v2: bool = True) -> bytes:
+    """An MSP of (h, ceil(w / 8)) packed rows and width ``w`` in
+    ``bits.shape`` terms: v1 raw, v2 run-length rows (all-white rows
+    empty)."""
+    h, nb = bits.shape
+    w = nb * 8
+    words = [0] * 16
+    words[0], words[1] = struct.unpack("<HH", b"LinS" if v2 else b"DanM")
+    words[2], words[3], words[4], words[5], words[6], words[7] = \
+        w, h, 1, 1, 1, 1
+    words[8], words[9] = w, h
+    x = 0
+    for v in words:
+        x ^= v
+    words[12] = x
+    head = struct.pack("<16H", *words)
+    if not v2:
+        return head + bits.astype(np.uint8).tobytes()
+    rows = []
+    for row in bits.astype(np.uint8):
+        if (row == 0xFF).all():
+            rows.append(b"")
+            continue
+        out, i = bytearray(), 0
+        while i < nb:
+            j = i
+            while j + 1 < nb and row[j + 1] == row[i] and j - i < 254:
+                j += 1
+            if j - i >= 2:
+                out += bytes([0, j - i + 1, row[i]])
+                i = j + 1
+            else:
+                k = min(nb - i, 255)
+                out += bytes([k]) + row[i:i + k].tobytes()
+                i += k
+        rows.append(bytes(out))
+    return head + struct.pack(f"<{h}H", *map(len, rows)) + b"".join(rows)
+
+
+def xbm_bytes(bits: np.ndarray, w: int, hotspot=None) -> bytes:
+    """An XBM of (h, ceil(w / 8)) bytes (least significant bit first)."""
+    h = bits.shape[0]
+    s = f"#define im_width {w}\n#define im_height {h}\n"
+    if hotspot:
+        s += f"#define im_x_hot {hotspot[0]}\n#define im_y_hot {hotspot[1]}\n"
+    vals = [f"0x{v:02X}" if k % 3 else f"0x{v:02x}"
+            for k, v in enumerate(bits.reshape(-1).tolist())]
+    body = ",\n".join(", ".join(vals[i:i + 12]) for i in range(0, len(vals),
+                                                                12))
+    return (s + "static char im_bits[] = {\n" + body + "\n};\n").encode()
+
+
+def xpm_bytes(idx: np.ndarray, colours: Sequence[Optional[Tuple[int, int, int]]],
+              cpp: int = 1) -> bytes:
+    """An XPM of (h, w) indices into ``colours`` (an RGB triple, or None
+    for ``c None``), keys of ``cpp`` characters."""
+    h, w = idx.shape
+    chars = "".join(chr(c) for c in range(35, 127) if chr(c) not in '"\\')
+    keys = []
+    for k in range(len(colours)):
+        key, v = "", k
+        for _ in range(cpp):
+            key += chars[v % len(chars)]
+            v //= len(chars)
+        keys.append(key)
+    lines = ["/* XPM */", "static char *im[] = {", "/* w h ncolors cpp */",
+             f'"{w} {h} {len(colours)} {cpp}",']
+    for key, c in zip(keys, colours):
+        val = "None" if c is None else "#%02x%02x%02x" % tuple(c)
+        lines.append(f'"{key} c {val}",')
+    lines.append("/* pixels */")
+    for row in idx:
+        lines.append('"' + "".join(keys[v] for v in row) + '",')
+    lines.append("};")
+    return ("\n".join(lines) + "\n").encode()
+
+
+def xvthumb_bytes(idx: np.ndarray) -> bytes:
+    h, w = idx.shape
+    return (b"P7 332\n#XVVERSION:Version 2.28\n#END_OF_COMMENTS\n%d %d 255\n"
+            % (w, h)) + idx.astype(np.uint8).tobytes()
+
+
+def pcd_bytes(y: np.ndarray, cb: np.ndarray, cr: np.ndarray,
+              orientation: int = 0) -> bytes:
+    """A PhotoCD base image: (512, 768) luma, (256, 384) Cb and Cr."""
+    head = bytearray(96 * 2048)
+    head[2048:2052] = b"PCD_"
+    head[2048 + 1538] = orientation
+    pairs = np.concatenate([y.reshape(256, 2 * 768), cb, cr], 1)
+    return bytes(head) + pairs.astype(np.uint8).tobytes()
+
+
+def dcx_bytes(frames: Sequence[bytes]) -> bytes:
+    offsets, pos = [], 4 + 4 * (len(frames) + 1)
+    for f in frames:
+        offsets.append(pos)
+        pos += len(f)
+    return struct.pack(f"<I{len(frames) + 1}I", 0x3ADE68B1, *offsets, 0) + \
+        b"".join(frames)
+
+
+def ftex_bytes(w: int, h: int, fmt: int, body: bytes) -> bytes:
+    return (b"FTEX" + struct.pack("<6i", 1, w, h, 1, 1, fmt)
+            + struct.pack("<i", 32) + struct.pack("<i", len(body)) + body)
+
+
+def blp2_bytes(w: int, h: int, encoding: int, alpha_depth: int,
+               alpha_encoding: int, body: bytes,
+               palette: Optional[np.ndarray] = None) -> bytes:
+    """A BLP2 of mip 0 ``body`` after a 256-entry BGRA ``palette``."""
+    pal = np.zeros((256, 4), np.uint8) if palette is None else palette
+    head = b"BLP2" + struct.pack("<ibbbbII", 1, encoding, alpha_depth,
+                                 alpha_encoding, 0, w, h)
+    offset = len(head) + 128 + 1024
+    return (head + struct.pack("<16I", offset, *[0] * 15)
+            + struct.pack("<16I", len(body), *[0] * 15)
+            + np.asarray(pal, np.uint8).tobytes() + body)
+
+
+def blp1_jpeg_bytes(w: int, h: int, jpeg: bytes, split: int,
+                    alpha: int = 0) -> bytes:
+    """A BLP1 whose JPEG is its first ``split`` bytes as the header's tables
+    and the rest as mip 0."""
+    head = b"BLP1" + struct.pack("<iIIIii", 0, alpha, w, h, 5, 0)
+    tables, data = jpeg[:split], jpeg[split:]
+    offset = len(head) + 128 + 4 + len(tables) + 6  # 6 bytes of gap
+    return (head + struct.pack("<16I", offset, *[0] * 15)
+            + struct.pack("<16I", len(data), *[0] * 15)
+            + struct.pack("<I", len(tables)) + tables + b"\0" * 6 + data)
+
+
+def iptc_field(record: int, dataset: int, body: bytes) -> bytes:
+    if len(body) < 0x8000:
+        return bytes([0x1C, record, dataset]) + struct.pack(">H", len(body)) \
+            + body
+    return bytes([0x1C, record, dataset]) + struct.pack(">HI", 0x8004,
+                                                        len(body)) + body
+
+
+def iptc_bytes(data: bytes, size: Tuple[int, int], layers: int,
+               component: int, band: Optional[int] = None,
+               compression: int = 1, chunk: int = 500) -> bytes:
+    """An IPTC/NAA file of image ``data`` (raw bytes or a file) in image
+    fields of ``chunk`` bytes."""
+    w, h = size
+    out = iptc_field(1, 90, b"\x1b%G") + iptc_field(2, 5, b"a name")
+    out += iptc_field(3, 20, struct.pack(">H", w)) + iptc_field(
+        3, 30, struct.pack(">H", h))
+    out += iptc_field(3, 60, bytes([layers, component]))
+    if band is not None:
+        out += iptc_field(3, 65, bytes([band]))
+    out += iptc_field(3, 120, bytes([compression]))
+    for k in range(0, len(data), chunk):
+        out += iptc_field(8, 10, data[k:k + chunk])
+    return out + b"\0" * 5

@@ -172,7 +172,11 @@ def test_loaders_open_files_by_content(tmp_path):
         with pytest.raises(ValueError, match=r"junk\.png: not a PNG, JPEG, "
                                              r"WebP, TIFF, PPM, BMP, DIB, GIF, "
                                              r"ICO, CUR, PCX, DDS, JPEG2000, "
-                                             r"PSD, QOI, SGI or TGA file "
+                                             r"PSD, QOI, SGI, BLP, DCX, FITS, "
+                                             r"FLI, FTEX, GBR, ICNS, IM, IMT, "
+                                             r"IPTC, MCIDAS, MSP, PCD, PIXAR, "
+                                             r"SPIDER, SUN, XBM, XPM, XVTHUMB "
+                                             r"or TGA file "
                                              r"\(it starts b'\\x00\\x00\\x02"):
             load(str(other))
 

@@ -97,6 +97,13 @@ def test_port_modules_import_without_jax_flax_msgpack_pil():
             "nerf_pl_tpu_torch.data.pcx", "nerf_pl_tpu_torch.data.psd",
             "nerf_pl_tpu_torch.data.dds",
             "nerf_pl_tpu_torch.data.rle"} <= set(MODULES)
+    # the rest of Image.ID: BLP, DCX, FITS, FLI, FTEX, GBR, ICNS, IM and IMT,
+    # IPTC, MCIDAS, MSP, PCD, PIXAR, SPIDER, SUN, XBM, XPM and XVTHUMB, and
+    # the raw decoder's unpackers
+    assert {f"nerf_pl_tpu_torch.data.{m}" for m in (
+        "blp", "dcx", "fits", "fli", "ftex", "gbr", "icns", "im", "iptc",
+        "mcidas", "msp", "pcd", "pixar", "spider", "sun", "xbm", "xpm",
+        "xvthumb", "unpack")} <= set(MODULES)
     # -I: no PYTHONPATH or user site, so nothing imported by a site hook
     # is counted against the port
     code = (

@@ -122,8 +122,8 @@ def test_jpeg_refuses_what_it_does_not_read(tmp_path):
     Image.fromarray(pic).save(other, "GIF")
     with pytest.raises(ValueError, match="not a JPEG"):
         jpeg.read_jpeg(str(other))
-    # a GIF and a TGA are read as Pillow reads them; an IM (not ported)
-    # raises, naming the format Pillow would read it as
+    # a GIF, a TGA and an IM are read as Pillow reads them; an AVIF (not
+    # ported) raises, naming the format Pillow would read it as
     np.testing.assert_array_equal(
         read_image(str(other)), np.asarray(Image.open(other).convert("RGB")))
     tga = tmp_path / "other.tga"
@@ -132,9 +132,14 @@ def test_jpeg_refuses_what_it_does_not_read(tmp_path):
         read_image(str(tga)), np.asarray(Image.open(tga).convert("RGB")))
     im = tmp_path / "other.im"
     Image.fromarray(pic).save(im, "IM")
-    with pytest.raises(ValueError, match=r"other\.im: Pillow reads this as IM, "
-                                         r"a format the port does not read"):
-        read_image(str(im))
+    np.testing.assert_array_equal(
+        read_image(str(im)), np.asarray(Image.open(im).convert("RGB")))
+    avif = tmp_path / "other.avif"
+    Image.fromarray(pic).save(avif, "AVIF")
+    with pytest.raises(ValueError, match=r"other\.avif: Pillow reads this as "
+                                         r"AVIF, a format the port does not "
+                                         r"read"):
+        read_image(str(avif))
 
 
 # ---------------------------------------------------------------- PNG

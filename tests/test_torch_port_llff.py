@@ -179,8 +179,14 @@ def test_loader_refuses_what_it_cannot_read(scenes, tmp_path):
     for i in range(VIEWS):
         Image.open(os.path.join(src, "images", f"{i:03d}.png")).save(
             root / "images" / f"{i:03d}.im")
-    with pytest.raises(ValueError, match=r"000\.im: Pillow reads this as IM, "
-                                         r"a format the port does not read"):
+    _assert_same(*_both(str(root), "train", WH, False))  # IM, as Pillow
+    for i in range(VIEWS):
+        os.remove(root / "images" / f"{i:03d}.im")
+        Image.open(os.path.join(src, "images", f"{i:03d}.png")).save(
+            root / "images" / f"{i:03d}.avif")
+    with pytest.raises(ValueError, match=r"000\.avif: Pillow reads this as "
+                                         r"AVIF, a format the port does not "
+                                         r"read"):
         LLFFDataset(str(root), split="train", img_wh=WH)
     # per-host frame shards: the images of this host, as the JAX loader's
     for shard in ((0, 2), (1, 2)):
