@@ -227,18 +227,20 @@ Phases (any failed check raises, so the script exits non-zero):
    with its ``test_train`` eval, launches equal to phase 13's; last, a
    4096x3072 codestream (the 1024x1024 tile fixture repeated) decoded on
    the host through C++.
-18. The rest of Image.ID: the C++ stages (SUN runs, MSP v2 rows, FLI
-   frames, ICNS channels) against their plain versions on seeded streams;
-   phase 9's LLFF scene with its views as run-length SUN, IM and DCX (view
-   0's 128x128 crop also as an ICNS ``it32`` icon with a ``t8mk`` mask: an
-   icon's sizes are fixed), phase 4's Blender scene as GBR v2 brushes,
+18. The rest of Image.ID and of TIFF: the C++ stages (SUN runs, MSP v2
+   rows, FLI frames, ICNS channels, CCITT strips of every fax layout, the
+   zstd frames of ``tests/data/zstd``) against their plain versions;
+   phase 9's LLFF scene with its views as run-length SUN, IM, DCX and a
+   TIFF tagged with orientation 1 + i % 8 in turn (view 0's 128x128 crop
+   also as an ICNS ``it32`` icon with a ``t8mk`` mask: an icon's sizes are
+   fixed; view 0 as TIFFs of all 8 orientations), phase 4's Blender scene as GBR v2 brushes,
    phase 7's shadow maps as FLI (BRUN) and 24-bit SUN, each written with
    ``tests/image_writers.py`` and its loads held bit for bit against the
    PNG scene's; the same three fits as phase 16, launches equal to phase
    16's, the LLFF ``test_train`` eval and the ``efficient_sm`` epoch-0 loss
-   equal to phase 7's; last, 4032x3024 run-length SUN and FLI files and
-   1024x1024 ICNS channels decoded on the host through C++, the plain
-   versions timed on one strip.
+   equal to phase 7's; last, 4032x3024 run-length SUN and FLI files,
+   1024x1024 ICNS channels, a G4 TIFF page and a zstd TIFF decoded on the
+   host through C++, the plain versions timed on one strip.
 19. One JSON line of kernel numbers (E's and F's rows carry the SHA-256 of
    their f32 grads at a fixed seeded input, run twice, ``f32_sha256``), the
    card's line, then the result line ``{"ok": true, "device": {...}}``
@@ -6293,8 +6295,44 @@ def jpeg2000_end_to_end(tmp: str, webp: dict) -> dict:
 # fit of the same scene.  The fern-size files are a 4032x16 strip tiled
 # 189 times down the rows (SUN's runs and FLI's BRUN lines end with the
 # strip); ICNS's channel stage runs on 1024x1024 channels (a 1024x16 strip's
-# runs repeated 64 times a channel).
-ID_LLFF_FORMATS = ("sun", "im", "dcx")
+# runs repeated 64 times a channel).  The last slice's TIFF joins the LLFF
+# rotation: a view as a TIFF tagged with orientation 1 + i % 8 whose stored
+# pixels are the inverse transform of the view (the load transposes them
+# back), and view 0 in all 8 orientations; the CCITT and zstd stages are held
+# against their plain versions (fax strips the writer encodes here, the
+# frames of tests/data/zstd, which zstandard wrote: the card's machine has
+# no zstd encoder), and a 4032x3024 G4 page and a 4032x3024x3 zstd TIFF (a
+# 16-row strip's stream repeated 189 times) are decoded on the host.
+ID_LLFF_FORMATS = ("sun", "im", "dcx", "tiff")
+# the stored pixels of a view whose load applies each orientation: the
+# inverse of ``data/tiff.py``'s transposes
+ORIENT_STORE = {1: lambda p: p, 2: lambda p: p[:, ::-1],
+                3: lambda p: p[::-1, ::-1], 4: lambda p: p[::-1],
+                5: lambda p: p.swapaxes(0, 1), 6: lambda p: np.rot90(p, 1),
+                7: lambda p: np.rot90(p, 2).swapaxes(0, 1),
+                8: lambda p: np.rot90(p, -1)}
+ZSTD_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "tests", "data", "zstd")
+
+
+def oriented_tiff(W, rgb: np.ndarray, orientation: int, compression: int
+                  ) -> bytes:
+    """``rgb`` as a TIFF that loads as it (tag 274 = ``orientation``)."""
+    stored = np.ascontiguousarray(ORIENT_STORE[orientation](rgb))
+    return W.tiff_bytes(stored, 2, 8, compression=compression,
+                        rows_per_strip=32, tags=[(274, "H", [orientation])])
+
+
+def zstd_fixtures() -> dict:
+    import json
+
+    with open(os.path.join(ZSTD_FIXTURES, "digests.json")) as f:
+        digests = json.load(f)
+    out = {}
+    for name, meta in digests.items():
+        with open(os.path.join(ZSTD_FIXTURES, f"{name}.zst"), "rb") as f:
+            out[name] = (f.read(), meta)
+    return out
 
 
 def id_stages_vs_plain(W) -> dict:
@@ -6327,9 +6365,46 @@ def id_stages_vs_plain(W) -> dict:
     body = W.icns_channels(img)
     same_rgbs("icns channels", rle.icns_rgb(body, 29 * 37),
               icns.rgb_plain(body, 29 * 37))
+    # CCITT: every layout's strip, the C++ stage against the plain version
+    # (rows and libtiff's run buffers) and against the bits written
+    import hashlib
+
+    from nerf_pl_tpu_torch.data import ccitt, zstd
+    bits = (rng.rand(37, 61) < 0.2).astype(np.uint8)
+    bits[5:9] = 0
+    bits[:, 20:24] = 1
+    fax = 0
+    for comp, opt in ((2, 0), (3, 0), (3, 1), (3, 5), (4, 0)):
+        data = W.fax_bytes(bits, comp, opt)
+        runs = np.array(ccitt.run_buffer(61, comp, opt), np.uint32)
+        runs_plain = ccitt.run_buffer(61, comp, opt)
+        a, b = np.zeros((37, 61), np.uint8), np.zeros((37, 61), np.uint8)
+        ccitt.decode(data, comp, opt, 61, 37, runs, a)
+        ccitt.decode_plain(data, comp, opt, 61, 37, runs_plain, b)
+        same_rgbs(f"ccitt c{comp} o{opt}", a, b)
+        same_rgbs(f"ccitt c{comp} o{opt} bits", a, bits)
+        if runs.tolist() != runs_plain:
+            raise AssertionError(f"ccitt c{comp}: the run buffers differ")
+        fax += 1
+    # zstd: the committed frames (every block, literals and sequence mode);
+    # the plain version (a byte a Python step) on those under 50 KB
+    frames = zstd_fixtures()
+    for name, (frame, meta) in frames.items():
+        a = zstd.decompress(frame, meta["size"])
+        if meta["size"] < 50_000 and a != zstd.decompress_plain(frame,
+                                                                meta["size"]):
+            raise AssertionError(f"zstd {name}: the C++ stage differs from "
+                                 "the plain")
+        if hashlib.sha256(a).hexdigest() != meta["sha256"]:
+            raise AssertionError(f"zstd {name}: not the content zstandard "
+                                 "wrote")
     log("[images id] the C++ stages equal their plain versions: SUN runs, "
-        "MSP v2 rows, FLI BRUN/COPY/LC/SS2 frames, ICNS channels")
-    return dict(sun=1, msp=1, fli=len(chunks), icns=1)
+        "MSP v2 rows, FLI BRUN/COPY/LC/SS2 frames, ICNS channels, CCITT "
+        f"strips ({fax} layouts), zstd frames ({len(frames)}, each equal to "
+        "zstandard's content by SHA-256; the plain version on those under "
+        "50 KB)")
+    return dict(sun=1, msp=1, fli=len(chunks), icns=1, ccitt=fax,
+                zstd=len(frames))
 
 
 def id_hold_counts(tag: str, got: dict, want: dict) -> None:
@@ -6359,11 +6434,13 @@ def id_llff(tmp: str, W, boxes: dict) -> dict:
     for i, view in enumerate(views):
         rgb, _ = read_png(view)
         h, w = rgb.shape[:2]
-        kind = ID_LLFF_FORMATS[i % 3]
+        kind = ID_LLFF_FORMATS[i % len(ID_LLFF_FORMATS)]
         if kind == "sun":
             data = W.sun_bytes(rgb[..., ::-1].reshape(h, -1), w, 24, 2)
         elif kind == "im":
             data = W.im_rgb_bytes(rgb)
+        elif kind == "tiff":
+            data = oriented_tiff(W, rgb, 1 + i % 8, (1, 5, 8)[i % 3])
         else:
             data = W.dcx_bytes([W.pcx_bytes(np.moveaxis(rgb, -1, 0), 8)])
         name = f"{i:03d}.{kind}"
@@ -6384,6 +6461,13 @@ def id_llff(tmp: str, W, boxes: dict) -> dict:
             head = icns.open_icns(icon)
             same_rgbs("icns crop plain", icns.load_icns(icon, head)[0],
                       icns.load_icns(icon, head, plain=True)[0])
+            for o in range(1, 9):  # every orientation loads as the view
+                for comp in (1, 5, 8):
+                    path = os.path.join(tmp, f"view0_o{o}_c{comp}.tif")
+                    with open(path, "wb") as f:
+                        f.write(oriented_tiff(W, rgb, o, comp))
+                    same_rgbs(f"tiff orientation {o} c{comp}",
+                              image.read_picture(path).pixels, rgb)
     for split in ("train", "val"):
         a, b = (LLFFDataset(r, split=split, img_wh=LLFF_WH)
                 for r in (src, root))
@@ -6393,19 +6477,20 @@ def id_llff(tmp: str, W, boxes: dict) -> dict:
             same_rgbs("llff images id val", a[0]["rgbs"], b[0]["rgbs"])
     log(f"[images id] llff: {len(views)} views as {sizes} bytes; train and "
         "val loads bit-equal to the PNG scene's; view 0's 128x128 crop as an "
-        "ICNS it32 + t8mk icon equal to the crop")
+        "ICNS it32 + t8mk icon equal to the crop; view 0 as TIFFs of "
+        "orientations 1-8 (none, LZW, Deflate) equal to the view")
     fit = trainer_fit(tmp, "train", root, "llff_images_id", LLFF_FLAGS, 1,
                       "images id")
     system = fit["system"]
     rays, rgbs = system.rays[:LLFF_BATCH], system.rgbs[:LLFF_BATCH]
     per_step = one_step_launches(
-        "llff (SUN, IM, DCX)", lambda: system.train_step(rays, rgbs),
+        "llff (SUN, IM, DCX, TIFF)", lambda: system.train_step(rays, rgbs),
         LLFF_STEP_LAUNCHES)
     del system, rays, rgbs, fit["system"]
     ckpt = os.path.join(tmp, "ckpts", "llff_images_id", "epoch=0.ckpt")
     ev = llff_eval(tmp, root, ckpt, "test_train", LLFF_WH, "_images_id")
     want = boxes["llff"]
-    id_hold_counts("the SUN/IM/DCX LLFF fit", fit["counts"],
+    id_hold_counts("the SUN/IM/DCX/TIFF LLFF fit", fit["counts"],
                    want["fit"]["counts"])
     id_hold_counts("its step", per_step, want["per_step"])
     id_hold_counts("its eval", ev["counts"], want["eval"]["counts"])
@@ -6599,6 +6684,70 @@ def fern_size_images_id(W) -> dict:
         f"({gpu_line()}): {len(body):,} bytes, decode {whole:.4f} s through "
         f"C++, equal to the tiled plain decode of its strip; the plain "
         f"version on one {side}x{rows} strip {plain_s:.3f} s")
+    out.update(fern_size_tiff_codecs(W, strip))
+    return out
+
+
+def fern_size_tiff_codecs(W, strip: np.ndarray) -> dict:
+    """A 4032x3024 G4 page and a 4032x3024x3 zstd TIFF (predictor 2), each
+    one 16-row strip's stream in all 189 strips, decoded on this machine's
+    host through the C++ stages and held equal to the tiled plain decode of
+    the strip (and the G4 page to its bits)."""
+    from nerf_pl_tpu_torch.data import ccitt, image, tiff, zstd
+
+    full_h = FERN_STRIP * FERN_ROWS
+    out = {}
+    bits = (strip[..., 1] > 128).astype(np.uint8)
+    page = np.tile(bits, (FERN_ROWS, 1))
+    frame, meta = zstd_fixtures()["fern_strip_p2"]
+    content = zstd.decompress_plain(frame, meta["size"])
+    rgb = np.frombuffer(content, np.uint8).reshape(FERN_STRIP, FERN_W, 3)
+    rgb = np.cumsum(rgb, axis=1, dtype=np.uint8)  # undo predictor 2
+
+    def codec(chunk):
+        if chunk != content:
+            raise AssertionError("the fern strip is not the frame's content")
+        return frame
+
+    t0 = time.perf_counter()
+    files = {"g4": W.tiff_bytes(page, 0, 1, compression=4,
+                                rows_per_strip=FERN_STRIP),
+             "zstd": W.tiff_bytes(np.tile(rgb, (FERN_ROWS, 1, 1)), 2, 8,
+                                  compression=50000, predictor=2,
+                                  rows_per_strip=FERN_STRIP, zstd_codec=codec)}
+    out["tiff_write_s"] = time.perf_counter() - t0
+    for lib in (ccitt, zstd, tiff):
+        lib._native()  # built before the clock starts
+    for kind, data in files.items():
+        t0 = time.perf_counter()
+        name, load = image.open_format(data, kind)
+        px = load()[0]
+        whole = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        if kind == "g4":
+            one = np.zeros((FERN_STRIP, FERN_W), np.uint8)
+            t = tiff._ifd(data, "II", False)
+            first = data[t[273][0]:t[273][0] + t[279][0]]
+            ccitt.decode_plain(first, 4, 0, FERN_W, FERN_STRIP,
+                               ccitt.run_buffer(FERN_W, 4, 0), one)
+            plain = (1 - one) * 255  # photometric 0: white reads as 255
+            want_strip = (1 - bits) * 255
+        else:
+            plain = np.cumsum(np.frombuffer(zstd.decompress_plain(
+                frame, meta["size"]), np.uint8).reshape(FERN_STRIP, FERN_W, 3),
+                axis=1, dtype=np.uint8)
+            want_strip = rgb
+        plain_s = time.perf_counter() - t0
+        same_rgbs(f"fern-size {kind}", px, np.tile(
+            plain.astype(np.uint8), (FERN_ROWS,) + (1,) * (plain.ndim - 1)))
+        same_rgbs(f"fern-size {kind} strip", plain.astype(np.uint8),
+                  want_strip.astype(np.uint8))
+        out[kind] = dict(format=name, bytes=len(data), s=whole,
+                         plain_strip_s=plain_s)
+        log(f"[images id] {FERN_W}x{full_h} {kind} TIFF on the host "
+            f"({gpu_line()}): {len(data):,} bytes, decode {whole:.3f} s "
+            f"through C++, equal to the tiled plain decode of its strip; the "
+            f"plain version on one {FERN_W}x{FERN_STRIP} strip {plain_s:.3f} s")
     return out
 
 
@@ -7676,15 +7825,15 @@ def main() -> int:
         if key not in ("A", "B", "C", "D", "E"):
             continue
         row["launches_images_id"] = dict(
-            llff_sun_im_dcx_fit=ids["llff"]["fit"]["counts"][key],
-            llff_sun_im_dcx_per_step=ids["llff"]["per_step"][key],
-            llff_sun_im_dcx_eval=ids["llff"]["eval"]["counts"][key],
+            llff_sun_im_dcx_tiff_fit=ids["llff"]["fit"]["counts"][key],
+            llff_sun_im_dcx_tiff_per_step=ids["llff"]["per_step"][key],
+            llff_sun_im_dcx_tiff_eval=ids["llff"]["eval"]["counts"][key],
             blender_gbr_fit=ids["blender"]["fit"]["counts"][key],
             blender_gbr_per_step=ids["blender"]["per_step"][key],
             efficient_sm_fli_sun_fit=ids["shadow"]["fit"]["counts"][key],
             efficient_sm_fli_sun_per_step=ids["shadow"]["per_step"][key])
     idf = ids["fern"]
-    log(f"[images id] phase 18: {ids['seconds']:.1f} s; LLFF on SUN/IM/DCX "
+    log(f"[images id] phase 18: {ids['seconds']:.1f} s; LLFF on SUN/IM/DCX/TIFF "
         f"{ids['llff']['fit']['rays_per_s'][-1]:.1f} train rays/s, Blender "
         f"on GBR {ids['blender']['fit']['rays_per_s'][-1]:.1f}, "
         f"efficient_sm on FLI/SUN maps "
@@ -7694,7 +7843,11 @@ def main() -> int:
         f"{idf['fli']['s']:.3f} s (plain, one strip "
         f"{idf['fli']['plain_strip_s']:.3f} s), ICNS channels 1024^2 "
         f"{idf['icns']['s']:.4f} s (plain, one strip "
-        f"{idf['icns']['plain_strip_s']:.3f} s) ({card})")
+        f"{idf['icns']['plain_strip_s']:.3f} s), G4 TIFF "
+        f"{idf['g4']['s']:.3f} s (plain, one strip "
+        f"{idf['g4']['plain_strip_s']:.3f} s), zstd TIFF "
+        f"{idf['zstd']['s']:.3f} s (plain, one strip "
+        f"{idf['zstd']['plain_strip_s']:.3f} s) ({card})")
     fern = readers["fern"]
     log(f"[readers] phase 12: {readers['seconds']:.1f} s; fern-size decode "
         f"{fern['baseline']['s']:.3f} s baseline, "

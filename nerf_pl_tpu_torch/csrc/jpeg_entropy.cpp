@@ -6,11 +6,13 @@
 //     Huffman or arithmetic coding (ITU T.81 Annex F and D; libjpeg's
 //     jdhuff.c, jdphuff.c and jdarith.c), sequential or progressive (DC
 //     first and refine, AC spectral selection, successive approximation,
-//     EOB runs), restart intervals;
+//     EOB runs), restart intervals, and libjpeg-turbo's handling of a
+//     corrupt stream (zero bits past a marker, resynchronisation, the bad
+//     code's sentinel, overflows that warn);
 //   * jpeg_lossless_scan: a lossless (SOF3) scan's Huffman-coded
 //     differences, predictors 1-7 and the point transform, into samples;
-//   * jpeg_idct_islow: libjpeg's integer inverse DCT (jidctint.c) with its
-//     post-IDCT range-limit table, coefficient planes into sample planes;
+//   * jpeg_idct_islow: libjpeg-turbo's integer inverse DCT as its x86 AVX2
+//     code runs it, coefficient planes into sample planes;
 //   * jpeg_ycc_rgb: jdcolor.c's fixed-point YCbCr -> RGB (and, with a 4th
 //     plane, YCCK -> CMYK).
 //
@@ -35,83 +37,202 @@ const int kNatural[64 + 16] = {
 struct Error {
   const char *msg;
 };
+// The data ran out where libjpeg waits for more: Pillow then raises "image
+// file is truncated"
+struct Suspend {};
 
 // --------------------------------------------------------------- segments
-// A scan's bytes split at its restart markers, with the stuffed zero after
-// each 0xFF data byte removed.  Reading past a segment's end gives zeros,
-// as libjpeg supplies once it meets a marker.  For each byte it keeps the
-// index in `data` of the last raw byte that reading it consumes, and for
-// each restart marker the index of its code byte.
+// A scan's bytes, from its first byte to the end of the file, split at every
+// marker libjpeg's readers stop at (0xFF then a code other than 0 or 0xFF;
+// fill bytes skipped), with the stuffed zero after each 0xFF data byte
+// removed.  Segment i's bytes are bytes[start[i], start[i + 1]); it ends at
+// marker code[i] (-1: at the end of the file), whose code byte is at
+// after[i] - 1.  For each byte, raw_end keeps the index in `data` of the
+// last raw byte that reading it consumes.
 struct Segments {
   std::vector<uint8_t> bytes;
   std::vector<int64_t> raw_end;
-  std::vector<size_t> start;  // start[i] .. start[i + 1]: segment i
-  std::vector<int64_t> rst_code;
+  std::vector<size_t> start;
+  std::vector<int> code;
+  std::vector<int64_t> after;
+  const uint8_t *data;
+  size_t n, next = 0;
+  bool done = false;
 
-  Segments(const uint8_t *data, size_t n) {
+  // Segments are split off as the decoder reaches them (a scan reads its
+  // own and, past a faulty restart marker, a few more), into buffers
+  // reserved for the whole file so that no pointer into them moves.
+  Segments(const uint8_t *d, size_t len) : data(d), n(len) {
     bytes.reserve(n);
     raw_end.reserve(n);
     start.push_back(0);
-    for (size_t i = 0; i < n; ++i) {
+  }
+  void split() {
+    size_t i = next;
+    while (i < n) {
       uint8_t b = data[i];
       if (b != 0xFF) {
         bytes.push_back(b);
         raw_end.push_back((int64_t)i);
+        ++i;
         continue;
       }
       size_t j = i + 1;
       while (j < n && data[j] == 0xFF) ++j;  // fill bytes
-      if (j >= n) break;
+      if (j >= n) break;  // a 0xFF the file ends on holds no byte
       if (data[j] == 0x00) {
         bytes.push_back(0xFF);
         raw_end.push_back((int64_t)j);
-      } else if (data[j] >= 0xD0 && data[j] <= 0xD7) {
-        start.push_back(bytes.size());
-        rst_code.push_back((int64_t)j);
-      } else {
-        break;  // the scan's end
+        i = j + 1;
+        continue;
       }
-      i = j;
+      code.push_back(data[j]);
+      after.push_back((int64_t)j + 1);
+      start.push_back(bytes.size());
+      next = j + 1;
+      return;
     }
+    code.push_back(-1);
+    after.push_back((int64_t)n);
     start.push_back(bytes.size());
+    next = n;
+    done = true;
   }
-  size_t count() const { return start.size() - 1; }
+  // makes segment i known (the last one ends at the end of the file)
+  void ensure(size_t i) {
+    while (code.size() <= i && !done) split();
+  }
+  size_t size(size_t i) const { return start[i + 1] - start[i]; }
+};
+
+// libjpeg's markers between restart intervals (jdmarker.c
+// read_restart_marker and jpeg_resync_to_restart) over the segments:
+// `seg` is the segment the entropy decoder reads, `pending` says its
+// terminating marker is left unread after a resync (the next interval
+// then reads no data).
+struct Restarts {
+  Segments *sg;
+  size_t seg = 0;
+  bool pending = false;
+  int next_num = 0;  // the RSTn expected next
+  int64_t last_read = -1;  // the last raw byte a marker read touched
+
+  int marker() {
+    sg->ensure(seg);
+    if (sg->code[seg] < 0) throw Suspend{};  // next_marker at the file's end
+    last_read = std::max(last_read, sg->after[seg] - 1);
+    return sg->code[seg];
+  }
+  // Returns whether the decoder goes on reading data (the marker consumed).
+  bool read_restart_marker() {
+    int m = marker();
+    bool consumed;
+    if (m == 0xD0 + next_num) {
+      consumed = true;
+    } else {
+      for (;;) {  // jpeg_resync_to_restart
+        int action;
+        if (m < 0xC0)
+          action = 2;
+        else if (m < 0xD0 || m > 0xD7)
+          action = 3;
+        else if (m == 0xD0 + ((next_num + 1) & 7) || m == 0xD0 + ((next_num + 2) & 7))
+          action = 3;
+        else if (m == 0xD0 + ((next_num - 1) & 7) || m == 0xD0 + ((next_num - 2) & 7))
+          action = 2;
+        else
+          action = 1;
+        if (action == 1) {
+          consumed = true;
+          break;
+        }
+        if (action == 3) {
+          consumed = false;
+          break;
+        }
+        ++seg;  // next_marker: past the next segment's bytes
+        m = marker();
+      }
+    }
+    if (consumed) ++seg;
+    pending = !consumed;
+    next_num = (next_num + 1) & 7;
+    return consumed;
+  }
 };
 
 // ------------------------------------------------------------ bit reader
+// libjpeg's Huffman bit buffer over one segment: bits past the segment's
+// data read as zeros (jpeg_fill_bit_buffer after a marker) and mark the
+// data as insufficient.  A segment that ends at the end of the file has no
+// marker to stop at: there libjpeg suspends when a refill finds no byte, so
+// the refills are counted as libjpeg makes them (`fetched` bytes; 57 bits
+// in the slow path, 6 bytes when 16 bits or fewer are left in the fast one).
 struct Bits {
   const uint8_t *p = nullptr;
-  size_t n = 0, pos = 0;
-  uint64_t acc = 0;
-  int have = 0;
+  int64_t n = 0;
+  bool at_eof = false;
+  int64_t pos = 0;      // bits consumed
+  int64_t fetched = 0;  // bytes moved into libjpeg's buffer
+  bool fast = false;
 
-  void reset(const uint8_t *data, size_t len) {
+  void reset(const uint8_t *data, int64_t len, bool eof) {
     p = data;
     n = len;
+    at_eof = eof;
     pos = 0;
-    acc = 0;
-    have = 0;
+    fetched = 0;
+    fast = false;
+    base = -64;
   }
-  inline void fill() {
-    while (have <= 56) {
-      uint64_t b = pos < n ? p[pos] : 0;
-      ++pos;
-      acc |= b << (56 - have);
-      have += 8;
+  int64_t left() const { return fetched * 8 - pos; }
+  bool over() const { return pos > n * 8; }
+  // jpeg_fill_bit_buffer, where a refill is due
+  inline void fill_slow() {
+    if (!at_eof) return;
+    int64_t want = fetched + (57 - left() + 7) / 8;
+    if (want > n) throw Suspend{};
+    fetched = want;
+  }
+  inline void check(int k) {  // CHECK_BIT_BUFFER
+    if (at_eof && !fast && left() < k) fill_slow();
+  }
+  inline void fill_fast() {  // FILL_BIT_BUFFER_FAST
+    if (at_eof && left() <= 16) {
+      fetched += 6;
+      if (fetched > n) throw Suspend{};
     }
   }
-  inline uint32_t peek(int k) {
-    if (have < k) fill();
-    return (uint32_t)(acc >> (64 - k));
+  // 64 bits from the byte at `base` / 8 (zeros past the data), reloaded
+  // where a peek runs past them
+  uint64_t cache = 0;
+  int64_t base = -64;
+  inline void load(int64_t byte) {
+    base = byte * 8;
+    uint64_t w = 0;
+    if (byte + 8 <= n) {
+      for (int i = 0; i < 8; ++i) w = (w << 8) | p[byte + i];
+    } else {
+      for (int i = 0; i < 8; ++i) w = (w << 8) | (byte + i < n ? p[byte + i] : 0);
+    }
+    cache = w;
   }
-  inline void skip(int k) {
-    acc <<= k;
-    have -= k;
+  inline uint32_t peek(int k) {  // k <= 25
+    int64_t off = pos - base;
+    if (off < 0 || off + k > 64) {
+      load(pos >> 3);
+      off = pos - base;
+    }
+    return (uint32_t)((cache << off) >> (64 - k));
   }
   inline uint32_t get(int k) {
     if (k == 0) return 0;
+    if (fast)
+      fill_fast();
+    else
+      check(k);
     uint32_t v = peek(k);
-    skip(k);
+    pos += k;
     return v;
   }
 };
@@ -121,17 +242,20 @@ inline int extend(uint32_t v, int s) {
 }
 
 // ------------------------------------------------------------- Huffman
-// Canonical codes: a 9-bit lookahead table, then libjpeg's maxcode search.
+// Canonical codes as jdhuff.c derives them: an 8-bit lookahead table, then
+// the maxcode search one bit at a time.  A code no table entry matches
+// reads 17 bits and decodes as 0, as libjpeg's sentinel makes it.
 struct Huffman {
   bool present = false;
   int32_t maxcode[18];
   int32_t valoffset[18];
   uint8_t vals[256];
-  int16_t look_len[512];
-  uint8_t look_sym[512];
+  uint8_t look_len[256];
+  uint8_t look_sym[256];
 
-  void build(const uint8_t *counts, const uint8_t *symbols) {
-    present = true;
+  // max_symbol: DC tables hold magnitude categories up to 15 (16 in a
+  // lossless scan); jpeg_make_d_derived_tbl refuses larger ones
+  void build(const uint8_t *counts, const uint8_t *symbols, int max_symbol) {
     int code = 0, k = 0;
     int huffcode[256], huffsize[256];
     for (int L = 1; L <= 16; ++L) {
@@ -140,6 +264,8 @@ struct Huffman {
         huffsize[k] = L;
         huffcode[k] = code++;
         vals[k] = symbols[k];
+        if (symbols[k] > max_symbol)
+          throw Error{"a DC Huffman table with a symbol above its largest category"};
         ++k;
       }
       // no code may be all ones (jdhuff.c)
@@ -156,30 +282,41 @@ struct Huffman {
         maxcode[L] = -1;
       }
     }
-    maxcode[17] = 0x7FFFFFFF;
-    for (int i = 0; i < 512; ++i) look_len[i] = 0;
+    maxcode[17] = 0xFFFFF;  // the sentinel that ends a corrupt code
+    for (int i = 0; i < 256; ++i) look_len[i] = 0;
     for (int i = 0; i < k; ++i) {
-      if (huffsize[i] > 9) continue;
-      int shift = 9 - huffsize[i];
+      if (huffsize[i] > 8) continue;
+      int shift = 8 - huffsize[i];
       int lo = huffcode[i] << shift;
       for (int j = 0; j < (1 << shift); ++j) {
-        look_len[lo + j] = (int16_t)huffsize[i];
+        look_len[lo + j] = (uint8_t)huffsize[i];
         look_sym[lo + j] = vals[i];
       }
     }
+    present = true;
   }
   inline int decode(Bits &b) const {
-    uint32_t w = b.peek(16);
-    int l = look_len[w >> 7];
-    if (l) {
-      b.skip(l);
-      return look_sym[w >> 7];
+    if (b.fast)
+      b.fill_fast();
+    else if (b.at_eof && b.left() < 8)
+      b.fill_slow();
+    uint32_t look = b.peek(8);
+    if (look_len[look]) {
+      b.pos += look_len[look];
+      return look_sym[look];
     }
-    int L = 10;
-    while (L <= 16 && (int32_t)(w >> (16 - L)) > maxcode[L]) ++L;
-    if (L > 16) throw Error{"a corrupt Huffman code"};
-    b.skip(L);
-    return vals[(int)(w >> (16 - L)) + valoffset[L]];
+    b.check(9);
+    int32_t code = (int32_t)b.peek(9);
+    b.pos += 9;
+    int l = 9;
+    while (code > maxcode[l]) {
+      b.check(1);
+      code = (code << 1) | (int32_t)b.peek(1);
+      b.pos += 1;
+      ++l;
+    }
+    if (l > 16) return 0;
+    return vals[(code + valoffset[l]) & 0xFF];
   }
 };
 
@@ -250,15 +387,22 @@ const int64_t kAriTab[114] = {
 
 // The QM decoder of jdarith.c: C holds the interval's base and the next
 // input bits, split at a floating point CT.
+// Past the segment's bytes it reads zeros (the marker is left unread);
+// past the end of the file it cannot suspend, and libjpeg raises.  `bad`
+// is jdarith.c's ct == -1: a spectral or magnitude overflow stops the
+// decoding until the next restart.
 struct Arith {
   const uint8_t *p = nullptr;
   size_t n = 0, pos = 0;
+  bool at_eof = false, bad = false;
   int64_t c = 0, a = 0;
   int ct = -16;
 
-  void reset(const uint8_t *data, size_t len) {
+  void reset(const uint8_t *data, size_t len, bool eof) {
     p = data;
     n = len;
+    at_eof = eof;
+    bad = false;
     pos = 0;
     c = 0;
     a = 0;
@@ -267,6 +411,8 @@ struct Arith {
   inline int decode(uint8_t *st) {
     while (a < 0x8000) {
       if (--ct < 0) {
+        if (pos >= n && at_eof)
+          throw Error{"an arithmetic-coded scan that runs past the end of the file"};
         int data = pos < n ? p[pos] : 0;
         ++pos;
         c = (c << 8) | data;
@@ -319,6 +465,7 @@ struct Comp {
 // (libjpeg's NUM_HUFF_TBLS and NUM_ARITH_TBLS)
 struct Scan {
   int ns, mcux, mcuy, ss, se, ah, al, restart, arith, progressive;
+  int64_t left_in_file;  // bytes from the scan's start to the end of the file
   Comp comp[4];
   Huffman dc_huff[4], ac_huff[4];
   int dc_L[16], dc_U[16], ac_K[16];
@@ -327,6 +474,7 @@ struct Scan {
 struct State {
   Bits bits;
   Arith ar;
+  bool insufficient;  // libjpeg's insufficient_data: the rest of the interval is skipped
   int pred[4];
   int dc_context[4];
   unsigned eobrun;
@@ -349,13 +497,13 @@ void restart_state(const Scan &s, State &st) {
   }
 }
 
-// --- Huffman, sequential (jdhuff.c decode_mcu)
+// --- Huffman, sequential (jdhuff.c decode_mcu_slow / decode_mcu_fast): a
+// run that carries k past 63 writes at jpeg_natural_order's padding, 63
 void huff_block_seq(const Scan &s, State &st, int ci, int16_t *blk) {
   Bits &b = st.bits;
   const Huffman &dc = s.dc_huff[s.comp[ci].dc];
   const Huffman &ac = s.ac_huff[s.comp[ci].ac];
   int t = dc.decode(b);
-  if (t > 16) throw Error{"a DC magnitude category above 16"};
   int diff = extend(b.get(t), t);
   st.pred[ci] += diff;
   blk[0] = (int16_t)st.pred[ci];
@@ -365,7 +513,6 @@ void huff_block_seq(const Scan &s, State &st, int ci, int16_t *blk) {
     if (z) {
       k += r;
       int v = extend(b.get(z), z);
-      if (k > 63) throw Error{"a block with more than 64 coefficients"};
       blk[kNatural[k]] = (int16_t)v;
     } else {
       if (r != 15) break;  // EOB
@@ -378,9 +525,8 @@ void huff_block_seq(const Scan &s, State &st, int ci, int16_t *blk) {
 void huff_dc_first(const Scan &s, State &st, int ci, int16_t *blk) {
   Bits &b = st.bits;
   int t = s.dc_huff[s.comp[ci].dc].decode(b);
-  if (t > 16) throw Error{"a DC magnitude category above 16"};
   st.pred[ci] += extend(b.get(t), t);
-  blk[0] = (int16_t)(st.pred[ci] * (1 << s.al));
+  blk[0] = (int16_t)((unsigned)st.pred[ci] << s.al);
 }
 
 void huff_dc_refine(const Scan &s, State &st, int16_t *blk) {
@@ -399,8 +545,7 @@ void huff_ac_first(const Scan &s, State &st, int16_t *blk) {
     int r = rs >> 4, z = rs & 15;
     if (z) {
       k += r;
-      if (k > s.se) throw Error{"a band with more coefficients than its scan"};
-      blk[kNatural[k]] = (int16_t)(extend(b.get(z), z) * (1 << s.al));
+      blk[kNatural[k]] = (int16_t)((unsigned)extend(b.get(z), z) << s.al);
     } else if (r == 15) {
       k += 15;
     } else {
@@ -412,6 +557,8 @@ void huff_ac_first(const Scan &s, State &st, int16_t *blk) {
   }
 }
 
+// A new coefficient of magnitude other than 1 is a warning in libjpeg: it
+// reads one sign bit and goes on.
 void huff_ac_refine(const Scan &s, State &st, int16_t *blk) {
   Bits &b = st.bits;
   const Huffman &ac = s.ac_huff[s.comp[0].ac];
@@ -423,7 +570,6 @@ void huff_ac_refine(const Scan &s, State &st, int16_t *blk) {
       int r = rs >> 4, z = rs & 15;
       int val = 0;
       if (z) {
-        if (z != 1) throw Error{"a refinement coefficient of magnitude above 1"};
         val = b.get(1) ? p1 : m1;
       } else if (r != 15) {
         st.eobrun = 1u << r;
@@ -439,10 +585,7 @@ void huff_ac_refine(const Scan &s, State &st, int16_t *blk) {
         }
         ++k;
       } while (k <= s.se);
-      if (val) {
-        if (k > 63) throw Error{"a band with more coefficients than its scan"};
-        blk[kNatural[k]] = (int16_t)val;
-      }
+      if (val) blk[kNatural[k]] = (int16_t)val;
     }
   }
   if (st.eobrun) {
@@ -454,7 +597,8 @@ void huff_ac_refine(const Scan &s, State &st, int16_t *blk) {
   }
 }
 
-// --- arithmetic (jdarith.c)
+// --- arithmetic (jdarith.c): an overflow sets `bad` and leaves the block
+// as far as it got
 // Decodes one DC difference with the statistics of table `tbl`.
 int arith_dc_diff(const Scan &s, State &st, int ci, int tbl) {
   Arith &d = st.ar;
@@ -469,7 +613,10 @@ int arith_dc_diff(const Scan &s, State &st, int ci, int tbl) {
   if (m) {
     stat = st.dc_stats[tbl] + 20;
     while (d.decode(stat)) {
-      if ((m <<= 1) == 0x8000) throw Error{"an arithmetic-coded magnitude overflow"};
+      if ((m <<= 1) == 0x8000) {
+        d.bad = true;  // magnitude overflow
+        return 0;
+      }
       stat += 1;
     }
   }
@@ -499,7 +646,10 @@ int arith_ac_value(const Scan &s, State &st, int tbl, int k, uint8_t *stat) {
       m <<= 1;
       stat = st.ac_stats[tbl] + (k <= s.ac_K[tbl] ? 189 : 217);
       while (d.decode(stat)) {
-        if ((m <<= 1) == 0x8000) throw Error{"an arithmetic-coded magnitude overflow"};
+        if ((m <<= 1) == 0x8000) {
+          d.bad = true;  // magnitude overflow
+          return 0;
+        }
         stat += 1;
       }
     }
@@ -514,7 +664,9 @@ int arith_ac_value(const Scan &s, State &st, int tbl, int k, uint8_t *stat) {
 
 void arith_block_seq(const Scan &s, State &st, int ci, int16_t *blk) {
   int tbl = s.comp[ci].dc;
-  st.pred[ci] = (st.pred[ci] + arith_dc_diff(s, st, ci, tbl)) & 0xFFFF;
+  int diff = arith_dc_diff(s, st, ci, tbl);
+  if (st.ar.bad) return;
+  st.pred[ci] = (st.pred[ci] + diff) & 0xFFFF;
   blk[0] = (int16_t)st.pred[ci];
   tbl = s.comp[ci].ac;
   Arith &d = st.ar;
@@ -526,15 +678,22 @@ void arith_block_seq(const Scan &s, State &st, int ci, int16_t *blk) {
       ++k;
       if (d.decode(stat + 1)) break;
       stat += 3;
-      if (k >= 63) throw Error{"an arithmetic-coded band overflow"};
+      if (k >= 63) {
+        d.bad = true;  // spectral overflow
+        return;
+      }
     }
-    blk[kNatural[k]] = (int16_t)arith_ac_value(s, st, tbl, k, stat);
+    int v = arith_ac_value(s, st, tbl, k, stat);
+    if (d.bad) return;
+    blk[kNatural[k]] = (int16_t)v;
   } while (k < 63);
 }
 
 void arith_dc_first(const Scan &s, State &st, int ci, int16_t *blk) {
-  st.pred[ci] = (st.pred[ci] + arith_dc_diff(s, st, ci, s.comp[ci].dc)) & 0xFFFF;
-  blk[0] = (int16_t)(st.pred[ci] * (1 << s.al));
+  int diff = arith_dc_diff(s, st, ci, s.comp[ci].dc);
+  if (st.ar.bad) return;
+  st.pred[ci] += diff;
+  blk[0] = (int16_t)((unsigned)st.pred[ci] << s.al);
 }
 
 void arith_dc_refine(const Scan &s, State &st, int16_t *blk) {
@@ -549,10 +708,14 @@ void arith_ac_first(const Scan &s, State &st, int16_t *blk) {
     if (d.decode(stat)) break;  // EOB
     while (d.decode(stat + 1) == 0) {
       stat += 3;
-      if (++k > s.se) throw Error{"an arithmetic-coded band overflow"};
+      if (++k > s.se) {
+        d.bad = true;  // spectral overflow
+        return;
+      }
     }
     int v = arith_ac_value(s, st, tbl, k, stat);
-    blk[kNatural[k]] = (int16_t)(v * (1 << s.al));
+    if (d.bad) return;
+    blk[kNatural[k]] = (int16_t)((unsigned)v << s.al);
   }
 }
 
@@ -577,7 +740,10 @@ void arith_ac_refine(const Scan &s, State &st, int16_t *blk) {
         break;
       }
       stat += 3;
-      if (++k > s.se) throw Error{"an arithmetic-coded band overflow"};
+      if (++k > s.se) {
+        d.bad = true;  // spectral overflow
+        return;
+      }
     }
   }
 }
@@ -601,48 +767,70 @@ void decode_block(const Scan &s, State &st, int ci, int16_t *blk) {
   }
 }
 
-// Decodes the scan; returns the index in `data` of the last byte libjpeg's
-// arithmetic decoder reads (len: the marker after the data; -1: none, or a
-// Huffman scan), which tells where a reader fed in blocks would need more.
-int64_t run_scan(const Scan &s, const uint8_t *data, size_t len) {
+// The entropy decoder's reading position moves to segment `i` of `seg`
+// (`pending`: a marker is left unread there, so no data is read).
+void start_reading(const Scan &s, Segments &seg, State &st, size_t i, bool pending) {
+  seg.ensure(i);
+  const uint8_t *p = seg.bytes.data() + seg.start[i];
+  size_t n = pending ? 0 : seg.size(i);
+  bool eof = !pending && seg.code[i] < 0;
+  if (s.arith)
+    st.ar.reset(p, n, eof);
+  else
+    st.bits.reset(p, (int64_t)n, eof);
+}
+
+// Decodes the scan as libjpeg-turbo does, faults included.  Returns in
+// out[0] the index in `data` just past the code byte of the marker that
+// follows the scan (-1: the file ends first) and in out[1] that marker's
+// code; out[2] is the last byte an arithmetic decoder reads (-1: none, or
+// a Huffman scan), which tells where a reader fed in blocks would need more;
+// out[3] the iMCU row of the last MCU begun with data left (jdcoefct.c's
+// last_good_iMCU_row; -1: none), which block smoothing reads.
+void run_scan(const Scan &s, const uint8_t *data, size_t len, int64_t *out) {
   Segments seg(data, len);
+  Restarts rs{&seg};
   State st;
-  size_t interval = 0;
+  st.insufficient = false;
   int64_t last_read = -1;
-  // an interval followed by a restart marker is read through its code byte
-  auto end_interval = [&](size_t i) {
-    if (!s.arith) return;
-    if (i + 1 < seg.count()) {
-      last_read = seg.rst_code[i];
-      return;
-    }
-    size_t n = seg.start[i + 1] - seg.start[i];
+  // the arithmetic decoder's reads: through the marker's code byte when it
+  // read past a segment's bytes
+  auto count_reads = [&]() {
+    if (!s.arith || rs.pending) return;
+    size_t n = seg.size(rs.seg);
     if (st.ar.pos > n)
-      last_read = (int64_t)len;
+      last_read = std::max(last_read, seg.after[rs.seg] - 1);
     else if (st.ar.pos > 0)
-      last_read = std::max(last_read, seg.raw_end[seg.start[i] + st.ar.pos - 1]);
+      last_read = std::max(last_read, seg.raw_end[seg.start[rs.seg] + st.ar.pos - 1]);
   };
-  auto start_interval = [&](size_t i) {
-    if (i >= seg.count())
-      throw Error{"a scan with fewer restart intervals than its DRI asks for"};
-    const uint8_t *p = seg.bytes.data() + seg.start[i];
-    size_t n = seg.start[i + 1] - seg.start[i];
-    if (s.arith)
-      st.ar.reset(p, n);
-    else
-      st.bits.reset(p, n);
-    restart_state(s, st);
-  };
-  start_interval(0);
+  start_reading(s, seg, st, 0, false);
+  restart_state(s, st);
   long units;
   if (s.ns == 1)
     units = (long)s.comp[0].bw * s.comp[0].bh;
   else
     units = (long)s.mcux * s.mcuy;
+  int blocks = 0;
+  for (int ci = 0; ci < s.ns; ++ci) blocks += s.ns == 1 ? 1 : s.comp[ci].h * s.comp[ci].v;
+  int64_t last_good = -1;
   for (long u = 0; u < units; ++u) {
-    if (s.restart && u && u % s.restart == 0) {
-      end_interval(interval);
-      start_interval(++interval);
+    // the coefficient controller notes the row before decode_mcu runs
+    // (and before its restart processing)
+    if (!st.insufficient)
+      last_good = s.ns == 1 ? (u / s.comp[0].bw) / s.comp[0].v : u / s.mcux;
+    if (s.restart && u && u % s.restart == 0) {  // process_restart
+      count_reads();
+      bool consumed = rs.read_restart_marker();
+      start_reading(s, seg, st, rs.seg, rs.pending);
+      restart_state(s, st);
+      if (consumed) st.insufficient = false;
+    }
+    if (s.arith ? st.ar.bad : st.insufficient) continue;
+    if (!s.arith && !s.progressive) {
+      // decode_mcu_fast where 512 bytes a block are left in Pillow's buffer
+      int64_t at = st.bits.fetched ? seg.raw_end[seg.start[rs.seg] + st.bits.fetched - 1] + 1
+                                   : (int64_t)(rs.seg ? seg.after[rs.seg - 1] : 0);
+      st.bits.fast = !s.restart && s.left_in_file - at >= 512L * blocks;
     }
     if (s.ns == 1) {
       const Comp &c = s.comp[0];
@@ -650,17 +838,22 @@ int64_t run_scan(const Scan &s, const uint8_t *data, size_t len) {
       decode_block(s, st, 0, c.coef + (by * c.nbx + bx) * 64);
     } else {
       long my = u / s.mcux, mx = u % s.mcux;
-      for (int ci = 0; ci < s.ns; ++ci) {
+      for (int ci = 0; ci < s.ns && !(s.arith && st.ar.bad); ++ci) {
         const Comp &c = s.comp[ci];
-        for (int yy = 0; yy < c.v; ++yy)
-          for (int xx = 0; xx < c.h; ++xx)
+        for (int yy = 0; yy < c.v && !(s.arith && st.ar.bad); ++yy)
+          for (int xx = 0; xx < c.h && !(s.arith && st.ar.bad); ++xx)
             decode_block(s, st, ci,
                          c.coef + ((my * c.v + yy) * c.nbx + mx * c.h + xx) * 64);
       }
     }
+    if (!s.arith && st.bits.over()) st.insufficient = true;
   }
-  end_interval(interval);
-  return last_read;
+  count_reads();
+  last_read = std::max(last_read, rs.last_read);
+  out[0] = seg.code[rs.seg] < 0 ? -1 : seg.after[rs.seg];
+  out[1] = seg.code[rs.seg];
+  out[2] = s.arith ? last_read : -1;
+  out[3] = last_good;
 }
 
 void set_err(char *err, int errlen, const char *msg) {
@@ -668,68 +861,46 @@ void set_err(char *err, int errlen, const char *msg) {
 }
 
 // ------------------------------------------------------------ the IDCT
-const int kConstBits = 13, kPass1Bits = 2;
+// libjpeg-turbo's x86-64 islow IDCT (jidctint-avx2.asm), which Pillow's
+// libjpeg-turbo runs on an AVX2 host: the products coefficient x step in
+// 16-bit lanes (wrapping), the sums in0 +- in4, z3 = tmp0 + tmp2 and z4 =
+// tmp1 + tmp3 in 16 bits too, the rest in 32; each pass's outputs packed
+// to 16 bits with saturation, the second's then to 8 (so samples clamp
+// where the C code's range-limit table wraps).  A block whose rows 1-7 are
+// all zero takes the shortcut: pass 1 gives (dc x step) << 2 in 16 bits.
+// For coefficients of a valid stream this is jidctint.c's arithmetic.
 const int64_t F0298 = 2446, F0390 = 3196, F0541 = 4433, F0765 = 6270,
               F0899 = 7373, F1175 = 9633, F1501 = 12299, F1847 = 15137,
               F1961 = 16069, F2053 = 16819, F2562 = 20995, F3072 = 25172;
 
-// The post-IDCT range limit of jdmaster.c (prepare_range_limit_table),
-// indexed by (x & 1023) for x the IDCT output before its +128.
-struct RangeLimit {
-  uint8_t t[1024];
-  RangeLimit() {
-    for (int i = 0; i < 1024; ++i) {
-      if (i < 128)
-        t[i] = (uint8_t)(i + 128);
-      else if (i < 512)
-        t[i] = 255;
-      else if (i < 896)
-        t[i] = 0;
-      else
-        t[i] = (uint8_t)(i - 896);
-    }
-  }
-};
-const RangeLimit kRange;
+inline int16_t wrap16(int64_t v) { return (int16_t)(uint16_t)(v & 0xFFFF); }
+inline int16_t sat16(int64_t v) { return (int16_t)(v < -32768 ? -32768 : v > 32767 ? 32767 : v); }
 
-inline int64_t descale(int64_t x, int n) { return (x + ((int64_t)1 << (n - 1))) >> n; }
-
-// One 1-D pass; in[k * stride] for k = 0..7, results (unshifted) in o.
-inline void idct_1d(const int64_t *x, int64_t o[8]) {
-  int64_t z2 = x[2], z3 = x[6];
-  int64_t z1 = (z2 + z3) * F0541;
-  int64_t tmp2 = z1 + z3 * -F1847;
-  int64_t tmp3 = z1 + z2 * F0765;
-  int64_t tmp0 = (x[0] + x[4]) * ((int64_t)1 << kConstBits);
-  int64_t tmp1 = (x[0] - x[4]) * ((int64_t)1 << kConstBits);
+// One pass of the AVX2 dodct on 16-bit inputs; o: 32-bit sums before the
+// descale.
+inline void idct_1d(const int16_t *x, int64_t o[8]) {
+  int64_t tmp0 = (int64_t)wrap16((int)x[0] + x[4]) * 8192;
+  int64_t tmp1 = (int64_t)wrap16((int)x[0] - x[4]) * 8192;
+  int64_t tmp2 = x[2] * F0541 + x[6] * (F0541 - F1847);
+  int64_t tmp3 = x[2] * (F0541 + F0765) + x[6] * F0541;
   int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
   int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
   int64_t t0 = x[7], t1 = x[5], t2 = x[3], t3 = x[1];
-  z1 = t0 + t3;
-  z2 = t1 + t2;
-  z3 = t0 + t2;
-  int64_t z4 = t1 + t3;
-  int64_t z5 = (z3 + z4) * F1175;
-  t0 *= F0298;
-  t1 *= F2053;
-  t2 *= F3072;
-  t3 *= F1501;
-  z1 *= -F0899;
-  z2 *= -F2562;
-  z3 = z3 * -F1961 + z5;
-  z4 = z4 * -F0390 + z5;
-  t0 += z1 + z3;
-  t1 += z2 + z4;
-  t2 += z2 + z3;
-  t3 += z1 + z4;
-  o[0] = tmp10 + t3;
-  o[7] = tmp10 - t3;
-  o[1] = tmp11 + t2;
-  o[6] = tmp11 - t2;
-  o[2] = tmp12 + t1;
-  o[5] = tmp12 - t1;
-  o[3] = tmp13 + t0;
-  o[4] = tmp13 - t0;
+  int64_t z3 = wrap16(t0 + t2), z4 = wrap16(t1 + t3);
+  int64_t Z3 = z3 * (F1175 - F1961) + z4 * F1175;
+  int64_t Z4 = z3 * F1175 + z4 * (F1175 - F0390);
+  int64_t T0 = t0 * (F0298 - F0899) - t3 * F0899 + Z3;
+  int64_t T1 = t1 * (F2053 - F2562) - t2 * F2562 + Z4;
+  int64_t T2 = -t1 * F2562 + t2 * (F3072 - F2562) + Z3;
+  int64_t T3 = -t0 * F0899 + t3 * (F1501 - F0899) + Z4;
+  o[0] = tmp10 + T3;
+  o[7] = tmp10 - T3;
+  o[1] = tmp11 + T2;
+  o[6] = tmp11 - T2;
+  o[2] = tmp12 + T1;
+  o[5] = tmp12 - T1;
+  o[3] = tmp13 + T0;
+  o[4] = tmp13 - T0;
 }
 
 }  // namespace
@@ -739,11 +910,13 @@ extern "C" {
 // params: ns, mcux, mcuy, ss, se, ah, al, restart, arith, progressive.
 // geo: per scan component nbx, bw, bh, h, v, dc table, ac table, 0.
 // huff: 8 tables (DC 0-3, AC 0-3) of 16 counts and 256 symbols; present:
-// a bit a table.  cond: DC L (16), DC U (16), AC K (16).  last_read: see
-// run_scan.
+// a bit a table.  cond: DC L (16), DC U (16), AC K (16).  data: the bytes
+// from the scan's first to the end of the file.  out: see run_scan.
+// Returns 0, -1 on a fault (libjpeg's error exit), -2 where the data ran
+// out (libjpeg suspends).
 int jpeg_scan(const uint8_t *data, int64_t len, const int32_t *params,
               const int32_t *geo, int16_t **planes, const uint8_t *huff,
-              int32_t present, const int32_t *cond, int64_t *last_read,
+              int32_t present, const int32_t *cond, int64_t *out,
               char *err, int errlen) {
   try {
     Scan s;
@@ -757,34 +930,39 @@ int jpeg_scan(const uint8_t *data, int64_t len, const int32_t *params,
     s.restart = params[7];
     s.arith = params[8];
     s.progressive = params[9];
+    s.left_in_file = len;
     if (s.ns < 1 || s.ns > 4) throw Error{"a scan of more than 4 components"};
     for (int i = 0; i < s.ns; ++i) {
       const int32_t *g = geo + 8 * i;
       s.comp[i] = Comp{planes[i], g[0], g[1], g[2], g[3], g[4], g[5], g[6]};
     }
-    for (int t = 0; t < 8; ++t)
-      if (present & (1 << t)) {
-        Huffman &h = t < 4 ? s.dc_huff[t] : s.ac_huff[t - 4];
-        h.build(huff + t * 272, huff + t * 272 + 16);
-      }
     for (int t = 0; t < 16; ++t) {
       s.dc_L[t] = cond[t];
       s.dc_U[t] = cond[16 + t];
       s.ac_K[t] = cond[32 + t];
     }
-    if (!s.arith)
+    if (!s.arith)  // the tables this scan reads (jdhuff.c, jdphuff.c start_pass)
       for (int i = 0; i < s.ns; ++i) {
-        bool dc = !s.progressive || s.ss == 0, ac = !s.progressive || s.ss > 0;
-        bool refine_dc = s.progressive && s.ss == 0 && s.ah > 0;
-        if ((dc && !refine_dc && !s.dc_huff[s.comp[i].dc].present) ||
-            (ac && !s.ac_huff[s.comp[i].ac].present))
-          throw Error{"a scan naming a missing Huffman table"};
+        bool dc = !s.progressive || (s.ss == 0 && s.ah == 0);
+        bool ac = !s.progressive || s.ss > 0;
+        for (int k = 0; k < 2; ++k) {
+          if (!(k ? ac : dc)) continue;
+          int t = k ? s.comp[i].ac : s.comp[i].dc;
+          if (t > 3 || !(present & (1 << (k * 4 + t))))
+            throw Error{"a scan naming a missing Huffman table"};
+          Huffman &h = k ? s.ac_huff[t] : s.dc_huff[t];
+          const uint8_t *tab = huff + (k * 4 + t) * 272;
+          h.build(tab, tab + 16, k ? 255 : 15);
+        }
       }
-    *last_read = run_scan(s, data, (size_t)len);
+    run_scan(s, data, (size_t)len, out);
     return 0;
   } catch (const Error &e) {
     set_err(err, errlen, e.msg);
     return -1;
+  } catch (const Suspend &) {
+    set_err(err, errlen, "image file is truncated: the scan's data ends with the file");
+    return -2;
   }
 }
 
@@ -793,16 +971,18 @@ int jpeg_scan(const uint8_t *data, int64_t len, const int32_t *params,
 // transform (the caller shifts them left by pt).  params: ns, mcux, mcuy,
 // predictor, pt, restart, precision.  geo: per component width, height (in
 // samples), h, v, table.  out: per component uint16 planes, width x height.
+// data and the return value as jpeg_scan's; next: out[0] and out[1] of
+// run_scan.  A row of MCUs after the data ran out into a marker decodes no
+// bits: its differences are 0 from a fresh first row, as libjpeg resets its
+// undifferencer there.
 int jpeg_lossless_scan(const uint8_t *data, int64_t len, const int32_t *params,
                        const int32_t *geo, uint16_t **out, const uint8_t *huff,
-                       int32_t present, char *err, int errlen) {
+                       int32_t present, int64_t *next, char *err, int errlen) {
   try {
     const int ns = params[0], mcux = params[1], mcuy = params[2];
     const int psv = params[3], pt = params[4], restart = params[5],
               precision = params[6];
     Huffman tables[4];
-    for (int t = 0; t < 4; ++t)
-      if (present & (1 << t)) tables[t].build(huff + t * 272, huff + t * 272 + 16);
     struct LComp {
       int w, h, hs, vs, tbl;
       uint16_t *p;
@@ -810,29 +990,42 @@ int jpeg_lossless_scan(const uint8_t *data, int64_t len, const int32_t *params,
     for (int i = 0; i < ns; ++i) {
       const int32_t *g = geo + 5 * i;
       c[i] = LComp{g[0], g[1], g[2], g[3], g[4], out[i]};
-      if (!tables[c[i].tbl].present)
+      int t = c[i].tbl;
+      if (t > 3 || !(present & (1 << t)))
         throw Error{"a scan naming a missing Huffman table"};
+      if (!tables[t].present) tables[t].build(huff + t * 272, huff + t * 272 + 16, 16);
     }
     Segments seg(data, (size_t)len);
+    Restarts rs{&seg};
     Bits bits;
-    size_t interval = 0;
+    bool insufficient = false;
     // Samples are decoded in MCU order; each is predicted from its left,
     // upper and upper-left neighbours in its own component, and the first
     // row of the scan and of each restart interval from the left one only
     // (its first sample from 2^(precision - pt - 1)), as T.81 H.1.2.1 says.
     const int one = 1 << (precision - pt - 1);
     long row_start[4] = {0, 0, 0, 0};
-    bits.reset(seg.bytes.data(), seg.start[1]);
+    auto reading = [&]() {
+      size_t i = rs.seg;
+      seg.ensure(i);
+      bits.reset(seg.bytes.data() + seg.start[i], rs.pending ? 0 : (int64_t)seg.size(i),
+                 !rs.pending && seg.code[i] < 0);
+    };
+    reading();
     long units = ns == 1 ? (long)c[0].w * c[0].h : (long)mcux * mcuy;
+    long row_len = ns == 1 ? c[0].w : mcux;
+    bool skipping = false;
     for (long u = 0; u < units; ++u) {
       if (restart && u && u % restart == 0) {
-        ++interval;
-        if (interval >= seg.count())
-          throw Error{"a scan with fewer restart intervals than its DRI asks for"};
-        bits.reset(seg.bytes.data() + seg.start[interval],
-                   seg.start[interval + 1] - seg.start[interval]);
+        bool consumed = rs.read_restart_marker();
+        reading();
+        if (consumed) insufficient = false;
       }
       bool fresh = restart && u % restart == 0;
+      if (u % row_len == 0) {  // decode_mcus: a row of MCUs at a time
+        skipping = insufficient;
+        fresh |= skipping;
+      }
       for (int ci = 0; ci < ns; ++ci) {
         LComp &k = c[ci];
         int bh = ns == 1 ? 1 : k.vs, bw = ns == 1 ? 1 : k.hs;
@@ -842,9 +1035,11 @@ int jpeg_lossless_scan(const uint8_t *data, int64_t len, const int32_t *params,
         for (int yy = 0; yy < bh; ++yy)
           for (int xx = 0; xx < bw; ++xx) {
             long y = y0 + yy, x = x0 + xx;
-            int t = tables[k.tbl].decode(bits);
-            if (t > 16) throw Error{"a lossless difference category above 16"};
-            int diff = t == 16 ? 32768 : extend(bits.get(t), t);
+            int diff = 0;
+            if (!skipping) {
+              int t = tables[k.tbl].decode(bits);
+              diff = t == 16 ? 32768 : extend(bits.get(t), t);
+            }
             if (y >= k.h || x >= k.w) continue;
             int pred;
             uint16_t *row = k.p + y * k.w;
@@ -868,11 +1063,17 @@ int jpeg_lossless_scan(const uint8_t *data, int64_t len, const int32_t *params,
             row[x] = (uint16_t)((pred + diff) & 0xFFFF);
           }
       }
+      if (bits.over()) insufficient = true;
     }
+    next[0] = seg.code[rs.seg] < 0 ? -1 : seg.after[rs.seg];
+    next[1] = seg.code[rs.seg];
     return 0;
   } catch (const Error &e) {
     set_err(err, errlen, e.msg);
     return -1;
+  } catch (const Suspend &) {
+    set_err(err, errlen, "image file is truncated: the scan's data ends with the file");
+    return -2;
   }
 }
 
@@ -884,34 +1085,42 @@ void jpeg_idct_islow(const int16_t *coef, const int32_t *quant, int64_t nbx,
   for (int64_t by = 0; by < nby; ++by)
     for (int64_t bx = 0; bx < nbx; ++bx) {
       const int16_t *in = coef + (by * nbx + bx) * 64;
-      int32_t ws[64];
-      int64_t x[8], o[8];
+      int16_t ws[64], x[8];
+      int64_t o[8];
+      bool ac_zero = true;
+      for (int i = 8; i < 64; ++i) ac_zero &= in[i] == 0;
       for (int col = 0; col < 8; ++col) {
-        bool ac_zero = true;
-        for (int r = 1; r < 8; ++r) ac_zero &= in[r * 8 + col] == 0;
         if (ac_zero) {
-          int32_t dc = (int32_t)((int64_t)in[col] * quant[col] * (1 << kPass1Bits));
+          int16_t dc = wrap16(wrap16((int64_t)in[col] * quant[col]) * 4);
           for (int r = 0; r < 8; ++r) ws[r * 8 + col] = dc;
           continue;
         }
-        for (int r = 0; r < 8; ++r) x[r] = (int64_t)in[r * 8 + col] * quant[r * 8 + col];
+        bool col_zero = true;
+        for (int r = 1; r < 8; ++r) col_zero &= in[r * 8 + col] == 0;
+        if (col_zero) {  // what the full pass gives a column of one term
+          int16_t dc = sat16((int64_t)wrap16((int64_t)in[col] * quant[col]) * 4);
+          for (int r = 0; r < 8; ++r) ws[r * 8 + col] = dc;
+          continue;
+        }
+        for (int r = 0; r < 8; ++r) x[r] = wrap16((int64_t)in[r * 8 + col] * quant[r * 8 + col]);
         idct_1d(x, o);
-        for (int r = 0; r < 8; ++r)
-          ws[r * 8 + col] = (int32_t)descale(o[r], kConstBits - kPass1Bits);
+        for (int r = 0; r < 8; ++r) ws[r * 8 + col] = sat16((o[r] + 1024) >> 11);
       }
       uint8_t *dst = out + by * 8 * stride + bx * 8;
       for (int row = 0; row < 8; ++row) {
-        const int32_t *w = ws + row * 8;
+        const int16_t *w = ws + row * 8;
         uint8_t *d = dst + row * stride;
-        if (!(w[1] | w[2] | w[3] | w[4] | w[5] | w[6] | w[7])) {
-          uint8_t v = kRange.t[descale(w[0], kPass1Bits + 3) & 1023];
-          for (int c = 0; c < 8; ++c) d[c] = v;
+        if (!(w[1] | w[2] | w[3] | w[4] | w[5] | w[6] | w[7])) {  // one term
+          int64_t v = ((int64_t)w[0] * 8192 + (1 << 17)) >> 18;
+          uint8_t px = (uint8_t)((v < -128 ? -128 : v > 127 ? 127 : v) + 128);
+          for (int c = 0; c < 8; ++c) d[c] = px;
           continue;
         }
-        for (int c = 0; c < 8; ++c) x[c] = w[c];
-        idct_1d(x, o);
-        for (int c = 0; c < 8; ++c)
-          d[c] = kRange.t[descale(o[c], kConstBits + kPass1Bits + 3) & 1023];
+        idct_1d(w, o);
+        for (int c = 0; c < 8; ++c) {
+          int64_t v = sat16((o[c] + (1 << 17)) >> 18);
+          d[c] = (uint8_t)((v < -128 ? -128 : v > 127 ? 127 : v) + 128);
+        }
       }
     }
 }

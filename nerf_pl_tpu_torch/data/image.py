@@ -322,6 +322,10 @@ def resize(pic: Picture, size) -> Picture:
         if pic.opened[0] == "RGBA" and pic.mode not in ("RGB", "RGBA"):
             raise ValueError("conversion not supported" if pic.mode == "P"
                              else "conversion from L to RGBa not supported")
+        if pic.opened[1][0] > px.shape[1] or pic.opened[1][1] > px.shape[0]:
+            # the resize box is the open size (a TIFF's XMP orientation
+            # transposed the load)
+            raise ValueError("box can't exceed original image size")
     mapped = pic.mode in ("L", "LA") and pic.palette is not None
     if (px.shape[1], px.shape[0]) == (w, h):
         out = pic._with(px.copy())

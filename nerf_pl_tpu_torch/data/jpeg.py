@@ -16,10 +16,10 @@ bits it repeats:
   * the entropy decoders of ``jdhuff.c``, ``jdphuff.c``, ``jdarith.c`` and
     ``jdlhuff.c``, in C++ (``csrc/jpeg_entropy.cpp``), into quantised
     coefficients;
-  * the integer "islow" inverse DCT (``jidctint.c``: 13-bit constants, two
-    passes with 2 extra bits between them, rounded shifts) and its
-    range-limit table (the output wraps modulo 1024 before the clamp), in the
-    same C++ source;
+  * the integer "islow" inverse DCT as libjpeg-turbo's x86 AVX2 code runs it
+    (``jidctint-avx2.asm``: 13-bit constants, two passes with 2 extra bits
+    between them, rounded shifts, products and some sums in 16-bit lanes,
+    saturating packs), in the same C++ source;
   * the upsampling of ``jdsample.c``: "fancy" (triangle) ``h2v1``, ``h2v2``
     and ``h1v2`` (3/4 and 1/4 weights, the edges replicated, their rounding
     biases), box replication where a component is 2 samples wide or less or
@@ -33,14 +33,23 @@ bits it repeats:
     such zero coefficient estimated from the 5x5 blocks' DC values around
     it (with the DC itself where none of the 10 was sent), in numpy.
 
-What Pillow refuses raises ``ValueError`` naming the file and what it
-found: samples of other than 8 bits, 2 components, hierarchical frames
-(SOF5-7, SOF13-15), lossless arithmetic-coded frames (SOF11), fractional
-sampling ratios, an interleaved MCU of more than 10 blocks, lossless YCbCr
-or YCCK (libjpeg-turbo converts no colour in lossless mode), an
-arithmetic-coded scan whose decoder reads past the bytes Pillow has fed
-libjpeg in its 64 KiB blocks (``_PILLOW_BLOCK``), a file that ends before
-its EOI.
+A corrupt stream is read as libjpeg-turbo reads it, warnings ignored, as
+Pillow ignores them: the markers through ``read_markers`` (an unknown one
+raises); in a scan, bits past a marker read as zeros and the rest of that
+restart interval is skipped, faulty restart markers resynchronise as
+``jpeg_resync_to_restart`` does, a code no Huffman table holds reads 17 bits
+and decodes as 0, a run past coefficient 63 writes at 63, a refinement of
+magnitude above 1 reads one bit, an arithmetic decoder's overflow stops the
+interval; a single-scan file that ends after its last MCU is read (Pillow
+has its rows), and block smoothing past the last row begun with data left
+takes the previous scan's precision.  What Pillow refuses raises
+``ValueError`` naming the file and what it found: samples of other than 8
+bits, 2 components, hierarchical frames (SOF5-7, SOF13-15), lossless
+arithmetic-coded frames (SOF11), fractional sampling ratios, an interleaved
+MCU of more than 10 blocks, lossless YCbCr or YCCK (libjpeg-turbo converts
+no colour in lossless mode), an arithmetic-coded scan whose decoder reads
+past the bytes Pillow has fed libjpeg in its 64 KiB blocks
+(``_PILLOW_BLOCK``), a file that ends where libjpeg waits for more.
 
 The numpy code below is each C++ stage's plain version (the tests hold the
 two bit for bit): ``_decode_scan`` the baseline Huffman stage (a per-symbol
@@ -50,6 +59,7 @@ IDCT, ``_ycc_to_rgb`` the colour conversion.
 from __future__ import annotations
 
 import ctypes
+import functools
 import re
 import threading
 import time
@@ -82,10 +92,10 @@ _SOF_KINDS = {
     0xCF: "differential lossless, arithmetic-coded",
 }
 _READ = (0xC0, 0xC1, 0xC2, 0xC3, 0xC9, 0xCA)
-# the end of an entropy-coded segment: a marker other than a stuffed 0 byte
-# or a restart marker
-_SEG_END = re.compile(rb"\xff[^\x00\xd0-\xd7]")
-_RST = re.compile(rb"\xff[\xd0-\xd7]")
+# a marker (0xFF, any fill bytes, a code other than 0) and a stuffed 0xFF
+# data byte, as libjpeg's readers take them
+_MARKER = re.compile(rb"\xff+[^\x00\xff]")
+_STUFFED = re.compile(rb"\xff+\x00")
 # libjpeg's D_MAX_BLOCKS_IN_MCU
 _MAX_BLOCKS_IN_MCU = 10
 # Pillow feeds libjpeg-turbo the file in blocks of ImageFile.MAXBLOCK bytes,
@@ -97,6 +107,31 @@ _PILLOW_BLOCK = 65536
 
 class _Unsupported(ValueError):
     pass
+
+
+class _Truncated(_Unsupported):
+    """The data ends where libjpeg waits for more: Pillow raises "image file
+    is truncated" (unless every row was already out)."""
+
+
+# libjpeg's std_huff_tables (T.81 K.3): what a scan reads where no DHT has
+# defined Huffman table 0 or 1 by the first SOS
+_STD_HUFF = {
+    (0, 0): ("00010501010101010100000000000000", "000102030405060708090a0b"),
+    (0, 1): ("00030101010101010101010000000000", "000102030405060708090a0b"),
+    (1, 0): ("0002010303020403050504040000017d",
+             "01020300041105122131410613516107227114328191a1082342b1c11552d1f0"
+             "2433627282090a161718191a25262728292a3435363738393a434445464748494a"
+             "535455565758595a636465666768696a737475767778797a838485868788898a"
+             "92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6c7"
+             "c8c9cad2d3d4d5d6d7d8d9dae1e2e3e4e5e6e7e8e9eaf1f2f3f4f5f6f7f8f9fa"),
+    (1, 1): ("00020102040403040705040400010277",
+             "000102031104052131061241510761711322328108144291a1b1c109233352f0"
+             "156272d10a162434e125f11718191a262728292a35363738393a434445464748"
+             "494a535455565758595a636465666768696a737475767778797a828384858687"
+             "88898a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4"
+             "c5c6c7c8c9cad2d3d4d5d6d7d8d9dae2e3e4e5e6e7e8e9eaf2f3f4f5f6f7f8f9fa"),
+}
 
 
 # ---------------------------------------------------- the native stages
@@ -113,12 +148,11 @@ def _native():
             lib = ctypes.CDLL(str(native.build(SOURCE)))
             vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
             lib.jpeg_scan.restype = ctypes.c_int
-            lib.jpeg_scan.argtypes = [vp, i64, vp, vp, vp, vp, i32, vp,
-                                      ctypes.POINTER(ctypes.c_int64),
+            lib.jpeg_scan.argtypes = [vp, i64, vp, vp, vp, vp, i32, vp, vp,
                                       ctypes.c_char_p, ctypes.c_int]
             lib.jpeg_lossless_scan.restype = ctypes.c_int
             lib.jpeg_lossless_scan.argtypes = [vp, i64, vp, vp, vp, vp, i32,
-                                               ctypes.c_char_p, ctypes.c_int]
+                                               vp, ctypes.c_char_p, ctypes.c_int]
             lib.jpeg_idct_islow.restype = None
             lib.jpeg_idct_islow.argtypes = [vp, vp, i64, i64, vp]
             lib.jpeg_ycc_rgb.restype = None
@@ -138,17 +172,23 @@ def _extend(bits: np.ndarray, s: np.ndarray) -> np.ndarray:
                     bits - (1 << s) + 1, bits)
 
 
-def _lookup(counts, symbols, ac: bool) -> List[tuple]:
-    """A 65,536-entry table over a 16-bit peek: ``(bits, run, value,
-    extra)``.  ``bits`` is what the entry consumes (0: no such code); the
-    value's ``extra`` bits are already in ``value`` where code and bits fit
-    in 16, else ``extra`` of them are still to read.  AC entries: EOB has run
-    64; ZRL run 15 and value 0.  DC entries: run 0, value the difference."""
-    length = np.zeros(65536, np.int64)
+@functools.lru_cache(maxsize=16)
+def _lookup(counts: bytes, symbols: bytes, ac: bool) -> List[tuple]:
+    """A 65,536-entry table over a 16-bit peek: ``(bits, run, value, extra,
+    length, size)``.  ``bits`` is what the entry consumes; the value's
+    ``extra`` bits are already in ``value`` where code and bits fit in 16,
+    else ``extra`` of them are still to read; ``length`` is the code's and
+    ``size`` its value's bits.  A peek no code matches reads 17 bits and
+    decodes as symbol 0 (``jpeg_huff_decode``'s sentinel).  AC entries: EOB
+    has run 64; ZRL run 15 and value 0.  DC entries: run 0, value the
+    difference."""
+    length = np.full(65536, 17, np.int64)
     symbol = np.zeros(65536, np.int64)
     code, k = 0, 0
     for L in range(1, 17):
         for _ in range(counts[L - 1]):
+            if k >= 256:
+                raise _Unsupported("a Huffman table with more than 256 codes")
             lo = code << (16 - L)
             hi = (code + 1) << (16 - L)
             length[lo:hi] = L
@@ -158,6 +198,9 @@ def _lookup(counts, symbols, ac: bool) -> List[tuple]:
         if code >= 1 << L:  # no code may be all ones (jdhuff.c)
             raise _Unsupported("a Huffman table that overflows its codes")
         code <<= 1
+    if not ac and max(symbols[:k], default=0) > 15:
+        raise _Unsupported("a DC Huffman table with a symbol above its "
+                           "largest category")
     peek = np.arange(65536, dtype=np.int64)
     if ac:
         run, s = symbol >> 4, symbol & 15
@@ -171,36 +214,109 @@ def _lookup(counts, symbols, ac: bool) -> List[tuple]:
     extra = np.where(fits, 0, s)
     if ac:
         run = np.where(symbol == 0, 64, run)  # EOB
-    total = np.where(length > 0, total, 0)
     return list(zip(total.tolist(), run.tolist(), value.tolist(),
-                    extra.tolist()))
+                    extra.tolist(), length.tolist(), s.tolist()))
 
 
 def _windows(seg: bytes) -> array:
-    """32-bit big-endian windows at every byte of ``seg`` (zero past its
-    end, as libjpeg fills an exhausted stream)."""
-    b = np.frombuffer(seg + b"\0\0\0\0", np.uint8).astype(np.uint32)
+    """32-bit big-endian windows at every byte of ``seg`` and of the zeros
+    libjpeg reads past its end (as many as an MCU of 10 blocks can take
+    after the data ran out: 10 x 64 codes of 17 bits and values of 16)."""
+    b = np.frombuffer(seg + bytes(2700), np.uint8).astype(np.uint32)
     w = (b[:-3] << 24) | (b[1:-2] << 16) | (b[2:-1] << 8) | b[3:]
     out = array("I")
     out.frombytes(w.astype("=u4").tobytes())
     return out
 
 
+def _segments(data: bytes) -> List[tuple]:
+    """A scan's bytes to the end of the file split at each marker, as
+    ``Segments`` in the C++ source: ``(bytes, code, after, start)`` with
+    the stuffed zeros removed, the marker's code (-1: the file ends first),
+    the index past its code byte and the segment's first index."""
+    out, pos = [], 0
+    while True:
+        m = _MARKER.search(data, pos)
+        raw = data[pos:m.start()] if m else data[pos:].rstrip(b"\xff")
+        out.append((_STUFFED.sub(b"\xff", raw), data[m.end() - 1] if m else -1,
+                    m.end() if m else len(data), pos))
+        if m is None:
+            return out
+        pos = m.end()
+
+
+def _raw_ends(data: bytes, start: int) -> List[int]:
+    """The index in ``data`` of the last raw byte of each byte of the
+    segment that starts at ``start`` and runs to the end of the file."""
+    raw = data[start:].rstrip(b"\xff")
+    ends, pos = [], 0
+    for m in _STUFFED.finditer(raw):
+        ends.extend(range(start + pos, start + m.start()))
+        ends.append(start + m.end() - 1)
+        pos = m.end()
+    ends.extend(range(start + pos, start + len(raw)))
+    return ends
+
+
+class _Restarts:
+    """``read_restart_marker`` and ``jpeg_resync_to_restart`` over the
+    segments (``Restarts`` in the C++ source)."""
+
+    def __init__(self, segs):
+        self.segs, self.seg, self.pending, self.next_num = segs, 0, False, 0
+
+    def marker(self) -> int:
+        code = self.segs[self.seg][1]
+        if code < 0:
+            raise _Truncated("a JPEG that ends before its EOI (image file is "
+                             "truncated: the scan's data ends with the file)")
+        return code
+
+    def read(self) -> bool:
+        """Whether the decoder reads the next segment's data (the marker
+        consumed) or none (the marker left unread)."""
+        m, want = self.marker(), self.next_num
+        consumed = m == 0xD0 + want
+        while not consumed:
+            if m < 0xC0:
+                action = 2
+            elif not 0xD0 <= m <= 0xD7:
+                action = 3
+            elif m in (0xD0 + ((want + 1) & 7), 0xD0 + ((want + 2) & 7)):
+                action = 3
+            elif m in (0xD0 + ((want - 1) & 7), 0xD0 + ((want - 2) & 7)):
+                action = 2
+            else:
+                action = 1
+            if action == 3:
+                break
+            if action == 1:
+                consumed = True
+                break
+            self.seg += 1
+            m = self.marker()
+        self.seg += consumed
+        self.pending = not consumed
+        self.next_num = (want + 1) & 7
+        return consumed
+
+
 def _decode_scan(frame: "_Frame", scan: "_Scan", tables: "_Tables",
-                 data: bytes) -> None:
+                 data: bytes) -> Tuple[int, int]:
     """The plain version of the baseline Huffman stage: one sequential
-    scan's segment(s) into ``frame.coef``, a per-symbol Python loop."""
+    scan from ``data`` (its bytes to the end of the file) into
+    ``frame.coef``, a per-symbol Python loop with libjpeg's handling of a
+    corrupt stream (``run_scan`` in the C++ source); returns the index past
+    the marker after the scan and its code (-1, -1: the file ends)."""
     restart = tables.restart
-    # split at the restart markers first: a stuffed 0xFF 0x00 may be
-    # followed by a byte that looks like one
-    segments = [s.replace(b"\xff\x00", b"\xff") for s in _RST.split(data)]
-    zz = _ZIGZAG.tolist()
+    segs = _segments(data)
+    zz = _ZIGZAG.tolist() + [63] * 16  # jpeg_natural_order's padding
     luts = {}
     for ci, td, ta in zip(scan.comps, scan.td, scan.ta):
         if (0, td) not in tables.huff or (1, ta) not in tables.huff:
             raise _Unsupported("a scan naming a missing Huffman table")
-        luts[ci] = (_lookup(*tables.huff[(0, td)], ac=False),
-                    _lookup(*tables.huff[(1, ta)], ac=True))
+        luts[ci] = (_lookup(*map(bytes, tables.huff[(0, td)]), ac=False),
+                    _lookup(*map(bytes, tables.huff[(1, ta)]), ac=True))
     units = []
     if len(scan.comps) == 1:
         ci = scan.comps[0]
@@ -220,25 +336,79 @@ def _decode_scan(frame: "_Frame", scan: "_Scan", tables: "_Tables",
                 units.append(unit)
     idx = {ci: array("q") for ci in scan.comps}
     val = {ci: array("i") for ci in scan.comps}
-    pred = {ci: 0 for ci in scan.comps}
-    seg = 0
-    win = _windows(segments[0])
+    rs = _Restarts(segs)
+    state = {}
+
+    def reading():
+        seg, _, _, start = segs[rs.seg]
+        seg = b"" if rs.pending else seg
+        state.update(win=_windows(seg), nbits=8 * len(seg), fetched=0,
+                     eof=not rs.pending and segs[rs.seg][1] < 0, start=start)
+
+    def fill_slow(at):  # jpeg_fill_bit_buffer: the buffer up to 57 bits
+        want = state["fetched"] + (57 - (state["fetched"] * 8 - at) + 7) // 8
+        if want * 8 > state["nbits"]:
+            rs.marker()  # the file ends: raises
+        state["fetched"] = want
+
+    def fill_fast(at):  # FILL_BIT_BUFFER_FAST
+        if state["fetched"] * 8 - at <= 16:
+            state["fetched"] += 6
+            if state["fetched"] * 8 > state["nbits"]:
+                rs.marker()
+
+    def code_fetch(at, length, size, fast):
+        """The refills libjpeg makes for a code of ``length`` bits (17: a
+        corrupt one) and a value of ``size`` bits read from ``at``."""
+        if fast:
+            fill_fast(at)
+        else:
+            if state["fetched"] * 8 - at < 8:
+                fill_slow(at)
+            if length > 8:
+                if state["fetched"] * 8 - at < 9:
+                    fill_slow(at)
+                for p in range(at + 9, at + length):
+                    if state["fetched"] * 8 - p < 1:
+                        fill_slow(p)
+        if size:
+            at += length
+            if fast:
+                fill_fast(at)
+            elif state["fetched"] * 8 - at < size:
+                fill_slow(at)
+
+    reading()
     pos = 0
+    pred = {ci: 0 for ci in scan.comps}
+    insufficient = False
+    blocks = len(units[0]) if units else 1
+    ends = None
     for n, unit in enumerate(units):
         if restart and n and n % restart == 0:
-            seg += 1
-            if seg >= len(segments):
-                raise _Unsupported("a scan with fewer restart intervals than "
-                                   "its DRI asks for")
-            win, pos = _windows(segments[seg]), 0
+            consumed = rs.read()
+            reading()
+            pos = 0
             pred = {ci: 0 for ci in scan.comps}
+            insufficient &= not consumed
+        if insufficient:
+            continue
+        win, eof = state["win"], state["eof"]
+        fast = False
+        if eof:
+            if ends is None:
+                ends = _raw_ends(data, state["start"])
+            at = (ends[state["fetched"] - 1] + 1 if state["fetched"]
+                  else state["start"])
+            fast = not restart and len(data) - at >= 512 * blocks
         for ci, base in unit:
             dc, ac = luts[ci]
             put_i, put_v = idx[ci].append, val[ci].append
             # DC: the difference from the component's last DC value
-            nb, _, diff, extra = dc[(win[pos >> 3] >> (16 - (pos & 7))) & 0xFFFF]
-            if not nb:
-                raise _Unsupported("a corrupt Huffman code")
+            nb, _, diff, extra, length, size = dc[
+                (win[pos >> 3] >> (16 - (pos & 7))) & 0xFFFF]
+            if eof:
+                code_fetch(pos, length, size, fast)
             pos += nb
             if extra:
                 bits = (win[pos >> 3] >> (32 - (pos & 7) - extra)) & ((1 << extra) - 1)
@@ -249,9 +419,10 @@ def _decode_scan(frame: "_Frame", scan: "_Scan", tables: "_Tables",
             put_v(pred[ci])
             k = 1
             while k < 64:
-                nb, run, value, extra = ac[(win[pos >> 3] >> (16 - (pos & 7))) & 0xFFFF]
-                if not nb:
-                    raise _Unsupported("a corrupt Huffman code")
+                nb, run, value, extra, length, size = ac[
+                    (win[pos >> 3] >> (16 - (pos & 7))) & 0xFFFF]
+                if eof:
+                    code_fetch(pos, length, size, fast)
                 pos += nb
                 if run == 64:  # EOB
                     break
@@ -260,61 +431,54 @@ def _decode_scan(frame: "_Frame", scan: "_Scan", tables: "_Tables",
                     bits = (win[pos >> 3] >> (32 - (pos & 7) - extra)) & ((1 << extra) - 1)
                     pos += extra
                     value = bits if bits >= 1 << (extra - 1) else bits - (1 << extra) + 1
-                if value:
-                    if k > 63:
-                        raise _Unsupported("a block with more than 64 "
-                                           "coefficients")
+                if size:
                     put_i(base + zz[k])
                     put_v(value)
                 k += 1
+        insufficient = pos > state["nbits"]
     for ci in scan.comps:
         if len(idx[ci]):
             frame.coef[ci][np.frombuffer(idx[ci], np.int64)] = np.frombuffer(
                 val[ci], np.int32).astype(np.int16)
+    _, code, after, _ = segs[rs.seg]
+    return (after, code) if code >= 0 else (-1, -1)
 
 
 # -------------------------------------------------------------- the IDCT
+# libjpeg-turbo's x86-64 islow IDCT (jidctint-avx2.asm; the C++ source's
+# comment has the details): products and the sums in0 +- in4, z3 and z4 in
+# 16 bits (wrapping), each pass's outputs saturated to 16 bits, the samples
+# to [-128, 127] before the +128; rows 1-7 all zero take pass 1's shortcut
 _CONST_BITS, _PASS1_BITS = 13, 2
 _F = dict(f0298=2446, f0390=3196, f0541=4433, f0765=6270, f0899=7373,
           f1175=9633, f1501=12299, f1847=15137, f1961=16069, f2053=16819,
           f2562=20995, f3072=25172)
-# jdmaster.c's post-IDCT range limit, indexed by (x & 1023): x + 128 clamped
-# to [0, 255] for x in [-512, 511], wrapping outside
-_RANGE = np.concatenate([np.arange(128, 256), np.full(384, 255),
-                         np.zeros(384), np.arange(0, 128)]).astype(np.uint8)
 
 
-def _idct_1d(x, shift: int):
-    """One pass of ``jpeg_idct_islow`` over axis 1 of ``x`` (..., 8, ...),
-    descaled by ``shift`` (rounded: ``(v + 2^(shift-1)) >> shift``)."""
+def _w16(x):
+    return ((x + 32768) & 0xFFFF) - 32768
+
+
+def _idct_1d(x):
+    """One pass of the AVX2 ``dodct`` over axis 1 of ``x`` (..., 8, ...)
+    of 16-bit values: the 32-bit sums before the descale."""
     f = _F
-    z2, z3 = x[:, 2], x[:, 6]
-    z1 = (z2 + z3) * f["f0541"]
-    tmp2 = z1 + z3 * -f["f1847"]
-    tmp3 = z1 + z2 * f["f0765"]
-    tmp0 = (x[:, 0] + x[:, 4]) << _CONST_BITS
-    tmp1 = (x[:, 0] - x[:, 4]) << _CONST_BITS
+    tmp0 = _w16(x[:, 0] + x[:, 4]) << _CONST_BITS
+    tmp1 = _w16(x[:, 0] - x[:, 4]) << _CONST_BITS
+    tmp2 = x[:, 2] * f["f0541"] + x[:, 6] * (f["f0541"] - f["f1847"])
+    tmp3 = x[:, 2] * (f["f0541"] + f["f0765"]) + x[:, 6] * f["f0541"]
     tmp10, tmp13 = tmp0 + tmp3, tmp0 - tmp3
     tmp11, tmp12 = tmp1 + tmp2, tmp1 - tmp2
     t0, t1, t2, t3 = x[:, 7], x[:, 5], x[:, 3], x[:, 1]
-    z1, z2, z3, z4 = t0 + t3, t1 + t2, t0 + t2, t1 + t3
-    z5 = (z3 + z4) * f["f1175"]
-    t0 = t0 * f["f0298"]
-    t1 = t1 * f["f2053"]
-    t2 = t2 * f["f3072"]
-    t3 = t3 * f["f1501"]
-    z1 = z1 * -f["f0899"]
-    z2 = z2 * -f["f2562"]
-    z3 = z3 * -f["f1961"] + z5
-    z4 = z4 * -f["f0390"] + z5
-    t0 = t0 + z1 + z3
-    t1 = t1 + z2 + z4
-    t2 = t2 + z2 + z3
-    t3 = t3 + z1 + z4
-    rnd = 1 << (shift - 1)
-    out = np.stack([tmp10 + t3, tmp11 + t2, tmp12 + t1, tmp13 + t0,
-                    tmp13 - t0, tmp12 - t1, tmp11 - t2, tmp10 - t3], axis=1)
-    return (out + rnd) >> shift
+    z3, z4 = _w16(t0 + t2), _w16(t1 + t3)
+    z3, z4 = (z3 * (f["f1175"] - f["f1961"]) + z4 * f["f1175"],
+              z3 * f["f1175"] + z4 * (f["f1175"] - f["f0390"]))
+    t0, t1, t2, t3 = (t0 * (f["f0298"] - f["f0899"]) - t3 * f["f0899"] + z3,
+                      t1 * (f["f2053"] - f["f2562"]) - t2 * f["f2562"] + z4,
+                      -t1 * f["f2562"] + t2 * (f["f3072"] - f["f2562"]) + z3,
+                      -t0 * f["f0899"] + t3 * (f["f1501"] - f["f0899"]) + z4)
+    return np.stack([tmp10 + t3, tmp11 + t2, tmp12 + t1, tmp13 + t0,
+                     tmp13 - t0, tmp12 - t1, tmp11 - t2, tmp10 - t3], axis=1)
 
 
 def _idct_blocks(coef: np.ndarray, quant: np.ndarray) -> np.ndarray:
@@ -323,12 +487,16 @@ def _idct_blocks(coef: np.ndarray, quant: np.ndarray) -> np.ndarray:
     out = np.empty((coef.shape[0], 8, 8), np.uint8)
     step = 16384
     for lo in range(0, coef.shape[0], step):
-        blk = (coef[lo:lo + step].astype(np.int64) * quant).reshape(-1, 8, 8)
+        c = coef[lo:lo + step].astype(np.int64)
+        blk = _w16(c * quant).reshape(-1, 8, 8)
         # pass 1: columns (axis 1 is the row index within each column)
-        ws = _idct_1d(blk, _CONST_BITS - _PASS1_BITS)
+        ws = np.clip((_idct_1d(blk) + (1 << 10)) >> 11, -32768, 32767)
+        dc = _w16(blk[:, 0, :] << _PASS1_BITS)
+        ws = np.where((c[:, 8:] == 0).all(1)[:, None, None], dc[:, None, :], ws)
         # pass 2: rows
-        px = _idct_1d(ws.transpose(0, 2, 1), _CONST_BITS + _PASS1_BITS + 3)
-        out[lo:lo + step] = _RANGE[px.transpose(0, 2, 1) & 1023]
+        px = _idct_1d(ws.transpose(0, 2, 1))
+        px = np.clip((px + (1 << 17)) >> 18, -128, 127) + 128
+        out[lo:lo + step] = px.transpose(0, 2, 1)
     return out
 
 
@@ -459,6 +627,9 @@ class _Frame:
             raise _Unsupported(f"{precision}-bit samples (SOF{kind - 0xC0})")
         if n not in (1, 3, 4):
             raise _Unsupported(f"{n} components")
+        if len(body) != 6 + 3 * n:  # get_sof
+            raise _Unsupported(f"a frame header of {n} components in "
+                               f"{len(body) + 2} bytes")
         if self.h == 0 or self.w == 0:
             raise _Unsupported("a frame without its height (DNL)")
         self.progressive = kind in (0xC2, 0xCA)
@@ -489,6 +660,14 @@ class _Frame:
                          for x, y in zip(self.nbx, self.nby)]
         # the last Al each zigzag coefficient was coded at (-1: not yet)
         self.coef_bits = np.full((n, 64), -1, np.int64)
+        # each component's quantisation table as its first scan latched it
+        self.quant: Dict[int, np.ndarray] = {}
+        # libjpeg-turbo's coef_bits before each component's latest scan,
+        # the scans read, and the last iMCU row begun with data left: block
+        # smoothing takes the earlier bits past that row
+        self.prev_coef_bits = np.zeros((n, 64), np.int64)
+        self.scans = 0
+        self.last_good = 0
         self.scanned = [False] * n
 
     def comp_size(self, ci: int) -> Tuple[int, int]:
@@ -504,19 +683,20 @@ class _Frame:
 
 class _Scan:
     def __init__(self, frame: _Frame, body: bytes):
-        ns = body[0]
-        if not 1 <= ns <= 4 or len(body) < 4 + 2 * ns:
-            raise _Unsupported(f"a scan of {ns} components")
+        ns = body[0] if body else 0
+        if not 1 <= ns <= 4 or len(body) != 4 + 2 * ns:  # get_sos
+            raise _Unsupported(f"a scan header of {ns} components in "
+                               f"{len(body) + 2} bytes")
         self.comps, self.td, self.ta = [], [], []
         for j in range(ns):
             cid, t = body[1 + 2 * j], body[2 + 2 * j]
             if cid not in frame.ids:
                 raise _Unsupported(f"a scan naming component {cid}, not in "
                                    "its frame")
-            if not frame.arith and (t >> 4 > 3 or t & 15 > 3):
-                raise _Unsupported(f"a scan naming Huffman tables {t:#04x} "
-                                   "(ids 0-3)")
-            self.comps.append(frame.ids.index(cid))
+            ci = frame.ids.index(cid)
+            if ci in self.comps:
+                raise _Unsupported(f"a scan naming component {cid} twice")
+            self.comps.append(ci)
             self.td.append(t >> 4)
             self.ta.append(t & 15)
         self.ss, self.se, a = body[1 + 2 * ns:4 + 2 * ns]
@@ -549,15 +729,27 @@ def _check_progression(frame: _Frame, scan: _Scan) -> None:
     if bad:
         raise _Unsupported("an invalid progression (Ss, Se, Ah, Al = "
                            f"{scan.ss}, {scan.se}, {scan.ah}, {scan.al})")
+    lo, hi = min(scan.ss, 1), max(scan.se, 9) + 1
     for ci in scan.comps:
+        frame.prev_coef_bits[ci, lo:hi] = (frame.coef_bits[ci, lo:hi]
+                                           if frame.scans > 1 else 0)
         frame.coef_bits[ci, scan.ss:scan.se + 1] = scan.al
 
 
+def _next(out: np.ndarray, rc: int, err) -> Tuple[int, int]:
+    if rc == -2:
+        raise _Truncated(f"a JPEG that ends before its EOI ({err.value.decode()})")
+    if rc != 0:
+        raise _Unsupported(err.value.decode())
+    return int(out[0]), int(out[1])
+
+
 def _native_scan(frame: _Frame, scan: _Scan, tables: _Tables,
-                 data: bytes) -> int:
-    """One scan through the C++ entropy stage; returns the index in
-    ``data`` of the last byte an arithmetic decoder reads (``len(data)``:
-    the marker after it; -1: none, or a Huffman scan)."""
+                 data: bytes, pos: int) -> Tuple[int, int, int]:
+    """One scan (``data[pos:]``: its bytes to the end of the file) through
+    the C++ entropy stage: ``(index past the marker after it, that marker's
+    code, the last byte an arithmetic decoder reads)`` (-1: the file ends
+    first; none, or a Huffman scan)."""
     ns = len(scan.comps)
     geo = np.zeros((ns, 8), np.int32)
     for j, ci in enumerate(scan.comps):
@@ -570,32 +762,32 @@ def _native_scan(frame: _Frame, scan: _Scan, tables: _Tables,
     huff = np.zeros((8, 272), np.uint8)
     present = 0
     for (tc, th), (counts, symbols) in tables.huff.items():
-        if th < 4:
-            t = tc * 4 + th
-            huff[t, :16] = np.frombuffer(counts, np.uint8)
-            huff[t, 16:16 + len(symbols)] = np.frombuffer(symbols, np.uint8)
-            present |= 1 << t
+        t = tc * 4 + th
+        huff[t, :16] = np.frombuffer(counts, np.uint8)
+        huff[t, 16:16 + len(symbols)] = np.frombuffer(symbols, np.uint8)
+        present |= 1 << t
     cond = np.array(tables.dc_l + tables.dc_u + tables.ac_k, np.int32)
     planes = (ctypes.c_void_p * ns)(*[frame.coef[ci].ctypes.data
                                       for ci in scan.comps])
     err = ctypes.create_string_buffer(256)
-    buf = np.frombuffer(data, np.uint8)
-    last = ctypes.c_int64(-1)
-    rc = _native().jpeg_scan(_ptr(buf), len(data), _ptr(params), _ptr(geo),
+    buf = np.frombuffer(data, np.uint8, offset=pos)
+    out = np.zeros(4, np.int64)
+    rc = _native().jpeg_scan(_ptr(buf), len(buf), _ptr(params), _ptr(geo),
                              ctypes.cast(planes, ctypes.c_void_p), _ptr(huff),
-                             present, _ptr(cond), ctypes.byref(last), err,
-                             len(err))
-    if rc != 0:
-        raise _Unsupported(err.value.decode())
-    return last.value
+                             present, _ptr(cond), _ptr(out), err, len(err))
+    if out[3] >= 0:
+        frame.last_good = int(out[3])
+    return (*_next(out, rc, err), int(out[2]))
 
 
 def _lossless_scan(frame: _Frame, scan: _Scan, tables: _Tables,
-                   data: bytes) -> None:
+                   data: bytes, pos: int) -> Tuple[int, int]:
     """One lossless scan through the C++ stage (``scan.ss`` is the
-    predictor, ``scan.al`` the point transform)."""
-    if not 1 <= scan.ss <= 7:
-        raise _Unsupported(f"a lossless predictor of {scan.ss}")
+    predictor, ``scan.al`` the point transform; ``start_pass_lossless``'s
+    checks first): the marker after it as ``_native_scan``'s."""
+    if not 1 <= scan.ss <= 7 or scan.se or scan.ah or scan.al >= 8:
+        raise _Unsupported("a lossless scan with Ss, Se, Ah, Al = "
+                           f"{scan.ss}, {scan.se}, {scan.ah}, {scan.al}")
     ns = len(scan.comps)
     geo = np.zeros((ns, 5), np.int32)
     for j, ci in enumerate(scan.comps):
@@ -605,32 +797,70 @@ def _lossless_scan(frame: _Frame, scan: _Scan, tables: _Tables,
     huff = np.zeros((4, 272), np.uint8)
     present = 0
     for (tc, th), (counts, symbols) in tables.huff.items():
-        if tc == 0 and th < 4:
+        if tc == 0:
             huff[th, :16] = np.frombuffer(counts, np.uint8)
             huff[th, 16:16 + len(symbols)] = np.frombuffer(symbols, np.uint8)
             present |= 1 << th
     out = (ctypes.c_void_p * ns)(*[frame.samples[ci].ctypes.data
                                    for ci in scan.comps])
     err = ctypes.create_string_buffer(256)
-    buf = np.frombuffer(data, np.uint8)
+    buf = np.frombuffer(data, np.uint8, offset=pos)
+    nxt = np.zeros(2, np.int64)
     rc = _native().jpeg_lossless_scan(
-        _ptr(buf), len(data), _ptr(params), _ptr(geo),
-        ctypes.cast(out, ctypes.c_void_p), _ptr(huff), present, err, len(err))
-    if rc != 0:
-        raise _Unsupported(err.value.decode())
+        _ptr(buf), len(buf), _ptr(params), _ptr(geo),
+        ctypes.cast(out, ctypes.c_void_p), _ptr(huff), present, _ptr(nxt),
+        err, len(err))
+    pos, code = _next(nxt, rc, err)
     for ci in scan.comps:
         frame.samples[ci] <<= scan.al
+    return pos, code
+
+
+def _next_marker(data: bytes, pos: int) -> Tuple[int, int]:
+    """``next_marker`` from ``pos``: the next marker's code and the index
+    past its code byte (data, stuffed zeros and fill bytes skipped)."""
+    m = _MARKER.search(data, pos)
+    if m is None:
+        raise _Truncated("a JPEG that ends before its EOI")
+    return data[m.end() - 1], m.end()
+
+
+def _body(data: bytes, pos: int) -> bytes:
+    """A marker segment's body (its length field first)."""
+    if pos + 2 > len(data):
+        raise _Truncated("a JPEG that ends before its EOI")
+    n = int.from_bytes(data[pos:pos + 2], "big")
+    if pos + max(n, 2) > len(data):
+        raise _Truncated("a JPEG that ends before its EOI")
+    return data[pos + 2:pos + n] if n >= 2 else None
 
 
 def _decode(data: bytes, plain: bool = False):
-    """Parse the markers and entropy-decode every scan: ``(frame, tables,
-    colour space)``.  ``plain`` decodes through ``_decode_scan`` (baseline
-    Huffman only)."""
+    """Parse the markers and entropy-decode every scan as libjpeg's
+    ``read_markers`` and ``consume_data`` do: ``(frame, tables, colour
+    space)``.  ``plain`` decodes through ``_decode_scan`` (baseline Huffman
+    only).  A file that ends where libjpeg waits for more raises, unless
+    its one scan is done (Pillow has every row then)."""
     if data[:2] != b"\xff\xd8":
         raise _Unsupported("not a JPEG file (no SOI)")
-    pos, frame = 2, None
+    state = {"frame": None, "rows_out": False}
+    try:
+        return _markers(data, plain, state)
+    except _Truncated:
+        frame = state["frame"]
+        if not state["rows_out"]:
+            raise
+    if not all(frame.scanned):
+        raise _Unsupported("a component without a scan")
+    return frame, state["tables"], _colour_space(frame, state["adobe"],
+                                                 state["jfif"])
+
+
+def _markers(data: bytes, plain: bool, state: dict):
+    pos, frame, marker = 2, None, None
     tables = _Tables()
-    adobe, jfif = None, False
+    state.update(tables=tables, adobe=None, jfif=False)
+    multi = None  # libjpeg's has_multiple_scans, set at the first SOS
     fed = _PILLOW_BLOCK  # the bytes Pillow has fed libjpeg so far
 
     def feed(end: int) -> None:
@@ -639,46 +869,59 @@ def _decode(data: bytes, plain: bool = False):
         fed = max(fed, -(-end // _PILLOW_BLOCK) * _PILLOW_BLOCK)
 
     while True:
-        pos = data.find(b"\xff", pos)
-        if pos < 0 or pos + 1 >= len(data):
-            raise _Unsupported("a JPEG that ends before its EOI")
-        marker = data[pos + 1]
-        if marker in (0xFF, 0x00):  # fill byte
-            pos += 1
-            continue
-        pos += 2
-        if marker == 0xD9:  # EOI
+        if marker is None:
+            marker, pos = _next_marker(data, pos)
+        m, marker = marker, None
+        if m == 0xD9:  # EOI
             break
-        if 0xD0 <= marker <= 0xD7 or marker == 0x01:
+        if m == 0xD8:
+            raise _Unsupported("a second SOI")
+        if 0xD0 <= m <= 0xD7 or m == 0x01:  # RSTn, TEM: no body
             continue
-        n = int.from_bytes(data[pos:pos + 2], "big")
-        if n < 2 or pos + n > len(data):
-            raise _Unsupported("a JPEG that ends before its EOI")
-        body, pos = data[pos + 2:pos + n], pos + n
+        if not (0xC0 <= m <= 0xCF or 0xDA <= m <= 0xDD or 0xE0 <= m <= 0xEF
+                or m == 0xFE):
+            raise _Unsupported(f"an unknown marker {m:#04x}")
+        if 0xC0 <= m <= 0xCF and m not in _READ + (0xC4, 0xCC):
+            raise _Unsupported(f"a {_SOF_KINDS.get(m, hex(m))} frame "
+                               f"(SOF{m - 0xC0})")
+        body = _body(data, pos)
+        if m == 0xDA and (multi is False or frame is None):
+            raise _Unsupported("a scan before its frame" if frame is None else
+                               "a second scan in a single-scan frame")
+        pos += 2 if body is None else 2 + len(body)
         feed(pos)
-        if marker == 0xDB:  # DQT
+        if body is None:
+            if m in (0xC4, 0xDB, 0xCC, 0xDD, 0xDA) or 0xC0 <= m <= 0xCF:
+                raise _Unsupported(f"a marker {m:#04x} of a bad length")
+            body = b""
+        if m == 0xDB:  # DQT (get_dqt)
             i = 0
             while i < len(body):
                 pq, tq = body[i] >> 4, body[i] & 15
                 width = 2 if pq else 1
                 vals = np.frombuffer(body[i + 1:i + 1 + 64 * width],
                                      ">u2" if pq else np.uint8)
-                if len(vals) != 64:
-                    raise _Unsupported("a cut quantisation table")
+                if len(vals) != 64 or tq > 3:
+                    raise _Unsupported("a bad quantisation table")
                 q = np.zeros(64, np.int64)
                 q[_ZIGZAG] = vals
                 tables.quant[tq] = q
                 i += 1 + 64 * width
-        elif marker == 0xC4:  # DHT
+        elif m == 0xC4:  # DHT (get_dht)
             i = 0
             while i < len(body):
                 tc, th = body[i] >> 4, body[i] & 15
                 counts = body[i + 1:i + 17]
-                m = sum(counts)
-                tables.huff[(tc, th)] = (counts, body[i + 17:i + 17 + m])
-                i += 17 + m
-        elif marker == 0xCC:  # DAC (jdmarker.c get_dac)
-            for i in range(0, len(body) - 1, 2):
+                n = sum(counts)
+                if (len(counts) != 16 or n > 256 or n > len(body) - i - 17
+                        or th > 3 or tc > 1):
+                    raise _Unsupported("a bad Huffman table")
+                tables.huff[(tc, th)] = (counts, body[i + 17:i + 17 + n])
+                i += 17 + n
+        elif m == 0xCC:  # DAC (get_dac)
+            if len(body) % 2:
+                raise _Unsupported("a DAC of a bad length")
+            for i in range(0, len(body), 2):
                 tc, tb, cs = body[i] >> 4, body[i] & 15, body[i + 1]
                 if tc > 1:
                     raise _Unsupported(f"a DAC naming table {body[i]:#04x}")
@@ -686,30 +929,43 @@ def _decode(data: bytes, plain: bool = False):
                     tables.dc_l[tb], tables.dc_u[tb] = cs & 15, cs >> 4
                     if tables.dc_l[tb] > tables.dc_u[tb]:
                         raise _Unsupported(f"a DAC with L > U ({cs:#x})")
+                elif not 1 <= cs <= 63:
+                    raise _Unsupported(f"a DAC with Kx = {cs}")
                 else:
                     tables.ac_k[tb] = cs
-        elif marker == 0xDD:  # DRI
+        elif m == 0xDD:  # DRI
+            if len(body) != 2:
+                raise _Unsupported("a DRI of a bad length")
             tables.restart = int.from_bytes(body[:2], "big")
-        elif marker == 0xE0 and body[:5] == b"JFIF\0":
-            jfif = True
-        elif marker == 0xEE and body[:5] == b"Adobe" and len(body) >= 12:
-            adobe = body[11]
-        elif 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
+        elif m == 0xE0:
+            state["jfif"] |= body[:5] == b"JFIF\0"
+        elif m == 0xEE and body[:5] == b"Adobe" and len(body) >= 12:
+            state["adobe"] = body[11]
+        elif 0xE1 <= m <= 0xEF or m in (0xFE, 0xDC):  # APPn, COM, DNL
+            pass
+        elif 0xC0 <= m <= 0xCF and m not in (0xC4, 0xCC):
             if frame is not None:
                 raise _Unsupported("more than one frame")
-            frame = _Frame(marker, body)
-        elif marker == 0xDC:
-            raise _Unsupported("a DNL marker")
-        elif marker == 0xDA:  # SOS
-            if frame is None:
-                raise _Unsupported("a scan before its frame")
+            frame = state["frame"] = _Frame(m, body)
+        elif m == 0xDA:  # SOS
             scan = _Scan(frame, body)
-            m = _SEG_END.search(data, pos)
-            end = m.start() if m else len(data)
-            for ci in scan.comps:
+            frame.scans += 1
+            if multi is None:  # the first scan: missing tables 0, 1 default
+                multi = (len(scan.comps) < len(frame.ids) or frame.progressive)
+                for key, (counts, symbols) in _STD_HUFF.items():
+                    tables.huff.setdefault(key, (bytes.fromhex(counts),
+                                                 bytes.fromhex(symbols)))
+            for ci in scan.comps:  # latch_quant_tables
                 frame.scanned[ci] = True
+                if not frame.lossless and ci not in frame.quant:
+                    if frame.tq[ci] not in tables.quant:
+                        raise _Unsupported(
+                            f"component {ci} names a missing quantisation "
+                            f"table {frame.tq[ci]}")
+                    frame.quant[ci] = tables.quant[frame.tq[ci]].copy()
             if frame.lossless:
-                _lossless_scan(frame, scan, tables, data[pos:end])
+                nxt, code = _lossless_scan(frame, scan, tables, data, pos)
+                last = -1
             else:
                 if frame.progressive:
                     _check_progression(frame, scan)
@@ -717,28 +973,28 @@ def _decode(data: bytes, plain: bool = False):
                     if frame.progressive or frame.arith:
                         raise _Unsupported("the plain stage reads sequential "
                                            "Huffman scans only")
-                    _decode_scan(frame, scan, tables, data[pos:end])
+                    nxt, code = _decode_scan(frame, scan, tables, data[pos:])
+                    last = -1
                 else:
-                    last = _native_scan(frame, scan, tables, data[pos:end])
-                    if last >= end - pos:  # through the marker's code byte
-                        last = end + len(data[end:]) - len(
-                            data[end:].lstrip(b"\xff"))
-                    elif last >= 0:
-                        last += pos
-                    if frame.arith and last >= fed:
-                        raise _Unsupported(
-                            "an arithmetic-coded scan read past Pillow's first "
-                            f"{fed:,} bytes: libjpeg-turbo's arithmetic decoder "
-                            "cannot wait for Pillow's next 64 KiB block, and "
-                            "Pillow raises 'broken data stream'")
+                    nxt, code, last = _native_scan(frame, scan, tables,
+                                                   data, pos)
+            if frame.arith and last >= 0 and last + pos >= fed:
+                raise _Unsupported(
+                    "an arithmetic-coded scan read past Pillow's first "
+                    f"{fed:,} bytes: libjpeg-turbo's arithmetic decoder "
+                    "cannot wait for Pillow's next 64 KiB block, and "
+                    "Pillow raises 'broken data stream'")
+            state["rows_out"] = not multi
+            if nxt < 0:
+                raise _Truncated("a JPEG that ends before its EOI")
+            pos, marker = pos + nxt, code
             if not frame.arith:
-                feed(end + 2)
-            pos = end
+                feed(pos)
     if frame is None:
         raise _Unsupported("no frame")
     if not all(frame.scanned):
         raise _Unsupported("a component without a scan")
-    return frame, tables, _colour_space(frame, adobe, jfif)
+    return frame, tables, _colour_space(frame, state["adobe"], state["jfif"])
 
 
 def _colour_space(frame: _Frame, adobe, jfif: bool) -> str:
@@ -809,7 +1065,7 @@ def _smoothing_ok(frame: _Frame, quant: Dict[int, np.ndarray]) -> bool:
         return False
     useful = False
     for ci in range(len(frame.ids)):
-        if (quant[frame.tq[ci]][_ZIGZAG[:10]] == 0).any():
+        if ci not in quant or (quant[ci][_ZIGZAG[:10]] == 0).any():
             return False
         bits = frame.coef_bits[ci]
         if bits[0] < 0:
@@ -848,31 +1104,49 @@ def _smooth(frame: _Frame, quant: Dict[int, np.ndarray]) -> List[np.ndarray]:
     for ci, coef in enumerate(frame.coef):
         bw, bh = frame.scan_blocks(ci)
         plane = coef.reshape(frame.nby[ci], frame.nbx[ci], 64).copy()
-        bits = frame.coef_bits[ci]
-        q = quant[frame.tq[ci]].astype(np.int64)
+        q = quant[ci].astype(np.int64)
         dc = plane[:, :, 0].astype(np.int64)
         win = _dc_window(dc, frame, ci)
         work = plane[:bh, :bw].astype(np.int64)
-        change_dc = bool((bits[1:10] == -1).all())
-        for nat, zz, kernel, kernel_dc in _SMOOTH:
-            k = kernel_dc if change_dc else kernel
-            al = int(bits[zz])
-            if k is None or al == 0:
+        # rows of iMCU rows past the last one begun with data take the bits
+        # before the latest scan (decompress_smooth_data)
+        late = np.arange(bh) // frame.hv[ci][1] > frame.last_good
+        prev = (frame.prev_coef_bits[ci] if frame.scans > 1 else
+                np.full(64, -1, np.int64))
+        done = work.copy()
+        for bits, rows in ((frame.coef_bits[ci], ~late), (prev, late)):
+            if not rows.any():
                 continue
-            num = q[0] * np.einsum("yxrc,rc->yx", win, np.array(k))
-            qk = int(q[nat])
-            pred = (((qk << 7) + np.abs(num)) // (qk << 8))
-            if al > 0:
-                pred = np.minimum(pred, (1 << al) - 1)
-            pred = np.where(num >= 0, pred, -pred)
-            work[..., nat] = np.where(work[..., nat] == 0, pred, work[..., nat])
-        if change_dc:
-            num = q[0] * np.einsum("yxrc,rc->yx", win, np.array(_SMOOTH_DC))
-            pred = ((q[0] << 7) + np.abs(num)) // (q[0] << 8)
-            work[..., 0] = np.where(num >= 0, pred, -pred)
-        plane[:bh, :bw] = work.astype(np.int16)
+            part = _smooth_blocks(work[rows], win[rows], bits, q)
+            done[rows] = part
+        plane[:bh, :bw] = done.astype(np.int16)
         out.append(plane.reshape(-1))
     return out
+
+
+def _smooth_blocks(work: np.ndarray, win: np.ndarray, bits: np.ndarray,
+                   q: np.ndarray) -> np.ndarray:
+    """The estimates of ``work``'s zero coefficients (blocks, 64) from their
+    5x5 DC windows, with one component's latched ``bits``."""
+    work = work.copy()
+    change_dc = bool((bits[1:10] == -1).all())
+    for nat, zz, kernel, kernel_dc in _SMOOTH:
+        k = kernel_dc if change_dc else kernel
+        al = int(bits[zz])
+        if k is None or al == 0:
+            continue
+        num = q[0] * np.einsum("yxrc,rc->yx", win, np.array(k))
+        qk = int(q[nat])
+        pred = (((qk << 7) + np.abs(num)) // (qk << 8))
+        if al > 0:
+            pred = np.minimum(pred, (1 << al) - 1)
+        pred = np.where(num >= 0, pred, -pred)
+        work[..., nat] = np.where(work[..., nat] == 0, pred, work[..., nat])
+    if change_dc:
+        num = q[0] * np.einsum("yxrc,rc->yx", win, np.array(_SMOOTH_DC))
+        pred = ((q[0] << 7) + np.abs(num)) // (q[0] << 8)
+        work[..., 0] = np.where(num >= 0, pred, -pred)
+    return work
 
 
 def _pixels(frame: _Frame, tables: _Tables, space: str, plain: bool,
@@ -881,7 +1155,7 @@ def _pixels(frame: _Frame, tables: _Tables, space: str, plain: bool,
     stage's seconds added to ``seconds``."""
     planes = []
     clock = time.perf_counter
-    coef = (_smooth(frame, tables.quant) if _smoothing_ok(frame, tables.quant)
+    coef = (_smooth(frame, frame.quant) if _smoothing_ok(frame, frame.quant)
             else frame.coef)
 
     def lap(stage, t0):
@@ -893,10 +1167,7 @@ def _pixels(frame: _Frame, tables: _Tables, space: str, plain: bool,
         if frame.lossless:
             plane = frame.samples[ci].astype(np.uint8)
         else:
-            if frame.tq[ci] not in tables.quant:
-                raise _Unsupported(f"component {ci} names a missing "
-                                   f"quantisation table {frame.tq[ci]}")
-            plane = _idct_plane(coef[ci], tables.quant[frame.tq[ci]],
+            plane = _idct_plane(coef[ci], frame.quant[ci],
                                 frame.nbx[ci], frame.nby[ci], plain)
         lap("idct", t0)
         t0 = clock()

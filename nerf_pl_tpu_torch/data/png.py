@@ -26,13 +26,17 @@ def _chunks(data: bytes):
     the CRCs of the chunks before the first IDAT are checked
     (``PngImageFile._open``; ``load_read`` and ``load_end`` skip the later
     ones), and a file that ends after its image data without IEND is
-    read."""
+    read.  An IDAT that runs past the end of the file gives the bytes that
+    are there (``load_read`` reads what the file holds)."""
     pos = len(_SIGNATURE)
     before_idat = True
     while pos + 8 <= len(data):
         n, kind = struct.unpack(">I4s", data[pos:pos + 8])
         body = data[pos + 8:pos + 8 + n]
         before_idat &= kind != b"IDAT"
+        if kind == b"IDAT" and len(body) != n:
+            yield kind, body
+            return
         if len(body) != n or (before_idat and pos + 12 + n > len(data)):
             raise ValueError("truncated PNG chunk")
         if before_idat and zlib.crc32(kind + body) != struct.unpack(
@@ -44,6 +48,22 @@ def _chunks(data: bytes):
             return
     if before_idat:
         raise ValueError("PNG without image data")
+
+
+def _inflate(data: bytes, rows) -> bytes:
+    """The filtered rows (``rows``: each one's bytes, in the order they are
+    stored) that Pillow's zip decoder takes from the IDAT data: it stops at
+    the last row or where the zlib stream ends at a row's end (the rows
+    after stay zero); a stream that ends mid-row, or data that ends before
+    the stream, raises as Pillow's "image file is truncated"."""
+    total = sum(rows)
+    d = zlib.decompressobj()
+    out = d.decompress(data, total)
+    if len(out) >= total:
+        return out
+    if d.eof and len(out) in set(np.cumsum(rows).tolist()):
+        return out + bytes(total - len(out))
+    raise ValueError("image file is truncated")
 
 
 def _unfilter(raw: bytes, h: int, w: int, bpp: int) -> np.ndarray:
@@ -141,10 +161,13 @@ def _decode_png(data: bytes, name: str):
     if data[:8] != _SIGNATURE:
         raise ValueError(f"{name}: not a PNG file")
     header, idat, plte, trns = None, [], None, None
+    run = 0  # 0: before the IDATs, 1: in their first run, 2: after it
     for kind, body in _chunks(data):
+        run = max(run, 2 if run == 1 and kind != b"IDAT" else
+                  1 if kind == b"IDAT" else 0)
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
-        elif kind == b"IDAT":
+        elif kind == b"IDAT" and run == 1:  # load_read stops at another chunk
             idat.append(body)
         elif kind == b"PLTE":
             plte = body
@@ -158,7 +181,13 @@ def _decode_png(data: bytes, name: str):
                          f"type {ctype}, interlace {interlace})")
     mode = _MODES[(depth, ctype)]
     ch = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[ctype]
-    raw = zlib.decompress(b"".join(idat))
+    bpr = lambda sw: 1 + -(-sw * ch * depth // 8)  # a filtered row's bytes
+    if interlace:
+        rows = [bpr(-(-(w - x0) // dx)) for x0, y0, dx, dy in _ADAM7
+                if w > x0 and h > y0 for _ in range(-(-(h - y0) // dy))]
+    else:
+        rows = [bpr(w)] * h
+    raw = _inflate(b"".join(idat), rows)
     if interlace:
         pix = np.zeros((h, w, ch), np.uint16 if depth == 16 else np.uint8)
         pos = 0

@@ -6,12 +6,20 @@ from strips or tiles (edge tiles cropped), with PlanarConfiguration 1 or 2,
 and finds Pillow's mode and raw mode by the plugin's own key (byte order,
 photometric, sample format, fill order, bits per sample, extra samples;
 ``_OPEN_INFO``, a copy of ``TiffImagePlugin.OPEN_INFO``).  Compression 1
-(none), 5 (LZW, with libtiff's old-style codes), 8 and 32946 (Deflate,
-``zlib``), 32773 (PackBits), 34925 (LZMA, ``lzma``) and 7 (JPEG, through
+(none), 2, 3 and 4 (CCITT fax, ``data/ccitt.py``), 5 (LZW, with libtiff's
+old-style codes), 8 and 32946 (Deflate, ``zlib``), 32773 (PackBits), 34925
+(LZMA, ``lzma``), 50000 (zstd, ``data/zstd.py``) and 7 (JPEG, through
 ``data/jpeg.py`` with the ``JPEGTables`` spliced in; Pillow has libtiff
-return RGB); predictors 2 (8/16/32-bit, in the file's byte order) and 3
-(floating point).  LZW and PackBits are C++ stages (``csrc/tiff_decode.cpp``,
-built with g++ at first use through ``data/native.py``).
+return RGB, and libtiff checks the sampling factors); predictors 2
+(8/16/32-bit, in the file's byte order) and 3 (floating point, float
+samples only).  LZW and PackBits are C++ stages (``csrc/tiff_decode.cpp``,
+built with g++ at first use through ``data/native.py``), as are the fax and
+zstd decoders.  Uncompressed YCbCr is read as Pillow's own raw decoder reads
+it (``_raw_ycbcr``).
+
+After the decode, the orientation is applied as Pillow's ``load_end`` does
+(``ImageOps.exif_transpose``): tag 274, else the XMP packet's
+``tiff:Orientation``, in the picture's own mode.
 
 The samples become the mode's pixels as Pillow's unpackers make them:
 min-is-white inverted, 2- and 4-bit gray scaled to 8 bits, 16-bit RGB(A)
@@ -27,6 +35,7 @@ from __future__ import annotations
 
 import ctypes
 import lzma
+import re
 import struct
 import threading
 import time
@@ -36,7 +45,7 @@ from typing import Optional
 
 import numpy as np
 
-from . import jpeg, native
+from . import ccitt, jpeg, native, unpack, zstd
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "tiff_decode.cpp"
 
@@ -106,8 +115,13 @@ _FILL2 = {(0, (1,)), (1, (1,)), (0, (2,)), (1, (2,)), (0, (4,)), (1, (4,)),
           (3, (4,)), (3, (8,))}
 _FILL2_ONE = {("II", 1, (16,))}
 _MAX_SPP = 6
-# none, LZW, JPEG, Deflate, Adobe Deflate, PackBits, LZMA
-_COMPRESSIONS = frozenset((1, 5, 7, 8, 32946, 32773, 34925))
+# none, CCITT RLE, CCITT T.4, CCITT T.6, LZW, JPEG, Deflate, Adobe Deflate,
+# PackBits, LZMA, zstd
+_COMPRESSIONS = frozenset((1, 2, 3, 4, 5, 7, 8, 32946, 32773, 34925, 50000))
+_FAX = (2, 3, 4)
+# compressions Pillow 12.1's libtiff 4.7 does not decode either
+_UNREAD = {6: "old-style JPEG", 32809: "ThunderScan", 34676: "SGILog",
+           34677: "SGILog24", 50001: "WebP"}
 _TYPES = {1: "B", 2: "B", 3: "H", 4: "I", 5: "II", 6: "b", 7: "B", 8: "h",
           9: "i", 10: "ii", 11: "f", 12: "d", 16: "Q", 17: "q", 18: "Q"}
 _REVERSED = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint8)
@@ -216,9 +230,17 @@ def _key(order: str, tags: dict, compression: int):
     return mode, raw, photo, fill, bps, spp
 
 
-def _inflate(chunk: bytes, compression: int, expected: int) -> bytes:
+def _inflate(chunk: bytes, compression: int, expected: int,
+             fax: Optional[dict] = None) -> bytes:
     if compression == 1:
         return chunk
+    if compression in _FAX:  # fax["rows"] rows of fax["width"] pixels
+        w, rows, buf = fax["width"], fax["rows"], fax["buf"]
+        ccitt.decode(chunk, compression, fax["options"], w, rows, fax["runs"],
+                     buf)
+        return np.packbits(buf[:rows], axis=1).tobytes()
+    if compression == 50000:
+        return zstd.decompress(chunk, expected)
     if compression in (5, 32773):
         lib = _native()
         out = np.zeros(expected, np.uint8)
@@ -235,19 +257,30 @@ def _inflate(chunk: bytes, compression: int, expected: int) -> bytes:
     raise _Unsupported(f"compression {compression}")
 
 
-def _jpeg_chunk(chunk: bytes, tables: Optional[bytes], photo: int
-                ) -> np.ndarray:
+def _jpeg_chunk(chunk: bytes, tables: Optional[bytes], photo: int,
+                sampling: list) -> np.ndarray:
     """One strip or tile of JPEG-in-TIFF (compression 7), its abbreviated
     stream completed with the ``JPEGTables`` before its frame, in the
     colour space libtiff sets: YCbCr converted to RGB for photometric 6,
-    the components as they are for RGB (2) and gray (1)."""
+    the components as they are for RGB (2) and gray (1).  As libtiff's
+    ``JPEGPreDecode``, the first component's sampling factors must be the
+    YCbCrSubsampling tag's (``sampling[0]``; 1x1 for RGB and gray) and the
+    others' 1x1; where the tag is absent (``sampling[0]`` None) libtiff's
+    ``JPEGFixupTagsSubsampling`` takes the first strip's."""
     if tables and len(tables) > 4 and chunk[:2] == b"\xff\xd8":
         chunk = chunk[:2] + tables[2:-2] + chunk[2:]
+    # libtiff's source manager gives libjpeg a fake EOI where the strip's
+    # bytes run out (std_fill_input_buffer), so a cut strip never waits
+    chunk += b"\xff\xd9"
     space = {1: "L", 2: "RGB", 6: "YCbCr"}[photo]
     try:
         frame, jt, _ = jpeg._decode(chunk, False)
-        if photo == 2 and (frame.hmax, frame.vmax) != (1, 1):
-            raise _Unsupported("subsampled RGB JPEG-in-TIFF")
+        if photo == 6 and sampling[0] is None:
+            sampling[0] = frame.hv[0]
+        want = tuple(sampling[0]) if photo == 6 else (1, 1)
+        if frame.hv[0] != want or any(hv != (1, 1) for hv in frame.hv[1:]):
+            raise _Unsupported(f"JPEG sampling factors {frame.hv} where "
+                               f"libtiff takes {want} then 1x1")
         px, _ = jpeg._pixels(frame, jt, space, False, {})
     except jpeg._Unsupported as e:
         raise _Unsupported(f"JPEG-in-TIFF: {e}") from None
@@ -259,7 +292,7 @@ def _bits_per_row(width: int, spp: int, bits: int) -> int:
 
 
 def _unpredict(buf: np.ndarray, predictor: int, rows: int, width: int,
-               spp: int, bits: int, order: str) -> np.ndarray:
+               spp: int, bits: int, order: str, fmt=(3,)) -> np.ndarray:
     """Undo predictor 2 or 3 on a chunk's bytes (rows of ``width`` pixels
     of ``spp`` samples)."""
     if predictor == 1:
@@ -274,8 +307,9 @@ def _unpredict(buf: np.ndarray, predictor: int, rows: int, width: int,
         v = np.cumsum(v, axis=1, dtype=dt.newbyteorder("="))
         out = v.astype(dt).view(np.uint8).reshape(rows, row_bytes)
     elif predictor == 3:
-        if bits not in (16, 32, 64):
-            raise _Unsupported(f"predictor 3 with {bits}-bit samples")
+        if bits not in (16, 32, 64) or fmt[0] != 3:
+            raise _Unsupported(f"predictor 3 with {bits}-bit samples of format "
+                               f"{fmt[0]} (libtiff takes IEEE floats only)")
         nb = bits // 8
         acc = b.reshape(rows, width * nb, spp)
         acc = np.cumsum(acc, axis=1, dtype=np.uint8).reshape(rows, row_bytes)
@@ -339,8 +373,9 @@ def _read(data: bytes, order: str, tags: dict, spp: int, bits: int, fmt,
     # libtiff's predictor module serves LZW, Deflate and LZMA; Pillow's own
     # raw decoder and libtiff's PackBits and JPEG codecs ignore the tag
     predictor = (tags.get(317, (1,))[0] if compression in (5, 8, 32946,
-                                                           34925) else 1)
+                                                           34925, 50000) else 1)
     tables = tags.get(347)
+    sampling = [tuple(tags[530][:2]) if 530 in tags else None]
     planes = spp if planar == 2 else 1
     per = 1 if planar == 2 else spp
     if 322 in tags:
@@ -364,6 +399,14 @@ def _read(data: bytes, order: str, tags: dict, spp: int, bits: int, fmt,
         dtype = {1: np.uint32, 2: np.int32, 3: np.float32}.get(fmt[0],
                                                                np.uint32)
     out = np.zeros((h, w, spp), dtype)
+    fax = None
+    if compression in _FAX:  # libtiff's run arrays and Pillow's row buffer
+        # live from one strip or tile to the next
+        fw = boxes[0][2]
+        options = tags.get(293 if compression == 4 else 292, (0,))[0]
+        fax = {"width": fw, "options": options, "buf": np.zeros(
+            (max(b[3] for b in boxes), fw), np.uint8), "runs": np.array(
+                ccitt.run_buffer(fw, compression, options), np.uint32)}
     for p in range(planes):
         for i, (x0, y0, cw, chh) in enumerate(boxes):
             k = p * len(boxes) + i
@@ -373,25 +416,58 @@ def _read(data: bytes, order: str, tags: dict, spp: int, bits: int, fmt,
             rows = chh
             t0 = clock()
             if compression == 7:
-                px = _jpeg_chunk(chunk, tables, photo)
+                px = _jpeg_chunk(chunk, tables, photo, sampling)
                 s = px.reshape(px.shape[0], px.shape[1], -1)[:rows, :cw]
                 if s.shape[2] != per:
                     raise _Unsupported("a JPEG strip of other components")
                 spent("jpeg", t0)
             else:
                 need = rows * _bits_per_row(cw, per, bits)
-                raw = np.frombuffer(_inflate(chunk, compression, need),
+                if fax is not None:
+                    fax["rows"] = rows
+                raw = np.frombuffer(_inflate(chunk, compression, need, fax),
                                     np.uint8)
                 spent("inflate", t0)
                 t0 = clock()
                 raw = _unpredict(raw, predictor, min(rows, len(raw) // max(
-                    1, _bits_per_row(cw, per, bits))), cw, per, bits, order)
+                    1, _bits_per_row(cw, per, bits))), cw, per, bits, order, fmt)
                 spent("predictor", t0)
                 t0 = clock()
                 s = _samples(raw, rows, cw, per, bits, order, fmt)
                 spent("samples", t0)
             ww, hh = min(cw, w - x0), min(rows, h - y0)
             out[y0:y0 + hh, x0:x0 + ww, p:p + per] = s[:hh, :ww]
+    return out
+
+
+def _raw_ycbcr(data: bytes, tags: dict, mode: str) -> np.ndarray:
+    """Uncompressed YCbCr, as Pillow's own raw decoder reads it: each strip
+    or tile a ``raw`` tile of rawmode ``RGBX`` (four bytes a pixel, the
+    subsampling ignored) from its offset, reading on past its bytes (a file
+    that ends first raises "image file is truncated"); edge tiles at the
+    stride of their full width's 3 bytes a pixel; one tile that covers the
+    image reads from the last offset."""
+    if tags.get(284, (1,))[0] != 1:
+        raise _Unsupported("YCbCr in separate planes")
+    w, h = tags[256][0], tags[257][0]
+    if 322 in tags:
+        offsets, tw, th = tags[324], tags[322][0], tags[323][0]
+    else:
+        offsets, tw, th = tags[273], w, tags.get(278, (h,))[0]
+    if tw == w and th == h:
+        offsets = offsets[-1:]
+    out = np.zeros((h, w, 3), np.uint8)
+    x = y = 0
+    for offset in offsets:
+        if y >= h:
+            break
+        box_w, box_h = min(x + tw, w) - x, min(y + th, h) - y
+        stride = tw * 3 if x + tw > w else 0
+        out[y:y + box_h, x:x + box_w] = unpack.raw(data, offset, (box_w, box_h),
+                                                   mode, "RGBX", stride)
+        x += tw
+        if x >= w:
+            x, y = 0, y + th
     return out
 
 
@@ -470,10 +546,12 @@ def _decode(data: bytes, name: str, seconds: dict):
         raise _Unsupported("Windows Media Photo")
     compression = tags.get(259, (1,))[0]
     if compression not in _COMPRESSIONS:
-        raise _Unsupported(f"compression {compression}")
-    if tags.get(274, (1,))[0] in (5, 6, 7, 8):
-        raise _Unsupported("a transposing orientation")
+        raise _Unsupported(f"compression {compression}" + (
+            f" ({_UNREAD[compression]}, which this Pillow's libtiff lacks too)"
+            if compression in _UNREAD else ""))
     mode, raw, photo, fill, bps, spp = _key(order, tags, compression)
+    if compression in _FAX and bps != (1,) * spp:
+        raise _Unsupported("CCITT compression of other than 1-bit samples")
     if tags.get(284, (1,))[0] == 2 and spp > 1 and bps[0] != 8:
         raise _Unsupported(f"separate planes of {bps[0]}-bit samples (Pillow "
                            "unpacks them as 8-bit bands)")
@@ -484,18 +562,76 @@ def _decode(data: bytes, name: str, seconds: dict):
                                "gray, contiguous")
         if photo == 6:
             raw = "RGB"
-    elif photo == 6 and spp == 3:
-        raise _Unsupported("uncompressed YCbCr")
-    elif photo == 6 and compression != 1:
+    elif photo == 6 and spp == 3 and compression != 1:
+        raise _Unsupported("YCbCr compressed other than as JPEG (libtiff's "
+                           "RGBA interface)")
+    elif photo == 6 and spp != 3 and compression != 1:
         raise _Unsupported("YCbCr of one sample (libtiff refuses it)")
-    s = _read(data, order, tags, spp, bps[0], fmt, compression, fill, photo,
-              seconds)
-    t0 = time.perf_counter()
-    px = _pixels(s, mode, raw, order, compression != 1)
-    seconds["pixels"] = time.perf_counter() - t0
+    if photo == 6 and spp == 3 and compression == 1:
+        px = _raw_ycbcr(data, tags, mode)
+    else:
+        s = _read(data, order, tags, spp, bps[0], fmt, compression, fill,
+                  photo, seconds)
+        t0 = time.perf_counter()
+        px = _pixels(s, mode, raw, order, compression != 1)
+        seconds["pixels"] = time.perf_counter() - t0
     palette = None
     if mode in ("P", "PA"):
         cmap = np.array(tags[320], np.uint16)
         n = len(cmap) // 3
         palette = (cmap.reshape(3, n).T >> 8).astype(np.uint8)
-    return px, mode, palette, None
+    orientation = _orientation(tags)
+    if (274 in tags and orientation in (5, 6, 7, 8) and compression == 1
+            and mode == raw and mode in _MAPMODES and _one_tile(tags)):
+        # ImageFile.load maps a lone raw tile at the open size, which
+        # ``_setup`` swapped for these orientations: the rows are read at
+        # the other width before the transpose
+        px = px.reshape((px.shape[1], px.shape[0]) + px.shape[2:])
+    # the open size: ``_setup`` swaps it for tag 274's orientations 5-8
+    # only, so an XMP orientation transposes after the open saw (w, h)
+    w, h = tags[256][0], tags[257][0]
+    size = (h, w) if 274 in tags and orientation in (5, 6, 7, 8) else (w, h)
+    if orientation != 1:
+        px = np.ascontiguousarray(_TRANSPOSE[orientation](px))
+    opened = (mode, size) if size != (px.shape[1], px.shape[0]) else None
+    return px, mode, palette, None, opened
+
+
+# ``ImageOps.exif_transpose``'s method for each orientation, on (H, W[, C])
+_TRANSPOSE = {
+    2: lambda p: p[:, ::-1],                       # FLIP_LEFT_RIGHT
+    3: lambda p: p[::-1, ::-1],                    # ROTATE_180
+    4: lambda p: p[::-1],                          # FLIP_TOP_BOTTOM
+    5: lambda p: p.swapaxes(0, 1),                 # TRANSPOSE
+    6: lambda p: np.rot90(p, -1),                  # ROTATE_270
+    7: lambda p: np.rot90(p, 2).swapaxes(0, 1),    # TRANSVERSE
+    8: lambda p: np.rot90(p, 1),                   # ROTATE_90
+}
+_XMP_ORIENTATION = re.compile(rb'tiff:Orientation(="|>)([0-9])')
+
+
+# Image._MAPMODES: the modes ImageFile.load maps straight from the file
+_MAPMODES = ("L", "P", "RGBX", "RGBA", "RGBa", "I;16", "I;16L", "I;16B")
+
+
+def _one_tile(tags: dict) -> bool:
+    """Whether Pillow's ``_setup`` makes one raw tile of the image."""
+    w, h = tags[256][0], tags[257][0]
+    if 322 in tags:
+        offsets, tw, th = tags[324], tags[322][0], tags[323][0]
+    else:
+        offsets, tw, th = tags[273], w, tags.get(278, (h,))[0]
+    return len(offsets) == 1 or ((tw, th) == (w, h)
+                                 and tags.get(284, (1,))[0] != 2)
+
+
+def _orientation(tags: dict) -> int:
+    """The orientation ``load_end`` applies: tag 274, else the XMP
+    packet's (``Image.getexif``); 1 (none) for any value outside 2-8."""
+    if 274 in tags:
+        o = tags[274][0] if tags[274] else 1
+    else:
+        xmp = tags.get(700, b"")
+        m = _XMP_ORIENTATION.search(bytes(xmp))
+        o = int(m[2]) if m else 1
+    return o if o in _TRANSPOSE else 1

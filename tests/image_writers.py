@@ -1078,6 +1078,128 @@ def packbits(data: bytes) -> bytes:
     return bytes(out)
 
 
+class _FaxBits:
+    """Bits first bit first (MSB first in each byte)."""
+
+    def __init__(self):
+        self.bits: List[str] = []
+        self.n = 0
+
+    def put(self, code: str) -> None:
+        self.bits.append(code)
+        self.n += len(code)
+
+    def align(self) -> None:
+        self.put("0" * (-self.n % 8))
+
+    def data(self) -> bytes:
+        s = "".join(self.bits)
+        s += "0" * (-len(s) % 8)
+        return int(s, 2).to_bytes(len(s) // 8, "big") if s else b""
+
+
+_FAX_CODES: Dict[bool, Dict[int, str]] = {}
+
+
+def _fax_codes(white: bool) -> Dict[int, str]:
+    if white not in _FAX_CODES:
+        from nerf_pl_tpu_torch.data import ccitt
+        _FAX_CODES[white] = dict(ccitt.codes(white))
+    return _FAX_CODES[white]
+
+
+def _fax_run(bw: _FaxBits, run: int, white: bool) -> None:
+    """A T.4 run: 2560 extended make-ups, a make-up, a terminating code."""
+    codes = _fax_codes(white)
+    while run > 2560:
+        bw.put(codes[2560])
+        run -= 2560
+    if run >= 64:
+        bw.put(codes[run // 64 * 64])
+        run %= 64
+    bw.put(codes[run])
+
+
+def _changes(row: np.ndarray) -> List[int]:
+    """Positions where a row of bits (0 white, 1 black) changes colour,
+    starting from white, with the row's width twice at the end."""
+    w = len(row)
+    d = np.flatnonzero(np.diff(np.concatenate([[0], row.astype(np.int8)])))
+    return d.tolist() + [w, w]
+
+
+def _fax_1d(bw: _FaxBits, row: np.ndarray) -> None:
+    ch = _changes(row)[:-1]
+    x, white = 0, True
+    for c in ch:
+        _fax_run(bw, c - x, white)
+        x, white = c, not white
+
+
+def _fax_2d(bw: _FaxBits, row: np.ndarray, ref: np.ndarray) -> None:
+    """T.4 4.2 / T.6: pass, horizontal and vertical modes against ``ref``."""
+    w = len(row)
+    a_ch, b_ch = _changes(row), _changes(ref)
+    a0, colour = -1, 0  # 0 white
+    ia = 0
+    while a0 < w:
+        # a1: the next change after a0; b1: the first change on the
+        # reference row right of a0 of the colour opposite a0's
+        while a_ch[ia] <= a0 and a_ch[ia] < w:
+            ia += 1
+        a1 = a_ch[ia]
+        a2 = a_ch[ia + 1] if a1 < w else w
+        ib = 0
+        while b_ch[ib] <= a0 or ib % 2 != colour:
+            if b_ch[ib] >= w:
+                break
+            ib += 1
+        b1 = b_ch[ib]
+        b2 = b_ch[ib + 1] if b1 < w else w
+        if b2 < a1:
+            bw.put("0001")
+            a0 = b2
+        elif abs(a1 - b1) <= 3:
+            bw.put({0: "1", 1: "011", 2: "000011", 3: "0000011", -1: "010",
+                    -2: "000010", -3: "0000010"}[a1 - b1])
+            a0, colour = a1, 1 - colour
+        else:
+            bw.put("001")
+            start = max(a0, 0)
+            _fax_run(bw, a1 - start, colour == 0)
+            _fax_run(bw, a2 - a1, colour == 1)
+            a0 = a2
+
+
+def fax_bytes(bits: np.ndarray, compression: int, options: int = 0,
+              k: int = 4) -> bytes:
+    """One strip of (rows, width) bits (0 white, 1 black) as CCITT
+    compression 2 (Modified Huffman, rows byte-aligned), 3 (an EOL before
+    each row; ``options`` bit 0: a tag bit after it and every ``k``-th row
+    1-D, the others 2-D; bit 2: EOLs ending on a byte) or 4 (T.6 with an
+    EOFB)."""
+    bw = _FaxBits()
+    ref = np.zeros(bits.shape[1], np.uint8)
+    for i, row in enumerate(bits):
+        if compression == 2:
+            _fax_1d(bw, row)
+            bw.align()
+        elif compression == 3:
+            if options & 4:
+                bw.put("0" * (-(bw.n + 12) % 8))
+            bw.put("000000000001")
+            two_d = bool(options & 1) and i % k != 0
+            if options & 1:
+                bw.put("0" if two_d else "1")
+            _fax_2d(bw, row, ref) if two_d else _fax_1d(bw, row)
+        else:
+            _fax_2d(bw, row, ref)
+        ref = row
+    if compression == 4:
+        bw.put("000000000001" * 2)
+    return bw.data()
+
+
 def _tiff_rows(s: np.ndarray, bits: int, order: str, fmt: int) -> np.ndarray:
     """(rows, width, spp) samples -> (rows, row bytes) in the file's order."""
     rows, width, spp = s.shape
@@ -1126,14 +1248,18 @@ def tiff_bytes(samples: np.ndarray, photometric: int, bits: int = 8,
                sample_format: Optional[int] = None, fill: int = 1,
                colormap: Optional[np.ndarray] = None, lzw_old: bool = False,
                jpeg_chunks: Optional[Sequence[bytes]] = None,
-               jpeg_tables: Optional[bytes] = None, tags=None) -> bytes:
+               jpeg_tables: Optional[bytes] = None, tags=None,
+               zstd_codec=None) -> bytes:
     """A TIFF of one image: ``samples`` (H, W[, spp]) in ``bits`` per
     sample (1, 2, 4, 8, 12, 16 or 32; ``sample_format`` 1 unsigned, 2
     signed, 3 float), strips of ``rows_per_strip`` or ``tile = (w, h)``
     tiles (edge tiles padded), planar 1 or 2; compression 1, 5 (LZW,
     ``lzw_old`` for the old style), 8/32946 (zlib), 32773 (PackBits),
-    34925 (LZMA) or 7 (``jpeg_chunks``: one JPEG per strip or tile, with
-    ``jpeg_tables`` for the tag); predictor 2 or 3; fill order 2 reverses
+    34925 (LZMA), 50000 (zstd: ``zstd_codec`` of a chunk's bytes, else
+    the ``zstandard`` package's), 2, 3 or 4 (CCITT: ``fax_bytes`` of 1-bit
+    samples, the options from ``tags``' 292 or 293) or 7 (``jpeg_chunks``:
+    one JPEG per strip or tile, with ``jpeg_tables`` for the tag);
+    predictor 2 or 3; fill order 2 reverses
     each stored byte's bits.  ``colormap``: (2^bits, 3) uint16.  ``tags``:
     more (tag, type letter, values) entries, replacing any of the same
     tag.  Strips of the same bytes are compressed once."""
@@ -1159,10 +1285,22 @@ def tiff_bytes(samples: np.ndarray, photometric: int, bits: int = 8,
             chunks.append(raw)
     if compression == 7:
         chunks = list(jpeg_chunks)
+    elif compression in (2, 3, 4):  # bilevel rows, one fax stream a chunk
+        opt = {t[0]: t[2][0] for t in tags or []}.get(
+            293 if compression == 4 else 292, 0)
+        chunks = []
+        for p in planes:
+            for x, y, cw, ch in boxes:
+                block = np.zeros((ch, cw), np.uint8)
+                part = p[y:y + ch, x:x + cw, 0]
+                block[:part.shape[0], :part.shape[1]] = part
+                chunks.append(fax_bytes(block, compression, opt))
     else:
         codec = {1: lambda b: b, 5: lambda b: lzw_tiff(b, lzw_old),
                  8: zlib.compress, 32946: zlib.compress, 32773: packbits,
-                 34925: lambda b: __import__("lzma").compress(b)}[compression]
+                 34925: lambda b: __import__("lzma").compress(b),
+                 50000: zstd_codec or (lambda b: __import__(
+                     "zstandard").ZstdCompressor().compress(b))}[compression]
         done: Dict[bytes, bytes] = {}
         for c in chunks:
             if c not in done:

@@ -678,15 +678,40 @@ def test_icns_pillow_save_matches_pillow(tmp_path):
     _hold_picture(str(path), pil)
 
 
-MUTABLE = [c for c in CASES if "jpeg" not in c[0] and "png" not in c[0]]
+def _tiff_cases():
+    """TIFF layouts of the last slice: orientations (tag 274 and XMP) over
+    none, LZW, Deflate and tiles, uncompressed YCbCr.  (The fax and zstd
+    layouts have their own corrupt-stream tests in
+    ``test_torch_port_images_tiff_codecs.py``: Pillow leaves the rows of a
+    fax strip that ends early uninitialised, and which of libzstd's Huffman
+    decoders meets a corrupt stream is not modelled; ``ROADMAP.md``.)"""
+    rng = np.random.RandomState(21)
+    rgb = _img(rng, (H, WW, 3)).astype(np.uint8)
+    gray = _img(rng, (H, WW)).astype(np.uint8)
+    return [
+        ("tiff-o6-lzw", W.tiff_bytes(rgb, 2, 8, compression=5,
+                                     tags=[(274, "H", [6])])),
+        ("tiff-o3-tiles", W.tiff_bytes(rgb, 2, 8, tile=(16, 16),
+                                       tags=[(274, "H", [3])])),
+        ("tiff-o8-gray", W.tiff_bytes(gray, 1, 8, tags=[(274, "H", [8])])),
+        ("tiff-xmp6", W.tiff_bytes(rgb, 2, 8, compression=8, tags=[
+            (700, "B", list(b'<x tiff:Orientation="6"/>'))])),
+        ("tiff-ycbcr-raw", W.tiff_bytes(rgb, 6, 8, rows_per_strip=7,
+                                        tags=[(530, "H", [1, 1])])),
+    ]
+
+
+# the JPEG 2000 payload is left out: OpenJPEG's handling of corrupt
+# codestreams is not modelled
+MUTABLE = [c for c in CASES if "jpeg2000" not in c[0]] + _tiff_cases()
 
 
 def test_mutated_files_agree_with_pillow(tmp_path):
-    """Seeded mutations of the layouts above (a byte changed in the header
-    or anywhere, a bit flipped, the file cut): the port reads what Pillow
-    reads, as Pillow reads it, and raises ``ValueError`` where Pillow
-    raises.  (The JPEG and PNG payloads are left out: their decoders'
-    handling of corrupt streams is their own.)"""
+    """Seeded mutations of the layouts above, their JPEG and PNG payloads
+    included, and of the TIFF layouts of ``_tiff_cases`` (a byte changed in
+    the header or anywhere, a bit flipped, the file cut): the port reads
+    what Pillow reads, as Pillow reads it, and raises ``ValueError`` where
+    Pillow raises."""
     rng = np.random.RandomState(20)
     path = tmp_path / "mutated.img"
     agreed = 0
@@ -716,3 +741,103 @@ def test_mutated_files_agree_with_pillow(tmp_path):
         np.testing.assert_array_equal(pic.pixels, want, err_msg=name)
         agreed += 1
     assert agreed > 150
+
+
+def _jpeg_files():
+    """Baseline (Pillow's, one with restart intervals), progressive
+    (Pillow's, and one with restarts), gray, arithmetic (sequential with
+    and without restarts, progressive) and lossless (3 components; 1 with
+    restarts) JPEGs."""
+    rng = np.random.RandomState(7)
+    yy, xx = np.mgrid[0:48, 0:64]
+    rgb = np.stack([(xx * 4) % 256, (yy * 5) % 256, ((xx + yy) * 3) % 256], -1)
+    rgb = np.clip(rgb + rng.randint(-20, 21, rgb.shape), 0, 255).astype(np.uint8)
+    frame = W.frame_from_planes(W.rgb_to_ycc(rgb.astype(np.float64)),
+                                [(2, 2), (1, 1), (1, 1)], 85)
+    return {
+        "baseline": _pil_save(rgb, "JPEG", quality=90),
+        "progressive": _pil_save(rgb, "JPEG", quality=90, progressive=True),
+        "gray": _pil_save(rgb, "JPEG", "L", quality=90),
+        "baseline-restarts": W.jpeg_bytes(frame, restart=2),
+        "progressive-restarts": W.jpeg_bytes(frame, progressive=True, restart=3),
+        "arith": W.jpeg_bytes(frame, coding="arith"),
+        "arith-restarts": W.jpeg_bytes(frame, coding="arith", restart=2),
+        "arith-progressive": W.jpeg_bytes(frame, coding="arith",
+                                          progressive=True),
+        "lossless": W.lossless_bytes([rgb[..., i] for i in range(3)],
+                                     predictor=4, adobe=0),
+        "lossless-restarts": W.lossless_bytes([rgb[..., 0]], predictor=1,
+                                              restart_rows=3),
+    }
+
+
+def _scan_spans(data):
+    """(first, end) of each scan's entropy-coded bytes."""
+    spans, pos = [], 2
+    while pos < len(data) - 1:
+        if data[pos] != 0xFF or data[pos + 1] in (0, 0xFF) or \
+                0xD0 <= data[pos + 1] <= 0xD7:
+            pos += 1
+            continue
+        if data[pos + 1] == 0xD9:
+            break
+        n = int.from_bytes(data[pos + 2:pos + 4], "big")
+        if data[pos + 1] == 0xDA:
+            start = end = pos + 2 + n
+            while not (data[end] == 0xFF and data[end + 1] != 0
+                       and not 0xD0 <= data[end + 1] <= 0xD7):
+                end += 1
+            spans.append((start, end))
+            pos = end
+        else:
+            pos += 2 + n
+    return spans
+
+
+def test_jpeg_mutations_agree_with_pillow_in_both_decoders(tmp_path):
+    """320 seeded mutations (a byte of a scan's entropy-coded data changed,
+    a bit of it flipped, the file cut from a scan on, a byte changed
+    anywhere) of baseline, progressive, arithmetic and lossless JPEGs, with
+    and without restart intervals: the C++ stages read what Pillow
+    (libjpeg-turbo) reads, as it reads it, and raise where it raises; the
+    plain Python stage gives the same on every sequential Huffman file."""
+    from nerf_pl_tpu_torch.data import jpeg
+    rng = np.random.RandomState(21)
+    files = _jpeg_files()
+    names = sorted(files)
+    spans = {name: _scan_spans(data) for name, data in files.items()}
+    path = tmp_path / "mutated.jpg"
+    outcomes = {"read": 0, "raised": 0}
+    for _ in range(320):
+        name = names[rng.randint(len(names))]
+        d = bytearray(files[name])
+        start, end = spans[name][rng.randint(len(spans[name]))]
+        kind = rng.randint(4)
+        if kind == 0:
+            d[rng.randint(start, end)] = rng.randint(256)
+        elif kind == 1:
+            d[rng.randint(start, end)] ^= 1 << rng.randint(8)
+        elif kind == 2:
+            d = d[:rng.randint(start, len(d))]
+        else:
+            d[rng.randint(len(d))] = rng.randint(256)
+        d = bytes(d)
+        path.write_bytes(d)
+        try:
+            pil = Image.open(path)
+            pil.load()
+        except (OSError, SyntaxError):
+            pil = None
+        plains = (False, True) if name in ("baseline", "gray",
+                                           "baseline-restarts") else (False,)
+        for plain in plains:
+            if pil is None:
+                with pytest.raises(ValueError):
+                    jpeg.decode(d, plain=plain)
+                outcomes["raised"] += 1
+                continue
+            got, mode = jpeg.decode(d, plain=plain)
+            assert mode == pil.mode, name
+            np.testing.assert_array_equal(got, np.asarray(pil), err_msg=name)
+            outcomes["read"] += 1
+    assert outcomes["read"] > 200 and outcomes["raised"] > 50

@@ -219,6 +219,29 @@ def test_native_stages_equal_the_plain_versions(kw):
                                       jpeg.decode(data, plain=True)[0])
 
 
+def test_idct_stage_equals_the_plain_version_on_extreme_coefficients():
+    """Corrupt streams reach the IDCT with any int16 coefficients and steps:
+    the C++ stage and the numpy model of libjpeg-turbo's AVX2 islow IDCT
+    (16-bit products and sums that wrap, saturating packs, the shortcut of
+    a block whose rows 1-7 are zero) give the same samples on sparse, dense,
+    one-row and all-zero blocks at full-range values."""
+    rng = np.random.RandomState(21)
+    for trial in range(48):
+        coef = np.zeros((64, 64), np.int16)
+        mask = rng.rand(64, 64) < (0.05, 0.3, 1.0, 0.02)[trial % 4]
+        top = 32768 if trial % 2 else 2000
+        coef[mask] = rng.randint(-top, top, (64, 64))[mask]
+        coef[rng.rand(64) < 0.3, 8:] = 0
+        coef[rng.rand(64) < 0.2] = 0
+        coef[:, 0] = rng.randint(-32768, 32768, 64) if trial % 3 == 0 else \
+            rng.randint(-300, 300, 64)
+        quant = rng.randint(0, 256 if trial % 2 else 65536, 64).astype(np.int64)
+        plane = coef.reshape(-1)
+        np.testing.assert_array_equal(
+            jpeg._idct_plane(plane.copy(), quant, 8, 8, False),
+            jpeg._idct_plane(plane.copy(), quant, 8, 8, True))
+
+
 def test_a_failed_build_raises_naming_the_source(tmp_path, monkeypatch):
     bad = tmp_path / "jpeg_entropy.cpp"
     bad.write_text("this is not C++\n")
