@@ -6302,8 +6302,16 @@ def jpeg2000_end_to_end(tmp: str, webp: dict) -> dict:
 # against their plain versions (fax strips the writer encodes here, the
 # frames of tests/data/zstd, which zstandard wrote: the card's machine has
 # no zstd encoder), and a 4032x3024 G4 page and a 4032x3024x3 zstd TIFF (a
-# 16-row strip's stream repeated 189 times) are decoded on the host.
+# 16-row strip's stream repeated 189 times) are decoded on the host.  This
+# slice's layouts join the loads: view 0 as a LAB PSD, a LAB TIFF and a
+# 2x2-subsampled LZW YCbCr TIFF through the LLFF loader's RGB path, and
+# Blender frames 1 and 2 as a LAB TIFF and that YCbCr TIFF in the fit (the
+# RGBA path), each held against a PNG of what the plain versions give
+# (``data/lcms.py``'s CLUT interpolation in numpy, ``tiff.ycbcr_rgb_plain``);
+# the two C++ stages against their plain versions; a 4032x3024 LAB
+# conversion and a 4032x3024 LZW YCbCr TIFF decode timed on the host.
 ID_LLFF_FORMATS = ("sun", "im", "dcx", "tiff")
+LAB_CORE = np.array([0, 128, 128], np.uint8)  # Pillow's array <-> core bytes
 # the stored pixels of a view whose load applies each orientation: the
 # inverse of ``data/tiff.py``'s transposes
 ORIENT_STORE = {1: lambda p: p, 2: lambda p: p[:, ::-1],
@@ -6321,6 +6329,29 @@ def oriented_tiff(W, rgb: np.ndarray, orientation: int, compression: int
     stored = np.ascontiguousarray(ORIENT_STORE[orientation](rgb))
     return W.tiff_bytes(stored, 2, 8, compression=compression,
                         rows_per_strip=32, tags=[(274, "H", [orientation])])
+
+
+def lab_and_ycbcr_views(W, rgb: np.ndarray) -> list:
+    """``rgb``'s bytes as a LAB picture's core bytes, in a PSD (which
+    stores them so) and in a contiguous Deflate TIFF (a and b signed), and
+    as the samples of a 2x2-subsampled LZW YCbCr TIFF in strips of 32 rows:
+    (name, file bytes, the RGB the plain versions give, the alpha of the
+    RGBA path)."""
+    from nerf_pl_tpu_torch.data import lcms, tiff
+
+    h, w = rgb.shape[:2]
+    lab = lcms.lab_to_rgb_plain(rgb)
+    tabs = tiff.ycbcr_tables({})
+    ycc = np.zeros_like(rgb)
+    for y0 in range(0, h, 32):
+        units = np.frombuffer(W.ycbcr_units(rgb[y0:y0 + 32], 2, 2), np.uint8)
+        ycc[y0:y0 + 32] = tiff.ycbcr_rgb_plain(units, w, min(32, h - y0), 2,
+                                               2, 0, tabs)
+    return [("lab-psd", W.psd_bytes(np.moveaxis(rgb, -1, 0), 9), lab, 0),
+            ("lab-tiff", W.tiff_bytes(rgb ^ LAB_CORE, 8, 8, compression=8,
+                                      rows_per_strip=32), lab, 255),
+            ("ycbcr", W.tiff_bytes(rgb, 6, 8, compression=5, rows_per_strip=32,
+                                   subsampling=(2, 2)), ycc, 255)]
 
 
 def zstd_fixtures() -> dict:
@@ -6398,13 +6429,32 @@ def id_stages_vs_plain(W) -> dict:
         if hashlib.sha256(a).hexdigest() != meta["sha256"]:
             raise AssertionError(f"zstd {name}: not the content zstandard "
                                  "wrote")
+    # LAB -> RGB (seeded values, every CLUT node's 8-bit neighbours and the
+    # neutral axis) and packed YCbCr at every subsampling, a cut tile's skew
+    from nerf_pl_tpu_torch.data import lcms, tiff
+    near = np.r_[np.arange(0, 256, 8), 255].astype(np.uint8)
+    lab = np.concatenate([
+        rng.randint(0, 256, (1 << 16, 3)).astype(np.uint8),
+        np.stack(np.meshgrid(near, near, near, indexing="ij"), -1).reshape(
+            -1, 3),
+        np.stack([np.arange(256), np.full(256, 128), np.full(256, 128)],
+                 -1).astype(np.uint8)])
+    same_rgbs("lcms lab to rgb", lcms.lab_to_rgb(lab),
+              lcms.lab_to_rgb_plain(lab))
+    tabs = tiff.ycbcr_tables({})
+    units = rng.randint(0, 256, 8192).astype(np.uint8)
+    for hs, vs in tiff._YCBCR_PUT:
+        same_rgbs(f"tiff ycbcr {hs}x{vs}",
+                  tiff.ycbcr_rgb(units, 37, 29, hs, vs, 11, tabs),
+                  tiff.ycbcr_rgb_plain(units, 37, 29, hs, vs, 11, tabs))
     log("[images id] the C++ stages equal their plain versions: SUN runs, "
         "MSP v2 rows, FLI BRUN/COPY/LC/SS2 frames, ICNS channels, CCITT "
         f"strips ({fax} layouts), zstd frames ({len(frames)}, each equal to "
         "zstandard's content by SHA-256; the plain version on those under "
-        "50 KB)")
+        f"50 KB), LAB -> RGB ({len(lab)} values), packed YCbCr "
+        f"({len(tiff._YCBCR_PUT)} subsamplings)")
     return dict(sun=1, msp=1, fli=len(chunks), icns=1, ccitt=fax,
-                zstd=len(frames))
+                zstd=len(frames), lcms=len(lab), ycbcr=len(tiff._YCBCR_PUT))
 
 
 def id_hold_counts(tag: str, got: dict, want: dict) -> None:
@@ -6468,6 +6518,18 @@ def id_llff(tmp: str, W, boxes: dict) -> dict:
                         f.write(oriented_tiff(W, rgb, o, comp))
                     same_rgbs(f"tiff orientation {o} c{comp}",
                               image.read_picture(path).pixels, rgb)
+            # LAB and YCbCr through the loader's RGB path, against a PNG of
+            # what the plain versions give
+            from nerf_pl_tpu_torch.data.llff import _load_rgb
+            for kind, data, want, _ in lab_and_ycbcr_views(W, rgb):
+                path = os.path.join(tmp, f"view0_{kind}.img")
+                ref = os.path.join(tmp, f"view0_{kind}_ref.png")
+                with open(path, "wb") as f:
+                    f.write(data)
+                with open(ref, "wb") as f:
+                    f.write(W.png_bytes(want, 8, 2))
+                same_rgbs(f"llff {kind} view", _load_rgb(path, LLFF_WH),
+                          _load_rgb(ref, LLFF_WH))
     for split in ("train", "val"):
         a, b = (LLFFDataset(r, split=split, img_wh=LLFF_WH)
                 for r in (src, root))
@@ -6478,7 +6540,9 @@ def id_llff(tmp: str, W, boxes: dict) -> dict:
     log(f"[images id] llff: {len(views)} views as {sizes} bytes; train and "
         "val loads bit-equal to the PNG scene's; view 0's 128x128 crop as an "
         "ICNS it32 + t8mk icon equal to the crop; view 0 as TIFFs of "
-        "orientations 1-8 (none, LZW, Deflate) equal to the view")
+        "orientations 1-8 (none, LZW, Deflate) equal to the view, and as a "
+        "LAB PSD, a LAB TIFF and a 2x2 LZW YCbCr TIFF through _load_rgb "
+        "equal to PNGs of the plain versions' RGB")
     fit = trainer_fit(tmp, "train", root, "llff_images_id", LLFF_FLAGS, 1,
                       "images id")
     system = fit["system"]
@@ -6508,24 +6572,35 @@ def id_blender(tmp: str, W, boxes: dict) -> dict:
 
     src = os.path.join(tmp, "scene")
     root = os.path.join(tmp, "scene_images_id")
+    ref = os.path.join(tmp, "scene_images_id_ref")
     shutil.copytree(src, root)
+    shutil.copytree(src, ref)
     n = 0
     for split, count in (("train", TRAIN_VIEWS), ("val", 1)):
         for i in range(count):
             name = os.path.join(split, f"r_{i}.png")
             img, _ = read_png(os.path.join(src, name))
+            data = W.gbr_bytes(img, 2, comment=b"frame")
+            if split == "train" and i in (1, 2):  # LAB TIFF, YCbCr TIFF
+                kind, data, want, alpha = lab_and_ycbcr_views(
+                    W, np.ascontiguousarray(img[..., :3]))[i]
+                rgba = np.concatenate([want, np.full(want.shape[:2] + (1,),
+                                                     alpha, np.uint8)], -1)
+                with open(os.path.join(ref, name), "wb") as f:
+                    f.write(W.png_bytes(rgba, 8, 6))
             with open(os.path.join(root, name), "wb") as f:
-                f.write(W.gbr_bytes(img, 2, comment=b"frame"))
+                f.write(data)
             n += 1
     kw = dict(img_wh=(TRAIN_WH, TRAIN_WH), near=2.0, far=6.0)
     for split in ("train", "val"):
-        a, b = (BlenderDataset(r, split, **kw) for r in (src, root))
+        a, b = (BlenderDataset(r, split, **kw) for r in (ref, root))
         if split == "train":
             same_rgbs("blender gbr train", a.all_rgbs, b.all_rgbs)
         else:
             same_rgbs("blender gbr val", a[0]["rgbs"], b[0]["rgbs"])
-    log(f"[images id] blender: {n} frames as GBR v2 brushes; train and val "
-        "loads bit-equal")
+    log(f"[images id] blender: {n} frames as GBR v2 brushes, train frames 1 "
+        "and 2 as a LAB TIFF and a 2x2 LZW YCbCr TIFF; train and val loads "
+        "bit-equal (those two to PNGs of the plain versions' RGBA)")
     flags = ["--dataset_name", "blender", "--img_wh", str(TRAIN_WH),
              str(TRAIN_WH), "--N_samples", str(N_SAMPLES), "--N_importance",
              str(N_IMPORTANCE), "--batch_size", str(TRAIN_BATCH), "--lr",
@@ -6751,6 +6826,48 @@ def fern_size_tiff_codecs(W, strip: np.ndarray) -> dict:
     return out
 
 
+def fern_size_lab_ycbcr(W) -> dict:
+    """A 4032x3024 LAB conversion (``lcms.lab_to_rgb``) and a 4032x3024
+    2x2 LZW YCbCr TIFF decode (a 16-row strip's stream repeated 189 times)
+    on the host, each held against the plain version (on one strip for the
+    decode) and timed."""
+    from nerf_pl_tpu_torch.data import image, lcms, tiff
+
+    rng = np.random.RandomState(22)
+    strip = rng.randint(0, 256, (FERN_STRIP, FERN_W, 3)).astype(np.uint8)
+    strip[:, :600] = strip[:, :600] // 32 * 32
+    full = np.tile(strip, (FERN_ROWS, 1, 1))
+    lcms._native()
+    tiff._native()
+    out = {}
+    t0 = time.perf_counter()
+    rgb = lcms.lab_to_rgb(full)
+    out["lab_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    same_rgbs("fern-size lab", rgb, np.tile(lcms.lab_to_rgb_plain(strip),
+                                            (FERN_ROWS, 1, 1)))
+    out["lab_plain_strip_s"] = time.perf_counter() - t0
+    data = W.tiff_bytes(full, 6, 8, compression=5, rows_per_strip=FERN_STRIP,
+                        subsampling=(2, 2))
+    t0 = time.perf_counter()
+    px = image.open_format(data, "ycbcr")[1]()[0]
+    out["ycbcr_s"] = time.perf_counter() - t0
+    units = np.frombuffer(W.ycbcr_units(strip, 2, 2), np.uint8)
+    t0 = time.perf_counter()
+    plain = tiff.ycbcr_rgb_plain(units, FERN_W, FERN_STRIP, 2, 2, 0,
+                                 tiff.ycbcr_tables({}))
+    out["ycbcr_plain_strip_s"] = time.perf_counter() - t0
+    same_rgbs("fern-size ycbcr", px, np.tile(plain, (FERN_ROWS, 1, 1)))
+    out["ycbcr_bytes"] = len(data)
+    log(f"[images id] {FERN_W}x{FERN_STRIP * FERN_ROWS} on the host "
+        f"({gpu_line()}): LAB -> RGB {out['lab_s']:.3f} s through C++ (plain "
+        f"version on one strip {out['lab_plain_strip_s']:.3f} s); 2x2 LZW "
+        f"YCbCr TIFF of {len(data):,} bytes decoded in {out['ycbcr_s']:.3f} "
+        f"s (plain stage on one strip {out['ycbcr_plain_strip_s']:.3f} s); "
+        "both equal to the tiled plain results")
+    return out
+
+
 def images_id_end_to_end(tmp: str, phase7_loss: float, boxes: dict) -> dict:
     """Phase 18: the fits on the rest of Image.ID, the C++ stages against
     their plain versions and the fern-size decodes."""
@@ -6759,7 +6876,7 @@ def images_id_end_to_end(tmp: str, phase7_loss: float, boxes: dict) -> dict:
     out = dict(stages=id_stages_vs_plain(W), llff=id_llff(tmp, W, boxes),
                blender=id_blender(tmp, W, boxes),
                shadow=id_shadow(tmp, W, phase7_loss, boxes),
-               fern=fern_size_images_id(W))
+               fern=fern_size_images_id(W), fern_lab=fern_size_lab_ycbcr(W))
     out["seconds"] = time.perf_counter() - t0
     log(f"[images id] phase 18: {out['seconds']:.1f} s")
     return out

@@ -11,11 +11,21 @@
 //   * psd_packbits: a PSD channel's PackBits rows as Pillow's
 //     PackBitsDecode.c reads them (data/psd.py): each row of `row` bytes
 //     takes whole packets, a packet's bytes past its row's end are dropped,
-//     and a packet the data cuts short is an error.
+//     and a packet the data cuts short is an error;
+//   * tiff_ycbcr: packed YCbCr (libtiff's tif_getimage.c, the RGBA
+//     interface Pillow's decoder takes for YCbCr compressed other than as
+//     JPEG) to RGB, as putcontig8bitYCbCr<hs><vs>tile puts one strip or
+//     tile: each unit holds hs * vs Y samples (row by row) then Cb and Cr
+//     for an hs x vs block; blocks that the edge cuts are put in part;
+//     after each row of units the input skips what libtiff's `fromskew`
+//     becomes ((fromskew / hs) * (hs * vs + 2), but 10 for 4x4, as
+//     libtiff has it); each pixel goes through TIFFYCbCrtoRGB's tables.
 //
 // Each fills `out` (of `cap` bytes) and returns the bytes written, or a
-// negative code with a message in `err`.  As libtiff, a stream that ends
-// before `cap` bytes leaves the rest as it was (zero), and output past
+// negative code with a message in `err`.  A stream that ends before `cap`
+// bytes leaves the rest as it was (zero): libtiff's LZW then fails ("Not
+// enough data", which the reader raises), its PackBits does not; LZW stops
+// at `cap` bytes, as libtiff stops, whatever codes follow, and output past
 // `cap` is dropped; psd_packbits returns -1 where the data ends first.
 
 #include <cstdint>
@@ -49,7 +59,7 @@ int64_t tiff_lzw(const uint8_t *in, int64_t n, uint8_t *out, int64_t cap,
   int nbits = 0;
   int64_t pos = 0, o = 0;
   std::vector<uint8_t> stack(4096);
-  while (true) {
+  while (o < cap) {  // libtiff stops at the strip's size, codes or not
     while (nbits < width) {
       if (pos >= n) return o;  // the data ends without EOI
       if (compat) acc |= (uint64_t)in[pos++] << nbits;
@@ -147,6 +157,43 @@ int64_t tiff_packbits(const uint8_t *in, int64_t n, uint8_t *out, int64_t cap,
 int64_t psd_packbits(const uint8_t *in, int64_t n, uint8_t *out, int64_t row,
                      int64_t rows) {
   return packbits(in, n, out, row * rows, row);
+}
+
+// `w` x `h` pixels of packed units from `in` (n bytes) into `out` (RGB, rows
+// `stride` bytes apart); `tabs` holds TIFFYCbCrToRGBInit's Y_tab, Cr_r_tab,
+// Cb_b_tab, Cr_g_tab and Cb_g_tab, 256 each.  Returns the bytes read, or -1
+// where the units run past `n`.
+int64_t tiff_ycbcr(const uint8_t *in, int64_t n, int64_t w, int64_t h, int hs,
+                   int vs, int64_t fromskew, const int32_t *tabs, uint8_t *out,
+                   int64_t stride) {
+  const int32_t *y_tab = tabs, *cr_r = tabs + 256, *cb_b = tabs + 512;
+  const int32_t *cr_g = tabs + 768, *cb_g = tabs + 1024;
+  const int64_t unit = hs * vs + 2;
+  const int64_t across = (w + hs - 1) / hs, down = (h + vs - 1) / vs;
+  const int64_t skew = (fromskew / hs) * (hs == 4 && vs == 4 ? 10 : unit);
+  if (down > 0 && (down - 1) * (across * unit + skew) + across * unit > n) return -1;
+  auto clamp = [](int32_t v) { return (uint8_t)(v < 0 ? 0 : v > 255 ? 255 : v); };
+  const uint8_t *pp = in;
+  for (int64_t by = 0; by < down; ++by) {
+    for (int64_t bx = 0; bx < across; ++bx, pp += unit) {
+      const int cb = pp[unit - 2], cr = pp[unit - 1];
+      for (int dy = 0; dy < vs; ++dy) {
+        const int64_t y = by * vs + dy;
+        if (y >= h) break;
+        for (int dx = 0; dx < hs; ++dx) {
+          const int64_t x = bx * hs + dx;
+          if (x >= w) break;
+          const int32_t yv = y_tab[pp[dy * hs + dx]];
+          uint8_t *o = out + y * stride + 3 * x;
+          o[0] = clamp(yv + cr_r[cr]);
+          o[1] = clamp(yv + ((cb_g[cb] + cr_g[cr]) >> 16));
+          o[2] = clamp(yv + cb_b[cb]);
+        }
+      }
+    }
+    pp += skew;
+  }
+  return pp - in;
 }
 
 }  // extern "C"

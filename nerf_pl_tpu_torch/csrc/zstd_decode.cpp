@@ -2,7 +2,8 @@
 // compression 50000 (nerf_pl_tpu_torch/data/zstd.py holds the plain version
 // and the description): skippable frames, the frame header, raw, RLE and
 // compressed blocks, Huffman literals (1 or 4 streams, direct or FSE-coded
-// weights, treeless), FSE sequences (predefined, RLE, FSE and repeat
+// weights, treeless; read as libzstd's X1, X2 or fast decoders read them),
+// FSE sequences (predefined, RLE, FSE and repeat
 // modes, repeat offsets) and the XXH64 content checksum.  Built with g++ at
 // first use and called through ctypes.
 
@@ -109,6 +110,15 @@ struct Backward {  // from the end toward the start, after the end mark
     int hb = 7;
     while (!(data[n - 1] >> hb)) --hb;
     left = (n - 1) * 8 + hb;
+  }
+  // HUF_initFastDStream's start: below the end mark, or from the top of a
+  // last byte of 0
+  Backward(const uint8_t *data, int64_t n, bool) : p(data), size(n), left(n * 8) {
+    if (data[n - 1]) {
+      int hb = 7;
+      while (!(data[n - 1] >> hb)) --hb;
+      left = (n - 1) * 8 + hb;
+    }
   }
   inline uint64_t load(int64_t byte) const {  // little-endian, zeros past the end
     uint64_t w = 0;
@@ -279,20 +289,82 @@ void huffman_table(std::vector<int> w, Huff &h) {
   h.present = true;
 }
 
+// libzstd's HUF_selectDecoder: the two-symbol decoder (X2) where its
+// estimated time, less 1/32, beats the one-symbol decoder's (X1), by the
+// share of compressed to regenerated bytes
+const uint32_t kAlgoTime[16][2][2] = {
+    {{0, 0}, {1, 1}},         {{0, 0}, {1, 1}},         {{150, 216}, {381, 119}},
+    {{170, 205}, {514, 112}}, {{177, 199}, {539, 110}}, {{197, 194}, {644, 107}},
+    {{221, 192}, {735, 107}}, {{256, 189}, {881, 106}}, {{359, 188}, {1167, 109}},
+    {{582, 187}, {1570, 114}}, {{688, 187}, {1712, 122}}, {{825, 186}, {1965, 136}},
+    {{976, 185}, {2131, 150}}, {{1180, 186}, {2070, 175}}, {{1377, 185}, {1731, 202}},
+    {{1412, 185}, {1695, 202}}};
+
+bool select_x2(int64_t dst, int64_t src) {
+  const uint32_t q = src >= dst ? 15 : (uint32_t)(src * 16 / dst);
+  const uint32_t d256 = (uint32_t)(dst >> 8);
+  const uint32_t t0 = kAlgoTime[q][0][0] + kAlgoTime[q][0][1] * d256;
+  uint32_t t1 = kAlgoTime[q][1][0] + kAlgoTime[q][1][1] * d256;
+  t1 += t1 >> 5;
+  return t1 < t0;
+}
+
+// One stream of `count` literals.  X1 reads a symbol a lookup and must
+// end on the stream's first bit.  X2 (HUF_decodeStreamX2) reads a pair of
+// symbols where both codes fit in its 11-bit lookup (the tree's depth if
+// deeper), else one: the same symbols and bits, but where one symbol is
+// left and its lookup holds a pair, HUF_decodeLastSymbolX2 skips both
+// codes' bits and stops at the stream's start, so the stream may end up
+// to the second code's length early.
 void huffman_stream(const uint8_t *data, int64_t n, const Huff &h, int64_t count,
-                    std::vector<uint8_t> &out) {
+                    std::vector<uint8_t> &out, bool x2) {
   Backward br(data, n);
-  for (int64_t i = 0; i < count; ++i) {
-    uint32_t peek = br.read(h.max_bits);
-    out.push_back(h.sym[peek]);
-    br.left += h.max_bits - h.bits[peek];
+  const int target = h.max_bits > 11 ? h.max_bits : 11;
+  int64_t i = 0;
+  while (i < count) {
+    const int64_t at = br.left;
+    const uint32_t first = br.read(h.max_bits);
+    const int l1 = h.bits[first];
+    out.push_back(h.sym[first]);
+    ++i;
+    br.left = at - l1;
+    if (!x2) continue;
+    const uint32_t second = br.read(h.max_bits);
+    const int l2 = h.bits[second];
+    br.left = at - l1;
+    if (l1 + l2 > target) continue;
+    if (i < count) {  // the pair
+      out.push_back(h.sym[second]);
+      ++i;
+      br.left -= l2;
+    } else if (at > 0) {  // the last symbol from a pair's entry
+      br.left = at - l1 - l2 > 0 ? at - l1 - l2 : 0;
+    } else {
+      br.left = at;
+    }
   }
   if (br.left != 0) throw Error{"a Huffman stream of the wrong length"};
+}
+
+// One stream as the fast 4-stream decoders (HUF_decompress4X*_usingDTable_
+// internal_fast) read it: from the end of `n` bytes whose last are the
+// stream's, on past its start into the bytes before (zeros past the
+// first), with no check of where it ends.
+void huffman_fast(const uint8_t *data, int64_t n, const Huff &h, int64_t count,
+                  std::vector<uint8_t> &out) {
+  Backward br(data, n, true);
+  for (int64_t i = 0; i < count; ++i) {
+    const int64_t at = br.left;
+    const uint32_t peek = br.read(h.max_bits);
+    out.push_back(h.sym[peek]);
+    br.left = at - h.bits[peek];
+  }
 }
 
 // ----------------------------------------------------------- the blocks
 struct State {
   Huff huff;
+  bool x2 = false;  // the decoder libzstd built the tree's table for
   Fse tables[3];  // ll, of, ml
   bool have[3] = {false, false, false};
   uint64_t rep[3] = {1, 4, 8};
@@ -343,12 +415,15 @@ int64_t literals(const uint8_t *data, int64_t pos, int64_t end, State &st,
     std::vector<int> w;
     pos = huffman_weights(data, pos, stop, w);
     huffman_table(w, st.huff);
+    // one stream: HUF_decompress1X1; four: HUF_selectDecoder's pick; a
+    // treeless block takes the table's decoder
+    st.x2 = streams == 4 && regen > 0 && select_x2(regen, comp);
   } else if (!st.huff.present) {
     throw Error{"treeless literals without a previous tree"};
   }
   lits.reserve(regen);
   if (streams == 1) {
-    huffman_stream(data + pos, stop - pos, st.huff, regen, lits);
+    huffman_stream(data + pos, stop - pos, st.huff, regen, lits, st.x2);
     return stop;
   }
   if (pos + 6 > stop) throw Error{"a jump table past its literals"};
@@ -358,8 +433,15 @@ int64_t literals(const uint8_t *data, int64_t pos, int64_t end, State &st,
   int64_t each = (regen + 3) / 4;
   if (each * 3 > regen || pos + s1 + s2 + s3 > stop) throw Error{"literal streams of bad sizes"};
   int64_t b[5] = {pos, pos + s1, pos + s1 + s2, pos + s1 + s2 + s3, stop};
+  if (s1 >= 8 && s2 >= 8 && s3 >= 8 && stop - b[3] >= 8 && 3 * each < regen) {
+    for (int i = 0; i < 4; ++i)  // each stream from the jump table on
+      huffman_fast(data + pos - 6, b[i + 1] - (pos - 6), st.huff,
+                   i < 3 ? each : regen - 3 * each, lits);
+    return stop;
+  }
   for (int i = 0; i < 4; ++i)
-    huffman_stream(data + b[i], b[i + 1] - b[i], st.huff, i < 3 ? each : regen - 3 * each, lits);
+    huffman_stream(data + b[i], b[i + 1] - b[i], st.huff, i < 3 ? each : regen - 3 * each, lits,
+                   st.x2);
   return stop;
 }
 

@@ -48,8 +48,9 @@ that mode:
     file's black) with the ``tRNS`` alphas or the ``A`` band, a key colour
     (``1``, ``L``, ``I;16`` clipped first, ``RGB``) made transparent in
     ``RGBA``, ``CMYK`` as ``cmyk2rgb`` (``255 - k - (c (255 - k) / 255)``,
-    rounded as ``MULDIV255``), luma in PIL's fixed point.  ``LAB`` raises:
-    Pillow converts it through LittleCMS, which the port does not carry.
+    rounded as ``MULDIV255``), luma in PIL's fixed point, ``LAB`` to
+    ``RGB`` and ``RGBA`` (alpha: ``Picture.pad``) as LittleCMS converts it
+    for Pillow (``data/lcms.py``).  ``LAB`` to ``L`` raises, as in Pillow.
 """
 from __future__ import annotations
 
@@ -59,14 +60,21 @@ from typing import Optional
 import numpy as np
 
 from . import (blp, bmp, dcx, dds, fits, fli, ftex, gbr, gif, icns, ico, im,
-               iptc, jpeg, jpeg2000, mcidas, msp, pcd, pcx, pixar, png, ppm,
-               psd, qoi, sgi, spider, sun, tga, tiff, webp, xbm, xpm, xvthumb)
+               iptc, jpeg, jpeg2000, lcms, mcidas, msp, pcd, pcx, pixar, png,
+               ppm, psd, qoi, sgi, spider, sun, tga, tiff, webp, xbm, xpm,
+               xvthumb)
 from .blur import gaussian_blur as _blur
 from .resize import resize_lanczos, resize_lanczos_16, resize_lanczos_32
 
 _PNG = b"\x89PNG\r\n\x1a\n"
 _TIFF = (b"MM\x00\x2a", b"II\x2a\x00", b"MM\x2a\x00", b"II\x00\x2a",
          b"MM\x00\x2b", b"II\x2b\x00")  # TiffImagePlugin.PREFIXES
+
+
+# a LAB picture's pixels are Pillow's array (a and b signed, as its packer
+# gives them); its core image, which LittleCMS and the resampler read, holds
+# a and b offset by 128
+_LAB_CORE = np.array([0, 128, 128], np.uint8)
 
 
 class Picture:
@@ -78,19 +86,28 @@ class Picture:
     palette is a TGA whose core image Pillow made ``P`` or ``PA``.
     ``opened`` is the (mode, size) Pillow's image has before its load
     where those differ from the loaded ones' (an ICNS: ``RGBA`` and the
-    icon's size, whatever its payload)."""
+    icon's size, whatever its payload).  ``pad`` is the fourth byte of
+    the core image's pixels in ``LAB`` (255 where Pillow's ``LAB`` unpacker
+    filled them, 0 where its bands were read one by one or resampled), which
+    Pillow's transform copies into ``RGBA``'s alpha.  ``core`` holds the
+    core image's pixels where Pillow's array shows them at another size
+    (an IPTC file whose header's size is not its image data's): ``convert``
+    and ``resize`` work on it."""
 
     def __init__(self, pixels: np.ndarray, mode: str,
                  palette: Optional[np.ndarray] = None, transparency=None,
-                 name: str = "image", opened: Optional[tuple] = None):
+                 name: str = "image", opened: Optional[tuple] = None,
+                 pad: int = 0, core: Optional[np.ndarray] = None):
         self.pixels, self.mode = pixels, mode
         self.palette, self.transparency = palette, transparency
         self.name = name  # the file it was read from, for errors
         self.opened = opened
+        self.pad = pad
+        self.core = core
 
     def _with(self, pixels: np.ndarray) -> "Picture":
         return Picture(pixels, self.mode, self.palette, self.transparency,
-                       self.name, self.opened)
+                       self.name, self.opened, self.pad)
 
 
 def read_picture(path: str) -> Picture:
@@ -292,7 +309,9 @@ def _read(path: str) -> Picture:
     name, load = open_format(data, path)
     try:
         out = load()
-        return Picture(*out[:4], opened=out[4] if len(out) > 4 else None)
+        return Picture(*out[:4], opened=out[4] if len(out) > 4 else None,
+                       pad=out[5] if len(out) > 5 else 0,
+                       core=out[6] if len(out) > 6 else None)
     except ValueError as e:
         if str(e).startswith(path):
             raise
@@ -315,6 +334,15 @@ def resize(pic: Picture, size) -> Picture:
     w, h = (int(v) for v in size)
     if w < 1 or h < 1:
         raise ValueError(f"cannot resize to {size}")
+    if pic.core is not None:  # the box of the shown size over the core
+        shown = pic.pixels.shape[1], pic.pixels.shape[0]
+        if (w, h) == shown:  # Pillow's copy: the core image
+            return pic._with(pic.core.copy())
+        if shown[0] > pic.core.shape[1] or shown[1] > pic.core.shape[0]:
+            raise ValueError("box can't exceed original image size")
+        raise ValueError(f"{pic.name}: a resize of part of the image (the "
+                         "IPTC header's size inside its image data's) is "
+                         "not ported")
     px = pic.pixels
     if pic.opened is not None:  # Pillow's resize looks before the load
         if (w, h) == pic.opened[1]:
@@ -343,6 +371,12 @@ def resize(pic: Picture, size) -> Picture:
         return pic._with(resize_lanczos_16(px, (w, h), pic.mode == "I;16B"))
     if pic.mode in ("I", "F"):
         return pic._with(resize_lanczos_32(px, pic.mode, (w, h)))
+    if pic.mode == "LAB":  # Pillow resamples the core image's bytes, and
+        # the fourth byte of its pixels comes out 0
+        out = pic._with(resize_lanczos(px ^ _LAB_CORE, "LAB", (w, h))
+                        ^ _LAB_CORE)
+        out.pad = 0
+        return out
     out = pic._with(resize_lanczos(px, pic.mode, (w, h)))
     if pic.mode == "PA":  # the resampled core image has an empty palette
         out.palette = np.zeros((0, 3), np.uint8)
@@ -409,8 +443,7 @@ def _rgb(pic: Picture) -> np.ndarray:
     if mode == "PA" or (mode == "LA" and pic.palette is not None):
         return _palette(pic)[px[..., 0]]
     if mode == "LAB":
-        raise ValueError(f"{pic.name}: LAB images are converted through "
-                         "LittleCMS in Pillow, which the port does not carry")
+        return lcms.lab_to_rgb(px ^ _LAB_CORE)
     if mode == "CMYK":
         return _cmyk_to_rgb(px)
     if mode == "YCbCr":
@@ -432,12 +465,17 @@ def _gray(pic: Picture) -> np.ndarray:
                 px > 0.0, np.nan_to_num(px), 0)).astype(np.uint8)
     if mode == "LA" and pic.palette is None:
         return px[..., 0]
+    if mode == "LAB":  # Pillow goes to L by way of RGB, which LAB refuses
+        raise ValueError(f"{pic.name}: conversion from LAB to RGB not "
+                         "supported")
     return _luma(_rgb(pic))
 
 
 def convert(pic: Picture, mode: str) -> np.ndarray:
     """``np.asarray(Image.convert(mode))`` for ``mode`` ``L``, ``RGB`` or
     ``RGBA``."""
+    if pic.core is not None:  # Pillow converts the core image
+        pic = pic._with(pic.core)
     if mode == "L":
         return _gray(pic)
     if mode == "RGB":
@@ -463,6 +501,8 @@ def convert(pic: Picture, mode: str) -> np.ndarray:
         alpha = _key_alpha(pic, pic.pixels)
     elif src in ("1", "L", "I;16"):  # the key against the 8-bit values
         alpha = _key_alpha(pic, _gray(pic))
+    elif src == "LAB":  # the core image's fourth byte, copied by Pillow
+        alpha = np.full(rgb.shape[:2], pic.pad, np.uint8)
     else:  # CMYK, I;16B, I, F
         alpha = np.full(rgb.shape[:2], 255, np.uint8)
     return np.concatenate([rgb, alpha[..., None]], -1)

@@ -9,7 +9,12 @@ without it).  (3, 20) and (3, 30) give the size, (3, 120) the compression
 (1 ``raw``, 5 ``jpeg``; any other raises).  The image fields' bytes are
 opened as a file of their own (``raw`` behind a ``P5`` header, as Pillow
 writes it) and, for a band, put in that band of an image whose other
-bands are 0.
+bands are 0.  Pillow's image keeps the header's size with the image
+data's core image (``self.im = im.im``): where the two differ, its array
+is the core's bytes from the start, as many as the header's size takes
+(the top rows where the widths agree), and ``convert`` and ``resize`` see
+the core (``Picture.core``).  Where the header's size takes more bytes
+than the core holds, Pillow's array reads past them: that raises here.
 """
 from __future__ import annotations
 
@@ -110,11 +115,23 @@ def load_iptc(data: bytes, head: dict):
         if mode != head["mode"]:
             raise ValueError(f"an IPTC image of mode {head['mode']} holding "
                              f"a {mode} image")
+    else:
+        if mode != "L":
+            raise ValueError("mode mismatch")
+        bands = [np.zeros_like(px)] * _BANDS[head["mode"]]
+        if not -len(bands) <= band < len(bands):
+            raise ValueError(f"band {band} of a {head['mode']} image")
+        bands[band] = px
+        px, mode, palette, transparency = (np.stack(bands, -1), head["mode"],
+                                           None, None)
+    w, h = head["size"]
+    if (w, h) == (px.shape[1], px.shape[0]):
         return px, mode, palette, transparency
-    if mode != "L":
-        raise ValueError("mode mismatch")
-    bands = [np.zeros_like(px)] * _BANDS[head["mode"]]
-    if not -len(bands) <= band < len(bands):
-        raise ValueError(f"band {band} of a {head['mode']} image")
-    bands[band] = px
-    return np.stack(bands, -1), head["mode"], None, None
+    # the header's size over the core image's bytes
+    per = px[0, 0].size
+    if w * h * per > px.size:
+        raise ValueError(f"the header's {w}x{h} pixels past the image data's "
+                         f"{px.shape[1]}x{px.shape[0]} (Pillow's array reads "
+                         "memory past its image)")
+    shown = px.reshape(-1)[:w * h * per].reshape((h, w) + px.shape[2:])
+    return shown, mode, palette, transparency, None, 0, px

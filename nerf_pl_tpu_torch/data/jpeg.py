@@ -835,20 +835,30 @@ def _body(data: bytes, pos: int) -> bytes:
     return data[pos + 2:pos + n] if n >= 2 else None
 
 
-def _decode(data: bytes, plain: bool = False):
+def _decode(data: bytes, plain: bool = False, tables=None,
+            finish_fails: bool = True):
     """Parse the markers and entropy-decode every scan as libjpeg's
     ``read_markers`` and ``consume_data`` do: ``(frame, tables, colour
     space)``.  ``plain`` decodes through ``_decode_scan`` (baseline Huffman
     only).  A file that ends where libjpeg waits for more raises, unless
-    its one scan is done (Pillow has every row then)."""
+    its one scan is done (Pillow has every row then).  ``tables``: the
+    quantisation and Huffman tables in force before the SOI (libjpeg keeps
+    them from one stream to the next of a decompressor; the SOI resets the
+    rest).  ``finish_fails=False``: a fault past the rows of a one-scan
+    frame is let be, as libtiff lets ``jpeg_finish_decompress``'s error
+    pass (its ``CALLJPEG`` returns -1, which it takes for success)."""
     if data[:2] != b"\xff\xd8":
         raise _Unsupported("not a JPEG file (no SOI)")
-    state = {"frame": None, "rows_out": False}
+    state = {"frame": None, "rows_out": False, "carry": tables}
     try:
         return _markers(data, plain, state)
     except _Truncated:
         frame = state["frame"]
         if not state["rows_out"]:
+            raise
+    except _Unsupported:
+        frame = state["frame"]
+        if finish_fails or not state["rows_out"]:
             raise
     if not all(frame.scanned):
         raise _Unsupported("a component without a scan")
@@ -858,7 +868,10 @@ def _decode(data: bytes, plain: bool = False):
 
 def _markers(data: bytes, plain: bool, state: dict):
     pos, frame, marker = 2, None, None
-    tables = _Tables()
+    tables = state.get("carry") or _Tables()
+    # get_soi: the arithmetic conditioning and the restart interval reset
+    tables.dc_l, tables.dc_u, tables.ac_k = [0] * 16, [1] * 16, [5] * 16
+    tables.restart = 0
     state.update(tables=tables, adobe=None, jfif=False)
     multi = None  # libjpeg's has_multiple_scans, set at the first SOS
     fed = _PILLOW_BLOCK  # the bytes Pillow has fed libjpeg so far

@@ -15,7 +15,11 @@ return RGB, and libtiff checks the sampling factors); predictors 2
 samples only).  LZW and PackBits are C++ stages (``csrc/tiff_decode.cpp``,
 built with g++ at first use through ``data/native.py``), as are the fax and
 zstd decoders.  Uncompressed YCbCr is read as Pillow's own raw decoder reads
-it (``_raw_ycbcr``).
+it (``_raw_ycbcr``); YCbCr compressed otherwise as libtiff's RGBA interface
+gives it to Pillow (``_rgba_ycbcr``: ``TIFFYCbCrToRGBInit``'s tables and the
+``putcontig8bitYCbCr`` routines, the C++ stage ``tiff_ycbcr``).  Where
+Pillow hands a file to libtiff, libtiff's own directory checks apply
+(``_libtiff_refuses``).
 
 After the decode, the orientation is applied as Pillow's ``load_end`` does
 (``ImageOps.exif_transpose``): tag 274, else the XMP packet's
@@ -124,6 +128,7 @@ _UNREAD = {6: "old-style JPEG", 32809: "ThunderScan", 34676: "SGILog",
            34677: "SGILog24", 50001: "WebP"}
 _TYPES = {1: "B", 2: "B", 3: "H", 4: "I", 5: "II", 6: "b", 7: "B", 8: "h",
           9: "i", 10: "ii", 11: "f", 12: "d", 16: "Q", 17: "q", 18: "Q"}
+_BOMB_PIXELS = 2 * 178956970  # Image.MAX_IMAGE_PIXELS, twice
 _REVERSED = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint8)
 
 _lock = threading.Lock()
@@ -139,6 +144,11 @@ def _native():
                 fn.restype = ctypes.c_int64
                 fn.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p,
                                ctypes.c_int64, ctypes.c_char_p, ctypes.c_int]
+            lib.tiff_ycbcr.restype = ctypes.c_int64
+            lib.tiff_ycbcr.argtypes = [
+                ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int64,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64]
             lib.psd_packbits.restype = ctypes.c_int64  # data/psd.py's rows
             lib.psd_packbits.argtypes = [ctypes.c_char_p, ctypes.c_int64,
                                          ctypes.c_void_p, ctypes.c_int64,
@@ -153,7 +163,12 @@ class _Unsupported(ValueError):
 
 def _ifd(data: bytes, order: str, big: bool):
     """The first IFD's tags: ``{tag: tuple of values}`` (bytes for
-    UNDEFINED and ASCII)."""
+    UNDEFINED and ASCII), as Pillow's ``ImageFileDirectory_v2.load`` reads
+    them: an entry the file cuts, or a tag whose data runs past the file,
+    ends the IFD with the tags before it; a tag of no data is skipped.
+    Where it ends so, ``tags["libtiff"]`` adds the inline scalars of the
+    entries after, which libtiff reads on to (the predictor it decodes
+    with)."""
     e = "<" if order == "II" else ">"
     if big:
         off = struct.unpack(e + "Q", data[8:16])[0]
@@ -163,34 +178,117 @@ def _ifd(data: bytes, order: str, big: bool):
         off = struct.unpack(e + "I", data[4:8])[0]
         n = struct.unpack(e + "H", data[off:off + 2])[0]
         pos, size, inline = off + 2, 12, 4
-    tags = {}
+    entries = []  # (tag, type, count, offset of its data or None)
+    tags = {"entries": entries}
     for i in range(n):
         ent = data[pos + i * size:pos + (i + 1) * size]
-        if len(ent) < size:
-            raise ValueError("truncated IFD")
+        if len(ent) < size:  # Pillow keeps the tags before a cut entry
+            break
         tag, typ = struct.unpack(e + "HH", ent[:4])
         count = struct.unpack(e + ("Q" if big else "I"), ent[4:4 + inline])[0]
         if typ not in _TYPES:
+            entries.append((tag, typ, count, None))
             continue
         fmt = _TYPES[typ]
         nbytes = struct.calcsize(e + fmt) * count
+        entries.append((tag, typ, count, None if nbytes <= inline else
+                        struct.unpack(e + ("Q" if big else "I"),
+                                      ent[4 + inline:4 + 2 * inline])[0]))
+        if nbytes == 0:  # no data: Pillow skips the tag
+            continue
         if nbytes <= inline:
             raw = ent[4 + inline:4 + inline + nbytes]
         else:
             at = struct.unpack(e + ("Q" if big else "I"),
                                ent[4 + inline:4 + 2 * inline])[0]
             raw = data[at:at + nbytes]
-            if len(raw) < nbytes:
-                raise ValueError(f"tag {tag} points past the end of the file")
+            if len(raw) < nbytes:  # Pillow's _safe_read fails: its IFD
+                # ends there, with the tags before; libtiff reads on
+                tags["libtiff"] = full = dict(tags)
+                for k in range(i + 1, n):
+                    ent = data[pos + k * size:pos + (k + 1) * size]
+                    if len(ent) < size:
+                        break
+                    tag, typ = struct.unpack(e + "HH", ent[:4])
+                    count = struct.unpack(e + ("Q" if big else "I"),
+                                          ent[4:4 + inline])[0]
+                    if typ in (3, 4) and count == 1:  # inline scalars
+                        full[tag] = struct.unpack(
+                            e + _TYPES[typ], ent[4 + inline:4 + inline +
+                                                 (2 if typ == 3 else 4)])
+                break
         if typ in (2, 7):
             tags[tag] = bytes(raw)
         else:
             vals = struct.unpack(e + fmt * count, raw)
             if typ in (5, 10):
+                tags[(tag, "pairs")] = vals  # as libtiff divides them
                 vals = tuple(vals[k] / vals[k + 1] if vals[k + 1] else 0.0
                              for k in range(0, len(vals), 2))
             tags[tag] = vals
     return tags
+
+
+# the tags libtiff's TIFFReadDirectory must fetch (TIFFFetchNormalTag, its
+# failure failing the directory): one unsigned value each, ExtraSamples an
+# array; the integer types it converts from (the signed ones range-checked)
+_LIBTIFF_SCALARS = (256, 257, 278, 284, 322, 323, 32997, 32998)
+_INTEGER_TYPES = (1, 3, 4, 6, 8, 9, 16, 17)
+# the strip and tile offsets and byte counts (TIFFFetchStripThing)
+_LIBTIFF_STRILES = (273, 279, 324, 325)
+
+
+def _libtiff_refuses(data: bytes, order: str, tags: dict):
+    """What makes libtiff fail a file that Pillow's own parse took, for
+    the files Pillow hands to libtiff (any compression but none): a tag it
+    must fetch of another type or count, or negative; strip or tile
+    offsets or byte counts of another type, or whose first values (as many
+    as the strips or tiles) lie past the file (libtiff reads the whole IFD,
+    where Pillow's stops at the first tag whose data runs past it); a
+    PlanarConfiguration other than 1 or 2; a strip or tile whose bytes run
+    past the file (``TIFFFillStrip``'s read error).  Raises
+    ``ValueError``."""
+    w, h = tags[256][0], tags[257][0]
+    planes = tags.get(277, (1,))[0] if tags.get(284, (1,))[0] == 2 else 1
+    if 322 in tags:
+        n = -(-w // max(tags[322][0], 1)) * -(-h // max(tags.get(
+            323, (1,))[0], 1)) * planes
+    else:
+        n = -(-h // max(min(tags.get(278, (2 ** 32 - 1,))[0], h), 1)) * planes
+    striles = {}  # libtiff's own offsets and byte counts
+    for tag, typ, count, at in tags["entries"]:
+        if tag in _LIBTIFF_SCALARS and (typ not in _INTEGER_TYPES
+                                        or count != 1):
+            raise ValueError(f"tag {tag} of type {typ} and count {count} "
+                             "(libtiff cannot fetch it)")
+        if tag in _LIBTIFF_STRILES:
+            if typ not in _INTEGER_TYPES:
+                raise ValueError(f"tag {tag} of type {typ} (libtiff cannot "
+                                 "fetch it)")
+            striles[tag] = tags.get(tag)
+            if at is not None:  # TIFFReadDirEntryLong8ArrayWithLimit: as
+                # many values as there are strips or tiles
+                fmt = ("<" if order == "II" else ">") + _TYPES[typ] * min(
+                    count, n)
+                if at + struct.calcsize(fmt) > len(data):
+                    raise ValueError(f"tag {tag}'s values past the file's "
+                                     "end (libtiff cannot fetch them)")
+                striles[tag] = struct.unpack_from(fmt, data, at)
+        if tag == 338 and typ not in _INTEGER_TYPES:
+            raise ValueError(f"ExtraSamples of type {typ} (libtiff cannot "
+                             "fetch it)")
+        if tag in _LIBTIFF_SCALARS and tags.get(tag, (0,))[0] < 0:
+            raise ValueError(f"tag {tag} negative (libtiff's range check)")
+    if tags.get(284, (1,))[0] not in (1, 2):
+        raise ValueError(f"PlanarConfiguration {tags[284][0]} (libtiff "
+                         "refuses it)")
+    offsets, counts = (striles.get(324), striles.get(325)) if 322 in tags \
+        else (striles.get(273), striles.get(279))
+    if offsets and counts:
+        for o, c in zip(offsets, counts):
+            if o + c > len(data):
+                raise ValueError(f"a strip or tile of {c} bytes at {o}, past "
+                                 "the file's end (libtiff's read error)")
 
 
 def _key(order: str, tags: dict, compression: int):
@@ -214,8 +312,9 @@ def _key(order: str, tags: dict, compression: int):
     if len(bps) != spp:
         raise _Unsupported("unknown data organization")
     # fill order 2: each stored byte's bits reversed, before the codec (as
-    # libtiff does; Pillow's raw decoder reverses them in the raw mode)
-    if fill == 2 and compression == 1 and not (
+    # libtiff does; Pillow's raw decoder reverses them in the raw mode); the
+    # plugin's key must have fill order 2 whatever the compression
+    if fill == 2 and not (
             (photo, bps) in _FILL2 or (order, photo, bps) in _FILL2_ONE):
         raise _Unsupported("unknown pixel mode")
     if fill not in (1, 2):
@@ -249,6 +348,9 @@ def _inflate(chunk: bytes, compression: int, expected: int,
         n = fn(chunk, len(chunk), out.ctypes.data, expected, err, len(err))
         if n < 0:
             raise ValueError(err.value.decode(errors="replace"))
+        if compression == 5 and n < expected:  # libtiff's LZWDecode fails
+            raise ValueError(f"LZW: not enough data ({expected - n} bytes "
+                             "short of the strip or tile)")
         return out.tobytes()
     if compression in (8, 32946):
         return zlib.decompressobj().decompress(chunk, expected)
@@ -258,23 +360,42 @@ def _inflate(chunk: bytes, compression: int, expected: int,
 
 
 def _jpeg_chunk(chunk: bytes, tables: Optional[bytes], photo: int,
-                sampling: list) -> np.ndarray:
-    """One strip or tile of JPEG-in-TIFF (compression 7), its abbreviated
-    stream completed with the ``JPEGTables`` before its frame, in the
-    colour space libtiff sets: YCbCr converted to RGB for photometric 6,
-    the components as they are for RGB (2) and gray (1).  As libtiff's
-    ``JPEGPreDecode``, the first component's sampling factors must be the
-    YCbCrSubsampling tag's (``sampling[0]``; 1x1 for RGB and gray) and the
-    others' 1x1; where the tag is absent (``sampling[0]`` None) libtiff's
-    ``JPEGFixupTagsSubsampling`` takes the first strip's."""
-    if tables and len(tables) > 4 and chunk[:2] == b"\xff\xd8":
+                sampling: list, carry: dict, segment: tuple) -> np.ndarray:
+    """One strip or tile of JPEG-in-TIFF (compression 7), in the colour
+    space libtiff sets: YCbCr converted to RGB for photometric 6, the
+    components as they are for RGB (2) and gray (1).  libtiff reads the
+    ``JPEGTables`` once, before the first strip (spliced in before its
+    frame here), and its one decompressor keeps the tables in force from
+    strip to strip (``carry["tables"]``).  As libtiff's ``JPEGPreDecode``,
+    the first component's sampling factors must be the YCbCrSubsampling
+    tag's (``sampling[0]``; 1x1 for RGB and gray) and the others' 1x1;
+    where the tag is absent (``sampling[0]`` None) libtiff's
+    ``JPEGFixupTagsSubsampling`` takes the first strip's; a frame larger
+    than the strip or tile (``segment``: width, height, whether it is the
+    image's last strip) fails, but for the last strip's full-width taller
+    one; a smaller one fills the top left of Pillow's strip buffer, whose
+    other bytes keep the strip before's (``carry["rows"]``; in the first
+    strip they are memory Pillow never initialised, and that raises).  A
+    fault past the rows of a one-scan frame is let be, as libtiff lets it
+    be."""
+    if carry.get("tables") is None and tables and len(tables) > 4 and \
+            chunk[:2] == b"\xff\xd8":
         chunk = chunk[:2] + tables[2:-2] + chunk[2:]
     # libtiff's source manager gives libjpeg a fake EOI where the strip's
     # bytes run out (std_fill_input_buffer), so a cut strip never waits
     chunk += b"\xff\xd9"
     space = {1: "L", 2: "RGB", 6: "YCbCr"}[photo]
     try:
-        frame, jt, _ = jpeg._decode(chunk, False)
+        frame, jt, _ = jpeg._decode(chunk, False, carry.get("tables"),
+                                    finish_fails=False)
+        carry["tables"] = jt
+        sw, sh, last = segment
+        small = frame.w <= sw and frame.h <= sh and (frame.w, frame.h) != (
+            sw, sh)
+        if (frame.w, frame.h) != (sw, sh) and not small and not (
+                last and frame.w == sw and frame.h > sh):
+            raise ValueError(f"a JPEG frame of {frame.w}x{frame.h} in a strip "
+                             f"or tile of {sw}x{sh} (libtiff fails)")
         if photo == 6 and sampling[0] is None:
             sampling[0] = frame.hv[0]
         want = tuple(sampling[0]) if photo == 6 else (1, 1)
@@ -284,6 +405,20 @@ def _jpeg_chunk(chunk: bytes, tables: Optional[bytes], photo: int,
         px, _ = jpeg._pixels(frame, jt, space, False, {})
     except jpeg._Unsupported as e:
         raise _Unsupported(f"JPEG-in-TIFF: {e}") from None
+    px = px.reshape(px.shape[0], px.shape[1], -1)
+    if small:  # libtiff reads the frame's rows into Pillow's strip buffer;
+        # the rest keeps the strip before's bytes (none before the first)
+        prev = carry.get("rows")
+        if prev is None or prev.shape[0] < sh or prev.shape[1:] != (
+                sw, px.shape[2]):
+            raise ValueError(f"a JPEG frame of {frame.w}x{frame.h} in the "
+                             f"first strip or tile, of {sw}x{sh} (libtiff "
+                             "reads short rows into memory Pillow never "
+                             "initialised)")
+        rows = prev[:sh].copy()
+        rows[:frame.h, :frame.w] = px[:frame.h, :frame.w]
+        px = rows
+    carry["rows"] = px
     return px
 
 
@@ -372,8 +507,10 @@ def _read(data: bytes, order: str, tags: dict, spp: int, bits: int, fmt,
     planar = tags.get(284, (1,))[0]
     # libtiff's predictor module serves LZW, Deflate and LZMA; Pillow's own
     # raw decoder and libtiff's PackBits and JPEG codecs ignore the tag
-    predictor = (tags.get(317, (1,))[0] if compression in (5, 8, 32946,
-                                                           34925, 50000) else 1)
+    predictor = (tags.get("libtiff", tags).get(317, (1,))[0] if compression
+                 in (5, 8, 32946, 34925, 50000) else 1)
+    if predictor not in (1, 2, 3):  # libtiff ignores the tag's value
+        predictor = 1
     tables = tags.get(347)
     sampling = [tuple(tags[530][:2]) if 530 in tags else None]
     planes = spp if planar == 2 else 1
@@ -391,7 +528,12 @@ def _read(data: bytes, order: str, tags: dict, spp: int, bits: int, fmt,
         boxes = [(0, y * rps, w, min(rps, h - y * rps)) for y in range(down)]
         if counts is None:
             counts = (len(data),) * len(offsets)
-    if len(offsets) < len(boxes) * planes:
+    if compression == 1 and planes == 1:
+        # Pillow's own decoder makes a tile of every offset, its boxes in
+        # turn from the top again past the last: the tiles there are, each
+        # read in full, the last one over a box winning
+        boxes = [boxes[k % len(boxes)] for k in range(len(offsets))]
+    elif len(offsets) < len(boxes) * planes:
         raise ValueError("fewer strips or tiles than the image needs")
     dtype = {1: np.uint8, 2: np.uint8, 4: np.uint8, 8: np.uint8,
              12: np.uint16, 16: np.uint16}.get(bits)
@@ -399,6 +541,7 @@ def _read(data: bytes, order: str, tags: dict, spp: int, bits: int, fmt,
         dtype = {1: np.uint32, 2: np.int32, 3: np.float32}.get(fmt[0],
                                                                np.uint32)
     out = np.zeros((h, w, spp), dtype)
+    carry = {}  # libjpeg's tables in force from one JPEG strip to the next
     fax = None
     if compression in _FAX:  # libtiff's run arrays and Pillow's row buffer
         # live from one strip or tile to the next
@@ -411,12 +554,20 @@ def _read(data: bytes, order: str, tags: dict, spp: int, bits: int, fmt,
         for i, (x0, y0, cw, chh) in enumerate(boxes):
             k = p * len(boxes) + i
             chunk = data[offsets[k]:offsets[k] + counts[k]]
+            if compression == 1:  # Pillow's raw decoder reads the bytes the
+                # rows take, whatever the count, and the file must hold them
+                need = chh * _bits_per_row(cw, per, bits)
+                chunk = data[offsets[k]:offsets[k] + need]
+                if len(chunk) < need:
+                    raise ValueError(f"image file is truncated ({len(chunk)}"
+                                     f" of {need} bytes)")
             if fill == 2:
                 chunk = _REVERSED[np.frombuffer(chunk, np.uint8)].tobytes()
             rows = chh
             t0 = clock()
             if compression == 7:
-                px = _jpeg_chunk(chunk, tables, photo, sampling)
+                px = _jpeg_chunk(chunk, tables, photo, sampling, carry, (
+                    cw, chh, 322 not in tags and y0 + chh >= h))
                 s = px.reshape(px.shape[0], px.shape[1], -1)[:rows, :cw]
                 if s.shape[2] != per:
                     raise _Unsupported("a JPEG strip of other components")
@@ -468,6 +619,181 @@ def _raw_ycbcr(data: bytes, tags: dict, mode: str) -> np.ndarray:
         x += tw
         if x >= w:
             x, y = 0, y + th
+    return out
+
+
+# ------------------------------------ YCbCr through libtiff's RGBA interface
+# the (hs, vs) tif_getimage.c has a put routine for: contiguous units, and
+# separate planes at 1x1 only (putseparate8bitYCbCr11tile)
+_YCBCR_PUT = ((1, 1), (1, 2), (2, 1), (2, 2), (4, 1), (4, 2), (4, 4))
+_F = np.float32
+
+
+def _floats(tags: dict, tag: int, default) -> list:
+    """A RATIONAL tag as libtiff reads it: each ``num / den`` in float32,
+    0 where ``den`` is 0."""
+    pairs = tags.get((tag, "pairs"))
+    if pairs is None:
+        return [_F(v) for v in default]
+    return [_F(pairs[k]) / _F(pairs[k + 1]) if pairs[k + 1] else _F(0)
+            for k in range(0, len(pairs), 2)]
+
+
+def ycbcr_tables(tags: dict) -> np.ndarray:
+    """``TIFFYCbCrToRGBInit``'s tables, (5, 256) int32: ``Y_tab``,
+    ``Cr_r_tab``, ``Cb_b_tab``, ``Cr_g_tab`` and ``Cb_g_tab``, in float32
+    and 16.16 fixed point as libtiff computes them from ``YCbCrCoefficients``
+    (529; 0.299, 0.587, 0.114) and ``ReferenceBlackWhite`` (532; 0, 255,
+    128, 255, 128, 255).  Raises as ``initYCbCrConversion`` refuses."""
+    luma = _floats(tags, 529, (0.299, 0.587, 0.114))
+    rbw = _floats(tags, 532, (0.0, 255.0, 128.0, 255.0, 128.0, 255.0))
+    if len(luma) < 3 or len(rbw) < 6 or any(np.isnan(luma)) or luma[1] == 0:
+        raise ValueError("invalid YCbCrCoefficients (libtiff refuses them)")
+    if not all(_F(-0x7FFFFFFF + 128) < v < _F(0x7FFFFFFF) for v in rbw):
+        raise ValueError("invalid ReferenceBlackWhite (libtiff refuses it)")
+
+    def clamp(f, lo, hi):
+        return lo if not f >= lo else hi if f > hi else f
+
+    def fix(x):  # FIX: (int32)(x * 65536 + 0.5)
+        return int(np.float64(x * _F(65536)) + 0.5)
+
+    def code2v(c, rb, rw, cr):  # (c - (int32)RB) * (float)CR / (RW - RB)
+        d = rw - rb
+        return _F(c - int(rb)) * _F(cr) / (d if d != 0 else _F(1))
+
+    def clampw(f):  # CLAMPw to +-4096, then C's cast: truncated
+        return int(-4096.0 if f < _F(-4096) else 4096.0 if f > _F(4096)
+                   else f)
+    red, green, blue = luma
+    f1 = _F(2) - _F(2) * red
+    f3 = _F(2) - _F(2) * blue
+    d1, d3 = fix(clamp(f1, _F(0), _F(2))), fix(clamp(f3, _F(0), _F(2)))
+    d2 = -fix(clamp(red * f1 / green, _F(0), _F(2)))
+    d4 = -fix(clamp(blue * f3 / green, _F(0), _F(2)))
+    out = np.zeros((5, 256), np.int64)
+    for i in range(256):
+        x = i - 128
+        cr = clampw(code2v(x, rbw[4] - _F(128), rbw[5] - _F(128), 127))
+        cb = clampw(code2v(x, rbw[2] - _F(128), rbw[3] - _F(128), 127))
+        out[:, i] = (clampw(code2v(x + 128, rbw[0], rbw[1], 255)),
+                     (d1 * cr + 32768) >> 16, (d3 * cb + 32768) >> 16,
+                     d2 * cr, d4 * cb + 32768)
+    return out.astype(np.int32)
+
+
+def ycbcr_rgb_plain(units: np.ndarray, w: int, h: int, hs: int, vs: int,
+                    fromskew: int, tabs: np.ndarray) -> np.ndarray:
+    """(h, w, 3) RGB of one strip's or tile's packed units, as
+    ``putcontig8bitYCbCr<hs><vs>tile`` puts them (``csrc/tiff_decode.cpp``,
+    ``tiff_ycbcr``): numpy."""
+    unit = hs * vs + 2
+    across, down = -(-w // hs), -(-h // vs)
+    skew = (fromskew // hs) * (10 if (hs, vs) == (4, 4) else unit)
+    start = np.arange(down)[:, None] * (across * unit + skew) + \
+        np.arange(across)[None, :] * unit
+    if down and start[-1, -1] + unit > len(units):
+        raise ValueError("YCbCr units run past the strip or tile")
+    u = units[start[..., None] + np.arange(unit)].astype(np.int64)
+    luma = u[..., :hs * vs].reshape(down, across, vs, hs).transpose(
+        0, 2, 1, 3).reshape(down * vs, across * hs)[:h, :w]
+    cb = np.repeat(np.repeat(u[..., -2], vs, 0), hs, 1)[:h, :w]
+    cr = np.repeat(np.repeat(u[..., -1], vs, 0), hs, 1)[:h, :w]
+    t = tabs.astype(np.int64)
+    y = t[0][luma]
+    rgb = (y + t[1][cr], y + ((t[4][cb] + t[3][cr]) >> 16), y + t[2][cb])
+    return np.clip(np.stack(rgb, -1), 0, 255).astype(np.uint8)
+
+
+def ycbcr_rgb(units: np.ndarray, w: int, h: int, hs: int, vs: int,
+              fromskew: int, tabs: np.ndarray, out: np.ndarray = None
+              ) -> np.ndarray:
+    """The C++ stage: ``ycbcr_rgb_plain``'s output, written into ``out``
+    ((h, w, 3) uint8, rows of any stride) where given."""
+    units = np.ascontiguousarray(units, np.uint8)
+    tabs = np.ascontiguousarray(tabs, np.int32)
+    if out is None:
+        out = np.zeros((h, w, 3), np.uint8)
+    assert out.strides[1:] == (3, 1) and out.shape[:2] == (h, w)
+    got = _native().tiff_ycbcr(units.ctypes.data, len(units), w, h, hs, vs,
+                               fromskew, tabs.ctypes.data, out.ctypes.data,
+                               out.strides[0])
+    if got < 0:
+        raise ValueError("YCbCr units run past the strip or tile")
+    return out
+
+
+def _rgba_ycbcr(data: bytes, order: str, tags: dict, compression: int,
+                fill: int, seconds: dict) -> np.ndarray:
+    """YCbCr compressed other than as JPEG, as Pillow's libtiff decoder
+    reads it through ``TIFFRGBAImageGet`` (``_decodeAsRGBA``): each strip or
+    tile decoded to its packed size (``TIFFVStripSize`` of the strip's rows
+    rounded up to ``vs``, at ``TIFFScanlineSize`` a row; ``TIFFVTileSize``),
+    predictor 2 on libtiff's rows of those bytes (the scanline, or
+    ``TIFFTileRowSize``: 3 bytes a pixel of the tile's width), left undone
+    where the rows do not divide (libtiff's predictor refuses the chunk,
+    and ``TIFFRGBAImageGet`` goes on with its bytes), then ``tiff_ycbcr``.
+    YCbCrSubsampling defaults to 2x2; separate planes only at 1x1.  The
+    orientation is left to ``_decode``: Pillow's transpose after this read
+    is all that shows.  (At 4x4 a strip whose row of units is not a
+    multiple of 4 bytes reads short by libtiff's truncated scanline; Pillow
+    leaves those bytes as its buffer held them, here zeros.)"""
+    clock = time.perf_counter
+    hs, vs = tuple(tags[530][:2]) if 530 in tags else (2, 2)
+    planar = tags.get(284, (1,))[0]
+    if (hs, vs) not in _YCBCR_PUT or (planar == 2 and (hs, vs) != (1, 1)):
+        raise _Unsupported(f"YCbCr subsampling {hs}x{vs}" + (
+            " in separate planes" if planar == 2 else "") + " (libtiff's "
+            "RGBA interface has no routine for it)")
+    predictor = tags.get(317, (1,))[0] if compression in (
+        5, 8, 32946, 34925, 50000) else 1
+    if predictor not in (1, 2):
+        raise _Unsupported(f"predictor {predictor} on 8-bit YCbCr")
+    tabs = ycbcr_tables(tags)
+    w, h = tags[256][0], tags[257][0]
+    out = np.zeros((h, w, 3), np.uint8)
+    if (hs, vs) == (1, 1):  # one unit a pixel: the samples as they are read
+        s = _read(data, order, tags, 3, 8, (1,), compression, fill, 6,
+                  seconds)
+        t0 = clock()
+        ycbcr_rgb(s.reshape(-1), w, h, 1, 1, 0, tabs, out)
+        seconds["ycbcr"] = seconds.get("ycbcr", 0.0) + clock() - t0
+        return out
+    unit = hs * vs + 2
+    if 322 in tags:
+        tw, th = tags[322][0], tags[323][0]
+        offsets, counts = tags[324], tags[325]
+        boxes = [(x, y, tw, th) for y in range(0, h, th)
+                 for x in range(0, w, tw)]
+        sizes = [-(-th // vs) * -(-tw // hs) * unit] * len(boxes)
+        row = tw * 3
+    else:
+        rps = min(tags.get(278, (2 ** 32 - 1,))[0], h)
+        offsets, counts = tags[273], tags.get(279)
+        boxes = [(0, y, w, min(rps, h - y)) for y in range(0, h, rps)]
+        row = -(-w // hs) * unit // vs
+        sizes = [-(-b[3] // vs) * vs * row for b in boxes]
+        if counts is None:
+            counts = (len(data),) * len(offsets)
+    if len(offsets) < len(boxes):
+        raise ValueError("fewer strips or tiles than the image needs")
+    for k, (x0, y0, cw, ch) in enumerate(boxes):
+        chunk = data[offsets[k]:offsets[k] + counts[k]]
+        if fill == 2:
+            chunk = _REVERSED[np.frombuffer(chunk, np.uint8)].tobytes()
+        t0 = clock()
+        raw = np.zeros(sizes[k], np.uint8)
+        got = np.frombuffer(_inflate(chunk, compression, sizes[k]), np.uint8)
+        raw[:len(got)] = got[:sizes[k]]
+        seconds["inflate"] = seconds.get("inflate", 0.0) + clock() - t0
+        if predictor == 2 and row % 3 == 0 and sizes[k] % row == 0:
+            raw = np.cumsum(raw.reshape(-1, row // 3, 3), axis=1,
+                            dtype=np.uint8).reshape(-1)
+        t0 = clock()
+        this_w, this_h = min(cw, w - x0), min(ch, h - y0)
+        ycbcr_rgb(raw, this_w, this_h, hs, vs, cw - this_w, tabs,
+                  out[y0:y0 + this_h, x0:x0 + this_w])
+        seconds["ycbcr"] = seconds.get("ycbcr", 0.0) + clock() - t0
     return out
 
 
@@ -544,12 +870,18 @@ def _decode(data: bytes, name: str, seconds: dict):
     tags = _ifd(data, order, big)
     if 0xBC01 in tags:
         raise _Unsupported("Windows Media Photo")
+    w, h = tags[256][0], tags[257][0]
+    if w * h > _BOMB_PIXELS:  # Image.open's DecompressionBombError
+        raise ValueError(f"{w}x{h} pixels, past Pillow's decompression bomb "
+                         "limit")
     compression = tags.get(259, (1,))[0]
     if compression not in _COMPRESSIONS:
         raise _Unsupported(f"compression {compression}" + (
             f" ({_UNREAD[compression]}, which this Pillow's libtiff lacks too)"
             if compression in _UNREAD else ""))
     mode, raw, photo, fill, bps, spp = _key(order, tags, compression)
+    if compression != 1:  # Pillow hands the file to libtiff
+        _libtiff_refuses(data, order, tags)
     if compression in _FAX and bps != (1,) * spp:
         raise _Unsupported("CCITT compression of other than 1-bit samples")
     if tags.get(284, (1,))[0] == 2 and spp > 1 and bps[0] != 8:
@@ -562,13 +894,12 @@ def _decode(data: bytes, name: str, seconds: dict):
                                "gray, contiguous")
         if photo == 6:
             raw = "RGB"
-    elif photo == 6 and spp == 3 and compression != 1:
-        raise _Unsupported("YCbCr compressed other than as JPEG (libtiff's "
-                           "RGBA interface)")
     elif photo == 6 and spp != 3 and compression != 1:
         raise _Unsupported("YCbCr of one sample (libtiff refuses it)")
     if photo == 6 and spp == 3 and compression == 1:
         px = _raw_ycbcr(data, tags, mode)
+    elif photo == 6 and compression != 7:
+        px = _rgba_ycbcr(data, order, tags, compression, fill, seconds)
     else:
         s = _read(data, order, tags, spp, bps[0], fmt, compression, fill,
                   photo, seconds)
@@ -594,7 +925,15 @@ def _decode(data: bytes, name: str, seconds: dict):
     if orientation != 1:
         px = np.ascontiguousarray(_TRANSPOSE[orientation](px))
     opened = (mode, size) if size != (px.shape[1], px.shape[0]) else None
-    return px, mode, palette, None, opened
+    # Pillow's LAB unpacker flips a and b into the core image and sets its
+    # pixels' fourth byte; bands read from separate planes are not flipped
+    # (its array flips them back) and leave that byte 0
+    pad = 0
+    if mode == "LAB" and tags.get(284, (1,))[0] == 1:
+        pad = 255
+    elif mode == "LAB":
+        px = px ^ np.array([0, 128, 128], np.uint8)
+    return px, mode, palette, None, opened, pad
 
 
 # ``ImageOps.exif_transpose``'s method for each orientation, on (H, W[, C])

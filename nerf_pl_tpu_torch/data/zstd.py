@@ -11,6 +11,16 @@ repeat of the previous block's table, with the three repeat offsets; and
 the content checksum (the low 32 bits of XXH64), whose mismatch raises as
 libzstd's does.  Every fault of the stream raises ``ValueError``.
 
+The Huffman literals are read by the decoder libzstd 1.5.7 takes, which
+shows on a corrupt stream: four streams of 8 bytes or more go through its
+fast decoders (``HUF_decompress4X*_usingDTable_internal_fast``), which read
+a stream on past its start into the bytes before it and do not check where
+it ends; shorter four-stream literals through the decoder
+``HUF_selectDecoder`` picks for a new tree (X1, one symbol a lookup, or X2,
+two, whose last symbol may skip a pair's bits), kept for treeless blocks;
+one stream through X1 for a new tree.  X1 and X2 must end on the stream's
+first bit.
+
 ``decompress_plain`` is the plain Python version of the C++ stage
 (``csrc/zstd_decode.cpp``), which ``decompress`` runs; ``blocks`` lists a
 frame's blocks and the modes of each, for tests that check a stream's
@@ -285,14 +295,53 @@ def _huffman_table(weights: List[int]):
     return table, max_bits
 
 
-def _huffman_stream(data: bytes, table, max_bits: int, n: int) -> bytes:
+# HUF_selectDecoder's timings: (table, per 256 bytes) of X1 and X2 by the
+# share of compressed to regenerated bytes, in sixteenths
+_ALGO_TIME = ((0, 0, 1, 1), (0, 0, 1, 1), (150, 216, 381, 119),
+              (170, 205, 514, 112), (177, 199, 539, 110),
+              (197, 194, 644, 107), (221, 192, 735, 107),
+              (256, 189, 881, 106), (359, 188, 1167, 109),
+              (582, 187, 1570, 114), (688, 187, 1712, 122),
+              (825, 186, 1965, 136), (976, 185, 2131, 150),
+              (1180, 186, 2070, 175), (1377, 185, 1731, 202),
+              (1412, 185, 1695, 202))
+
+
+def _select_x2(dst: int, src: int) -> bool:
+    """libzstd's ``HUF_selectDecoder``: the two-symbol decoder (X2) where
+    its time, less 1/32, beats the one-symbol decoder's (X1)."""
+    q = 15 if src >= dst else src * 16 // dst
+    a0, b0, a1, b1 = _ALGO_TIME[q]
+    t0, t1 = a0 + b0 * (dst >> 8), a1 + b1 * (dst >> 8)
+    return t1 + (t1 >> 5) < t0
+
+
+def _huffman_stream(data: bytes, table, max_bits: int, n: int,
+                    x2: bool = False) -> bytes:
+    """``n`` literals of one stream.  X1 must end on the stream's first bit;
+    X2 reads a pair where both codes fit in its 11-bit lookup (the tree's
+    depth if deeper), and its last symbol, where that lookup holds a pair,
+    skips both codes' bits and stops at the stream's start
+    (``HUF_decodeLastSymbolX2``)."""
     br = _Backward(data)
+    target = max(11, max_bits)
     out = bytearray()
-    for _ in range(n):
-        peek = br.read(max_bits)
-        s, bits = table[peek]
-        br.left += max_bits - bits
+    while len(out) < n:
+        at = br.left
+        s, l1 = table[br.read(max_bits)]
         out.append(s)
+        br.left = at - l1
+        if not x2:
+            continue
+        s2, l2 = table[br.read(max_bits)]
+        br.left = at - l1
+        if l1 + l2 > target:
+            continue
+        if len(out) < n:
+            out.append(s2)
+            br.left -= l2
+        else:
+            br.left = max(at - l1 - l2, 0) if at > 0 else at
     if br.left != 0:
         raise ZstdError("a Huffman stream of the wrong length")
     return bytes(out)
@@ -302,6 +351,7 @@ def _huffman_stream(data: bytes, table, max_bits: int, n: int) -> bytes:
 class _State:
     def __init__(self):
         self.huffman = None
+        self.x2 = False  # the decoder libzstd built the tree's table for
         self.tables = {"ll": None, "of": None, "ml": None}
         self.rep = [1, 4, 8]
 
@@ -343,11 +393,15 @@ def _literals(data: bytes, pos: int, end: int, st: _State, modes: dict
         modes["weights"] = "direct" if data[pos] >= 128 else "fse"
         weights, pos = _huffman_weights(data, pos, stop)
         st.huffman = _huffman_table(weights)
+        # one stream: HUF_decompress1X1; four: HUF_selectDecoder's pick; a
+        # treeless block takes the table's decoder
+        st.x2 = streams == 4 and regen > 0 and _select_x2(regen, comp)
     elif st.huffman is None:
         raise ZstdError("treeless literals without a previous tree")
     table, max_bits = st.huffman
     if streams == 1:
-        return _huffman_stream(data[pos:stop], table, max_bits, regen), stop
+        return _huffman_stream(data[pos:stop], table, max_bits, regen,
+                               st.x2), stop
     if pos + 6 > stop:
         raise ZstdError("a jump table past its literals")
     s1, s2, s3 = struct.unpack_from("<HHH", data, pos)
@@ -356,10 +410,39 @@ def _literals(data: bytes, pos: int, end: int, st: _State, modes: dict
     if each * 3 > regen or pos + s1 + s2 + s3 > stop:
         raise ZstdError("literal streams of bad sizes")
     bounds = [pos, pos + s1, pos + s1 + s2, pos + s1 + s2 + s3, stop]
+    counts = [each] * 3 + [regen - 3 * each]
+    if min(b - a for a, b in zip(bounds, bounds[1:])) >= 8 and \
+            3 * each < regen:
+        # HUF_decompress4X*_usingDTable_internal_fast: each stream read from
+        # its end back through the bytes before it (to the jump table), the
+        # end mark's byte allowed to be 0, and no check of where it ends
+        out = b"".join(_huffman_fast(data[pos - 6:bounds[i + 1]], table,
+                                     max_bits, counts[i]) for i in range(4))
+        return out, stop
     out = b"".join(_huffman_stream(data[bounds[i]:bounds[i + 1]], table,
-                                   max_bits, each if i < 3 else regen - 3 * each)
+                                   max_bits, counts[i], st.x2)
                    for i in range(4))
     return out, stop
+
+
+def _huffman_fast(data: bytes, table, max_bits: int, n: int) -> bytes:
+    """``n`` literals of the stream that ends ``data``, as the fast 4-stream
+    decoders read it: from below the end mark (the whole last byte where it
+    is 0), on past the stream's start, zeros past ``data``'s."""
+    value = int.from_bytes(data, "little")
+    left = len(data) * 8 - (8 - data[-1].bit_length()) - 1 if data[-1] else \
+        len(data) * 8
+    out = bytearray()
+    for _ in range(n):
+        if left >= max_bits:
+            peek = (value >> (left - max_bits)) & ((1 << max_bits) - 1)
+        else:
+            peek = (value << (max_bits - left)) & ((1 << max_bits) - 1) \
+                if left > 0 else 0
+        s, bits = table[peek]
+        out.append(s)
+        left -= bits
+    return bytes(out)
 
 
 def _sequence_table(name: str, mode: int, data: bytes, pos: int, end: int,

@@ -997,7 +997,7 @@ def png_as(path: str, out: str, layout: str, seed: int = 0) -> None:
 
 
 # ================================================================= TIFF
-_TIFF_TYPES = {"B": 1, "A": 2, "H": 3, "I": 4, "U": 7, "Q": 16}
+_TIFF_TYPES = {"B": 1, "A": 2, "H": 3, "I": 4, "R": 5, "U": 7, "Q": 16}
 
 
 def _reverse_bits(data: bytes) -> bytes:
@@ -1241,6 +1241,34 @@ def _tiff_predict(rows: np.ndarray, predictor: int, width: int, spp: int,
     return d.astype(np.uint8).reshape(n, -1)
 
 
+def ycbcr_units(block: np.ndarray, hs: int, vs: int) -> bytes:
+    """(rows, width, 3) Y, Cb, Cr samples packed as TIFF's subsampled
+    YCbCr: for each ``hs`` x ``vs`` block (rows and columns past the edge
+    repeat the last), its ``hs * vs`` Y samples row by row, then the
+    block's mean Cb and Cr, rounded."""
+    rows, width, _ = block.shape
+    nh, nv = -(-width // hs), -(-rows // vs)
+    ys = np.minimum(np.arange(nv * vs), rows - 1)
+    xs = np.minimum(np.arange(nh * hs), width - 1)
+    full = block[ys][:, xs].astype(np.float64)
+    t = full.reshape(nv, vs, nh, hs, 3).transpose(0, 2, 1, 3, 4)
+    luma = t[..., 0].reshape(nv, nh, vs * hs)
+    chroma = np.floor(t[..., 1:].mean((2, 3)) + 0.5)
+    return np.concatenate([luma, chroma], -1).astype(np.uint8).tobytes()
+
+
+def _ycbcr_predict(raw: bytes, row: int) -> bytes:
+    """Predictor 2 as libtiff applies it to packed YCbCr: rows of ``row``
+    bytes (its scanline or tile row size), each differenced at a stride of
+    3 bytes; where the rows do not divide so, libtiff's predictor refuses
+    the chunk and leaves its bytes as they are, and so does this."""
+    if row % 3 or len(raw) % row:
+        return raw
+    b = np.frombuffer(raw, np.uint8).reshape(-1, row // 3, 3).astype(np.int16)
+    d = np.concatenate([b[:, :1], np.diff(b, axis=1)], 1) % 256
+    return d.astype(np.uint8).tobytes()
+
+
 def tiff_bytes(samples: np.ndarray, photometric: int, bits: int = 8,
                order: str = "II", bigtiff: bool = False, compression: int = 1,
                predictor: int = 1, planar: int = 1, tile=None,
@@ -1249,7 +1277,7 @@ def tiff_bytes(samples: np.ndarray, photometric: int, bits: int = 8,
                colormap: Optional[np.ndarray] = None, lzw_old: bool = False,
                jpeg_chunks: Optional[Sequence[bytes]] = None,
                jpeg_tables: Optional[bytes] = None, tags=None,
-               zstd_codec=None) -> bytes:
+               zstd_codec=None, subsampling=None) -> bytes:
     """A TIFF of one image: ``samples`` (H, W[, spp]) in ``bits`` per
     sample (1, 2, 4, 8, 12, 16 or 32; ``sample_format`` 1 unsigned, 2
     signed, 3 float), strips of ``rows_per_strip`` or ``tile = (w, h)``
@@ -1259,8 +1287,10 @@ def tiff_bytes(samples: np.ndarray, photometric: int, bits: int = 8,
     the ``zstandard`` package's), 2, 3 or 4 (CCITT: ``fax_bytes`` of 1-bit
     samples, the options from ``tags``' 292 or 293) or 7 (``jpeg_chunks``:
     one JPEG per strip or tile, with ``jpeg_tables`` for the tag);
-    predictor 2 or 3; fill order 2 reverses
-    each stored byte's bits.  ``colormap``: (2^bits, 3) uint16.  ``tags``:
+    predictor 2 or 3; fill order 2 reverses each stored byte's bits.
+    ``subsampling = (hs, vs)``: YCbCr samples (photometric 6) packed in
+    ``ycbcr_units`` a strip or tile, with tag 530 (predictor 2 on
+    libtiff's rows of them).  ``colormap``: (2^bits, 3) uint16.  ``tags``:
     more (tag, type letter, values) entries, replacing any of the same
     tag.  Strips of the same bytes are compressed once."""
     s = samples if samples.ndim == 3 else samples[..., None]
@@ -1280,6 +1310,15 @@ def tiff_bytes(samples: np.ndarray, photometric: int, bits: int = 8,
             block = np.zeros((ch, cw, per), s.dtype)
             part = p[y:y + ch, x:x + cw]
             block[:part.shape[0], :part.shape[1]] = part
+            if subsampling:
+                hs, vs = subsampling
+                raw = ycbcr_units(block, hs, vs)
+                if predictor == 2:  # TIFFTileRowSize; TIFFScanlineSize
+                    row = cw * 3 if tile else len(ycbcr_units(
+                        block[:vs], hs, vs)) // vs
+                    raw = _ycbcr_predict(raw, row)
+                chunks.append(raw)
+                continue
             raw = _tiff_predict(_tiff_rows(block, bits, order, fmt), predictor,
                                 cw, per, bits, order).tobytes()
             chunks.append(raw)
@@ -1326,6 +1365,8 @@ def tiff_bytes(samples: np.ndarray, photometric: int, bits: int = 8,
         entries.append((317, "H", [predictor]))
     if extra:
         entries.append((338, "H", list(extra)))
+    if subsampling:
+        entries.append((530, "H", list(subsampling)))
     if sample_format:
         entries.append((339, "H", [sample_format] * spp))
     if colormap is not None:
@@ -1352,6 +1393,9 @@ def tiff_bytes(samples: np.ndarray, photometric: int, bits: int = 8,
         if kind == "U":
             raw = bytes(vals)
             count = len(raw)
+        elif kind == "R":  # RATIONAL: numerator, denominator pairs
+            raw = struct.pack(e + "I" * len(vals), *vals)
+            count = len(vals) // 2
         else:
             raw = struct.pack(e + kind * len(vals), *vals)
             count = len(vals)

@@ -638,6 +638,40 @@ def _refusals(rng):
     }
 
 
+def test_iptc_header_size_other_than_its_jpeg_as_pillow(tmp_path):
+    """An IPTC file whose header's size is not its JPEG's: Pillow keeps the
+    header's size over the JPEG's core image, so its array is the core's
+    bytes from the start (the top rows where the widths agree), and its
+    ``convert`` and a resize to the header's size give the core; a header
+    that takes more bytes than the core holds raises in the port (Pillow's
+    array reads past its image)."""
+    rng = np.random.RandomState(28)
+    gray = _img(rng, (H, WW)).astype(np.uint8)
+    jpeg = _pil_save(gray, "JPEG")
+    for size, band in (((WW, H - 10), None), ((30, 30), None),
+                       ((20, 20), None), ((WW, H - 10), 1)):
+        path = tmp_path / f"iptc-{size[0]}x{size[1]}-{band}"
+        path.write_bytes(W.iptc_bytes(jpeg, size, 1 if band is None else 3,
+                                      0 if band is None else 1, band=band,
+                                      compression=5))
+        pil = Image.open(path)
+        pil.load()
+        pic = port_image.read_picture(str(path))
+        assert pic.mode == pil.mode
+        np.testing.assert_array_equal(pic.pixels, np.asarray(pil))
+        for mode in ("L", "RGB", "RGBA"):
+            np.testing.assert_array_equal(port_image.convert(pic, mode),
+                                          np.asarray(Image.open(path).convert(
+                                              mode)))
+        np.testing.assert_array_equal(
+            port_image.resize(pic, size).pixels,
+            np.asarray(Image.open(path).resize(size, Image.LANCZOS)))
+    path = tmp_path / "iptc-taller"
+    path.write_bytes(W.iptc_bytes(jpeg, (WW, H + 10), 1, 0, compression=5))
+    with pytest.raises(ValueError, match="past the image data"):
+        port_image.read_picture(str(path))
+
+
 def test_refusals_name_the_file(tmp_path):
     """What Pillow refuses (its open or load raises, or no format takes the
     file) raises ``ValueError`` naming the file."""
@@ -679,16 +713,23 @@ def test_icns_pillow_save_matches_pillow(tmp_path):
 
 
 def _tiff_cases():
-    """TIFF layouts of the last slice: orientations (tag 274 and XMP) over
-    none, LZW, Deflate and tiles, uncompressed YCbCr.  (The fax and zstd
-    layouts have their own corrupt-stream tests in
+    """TIFF layouts of the last slices: orientations (tag 274 and XMP) over
+    none, LZW, Deflate and tiles, uncompressed YCbCr, and zstd (one strip
+    and strips of 7 rows, each frame's literals in four Huffman streams,
+    which libzstd reads with its fast decoders).  (The fax layouts have
+    their own corrupt-stream test in
     ``test_torch_port_images_tiff_codecs.py``: Pillow leaves the rows of a
-    fax strip that ends early uninitialised, and which of libzstd's Huffman
-    decoders meets a corrupt stream is not modelled; ``ROADMAP.md``.)"""
+    fax strip that ends early uninitialised.)"""
+    import zstandard
     rng = np.random.RandomState(21)
     rgb = _img(rng, (H, WW, 3)).astype(np.uint8)
     gray = _img(rng, (H, WW)).astype(np.uint8)
     return [
+        ("tiff-zstd", W.tiff_bytes(rgb, 2, 8, compression=50000,
+                                   zstd_codec=zstandard.ZstdCompressor(
+                                       level=3).compress)),
+        ("tiff-zstd-strips", W.tiff_bytes(rgb, 2, 8, compression=50000,
+                                          rows_per_strip=7, predictor=2)),
         ("tiff-o6-lzw", W.tiff_bytes(rgb, 2, 8, compression=5,
                                      tags=[(274, "H", [6])])),
         ("tiff-o3-tiles", W.tiff_bytes(rgb, 2, 8, tile=(16, 16),

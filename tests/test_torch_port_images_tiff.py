@@ -9,6 +9,7 @@ BigTIFF, fill order 2, libtiff's old-style LZW codes and JPEG-in-TIFF
 (Pillow's, and YCbCr 4:2:0 strips and tiles whose tables are only in
 ``JPEGTables``); then what raises.
 """
+import ctypes
 import io
 
 import numpy as np
@@ -204,15 +205,14 @@ def test_tiff_layout_matches_pillow_and_jax_loaders(tmp_path, name, data):
     if pic.mode in ("P", "PA"):
         pal = np.array(pil.getpalette(), np.uint8).reshape(-1, 3)
         np.testing.assert_array_equal(pic.palette, pal[:len(pic.palette)])
-    # Pillow converts LAB through LittleCMS; other sizes have no half of
-    # the same aspect ratio
-    if pic.mode != "LAB" and pil.size == WH:
+    # other sizes have no half of the same aspect ratio
+    if pil.size == WH:
         hold_loaders(path)
 
 
 def test_tiff_refusals_name_the_file(tmp_path):
-    """What the port does not read raises, naming the file: LAB (Pillow
-    converts it through LittleCMS), separate planes of 16-bit samples
+    """What the port does not read raises, naming the file: LAB to L (a
+    conversion Pillow does not have), separate planes of 16-bit samples
     (Pillow unpacks them as 8-bit bands), a big-endian BigTIFF (Pillow takes
     its header for a classic one and fails, and so does the port), and the
     compressions this Pillow's libtiff lacks too (ThunderScan, old-style
@@ -221,8 +221,10 @@ def test_tiff_refusals_name_the_file(tmp_path):
     rng = np.random.RandomState(3)
     lab = tmp_path / "lab.tif"
     lab.write_bytes(W.tiff_bytes(_samples(rng, 8, 3, 1), 8, 8))
-    with pytest.raises(ValueError, match=r"lab\.tif: .*LittleCMS"):
-        port_image.convert(port_image.read_picture(str(lab)), "RGB")
+    with pytest.raises(ValueError, match=r"lab\.tif: conversion from LAB"):
+        port_image.convert(port_image.read_picture(str(lab)), "L")
+    with pytest.raises(ValueError, match="conversion from LAB to RGB"):
+        Image.open(lab).convert("L")
     files = {
         "planes16": W.tiff_bytes(_samples(rng, 16, 3, 1), 2, 16, planar=2),
         "bigtiff-mm": W.tiff_bytes(_samples(rng, 8, 3, 1), 2, 8, order="MM",
@@ -249,15 +251,23 @@ def test_tiff_refusals_name_the_file(tmp_path):
 
 def test_tiff_lzw_and_packbits_stages_alone():
     """The C++ stages on streams of the writer: LZW new and old style and
-    PackBits give back the bytes, a stream cut short gives the bytes it
-    holds, and a code past the table raises."""
+    PackBits give back the bytes, an LZW stream cut short gives the bytes
+    it holds (and the reader raises, as libtiff's LZWDecode fails short of
+    the strip's size), and a code past the table raises."""
     rng = np.random.RandomState(4)
     data = bytes(rng.randint(0, 3, 20000).astype(np.uint8) * 80)
     for old in (False, True):
         enc = W.lzw_tiff(data, old)
         assert tiff._inflate(enc, 5, len(data)) == data
-        cut = tiff._inflate(enc[:len(enc) // 2], 5, len(data))
-        assert cut[:1000] == data[:1000]
+        half = enc[:len(enc) // 2]
+        cut = np.zeros(len(data), np.uint8)
+        err = ctypes.create_string_buffer(256)
+        n = tiff._native().tiff_lzw(half, len(half), cut.ctypes.data,
+                                    len(data), err, len(err))
+        assert 1000 < n < len(data)
+        assert cut[:n].tobytes() == data[:n] and not cut[n:].any()
+        with pytest.raises(ValueError, match="LZW: not enough data"):
+            tiff._inflate(half, 5, len(data))
     assert tiff._inflate(W.packbits(data), 32773, len(data)) == data
     with pytest.raises(ValueError, match="LZW"):
         tiff._inflate(b"\x80\x1f\xff\xff\xff", 5, 100)

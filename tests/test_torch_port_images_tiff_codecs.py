@@ -2,7 +2,9 @@
 loader functions, bit for bit: the orientation Pillow applies at the load
 (tag 274, else the XMP packet's ``tiff:Orientation``), CCITT fax
 (compressions 2, 3 and 4), zstd (50000, predictors 1-3), uncompressed
-YCbCr and libtiff's sampling rule for JPEG-in-TIFF; each C++ stage
+YCbCr, YCbCr compressed otherwise (libtiff's RGBA interface: every
+subsampling, strips and tiles, predictor 2, orientations 1-8) and
+libtiff's sampling rule for JPEG-in-TIFF; each C++ stage
 (``csrc/ccitt_decode.cpp``, ``csrc/zstd_decode.cpp``) against its plain
 Python version; the zstd frames of ``tests/data/zstd`` (every block,
 literals and sequence mode, checked by parsing the block headers); and a
@@ -508,7 +510,284 @@ def test_cut_jpeg_in_tiff_strip_reads_as_libtiff(tmp_path):
                                       np.asarray(pil))
 
 
+def test_zstd_mutations_agree_with_pillow(tmp_path):
+    """Seeded changes of one byte in the strips of zstd TIFFs (noisy RGB
+    and a few-symbol text image, one strip and strips of 20 rows, levels
+    1, 3 and 19: literals in one and in four Huffman streams): the port
+    reads what Pillow's libzstd reads, as it reads it, and raises where it
+    raises.  libzstd reads four streams of 8 bytes or more with its fast
+    decoders, which read a stream on past its start and do not check where
+    it ends; shorter ones with the decoder ``HUF_selectDecoder`` picks (X2
+    skips a last pair's bits); one stream with X1, which must end on the
+    stream's first bit."""
+    import zstandard
+    rng = np.random.RandomState(31)
+    h, w = 60, 80
+    yy, xx = np.mgrid[0:h, 0:w]
+    rgb = np.clip(np.stack([(xx * 6) % 256, (yy * 8) % 256, (xx * yy) % 256],
+                           -1) + rng.randint(-20, 21, (h, w, 3)), 0,
+                  255).astype(np.uint8)
+    text = rng.choice(np.frombuffer(b"etaoin shrdlu cmfwyp", np.uint8),
+                      (h, w, 3)).astype(np.uint8)
+    files = [W.tiff_bytes(arr, 2, 8, compression=50000, rows_per_strip=rps,
+                          zstd_codec=zstandard.ZstdCompressor(
+                              level=level).compress)
+             for arr in (rgb, text) for rps in (None, 20)
+             for level in (1, 3, 19)]
+    path = tmp_path / "mutated.tif"
+    seen = {"agreed": 0, "raised": 0}
+    for _ in range(400):
+        d = bytearray(files[rng.randint(len(files))])
+        t = tiff._ifd(bytes(d), "II", False)
+        k = rng.randint(len(t[273]))
+        j = rng.randint(t[273][k], t[273][k] + t[279][k])
+        if rng.randint(2):
+            d[j] = rng.randint(256)
+        else:
+            d[j] ^= 1 << rng.randint(8)
+        path.write_bytes(bytes(d))
+        try:
+            pil = Image.open(path)
+            pil.load()
+        except Exception:
+            with pytest.raises(ValueError):
+                port_image.read_picture(str(path))
+            seen["raised"] += 1
+            continue
+        pic = port_image.read_picture(str(path))
+        np.testing.assert_array_equal(pic.pixels, np.asarray(pil))
+        seen["agreed"] += 1
+    assert seen["agreed"] > 200 and seen["raised"] > 10, seen
+
+
+def test_jpeg_in_tiff_mutations_agree_with_pillow(tmp_path):
+    """Seeded changes of one byte in the strips of Pillow's JPEG-in-TIFF
+    files (RGB in one strip and in strips of 8 rows, gray in strips of 16):
+    the port reads what Pillow reads, as Pillow reads it, and raises where
+    it raises.  It models libtiff's one decompressor, whose tables stay in
+    force from strip to strip, its frame size checks, and its
+    ``jpeg_finish_decompress`` faults let be.  A frame smaller than the
+    first strip leaves the rest of Pillow's strip buffer as memory Pillow
+    never initialised: the port raises there, saying so."""
+    rng = np.random.RandomState(30)
+    yy, xx = np.mgrid[0:H, 0:WW]
+    rgb = np.clip(np.stack([(xx * 6) % 256, (yy * 8) % 256, (xx * yy) % 256],
+                           -1) + rng.randint(-9, 10, (H, WW, 3)), 0,
+                  255).astype(np.uint8)
+    files = []
+    for img, info in ((rgb, {}), (rgb, {278: 8}), (rgb[..., 0], {278: 16})):
+        b = io.BytesIO()
+        Image.fromarray(img).save(b, "TIFF", compression="jpeg",
+                                  tiffinfo=info)
+        files.append(b.getvalue())
+    path = tmp_path / "mutated.tif"
+    seen = {"agreed": 0, "raised": 0, "uninitialised": 0}
+    for _ in range(400):
+        d = bytearray(files[rng.randint(len(files))])
+        t = tiff._ifd(bytes(d), "II", False)
+        j = rng.randint(min(t[273]), max(o + c for o, c in zip(t[273],
+                                                                t[279])))
+        if rng.randint(2):
+            d[j] = rng.randint(256)
+        else:
+            d[j] ^= 1 << rng.randint(8)
+        path.write_bytes(bytes(d))
+        try:
+            pil = Image.open(path)
+            pil.load()
+        except Exception:
+            with pytest.raises(ValueError):
+                port_image.read_picture(str(path))
+            seen["raised"] += 1
+            continue
+        try:
+            pic = port_image.read_picture(str(path))
+        except ValueError as e:
+            assert "never initialised" in str(e), e
+            seen["uninitialised"] += 1
+            continue
+        np.testing.assert_array_equal(pic.pixels, np.asarray(pil))
+        seen["agreed"] += 1
+    assert seen["agreed"] > 300 and seen["raised"] > 5, seen
+
+
 # ------------------------------------------------------------------ PNG
+# ---------------------------------- YCbCr through libtiff's RGBA interface
+_SUBSAMPLINGS = ((1, 1), (1, 2), (2, 1), (2, 2), (4, 1), (4, 2), (4, 4))
+_RGBA_COMPRESSIONS = (5, 8, 32946, 32773, 34925, 50000)
+
+
+def _ycbcr_cases():
+    """YCbCr compressed other than as JPEG: each subsampling in strips of 8
+    rows and in 16x16 tiles (edge tiles cut on both sides), the
+    compressions in turn, predictor 2 (where libtiff's rows do not divide
+    its predictor refuses them, and the bytes go on undone), big- and
+    little-endian; orientations 1-8 (tag 274) and an XMP one; separate
+    planes at 1x1; an odd size at 2x2 and 4x4."""
+    rng = np.random.RandomState(24)
+    ycc = _samples(rng, 8, 3, 1).astype(np.uint8)
+    out = []
+    k = 0
+    for ss in _SUBSAMPLINGS:
+        for tile, rps in ((None, 8), ((16, 16), None)):
+            for pred in (1, 2):
+                comp = _RGBA_COMPRESSIONS[k % len(_RGBA_COMPRESSIONS)]
+                k += 1
+                order = "MM" if k % 3 == 0 else "II"
+                out.append((f"ss{ss[0]}{ss[1]}-c{comp}-t{tile and tile[0]}"
+                            f"-p{pred}-{order}", W.tiff_bytes(
+                                ycc, 6, 8, order=order, compression=comp,
+                                predictor=pred if comp not in (32773,)
+                                else 1, tile=tile, rows_per_strip=rps,
+                                subsampling=ss)))
+    for o in range(1, 9):
+        for tile in (None, (16, 16)):
+            out.append((f"ss22-o{o}-t{tile and tile[0]}", W.tiff_bytes(
+                ycc, 6, 8, compression=5, tile=tile, rows_per_strip=7,
+                subsampling=(2, 2), tags=[(274, "H", [o])])))
+    out.append(("ss22-xmp6", W.tiff_bytes(ycc, 6, 8, compression=8,
+                                          subsampling=(2, 2), tags=[
+        (700, "B", list(b'<x tiff:Orientation="6"/>'))])))
+    out.append(("ss11-planes", W.tiff_bytes(ycc, 6, 8, compression=5,
+                                            planar=2, tags=[
+        (530, "H", [1, 1])])))
+    out.append(("ss-default", W.tiff_bytes(ycc, 6, 8, compression=50000,
+                                           subsampling=(2, 2), tags=[
+        (530, "H", [2, 2])])))
+    odd = _samples(rng, 8, 3, 1).astype(np.uint8)[:27, :37]
+    for ss in ((2, 2), (4, 4)):
+        for tile in (None, (16, 16)):
+            out.append((f"odd-ss{ss[0]}{ss[1]}-t{tile and tile[0]}",
+                        W.tiff_bytes(odd, 6, 8, compression=5, tile=tile,
+                                     subsampling=ss)))
+    return out
+
+
+YCBCR = _ycbcr_cases()
+
+
+@pytest.mark.parametrize("name,data", YCBCR, ids=[c[0] for c in YCBCR])
+def test_ycbcr_rgba_path_matches_pillow_and_jax_loaders(tmp_path, name, data):
+    """YCbCr compressed with LZW, Deflate, PackBits, LZMA and zstd, read as
+    Pillow's libtiff decoder reads it (``TIFFRGBAImageGet``): the picture,
+    then every JAX loader function where the open size is the loaded one."""
+    path = tmp_path / f"{name}.tif"
+    path.write_bytes(data)
+    pil = Image.open(path)
+    opened = pil.size
+    pil.load()
+    _hold(path, loaders=pil.size == opened and pil.size == WH)
+
+
+def test_ycbcr_coefficients_and_reference_as_libtiff(tmp_path):
+    """``YCbCrCoefficients`` and ``ReferenceBlackWhite`` (RATIONAL, read
+    into floats as libtiff reads them) set the tables; values libtiff
+    refuses, and layouts its RGBA interface has no routine for (separate
+    planes past 1x1, a subsampling of 2x4, 1x4 or 3x3), raise as Pillow
+    raises, naming the file."""
+    rng = np.random.RandomState(25)
+    ycc = _samples(rng, 8, 3, 1).astype(np.uint8)
+    reads = {
+        "rec709": [(529, "R", [2126, 10000, 7152, 10000, 722, 10000])],
+        "thirds": [(529, "R", [1, 3, 1, 3, 1, 3])],
+        "studio": [(532, "R", [16, 1, 235, 1, 128, 1, 240, 1, 128, 1, 240,
+                               1])],
+        "halves": [(532, "R", [15, 2, 471, 2, 256, 2, 481, 2, 255, 2, 479,
+                               2])],
+    }
+    for name, tags in reads.items():
+        path = tmp_path / f"{name}.tif"
+        path.write_bytes(W.tiff_bytes(ycc, 6, 8, compression=8,
+                                      subsampling=(2, 1), tags=tags))
+        _hold(path, loaders=False)
+    refused = {
+        "zero-green": W.tiff_bytes(ycc, 6, 8, compression=5, subsampling=(
+            2, 2), tags=[(529, "R", [1, 3, 0, 1, 1, 3])]),
+        "planes22": W.tiff_bytes(ycc, 6, 8, compression=5, planar=2,
+                                 tags=[(530, "H", [2, 2])]),
+    }
+    for ss in ((2, 4), (1, 4), (3, 3)):
+        refused[f"ss{ss[0]}{ss[1]}"] = W.tiff_bytes(
+            ycc, 6, 8, compression=5, rows_per_strip=8,
+            tags=[(530, "H", list(ss))])
+    for name, data in refused.items():
+        path = tmp_path / f"{name}.tif"
+        path.write_bytes(data)
+        with pytest.raises(OSError):
+            Image.open(path).load()
+        with pytest.raises(ValueError, match=rf"{name}\.tif: "):
+            port_image.read_picture(str(path))
+
+
+def test_ycbcr_stage_equals_plain():
+    """``tiff_ycbcr`` and ``ycbcr_rgb_plain`` on seeded units: every
+    subsampling, partial blocks on the right and bottom, libtiff's skew of
+    a cut tile (its 4x4 one included), the default and other tables."""
+    rng = np.random.RandomState(26)
+    tables = [tiff.ycbcr_tables({}), tiff.ycbcr_tables({
+        (529, "pairs"): (2126, 10000, 7152, 10000, 722, 10000),
+        (532, "pairs"): (16, 1, 235, 1, 128, 1, 240, 1, 128, 1, 240, 1)})]
+    for hs, vs in _SUBSAMPLINGS:
+        for w, h, tw in ((16, 16, 16), (13, 11, 16), (5, 7, 16), (37, 3, 40)):
+            units = rng.randint(0, 256, 4096).astype(np.uint8)
+            for tabs in tables:
+                got = tiff.ycbcr_rgb(units, w, h, hs, vs, tw - w, tabs)
+                want = tiff.ycbcr_rgb_plain(units, w, h, hs, vs, tw - w, tabs)
+                np.testing.assert_array_equal(got, want)
+    with pytest.raises(ValueError, match="run past"):
+        tiff.ycbcr_rgb(np.zeros(10, np.uint8), 16, 16, 2, 2, 0, tables[0])
+    with pytest.raises(ValueError, match="run past"):
+        tiff.ycbcr_rgb_plain(np.zeros(10, np.uint8), 16, 16, 2, 2, 0,
+                             tables[0])
+
+
+def test_lzw_and_ifd_mutations_agree_with_pillow(tmp_path):
+    """Seeded changes of one byte in the LZW strips (one strip, and strips
+    of 7 rows) and in the IFD entries of LZW and uncompressed TIFFs: the
+    port reads what Pillow reads, as Pillow reads it, and raises where it
+    raises.  Among them: LZW data whose EOI comes early or whose codes run
+    out short of the strip (libtiff's "Not enough data": Pillow's "decoder
+    error -2"), codes past the strip's size (libtiff stops there), a tag
+    whose data runs past the file (Pillow's IFD ends there, keeping the
+    tags before), a strip past the file, a PlanarConfiguration or a type
+    libtiff refuses."""
+    rng = np.random.RandomState(27)
+    rgb = _samples(rng, 8, 3, 1).astype(np.uint8) // 64 * 64
+    files = [W.tiff_bytes(rgb, 2, 8, compression=5),
+             W.tiff_bytes(rgb, 2, 8, compression=5, rows_per_strip=7,
+                          predictor=2),
+             W.tiff_bytes(rgb, 2, 8, rows_per_strip=7)]
+    path = tmp_path / "mutated.tif"
+    seen = {"lzw": 0, "past": 0, "agreed": 0}
+    for _ in range(400):
+        d = bytearray(files[rng.randint(len(files))])
+        t = tiff._ifd(bytes(d), "II", False)
+        ifd = struct.unpack_from("<I", d, 4)[0]
+        if rng.randint(2):  # a byte of the strips
+            j = rng.randint(8, ifd)
+        else:  # a byte of an entry's type, count or value
+            j = ifd + 2 + 12 * rng.randint(len(t["entries"])) + \
+                rng.randint(2, 12)
+        d[j] = rng.randint(256)
+        path.write_bytes(bytes(d))
+        cut = [e for e in tiff._ifd(bytes(d), "II", False)["entries"]]
+        try:
+            pil = Image.open(path)
+            pil.load()
+        except Exception as e:
+            seen["lzw"] += "decoder error" in str(e) and j < ifd
+            with pytest.raises(ValueError):
+                port_image.read_picture(str(path))
+            continue
+        if len(cut) < len(t["entries"]):
+            seen["past"] += 1
+        pic = port_image.read_picture(str(path))
+        assert pic.mode == pil.mode
+        np.testing.assert_array_equal(pic.pixels, _pil_pixels(pil))
+        seen["agreed"] += 1
+    assert seen["lzw"] > 5 and seen["past"] > 0 and seen["agreed"] > 150, seen
+
+
 def test_png_idat_past_the_file_as_pillow(tmp_path):
     """An IDAT whose length runs past the end of the file gives the bytes
     that are there (``load_read``); the image reads where the zlib stream
